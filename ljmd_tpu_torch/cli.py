@@ -7,6 +7,10 @@
                                        [--from-init rv_init.dat] [--no-frames]
                                        [--device cuda] [--backend auto]
 
+``--backend``: auto (zsort where it fits on a CUDA device, rows otherwise),
+rows, zsort or dense. ``simulate`` ends with a ``{"diagnostics": ...}`` line
+(e.g. ``zsort_invalid``) and a ``{"kernel_launches": ...}`` line.
+
 ``--device`` is ``cuda`` by default (the port's kernels run on the card);
 ``--device cpu`` runs the same path through the kernels' plain PyTorch
 twins. Asking for ``cuda`` where no CUDA device exists is an error, never a
@@ -115,8 +119,9 @@ def cmd_simulate(args) -> int:
     t2 = time.time()
     out_dir = args.out_dir or "outputs/one_run"
     write_run_artifacts(out_dir, cfg, out, write_frames=record)
-    for k, v in out.diagnostics.items():
-        if bool(v):
+    diagnostics = {k: bool(v) for k, v in out.diagnostics.items()}
+    for k, v in diagnostics.items():
+        if v:
             print(f"WARNING: diagnostic flag {k} is set", file=sys.stderr)
     print(f"simulated N={cfg.n} x {cfg.total_steps} steps on {device}: "
           f"init {t1 - t0:.2f}s, production {t2 - t1:.2f}s "
@@ -124,6 +129,7 @@ def cmd_simulate(args) -> int:
           f"artifacts in {out_dir}")
     print(json.dumps({k: float(out.means.mean(k))
                       for k in ("epot", "ekin", "etot", "temp", "press")}))
+    print(json.dumps({"diagnostics": diagnostics}))
     print(_launch_report())
     return 0
 
@@ -135,7 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     def common(sp):
         sp.add_argument("--config", help="reference block-text or JSON config file")
-        sp.add_argument("--backend", default="auto", choices=["auto", "rows", "dense"])
+        sp.add_argument("--backend", default="auto", choices=["auto", "rows", "zsort", "dense"],
+                        help="engine (default auto: zsort where it fits on a CUDA "
+                             "device, rows otherwise)")
         sp.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; cpu runs "
                              "the kernels' plain PyTorch twins)")

@@ -10,10 +10,11 @@
   optional frames, ACF + block-averaged ACF, thermodynamic coefficients.
 
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` over samples is a
-Python loop over sample cycles; each cycle is ``run_fast(interval - 1)``
-(one fused kernel launch per <= 256 steps on the card) followed by one
-observable ``step``. Nothing in the loop waits for the device: statistics
-accumulate in device tensors. The cadence is exact for any (total, warmup,
+Python loop over sample cycles; each cycle is ``run_sample(interval)`` where
+the engine has one (zsort: fused chunks, the last one summing the sampled
+step's observables), else ``run_fast(interval - 1)`` (one fused kernel launch
+per <= 256 steps on the card) followed by one observable ``step``. Nothing
+in the loop waits for the device: statistics accumulate in device tensors. The cadence is exact for any (total, warmup,
 interval) through a prologue / epilogue split, including
 ``warmup % interval != 0``.
 """
@@ -123,9 +124,12 @@ def _advance(engine: Engine, carry, n_steps: int, want_obs: bool = True):
     """Advance n_steps, returning the final carry and the observables of the
     LAST step (None when ``want_obs`` is False or n_steps == 0). The first
     n_steps - 1 steps (all of them without ``want_obs``) run observable-free,
-    in fused chunks when the engine has ``run_fast``."""
+    in fused chunks when the engine has ``run_fast``; with ``run_sample`` the
+    observable step is fused too."""
     if n_steps == 0:
         return carry, None
+    if want_obs and engine.run_sample is not None:
+        return engine.run_sample(carry, n_steps)
     n_fast = n_steps - 1 if want_obs else n_steps
     if n_fast > 0:
         if engine.run_fast is not None:
@@ -202,7 +206,8 @@ def run_production(
     ``device`` (default: the device ``state`` lives on). Pass ``engine`` to
     supply a pre-built Engine instead of ``backend``."""
     device = resolve_device(state.device if device is None else device)
-    engine = engine or make_engine(cfg, backend, device)
+    engine = engine or make_engine(cfg, backend, device, state=state,
+                                   sample_interval=cfg.output_interval)
     prologue, n_samples, epilogue = _cadence(cfg)
     if n_samples == 0:
         raise ValueError(

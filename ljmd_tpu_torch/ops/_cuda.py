@@ -7,6 +7,9 @@ checkout, keyed by a hash of the sources and the flags, and is built at first
 use. Nothing here runs when the module is imported, and nothing needs ``nvcc``
 until a kernel is launched on a CUDA tensor.
 
+Each source is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into the library with ``-shared``.
+
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` (Hopper), never
 ``--use_fast_math`` (it would break the Neumaier two-sums and the IEEE divide
 of the pair terms).
@@ -33,11 +36,12 @@ __all__ = ["LAUNCHES", "build", "library", "check", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ljmd_tpu_torch"
-SOURCES = ("pair_sweep_tri.cu", "fused_dense_chunk.cu")
+SOURCES = ("pair_sweep_tri.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
+           "fused_dense_chunk_list.cu")
 HEADERS = ("lj_pair_terms.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libljmd_kernels.so"
 
@@ -46,7 +50,7 @@ class LaunchCounts:
     """Plain integer launch counters, one per kernel wrapper."""
 
     NAMES = ("lj_pair_terms", "pair_sweep_tri", "fused_dense_chunk",
-             "fused_dense_chunk_ext")
+             "fused_dense_chunk_ext", "build_window_lists", "fused_dense_chunk_list")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -100,24 +104,40 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.time()
+    # One nvcc per source, all started together, then one link.
+    objs = [tmp_dir / (s + ".o") for s in SOURCES]
+    jobs = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *ptxas, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(CSRC / src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    logs = []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            for _, other in jobs:
+                if other.poll() is None:
+                    other.kill()
+                    other.wait()
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    tmp = tmp_dir / LIB_NAME
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
     if verbose:
-        print(f"nvcc built {lib} in {time.time() - t0:.1f}s")
-        print((proc.stdout + proc.stderr).strip())
+        print(f"nvcc built {lib} in {time.time() - t0:.1f}s ({len(SOURCES)} sources in parallel)")
+        print("\n".join(o.strip() for o in logs if o.strip()))
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib
 
 
@@ -142,9 +162,19 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, real,
                        real, real, _I, _I, _P]
         fn.restype = _I
+        fn = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       real, real, real, real, real, real, _I, _I, _I, _P]
+        fn.restype = _I
     lib.ljmd_fused_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_fused_max_blocks.restype = _I
     lib.ljmd_fused_tile_cols.restype = _I
+    lib.ljmd_list_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_list_max_blocks.restype = _I
+    lib.ljmd_list_tile_cols.restype = _I
+    lib.ljmd_pack_max_rows.restype = _I
+    lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.ljmd_pack_window_lists.restype = _I
     lib.ljmd_cuda_error_string.argtypes = [_I]
     lib.ljmd_cuda_error_string.restype = ctypes.c_char_p
     return lib

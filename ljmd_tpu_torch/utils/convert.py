@@ -7,7 +7,10 @@ parity checks start both packages from one numpy state:
   ``state_to_numpy``);
 - ``RowCarry`` fields as (8, n_pad) row matrices, re-padded between the JAX
   engine's padding and this port's (``row_carry_from_numpy`` /
-  ``row_carry_to_numpy``).
+  ``row_carry_to_numpy``);
+- ``ZSortCarry`` fields as they are (both packages pad the zsort engine to
+  the same n_pad): the sorted column order, the ids, the visit lists and
+  the sticky flag (``zsort_carry_from_numpy`` / ``zsort_carry_to_numpy``).
 """
 
 from __future__ import annotations
@@ -15,20 +18,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ljmd_tpu_torch.models.engine import ROW_PAD, RowCarry
+from ljmd_tpu_torch.models.engine import ROW_PAD, RowCarry, ZSortCarry
 from ljmd_tpu_torch.state import MDState
 
 __all__ = [
     "ROW_FIELDS",
     "STATE_FIELDS",
+    "ZSORT_FIELDS",
     "row_carry_from_numpy",
     "row_carry_to_numpy",
     "state_from_numpy",
     "state_to_numpy",
+    "zsort_carry_from_numpy",
+    "zsort_carry_to_numpy",
 ]
 
 STATE_FIELDS = ("r", "ru", "v", "a")
 ROW_FIELDS = ("r", "ru", "v", "a", "rc", "vc")
+ZSORT_FIELDS = ("r", "ru", "v", "a", "ids", "r_ref", "tiles", "tcounts", "invalid",
+                "rlo", "vc")
+_ZSORT_INT = ("ids", "tiles", "tcounts")
 
 
 def state_from_numpy(arrays, dtype=torch.float64, device="cpu") -> MDState:
@@ -69,3 +78,27 @@ def row_carry_to_numpy(carry: RowCarry, n: int, n_pad: int) -> dict:
     columns (e.g. the JAX engine's)."""
     return {k: _repad(getattr(carry, k).detach().cpu().numpy(), n, n_pad)
             for k in ROW_FIELDS}
+
+
+def zsort_carry_from_numpy(arrays, dtype=torch.float64, device="cpu") -> ZSortCarry:
+    """ZSortCarry from arrays (a mapping, or an object with attributes, e.g.
+    the JAX package's ZSortCarry): float rows in ``dtype``, ids / tiles /
+    tcounts int32, ``invalid`` bool; nothing is re-ordered or re-padded."""
+    get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
+
+    def conv(k):
+        x = np.array(get(k))
+        if k in _ZSORT_INT:
+            return torch.as_tensor(x, dtype=torch.int32, device=device)
+        if k == "invalid":
+            return torch.as_tensor(x, dtype=torch.bool, device=device)
+        if x.ndim != 2 or x.shape[0] != 8:
+            raise ValueError(f"{k}: expected (8, n_pad) rows, got {x.shape}")
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return ZSortCarry(**{k: conv(k) for k in ZSORT_FIELDS})
+
+
+def zsort_carry_to_numpy(carry: ZSortCarry) -> dict:
+    """{field: array} of a ZSortCarry, on the host."""
+    return {k: getattr(carry, k).detach().cpu().numpy() for k in ZSORT_FIELDS}

@@ -112,3 +112,88 @@ def test_production_on_card_matches_cpu_and_launches_kernels(cuda):
     assert counts["pair_sweep_tri"] > 0 and counts["fused_dense_chunk"] > 0
     np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
     assert pe.make_engine(cfg, "rows", cuda).run_fast is not None
+
+
+def _sorted_lattice(num_cells, box, n_pad, seed):
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+
+    rng = np.random.default_rng(seed)
+    r = fcc_lattice(num_cells, box, dtype=torch.float64).numpy()
+    r = np.mod(r + rng.normal(scale=0.05, size=r.shape), box)
+    r = r[np.argsort(r[:, 2])]
+    rows = torch.zeros((8, n_pad), dtype=torch.float64)
+    rows[0:3, :len(r)] = torch.as_tensor(r.T)
+    return len(r), rows
+
+
+@pytest.mark.parametrize("tail_tiles", [True, False])
+@pytest.mark.parametrize("n_pad,tile_j,seed", [(4096, 512, 1), (896, 512, 2), (2048, 384, 3),
+                                              (4096, 768, 4)])
+def test_pack_kernel_matches_twin(cuda, n_pad, tile_j, seed, tail_tiles):
+    """Kernel 9: the same lists as the sequential twin, element for element
+    on the count prefix, on random and realistic flags."""
+    from ljmd_tpu_torch.ops import window_lists
+
+    n_b = n_pad // 128
+    rng = np.random.default_rng(seed)
+    cases = [torch.as_tensor(rng.integers(0, 8, n_b * n_b).astype(np.int32))]
+    num_cells, box = {896: (6, 10.0776), 2048: (7, 11.757), 4096: (10, 16.796)}[n_pad]
+    n, rows = _sorted_lattice(num_cells, box, n_pad, seed)
+    cases.append(window_lists.compute_tile_flags(rows, n, 128, 128, box, 3.2,
+                                                 cross_margin=0.36))
+    for flags in cases:
+        want_t, want_c = window_lists.build_window_lists_plain(flags, n, n_pad, 128, tile_j,
+                                                               tail_tiles=tail_tiles)
+        got_t, got_c = window_lists.build_window_lists(flags.to(cuda), n, n_pad, 128, tile_j,
+                                                       tail_tiles=tail_tiles)
+        got_t, got_c = got_t.cpu(), got_c.cpu()
+        assert torch.equal(got_c, want_c)
+        for c, k in enumerate(want_c.tolist()):
+            lrows = ([2 * c, 2 * c + 1] + ([8] if c == 3 else [])) if c < 4 else \
+                [9 + 2 * (c - 4), 10 + 2 * (c - 4)]
+            assert torch.equal(got_t[lrows, :k], want_t[lrows, :k])
+
+
+@pytest.mark.parametrize("mode", ["plain", "extended", "obs_last"])
+def test_list_chunk_kernel_matches_twin(cuda, mode):
+    """Kernel 10 against its twin at N=864 (n_pad 896, tile_j 256) with
+    weighted random flags, so every category and the tails occur."""
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    box, rc2 = 10.0776, 6.25
+    n, r = _sorted_lattice(6, box, 896, 5)
+    rng = np.random.default_rng(9)
+    v = torch.zeros_like(r)
+    v[0:3, :n] = torch.as_tensor(rng.uniform(-1.0, 1.0, (3, n)))
+    a = 24.0 * pair_sweep.pair_forces_plain(r, n, box, rc2)
+    flags = torch.as_tensor(np.random.default_rng(6).choice(
+        [0, 1, 3, 5, 7], p=[0.3, 0.4, 0.1, 0.1, 0.1], size=(49,)).astype(np.int32))
+    tiles, counts = window_lists.build_window_lists_plain(flags, n, 896, 128, 256)
+    assert (counts > 0).all()
+    extended, obs_last = mode == "extended", mode == "obs_last"
+    kw = dict(r_lo=torch.zeros_like(r), vc=torch.zeros_like(r)) if extended else {}
+    want = fused_list.fused_dense_chunk_list(r, v, a, tiles, counts, n, box, rc2, 0.004, 6,
+                                             tile_j=256, obs_last=obs_last, **kw)
+    kw = {k: t.to(cuda) for k, t in kw.items()}
+    got = fused_list.fused_dense_chunk_list(r.to(cuda), v.to(cuda), a.to(cuda), tiles.to(cuda),
+                                            counts.to(cuda), n, box, rc2, 0.004, 6, tile_j=256,
+                                            obs_last=obs_last, **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_zsort_production_on_card_matches_cpu(cuda):
+    cfg = SimConfig(num_cells=5, box_length=8.55, rc_over_box=2.5 / 8.55, dt=0.003,
+                    total_steps=60, output_interval=20, warmup_steps=20,
+                    target_total_energy=-2300.0, dtype="float64")
+    state = initialize(cfg.replace(warmup_steps=20), device="cpu")
+    cpu = run_production(cfg, state, backend="zsort", device="cpu")
+    LAUNCHES.reset()
+    gpu = run_production(cfg, state.to(device=cuda), backend="zsort", device=cuda)
+    counts = LAUNCHES.snapshot()
+    assert counts["build_window_lists"] > 0 and counts["fused_dense_chunk_list"] > 0
+    assert counts["fused_dense_chunk"] == 0
+    np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
+    assert not bool(gpu.diagnostics["zsort_invalid"])
+    assert pe.auto_backend(cfg, True) == "rows"  # L < 4 rc: JAX's accelerator branch

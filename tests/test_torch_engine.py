@@ -175,11 +175,14 @@ def test_dtype_policy_and_compensation_rule():
 
 def test_make_engine_backends():
     cfg = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45, target_total_energy=-60.0)
-    assert pe.make_engine(cfg, "auto").run_fast is not None  # auto = rows
+    assert pe.make_engine(cfg, "auto").run_fast is not None  # auto = rows on the CPU
     assert pe.make_engine(cfg, "dense").run_fast is None
-    for backend in ("zsort", "cellpair", "neighbor"):
+    for backend in ("cellpair", "neighbor"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pe.make_engine(cfg, backend)
+    # zsort is ported: this box (rc ~ L/2) leaves it no room, as in JAX
+    with pytest.raises(ValueError, match="box too small"):
+        pe.make_engine(cfg, "zsort")
     with pytest.raises(ValueError, match="unknown backend"):
         pe.make_engine(cfg, "pallas")
 
