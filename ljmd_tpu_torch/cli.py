@@ -7,9 +7,10 @@
                                        [--from-init rv_init.dat] [--no-frames]
                                        [--device cuda] [--backend auto]
 
-``--backend``: auto (zsort where it fits on a CUDA device, rows otherwise),
-rows, zsort or dense. ``simulate`` ends with a ``{"diagnostics": ...}`` line
-(e.g. ``zsort_invalid``) and a ``{"kernel_launches": ...}`` line.
+``--backend``: auto (on a CUDA device zsort where it fits, cellpair for
+large N, rows otherwise; rows on the CPU), rows, zsort, cellpair or dense.
+``simulate`` ends with a ``{"diagnostics": ...}`` line (``zsort_invalid``,
+``pencil_overflow``) and a ``{"kernel_launches": ...}`` line.
 
 ``--device`` is ``cuda`` by default (the port's kernels run on the card);
 ``--device cpu`` runs the same path through the kernels' plain PyTorch
@@ -141,9 +142,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     def common(sp):
         sp.add_argument("--config", help="reference block-text or JSON config file")
-        sp.add_argument("--backend", default="auto", choices=["auto", "rows", "zsort", "dense"],
-                        help="engine (default auto: zsort where it fits on a CUDA "
-                             "device, rows otherwise)")
+        sp.add_argument("--backend", default="auto",
+                        choices=["auto", "rows", "zsort", "cellpair", "dense"],
+                        help="engine (default auto: on a CUDA device zsort where it "
+                             "fits, cellpair for large N, rows otherwise)")
         sp.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; cpu runs "
                              "the kernels' plain PyTorch twins)")

@@ -15,17 +15,23 @@ Backends:
   the visit lists (``ops/window_lists.py``) and runs one fused list chunk
   (``ops/fused_list.py``); sampled cycles end in the chunk's ``obs_last``
   step (``run_sample``).
+- ``"cellpair"``: the pencil engine for large N. Its carry is a
+  ``PencilCarry`` in slot layout (``ops/cell_list.py``); sampled steps run
+  the half-shell pencil sweep (``ops/pencil_sweep.py``) and un-sampled
+  stretches run fused pencil chunks (``ops/fused_pencil.py``), static or
+  width-listed, with a rebin before each chunk.
 - ``"auto"``: ``auto_backend``: on a CUDA device the JAX package's
-  accelerator routing (``zsort`` where it fits, else ``rows``); on the CPU
-  ``rows``.
+  accelerator routing (``zsort`` where it fits, ``cellpair`` at n >= 8192
+  where the pencil grid fits, else ``rows``); on the CPU ``rows``.
 
-The cell-pair and neighbor engines are not ported yet; asking for them
-raises ``NotImplementedError`` naming their ROADMAP item.
+The neighbor engine is not ported yet; asking for it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -40,24 +46,45 @@ from ljmd_tpu_torch.ops.fused import (
     fused_dense_chunk_ext,
     wrap_positions_ext,
 )
+from ljmd_tpu_torch.ops.cell_list import (
+    bin_to_slots,
+    capacity_from_state,
+    make_pencil_grid,
+    rebin_gather_parts,
+)
 from ljmd_tpu_torch.ops.fused_list import fused_dense_chunk_list
+from ljmd_tpu_torch.ops.fused_pencil import (
+    build_width_lists,
+    fused_pencil_chunk,
+    fused_pencil_width_chunk,
+)
 from ljmd_tpu_torch.ops.geometry import minimum_image, wrap_positions
 from ljmd_tpu_torch.ops.lj import tail_corrections
 from ljmd_tpu_torch.ops.pair_sweep import pair_sweep_tri
+from ljmd_tpu_torch.ops.pencil_sweep import (
+    TILE_I,
+    build_half_shell_tables,
+    pencil_sweep_hs,
+    sentinel_fill,
+)
 from ljmd_tpu_torch.ops.window_lists import build_window_lists, compute_tile_flags
 from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy
 
-__all__ = ["Engine", "RowCarry", "ROW_PAD", "ZSortCarry", "auto_backend",
-           "make_engine", "resolve_device", "zsort_geometry"]
+__all__ = ["Engine", "HOST_READS", "PencilCarry", "RowCarry", "ROW_PAD", "ZSortCarry",
+           "auto_backend", "make_engine", "resolve_device", "zsort_geometry"]
 
 # Columns of the row layout are padded to a multiple of this (the kernels
 # take blocks of 32 particles; 128 also matches the JAX package's minimum).
 ROW_PAD = 128
 
 _NOT_PORTED = {
-    "cellpair": "ROADMAP.md Open items §1.9 (cellpair pencil engine)",
     "neighbor": "ROADMAP.md Open items §1.10 (neighbor engine)",
 }
+
+# Host reads of a device flag, per decision that depends on data (the JAX
+# engine takes them inside lax.cond): the cell-pair engine's per-step
+# displacement check and its predictive rebin trigger.
+HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0}
 
 
 class Engine(NamedTuple):
@@ -566,8 +593,344 @@ def _zsort_kwargs(sample_interval: int | None) -> dict:
     return {}
 
 
+@dataclasses.dataclass(frozen=True)
+class PencilCarry:
+    """Slot-layout carry of the cell-pair engine (the JAX ``PencilCarry``,
+    field for field): each float field is (8, n_slots). Rows 0..2 hold
+    x/y/z; in ``r``, row 3 is the slot validity (1/0) and row 4 the
+    particle id (it survives rebin permutations). ``r_ref`` holds the
+    positions of the last rebin, ``counts`` the per-pencil populations,
+    ``rc``/``vc`` the two-float position remainders and velocity
+    compensation (zeros when compensation is off), ``overflow`` the sticky
+    flag (a pencil overflowed its capacity, or a particle outran the
+    coverage slack between two rebins: results suspect). ``win_a``,
+    ``win_b``, ``use_b`` are the z-banded sweep's window tables (zeros: that
+    sweep is not ported); ``wl_*`` the width lists ((1,) zeros when off)."""
+
+    r: torch.Tensor
+    ru: torch.Tensor
+    v: torch.Tensor
+    a: torch.Tensor
+    r_ref: torch.Tensor
+    counts: torch.Tensor
+    win_a: torch.Tensor
+    win_b: torch.Tensor
+    use_b: torch.Tensor
+    rc: torch.Tensor
+    vc: torch.Tensor
+    overflow: torch.Tensor
+    wl_self: torch.Tensor
+    wl_self_cnt: torch.Tensor
+    wl_nbr_i: torch.Tensor
+    wl_nbr_j: torch.Tensor
+    wl_nbr_off: torch.Tensor
+
+
+CELLPAIR_TRIGGERS = ("always", "predictive", "never")
+# Margin of the predictive rebin trigger on the coming chunk's travel.
+_PREDICT_SAFETY = 1.25
+
+
+def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: bool = True,
+                     compensated: bool | None = None, rebin_trigger: str | None = None,
+                     use_fused: bool | None = None, width_lists: bool | None = None,
+                     inner_chunk: int | None = None) -> Engine:
+    """Pencil-sweep engine for large N (JAX ``_cellpair_engine``): pair work
+    O(N * 9 * capacity) over the half-shell pencil pairs, particles rebinned
+    into pencils (a sort and a gather) when they may have left the coverage
+    slack.
+
+    ``step``/``step_fast`` run one half-shell sweep per step with the JAX
+    per-step displacement check (one host read of the "moved" flag per
+    step). ``run_fast`` advances in chunks of ``inner_chunk`` (8 fused, 12
+    unfused) with the rebin decision once per chunk: ``rebin_trigger``
+    "always" (the plain default: rebin before every chunk, no host read),
+    "predictive" (the compensated default: rebin when a particle could
+    cross half the slack during the chunk; one host read per chunk) or
+    "never" (floor measurements only). ``use_fused`` (default: on; the
+    kernel launches on any card, the twin runs on the CPU) runs each chunk
+    in one fused kernel, else as per-step sweeps (``run_fast_unfused``).
+    ``width_lists`` (default: the JAX mean-occupancy rule) drives the fused
+    chunk by occupancy-width visit lists. The z-banded and full 9-neighbour
+    sweeps are not ported."""
+    device = resolve_device(device)
+    if z_band:
+        raise NotImplementedError("the z-banded pencil sweep is not ported to ljmd_tpu_torch "
+                                  "yet: ROADMAP.md Open items §2.14 (kernel 12)")
+    if not half_shell:
+        raise NotImplementedError("the full 9-neighbour pencil sweep is not ported to "
+                                  "ljmd_tpu_torch yet: ROADMAP.md Open items §2.11 (kernel 11)")
+    L = cfg.box_length
+    if L <= 1.0:
+        raise ValueError("cellpair engine requires L > 1 (aux-row wrap invariant)")
+    skin = cfg.neighbor_skin
+    grid = make_pencil_grid(cfg.n, L, cfg.rc + skin, cfg.density, cfg.neighbor_capacity)
+    n, ns, P, cap = cfg.n, grid.n_slots, grid.n_pencils, grid.capacity
+    dtype = _effective_dtype(cfg)
+    tbl_np, shf_np = build_half_shell_tables(grid)
+    hs_tbl = torch.as_tensor(tbl_np, device=device)
+    hs_shf = torch.as_tensor(shf_np, device=device)
+    e_t, d_t, dd_t = (
+        tail_corrections(n, cfg.volume, cfg.rc) if cfg.use_tail_corrections else (0.0, 0.0, 0.0)
+    )
+    xyz_mask = torch.zeros((8, 1), dtype=dtype, device=device)
+    xyz_mask[0:3] = 1.0
+    if compensated is None:
+        compensated = (cfg.compensated_sum or cfg.dt <= 1.0e-3) and dtype == torch.float32
+    if rebin_trigger not in CELLPAIR_TRIGGERS + (None,):
+        raise ValueError(f"unknown rebin trigger {rebin_trigger!r}")
+    if rebin_trigger is None:
+        # JAX's defaults: a rebin before every chunk for plain runs; the
+        # predictive trigger for compensated ones (each rebin wraps positions).
+        rebin_trigger = "predictive" if compensated else "always"
+    if use_fused is None:
+        use_fused = True
+    if width_lists is None:
+        # JAX's rule (engine.py:1153-1158, measured on the TPU): width lists
+        # where the 128-quantized mean occupancy leaves a whole block free.
+        width_lists = bool(use_fused and (int(n / P + 8.0) + 127) // 128 < cap // 128)
+    if width_lists and not use_fused:
+        raise ValueError("width_lists requires the fused pencil path")
+    if inner_chunk is None:
+        inner_chunk = 8 if use_fused else 12
+    zero_win = torch.zeros(((ns // TILE_I) * 9,), dtype=torch.int32, device=device)
+
+    def sweep(pos, counts, want_obs=True):
+        # Already multiplied by the validity row (ops/pencil_sweep.py).
+        return pencil_sweep_hs(pos, hs_tbl, counts, hs_shf, grid, cfg.rc_square, want_obs)
+
+    def accel(out):
+        a = torch.zeros_like(out)
+        a[0:3] = 24.0 * out[0:3]
+        return a
+
+    def obs_from(out, ekin):
+        # Pair once: prefactors 4 / 24.
+        return StepObs(epot=4.0 * torch.sum(out[3]) + e_t, ekin=ekin,
+                       d_epot=24.0 * torch.sum(out[4]) + d_t,
+                       dd_epot=24.0 * torch.sum(out[5]) + dd_t)
+
+    def counts_from_valid(valid):
+        return valid.reshape(P, cap).sum(dim=1).to(torch.int32)
+
+    def lists_from_counts(counts):
+        if not width_lists:
+            z = torch.zeros((1,), dtype=torch.int32, device=device)
+            return z, z, z, z, z
+        return build_width_lists(counts, hs_tbl, hs_shf, P, cap)
+
+    def scatter_rows(x, slot):
+        out = torch.zeros((8, ns + 1), dtype=dtype, device=device)
+        out[0:3, slot] = x.T.to(device=device, dtype=dtype)
+        return out[:, :ns].contiguous()  # the kernels take contiguous rows
+
+    def permute_rebin(r8, others, order, src, valid_new):
+        # Two gathers (sorted order, then the structured src) of the rows
+        # that carry data: coordinates and ids of r, rows 0..2 of the others;
+        # validity comes from valid_new, rows 5..7 are zero throughout.
+        vmask = valid_new.to(dtype)
+        parts = [r8[0:3], r8[4:5]] + [o[0:3] for o in others]
+        stacked = torch.cat(parts, dim=0)[:, order][:, src] * vmask[None, :]
+        pad3 = torch.zeros((3, ns), dtype=dtype, device=device)
+        pad5 = torch.zeros((5, ns), dtype=dtype, device=device)
+        r8p = torch.cat([stacked[0:3], vmask[None, :], stacked[3:4], pad3], dim=0)
+        return r8p, [torch.cat([stacked[4 + 3 * i:7 + 3 * i], pad5], dim=0)
+                     for i in range(len(others))]
+
+    def wrap_rows(r8, rc8):
+        # Wrap back into [0, L) before binning; compensated: the two-float
+        # wrap, whose rounding error folds into the remainder rows.
+        r8 = r8.clone()
+        if compensated:
+            rhi, rlo = wrap_positions_ext(r8[0:3], rc8[0:3], L)
+            rc8 = rc8.clone()
+            r8[0:3], rc8[0:3] = rhi, rlo
+        else:
+            r8[0:3] = wrap_positions(r8[0:3], L)
+        return r8, rc8
+
+    def rebin(r8, others):
+        """(r8p, permuted others, counts, overflow, lists) of a rebin."""
+        order, src, valid_new, overflow = rebin_gather_parts(r8, r8[3], grid)
+        r8p, permuted = permute_rebin(r8, others, order, src, valid_new)
+        r8p = sentinel_fill(r8p, r8p[3], cap)
+        counts = counts_from_valid(r8p[3])
+        return r8p, permuted, counts, overflow, lists_from_counts(counts)
+
+    def with_lists(c: PencilCarry, wl) -> PencilCarry:
+        return dataclasses.replace(c, wl_self=wl[0], wl_self_cnt=wl[1], wl_nbr_i=wl[2],
+                                   wl_nbr_j=wl[3], wl_nbr_off=wl[4])
+
+    def init(state: MDState):
+        state = state.to(device=device, dtype=dtype)
+        slot, overflow = bin_to_slots(state.r, grid)
+        r8 = scatter_rows(state.r, slot)
+        valid = torch.zeros((ns + 1,), dtype=dtype, device=device)
+        valid[slot] = 1.0
+        ids = torch.zeros((ns + 1,), dtype=dtype, device=device)
+        ids[slot] = torch.arange(n, dtype=dtype, device=device)
+        r8[3], r8[4] = valid[:ns], ids[:ns]
+        r8 = sentinel_fill(r8, r8[3], cap)
+        v8 = scatter_rows(state.v, slot)
+        counts = counts_from_valid(r8[3])
+        out = sweep(r8, counts)
+        zero = torch.zeros_like(r8)
+        carry = with_lists(PencilCarry(
+            r=r8, ru=scatter_rows(state.ru, slot), v=v8, a=accel(out), r_ref=r8,
+            counts=counts, win_a=zero_win, win_b=zero_win, use_b=zero_win, rc=zero, vc=zero,
+            overflow=overflow, wl_self=None, wl_self_cnt=None, wl_nbr_i=None, wl_nbr_j=None,
+            wl_nbr_off=None), lists_from_counts(counts))
+        return carry, obs_from(out, 0.5 * torch.sum(v8 * v8))
+
+    dt = cfg.dt
+    half_dt = 0.5 * cfg.dt
+    half_dt_sq = 0.5 * cfg.dt * cfg.dt
+    # Coverage of the 9-pencil neighbourhood holds while every particle's xy
+    # drift since the last rebin stays under (pencil width - rc) / 2; z is
+    # unrestricted (the sweeps cover whole z columns).
+    skin_xy = grid.pencil_width - cfg.rc
+    rebuild_thresh = (0.5 * skin_xy) ** 2
+
+    def _step(c: PencilCarry, want_obs: bool, rebin_mode=True):
+        # No per-step wrap: slot coordinates may drift outside [0, L)
+        # between rebins (the static image shifts rely on it).
+        delta = (c.v * dt + c.a * half_dt_sq) * xyz_mask
+        if compensated:
+            r_new, rc_new = comp_add(c.r, c.rc, delta)
+            v_half, vc_half = comp_add(c.v, c.vc, c.a * half_dt)
+        else:
+            r_new, rc_new = c.r + delta, c.rc
+            v_half, vc_half = c.v + c.a * half_dt, c.vc
+        c = dataclasses.replace(c, r=r_new, ru=c.ru + delta, v=v_half, rc=rc_new, vc=vc_half)
+        if rebin_mode is True:
+            d = minimum_image(r_new[0:2] - c.r_ref[0:2], L)
+            moved = torch.max(torch.sum(d * d, dim=0) * r_new[3]) > rebuild_thresh
+            HOST_READS["cellpair_moved"] += 1
+            rebin_mode = "force" if bool(moved) else False
+        if rebin_mode == "force":
+            r8, rc8 = wrap_rows(c.r, c.rc)
+            r8p, perm, counts, ovf, wl = rebin(
+                r8, [c.ru, c.v] + ([rc8, c.vc] if compensated else []))
+            c = with_lists(dataclasses.replace(
+                c, r=r8p, ru=perm[0], v=perm[1],
+                rc=perm[2] if compensated else torch.zeros_like(r8p),
+                vc=perm[3] if compensated else c.vc, r_ref=r8p, counts=counts,
+                overflow=c.overflow | ovf), wl)
+        out = sweep(c.r, c.counts, want_obs)
+        a_new = accel(out)
+        if compensated:
+            v_new, vc_new = comp_add(c.v, c.vc, a_new * half_dt)
+            v_eff = v_new + vc_new
+        else:
+            v_new, vc_new = c.v + a_new * half_dt, c.vc
+            v_eff = v_new
+        c = dataclasses.replace(c, v=v_new, vc=vc_new, a=a_new)
+        return c, obs_from(out, 0.5 * torch.sum(v_eff * v_eff))
+
+    def _rebin_carry(c: PencilCarry) -> PencilCarry:
+        # a rides along: the next chunk's first half-kick uses it.
+        r8, rc8 = wrap_rows(c.r, c.rc)
+        r8p, perm, counts, ovf, wl = rebin(
+            r8, [c.ru, c.v, c.a] + ([rc8, c.vc] if compensated else []))
+        return with_lists(dataclasses.replace(
+            c, r=r8p, ru=perm[0], v=perm[1], a=perm[2],
+            rc=perm[3] if compensated else torch.zeros_like(r8p),
+            vc=perm[4] if compensated else c.vc, r_ref=r8p, counts=counts,
+            overflow=c.overflow | ovf), wl)
+
+    def _invalid_check(c: PencilCarry):
+        """Sticky flag for drift past the coverage slack since the last
+        rebin (pairs may have been missed in the last chunk); no host read.
+        Returns (carry, per-slot squared xy drift)."""
+        d = minimum_image(c.r[0:2] - c.r_ref[0:2], L)
+        moved2 = torch.sum(d * d, dim=0) * c.r[3]
+        return dataclasses.replace(
+            c, overflow=c.overflow | (torch.max(moved2) > rebuild_thresh)), moved2
+
+    def _maybe_rebin(c: PencilCarry, k: int) -> PencilCarry:
+        valid = c.r[3]
+        c, moved2 = _invalid_check(c)
+        if rebin_trigger == "never":
+            return c
+        if rebin_trigger == "always":
+            return _rebin_carry(c)
+        speed = torch.sqrt(torch.sum(c.v[0:2] * c.v[0:2], dim=0))
+        predicted = torch.sqrt(moved2) + speed * (k * dt * _PREDICT_SAFETY)
+        will_exceed = torch.max(predicted * valid) > 0.5 * skin_xy
+        HOST_READS["cellpair_will_exceed"] += 1
+        return _rebin_carry(c) if bool(will_exceed) else c
+
+    def _chunk(c: PencilCarry, k: int) -> PencilCarry:
+        c = _maybe_rebin(c, k)
+        ext = {"r_lo": c.rc, "vc": c.vc} if compensated else {}
+        if width_lists:
+            out = fused_pencil_width_chunk(c.r, c.v, c.a, c.wl_self, c.wl_self_cnt,
+                                           c.wl_nbr_i, c.wl_nbr_j, c.wl_nbr_off, P, cap, L,
+                                           cfg.rc_square, dt, k, **ext)
+        else:
+            out = fused_pencil_chunk(c.r, c.v, c.a, hs_tbl, hs_shf, P, cap, L,
+                                     cfg.rc_square, dt, k, **ext)
+        if compensated:
+            r_end, rc_end, v_new, vc_new, a_new = out
+            ru = c.ru + ((r_end - c.r) + (rc_end - c.rc)) * xyz_mask
+            return dataclasses.replace(c, r=r_end, ru=ru, v=v_new, a=a_new, rc=rc_end,
+                                       vc=vc_new)
+        r_end, v_new, a_new = out
+        # No wrap inside the chunk: the unwrap update is the slot-space drift.
+        return dataclasses.replace(c, r=r_end, ru=c.ru + (r_end - c.r) * xyz_mask, v=v_new,
+                                   a=a_new)
+
+    def _unfused_chunk(c: PencilCarry, k: int) -> PencilCarry:
+        start = 0
+        if rebin_trigger == "always":
+            # The rebin folds into step 1, after its drift and half-kick.
+            c, _ = _invalid_check(c)
+            c, _ = _step(c, False, "force")
+            start = 1
+        else:
+            c = _maybe_rebin(c, k)
+        for _ in range(start, k):
+            c, _ = _step(c, False, False)
+        return c
+
+    def _chunked(chunk):
+        def run(c: PencilCarry, n_steps: int) -> PencilCarry:
+            full, rem = divmod(n_steps, inner_chunk)
+            for _ in range(full):
+                c = chunk(c, inner_chunk)
+            if rem:
+                c = chunk(c, rem)
+            return c
+        return run
+
+    def get_state(c: PencilCarry) -> MDState:
+        """Slot layout -> particle order through the id row; positions
+        wrapped back into [0, L)."""
+        ids = torch.where(c.r[3] > 0.5, c.r[4].to(torch.int64), n)
+
+        def gather(arr):
+            out = torch.zeros((n + 1, 3), dtype=dtype, device=device)
+            out[ids] = arr[0:3].T
+            return out[:n]
+
+        v8 = c.v + c.vc if compensated else c.v
+        return MDState(r=wrap_positions(gather(c.r), L), ru=gather(c.ru), v=gather(v8),
+                       a=gather(c.a))
+
+    run_fast = _chunked(_chunk if use_fused else _unfused_chunk)
+    run_fast.__name__ = "run_fast" if use_fused else "run_fast_unfused"
+    return Engine(
+        init=init,
+        step=lambda c: _step(c, True),
+        get_state=get_state,
+        diagnostics=lambda c: {"pencil_overflow": c.overflow},
+        step_fast=lambda c: _step(c, False),
+        run_fast=run_fast,
+    )
+
+
 def _cellpair_viable(cfg: SimConfig) -> bool:
-    return int(cfg.box_length // (cfg.rc + cfg.neighbor_skin)) >= 3
+    return int(math.floor(cfg.box_length / (cfg.rc + cfg.neighbor_skin))) >= 3
 
 
 def auto_backend(cfg: SimConfig, on_accelerator: bool,
@@ -575,9 +938,9 @@ def auto_backend(cfg: SimConfig, on_accelerator: bool,
     """The backend ``"auto"`` picks. On an accelerator, the JAX package's
     accelerator branch (``engine.py:1763-1790``): zsort when the window
     lists fit ((n_pad/128)^2 <= 32768), L > 4 rc and the engine accepts the
-    config; else the cell-pair engine at n >= 8192 where it fits, which is
-    not ported, so that branch falls to ``rows``; else zsort without its
-    fused path where it builds; else rows. On the CPU: rows."""
+    config; else the cell-pair engine at n >= 8192 where its pencil grid
+    fits; else zsort without its fused path where it builds; else rows. On
+    the CPU: rows."""
     if not on_accelerator:
         return "rows"
     zsort_ok = False
@@ -591,18 +954,19 @@ def auto_backend(cfg: SimConfig, on_accelerator: bool,
     if zsort_ok and (n_pad128 // 128) ** 2 <= 32768:
         return "zsort"
     if cfg.n >= 8192 and _cellpair_viable(cfg):
-        return "rows"  # JAX: cellpair (not ported, ROADMAP.md §1.9)
+        return "cellpair"
     return "zsort" if zsort_ok else "rows"
 
 
-def make_engine(cfg: SimConfig, backend: str = "auto", device="cpu", state=None,
+def make_engine(cfg: SimConfig, backend: str = "auto", device="cuda", state=None,
                 sample_interval: int | None = None) -> Engine:
-    """Build the engine for ``cfg`` on ``device``: ``"dense"``, ``"rows"``,
-    ``"zsort"`` or ``"auto"`` (``auto_backend``). ``sample_interval`` (the
-    production loop's ``output_interval``) aligns the zsort inner chunk to it.
-    ``state`` sizes the cell-pair engine's capacity in the JAX package; the
-    port has no cell-pair engine yet and does not read it."""
-    del state
+    """Build the engine for ``cfg`` on ``device`` (default the card; raises
+    where there is none): ``"dense"``, ``"rows"``, ``"zsort"``,
+    ``"cellpair"`` or ``"auto"`` (``auto_backend``). ``sample_interval``
+    (the production loop's ``output_interval``) aligns the zsort inner chunk
+    to it. ``state`` (a representative MDState, e.g. the post-warmup one)
+    sizes the cell-pair engine's pencil capacity from its occupancy census
+    when ``cfg.neighbor_capacity`` is unset (JAX ``_cellpair_tuned``)."""
     device = resolve_device(device)
     if backend in _NOT_PORTED:
         raise NotImplementedError(
@@ -615,6 +979,12 @@ def make_engine(cfg: SimConfig, backend: str = "auto", device="cpu", state=None,
         return _rows_engine(cfg, device)
     if backend == "zsort":
         return _zsort_engine(cfg, device, **_zsort_kwargs(sample_interval))
+    if backend == "cellpair":
+        if state is not None and not cfg.neighbor_capacity:
+            cfg = cfg.replace(neighbor_capacity=capacity_from_state(
+                cfg.box_length, cfg.rc + cfg.neighbor_skin, state.r))
+        return _cellpair_engine(cfg, device)
     if backend == "dense":
         return _force_engine(cfg, device)
-    raise ValueError(f"unknown backend {backend!r}; expected auto, rows, zsort or dense")
+    raise ValueError(f"unknown backend {backend!r}; expected auto, rows, zsort, cellpair "
+                     "or dense")

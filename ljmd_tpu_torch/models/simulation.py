@@ -148,11 +148,13 @@ def initialize(
     generator: Optional[torch.Generator] = None,
     backend: str = "auto",
     velocity_init: str = "generator",
-    device="cpu",
+    device="cuda",
 ) -> MDState:
     """Initial-configuration pipeline (md_initial_config_program.f90:58-121).
 
-    Returns the post-warmup state on ``device``: positions of the
+    Returns the post-warmup state on ``device`` (default the card; raises
+    where there is none, ``device="cpu"`` runs the kernels' plain twins):
+    positions of the
     equilibrated fluid, velocities rescaled so E_tot == target at the
     rescale point, accelerations consistent with positions, ru = r.
 
@@ -278,9 +280,10 @@ def simulate(
     generator: Optional[torch.Generator] = None,
     backend: str = "auto",
     record_frames: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> SimResult:
-    """Full pipeline: initialize + production (the run_all.sh equivalent)."""
+    """Full pipeline: initialize + production (the run_all.sh equivalent),
+    on ``device`` (default the card, as ``initialize``)."""
     state = initialize(cfg, generator, backend=backend, device=device)
     return run_production(cfg, state, backend=backend,
                           record_frames=record_frames, device=device)

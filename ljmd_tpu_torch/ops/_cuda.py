@@ -37,8 +37,8 @@ __all__ = ["LAUNCHES", "build", "library", "check", "stream_handle"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ljmd_tpu_torch"
 SOURCES = ("pair_sweep_tri.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
-           "fused_dense_chunk_list.cu")
-HEADERS = ("lj_pair_terms.cuh",)
+           "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu")
+HEADERS = ("lj_pair_terms.cuh", "pencil_pairs.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -50,7 +50,8 @@ class LaunchCounts:
     """Plain integer launch counters, one per kernel wrapper."""
 
     NAMES = ("lj_pair_terms", "pair_sweep_tri", "fused_dense_chunk",
-             "fused_dense_chunk_ext", "build_window_lists", "fused_dense_chunk_list")
+             "fused_dense_chunk_ext", "build_window_lists", "fused_dense_chunk_list",
+             "pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_chunk")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -166,6 +167,13 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        real, real, real, real, real, real, _I, _I, _I, _P]
         fn.restype = _I
+        fn = getattr(lib, f"ljmd_pencil_sweep_hs_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, _I, _P]
+        fn.restype = _I
+        fn = getattr(lib, f"ljmd_fused_pencil_chunk_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       real, real, real, real, real, real, _I, _I, _I, _P]
+        fn.restype = _I
     lib.ljmd_fused_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_fused_max_blocks.restype = _I
     lib.ljmd_fused_tile_cols.restype = _I
@@ -173,6 +181,9 @@ def library() -> ctypes.CDLL:
     lib.ljmd_list_max_blocks.restype = _I
     lib.ljmd_list_tile_cols.restype = _I
     lib.ljmd_pack_max_rows.restype = _I
+    lib.ljmd_pencil_max_blocks.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_pencil_max_blocks.restype = _I
+    lib.ljmd_pencil_tile_slots.restype = _I
     lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.ljmd_pack_window_lists.restype = _I
     lib.ljmd_cuda_error_string.argtypes = [_I]

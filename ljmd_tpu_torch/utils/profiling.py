@@ -1,0 +1,149 @@
+"""Where a production run's time goes on the card (counterpart of
+``ljmd_tpu/utils/profiling.py``, whose ``trace`` wraps ``jax.profiler``).
+
+    python -m ljmd_tpu_torch.utils.profiling --config examples/n62500_large.json \\
+        --total-steps 2000 --warmup-steps 500 [--backend auto] [--capacity 512]
+
+initializes the config on the card and prints one JSON object:
+
+- ``production``: wall seconds and particle-steps/s of ``run_production``
+  without the profiler (after one untimed run);
+- ``profile``: the same production under ``torch.profiler`` (CPU and CUDA
+  activities): its wall, the device busy time (the union of every kernel,
+  memcpy and memset interval), the idle share ``1 - busy / wall`` (an upper
+  bound: the profiler slows the host), device ms and count per kernel name
+  (the top 15), and the host's CUDA API calls (launches, synchronizations);
+- ``cellpair`` (cell-pair engine only): from one carry, ``run_fast(8)``
+  with the ``always`` trigger (rebin + chunk) and with ``never`` (drift
+  check + chunk), each as CUDA-event ms and as host ms to submit it; the
+  difference of the two is what a rebin costs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+__all__ = ["device_breakdown", "main"]
+
+
+def _merged_length(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def device_breakdown(fn, top: int = 15) -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` and summarize the device
+    activity (module docstring, ``profile``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device, host = {}, {}
+    intervals = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            start, end = e.time_range.start, e.time_range.end
+            intervals.append((start, end))
+            ms, count = device.get(e.name, (0.0, 0))
+            device[e.name] = (ms + 1e-3 * (end - start), count + 1)
+        elif e.name.startswith("cuda"):
+            host[e.name] = host.get(e.name, 0) + 1
+    busy = 1e-6 * _merged_length(intervals)
+    span = 1e-6 * (max(b for _, b in intervals) - min(a for a, _ in intervals)) if intervals else 0.0
+    kernels = sorted(device.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_s": wall, "device_busy_s": busy, "device_span_s": span,
+            "idle_share": 1.0 - busy / wall if wall else None,
+            "device_ms_by_name": {k: {"ms": ms, "count": n} for k, (ms, n) in kernels},
+            "host_cuda_calls": host}
+
+
+def _event_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms by CUDA events, host ms to submit) per call of ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, 1e3 * host / reps
+
+
+def _cellpair_rebin_cost(cfg, state, device, reps: int = 20) -> dict:
+    from ljmd_tpu_torch.models.engine import _cellpair_engine
+
+    out = {"capacity": cfg.neighbor_capacity}
+    for trigger in ("always", "never"):
+        eng = _cellpair_engine(cfg, device, rebin_trigger=trigger)
+        carry, _ = eng.init(state)
+        ms, host_ms = _event_ms(lambda: eng.run_fast(carry, 8), reps)
+        out[trigger] = {"ms_per_run_fast_8": ms, "host_ms_per_run_fast_8": host_ms}
+    return out
+
+
+def main(argv=None) -> int:
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models.engine import auto_backend
+    from ljmd_tpu_torch.models.simulation import initialize, run_production
+    from ljmd_tpu_torch.ops.cell_list import capacity_from_state
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--total-steps", type=int)
+    ap.add_argument("--warmup-steps", type=int)
+    ap.add_argument("--backend", default="auto")
+    ap.add_argument("--capacity", type=int, help="cell-pair pencil capacity (default: census)")
+    args = ap.parse_args(argv)
+    cfg = load_config(args.config)
+    cut = {k: v for k, v in (("total_steps", args.total_steps),
+                             ("warmup_steps", args.warmup_steps)) if v is not None}
+    cfg = cfg.replace(**cut)
+    device = torch.device("cuda")
+    backend = auto_backend(cfg, True, cfg.output_interval) if args.backend == "auto" else args.backend
+    state = initialize(cfg, backend=backend, device=device)
+    if backend == "cellpair":
+        cap = args.capacity or capacity_from_state(cfg.box_length, cfg.rc + cfg.neighbor_skin,
+                                                   state.r)
+        cfg = cfg.replace(neighbor_capacity=cap)
+
+    def production():
+        run_production(cfg, state, backend=backend, device=device)
+
+    production()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    production()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report = {"config": args.config, "n": cfg.n, "total_steps": cfg.total_steps,
+              "dtype": cfg.dtype, "backend": backend,
+              "production": {"wall_s": wall, "particle_steps_per_s": cfg.n * cfg.total_steps / wall},
+              "profile": device_breakdown(production)}
+    if backend == "cellpair":
+        report["cellpair"] = _cellpair_rebin_cost(cfg, state, device)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

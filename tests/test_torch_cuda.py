@@ -197,3 +197,87 @@ def test_zsort_production_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
     assert not bool(gpu.diagnostics["zsort_invalid"])
     assert pe.auto_backend(cfg, True) == "rows"  # L < 4 rc: JAX's accelerator branch
+
+
+def _pencil_carry(extended=False):
+    """A cell-pair carry at tests/test_pencil_fused.py's geometry (N=2048,
+    L=13.4, 4x4 pencils of capacity 256, counts straddling 128), built by
+    the port on the CPU, with seeded velocities."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.state import MDState
+
+    cfg = SimConfig(num_cells=8, box_length=13.4, rc_over_box=2.5 / 13.4, dt=0.004,
+                    dtype="float64", target_total_energy=-9000.0)
+    rng = np.random.default_rng(3)
+    r = fcc_lattice(8, 13.4, dtype=torch.float64)
+    r = torch.remainder(r + torch.as_tensor(rng.normal(0, 0.05, r.shape)), 13.4)
+    v = torch.as_tensor(rng.normal(0, 1.0, r.shape))
+    eng = pe._cellpair_engine(cfg, "cpu", compensated=extended, width_lists=True)
+    carry, _ = eng.init(MDState(r=r, ru=r, v=v, a=torch.zeros_like(r)))
+    return cfg, carry
+
+
+@pytest.mark.parametrize("want_obs", [True, False])
+def test_pencil_sweep_kernel_matches_twin(cuda, want_obs):
+    """Kernels 13 + 14 against the twin, every output row."""
+    from ljmd_tpu_torch.ops import cell_list, pencil_sweep
+
+    cfg, c = _pencil_carry()
+    grid = cell_list.make_pencil_grid(cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin,
+                                      cfg.density)
+    tbl, shf = (torch.as_tensor(t) for t in pencil_sweep.build_half_shell_tables(grid))
+    want = pencil_sweep.pencil_sweep_hs(c.r, tbl, c.counts, shf, grid, cfg.rc_square, want_obs)
+    LAUNCHES.reset()
+    got = pencil_sweep.pencil_sweep_hs(c.r.to(cuda), tbl.to(cuda), c.counts.to(cuda),
+                                       shf.to(cuda), grid, cfg.rc_square, want_obs)
+    assert LAUNCHES.snapshot()["pencil_sweep_hs"] == 1
+    for row in range(8):
+        _close(got[row], want[row])
+
+
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("kind", ["static", "width"])
+def test_fused_pencil_kernels_match_twin(cuda, kind, extended):
+    """Kernels 15 and 16 against their twins: 6 steps, plain and extended."""
+    from ljmd_tpu_torch.ops import cell_list, fused_pencil, pencil_sweep
+
+    cfg, c = _pencil_carry(extended)
+    m = 4
+    P, cap = m * m, c.r.shape[1] // (m * m)
+    grid = cell_list.make_pencil_grid(cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin,
+                                      cfg.density)
+    assert (grid.n_pencils, grid.capacity) == (P, cap)
+    tbl, shf = (torch.as_tensor(t) for t in pencil_sweep.build_half_shell_tables(grid))
+    args = (P, cap, cfg.box_length, cfg.rc_square, cfg.dt, 6)
+    ext = dict(r_lo=c.rc, vc=c.vc) if extended else {}
+    if kind == "static":
+        want = fused_pencil.fused_pencil_chunk(c.r, c.v, c.a, tbl, shf, *args, **ext)
+        got = fused_pencil.fused_pencil_chunk(c.r.to(cuda), c.v.to(cuda), c.a.to(cuda),
+                                              tbl.to(cuda), shf.to(cuda), *args,
+                                              **{k: t.to(cuda) for k, t in ext.items()})
+    else:
+        lists = (c.wl_self, c.wl_self_cnt, c.wl_nbr_i, c.wl_nbr_j, c.wl_nbr_off)
+        want = fused_pencil.fused_pencil_width_chunk(c.r, c.v, c.a, *lists, *args, **ext)
+        got = fused_pencil.fused_pencil_width_chunk(
+            c.r.to(cuda), c.v.to(cuda), c.a.to(cuda), *(t.to(cuda) for t in lists), *args,
+            **{k: t.to(cuda) for k, t in ext.items()})
+    assert len(got) == len(want) == (5 if extended else 3)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_cellpair_production_on_card_matches_cpu(cuda):
+    """A short cell-pair production on the card (fused static chunks and
+    sampled sweeps) against the same on the CPU, float64."""
+    cfg = SimConfig(num_cells=5, box_length=9.1, rc_over_box=2.5 / 9.1, dt=0.002,
+                    total_steps=60, output_interval=10, warmup_steps=10, neighbor_skin=0.3,
+                    target_total_energy=-2000.0, dtype="float64")
+    state = initialize(cfg, backend="rows", device="cpu")
+    cpu = run_production(cfg, state, backend="cellpair", device="cpu")
+    LAUNCHES.reset()
+    gpu = run_production(cfg, state.to(device=cuda), backend="cellpair", device=cuda)
+    counts = LAUNCHES.snapshot()
+    assert counts["pencil_sweep_hs"] > 0 and counts["fused_pencil_chunk"] > 0
+    assert counts["fused_dense_chunk"] == 0
+    np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
+    assert not bool(gpu.diagnostics["pencil_overflow"])

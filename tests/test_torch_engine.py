@@ -67,7 +67,7 @@ def small():
 def test_rows_engine_matches_jax_rows_engine(small):
     jcfg, jstate, pstate = small
     jeng = _pallas_rows_engine(jcfg, interpret=True)
-    peng = pe.make_engine(_port_cfg(jcfg), "rows")
+    peng = pe.make_engine(_port_cfg(jcfg), "rows", device="cpu")
 
     jc, jo = jeng.init(jstate)
     pc, po = peng.init(pstate)
@@ -107,7 +107,7 @@ def test_rows_run_fast_chunk_split(small):
     between them; another split of the same stretch (150 + 143) lands on
     the same trajectory (tests/test_fused.py's conservation check)."""
     jcfg, _, pstate = small
-    peng = pe.make_engine(_port_cfg(jcfg), "rows")
+    peng = pe.make_engine(_port_cfg(jcfg), "rows", device="cpu")
     c0, _ = peng.init(pstate)
     n_steps = MAX_CHUNK_STEPS + 37
     c1 = peng.run_fast(c0, n_steps)
@@ -125,7 +125,7 @@ def test_rows_run_fast_chunk_split(small):
 def test_dense_engine_matches_jax(small):
     jcfg, jstate, pstate = small
     jeng = j_make_engine(jcfg, "dense")
-    peng = pe.make_engine(_port_cfg(jcfg), "dense")
+    peng = pe.make_engine(_port_cfg(jcfg), "dense", device="cpu")
     jc, _ = jeng.init(jstate)
     pc, _ = peng.init(pstate)
     jc = jax.jit(lambda c: jax.lax.scan(lambda c, _: jeng.step(c), c, None, length=10))(jc)[0]
@@ -153,7 +153,7 @@ def test_compensation_reduces_f32_error():
             c, _ = eng.step(c)
         return eng.get_state(c)
 
-    ref_v = run(pe.make_engine(cfg64, "dense"), state64).v.numpy()
+    ref_v = run(pe.make_engine(cfg64, "dense", device="cpu"), state64).v.numpy()
     err = {}
     for comp in (False, True):
         s = run(pe._rows_engine(cfg32, cpu, compensated=comp), state32)
@@ -167,24 +167,26 @@ def test_dtype_policy_and_compensation_rule():
     ref = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45, dt=1e-4,
                     dtype="float64", compensated_sum=True, target_total_energy=-60.0)
     assert pe._effective_dtype(ref) == torch.float64
-    assert pe.make_engine(ref, "rows").run_fast.__name__ == "run_fast"
-    assert pe.make_engine(ref.replace(dtype="float32"), "rows").run_fast.__name__ == "run_fast_ext"
+    assert pe.make_engine(ref, "rows", device="cpu").run_fast.__name__ == "run_fast"
+    assert pe.make_engine(ref.replace(dtype="float32"), "rows", device="cpu").run_fast.__name__ == "run_fast_ext"
     big_dt = ref.replace(dtype="float32", dt=0.005, compensated_sum=False)
-    assert pe.make_engine(big_dt, "rows").run_fast.__name__ == "run_fast"
+    assert pe.make_engine(big_dt, "rows", device="cpu").run_fast.__name__ == "run_fast"
 
 
 def test_make_engine_backends():
     cfg = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45, target_total_energy=-60.0)
-    assert pe.make_engine(cfg, "auto").run_fast is not None  # auto = rows on the CPU
-    assert pe.make_engine(cfg, "dense").run_fast is None
-    for backend in ("cellpair", "neighbor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pe.make_engine(cfg, backend)
+    assert pe.make_engine(cfg, "auto", device="cpu").run_fast is not None  # auto = rows on the CPU
+    assert pe.make_engine(cfg, "dense", device="cpu").run_fast is None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pe.make_engine(cfg, "neighbor", device="cpu")
+    # cellpair is ported: this box holds fewer than 3 pencils, as in JAX
+    with pytest.raises(ValueError, match="pencils"):
+        pe.make_engine(cfg, "cellpair", device="cpu")
     # zsort is ported: this box (rc ~ L/2) leaves it no room, as in JAX
     with pytest.raises(ValueError, match="box too small"):
-        pe.make_engine(cfg, "zsort")
+        pe.make_engine(cfg, "zsort", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        pe.make_engine(cfg, "pallas")
+        pe.make_engine(cfg, "pallas", device="cpu")
 
 
 def test_make_engine_refuses_cuda_without_a_card():
@@ -193,6 +195,20 @@ def test_make_engine_refuses_cuda_without_a_card():
     cfg = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45, target_total_energy=-60.0)
     with pytest.raises(RuntimeError, match="cuda"):
         pe.make_engine(cfg, "rows", device="cuda")
+
+
+def test_entry_points_default_to_the_card():
+    """make_engine, initialize and simulate run on the card unless asked
+    for the CPU: without one, the default raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ljmd_tpu_torch.models import simulation as psim
+
+    cfg = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45, target_total_energy=-60.0)
+    for call in (lambda: pe.make_engine(cfg, "rows"), lambda: psim.initialize(cfg),
+                 lambda: psim.simulate(cfg)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_row_carry_conversion_repads(small):
@@ -239,7 +255,7 @@ def _golden_state(cfg, ekin_after_rescale) -> MDState:
 def test_lattice_energies_forces_match_golden(k, backend):
     g = _golden(k)
     cfg = _golden_cfg(g)
-    eng = pe.make_engine(cfg, backend)
+    eng = pe.make_engine(cfg, backend, device="cpu")
     carry, obs = eng.init(_golden_state(cfg, g["lattice"]["ekin_after_rescale"]))
     gl = g["lattice"]
     assert abs(float(obs.epot) - gl["epot"]) < 1e-9 * abs(gl["epot"])
@@ -255,7 +271,7 @@ def test_lattice_energies_forces_match_golden(k, backend):
 def test_verlet_trajectory_matches_golden(k, backend):
     g = _golden(k)
     cfg = _golden_cfg(g)
-    eng = pe.make_engine(cfg, backend)
+    eng = pe.make_engine(cfg, backend, device="cpu")
     carry, _ = eng.init(_golden_state(cfg, g["lattice"]["ekin_after_rescale"]))
     for step_golden in g["verlet"]:
         carry, obs = eng.step(carry)

@@ -60,7 +60,7 @@ def test_initialize_ran3_matches_jax():
                                total_steps=10, warmup_steps=40, target_total_energy=-500.0,
                                seed=-12345)
     want = jsim.initialize(jcfg, backend="pallas", velocity_init="ran3")
-    got = psim.initialize(_port_cfg(jcfg), backend="rows", velocity_init="ran3")
+    got = psim.initialize(_port_cfg(jcfg), backend="rows", velocity_init="ran3", device="cpu")
     for k in ("r", "ru", "v", "a"):
         np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
                                    rtol=1e-9, atol=1e-9, err_msg=k)
@@ -74,7 +74,7 @@ def test_initialize_ran3_matches_golden(k):
                     rc_over_box=g["rc_over_box"], dt=g["dt"], total_steps=10,
                     output_interval=1, warmup_steps=0,
                     target_total_energy=g["target_total_energy"], dtype="float64", seed=-12345)
-    state = psim.initialize(cfg, backend="dense", velocity_init="ran3")
+    state = psim.initialize(cfg, backend="dense", velocity_init="ran3", device="cpu")
     gl = g["lattice"]
     np.testing.assert_array_equal(state.r.numpy(),
                                   fcc_lattice(cfg.num_cells, cfg.box_length, torch.float64).numpy())
@@ -167,17 +167,17 @@ def test_simulate_is_seeded_and_finite():
     cfg = SimConfig(num_cells=2, box_length=3.8, rc_over_box=0.45, total_steps=60,
                     output_interval=10, warmup_steps=20, dt=0.002, dtype="float64",
                     target_total_energy=-60.0, seed=7)
-    a = psim.simulate(cfg)
-    b = psim.simulate(cfg, torch.Generator().manual_seed(7))
+    a = psim.simulate(cfg, device="cpu")
+    b = psim.simulate(cfg, torch.Generator().manual_seed(7), device="cpu")
     np.testing.assert_array_equal(a.series.numpy(), b.series.numpy())
-    c = psim.simulate(cfg.replace(seed=8))
+    c = psim.simulate(cfg.replace(seed=8), device="cpu")
     assert not np.array_equal(a.series.numpy(), c.series.numpy())
     assert np.isfinite(a.series.numpy()).all()
     a.thermo(cfg).check_finite()
     with pytest.raises(ValueError, match="no samples"):
         psim.run_production(cfg.replace(total_steps=15, warmup_steps=12), a.final_state)
     with pytest.raises(ValueError, match="velocity_init"):
-        psim.initialize(cfg, velocity_init="threefry")
+        psim.initialize(cfg, velocity_init="threefry", device="cpu")
 
 
 # ---------------------------------------------------------------- stats

@@ -188,15 +188,16 @@ def test_zsort_geometry_matches_jax_constants():
         pe.zsort_geometry(n864, trigger="sometimes")
     tiny = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45)
     with pytest.raises(ValueError, match="box too small"):
-        pe.make_engine(tiny, "zsort")
+        pe.make_engine(tiny, "zsort", device="cpu")
     travel = n864.replace(dt=0.02)
     with pytest.raises(ValueError, match="travel|skin"):
         pe.zsort_geometry(travel, inner_chunk=64)
 
 
 def test_auto_routing_follows_the_jax_accelerator_branch():
-    """On a CUDA device "auto" follows JAX's accelerator routing (the
-    cell-pair branch falls to rows); on the CPU it stays rows."""
+    """On a CUDA device "auto" follows JAX's accelerator routing (zsort,
+    cellpair past the window-list cliff, else rows); on the CPU it stays
+    rows."""
     def cfg(name):
         return load_config(os.path.join(EXAMPLES, name))
 
@@ -209,7 +210,7 @@ def test_auto_routing_follows_the_jax_accelerator_branch():
         assert pe.auto_backend(c, False) == "rows"
     # past the window-list cliff ((n_pad/128)^2 > 32768) JAX takes cellpair
     big = SimConfig(num_cells=19, box_length=32.0, rc_over_box=2.5 / 32.0)
-    assert big.n > 23170 and pe.auto_backend(big, True) == "rows"
+    assert big.n > 23170 and pe.auto_backend(big, True) == "cellpair"
     # an interval in 17..24 becomes the inner chunk
     assert pe._zsort_kwargs(20) == {"inner_chunk": 20}
     assert pe._zsort_kwargs(50) == {} and pe._zsort_kwargs(None) == {}
