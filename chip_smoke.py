@@ -28,9 +28,14 @@ checkout. Phases, each fatal on failure:
       fluid of phase 4c, at capacity 512 (the lattice's) and 384 (the
       post-warmup census), float32 and
       float64: the half-shell sweep with and without observables, the fused
-      pencil chunk and the width-listed chunk, each plain and extended;
-4. the main path, each run with the launch counts set to 0 just before and
-   read just after:
+      pencil chunk and the width-listed chunk, each plain and extended; the
+      full 9-neighbour sweep with and without observables; at capacity 512
+      the z-banded sweep (window 384), against its twin and against the full
+      sweep;
+   d. (in a.) the ordered N x N sweep at N=500 (n < n_pad) and N=4000, with
+      and without observables, and the (N, 3) force API around it;
+4. the main path, each production with the launch counts set to 0 just
+   before and read just after (a CLI run counts its whole process):
    a. rows (``--backend rows``): the CLI on the reference default cut to
       20,000 steps (float64), the same path in process in float32 (the
       compensated ``_ext`` kernel), and N=4000 cut to 5,000 steps;
@@ -44,9 +49,22 @@ checkout. Phases, each fatal on failure:
       capacity 384), the same in process with production at capacity 512
       (the width-listed chunk) and with ``compensated_sum`` (the extended
       chunks and the predictive rebin trigger);
-   every run must launch its kernels and no other engine's, write every
-   artifact, give finite means and thermo, keep ``zsort_invalid`` /
-   ``pencil_overflow`` False and conserve energy within a stated bound;
+   d. the flagship step (``ljmd_tpu_torch.entry.entry()``, N=4000 float32,
+      the force API through the ordered sweep) for its 2,000 steps; then from
+      one float64 state 100 steps against the rows engine, within 1e-9;
+   e. the rows engine with ``triangular=False`` (the ordered sweep on sampled
+      steps) on the N=4000 cut, and in float64 against ``triangular=True``:
+      the series within 1e-9;
+   f. the neighbor engine (``--backend neighbor``, plain torch, no kernel) on
+      the N=4000 cut: rate, drift, overflow flag, host reads;
+   g. the cell-pair engine's full 9-neighbour and z-banded sweeps
+      (``half_shell=False``, ``z_band=True``) on the config-5 cut at capacity
+      512 with ``inner_chunk=8``, from phase 4c's end; then from one float64
+      state 100 steps of each against the half-shell engine, within 1e-9;
+   every run must launch its kernels and no other engine's, keep
+   ``zsort_invalid`` / ``pencil_overflow`` / ``neighbor_overflow`` False
+   and conserve energy within a stated bound; the production runs write
+   every artifact and give finite means and thermo;
 5. the three cell-pair chunk paths (fused static, fused width, unfused) from
    three N=62500 states, 100 steps each, at capacities 512 and the census:
    states within PATHS_TOL in float64 and float32 (and the unfused path at
@@ -93,6 +111,11 @@ DRIFT_BOUND = {
     "n62500_f32_cellpair": 1e-3,
     "n62500_f32_cap512_cellpair": 1e-3,
     "n62500_f32_compensated_cellpair": 1e-3,
+    "flagship_entry_f32": 1e-3,
+    "n4000_f32_rows_ordered": 1e-3,
+    "n4000_f32_neighbor": 1e-3,
+    "n62500_f32_cap512_full9": 1e-3,
+    "n62500_f32_cap512_zband": 1e-3,
 }
 
 # Kernel vs plain twin, max |kernel - twin| / max(1, max |twin|) per output
@@ -124,6 +147,11 @@ N864_CUT = {"total_steps": 5_000, "warmup_steps": 1_000}
 CARD_VS_CPU_CUT = {"dtype": "float64", "total_steps": 200, "warmup_steps": 0}
 VS_ROWS_STEPS = 32
 ZSORT_KERNELS = ("build_window_lists", "fused_dense_chunk_list")
+# The flagship step's run (entry()'s own total_steps) and the float64 checks
+# of PR 4's paths against the engines they duplicate.
+FLAGSHIP_STEPS = 2_000
+CROSS_STEPS = 100
+CROSS_TOL = 1e-9
 # The cell-pair slice: BASELINE config 5 (N=62500) cut to 2,000 steps with a
 # 500-step warmup (interval 100 kept); the kernel checks at the lattice
 # capacity 512 (where the JAX rule turns the width lists on) and at the
@@ -134,6 +162,12 @@ PENCIL_CAPS = (512, 384)
 PENCIL_CHECK_STEPS = 4
 PENCIL_CHUNK_STEPS = 8
 PENCIL_KERNELS = ("pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_chunk")
+# The full sweeps' runs: config 5 at capacity 512 (the z-band's window 384 is
+# live there; at 384 it would equal the capacity and fall back to the half
+# shell), unfused chunks of 8 (the JAX default of 12 outruns the coverage
+# slack at config 5, ROADMAP §3).
+FULL_SWEEP_CAP = 512
+FULL_SWEEP_CHUNK = 8
 # The three chunk paths from one state, 100 steps: they round the drift and
 # sum each slot's forces in other orders. float64: that rounding (~1e-16)
 # grown by the fluid's chaos stays far under 1e-9, while one missed pair
@@ -285,7 +319,8 @@ def phase_kernels(torch) -> dict:
     log("tolerances (max |kernel - twin| / max(1, max |twin|)): float64 1e-10, the per-pair "
         "arithmetic is bit-identical and only the summation order differs; float32 1e-4, "
         "below the N * eps32 = 2.4e-4 worst case of a 4000-term sum in another order")
-    cases = {"pair_sweep_tri": [], "fused_dense_chunk": [], "fused_dense_chunk_ext": []}
+    cases = {"pair_sweep_tri": [], "pair_sweep": [], "fused_dense_chunk": [],
+             "fused_dense_chunk_ext": []}
     pair_terms_report = []
     for label, k, box, rc in SHAPES:
         rc2 = rc * rc
@@ -332,6 +367,33 @@ def phase_kernels(torch) -> dict:
                 "shape": label, "dtype": dname, "max_abs_err": max(e[0] for e in errs),
                 "rel_err": worst, "ms": ms, "plain_ms": plain_ms})
 
+            # Kernel 5: the ordered sweep, rows 0..5 per column, with and
+            # without observables; the same pair work as kernel 2 (bound).
+            for want_obs in (True, False):
+                got = pair_sweep.pair_sweep(r, n, box, rc2, want_obs)
+                want = pair_sweep.pair_sweep_plain(r, n, box, rc2, want_obs)
+                errs = [rel_err(got[row], want[row]) for row in range(6)]
+                require(bool((got[6:] == 0).all()) and bool((got[:, n:] == 0).all()),
+                        f"pair_sweep {label} {dname}: padding rows/columns not zero")
+                worst = max(e[1] for e in errs)
+                require(worst <= tol, f"pair_sweep {label} {dname} obs={want_obs}: rel err "
+                                      f"{worst:.3e} > {tol}")
+                case = {**bound(dname, sweep_flops(cand, cut, want_obs), 2 * rows_bytes),
+                        "shape": label, "dtype": dname, "observables": want_obs,
+                        "n_pad": r.shape[1], "max_abs_err": max(e[0] for e in errs),
+                        "rel_err": worst,
+                        "ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep(
+                            r, n, box, rc2, want_obs), 50),
+                        "plain_ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_plain(
+                            r, n, box, rc2, want_obs), 5)}
+                if want_obs:
+                    # The (N, 3) force API around it: transposes, padding and
+                    # the float64 totals, timed on the same positions.
+                    xyz = r[0:3, :n].T.contiguous()
+                    case["force_api_ms"] = cuda_time_ms(torch, lambda: pair_sweep.lj_force_energy_pallas(
+                        xyz, box, rc2, False), 50)
+                cases["pair_sweep"].append(case)
+
             # Kernel 3: fused chunk, 10 steps against the plain step loop.
             dt = 0.005 if label == "N=4000" else 1e-4
             got = fused.fused_dense_chunk(r, v, a, n, box, rc2, dt, 10)
@@ -366,11 +428,13 @@ def phase_kernels(torch) -> dict:
                     "shape": label, "dtype": dname, "max_abs_err": max(e[0] for e in errs),
                     "rel_err": worst, "ms": ms, "plain_ms": plain_ms})
     for name, cs in cases.items():
-        per = "per call" if name == "pair_sweep_tri" else f"per {chunk}-step chunk"
+        per = "per call" if name.startswith("pair_sweep") else f"per {chunk}-step chunk"
         for c in cs:
+            extra = (f", observables {c['observables']}" if "observables" in c else "") + (
+                f", force API (N, 3) call {c['force_api_ms']:.4f} ms" if "force_api_ms" in c else "")
             log(f"kernel {name} {c['shape']} {c['dtype']}: rel err {c['rel_err']:.3e} "
                 f"(tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms vs plain "
-                f"{c['plain_ms']:.4f} ms {per}")
+                f"{c['plain_ms']:.4f} ms {per}; bound {c['bound_ms']:.4f} ms{extra}")
     for c in pair_terms_report:
         log(f"kernel lj_pair_terms (device function, element-wise check) {c['shape']} box "
             f"{c['dtype']}: rel err {c['rel_err']:.3e}, bit-identical to twin: "
@@ -519,11 +583,36 @@ def pencil_candidates(counts, tbl) -> int:
     return int((c * (c - 1) // 2).sum() + (c[:, None] * c[tbl.long().cpu().reshape(-1, 4)]).sum())
 
 
+def zband_candidates(torch, valid, nbr_tbl, wins, cap: int, window: int) -> int:
+    """Pair-once candidates of the z-banded sweep's pair set among valid
+    slots: for each 128-slot slice and neighbour, the slice's valid slots
+    times the valid slots of window A and of window B outside A; each pair
+    is in the set from both of its slots, each slot once with itself."""
+    P = nbr_tbl.numel() // 9
+    T = valid.numel() // 128
+    v = valid.double()
+    vcum = torch.cat([torch.zeros((P, 1), dtype=torch.float64, device=v.device),
+                      v.reshape(P, cap).cumsum(1)], dim=1)
+    j = nbr_tbl.long().reshape(P, 9)[torch.arange(T, device=v.device) // (cap // 128)]
+    sa, sb, ub = (w.long().reshape(T, 9) for w in wins)
+
+    def count(lo, hi):  # valid slots of ranks [lo, hi) of each (slice, neighbour) pencil
+        return vcum[j, hi.clamp(0, cap)] - vcum[j, lo.clamp(0, cap)]
+
+    overlap = torch.where(torch.minimum(sa, sb) + window > torch.maximum(sa, sb),
+                          count(torch.maximum(sa, sb), torch.minimum(sa, sb) + window), 0.0)
+    b = torch.where(ub > 0, count(sb, sb + window) - overlap, 0.0)
+    per_slice = (count(sa, sa + window) + b).sum(dim=1) * v.reshape(T, 128).sum(dim=1)
+    return int(round((float(per_slice.sum()) - float(v.sum())) / 2))
+
+
 def phase_pencil_kernels(torch, cfg, state) -> dict:
-    """Kernels 13+14, 15 and 16 (the cell-pair path) against their twins at
-    config 5's geometry, from ``state`` (an N=62500 fluid), at each of
-    PENCIL_CAPS, float32 and float64. Compared on the valid slots (empty
-    slots hold sentinels); extended outputs as r + r_lo and v + vc."""
+    """Kernels 13+14, 15, 16 and 11 (the cell-pair path) against their twins
+    at config 5's geometry, from ``state`` (an N=62500 fluid), at each of
+    PENCIL_CAPS, float32 and float64, and kernel 12 at FULL_SWEEP_CAP
+    against its twin and kernel 11. Compared on the valid slots (empty slots
+    hold sentinels; the full sweeps must leave them exactly 0); extended
+    outputs as r + r_lo and v + vc."""
     from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.ops import cell_list, fused_pencil, pencil_sweep
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
@@ -533,7 +622,8 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
     k_check, k_time = PENCIL_CHECK_STEPS, PENCIL_CHUNK_STEPS
     cut = pairs_within(torch, state.r, L, rc2)
     n = cfg.n
-    cases = {name: [] for name in PENCIL_KERNELS}
+    cases = {name: [] for name in PENCIL_KERNELS + FULL_KERNELS}
+    r_list = cfg.rc + cfg.neighbor_skin
     log(f"pencil kernels: tolerances as above; a slot's force sums at most 9 x capacity "
         f"= 4608 terms; N={n}, {cut} pairs inside the cutoff")
     for cap in PENCIL_CAPS:
@@ -541,6 +631,8 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
         P, label = grid.n_pencils, f"N={n} cap={cap}"
         tbl, shf = (torch.as_tensor(t, device=dev)
                     for t in pencil_sweep.build_half_shell_tables(grid))
+        ftbl = torch.as_tensor(pencil_sweep.build_tile_table(grid), device=dev)
+        fshf = torch.as_tensor(pencil_sweep.build_shift_table(grid), device=dev)
         for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
             tol = KERNEL_TOL[dname]
             eng = pe._cellpair_engine(cfg.replace(neighbor_capacity=cap, dtype=dname), dev,
@@ -577,6 +669,65 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                     "plain_ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_hs_plain(
                         *args), 2, warmup=1)})
 
+            # Kernel 11: the full 9-neighbour sweep on the same slots; the
+            # same pair set as the half shell, pair once.
+            full_table_bytes = 4 * (ftbl.numel() + fshf.numel() + c.counts.numel())
+            full = {}
+            for want_obs in (True, False):
+                args = (c.r, ftbl, c.counts, fshf, grid, rc2, want_obs)
+                got = full[want_obs] = pencil_sweep.pencil_sweep(*args)
+                want = pencil_sweep.pencil_sweep_plain(*args)
+                require(bool((got[6:] == 0).all()) and bool((got[:, ~valid] == 0).all()),
+                        f"pencil_sweep_full {label} {dname}: rows 6-7 or empty slots not zero")
+                errs = [rel_err(got[row, valid], want[row, valid]) for row in range(6)]
+                worst = max(e[1] for e in errs)
+                require(worst <= tol, f"pencil_sweep_full {label} {dname} obs={want_obs}: "
+                                      f"rel err {worst:.3e} > {tol}")
+                cases["pencil_sweep_full"].append({
+                    **base, **bound(dname, sweep_flops(cand, cut, want_obs),
+                                    2 * slots_bytes + full_table_bytes),
+                    "observables": want_obs, "max_abs_err": max(e[0] for e in errs),
+                    "rel_err": worst,
+                    "ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep(*args), 20),
+                    "plain_ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_plain(
+                        *args), 2, warmup=1)})
+
+            # Kernel 12: the z-banded sweep where its window is narrower than
+            # the pencil, on the same slots (z-sorted ranks: bin_to_slots).
+            if cap == FULL_SWEEP_CAP:
+                window = cell_list.default_z_window(grid, n, r_list)
+                require(window < cap, f"z-band {label}: window {window} covers the pencil")
+                wins = cell_list.compute_z_windows(c.r, c.r[3], c.counts, grid, window, r_list)
+                require(not bool(wins[3]), f"z-band {label} {dname}: window overflow")
+                wins = wins[:3]
+                zcand = zband_candidates(torch, valid, ftbl, wins, cap, window)
+                zband_bytes = 4 * (ftbl.numel() + c.counts.numel() + 3 * wins[0].numel())
+                for want_obs in (True, False):
+                    args = (c.r, ftbl, c.counts, *wins, grid, rc2, window, want_obs)
+                    got = pencil_sweep.pencil_sweep_zband(*args)
+                    want = pencil_sweep.pencil_sweep_zband_plain(*args)
+                    require(bool((got[6:] == 0).all()) and bool((got[:, ~valid] == 0).all()),
+                            f"pencil_sweep_zband {label} {dname}: rows 6-7 or empty slots not zero")
+                    errs = [rel_err(got[row, valid], want[row, valid]) for row in range(6)]
+                    vs_full = max(rel_err(got[row, valid], full[want_obs][row, valid])[1]
+                                  for row in range(6))
+                    worst = max(e[1] for e in errs)
+                    require(worst <= tol, f"pencil_sweep_zband {label} {dname} obs={want_obs}: "
+                                          f"rel err {worst:.3e} > {tol}")
+                    require(vs_full <= tol, f"pencil_sweep_zband {label} {dname} obs={want_obs}: "
+                                            f"differs from the full sweep by {vs_full:.3e} > {tol}")
+                    cases["pencil_sweep_zband"].append({
+                        **base, **bound(dname, sweep_flops(zcand, cut, want_obs),
+                                        2 * slots_bytes + zband_bytes),
+                        "candidates": zcand, "window": window, "observables": want_obs,
+                        "use_b": int(wins[2].sum()), "max_abs_err": max(e[0] for e in errs),
+                        "rel_err": worst, "rel_err_vs_full": vs_full,
+                        "ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_zband(*args),
+                                           20),
+                        "plain_ms": cuda_time_ms(
+                            torch, lambda: pencil_sweep.pencil_sweep_zband_plain(*args), 2,
+                            warmup=1)})
+
             # Kernels 15 and 16: the fused chunks, plain and extended.
             lists = (c.wl_self, c.wl_self_cnt, c.wl_nbr_i, c.wl_nbr_j, c.wl_nbr_off)
             for name, kernel, plain, tabs, extra in (
@@ -612,10 +763,14 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                     "ms": cuda_time_ms(torch, lambda: kernel(*targs), 10),
                     "plain_ms": cuda_time_ms(torch, lambda: plain(*targs), 1, warmup=1)})
     for name, cs in cases.items():
-        per = "per call" if name == "pencil_sweep_hs" else f"per {k_time}-step chunk"
+        sweep = "observables" in cs[0]
+        per = "per call" if sweep else f"per {k_time}-step chunk"
         for c in cs:
-            what = (f"observables {c['observables']}" if name == "pencil_sweep_hs" else
+            what = (f"observables {c['observables']}" if sweep else
                     ", ".join(f"{m['mode']} {m['rel_err']:.3e}" for m in c["modes"]))
+            if "rel_err_vs_full" in c:
+                what += (f", window {c['window']} ({c['use_b']} window-B visits), vs the full "
+                         f"sweep {c['rel_err_vs_full']:.3e}")
             log(f"kernel {name} {c['shape']} {c['dtype']} (max count {c['counts_max']}): "
                 f"{what}, rel err {c['rel_err']:.3e} (tol {KERNEL_TOL[c['dtype']]:.0e}), "
                 f"{c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms {per}; bound "
@@ -656,8 +811,9 @@ def _check_launches(run: str, counts: dict, needed: tuple, forbidden: tuple = ()
         require(counts.get(k, 0) == 0, f"{run}: kernel {k} launched on another engine's path")
 
 
-MAIN_KERNELS = (("pair_sweep_tri", "fused_dense_chunk", "fused_dense_chunk_ext") + ZSORT_KERNELS
-                + PENCIL_KERNELS)
+FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
+MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
+                + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -683,9 +839,12 @@ def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: t
         log(f"  cli| {line}")
     require(proc.returncode == 0, f"{name}: CLI run failed ({proc.returncode}):\n{proc.stderr}")
     counts = diagnostics = rate = None
+    host_reads = {}
     for line in proc.stdout.splitlines():
         if line.startswith('{"kernel_launches"'):
             counts = json.loads(line)["kernel_launches"]
+        elif line.startswith('{"host_reads"'):
+            host_reads = json.loads(line)["host_reads"]
         elif line.startswith('{"diagnostics"'):
             diagnostics = json.loads(line)["diagnostics"]
         elif "particle-steps/s" in line:
@@ -699,54 +858,70 @@ def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: t
     drift = _drift(etot)
     log(f"{name} (CLI, --backend {backend}): N={cfg.n} |dE/E| {drift:.3e} (bound "
         f"{DRIFT_BOUND[name]:.0e}), {len(etot)} samples, production {rate:.4e} particle-steps/s, "
-        f"CLI wall {wall:.1f}s incl. startup, init and artifacts")
+        f"CLI wall {wall:.1f}s incl. startup, init and artifacts; host reads (init and "
+        f"production) {json.dumps(host_reads)}")
     require(drift < DRIFT_BOUND[name], f"{name}: energy drift over bound")
     return {"engine": backend, "n": cfg.n, "drift": drift, "wall_s": wall,
-            "particle_steps_per_s": rate, "diagnostics": diagnostics, "launches": counts}
+            "particle_steps_per_s": rate, "diagnostics": diagnostics, "launches": counts,
+            "host_reads": host_reads}
 
 
-def _in_process_run(torch, name: str, cfg, backend: str, tmp: str, needed: tuple,
-                    forbidden: tuple, prod_cfg=None) -> tuple[dict, object]:
-    """initialize + run_production + artifacts in this process, the counts
-    set to 0 just before and read just after. ``prod_cfg`` (default
-    ``cfg``) is the production's config, e.g. with another capacity."""
+def _production_run(torch, name: str, cfg, state, tmp: str, needed: tuple, forbidden: tuple,
+                    engine=None, backend: str = "auto") -> tuple[dict, object]:
+    """run_production from ``state`` in this process through ``engine`` (or
+    ``backend``), the counts set to 0 just before and read just after (the
+    state's warmup is not part of the run), the artifacts written and
+    checked."""
     from ljmd_tpu_torch.io.artifacts import write_run_artifacts
     from ljmd_tpu_torch.models.engine import HOST_READS
-    from ljmd_tpu_torch.models.simulation import initialize, run_production
+    from ljmd_tpu_torch.models.simulation import run_production
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
 
-    dev = torch.device(DEVICE)
-    prod_cfg = prod_cfg or cfg
     torch.cuda.synchronize()
     LAUNCHES.reset()
     HOST_READS.update(dict.fromkeys(HOST_READS, 0))
     t0 = time.time()
-    state = initialize(cfg, backend=backend, device=dev)
+    res = run_production(cfg, state, backend=backend, engine=engine, record_frames=True,
+                         device=DEVICE)
     torch.cuda.synchronize()
-    t1 = time.time()
-    res = run_production(prod_cfg, state, backend=backend, record_frames=True, device=dev)
-    torch.cuda.synchronize()
-    t2 = time.time()
+    wall = time.time() - t0
     counts = LAUNCHES.snapshot()
     host_reads = dict(HOST_READS)
     _check_launches(name, counts, needed, forbidden)
     diagnostics = {k: bool(v) for k, v in res.diagnostics.items()}
     require(not any(diagnostics.values()), f"{name}: diagnostic flag set: {diagnostics}")
     out_dir = os.path.join(tmp, name)
-    write_run_artifacts(out_dir, prod_cfg, res, write_frames=True)
+    write_run_artifacts(out_dir, cfg, res, write_frames=True)
     _check_artifacts(out_dir, with_frames=True)
     require(bool(torch.isfinite(res.series).all()), f"{name}: non-finite series")
     drift = _drift(res.series[2].cpu())
-    rate = cfg.n * cfg.total_steps / (t2 - t1)
-    warm_rate = cfg.n * cfg.warmup_steps / (t1 - t0)
-    log(f"{name} (--backend {backend}): N={cfg.n} |dE/E| {drift:.3e} (bound "
-        f"{DRIFT_BOUND[name]:.0e}), production {t2 - t1:.3f}s = {rate:.4e} particle-steps/s, "
-        f"initialize (warmup {cfg.warmup_steps}) {t1 - t0:.3f}s = {warm_rate:.4e} particle-steps/s"
-        f"; host reads {json.dumps(host_reads)}")
+    rate = cfg.n * cfg.total_steps / wall
+    log(f"{name}: N={cfg.n} |dE/E| {drift:.3e} (bound {DRIFT_BOUND[name]:.0e}), production "
+        f"{wall:.3f}s = {rate:.4e} particle-steps/s, {1e3 * wall / cfg.total_steps:.4f} ms/step; "
+        f"host reads {json.dumps(host_reads)}; diagnostics {json.dumps(diagnostics)}")
     require(drift < DRIFT_BOUND[name], f"{name}: energy drift over bound")
-    return ({"engine": backend, "n": cfg.n, "drift": drift, "production_s": t2 - t1,
-             "particle_steps_per_s": rate, "init_s": t1 - t0, "diagnostics": diagnostics,
-             "launches": counts, "host_reads": host_reads}, res.final_state)
+    return ({"n": cfg.n, "drift": drift, "production_s": wall, "particle_steps_per_s": rate,
+             "diagnostics": diagnostics, "launches": counts, "host_reads": host_reads},
+            res.final_state)
+
+
+def _in_process_run(torch, name: str, cfg, backend: str, tmp: str, needed: tuple,
+                    forbidden: tuple, prod_cfg=None) -> tuple[dict, object]:
+    """initialize (timed apart) and ``_production_run`` through ``backend``
+    in this process. ``prod_cfg`` (default ``cfg``) is the production's
+    config, e.g. with another capacity."""
+    from ljmd_tpu_torch.models.simulation import initialize
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = initialize(cfg, backend=backend, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    log(f"{name}: initialize (--backend {backend}, warmup {cfg.warmup_steps}) {init_s:.3f}s = "
+        f"{cfg.n * cfg.warmup_steps / init_s:.4e} particle-steps/s")
+    run, final = _production_run(torch, name, prod_cfg or cfg, state, tmp, needed, forbidden,
+                                 backend=backend)
+    return {**run, "engine": backend, "init_s": init_s}, final
 
 
 def phase_main_path(torch, tmp: str) -> tuple[dict, object, object]:
@@ -808,6 +983,132 @@ def phase_cellpair_path(torch, tmp: str) -> tuple[dict, object, object]:
         torch, "n62500_f32_compensated_cellpair", cfg.replace(compensated_sum=True), "auto",
         tmp, sweep_static, others)
     return runs, cfg, {"cap512_end": final, "compensated_end": final_comp}
+
+
+def _cross_diff(torch, s, ref, L) -> float:
+    """Worst of r (minimum image), ru, v, a relative to max(1, max |ref|)."""
+    errs = _state_diff(torch, s, ref, L)
+    errs["ru"] = rel_err(s.ru, ref.ru)[1]
+    return max(errs.values())
+
+
+def phase_flagship(torch) -> tuple[dict, float]:
+    """The flagship step (``entry()``) on the card for FLAGSHIP_STEPS steps,
+    timed on the host clock after a synchronize; then CROSS_STEPS steps of
+    the same ``fn`` fed float64 tensors against the rows engine's per-step
+    sweep, from one float64 state."""
+    from ljmd_tpu_torch.entry import entry, flagship_cfg
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+    from ljmd_tpu_torch.state import MDState
+
+    name = "flagship_entry_f32"
+    cfg = flagship_cfg()
+    fn, args = entry(DEVICE)
+    fn(*args)  # one untimed step
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    t0 = time.time()
+    st, etot = args, []
+    for _ in range(FLAGSHIP_STEPS):
+        out = fn(*st)
+        st = out[:4]
+        etot.append(out[4] + out[5])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = LAUNCHES.snapshot()
+    _check_launches(name, counts, ("pair_sweep",), tuple(k for k in MAIN_KERNELS
+                                                         if k != "pair_sweep"))
+    require(counts["pair_sweep"] == FLAGSHIP_STEPS, f"{name}: one sweep a step expected")
+    e = torch.stack(etot).double().cpu()
+    require(bool(torch.isfinite(e).all()), f"{name}: non-finite energies")
+    drift = _drift(e)
+    rate = cfg.n * FLAGSHIP_STEPS / wall
+    log(f"{name} (entry(), make_force_fn auto -> the ordered-sweep kernel): N={cfg.n} "
+        f"{FLAGSHIP_STEPS} steps {wall:.3f}s = {1e3 * wall / FLAGSHIP_STEPS:.4f} ms/step = "
+        f"{rate:.4e} particle-steps/s, |dE/E| {drift:.3e} (bound {DRIFT_BOUND[name]:.0e})")
+    require(drift < DRIFT_BOUND[name], f"{name}: energy drift over bound")
+
+    rows = pe.make_engine(cfg.replace(dtype="float64"), "rows", DEVICE)
+    s = MDState(*(t.double() for t in st))
+    c, _ = rows.init(s)
+    s = rows.get_state(c)
+    st = (s.r, s.ru, s.v, s.a)
+    for _ in range(CROSS_STEPS):
+        st = fn(*st)[:4]
+        c, _ = rows.step(c)
+    cross = _cross_diff(torch, MDState(*st), rows.get_state(c), cfg.box_length)
+    LAUNCHES.reset()
+    log(f"flagship step vs rows (float64, {CROSS_STEPS} steps from one state): max rel diff "
+        f"over r, ru, v, a {cross:.3e} (tol {CROSS_TOL:.0e})")
+    require(cross <= CROSS_TOL, "the flagship step and the rows engine disagree")
+    return ({"n": cfg.n, "steps": FLAGSHIP_STEPS, "wall_s": wall,
+             "ms_per_step": 1e3 * wall / FLAGSHIP_STEPS, "particle_steps_per_s": rate,
+             "drift": drift, "launches": counts}, cross)
+
+
+def phase_rows_ordered(torch, tmp: str) -> tuple[dict, float]:
+    """The rows engine with ``triangular=False`` on the N=4000 cut (warmup
+    by the default rows engine, untimed), then in float64 from one state
+    against ``triangular=True``: the sampled series within CROSS_TOL."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.simulation import initialize, run_production
+
+    cfg = load_config(str(REPO / "examples" / "n4000_production.json")).replace(**N4000_CUT)
+    state = initialize(cfg, backend="rows", device=DEVICE)
+    name = "n4000_f32_rows_ordered"
+    run, _ = _production_run(torch, name, cfg, state, tmp, ("pair_sweep", "fused_dense_chunk"),
+                             tuple(k for k in MAIN_KERNELS
+                                   if k not in ("pair_sweep", "fused_dense_chunk")),
+                             engine=pe._rows_engine(cfg, DEVICE, triangular=False))
+    cfg64 = cfg.replace(dtype="float64")
+    s64 = state.to(dtype=torch.float64)
+    series = [run_production(cfg64, s64, engine=pe._rows_engine(cfg64, DEVICE, triangular=tri),
+                             device=DEVICE).series for tri in (False, True)]
+    scale = series[1].abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    cross = float(((series[0] - series[1]).abs() / scale).max())
+    log(f"rows triangular=False vs True (N={cfg.n}, float64, {cfg.total_steps} steps from one "
+        f"state): series rel diff {cross:.3e} (tol {CROSS_TOL:.0e})")
+    require(cross <= CROSS_TOL, "rows triangular=False and True disagree")
+    return run, cross
+
+
+def phase_full_sweeps(torch, cfg5, state, tmp: str) -> tuple[dict, dict]:
+    """The cell-pair engine with the full 9-neighbour and the z-banded sweep
+    (unfused, FULL_SWEEP_CHUNK steps between rebins) on the config-5 cut at
+    FULL_SWEEP_CAP from ``state`` (phase 4c's end), then from one float64
+    state CROSS_STEPS steps of each against the half-shell engine (fused
+    static chunks)."""
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    cfg = cfg5.replace(neighbor_capacity=FULL_SWEEP_CAP)
+    modes = {"full9": ({"half_shell": False}, "pencil_sweep_full"),
+             "zband": ({"z_band": True}, "pencil_sweep_zband")}
+    runs, ends = {}, {}
+    for mode, (kw, kernel) in modes.items():
+        eng = pe._cellpair_engine(cfg, DEVICE, inner_chunk=FULL_SWEEP_CHUNK, **kw)
+        require(eng.run_fast.__name__ == "run_fast_unfused", f"{mode}: not the unfused path")
+        runs[f"n62500_f32_cap512_{mode}"], ends[mode] = _production_run(
+            torch, f"n62500_f32_cap512_{mode}", cfg, state, tmp, (kernel,),
+            tuple(k for k in MAIN_KERNELS if k != kernel), engine=eng)
+    cfg64 = cfg.replace(dtype="float64")
+    s64 = ends["full9"].to(dtype=torch.float64)
+    ref_eng = pe._cellpair_engine(cfg64, DEVICE, width_lists=False)
+    ref = ref_eng.get_state(ref_eng.run_fast(ref_eng.init(s64)[0], CROSS_STEPS))
+    cross = {}
+    for mode, (kw, _) in modes.items():
+        eng = pe._cellpair_engine(cfg64, DEVICE, inner_chunk=FULL_SWEEP_CHUNK, **kw)
+        c = eng.run_fast(eng.init(s64)[0], CROSS_STEPS)
+        require(not bool(c.overflow), f"{mode} float64: pencil_overflow set")
+        cross[mode] = _cross_diff(torch, eng.get_state(c), ref, cfg.box_length)
+        log(f"cellpair {mode} vs half shell (N={cfg.n}, capacity {FULL_SWEEP_CAP}, float64, "
+            f"{CROSS_STEPS} steps from one state): max rel diff over r, ru, v, a "
+            f"{cross[mode]:.3e} (tol {CROSS_TOL:.0e})")
+        require(cross[mode] <= CROSS_TOL, f"cellpair {mode} and the half shell disagree")
+    LAUNCHES.reset()
+    return runs, cross
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1022,6 +1323,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from ljmd_tpu_torch.config import load_config
+
     env = phase_environment(torch)
     phase_build()
     cases = phase_kernels(torch)
@@ -1029,7 +1332,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="ljmd_chip_smoke_") as tmp:
         runs, final_cfg, final_state = phase_main_path(torch, tmp)
         cp_runs, cfg5, states5 = phase_cellpair_path(torch, tmp)
+        runs["flagship_entry_f32"], flagship_cross = phase_flagship(torch)
+        runs["n4000_f32_rows_ordered"], ordered_cross = phase_rows_ordered(torch, tmp)
+        n4000 = load_config(str(REPO / "examples" / "n4000_production.json")).replace(**N4000_CUT)
+        runs["n4000_f32_neighbor"] = _cli_run("n4000_f32_neighbor", n4000, "neighbor", tmp, (),
+                                              MAIN_KERNELS)
+        full_runs, full_cross = phase_full_sweeps(torch, cfg5, states5["cap512_end"], tmp)
     runs.update(cp_runs)
+    runs.update(full_runs)
     state5 = states5["cap512_end"]
     # A third stretch of the fluid: the capacity-512 run's end with the
     # velocities reversed (it retraces the stretch before it).
@@ -1044,16 +1354,20 @@ def main() -> int:
     # every case is listed beside it.
     headline = {"lj_pair_terms": ("N=4000", "float32"),
                 "pair_sweep_tri": ("N=4000", "float32"),
+                "pair_sweep": ("N=4000", "float32"),
                 "fused_dense_chunk": ("N=4000", "float32"),
                 "fused_dense_chunk_ext": ("N=500", "float32"),
                 "build_window_lists": ("N=4000", "float32"),
                 "fused_dense_chunk_list": ("N=4000", "float32"),
                 "pencil_sweep_hs": ("N=62500 cap=512", "float32"),
                 "fused_pencil_chunk": ("N=62500 cap=384", "float32"),
-                "fused_pencil_width_chunk": ("N=62500 cap=512", "float32")}
+                "fused_pencil_width_chunk": ("N=62500 cap=512", "float32"),
+                "pencil_sweep_full": ("N=62500 cap=512", "float32"),
+                "pencil_sweep_zband": ("N=62500 cap=512", "float32")}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
+        "pair_sweep": ("ljmd_tpu_torch/csrc/pair_sweep.cu", "ljmd_tpu/ops/pallas_lj.py:103"),
         "fused_dense_chunk": ("ljmd_tpu_torch/csrc/fused_dense_chunk.cu", "ljmd_tpu/ops/pallas_fused.py:537"),
         "fused_dense_chunk_ext": ("ljmd_tpu_torch/csrc/fused_dense_chunk.cu", "ljmd_tpu/ops/pallas_fused.py:465"),
         "build_window_lists": ("ljmd_tpu_torch/csrc/pack_window_lists.cu", "ljmd_tpu/ops/pallas_fused.py:803"),
@@ -1061,6 +1375,8 @@ def main() -> int:
         "pencil_sweep_hs": ("ljmd_tpu_torch/csrc/pencil_sweep_hs.cu", "ljmd_tpu/ops/pallas_pencil2.py:187"),
         "fused_pencil_chunk": ("ljmd_tpu_torch/csrc/fused_pencil_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:277"),
         "fused_pencil_width_chunk": ("ljmd_tpu_torch/csrc/fused_pencil_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:609"),
+        "pencil_sweep_full": ("ljmd_tpu_torch/csrc/pencil_sweep_full.cu", "ljmd_tpu/ops/pallas_pencil.py:309"),
+        "pencil_sweep_zband": ("ljmd_tpu_torch/csrc/pencil_sweep_zband.cu", "ljmd_tpu/ops/pallas_pencil.py:256"),
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
@@ -1098,8 +1414,12 @@ def main() -> int:
         z_rate = runs[zsort_run]["particle_steps_per_s"]
         log(f"production {n_label} float32 on {env['nvidia_smi']}: zsort {z_rate:.4e} "
             f"particle-steps/s, rows {r_rate:.4e} (zsort / rows {z_rate / r_rate:.3f})")
-    for name in cp_runs:
+    for name in list(cp_runs) + list(full_runs):
         log(f"production N=62500 on {env['nvidia_smi']}: {name} "
+            f"{runs[name]['particle_steps_per_s']:.4e} particle-steps/s")
+    for name in ("flagship_entry_f32", "n4000_f32_rows_ordered", "n4000_f32_neighbor", "n4000_f32",
+                 "n4000_f32_zsort"):
+        log(f"N=4000 float32 on {env['nvidia_smi']}: {name} "
             f"{runs[name]['particle_steps_per_s']:.4e} particle-steps/s")
     log(f"card {env['nvidia_smi']}; zsort-vs-rows rel diff {vs_rows['zsort']:.3e}; "
         f"cellpair-vs-rows rel diff {vs_rows['cellpair']:.3e}; chunk paths "
@@ -1108,7 +1428,10 @@ def main() -> int:
                     f" planted {max(p['planted_fault']['rel_diff_to_fused_static'].values()):.3e}"
                     for k, p in paths.items())
         + f"; rows at N=62500: "
-        f"{rows_question['fused_chunk']}; card-vs-CPU series rel diff {series_err:.3e}")
+        f"{rows_question['fused_chunk']}; card-vs-CPU series rel diff {series_err:.3e}; "
+        f"float64 cross checks: flagship step vs rows {flagship_cross:.3e}, rows ordered vs "
+        f"tri {ordered_cross:.3e}, full9 vs half shell {full_cross['full9']:.3e}, zband vs half "
+        f"shell {full_cross['zband']:.3e}")
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

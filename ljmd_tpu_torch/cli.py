@@ -8,9 +8,12 @@
                                        [--device cuda] [--backend auto]
 
 ``--backend``: auto (on a CUDA device zsort where it fits, cellpair for
-large N, rows otherwise; rows on the CPU), rows, zsort, cellpair or dense.
+large N, rows otherwise; rows on the CPU), rows (or pallas, the JAX
+package's name for it), zsort, cellpair, neighbor or dense.
 ``simulate`` ends with a ``{"diagnostics": ...}`` line (``zsort_invalid``,
-``pencil_overflow``) and a ``{"kernel_launches": ...}`` line.
+``pencil_overflow``, ``neighbor_overflow``), a ``{"kernel_launches": ...}``
+line and a ``{"host_reads": ...}`` line (device flags the engines read on
+the host, ``engine.HOST_READS``).
 
 ``--device`` is ``cuda`` by default (the port's kernels run on the card);
 ``--device cpu`` runs the same path through the kernels' plain PyTorch
@@ -75,6 +78,12 @@ def _launch_report() -> str:
     return json.dumps({"kernel_launches": LAUNCHES.snapshot()})
 
 
+def _host_read_report() -> str:
+    from ljmd_tpu_torch.models.engine import HOST_READS
+
+    return json.dumps({"host_reads": HOST_READS})
+
+
 def cmd_init_config(args) -> int:
     from ljmd_tpu_torch.io.checkpoint import save_rv_init
     from ljmd_tpu_torch.models.simulation import initialize
@@ -132,10 +141,13 @@ def cmd_simulate(args) -> int:
                       for k in ("epot", "ekin", "etot", "temp", "press")}))
     print(json.dumps({"diagnostics": diagnostics}))
     print(_launch_report())
+    print(_host_read_report())
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from ljmd_tpu_torch.models.engine import BACKENDS
+
     p = argparse.ArgumentParser(prog="ljmd_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
@@ -143,7 +155,7 @@ def build_parser() -> argparse.ArgumentParser:
     def common(sp):
         sp.add_argument("--config", help="reference block-text or JSON config file")
         sp.add_argument("--backend", default="auto",
-                        choices=["auto", "rows", "zsort", "cellpair", "dense"],
+                        choices=list(BACKENDS),
                         help="engine (default auto: on a CUDA device zsort where it "
                              "fits, cellpair for large N, rows otherwise)")
         sp.add_argument("--device", default="cuda",

@@ -1,14 +1,19 @@
 """Engine abstraction: a (carry, step) pair for the MD time loop
-(counterpart of ``ljmd_tpu/models/engine.py:36-90, 160-932, 1677-1794``).
+(counterpart of ``ljmd_tpu/models/engine.py:36-157, 160-932, 966-1794``).
 
 Backends:
 
-- ``"dense"``: the ``ops/lj.py`` oracle with the plain Verlet step; its carry
-  is the MDState itself.
-- ``"rows"``: the rows engine (JAX's ``"pallas"`` backend). Its carry is a
-  ``RowCarry`` of (8, n_pad) row matrices; sampled steps run the tri sweep
-  (``ops/pair_sweep.py``) and un-sampled stretches run fused multi-step
-  chunks (``ops/fused.py``), each one CUDA launch on the card.
+- ``"dense"``: a force function (``models/forces.py``, the ``ops/lj.py``
+  oracle) with the plain Verlet step; its carry is the MDState itself.
+- ``"neighbor"``: a Verlet neighbor list (``ops/neighbor.py``, plain torch
+  gathers) in the carry beside the MDState, rebuilt when a particle has moved
+  more than skin/2 since the last build (one host read of that flag per
+  step, counted in ``HOST_READS``); sticky ``neighbor_overflow`` diagnostic.
+- ``"rows"`` (also ``"pallas"``, the JAX package's name for it): the rows
+  engine. Its carry is a ``RowCarry`` of (8, n_pad) row matrices; sampled
+  steps run the tri sweep (``ops/pair_sweep.py``; ``triangular=False``: the
+  ordered N x N sweep, prefactors 2 / 12) and un-sampled stretches run fused
+  multi-step chunks (``ops/fused.py``), each one CUDA launch on the card.
 - ``"zsort"``: the z-sorted window-list engine. Its carry is a
   ``ZSortCarry``: the rows in sorted column order, the particle ids, and the
   visit lists. Every inner chunk it re-sorts, rebuilds the tile flags and
@@ -19,13 +24,12 @@ Backends:
   ``PencilCarry`` in slot layout (``ops/cell_list.py``); sampled steps run
   the half-shell pencil sweep (``ops/pencil_sweep.py``) and un-sampled
   stretches run fused pencil chunks (``ops/fused_pencil.py``), static or
-  width-listed, with a rebin before each chunk.
+  width-listed, with a rebin before each chunk. ``half_shell=False`` runs
+  the full 9-neighbour sweep instead and ``z_band=True`` the z-banded one
+  (both per step, unfused, prefactors 2 / 12).
 - ``"auto"``: ``auto_backend``: on a CUDA device the JAX package's
   accelerator routing (``zsort`` where it fits, ``cellpair`` at n >= 8192
   where the pencil grid fits, else ``rows``); on the CPU ``rows``.
-
-The neighbor engine is not ported yet; asking for it raises
-``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ljmd_tpu_torch.config import SimConfig
-from ljmd_tpu_torch.models.forces import make_force_fn
+from ljmd_tpu_torch.models.forces import make_force_fn, resolve_device
 from ljmd_tpu_torch.models.integrators import velocity_verlet_step
 from ljmd_tpu_torch.ops.fused import (
     MAX_CHUNK_STEPS,
@@ -49,6 +53,8 @@ from ljmd_tpu_torch.ops.fused import (
 from ljmd_tpu_torch.ops.cell_list import (
     bin_to_slots,
     capacity_from_state,
+    compute_z_windows,
+    default_z_window,
     make_pencil_grid,
     rebin_gather_parts,
 )
@@ -60,31 +66,37 @@ from ljmd_tpu_torch.ops.fused_pencil import (
 )
 from ljmd_tpu_torch.ops.geometry import minimum_image, wrap_positions
 from ljmd_tpu_torch.ops.lj import tail_corrections
-from ljmd_tpu_torch.ops.pair_sweep import pair_sweep_tri
+from ljmd_tpu_torch.ops.neighbor import (
+    build_neighbor_list_dense,
+    estimate_capacity,
+    lj_force_energy_neighbor,
+    needs_rebuild,
+)
+from ljmd_tpu_torch.ops.pair_sweep import ROW_PAD, pair_sweep, pair_sweep_tri
 from ljmd_tpu_torch.ops.pencil_sweep import (
     TILE_I,
     build_half_shell_tables,
+    build_shift_table,
+    build_tile_table,
+    pencil_sweep,
     pencil_sweep_hs,
+    pencil_sweep_zband,
     sentinel_fill,
 )
 from ljmd_tpu_torch.ops.window_lists import build_window_lists, compute_tile_flags
 from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy
 
-__all__ = ["Engine", "HOST_READS", "PencilCarry", "RowCarry", "ROW_PAD", "ZSortCarry",
-           "auto_backend", "make_engine", "resolve_device", "zsort_geometry"]
+__all__ = ["BACKENDS", "Engine", "HOST_READS", "PencilCarry", "RowCarry", "ROW_PAD",
+           "ZSortCarry", "auto_backend", "make_engine", "resolve_device", "zsort_geometry"]
 
-# Columns of the row layout are padded to a multiple of this (the kernels
-# take blocks of 32 particles; 128 also matches the JAX package's minimum).
-ROW_PAD = 128
-
-_NOT_PORTED = {
-    "neighbor": "ROADMAP.md Open items §1.10 (neighbor engine)",
-}
+# make_engine's backends ("pallas" is the JAX package's name for "rows").
+BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
 
 # Host reads of a device flag, per decision that depends on data (the JAX
 # engine takes them inside lax.cond): the cell-pair engine's per-step
-# displacement check and its predictive rebin trigger.
-HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0}
+# displacement check and its predictive rebin trigger, the neighbor engine's
+# per-step rebuild check.
+HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0, "neighbor_rebuild": 0}
 
 
 class Engine(NamedTuple):
@@ -108,15 +120,6 @@ class Engine(NamedTuple):
     run_sample: Optional[Callable[[Any, int], tuple[Any, StepObs]]] = None
 
 
-def resolve_device(device) -> torch.device:
-    """``torch.device`` of ``device``; raises when CUDA is asked for and no
-    CUDA device is present (nothing silently runs on another device)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() is False")
-    return dev
-
-
 def _effective_dtype(cfg: SimConfig) -> torch.dtype:
     """The dtype tensors get: the config's own. (The JAX package truncates a
     float64 config to float32 when x64 is off, as on the TPU; PyTorch and
@@ -125,8 +128,11 @@ def _effective_dtype(cfg: SimConfig) -> torch.dtype:
     return torch.float64 if cfg.dtype == "float64" else torch.float32
 
 
-def _force_engine(cfg: SimConfig, device) -> Engine:
-    force_fn = make_force_fn(cfg)
+def _force_engine(cfg: SimConfig, device, backend: str = "dense") -> Engine:
+    """The plain Verlet step over a force function of ``models/forces.py``
+    (JAX ``_force_engine``); its carry is the MDState."""
+    device = resolve_device(device)
+    force_fn = make_force_fn(cfg, backend, device)
     dtype = _effective_dtype(cfg)
 
     def init(state: MDState):
@@ -140,6 +146,62 @@ def _force_engine(cfg: SimConfig, device) -> Engine:
 
     return Engine(init=init, step=step, get_state=lambda c: c,
                   diagnostics=lambda c: {}, step_fast=step)
+
+
+def _neighbor_engine(cfg: SimConfig, device) -> Engine:
+    """Verlet-list engine (JAX ``_neighbor_engine``): the carry is
+    (MDState, NeighborList); each step rebuilds the list (the dense O(N^2)
+    build) when a particle has moved more than skin/2 since the last build.
+    JAX takes that decision inside ``lax.cond``; here it is one host read of
+    the device flag per step (``HOST_READS["neighbor_rebuild"]``). The
+    ``neighbor_overflow`` diagnostic is sticky."""
+    device = resolve_device(device)
+    dtype = _effective_dtype(cfg)
+    L = cfg.box_length
+    skin = cfg.neighbor_skin
+    r_list = cfg.rc + skin
+    if not r_list < 0.5 * L:
+        raise ValueError(
+            f"rc + skin = {r_list} must stay below L/2 = {0.5 * L} for MIC "
+            "(shrink neighbor_skin or use the dense backend)"
+        )
+    capacity = cfg.neighbor_capacity or estimate_capacity(cfg.density, r_list)
+    r_list_sq = r_list * r_list
+
+    def build(r):
+        return build_neighbor_list_dense(r, L, r_list_sq, capacity)
+
+    def force(r, nbrs):
+        return lj_force_energy_neighbor(r, nbrs.idx, L, cfg.rc_square,
+                                        cfg.use_tail_corrections, cfg.volume, cfg.rc)
+
+    def init(state: MDState):
+        state = state.to(device=device, dtype=dtype)
+        nbrs = build(state.r)
+        res = force(state.r, nbrs)
+        obs = StepObs(res.epot, kinetic_energy(state.v), res.d_epot, res.dd_epot)
+        return (MDState(state.r, state.ru, state.v, res.a), nbrs), obs
+
+    dt = cfg.dt
+    half_dt = 0.5 * cfg.dt
+    half_dt_sq = 0.5 * cfg.dt * cfg.dt
+
+    def step(carry):
+        state, nbrs = carry
+        r_new = wrap_positions(state.r + state.v * dt + state.a * half_dt_sq, L)
+        v_half = state.v + state.a * half_dt
+        HOST_READS["neighbor_rebuild"] += 1
+        if bool(needs_rebuild(nbrs, r_new, L, skin)):
+            rebuilt = build(r_new)
+            nbrs = dataclasses.replace(rebuilt, overflow=rebuilt.overflow | nbrs.overflow)
+        res = force(r_new, nbrs)
+        v_new = v_half + res.a * half_dt
+        ru_new = state.ru + minimum_image(r_new - state.r, L)
+        obs = StepObs(res.epot, kinetic_energy(v_new), res.d_epot, res.dd_epot)
+        return (MDState(r=r_new, ru=ru_new, v=v_new, a=res.a), nbrs), obs
+
+    return Engine(init=init, step=step, get_state=lambda c: c[0],
+                  diagnostics=lambda c: {"neighbor_overflow": c[1].overflow}, step_fast=step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,11 +218,15 @@ class RowCarry:
     vc: torch.Tensor
 
 
-def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None) -> Engine:
+def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
+                 triangular: bool = True) -> Engine:
     """Dense rows engine: (N, 3) <-> (8, n_pad) conversion only at
     init/get_state; every step is row-matrix elementwise work plus the
     pair sweep; un-sampled stretches run in fused chunks of at most
-    ``MAX_CHUNK_STEPS`` steps."""
+    ``MAX_CHUNK_STEPS`` steps. ``triangular=True`` (the default) sweeps with
+    the tri kernel (each pair once in the observables); ``False`` with the
+    ordered N x N sweep (each pair twice, prefactors 2 / 12)."""
+    device = resolve_device(device)
     n = cfg.n
     n_pad = -(-n // ROW_PAD) * ROW_PAD
     L = cfg.box_length
@@ -183,16 +249,20 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None) -> Eng
         a[0:3] = 24.0 * out[0:3]
         return a
 
+    sweep_fn = pair_sweep_tri if triangular else pair_sweep
+    # The tri sweep counts each pair once (prefactors 4 / 24), the ordered
+    # sweep twice (2 / 12).
+    e_pref, d_pref = (4.0, 24.0) if triangular else (2.0, 12.0)
+
     def sweep(pos: torch.Tensor, want_obs: bool = True) -> torch.Tensor:
-        return pair_sweep_tri(pos, n, L, cfg.rc_square, want_observables=want_obs)
+        return sweep_fn(pos, n, L, cfg.rc_square, want_observables=want_obs)
 
     def obs_from(out: torch.Tensor, ekin: torch.Tensor) -> StepObs:
-        # The tri sweep counts each pair once: prefactors 4 / 24.
         return StepObs(
-            epot=4.0 * torch.sum(out[3]) + e_t,
+            epot=e_pref * torch.sum(out[3]) + e_t,
             ekin=ekin,
-            d_epot=24.0 * torch.sum(out[4]) + d_t,
-            dd_epot=24.0 * torch.sum(out[5]) + dd_t,
+            d_epot=d_pref * torch.sum(out[4]) + d_t,
+            dd_epot=d_pref * torch.sum(out[5]) + dd_t,
         )
 
     # Compensation in the increment-underflow regime (f32 at dt <= 1e-3, or
@@ -604,8 +674,9 @@ class PencilCarry:
     compensation (zeros when compensation is off), ``overflow`` the sticky
     flag (a pencil overflowed its capacity, or a particle outran the
     coverage slack between two rebins: results suspect). ``win_a``,
-    ``win_b``, ``use_b`` are the z-banded sweep's window tables (zeros: that
-    sweep is not ported); ``wl_*`` the width lists ((1,) zeros when off)."""
+    ``win_b``, ``use_b`` are the z-banded sweep's window tables ((T * 9,)
+    int32, zeros when z_band is off); ``wl_*`` the width lists ((1,) zeros
+    when off)."""
 
     r: torch.Tensor
     ru: torch.Tensor
@@ -636,40 +707,52 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
                      use_fused: bool | None = None, width_lists: bool | None = None,
                      inner_chunk: int | None = None) -> Engine:
     """Pencil-sweep engine for large N (JAX ``_cellpair_engine``): pair work
-    O(N * 9 * capacity) over the half-shell pencil pairs, particles rebinned
-    into pencils (a sort and a gather) when they may have left the coverage
-    slack.
+    O(N * 9 * capacity) over the pencil pairs, particles rebinned into
+    pencils (a sort and a gather) when they may have left the coverage slack.
 
-    ``step``/``step_fast`` run one half-shell sweep per step with the JAX
-    per-step displacement check (one host read of the "moved" flag per
-    step). ``run_fast`` advances in chunks of ``inner_chunk`` (8 fused, 12
+    The sweep: the half shell (default; each pair once, prefactors 4 / 24),
+    the full 9-neighbour sweep (``half_shell=False``) or the z-banded one
+    (``z_band=True``, which implies ``half_shell=False``; it turns itself off
+    where ``default_z_window`` reaches the capacity, as in JAX). Both full
+    sweeps count each pair twice (prefactors 2 / 12) and run unfused. The
+    z-banded sweep rebins in (pencil, z) order, recomputes its window tables
+    at every rebin (their overflow joins the sticky flag) and checks the 3-D
+    drift against (skin / 2)^2 instead of the xy slack.
+
+    ``step``/``step_fast`` run one sweep per step with the JAX per-step
+    displacement check (one host read of the "moved" flag per step).
+    ``run_fast`` advances in chunks of ``inner_chunk`` (8 fused, 12
     unfused) with the rebin decision once per chunk: ``rebin_trigger``
     "always" (the plain default: rebin before every chunk, no host read),
     "predictive" (the compensated default: rebin when a particle could
     cross half the slack during the chunk; one host read per chunk) or
-    "never" (floor measurements only). ``use_fused`` (default: on; the
-    kernel launches on any card, the twin runs on the CPU) runs each chunk
-    in one fused kernel, else as per-step sweeps (``run_fast_unfused``).
-    ``width_lists`` (default: the JAX mean-occupancy rule) drives the fused
-    chunk by occupancy-width visit lists. The z-banded and full 9-neighbour
-    sweeps are not ported."""
+    "never" (floor measurements only). ``use_fused`` (default: on with the
+    half shell; the kernel launches on any card, the twin runs on the CPU)
+    runs each chunk in one fused kernel, else as per-step sweeps
+    (``run_fast_unfused``). ``width_lists`` (default: the JAX mean-occupancy
+    rule) drives the fused chunk by occupancy-width visit lists."""
     device = resolve_device(device)
-    if z_band:
-        raise NotImplementedError("the z-banded pencil sweep is not ported to ljmd_tpu_torch "
-                                  "yet: ROADMAP.md Open items §2.14 (kernel 12)")
-    if not half_shell:
-        raise NotImplementedError("the full 9-neighbour pencil sweep is not ported to "
-                                  "ljmd_tpu_torch yet: ROADMAP.md Open items §2.11 (kernel 11)")
     L = cfg.box_length
     if L <= 1.0:
         raise ValueError("cellpair engine requires L > 1 (aux-row wrap invariant)")
     skin = cfg.neighbor_skin
-    grid = make_pencil_grid(cfg.n, L, cfg.rc + skin, cfg.density, cfg.neighbor_capacity)
+    r_list = cfg.rc + skin
+    grid = make_pencil_grid(cfg.n, L, r_list, cfg.density, cfg.neighbor_capacity)
     n, ns, P, cap = cfg.n, grid.n_slots, grid.n_pencils, grid.capacity
     dtype = _effective_dtype(cfg)
+    window = default_z_window(grid, n, r_list, TILE_I)
+    if window >= cap:
+        z_band = False  # banding degenerates to the full sweep
+    if z_band:
+        half_shell = False  # banding implies the full 9-neighbour sweep
     tbl_np, shf_np = build_half_shell_tables(grid)
     hs_tbl = torch.as_tensor(tbl_np, device=device)
     hs_shf = torch.as_tensor(shf_np, device=device)
+    if not half_shell:
+        # The full sweeps' tables: the 9 xy-neighbours (self at k = 4) and
+        # their static image shifts.
+        nbr_tbl = torch.as_tensor(build_tile_table(grid), device=device)
+        nbr_shf = torch.as_tensor(build_shift_table(grid), device=device)
     e_t, d_t, dd_t = (
         tail_corrections(n, cfg.volume, cfg.rc) if cfg.use_tail_corrections else (0.0, 0.0, 0.0)
     )
@@ -683,8 +766,11 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         # JAX's defaults: a rebin before every chunk for plain runs; the
         # predictive trigger for compensated ones (each rebin wraps positions).
         rebin_trigger = "predictive" if compensated else "always"
+    # The fused chunks sweep the half shell only (JAX ``fused_ok``).
     if use_fused is None:
-        use_fused = True
+        use_fused = half_shell
+    elif use_fused and not half_shell:
+        raise ValueError("fused pencil path not viable for this config (it needs the half shell)")
     if width_lists is None:
         # JAX's rule (engine.py:1153-1158, measured on the TPU): width lists
         # where the 128-quantized mean occupancy leaves a whole block free.
@@ -695,20 +781,36 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         inner_chunk = 8 if use_fused else 12
     zero_win = torch.zeros(((ns // TILE_I) * 9,), dtype=torch.int32, device=device)
 
-    def sweep(pos, counts, want_obs=True):
-        # Already multiplied by the validity row (ops/pencil_sweep.py).
-        return pencil_sweep_hs(pos, hs_tbl, counts, hs_shf, grid, cfg.rc_square, want_obs)
+    def sweep(pos, counts, wins, want_obs=True):
+        if z_band:
+            return pencil_sweep_zband(pos, nbr_tbl, counts, *wins, grid, cfg.rc_square, window,
+                                      want_obs)
+        if half_shell:
+            # Already multiplied by the validity row (ops/pencil_sweep.py).
+            return pencil_sweep_hs(pos, hs_tbl, counts, hs_shf, grid, cfg.rc_square, want_obs)
+        return pencil_sweep(pos, nbr_tbl, counts, nbr_shf, grid, cfg.rc_square, want_obs)
+
+    def windows(r8, counts):
+        """The z-band's window tables and their overflow flag."""
+        if not z_band:
+            return (zero_win, zero_win, zero_win), torch.zeros((), dtype=torch.bool,
+                                                                 device=device)
+        wa, wb, ub, ovf = compute_z_windows(r8, r8[3], counts, grid, window, r_list, TILE_I)
+        return (wa, wb, ub), ovf
 
     def accel(out):
         a = torch.zeros_like(out)
         a[0:3] = 24.0 * out[0:3]
         return a
 
+    # The half shell counts each pair once (prefactors 4 / 24), the full
+    # sweeps twice (2 / 12).
+    e_pref, d_pref = (4.0, 24.0) if half_shell else (2.0, 12.0)
+
     def obs_from(out, ekin):
-        # Pair once: prefactors 4 / 24.
-        return StepObs(epot=4.0 * torch.sum(out[3]) + e_t, ekin=ekin,
-                       d_epot=24.0 * torch.sum(out[4]) + d_t,
-                       dd_epot=24.0 * torch.sum(out[5]) + dd_t)
+        return StepObs(epot=e_pref * torch.sum(out[3]) + e_t, ekin=ekin,
+                       d_epot=d_pref * torch.sum(out[4]) + d_t,
+                       dd_epot=d_pref * torch.sum(out[5]) + dd_t)
 
     def counts_from_valid(valid):
         return valid.reshape(P, cap).sum(dim=1).to(torch.int32)
@@ -750,16 +852,23 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         return r8, rc8
 
     def rebin(r8, others):
-        """(r8p, permuted others, counts, overflow, lists) of a rebin."""
-        order, src, valid_new, overflow = rebin_gather_parts(r8, r8[3], grid)
+        """(r8p, permuted others, counts, overflow, (lists, windows)) of a
+        rebin; the overflow includes the window tables'."""
+        order, src, valid_new, overflow = rebin_gather_parts(r8, r8[3], grid, z_order=z_band)
         r8p, permuted = permute_rebin(r8, others, order, src, valid_new)
         r8p = sentinel_fill(r8p, r8p[3], cap)
         counts = counts_from_valid(r8p[3])
-        return r8p, permuted, counts, overflow, lists_from_counts(counts)
+        wins, w_ovf = windows(r8p, counts)
+        return r8p, permuted, counts, overflow | w_ovf, (lists_from_counts(counts), wins)
 
-    def with_lists(c: PencilCarry, wl) -> PencilCarry:
+    def with_tables(c: PencilCarry, tables) -> PencilCarry:
+        wl, wins = tables
         return dataclasses.replace(c, wl_self=wl[0], wl_self_cnt=wl[1], wl_nbr_i=wl[2],
-                                   wl_nbr_j=wl[3], wl_nbr_off=wl[4])
+                                   wl_nbr_j=wl[3], wl_nbr_off=wl[4], win_a=wins[0],
+                                   win_b=wins[1], use_b=wins[2])
+
+    def wins_of(c: PencilCarry):
+        return c.win_a, c.win_b, c.use_b
 
     def init(state: MDState):
         state = state.to(device=device, dtype=dtype)
@@ -773,13 +882,14 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         r8 = sentinel_fill(r8, r8[3], cap)
         v8 = scatter_rows(state.v, slot)
         counts = counts_from_valid(r8[3])
-        out = sweep(r8, counts)
+        wins, w_ovf = windows(r8, counts)
+        out = sweep(r8, counts, wins)
         zero = torch.zeros_like(r8)
-        carry = with_lists(PencilCarry(
+        carry = with_tables(PencilCarry(
             r=r8, ru=scatter_rows(state.ru, slot), v=v8, a=accel(out), r_ref=r8,
-            counts=counts, win_a=zero_win, win_b=zero_win, use_b=zero_win, rc=zero, vc=zero,
-            overflow=overflow, wl_self=None, wl_self_cnt=None, wl_nbr_i=None, wl_nbr_j=None,
-            wl_nbr_off=None), lists_from_counts(counts))
+            counts=counts, win_a=None, win_b=None, use_b=None, rc=zero, vc=zero,
+            overflow=overflow | w_ovf, wl_self=None, wl_self_cnt=None, wl_nbr_i=None,
+            wl_nbr_j=None, wl_nbr_off=None), (lists_from_counts(counts), wins))
         return carry, obs_from(out, 0.5 * torch.sum(v8 * v8))
 
     dt = cfg.dt
@@ -787,9 +897,13 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     half_dt_sq = 0.5 * cfg.dt * cfg.dt
     # Coverage of the 9-pencil neighbourhood holds while every particle's xy
     # drift since the last rebin stays under (pencil width - rc) / 2; z is
-    # unrestricted (the sweeps cover whole z columns).
+    # unrestricted (the sweeps cover whole z columns). The z-band keeps the
+    # 3-D check against the skin: its windows assume bounded z drift.
     skin_xy = grid.pencil_width - cfg.rc
-    rebuild_thresh = (0.5 * skin_xy) ** 2
+    if z_band:
+        rebuild_thresh, drift_rows, slack = (0.5 * skin) ** 2, slice(0, 3), skin
+    else:
+        rebuild_thresh, drift_rows, slack = (0.5 * skin_xy) ** 2, slice(0, 2), skin_xy
 
     def _step(c: PencilCarry, want_obs: bool, rebin_mode=True):
         # No per-step wrap: slot coordinates may drift outside [0, L)
@@ -803,20 +917,20 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             v_half, vc_half = c.v + c.a * half_dt, c.vc
         c = dataclasses.replace(c, r=r_new, ru=c.ru + delta, v=v_half, rc=rc_new, vc=vc_half)
         if rebin_mode is True:
-            d = minimum_image(r_new[0:2] - c.r_ref[0:2], L)
+            d = minimum_image(r_new[drift_rows] - c.r_ref[drift_rows], L)
             moved = torch.max(torch.sum(d * d, dim=0) * r_new[3]) > rebuild_thresh
             HOST_READS["cellpair_moved"] += 1
             rebin_mode = "force" if bool(moved) else False
         if rebin_mode == "force":
             r8, rc8 = wrap_rows(c.r, c.rc)
-            r8p, perm, counts, ovf, wl = rebin(
+            r8p, perm, counts, ovf, tables = rebin(
                 r8, [c.ru, c.v] + ([rc8, c.vc] if compensated else []))
-            c = with_lists(dataclasses.replace(
+            c = with_tables(dataclasses.replace(
                 c, r=r8p, ru=perm[0], v=perm[1],
                 rc=perm[2] if compensated else torch.zeros_like(r8p),
                 vc=perm[3] if compensated else c.vc, r_ref=r8p, counts=counts,
-                overflow=c.overflow | ovf), wl)
-        out = sweep(c.r, c.counts, want_obs)
+                overflow=c.overflow | ovf), tables)
+        out = sweep(c.r, c.counts, wins_of(c), want_obs)
         a_new = accel(out)
         if compensated:
             v_new, vc_new = comp_add(c.v, c.vc, a_new * half_dt)
@@ -830,19 +944,19 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     def _rebin_carry(c: PencilCarry) -> PencilCarry:
         # a rides along: the next chunk's first half-kick uses it.
         r8, rc8 = wrap_rows(c.r, c.rc)
-        r8p, perm, counts, ovf, wl = rebin(
+        r8p, perm, counts, ovf, tables = rebin(
             r8, [c.ru, c.v, c.a] + ([rc8, c.vc] if compensated else []))
-        return with_lists(dataclasses.replace(
+        return with_tables(dataclasses.replace(
             c, r=r8p, ru=perm[0], v=perm[1], a=perm[2],
             rc=perm[3] if compensated else torch.zeros_like(r8p),
             vc=perm[4] if compensated else c.vc, r_ref=r8p, counts=counts,
-            overflow=c.overflow | ovf), wl)
+            overflow=c.overflow | ovf), tables)
 
     def _invalid_check(c: PencilCarry):
         """Sticky flag for drift past the coverage slack since the last
         rebin (pairs may have been missed in the last chunk); no host read.
         Returns (carry, per-slot squared xy drift)."""
-        d = minimum_image(c.r[0:2] - c.r_ref[0:2], L)
+        d = minimum_image(c.r[drift_rows] - c.r_ref[drift_rows], L)
         moved2 = torch.sum(d * d, dim=0) * c.r[3]
         return dataclasses.replace(
             c, overflow=c.overflow | (torch.max(moved2) > rebuild_thresh)), moved2
@@ -854,9 +968,9 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             return c
         if rebin_trigger == "always":
             return _rebin_carry(c)
-        speed = torch.sqrt(torch.sum(c.v[0:2] * c.v[0:2], dim=0))
+        speed = torch.sqrt(torch.sum(c.v[drift_rows] * c.v[drift_rows], dim=0))
         predicted = torch.sqrt(moved2) + speed * (k * dt * _PREDICT_SAFETY)
-        will_exceed = torch.max(predicted * valid) > 0.5 * skin_xy
+        will_exceed = torch.max(predicted * valid) > 0.5 * slack
         HOST_READS["cellpair_will_exceed"] += 1
         return _rebin_carry(c) if bool(will_exceed) else c
 
@@ -961,21 +1075,17 @@ def auto_backend(cfg: SimConfig, on_accelerator: bool,
 def make_engine(cfg: SimConfig, backend: str = "auto", device="cuda", state=None,
                 sample_interval: int | None = None) -> Engine:
     """Build the engine for ``cfg`` on ``device`` (default the card; raises
-    where there is none): ``"dense"``, ``"rows"``, ``"zsort"``,
-    ``"cellpair"`` or ``"auto"`` (``auto_backend``). ``sample_interval``
-    (the production loop's ``output_interval``) aligns the zsort inner chunk
-    to it. ``state`` (a representative MDState, e.g. the post-warmup one)
-    sizes the cell-pair engine's pencil capacity from its occupancy census
-    when ``cfg.neighbor_capacity`` is unset (JAX ``_cellpair_tuned``)."""
+    where there is none): one of ``BACKENDS`` (``"pallas"`` is the JAX
+    package's name for ``"rows"``; ``"auto"`` is ``auto_backend``).
+    ``sample_interval`` (the production loop's ``output_interval``) aligns
+    the zsort inner chunk to it. ``state`` (a representative MDState, e.g.
+    the post-warmup one) sizes the cell-pair engine's pencil capacity from
+    its occupancy census when ``cfg.neighbor_capacity`` is unset (JAX
+    ``_cellpair_tuned``)."""
     device = resolve_device(device)
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported to ljmd_tpu_torch yet: "
-            f"{_NOT_PORTED[backend]}"
-        )
     if backend == "auto":
         backend = auto_backend(cfg, device.type == "cuda", sample_interval)
-    if backend == "rows":
+    if backend in ("rows", "pallas"):
         return _rows_engine(cfg, device)
     if backend == "zsort":
         return _zsort_engine(cfg, device, **_zsort_kwargs(sample_interval))
@@ -984,7 +1094,8 @@ def make_engine(cfg: SimConfig, backend: str = "auto", device="cuda", state=None
             cfg = cfg.replace(neighbor_capacity=capacity_from_state(
                 cfg.box_length, cfg.rc + cfg.neighbor_skin, state.r))
         return _cellpair_engine(cfg, device)
+    if backend == "neighbor":
+        return _neighbor_engine(cfg, device)
     if backend == "dense":
         return _force_engine(cfg, device)
-    raise ValueError(f"unknown backend {backend!r}; expected auto, rows, zsort, cellpair "
-                     "or dense")
+    raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")

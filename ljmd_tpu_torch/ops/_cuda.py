@@ -36,9 +36,10 @@ __all__ = ["LAUNCHES", "build", "library", "check", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ljmd_tpu_torch"
-SOURCES = ("pair_sweep_tri.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
-           "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu")
-HEADERS = ("lj_pair_terms.cuh", "pencil_pairs.cuh")
+SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
+           "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
+           "pencil_sweep_full.cu", "pencil_sweep_zband.cu")
+HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "pencil_pairs.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -49,9 +50,10 @@ LIB_NAME = "libljmd_kernels.so"
 class LaunchCounts:
     """Plain integer launch counters, one per kernel wrapper."""
 
-    NAMES = ("lj_pair_terms", "pair_sweep_tri", "fused_dense_chunk",
+    NAMES = ("lj_pair_terms", "pair_sweep_tri", "pair_sweep", "fused_dense_chunk",
              "fused_dense_chunk_ext", "build_window_lists", "fused_dense_chunk_list",
-             "pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_chunk")
+             "pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_chunk",
+             "pencil_sweep_full", "pencil_sweep_zband")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -153,9 +155,10 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry's argtypes declared."""
     lib = ctypes.CDLL(str(build()))
     for suffix, real in (("f32", _F), ("f64", _D)):
-        fn = getattr(lib, f"ljmd_pair_sweep_tri_{suffix}")
-        fn.argtypes = [_P, _P, _I, _I, real, real, real, _I, _P]
-        fn.restype = _I
+        for name in ("pair_sweep_tri", "pair_sweep"):
+            fn = getattr(lib, f"ljmd_{name}_{suffix}")
+            fn.argtypes = [_P, _P, _I, _I, real, real, real, _I, _P]
+            fn.restype = _I
         fn = getattr(lib, f"ljmd_pair_terms_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P]
         fn.restype = _I
@@ -167,8 +170,12 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        real, real, real, real, real, real, _I, _I, _I, _P]
         fn.restype = _I
-        fn = getattr(lib, f"ljmd_pencil_sweep_hs_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, _I, _P]
+        for name in ("pencil_sweep_hs", "pencil_sweep_full"):
+            fn = getattr(lib, f"ljmd_{name}_{suffix}")
+            fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, _I, _P]
+            fn.restype = _I
+        fn = getattr(lib, f"ljmd_pencil_sweep_zband_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_pencil_chunk_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -12,9 +12,10 @@ int32 sort key, the cummax run starts, the ban on ``searchsorted``) are not
 carried over; the algorithm is: two stable ``torch.sort`` calls give
 ``bin_to_slots``'s (pencil, z) lexsort with ties broken by particle index,
 one stable sort by pencil gives the rebin order (the JAX packed key
-``(pid << bits) | slot`` is unique, so any sort of it is this order), and
-a scatter-add gives the counts (no host read). The z-window code (``default_z_window``,
-``compute_z_windows``) belongs to the z-banded sweep, which is not ported.
+``(pid << bits) | slot`` is unique, so any sort of it is this order), two
+give the z-ordered rebin's lexsort, and a scatter-add gives the counts (no
+host read). The z-banded sweep's window tables (``compute_z_windows``) use
+a batched ``torch.searchsorted`` where JAX vmaps ``jnp.searchsorted``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ __all__ = [
     "PencilGrid",
     "bin_to_slots",
     "capacity_from_state",
+    "compute_z_windows",
+    "default_z_window",
     "make_pencil_grid",
     "pencil_capacity",
     "rebin_gather",
@@ -55,6 +58,18 @@ class PencilGrid:
     @property
     def pencil_width(self) -> float:
         return self.box_length / self.m_xy
+
+    def neighbor_table(self) -> np.ndarray:
+        """(n_pencils, 9) int32: the xy-neighbour pencil ids, the pencil
+        itself at k = 4, PBC-wrapped; k runs over dx, then dy in (-1, 0, 1)."""
+        m = self.m_xy
+        offsets = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+        tbl = np.empty((m * m, 9), dtype=np.int32)
+        for ix in range(m):
+            for iy in range(m):
+                for k, (dx, dy) in enumerate(offsets):
+                    tbl[ix * m + iy, k] = ((ix + dx) % m) * m + (iy + dy) % m
+        return tbl
 
 
 def pencil_capacity(n: int, density: float, box_length: float, m_xy: int) -> int:
@@ -159,21 +174,29 @@ def bin_to_slots(r: torch.Tensor, grid: PencilGrid):
     return slot, overflow
 
 
-def rebin_gather_parts(rows_r: torch.Tensor, valid: torch.Tensor, grid: PencilGrid):
+def rebin_gather_parts(rows_r: torch.Tensor, valid: torch.Tensor, grid: PencilGrid,
+                       z_order: bool = False):
     """Recompute the slot assignment from slot-layout data, in gather form:
     returns ``(order, src, valid_new, overflow)`` with the new layout
     ``new[:, t] = old[:, order[src[t]]] where valid_new[t]``. ``rows_r`` is
     (8, n_slots) with x/y/z in rows 0..2; ``valid`` (n_slots,) is 1/0.
     Invalid slots sort last; overflow victims (rank >= capacity) are
     dropped, with ``overflow`` set. Ranks within a pencil follow the old
-    slot order."""
+    slot order, or ascend in z with ``z_order`` (JAX's
+    ``lexsort((z where valid else 0, pencil))``, which the z-banded sweep's
+    windows need)."""
     ns = grid.n_slots
     cap = grid.capacity
     dev = rows_r.device
     pid = _pencil_ids(rows_r[0], rows_r[1], grid)
     is_valid = valid > 0.5
     pid_key = torch.where(is_valid, pid, grid.n_pencils)
-    order = torch.sort(pid_key, stable=True).indices
+    if z_order:
+        zkey = torch.where(is_valid, rows_r[2], torch.zeros((), dtype=rows_r.dtype, device=dev))
+        by_z = torch.sort(zkey, stable=True).indices
+        order = by_z[torch.sort(pid_key[by_z], stable=True).indices]
+    else:
+        order = torch.sort(pid_key, stable=True).indices
     counts, starts = _counts_starts(pid_key, grid.n_pencils)
     overflow = torch.any(counts > cap)
     j = torch.arange(cap, device=dev)
@@ -182,8 +205,81 @@ def rebin_gather_parts(rows_r: torch.Tensor, valid: torch.Tensor, grid: PencilGr
     return order, src, valid_new, overflow
 
 
-def rebin_gather(rows_r: torch.Tensor, valid: torch.Tensor, grid: PencilGrid):
+def rebin_gather(rows_r: torch.Tensor, valid: torch.Tensor, grid: PencilGrid,
+                 z_order: bool = False):
     """``rebin_gather_parts`` with the permutation composed:
     ``(old_of_new (ns,), valid_new (ns,) bool, overflow)``."""
-    order, src, valid_new, overflow = rebin_gather_parts(rows_r, valid, grid)
+    order, src, valid_new, overflow = rebin_gather_parts(rows_r, valid, grid, z_order)
     return order[src], valid_new, overflow
+
+
+def default_z_window(grid: PencilGrid, n: int, r_extend: float, tile_i: int = 128) -> int:
+    """Static z-window width (slots) of the z-banded sweep: the expected rank
+    span of a tile_i slice plus the rank-equivalent of the +-r_extend z
+    margin, times a fluctuation factor 1.35, + 16, + 128 for starts aligned
+    down to 128; 128-aligned, clamped to [128, capacity]."""
+    occ = n / grid.n_pencils
+    est = (tile_i + 2.0 * r_extend / grid.box_length * occ) * 1.35 + 16 + 128
+    w = ((int(est) + 127) // 128) * 128
+    return max(128, min(w, grid.capacity))
+
+
+def compute_z_windows(rows_r: torch.Tensor, valid: torch.Tensor, counts: torch.Tensor,
+                      grid: PencilGrid, window: int, r_extend: float, tile_i: int = 128):
+    """Per-(i-slice, neighbour) z-window start tables of the z-banded sweep.
+
+    For each tile_i-slot i-slice and each of its 9 xy-neighbour pencils, up
+    to two ``window``-slot rank windows that cover every j whose z (at this
+    rebin) lies within [zmin_i - r_extend, zmax_i + r_extend], circularly in
+    z: window A the main interval, window B the spill across z = 0 or z = L
+    (the sweep dedups B against A by rank). Starts are aligned down to 128
+    and clamped to capacity - window. Needs z-sorted ranks in each pencil.
+
+    Returns ``(start_a, start_b, use_b, overflow)``: three (T * 9,) int32
+    tables, T = n_slots / tile_i, and a 0-d bool set where a window cannot
+    cover its interval (pairs would be missed)."""
+    cap = grid.capacity
+    L = grid.box_length
+    dev = rows_r.device
+    T = grid.n_slots // tile_i
+    big = 2.0 * L  # z of empty slots: sorts after every real z
+    z = rows_r[2]
+    ok = valid > 0.5
+    zcol = torch.where(ok, z, big).reshape(grid.n_pencils, cap)
+    zsl = z.reshape(T, tile_i)
+    vsl = ok.reshape(T, tile_i)
+    zmin = torch.where(vsl, zsl, big).min(dim=1).values
+    zmax = torch.where(vsl, zsl, -big).max(dim=1).values
+    nonempty = vsl.any(dim=1)
+    lo = zmin - r_extend
+    hi = zmax + r_extend
+
+    nbr = torch.as_tensor(grid.neighbor_table(), dtype=torch.long, device=dev)
+    nbrs = nbr[torch.arange(T, device=dev) // (cap // tile_i)]  # (T, 9)
+    zk = zcol[nbrs]                                              # (T, 9, cap)
+
+    def ss(values, right):  # (T,) values against each (slice, neighbour) column
+        v = values[:, None, None].expand(T, 9, 1).contiguous()
+        return torch.searchsorted(zk, v, right=right)[..., 0]
+
+    s1 = ss(torch.clamp(lo, min=0.0), False)
+    e1 = ss(torch.clamp(hi, max=L), True)
+    start_a = torch.clamp((s1 // 128) * 128, max=cap - window)
+    over_a = e1 > start_a + window
+
+    wrap_lo = (lo < 0.0)[:, None].expand(T, 9)
+    wrap_hi = (hi > L)[:, None].expand(T, 9)
+    # wrap below: [lo + L, L] -> ranks [s2, count); above: [0, hi - L] -> [0, e3)
+    s2 = ss(lo + L, False)
+    e2 = counts.long()[nbrs]
+    e3 = ss(hi - L, True)
+    use_b = wrap_lo | wrap_hi
+    b_start_raw = torch.where(wrap_lo, s2, 0)
+    b_end = torch.where(wrap_lo, e2, e3)
+    start_b = torch.clamp((b_start_raw // 128) * 128, max=cap - window)
+    over_b = use_b & (b_end > start_b + window)
+
+    bad = nonempty[:, None] & (over_a | over_b | (wrap_lo & wrap_hi))
+    i32 = torch.int32
+    return (start_a.to(i32).reshape(-1), start_b.to(i32).reshape(-1),
+            use_b.to(i32).reshape(-1), torch.any(bad))

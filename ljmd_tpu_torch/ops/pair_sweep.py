@@ -1,28 +1,50 @@
-"""Per-step pair sweep of the rows engine (counterpart of
-``ops/pallas_lj.py::pallas_pair_sweep_tri``).
+"""Per-step pair sweeps of the row layout (counterpart of
+``ops/pallas_lj.py``: ``pallas_pair_sweep_tri``, ``pallas_pair_sweep`` and
+the (N, 3) force API ``lj_force_energy_pallas`` / ``make_pallas_force_fn``).
 
 Layout: positions enter as an (8, n_pad) row matrix (rows 0..2 = x, y, z,
 rows 3..7 and columns >= n zero). The output is an (8, n_pad) row matrix:
 
 - rows 0..2: total force on particle i WITHOUT the 24 prefactor (sum over
   every j != i inside the cutoff);
-- rows 3..5: sum over j > i of the per-pair e / du / ddu partials (each pair
-  counted once, so totals restore with the prefactors 4 / 24);
-- rows 6..7 and columns >= n: exactly zero.
+- rows 3..5: the e / du / ddu partials, summed over j > i by the tri sweep
+  (each pair once: totals restore with the prefactors 4 / 24) and over every
+  j != i by the ordered sweep (each pair twice: prefactors 2 / 12);
+- rows 6..7 and columns >= n: exactly zero (masks from global indices).
 
-``pair_sweep_tri`` launches ``csrc/pair_sweep_tri.cu`` on CUDA tensors and
-takes the plain twin ``pair_sweep_tri_plain`` (a dense (n, n) masked
-computation with the same row contract) on CPU tensors.
+``pair_sweep_tri`` launches ``csrc/pair_sweep_tri.cu`` and ``pair_sweep``
+``csrc/pair_sweep.cu`` on CUDA tensors; on CPU tensors each takes its plain
+twin (a dense (n, n) masked computation with the same row contract). Both
+divide exactly: the TPU kernels' approximate reciprocal is not ported.
+
+In this package "pallas" names the ordered sweep's hand-written CUDA kernel,
+as the JAX package's backend of that name is its Pallas kernel: the names
+``lj_force_energy_pallas`` and ``make_pallas_force_fn`` are kept so that a
+reader finds the counterpart.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ljmd_tpu_torch.config import SimConfig
 from ljmd_tpu_torch.ops import _cuda
+from ljmd_tpu_torch.ops.lj import LJResult, tail_corrections
 from ljmd_tpu_torch.ops.pair_terms import lj_pair_terms_plain
 
-__all__ = ["pair_sweep_tri", "pair_sweep_tri_plain", "pair_forces_plain"]
+__all__ = [
+    "lj_force_energy_pallas",
+    "make_pallas_force_fn",
+    "pair_forces_plain",
+    "pair_sweep",
+    "pair_sweep_plain",
+    "pair_sweep_tri",
+    "pair_sweep_tri_plain",
+]
+
+# Columns of the row layout are padded to a multiple of this (the kernels
+# take blocks of 32 particles; 128 also matches the JAX package's minimum).
+ROW_PAD = 128
 
 
 def _pair_geometry(pos: torch.Tensor, n: int, box_length: float,
@@ -52,9 +74,9 @@ def pair_forces_plain(pos: torch.Tensor, n: int, box_length: float,
     return out
 
 
-def pair_sweep_tri_plain(pos: torch.Tensor, n: int, box_length: float,
-                         rc_square: float, want_observables: bool = True) -> torch.Tensor:
-    """Plain PyTorch twin of the tri sweep (same (8, n_pad) row contract)."""
+def _sweep_plain(pos: torch.Tensor, n: int, box_length: float, rc_square: float,
+                 want_observables: bool, obs_pairs: str) -> torch.Tensor:
+    """Dense twin of both sweeps; ``obs_pairs`` "upper" (j > i) or "all"."""
     d, r2 = _pair_geometry(pos, n, box_length)
     eye = torch.eye(n, dtype=torch.bool, device=pos.device)
     mask = (r2 < rc_square) & ~eye
@@ -62,10 +84,46 @@ def pair_sweep_tri_plain(pos: torch.Tensor, n: int, box_length: float,
     out = torch.zeros_like(pos)
     out[0:3, :n] = (coef[None] * d).sum(dim=-1)
     if want_observables:
-        upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=pos.device), 1)
-        zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        if obs_pairs == "upper":
+            upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=pos.device), 1)
+            zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+            e, du, ddu = (torch.where(upper, t, zero) for t in (e, du, ddu))
         for row, term in ((3, e), (4, du), (5, ddu)):
-            out[row, :n] = torch.where(upper, term, zero).sum(dim=-1)
+            out[row, :n] = term.sum(dim=-1)
+    return out
+
+
+def pair_sweep_tri_plain(pos: torch.Tensor, n: int, box_length: float,
+                         rc_square: float, want_observables: bool = True) -> torch.Tensor:
+    """Plain PyTorch twin of the tri sweep (same (8, n_pad) row contract)."""
+    return _sweep_plain(pos, n, box_length, rc_square, want_observables, "upper")
+
+
+def pair_sweep_plain(pos: torch.Tensor, n: int, box_length: float,
+                     rc_square: float, want_observables: bool = True) -> torch.Tensor:
+    """Plain PyTorch twin of the ordered sweep (same (8, n_pad) row contract:
+    rows 3..5 over every j != i)."""
+    return _sweep_plain(pos, n, box_length, rc_square, want_observables, "all")
+
+
+def _launch(name: str, pos: torch.Tensor, n: int, box_length: float, rc_square: float,
+            want_observables: bool) -> torch.Tensor:
+    if pos.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {pos.device}")
+    _cuda.require_cuda_rows(name, pos)
+    if not 0 <= n <= pos.shape[1]:
+        raise ValueError(f"{name}: n={n} outside [0, n_pad={pos.shape[1]}]")
+    suffix = _cuda.dtype_suffix(pos.dtype)
+    out = torch.empty_like(pos)
+    lib = _cuda.library()
+    with torch.cuda.device(pos.device):
+        code = getattr(lib, f"ljmd_{name}_{suffix}")(
+            pos.data_ptr(), out.data_ptr(), n, pos.shape[1], float(box_length),
+            1.0 / float(box_length), float(rc_square), int(want_observables),
+            _cuda.stream_handle(pos),
+        )
+    _cuda.LAUNCHES.bump(name)
+    _cuda.check(code, name)
     return out
 
 
@@ -75,20 +133,49 @@ def pair_sweep_tri(pos: torch.Tensor, n: int, box_length: float,
     tensor, the plain twin for a CPU tensor."""
     if pos.device.type == "cpu":
         return pair_sweep_tri_plain(pos, n, box_length, rc_square, want_observables)
-    if pos.device.type != "cuda":
-        raise ValueError(f"pair_sweep_tri: unsupported device {pos.device}")
-    _cuda.require_cuda_rows("pair_sweep_tri", pos)
-    if not 0 <= n <= pos.shape[1]:
-        raise ValueError(f"pair_sweep_tri: n={n} outside [0, n_pad={pos.shape[1]}]")
-    suffix = _cuda.dtype_suffix(pos.dtype)
-    out = torch.empty_like(pos)
-    lib = _cuda.library()
-    with torch.cuda.device(pos.device):
-        code = getattr(lib, f"ljmd_pair_sweep_tri_{suffix}")(
-            pos.data_ptr(), out.data_ptr(), n, pos.shape[1], float(box_length),
-            1.0 / float(box_length), float(rc_square), int(want_observables),
-            _cuda.stream_handle(pos),
-        )
-    _cuda.LAUNCHES.bump("pair_sweep_tri")
-    _cuda.check(code, "pair_sweep_tri")
-    return out
+    return _launch("pair_sweep_tri", pos, n, box_length, rc_square, want_observables)
+
+
+def pair_sweep(pos: torch.Tensor, n: int, box_length: float,
+               rc_square: float, want_observables: bool = True) -> torch.Tensor:
+    """Ordered N x N sweep of an (8, n_pad) row matrix (JAX
+    ``pallas_pair_sweep``): the CUDA kernel for a CUDA tensor, the plain twin
+    for a CPU tensor."""
+    if pos.device.type == "cpu":
+        return pair_sweep_plain(pos, n, box_length, rc_square, want_observables)
+    return _launch("pair_sweep", pos, n, box_length, rc_square, want_observables)
+
+
+def lj_force_energy_pallas(r: torch.Tensor, box_length: float, rc_square: float,
+                           use_tail_corrections: bool = True, volume: float | None = None,
+                           rc: float | None = None) -> LJResult:
+    """The dense oracle's contract (``ops/lj.py``) through the ordered sweep:
+    (N, 3) positions in, accelerations and the three scalar totals out, in
+    r's dtype and on r's device (the kernel on a CUDA tensor, the twin on a
+    CPU one). The totals are summed in float64 and cast back, as the JAX
+    package does with x64 on; tail corrections as the oracle adds them."""
+    n = r.shape[0]
+    dtype = r.dtype
+    n_pad = -(-n // ROW_PAD) * ROW_PAD
+    pos = torch.zeros((8, n_pad), dtype=dtype, device=r.device)
+    pos[0:3, :n] = r.T
+    out = pair_sweep(pos, n, box_length, rc_square)
+    a = 24.0 * out[0:3, :n].T
+    sums = out[3:6, :n].to(torch.float64).sum(dim=1)
+    epot, d_epot, dd_epot = 2.0 * sums[0], 12.0 * sums[1], 12.0 * sums[2]
+    if use_tail_corrections:
+        if volume is None or rc is None:
+            raise ValueError("tail corrections require volume and rc")
+        e_t, d_t, dd_t = tail_corrections(n, volume, rc)
+        epot, d_epot, dd_epot = epot + e_t, d_epot + d_t, dd_epot + dd_t
+    return LJResult(a=a, epot=epot.to(dtype), d_epot=d_epot.to(dtype),
+                    dd_epot=dd_epot.to(dtype))
+
+
+def make_pallas_force_fn(cfg: SimConfig):
+    """``lj_force_energy_pallas`` bound to a config: (N, 3) -> LJResult."""
+    def force(r: torch.Tensor) -> LJResult:
+        return lj_force_energy_pallas(r, cfg.box_length, cfg.rc_square,
+                                      cfg.use_tail_corrections, cfg.volume, cfg.rc)
+
+    return force

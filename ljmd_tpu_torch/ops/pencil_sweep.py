@@ -1,6 +1,8 @@
-"""Half-shell pencil sweep of the cell-pair engine (counterpart of
+"""Pencil sweeps of the cell-pair engine (counterpart of
 ``ljmd_tpu/ops/pallas_pencil2.py``: ``pallas_pencil_sweep_hs`` and
-``pallas_pencil_sweep_mono``, which compute one function).
+``pallas_pencil_sweep_mono``, which compute one function; and of
+``ljmd_tpu/ops/pallas_pencil.py``: ``pallas_pencil_sweep`` and
+``pallas_pencil_sweep_zband``).
 
 Slot layout (``ops/cell_list.py``): (8, n_slots) rows, x/y/z in rows 0..2,
 row 3 the slot validity (1/0), row 4 the particle id. Empty slots carry
@@ -8,8 +10,9 @@ sentinel coordinates (``sentinel_fill``: x = SENT_BASE * (1 + pencil) + rank,
 y = z = 0), so a sentinel never passes the cutoff against a real particle or
 against another pencil's sentinels.
 
-The pair set is the JAX kernel's: each pencil against itself (slot
-triangular, each in-pencil pair once) and against its 4 upper xy-neighbours
+The half-shell sweep (``pencil_sweep_hs``, the engine's default) has the JAX
+kernel's pair set: each pencil against itself (slot triangular, each
+in-pencil pair once) and against its 4 upper xy-neighbours
 ``(0,1), (1,-1), (1,0), (1,1)`` (``build_half_shell_tables``), whose
 coordinates are shifted by a static image offset in x/y (z keeps its
 minimum-image round). Output (8, n_slots):
@@ -20,9 +23,23 @@ minimum-image round). Output (8, n_slots):
 - rows 6..7 zero, and every row already multiplied by the validity row
   (the JAX kernel leaves that multiply to its caller).
 
-``pencil_sweep_hs`` launches ``csrc/pencil_sweep_hs.cu`` on CUDA tensors and
-takes the plain twin ``pencil_sweep_hs_plain`` on CPU tensors. The TPU's
-x-strip plan and ``mxu_reduce`` are VMEM and MXU facts and are not ported.
+The full 9-neighbour sweeps count each pair twice, from each of its slots
+(prefactors 2 / 12), with the mask r^2 < rc^2, gi != gj, v_i * v_j > 0.5,
+so invalid slots are exactly 0 with no multiply afterwards; i-slices at or
+past a pencil's count and empty partner pencils are skipped:
+
+- ``pencil_sweep``: every slot of the 9 xy-neighbours (``build_tile_table``,
+  the pencil itself at k = 4), x/y shifted by the static image shifts of
+  ``build_shift_table``, z rounded;
+- ``pencil_sweep_zband``: per (128-slot i-slice, neighbour), only the
+  ``window`` ranks from ``start_a`` and, under ``use_b``, those from
+  ``start_b`` that window A does not hold (``compute_z_windows``; ranks
+  z-sorted), with the full minimum image in x, y and z.
+
+Each wrapper launches its ``csrc/`` kernel on CUDA tensors (``pencil_sweep_hs.cu``,
+``pencil_sweep_full.cu``, ``pencil_sweep_zband.cu``) and takes its plain twin
+on CPU tensors. The TPU's x-strip plan and ``mxu_reduce`` are VMEM and MXU
+facts and are not ported.
 """
 
 from __future__ import annotations
@@ -38,8 +55,14 @@ __all__ = [
     "SENT_BASE",
     "TILE_I",
     "build_half_shell_tables",
+    "build_shift_table",
+    "build_tile_table",
+    "pencil_sweep",
     "pencil_sweep_hs",
     "pencil_sweep_hs_plain",
+    "pencil_sweep_plain",
+    "pencil_sweep_zband",
+    "pencil_sweep_zband_plain",
     "sentinel_fill",
 ]
 
@@ -52,6 +75,8 @@ SENT_BASE = 1.0e4
 _HALF_SHELL = ((0, 1), (1, -1), (1, 0), (1, 1))
 # Visits evaluated at once by the twins (bounds their temporaries).
 _VISIT_BATCH = 256
+# Pair-tile elements evaluated at once by the full sweeps' twins.
+_PAIR_BUDGET = 1 << 23
 
 
 def build_half_shell_tables(grid: PencilGrid) -> tuple[np.ndarray, np.ndarray]:
@@ -68,6 +93,31 @@ def build_half_shell_tables(grid: PencilGrid) -> tuple[np.ndarray, np.ndarray]:
                 shf[p, k, 0] = -1 if ix + dx < 0 else (1 if ix + dx >= m else 0)
                 shf[p, k, 1] = -1 if iy + dy < 0 else (1 if iy + dy >= m else 0)
     return tbl.reshape(-1), shf.reshape(-1)
+
+
+def build_tile_table(grid: PencilGrid) -> np.ndarray:
+    """(n_pencils * 9,) int32: the k-th xy-neighbour pencil of pencil p at
+    [p * 9 + k], the pencil itself at k = 4."""
+    if grid.capacity % TILE_I != 0:
+        raise ValueError("pencil capacity must be a multiple of 128")
+    return grid.neighbor_table().reshape(-1)
+
+
+def build_shift_table(grid: PencilGrid) -> np.ndarray:
+    """(n_pencils * 9 * 2,) int32 xy image shifts in units of L: entry
+    [(p * 9 + k) * 2 + c] is -1 / 0 / +1 when the k-th neighbour of pencil p
+    wraps below / not / above in component c. With the partners shifted so,
+    x_i - x_j is the minimum image for every pair within the cutoff (pencils
+    are at least rc + skin wide, at least 3 a side)."""
+    m = grid.m_xy
+    offsets = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]  # neighbor_table's order
+    tbl = np.empty((m * m, 9, 2), dtype=np.int32)
+    for ix in range(m):
+        for iy in range(m):
+            for k, (dx, dy) in enumerate(offsets):
+                tbl[ix * m + iy, k, 0] = -1 if ix + dx < 0 else (1 if ix + dx >= m else 0)
+                tbl[ix * m + iy, k, 1] = -1 if iy + dy < 0 else (1 if iy + dy >= m else 0)
+    return tbl.reshape(-1)
 
 
 def sentinel_fill(rows_r: torch.Tensor, valid: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -170,16 +220,108 @@ def pencil_sweep_hs_plain(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
     return out * pos[3:4]
 
 
-def _check_tables(name, pos, tbl, counts, shf, grid):
-    ns, P = grid.n_slots, grid.n_pencils
+def _i_side_visits(out, pos, ista, jsta, width, shx, shy, excl, box_length, rc_square,
+                   want_observables):
+    """Add the i-side pair terms of a class of visits into ``out`` (8,
+    n_slots), the full sweeps' way (no reactions: each pair is visited from
+    both of its slots). A visit is TILE_I i slots from ``ista`` against
+    ``width`` j slots from ``jsta``; ``shx`` / ``shy`` shift the partners'
+    x / y by that many L and only z takes the round, or are None for the
+    full minimum image; ``excl`` (None: nothing) is the global start of
+    ``width`` partner slots left out. Mask: r^2 < rc^2, gi != gj,
+    v_i * v_j > 0.5. Index arrays are host numpy (V,)."""
+    dev, dt = pos.device, pos.dtype
+    L = box_length
+    inv_l = 1.0 / box_length
+    ar_i = torch.arange(TILE_I, device=dev)
+    ar_j = torch.arange(width, device=dev)
+    batch = max(1, _PAIR_BUDGET // (TILE_I * width))
+    for b0 in range(0, len(ista), batch):
+        sl = slice(b0, b0 + batch)
+        ii = torch.as_tensor(ista[sl], device=dev)[:, None] + ar_i   # (B, 128)
+        jj = torch.as_tensor(jsta[sl], device=dev)[:, None] + ar_j   # (B, W)
+        xj, yj = pos[0][jj], pos[1][jj]
+        if shx is not None:
+            xj = xj + (torch.as_tensor(shx[sl], device=dev).to(dt) * L)[:, None]
+            yj = yj + (torch.as_tensor(shy[sl], device=dev).to(dt) * L)[:, None]
+        dx = pos[0][ii][:, :, None] - xj[:, None, :]
+        dy = pos[1][ii][:, :, None] - yj[:, None, :]
+        dz = pos[2][ii][:, :, None] - pos[2][jj][:, None, :]
+        if shx is None:
+            dx = dx - L * torch.round(dx * inv_l)
+            dy = dy - L * torch.round(dy * inv_l)
+        dz = dz - L * torch.round(dz * inv_l)
+        r2 = dx * dx + dy * dy + dz * dz
+        both = pos[3][ii][:, :, None] * pos[3][jj][:, None, :]
+        mask = (r2 < rc_square) & (ii[:, :, None] != jj[:, None, :]) & (both > 0.5)
+        if excl is not None:
+            ex = torch.as_tensor(excl[sl], device=dev)[:, None, None]
+            mask = mask & ~((jj[:, None, :] >= ex) & (jj[:, None, :] < ex + width))
+        coef, du, e, ddu = lj_pair_terms_plain(r2, mask, want_observables)
+        fi = ii.reshape(-1)
+        for row, d in enumerate((dx, dy, dz)):
+            out[row].index_add_(0, fi, (coef * d).sum(dim=2).reshape(-1))
+        if want_observables:
+            for row, term in ((3, e), (4, du), (5, ddu)):
+                out[row].index_add_(0, fi, term.sum(dim=2).reshape(-1))
+
+
+def _full_visits(grid: PencilGrid, tbl, counts):
+    """(pencil, i-slice, neighbour k, partner pencil) of every visit of the
+    full sweeps, as host arrays: i-slices at or past the pencil's count and
+    empty partner pencils skipped, as the JAX kernels gate them."""
+    P, n_sub = grid.n_pencils, grid.capacity // TILE_I
+    tbl = np.asarray(tbl).reshape(P, 9)
+    cnt = np.asarray(counts)
+    p, si, k = (a.ravel() for a in np.meshgrid(np.arange(P), np.arange(n_sub), np.arange(9),
+                                               indexing="ij"))
+    j = tbl[p, k]
+    live = (si * TILE_I < cnt[p]) & (cnt[j] > 0)
+    return p[live], si[live], k[live], j[live]
+
+
+def pencil_sweep_plain(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
+                       want_observables: bool = True):
+    """Plain twin of ``pencil_sweep``: the JAX kernel's visits (the counts
+    read on the host), evaluated in batches of dense tiles."""
+    out = torch.zeros_like(pos)
+    cap = grid.capacity
+    p, si, k, j = _full_visits(grid, tbl.cpu(), counts.cpu())
+    shf = np.asarray(shf.cpu()).reshape(grid.n_pencils, 9, 2)
+    _i_side_visits(out, pos, p * cap + si * TILE_I, j * cap, cap, shf[p, k, 0], shf[p, k, 1],
+                   None, grid.box_length, rc_square, want_observables)
+    return out
+
+
+def pencil_sweep_zband_plain(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGrid,
+                             rc_square, window: int, want_observables: bool = True):
+    """Plain twin of ``pencil_sweep_zband``: window A of every visit, then
+    window B (deduped against A) where ``use_b`` is set."""
+    out = torch.zeros_like(pos)
+    cap = grid.capacity
+    p, si, k, j = _full_visits(grid, tbl.cpu(), counts.cpu())
+    e = (p * (cap // TILE_I) + si) * 9 + k
+    sa, sb, ub = (np.asarray(t.cpu())[e] for t in (start_a, start_b, use_b))
+    ista, a0 = p * cap + si * TILE_I, j * cap + sa
+    _i_side_visits(out, pos, ista, a0, window, None, None, None, grid.box_length, rc_square,
+                   want_observables)
+    b = ub > 0
+    _i_side_visits(out, pos, ista[b], j[b] * cap + sb[b], window, None, None, a0[b],
+                   grid.box_length, rc_square, want_observables)
+    return out
+
+
+def _check_tables(name, pos, grid, *tables):
+    """pos: contiguous (8, n_slots) CUDA rows; each (table, size): a
+    contiguous (size,) int32 tensor on pos's device."""
     _cuda.require_cuda_rows(name, pos)
-    if pos.shape[1] != ns:
-        raise ValueError(f"{name}: {pos.shape[1]} slots, the grid has {ns}")
-    for t, size in ((tbl, 4 * P), (counts, P), (shf, 8 * P)):
+    if pos.shape[1] != grid.n_slots:
+        raise ValueError(f"{name}: {pos.shape[1]} slots, the grid has {grid.n_slots}")
+    for t, size in tables:
         if (t.device != pos.device or t.dtype != torch.int32 or not t.is_contiguous()
                 or t.shape != (size,)):
             raise ValueError(f"{name}: tables must be contiguous int32 on {pos.device} "
-                             f"shaped (4P,), (P,), (8P,) for P={P}")
+                             f"shaped {[sz for _, sz in tables]} for P={grid.n_pencils}")
 
 
 def pencil_sweep_hs(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
@@ -191,7 +333,8 @@ def pencil_sweep_hs(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
         return pencil_sweep_hs_plain(pos, tbl, counts, shf, grid, rc_square, want_observables)
     if pos.device.type != "cuda":
         raise ValueError(f"pencil_sweep_hs: unsupported device {pos.device}")
-    _check_tables("pencil_sweep_hs", pos, tbl, counts, shf, grid)
+    P = grid.n_pencils
+    _check_tables("pencil_sweep_hs", pos, grid, (tbl, 4 * P), (counts, P), (shf, 8 * P))
     suffix = _cuda.dtype_suffix(pos.dtype)
     out = torch.zeros_like(pos)
     lib = _cuda.library()
@@ -203,4 +346,63 @@ def pencil_sweep_hs(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
             _cuda.stream_handle(pos))
     _cuda.LAUNCHES.bump("pencil_sweep_hs")
     _cuda.check(code, "pencil_sweep_hs")
+    return out
+
+
+def pencil_sweep(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
+                 want_observables: bool = True):
+    """Full 9-neighbour sweep of an (8, n_slots) slot matrix (module
+    docstring): ONE launch of ``csrc/pencil_sweep_full.cu`` on CUDA tensors
+    (the counts read on the device), the plain twin on CPU tensors. ``tbl``
+    and ``shf`` are ``build_tile_table`` and ``build_shift_table``."""
+    if pos.device.type == "cpu":
+        return pencil_sweep_plain(pos, tbl, counts, shf, grid, rc_square, want_observables)
+    if pos.device.type != "cuda":
+        raise ValueError(f"pencil_sweep: unsupported device {pos.device}")
+    P = grid.n_pencils
+    _check_tables("pencil_sweep", pos, grid, (tbl, 9 * P), (counts, P), (shf, 18 * P))
+    suffix = _cuda.dtype_suffix(pos.dtype)
+    out = torch.zeros_like(pos)
+    lib = _cuda.library()
+    with torch.cuda.device(pos.device):
+        code = getattr(lib, f"ljmd_pencil_sweep_full_{suffix}")(
+            pos.data_ptr(), out.data_ptr(), tbl.data_ptr(), counts.data_ptr(),
+            shf.data_ptr(), P, grid.capacity, float(grid.box_length),
+            1.0 / float(grid.box_length), float(rc_square), int(want_observables),
+            _cuda.stream_handle(pos))
+    _cuda.LAUNCHES.bump("pencil_sweep_full")
+    _cuda.check(code, "pencil_sweep_full")
+    return out
+
+
+def pencil_sweep_zband(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGrid, rc_square,
+                       window: int, want_observables: bool = True):
+    """z-banded sweep of an (8, n_slots) slot matrix with z-sorted ranks
+    (module docstring): ONE launch of ``csrc/pencil_sweep_zband.cu`` on CUDA
+    tensors, the plain twin on CPU tensors. The window tables are
+    ``compute_z_windows``'s: their starts are multiples of 128 and at most
+    capacity - window, which the kernel relies on."""
+    if pos.device.type == "cpu":
+        return pencil_sweep_zband_plain(pos, tbl, counts, start_a, start_b, use_b, grid,
+                                        rc_square, window, want_observables)
+    if pos.device.type != "cuda":
+        raise ValueError(f"pencil_sweep_zband: unsupported device {pos.device}")
+    P, cap = grid.n_pencils, grid.capacity
+    if window % TILE_I or not TILE_I <= window <= cap:
+        raise ValueError(f"pencil_sweep_zband: window {window} must be a multiple of 128 "
+                         f"in [128, capacity={cap}]")
+    n_tab = grid.n_slots // TILE_I * 9
+    _check_tables("pencil_sweep_zband", pos, grid, (tbl, 9 * P), (counts, P),
+                  (start_a, n_tab), (start_b, n_tab), (use_b, n_tab))
+    suffix = _cuda.dtype_suffix(pos.dtype)
+    out = torch.zeros_like(pos)
+    lib = _cuda.library()
+    with torch.cuda.device(pos.device):
+        code = getattr(lib, f"ljmd_pencil_sweep_zband_{suffix}")(
+            pos.data_ptr(), out.data_ptr(), tbl.data_ptr(), counts.data_ptr(),
+            start_a.data_ptr(), start_b.data_ptr(), use_b.data_ptr(), P, cap, int(window),
+            float(grid.box_length), 1.0 / float(grid.box_length), float(rc_square),
+            int(want_observables), _cuda.stream_handle(pos))
+    _cuda.LAUNCHES.bump("pencil_sweep_zband")
+    _cuda.check(code, "pencil_sweep_zband")
     return out

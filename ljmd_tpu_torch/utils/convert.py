@@ -12,9 +12,12 @@ parity checks start both packages from one numpy state:
   the same n_pad): the sorted column order, the ids, the visit lists and
   the sticky flag (``zsort_carry_from_numpy`` / ``zsort_carry_to_numpy``);
 - ``PencilCarry`` fields as they are (both packages lay the slots out
-  alike): the slot rows, the counts, window tables and width lists, and the
-  sticky overflow flag (``pencil_carry_from_numpy`` /
-  ``pencil_carry_to_numpy``).
+  alike): the slot rows, the counts, the z-band's window tables and the
+  width lists, and the sticky overflow flag (``pencil_carry_from_numpy`` /
+  ``pencil_carry_to_numpy``);
+- the neighbor engine's carry, (MDState, NeighborList): the list's indices,
+  reference positions and sticky overflow flag (``neighbor_list_from_numpy``,
+  ``neighbor_carry_from_numpy``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ljmd_tpu_torch.models.engine import ROW_PAD, PencilCarry, RowCarry, ZSortCarry
+from ljmd_tpu_torch.ops.neighbor import NeighborList
 from ljmd_tpu_torch.state import MDState
 
 __all__ = [
@@ -32,6 +36,8 @@ __all__ = [
     "ROW_FIELDS",
     "STATE_FIELDS",
     "ZSORT_FIELDS",
+    "neighbor_carry_from_numpy",
+    "neighbor_list_from_numpy",
     "row_carry_from_numpy",
     "row_carry_to_numpy",
     "state_from_numpy",
@@ -132,3 +138,22 @@ def pencil_carry_from_numpy(arrays, dtype=torch.float64, device="cpu") -> Pencil
 def pencil_carry_to_numpy(carry: PencilCarry) -> dict:
     """{field: array} of a PencilCarry, on the host."""
     return {k: getattr(carry, k).detach().cpu().numpy() for k in PENCIL_FIELDS}
+
+
+def neighbor_list_from_numpy(arrays, dtype=torch.float64, device="cpu") -> NeighborList:
+    """NeighborList from arrays (a mapping, or an object with attributes,
+    e.g. the JAX package's NeighborList): idx int32, r_ref in ``dtype``,
+    overflow bool."""
+    get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
+    return NeighborList(
+        idx=torch.as_tensor(np.array(get("idx")), dtype=torch.int32, device=device),
+        r_ref=torch.as_tensor(np.array(get("r_ref")), dtype=dtype, device=device),
+        overflow=torch.as_tensor(np.array(get("overflow")), dtype=torch.bool, device=device))
+
+
+def neighbor_carry_from_numpy(carry, dtype=torch.float64, device="cpu"):
+    """The neighbor engine's (MDState, NeighborList) carry from a pair of
+    the same (e.g. the JAX engine's carry)."""
+    state, nbrs = carry
+    return (state_from_numpy(state, dtype, device),
+            neighbor_list_from_numpy(nbrs, dtype, device))

@@ -128,18 +128,26 @@ def test_cellpair_production_matches_jax(small):
 
 def test_cellpair_routing_and_refusals():
     """auto on a card: N=32000 -> cellpair, N=16384 -> zsort (the JAX
-    package's accelerator branch); the CPU stays on rows. The unported
-    sweeps and an unknown trigger raise."""
+    package's accelerator branch); the CPU stays on rows. The full and
+    z-banded sweeps run unfused, the z-band falls back to the half shell
+    where its window reaches the capacity (as in JAX); the fused path
+    without the half shell, an unknown trigger and width lists without the
+    fused path raise."""
     n32000 = config_from_density(num_cells=20, density=0.8442)
     n16384 = config_from_density(num_cells=16, density=0.8442)
     assert pe.auto_backend(_port_cfg(n32000), on_accelerator=True) == "cellpair"
     assert pe.auto_backend(_port_cfg(n16384), on_accelerator=True) == "zsort"
     assert pe.auto_backend(_port_cfg(n32000), on_accelerator=False) == "rows"
     cfg = _port_cfg(config_from_density(num_cells=5, density=0.66, neighbor_skin=0.3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*2.14"):
-        pe._cellpair_engine(cfg, "cpu", z_band=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*2.11"):
-        pe._cellpair_engine(cfg, "cpu", half_shell=False)
+    # capacity 128: window 384 >= 128, the band degenerates to the half shell
+    assert pe._cellpair_engine(cfg, "cpu", z_band=True).run_fast.__name__ == "run_fast"
+    assert pe._cellpair_engine(cfg, "cpu", half_shell=False).run_fast.__name__ == \
+        "run_fast_unfused"
+    wide = cfg.replace(neighbor_capacity=512)
+    assert pe._cellpair_engine(wide, "cpu", z_band=True).run_fast.__name__ == "run_fast_unfused"
+    for kw in (dict(z_band=True), dict(half_shell=False)):
+        with pytest.raises(ValueError, match="fused pencil path"):
+            pe._cellpair_engine(wide, "cpu", use_fused=True, **kw)
     with pytest.raises(ValueError, match="rebin trigger"):
         pe._cellpair_engine(cfg, "cpu", rebin_trigger="sometimes")
     with pytest.raises(ValueError, match="width_lists"):

@@ -281,3 +281,124 @@ def test_cellpair_production_on_card_matches_cpu(cuda):
     assert counts["fused_dense_chunk"] == 0
     np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
     assert not bool(gpu.diagnostics["pencil_overflow"])
+
+
+@pytest.mark.parametrize("want_obs", [True, False])
+def test_ordered_sweep_kernel_matches_twin(cuda, want_obs):
+    """Kernel 5 against its twin at n < n_pad; rows 3..5 are twice the tri
+    kernel's totals."""
+    pos = _rows(200, 7.0, 4, cuda)
+    LAUNCHES.reset()
+    got = pair_sweep.pair_sweep(pos, 200, 7.0, 6.25, want_obs)
+    assert LAUNCHES.snapshot()["pair_sweep"] == 1
+    want = pair_sweep.pair_sweep_plain(pos, 200, 7.0, 6.25, want_obs)
+    for row in range(8):
+        _close(got[row], want[row])
+    assert bool((got[:, 200:] == 0).all())
+    tri = pair_sweep.pair_sweep_tri(pos, 200, 7.0, 6.25, want_obs)
+    _close(2 * tri[3:6].sum(1), got[3:6].sum(1))
+
+
+def test_force_api_and_entry_on_card(cuda):
+    """The (N, 3) force API through kernel 5 against the CPU twin, and the
+    flagship step on the card (auto -> the kernel) against the CPU step."""
+    from ljmd_tpu_torch.entry import entry
+    from ljmd_tpu_torch.models.forces import make_force_fn
+
+    cfg = SimConfig(num_cells=5, box_length=8.0, rc_over_box=2.5 / 8.0, dtype="float64")
+    r = torch.as_tensor(np.random.default_rng(5).uniform(0, 8.0, (cfg.n, 3)))
+    want = make_force_fn(cfg, "pallas", "cpu")(r)
+    LAUNCHES.reset()
+    got = make_force_fn(cfg, "pallas", cuda)(r.to(cuda))
+    assert LAUNCHES.snapshot()["pair_sweep"] == 1
+    _close(got.a, want.a)
+    for k in ("epot", "d_epot", "dd_epot"):
+        _close(getattr(got, k), getattr(want, k))
+    fn, args = entry(device=cuda)
+    LAUNCHES.reset()
+    out = fn(*(a.double() for a in args))
+    assert LAUNCHES.snapshot()["pair_sweep"] == 1
+    ref = entry(device="cpu")[0](*(a.cpu().double() for a in args))
+    for g, w in zip(out, ref):
+        _close(g, w)
+
+
+def _tall_slots(cuda):
+    """tests/test_torch_pencil_full.py's tall box (N=1600, L=60, 3x3
+    pencils of capacity 512), slot rows without sentinels, its tables and
+    z windows, on the card."""
+    from ljmd_tpu_torch.ops import cell_list, pencil_sweep
+
+    n, L = 1600, 60.0
+    r = torch.as_tensor(np.random.default_rng(0).uniform(0, L, size=(n, 3)))
+    grid = cell_list.make_pencil_grid(n, L, 20.0, n / L**3, 512)
+    slot, ovf = cell_list.bin_to_slots(r, grid)
+    assert not bool(ovf)
+    pos = torch.zeros((8, grid.n_slots + 1), dtype=torch.float64)
+    pos[0:3, slot] = r.T
+    pos[3, slot] = 1.0
+    pos = pos[:, :grid.n_slots].contiguous()
+    counts = pos[3].reshape(grid.n_pencils, -1).sum(1).to(torch.int32)
+    window = cell_list.default_z_window(grid, n, 2.9)
+    wins = cell_list.compute_z_windows(pos, pos[3], counts, grid, window, 2.9)[:3]
+    tbl = torch.as_tensor(pencil_sweep.build_tile_table(grid))
+    shf = torch.as_tensor(pencil_sweep.build_shift_table(grid))
+    return grid, window, pos.to(cuda), counts.to(cuda), tbl.to(cuda), shf.to(cuda), \
+        [w.to(cuda) for w in wins]
+
+
+@pytest.mark.parametrize("want_obs", [True, False])
+def test_full_and_zband_pencil_kernels_match_twins(cuda, want_obs):
+    """Kernels 11 and 12 against their twins, and against each other."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+
+    grid, window, pos, counts, tbl, shf, wins = _tall_slots(cuda)
+    LAUNCHES.reset()
+    full = pencil_sweep.pencil_sweep(pos, tbl, counts, shf, grid, 6.25, want_obs)
+    band = pencil_sweep.pencil_sweep_zband(pos, tbl, counts, *wins, grid, 6.25, window, want_obs)
+    counts_ = LAUNCHES.snapshot()
+    assert counts_["pencil_sweep_full"] == 1 and counts_["pencil_sweep_zband"] == 1
+    want_full = pencil_sweep.pencil_sweep_plain(pos.cpu(), tbl.cpu(), counts.cpu(), shf.cpu(),
+                                                grid, 6.25, want_obs)
+    want_band = pencil_sweep.pencil_sweep_zband_plain(pos.cpu(), tbl.cpu(), counts.cpu(),
+                                                      *(w.cpu() for w in wins), grid, 6.25,
+                                                      window, want_obs)
+    for row in range(8):
+        _close(full[row], want_full[row])
+        _close(band[row], want_band[row])
+        _close(band[row], full[row])
+
+
+@pytest.mark.parametrize("mode", ["full9", "zband"])
+def test_cellpair_full_sweeps_on_card_match_cpu(cuda, mode):
+    """A short cell-pair production with the full or z-banded sweep on the
+    card against the same on the CPU, float64 (capacity 512: the band is
+    live)."""
+    cfg = SimConfig(num_cells=5, box_length=9.1, rc_over_box=2.5 / 9.1, dt=0.002,
+                    total_steps=40, output_interval=10, warmup_steps=10, neighbor_skin=0.3,
+                    target_total_energy=-2000.0, dtype="float64", neighbor_capacity=512)
+    kw = {"half_shell": False} if mode == "full9" else {"z_band": True}
+    state = initialize(cfg, backend="rows", device="cpu")
+    cpu = run_production(cfg, state, engine=pe._cellpair_engine(cfg, "cpu", **kw), device="cpu")
+    LAUNCHES.reset()
+    gpu = run_production(cfg, state.to(device=cuda), engine=pe._cellpair_engine(cfg, cuda, **kw),
+                         device=cuda)
+    name = "pencil_sweep_full" if mode == "full9" else "pencil_sweep_zband"
+    counts = LAUNCHES.snapshot()
+    assert counts[name] > 0 and counts["fused_pencil_chunk"] == counts["pencil_sweep_hs"] == 0
+    np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
+
+
+def test_neighbor_engine_on_card_matches_cpu(cuda):
+    """The neighbor engine (plain torch gathers, no kernel) on the card
+    against the CPU, float64."""
+    cfg = SimConfig(num_cells=4, box_length=6.84, rc_over_box=2.5 / 6.84, dt=0.002,
+                    total_steps=60, output_interval=10, warmup_steps=10, neighbor_skin=0.3,
+                    target_total_energy=-500.0, dtype="float64")
+    state = initialize(cfg, backend="rows", device="cpu")
+    cpu = run_production(cfg, state, backend="neighbor", device="cpu")
+    LAUNCHES.reset()
+    gpu = run_production(cfg, state.to(device=cuda), backend="neighbor", device=cuda)
+    assert not any(LAUNCHES.snapshot().values())
+    np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
+    assert not bool(gpu.diagnostics["neighbor_overflow"])

@@ -177,7 +177,8 @@ def test_make_engine_backends():
     cfg = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45, target_total_energy=-60.0)
     assert pe.make_engine(cfg, "auto", device="cpu").run_fast is not None  # auto = rows on the CPU
     assert pe.make_engine(cfg, "dense", device="cpu").run_fast is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # neighbor is ported: rc + skin must stay below L/2, as in JAX
+    with pytest.raises(ValueError, match="below L/2"):
         pe.make_engine(cfg, "neighbor", device="cpu")
     # cellpair is ported: this box holds fewer than 3 pencils, as in JAX
     with pytest.raises(ValueError, match="pencils"):
@@ -185,8 +186,11 @@ def test_make_engine_backends():
     # zsort is ported: this box (rc ~ L/2) leaves it no room, as in JAX
     with pytest.raises(ValueError, match="box too small"):
         pe.make_engine(cfg, "zsort", device="cpu")
+    # pallas is the JAX package's name for the rows engine
+    assert (pe.make_engine(cfg, "pallas", device="cpu").run_fast.__name__
+            == pe.make_engine(cfg, "rows", device="cpu").run_fast.__name__ == "run_fast_ext")
     with pytest.raises(ValueError, match="unknown backend"):
-        pe.make_engine(cfg, "pallas", device="cpu")
+        pe.make_engine(cfg, "tiles", device="cpu")
 
 
 def test_make_engine_refuses_cuda_without_a_card():

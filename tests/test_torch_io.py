@@ -205,7 +205,8 @@ def test_port_sources_stay_torch_native():
         assert not re.search(r"^\s*(import jax|from jax)", src, re.M), path
         assert not re.search(r"^\s*(import ljmd_tpu\b|from ljmd_tpu[. ])", src, re.M), path
         assert "torch.compile" not in src, path
-    for name in ("lj_pair_terms.cuh", "pair_sweep_tri.cu", "fused_dense_chunk.cu"):
+    for name in ("lj_pair_terms.cuh", "pair_sweep_tri.cu", "fused_dense_chunk.cu",
+                 "pair_sweep.cu", "pencil_sweep_full.cu", "pencil_sweep_zband.cu"):
         head = open(os.path.join(PKG, "csrc", name)).read()[:1500]
         assert "Replaces: ljmd_tpu/ops/" in head, name
         assert "What bounds it" in head and "What the design does" in head, name
