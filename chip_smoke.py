@@ -75,7 +75,30 @@ checkout. Phases, each fatal on failure:
 7. zsort and cellpair against rows on the card: one float64 N=4000 state,
    32 fused steps (resorts / rebins between chunks): within 1e-10;
 8. the rows path on the card and on the CPU from one state (N=256, 200
-   steps, float64): the sampled series must agree to 1e-8.
+   steps, float64): the sampled series must agree to 1e-8;
+9. the multi-device slice (``ljmd_tpu_torch/parallel``) on thread meshes of
+   ranks on the one card:
+   a. (in 3) the rect sweeps (kernels 6, 7) against their twins at every
+      shape the runs below give them: the half ring's for N=4000 over 4
+      ranks (1000 a rank), the ring's over 2 (2000 a rank) and the
+      compensated half ring's for N=500 over 2 (250 a rank): the self
+      offset, a full hop, both sides of the gated half hop (whose two
+      halves must add up to the full hop), observables on and off, float32
+      and float64; and (in 3c) the half-shell sweep's ``n_pencils_i`` on
+      config 5's 2-rank strips (7x14 pencils plus a 14-pencil halo);
+   b. ``run_production`` through the particle-sharded engine: half ring on
+      4 ranks and ring on 2 on the N=4000 cut, the compensated engine on
+      the reference default in float32 (N=500, dt=1e-4) on 2 ranks, and the
+      sharded pencil engine on config 5 on 2 strips at its default chunk;
+      launch checks, drift, artifacts, ``pencil_overflow``; then each from
+      one float64 state against the single-card engine it splits (rows; the
+      unfused cell-pair engine), within 1e-9 over 100 steps; each dense
+      sharded run's drift beside the rows engine's over the same cut from
+      the same state, for two seeds; then ``dryrun_multichip(4)``;
+   c. the rates of both sharded engines at 1, 2 and 4 ranks (the sharded
+      pencil at 1, 2 and 7: 14 pencil columns do not split over 4) beside
+      the single-card engines', their flags clear; the time of one
+      thread-mesh hand-off at 1, 2 and 4 ranks and of one small launch.
 
 The lines before the last hold the particle-steps/s of the engines beside
 the card's name and power limit, one JSON object with the kernels' launches,
@@ -116,6 +139,10 @@ DRIFT_BOUND = {
     "n4000_f32_neighbor": 1e-3,
     "n62500_f32_cap512_full9": 1e-3,
     "n62500_f32_cap512_zband": 1e-3,
+    "n4000_f32_half_ring_d4": 1e-3,
+    "n4000_f32_ring_d2": 1e-3,
+    "reference_default_f32_compensated_half_ring_d2": 1e-3,
+    "n62500_f32_sharded_pencil_d2": 1e-3,
 }
 
 # Kernel vs plain twin, max |kernel - twin| / max(1, max |twin|) per output
@@ -182,6 +209,45 @@ FULL_SWEEP_CHUNK = 8
 # on those faces overlap) and requires both limits to reject it.
 PATHS_STEPS = 100
 PATHS_TOL = {"float64": 1e-9, "float32": 5e-3}
+# The multi-device slice: the rect kernels at every shape the main path's
+# sharded runs give them (RECT_SHAPES: shape label, SHAPES entry, ranks, the
+# rect kernel's hops, the rect-Newton kernel's hops): the half ring on 4
+# ranks at N=4000 (1000 a rank: a full hop and the gated half hop), the
+# ring on 2 (2000 a rank), the compensated half ring on 2 at N=500 (250 a
+# rank: the gated half hop alone); the strip sweep on STRIP_D strips of
+# config 5; production cuts (intervals kept), from warmups by the
+# single-card engines; the rates over RATE_STEPS fast steps (the sharded
+# pencil over RATE_PENCIL_STEPS).
+RECT_SHAPES = (
+    ("N=4000 d=4", 1, 4, ("self", "hop"), ("self", "hop", "half")),
+    ("N=4000 d=2", 1, 2, ("self", "hop"), ()),
+    ("N=500 d=2", 0, 2, (), ("half",)),
+)
+STRIP_D = 2
+RECT_KERNELS = ("pair_sweep_rect", "pair_sweep_rect_newton")
+MULTI_N4000_CUT = {"total_steps": 2_000, "warmup_steps": 1_000}
+MULTI_REF_CUT = {"total_steps": 2_000, "warmup_steps": 500, "dtype": "float32"}
+MULTI_N62500_CUT = {"total_steps": 1_000, "warmup_steps": 500}
+RATE_STEPS = 200
+RATE_PENCIL_STEPS = 100
+# Each sharded production's energy drift beside the drift of the
+# single-card engine it splits, over the same cut from the same state, for
+# the cut's seed and DRIFT_SEEDS - 1 more (each its own warmup): a drift the
+# single-card engine shares belongs to the cut, not to the decomposition.
+DRIFT_SEEDS = 2
+# The limit on a sharded drift, as a multiple of the single-card engine's on
+# that seed. float32 at dt = 0.005 (N=4000): the trajectories part within
+# the cut, and the drifts of four engines on it spread from 0.10x to 1.56x
+# the rows engine's over two seeds (on an H100 80GB HBM3 at 700 W); 3x flags
+# a systematic loss, such as reactions summed in a lower precision.
+# Compensated float32 at dt = 1e-4 (N=500): the trajectories stay together
+# over the cut and the sharded drift matched rows' to 4e-4 of itself; 1.01x
+# flags any loss.
+DRIFT_VS_SINGLE = {"float32": 3.0, "compensated": 1.01}
+# Thread-mesh hand-offs, timed as HANDOFF_REPS psums of one number on the
+# card at each rank count of the rates, beside the host's time for one small
+# launch: the host's share of a sharded step on this call's host.
+HANDOFF_REPS = 500
 
 # Least time of a kernel's work (bound_ms): the larger of its bytes (each
 # input read once, each output written once) over the HBM rate and its
@@ -444,6 +510,139 @@ def phase_kernels(torch) -> dict:
     return cases
 
 
+def block_pairs(torch, xi, xj, box_length: float, rc_square: float, gi0: int, gj0: int,
+                i_lo: int = 0, j_hi: int | None = None) -> tuple[int, int]:
+    """(candidates, pairs inside the cutoff) of the rows xi (ni, 3) against
+    xj (nj, 3) over the active range [i_lo, ni) x [0, j_hi), gi != gj by
+    global index; counted on the card in float64."""
+    x, y = xi.double()[i_lo:], xj.double()[:j_hi]
+    d = x[:, None, :] - y[None, :, :]
+    d -= box_length * torch.round(d / box_length)
+    r2 = (d * d).sum(dim=-1)
+    gi = gi0 + i_lo + torch.arange(x.shape[0], device=x.device)
+    gj = gj0 + torch.arange(y.shape[0], device=x.device)
+    other = gi[:, None] != gj[None, :]
+    return int(other.sum()), int(((r2 < rc_square) & other).sum())
+
+
+def phase_rect_kernels(torch) -> dict:
+    """Kernels 6 and 7 (the particle-sharded path's hops) against their
+    twins at each shape the main path gives them (RECT_SHAPES): the self
+    offset (gi0 == gj0), a full hop, the two sides of the gated half hop
+    (the low rank sweeps i rows >= ni/2 against block d/2, the high rank j
+    rows < ni/2 against block 0; together the full block pair once),
+    observables off and on, float32 and float64, on shuffled perturbed
+    lattices."""
+    import numpy as np
+
+    from ljmd_tpu_torch.ops import pair_sweep
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    cases = {name: [] for name in RECT_KERNELS}
+    for shape, which, d, rect_hops, newton_hops in RECT_SHAPES:
+        label, k, box, rc = SHAPES[which]
+        rc2 = rc * rc
+        for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+            tol = KERNEL_TOL[dname]
+            n, r, _ = perturbed_fcc(k, box, 1234 + k, torch, dtype, dev)
+            # Shuffled, so that every block pair has pairs inside the cutoff
+            # (in lattice order blocks 0 and d/2 lie apart: the masks would go
+            # untested).
+            r[:, :n] = r[:, torch.as_tensor(np.random.default_rng(k).permutation(n), device=dev)]
+            ni = n // d
+            half = ni // 2
+
+            def blk(s):
+                out = torch.zeros((8, -(-ni // 128) * 128), dtype=dtype, device=dev)
+                out[:, :ni] = r[:, s * ni:(s + 1) * ni]
+                return out
+
+            rows_bytes = 8 * blk(0).shape[1] * r.element_size()
+            xyz = [blk(s)[0:3, :ni].T for s in range(d)]
+            rect = {"self": (1, 1), "hop": (1, 0)}
+            newton = {"self": ((1, 1, 0, ni),), "hop": ((1, 0, 0, ni),),
+                      "half": ((0, d // 2, half, ni), (d // 2, 0, 0, half), (0, d // 2, 0, ni))}
+            for want_obs in (False, True):
+                for hop in rect_hops:
+                    si, sj = rect[hop]
+                    args = (blk(si), blk(sj), ni, ni, si * ni, sj * ni, box, rc2, want_obs)
+                    got = pair_sweep.pair_sweep_rect(*args)
+                    want = pair_sweep.pair_sweep_rect_plain(*args)
+                    errs = [rel_err(got[row], want[row]) for row in range(6)]
+                    worst = max(e[1] for e in errs)
+                    tag = f"pair_sweep_rect {shape} {hop} {dname} obs={want_obs}"
+                    require(bool((got[6:] == 0).all()) and bool((got[:, ni:] == 0).all()),
+                            f"{tag}: padding rows/columns not zero")
+                    require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
+                    cand, cut = block_pairs(torch, xyz[si], xyz[sj], box, rc2, si * ni, sj * ni)
+                    cases["pair_sweep_rect"].append({
+                        **bound(dname, sweep_flops(cand, cut, want_obs), 3 * rows_bytes),
+                        "shape": f"{shape} {hop}", "dtype": dname,
+                        "observables": want_obs, "candidates": cand, "cut_pairs": cut,
+                        "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+                        "ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_rect(*args), 50),
+                        "plain_ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_rect_plain(
+                            *args), 5)})
+                for hop in newton_hops:
+                    outs = []
+                    for si, sj, i_lo, j_hi in newton[hop]:
+                        args = (blk(si), blk(sj), ni, ni, si * ni, sj * ni, box, rc2, i_lo, j_hi,
+                                want_obs)
+                        got = pair_sweep.pair_sweep_rect_newton(*args)
+                        want = pair_sweep.pair_sweep_rect_newton_plain(*args)
+                        outs.append(got)
+                        errs = [rel_err(g[row], w[row]) for g, w in zip(got, want)
+                                for row in range(6)]
+                        worst = max(e[1] for e in errs)
+                        tag = (f"pair_sweep_rect_newton {shape} {hop} [{i_lo}, {ni}) x [0, "
+                               f"{j_hi}) {dname} obs={want_obs}")
+                        require(bool((got[1][3:] == 0).all()), f"{tag}: acc_j rows 3..7 not 0")
+                        require(bool((got[0][6:] == 0).all()) and bool((got[0][:, ni:] == 0).all())
+                                and bool((got[1][:, ni:] == 0).all()), f"{tag}: padding not zero")
+                        require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
+                        if hop == "half" and (i_lo, j_hi) == (0, ni):
+                            continue  # the reference for the two halves, below
+                        side = "" if hop != "half" else ("_low" if i_lo else "_high")
+                        cand, cut = block_pairs(torch, xyz[si], xyz[sj], box, rc2, si * ni,
+                                                sj * ni, i_lo, j_hi)
+                        cases["pair_sweep_rect_newton"].append({
+                            **bound(dname, sweep_flops(cand, cut, want_obs), 4 * rows_bytes),
+                            "shape": f"{shape} {hop}{side}", "dtype": dname,
+                            "observables": want_obs, "i_lo": i_lo, "j_hi": j_hi,
+                            "candidates": cand, "cut_pairs": cut,
+                            "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+                            "ms": cuda_time_ms(
+                                torch, lambda: pair_sweep.pair_sweep_rect_newton(*args), 50),
+                            "plain_ms": cuda_time_ms(
+                                torch, lambda: pair_sweep.pair_sweep_rect_newton_plain(*args), 5)})
+                    if hop != "half":
+                        continue
+                    # The gated half hop's two sides cover the block pair {0, d/2}
+                    # once: the low rank's i side plus the high rank's reactions on
+                    # block 0, and so on.
+                    lo, hi, full = outs
+                    pairs = ((lo[0][0:3] + hi[1][0:3], full[0][0:3]),
+                             (lo[1][0:3] + hi[0][0:3], full[1][0:3]))
+                    if want_obs:
+                        pairs += ((lo[0][3:6].sum(1) + hi[0][3:6].sum(1), full[0][3:6].sum(1)),)
+                    cover = max(rel_err(a, b)[1] for a, b in pairs)
+                    require(cover <= tol, f"pair_sweep_rect_newton {shape} {dname} obs={want_obs}: "
+                                          f"the two halves of the gated hop differ from the full "
+                                          f"hop by {cover:.3e} > {tol}")
+                    cases["pair_sweep_rect_newton"][-1]["halves_vs_full_rel_err"] = cover
+    for name, cs in cases.items():
+        for c in cs:
+            log(f"kernel {name} {c['shape']} {c['dtype']} observables {c['observables']}: rel "
+                f"err {c['rel_err']:.3e} (tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms "
+                f"vs plain {c['plain_ms']:.4f} ms per call; bound {c['bound_ms']:.5f} ms "
+                f"({c['bound_by']}, {c['candidates']} candidates, {c['cut_pairs']} inside rc)"
+                + (f"; gated halves vs full hop {c['halves_vs_full_rel_err']:.3e}"
+                   if "halves_vs_full_rel_err" in c else ""))
+    LAUNCHES.reset()  # comparison launches do not count for the main path
+    return cases
+
+
 def sorted_fluid(cfg, n_pad, seed, torch, dtype, device):
     """Seeded perturbed FCC lattice of ``cfg`` in ascending-z column order,
     as (8, n_pad) rows, with velocities and consistent accelerations (the
@@ -606,6 +805,52 @@ def zband_candidates(torch, valid, nbr_tbl, wins, cap: int, window: int) -> int:
     return int(round((float(per_slice.sum()) - float(v.sum())) / 2))
 
 
+def strip_inputs(torch, c, grid, rank: int, rc_square: float):
+    """The strip sweep's inputs for ``rank`` of a STRIP_D-rank split of the
+    cell-pair carry ``c``: ((rows of the strip plus halo, strip table,
+    strip-plus-halo counts, the rank's shifts, grid, rc^2), p_loc, pair-once
+    candidates among valid slots, pairs inside the cutoff). The pairs are
+    counted over the sweep's own visits (``table_visits``), on the card."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+    from ljmd_tpu_torch.parallel import spatial_pencil as sp
+
+    m, cap = grid.m_xy, grid.capacity
+    m_xl = m // STRIP_D
+    p_loc = m_xl * m
+    w = p_loc * cap
+    nxt = (rank + 1) % STRIP_D
+    dev = c.r.device
+    r_aug = torch.cat([c.r[:, rank * w:(rank + 1) * w], c.r[:, nxt * w:nxt * w + m * cap]], 1)
+    counts = sp.augmented_counts(c.counts, m, STRIP_D)[rank]
+    tbl = torch.as_tensor(sp._local_half_shell_table(m, m_xl), device=dev)
+    shf = torch.as_tensor(sp._device_shift_tables(m, m_xl, STRIP_D)[rank], device=dev)
+    cnt = counts.long().cpu()
+    cand = int((cnt[:p_loc] * (cnt[:p_loc] - 1) // 2).sum()
+               + (cnt[:p_loc, None] * cnt[tbl.long().cpu().reshape(-1, 4)]).sum())
+    x = r_aug.double()
+    valid = x[3] > 0.5
+    L = grid.box_length
+    cut = 0
+    for ista, jsta, shx, shy, width, tri in pencil_sweep.table_visits(
+            p_loc, cap, tbl.cpu(), shf.cpu(), cnt):
+        ar_i, ar_j = torch.arange(128, device=dev), torch.arange(width, device=dev)
+        for b0 in range(0, len(ista), 256):
+            ii = torch.as_tensor(ista[b0:b0 + 256], device=dev)[:, None] + ar_i
+            jj = torch.as_tensor(jsta[b0:b0 + 256], device=dev)[:, None] + ar_j
+            off = [torch.as_tensor(sh[b0:b0 + 256], device=dev).double()[:, None] * L
+                   for sh in (shx, shy)]
+            dx = x[0][ii][:, :, None] - (x[0][jj] + off[0])[:, None, :]
+            dy = x[1][ii][:, :, None] - (x[1][jj] + off[1])[:, None, :]
+            dz = x[2][ii][:, :, None] - x[2][jj][:, None, :]
+            dz -= L * torch.round(dz / L)
+            inside = (dx * dx + dy * dy + dz * dz < rc_square) & valid[ii][:, :, None] \
+                & valid[jj][:, None, :]
+            if tri:
+                inside &= (ar_j[None, :] > ar_i[:, None])[None]
+            cut += int(inside.sum())
+    return (r_aug, tbl, counts, shf, grid, rc_square), p_loc, cand, cut
+
+
 def phase_pencil_kernels(torch, cfg, state) -> dict:
     """Kernels 13+14, 15, 16 and 11 (the cell-pair path) against their twins
     at config 5's geometry, from ``state`` (an N=62500 fluid), at each of
@@ -668,6 +913,37 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                     "ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_hs(*args), 20),
                     "plain_ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_hs_plain(
                         *args), 2, warmup=1)})
+
+            # Kernel 14's n_pencils_i: each rank's strip of a STRIP_D-rank
+            # split plus its halo (the next strip's first x-column).
+            for rank in range(STRIP_D):
+                args, p_loc, s_cand, s_cut = strip_inputs(torch, c, grid, rank, rc2)
+                valid_aug = args[0][3] > 0.5
+                for want_obs in (True, False):
+                    got = pencil_sweep.pencil_sweep_hs(*args, want_obs, n_pencils_i=p_loc)
+                    want = pencil_sweep.pencil_sweep_hs_plain(*args, want_obs, n_pencils_i=p_loc)
+                    require(bool((got[6:] == 0).all()) and bool((got[:, ~valid_aug] == 0).all()),
+                            f"pencil_sweep_hs strip {label} {dname}: rows 6-7 or empty slots "
+                            "not zero")
+                    require(bool((got[3:, p_loc * cap:] == 0).all()),
+                            f"pencil_sweep_hs strip {label} {dname}: observables on the halo")
+                    errs = [rel_err(got[row, valid_aug], want[row, valid_aug]) for row in range(6)]
+                    worst = max(e[1] for e in errs)
+                    require(worst <= tol, f"pencil_sweep_hs strip {rank} {label} {dname} "
+                                          f"obs={want_obs}: rel err {worst:.3e} > {tol}")
+                    if rank:
+                        continue  # rank 0's strip is timed (the same work as rank 1's)
+                    aug_bytes = 2 * 8 * args[0].shape[1] * size + 4 * sum(
+                        t.numel() for t in args[1:4])
+                    cases["pencil_sweep_hs"].append({
+                        **base, **bound(dname, sweep_flops(s_cand, s_cut, want_obs), aug_bytes),
+                        "shape": f"{label} strip {p_loc}+{grid.m_xy}", "candidates": s_cand,
+                        "cut_pairs": s_cut, "n_pencils_i": p_loc, "observables": want_obs,
+                        "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+                        "ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_hs(
+                            *args, want_obs, n_pencils_i=p_loc), 20),
+                        "plain_ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_hs_plain(
+                            *args, want_obs, n_pencils_i=p_loc), 2, warmup=1)})
 
             # Kernel 11: the full 9-neighbour sweep on the same slots; the
             # same pair set as the half shell, pair once.
@@ -813,7 +1089,7 @@ def _check_launches(run: str, counts: dict, needed: tuple, forbidden: tuple = ()
 
 FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
-                + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS)
+                + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -1111,6 +1387,225 @@ def phase_full_sweeps(torch, cfg5, state, tmp: str) -> tuple[dict, dict]:
     return runs, cross
 
 
+def phase_multidevice(torch, tmp: str) -> tuple[dict, dict, dict, dict]:
+    """The particle-sharded engines through ``run_production`` on thread
+    meshes on the card (module docstring, 9b). Returns (runs, float64 cross
+    diffs, drifts beside the single-card engines', {config: (cfg,
+    post-warmup state)} for the rates)."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.entry import dryrun_multichip
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.simulation import initialize, run_production
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+    from ljmd_tpu_torch.ops.cell_list import capacity_from_state
+    from ljmd_tpu_torch.parallel.mesh import make_mesh
+    from ljmd_tpu_torch.parallel.spatial import make_spatial_engine
+    from ljmd_tpu_torch.parallel.spatial_pencil import (
+        default_inner_chunk,
+        make_sharded_pencil_engine,
+    )
+
+    def others(*need):
+        return tuple(k for k in MAIN_KERNELS if k not in need)
+
+    def cross_check(name, cfg, state, make, ref_engine):
+        """CROSS_STEPS fast steps in float64 from one state: the sharded
+        engine against the single-card one, within CROSS_TOL. The two sum
+        each particle's forces in another order (the hops, the halo's
+        reactions) and nothing else differs, so ~1e-16 a step grown by the
+        fluid's chaos stays near 1e-13 over 100 steps, while one pair lost
+        or doubled at a block or strip edge moves a velocity by ~1e-3."""
+        cfg64 = cfg.replace(dtype="float64")
+        s64 = state.to(dtype=torch.float64)
+        eng, ref = make(cfg64), ref_engine(cfg64)
+        c = eng.run_fast(eng.init(s64)[0], CROSS_STEPS)
+        flags = {k: bool(v) for k, v in eng.diagnostics(c).items()}
+        require(not any(flags.values()), f"{name} float64: {flags}")
+        want = ref.get_state(ref.run_fast(ref.init(s64)[0], CROSS_STEPS))
+        diff = _cross_diff(torch, eng.get_state(c), want, cfg.box_length)
+        log(f"{name} vs the single-card engine (N={cfg.n}, float64, {CROSS_STEPS} steps from "
+            f"one state): max rel diff over r, ru, v, a {diff:.3e} (tol {CROSS_TOL:.0e})")
+        require(diff <= CROSS_TOL, f"{name} and the single-card engine disagree")
+        return diff
+
+    def drift_of(cfg, state, engine):
+        res = run_production(cfg, state, engine=engine, device=DEVICE)
+        flags = {k: bool(v) for k, v in res.diagnostics.items()}
+        require(not any(flags.values()), f"drift run: diagnostic flag set: {flags}")
+        return _drift(res.series[2].cpu())
+
+    def drift_beside(name, cfg, state, make, single, limit):
+        """The sharded drift (the production's, then from each further
+        seed's own warmup) beside the single-card engine's on the same cut
+        and state; at most ``limit`` times the latter."""
+        out = []
+        for k in range(DRIFT_SEEDS):
+            c = cfg.replace(seed=cfg.seed + k)
+            st = state if k == 0 else initialize(c, backend="rows", device=DEVICE)
+            sharded = runs[name]["drift"] if k == 0 else drift_of(c, st, make(c))
+            out.append({"seed": c.seed, "sharded": sharded, "single": drift_of(c, st, single(c))})
+        log(f"{name}: |dE/E| over the same {cfg.total_steps}-step cut from the same state, "
+            "sharded vs single card: " + ", ".join(
+                f"seed {x['seed']} {x['sharded']:.3e} vs {x['single']:.3e}" for x in out)
+            + f" (limit {limit}x)")
+        for x in out:
+            require(x["sharded"] <= limit * x["single"],
+                    f"{name}: seed {x['seed']} drifts {x['sharded']:.3e}, over {limit}x the "
+                    f"single-card engine's {x['single']:.3e} on the same cut")
+        return out
+
+    runs, cross, drifts, states = {}, {}, {}, {}
+    n4000 = load_config(str(REPO / "examples" / "n4000_production.json")).replace(
+        **MULTI_N4000_CUT)
+    state = initialize(n4000, backend="rows", device=DEVICE)
+    states["n4000"] = (n4000, state)
+    for comm, d, need in (("half_ring", 4, ("pair_sweep_tri", "pair_sweep_rect_newton")),
+                          ("ring", 2, ("pair_sweep_rect",))):
+        name = f"n4000_f32_{comm}_d{d}"
+        mesh = make_mesh(particle=d, device=DEVICE)
+        try:
+            runs[name], _ = _production_run(torch, name, n4000, state, tmp, need, others(*need),
+                                            engine=make_spatial_engine(n4000, mesh, comm=comm))
+            cross[name] = cross_check(name, n4000, state,
+                                      lambda c: make_spatial_engine(c, mesh, comm=comm),
+                                      lambda c: pe._rows_engine(c, DEVICE))
+            drifts[name] = drift_beside(name, n4000, state,
+                                        lambda c: make_spatial_engine(c, mesh, comm=comm),
+                                        lambda c: pe._rows_engine(c, DEVICE),
+                                        DRIFT_VS_SINGLE["float32"])
+        finally:
+            mesh.close()
+
+    ref = load_config(str(REPO / "examples" / "reference_default.json")).replace(**MULTI_REF_CUT)
+    state = initialize(ref, backend="rows", device=DEVICE)
+    name = "reference_default_f32_compensated_half_ring_d2"
+    mesh = make_mesh(particle=2, device=DEVICE)
+    try:
+        eng = make_spatial_engine(ref, mesh)
+        carry, _ = eng.init(state)
+        require(all(isinstance(x, tuple) and len(x) == 3 for x in carry),
+                f"{name}: the float32 dt=1e-4 carry holds no compensation terms")
+        runs[name], _ = _production_run(torch, name, ref, state, tmp,
+                                        ("pair_sweep_tri", "pair_sweep_rect_newton"),
+                                        others("pair_sweep_tri", "pair_sweep_rect_newton"),
+                                        engine=eng)
+        drifts[name] = drift_beside(name, ref, state, lambda c: make_spatial_engine(c, mesh),
+                                    lambda c: pe._rows_engine(c, DEVICE),
+                                    DRIFT_VS_SINGLE["compensated"])
+    finally:
+        mesh.close()
+
+    cfg5 = load_config(str(REPO / "examples" / "n62500_large.json")).replace(**MULTI_N62500_CUT)
+    state = initialize(cfg5, backend="auto", device=DEVICE)
+    cfg5 = cfg5.replace(neighbor_capacity=capacity_from_state(
+        cfg5.box_length, cfg5.rc + cfg5.neighbor_skin, state.r))
+    states["n62500"] = (cfg5, state)
+    name = f"n62500_f32_sharded_pencil_d{STRIP_D}"
+    top = float(torch.sqrt((state.v.double() ** 2).sum(dim=1)).max())
+    mesh = make_mesh(particle=STRIP_D, device=DEVICE)
+    try:
+        runs[name], _ = _production_run(
+            torch, name, cfg5, state, tmp, ("pencil_sweep_hs",), others("pencil_sweep_hs"),
+            engine=make_sharded_pencil_engine(cfg5, mesh))
+        cross[name] = cross_check(
+            name, cfg5, state, lambda c: make_sharded_pencil_engine(c, mesh),
+            lambda c: pe._cellpair_engine(c, DEVICE, use_fused=False, inner_chunk=8))
+    finally:
+        mesh.close()
+    log(f"{name}: capacity {cfg5.neighbor_capacity} (the post-warmup census), "
+        f"{cfg5.n} particles on {STRIP_D} strips of 7x14 pencils; the engine's default chunk "
+        f"from the production's first state {default_inner_chunk(cfg5, top)} steps between "
+        f"rebins (top speed {top:.4f}; set anew at each run_fast)")
+
+    LAUNCHES.reset()
+    t0 = time.time()
+    dryrun_multichip(4)
+    log(f"dryrun_multichip(4) on the card: {time.time() - t0:.2f}s")
+    LAUNCHES.reset()
+    return runs, cross, drifts, states
+
+
+def phase_multidevice_rates(torch, states: dict) -> dict:
+    """Fast-step rates (host clock after a synchronize) of the sharded
+    engines on thread meshes of 1, 2 and 4 ranks on the one card, beside the
+    single-card engines from the same state: what the decomposition costs on
+    one card, not scaling (the ranks share the card and one stream). Each
+    run's diagnostic flags must stay clear. Then the host's share: one
+    thread-mesh hand-off (a psum of one number) at each rank count, and one
+    small launch."""
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+    from ljmd_tpu_torch.parallel.mesh import make_mesh
+    from ljmd_tpu_torch.parallel.spatial import make_spatial_engine
+    from ljmd_tpu_torch.parallel.spatial_pencil import make_sharded_pencil_engine
+
+    def rate(name, cfg, eng, state, steps):
+        c = eng.run_fast(eng.init(state)[0], 8)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        c = eng.run_fast(c, steps)
+        torch.cuda.synchronize()
+        out = cfg.n * steps / (time.time() - t0)
+        flags = {k: bool(v) for k, v in eng.diagnostics(c).items()}
+        require(not any(flags.values()), f"rate run {name}: diagnostic flag set: {flags}")
+        return out
+
+    out = {}
+    cfg, state = states["n4000"]
+    out["n4000 rows (1 card)"] = rate("rows", cfg, pe._rows_engine(cfg, DEVICE), state,
+                                      RATE_STEPS)
+    for d in (1, 2, 4):
+        mesh = make_mesh(particle=d, device=DEVICE)
+        try:
+            key = f"n4000 half_ring d={d}"
+            out[key] = rate(key, cfg, make_spatial_engine(cfg, mesh), state, RATE_STEPS)
+        finally:
+            mesh.close()
+    cfg, state = states["n62500"]
+    out["n62500 cellpair (1 card)"] = rate("cellpair", cfg, pe._cellpair_engine(cfg, DEVICE),
+                                           state, RATE_PENCIL_STEPS)
+    for d in (1, 2, 7):
+        mesh = make_mesh(particle=d, device=DEVICE)
+        try:
+            key = f"n62500 sharded_pencil d={d}"
+            out[key] = rate(key, cfg, make_sharded_pencil_engine(cfg, mesh), state,
+                            RATE_PENCIL_STEPS)
+        finally:
+            mesh.close()
+    LAUNCHES.reset()
+    for k, v in out.items():
+        log(f"multi-device rate {k}: {v:.4e} particle-steps/s (float32, fast steps)")
+
+    def handoffs(comm, x):
+        for _ in range(HANDOFF_REPS):
+            x = comm.psum(x)
+        return x
+
+    x = torch.zeros((), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(HANDOFF_REPS):
+        x = x + 1.0
+    torch.cuda.synchronize()
+    host = {"launch_ms": 1e3 * (time.time() - t0) / HANDOFF_REPS}
+    for d in (1, 2, 4):
+        mesh = make_mesh(particle=d, device=DEVICE)
+        try:
+            mesh.run(handoffs, [x] * d)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            mesh.run(handoffs, [x] * d)
+            torch.cuda.synchronize()
+            host[f"psum_ms d={d}"] = 1e3 * (time.time() - t0) / HANDOFF_REPS
+        finally:
+            mesh.close()
+    log("host share on this call's host: one small launch "
+        f"{host['launch_ms']:.4f} ms; one thread-mesh psum (every rank's turn) "
+        + ", ".join(f"{k.split()[1]} {v:.4f} ms" for k, v in host.items() if k != "launch_ms"))
+    out["host"] = host
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def _planted_tables(build):
     """``build_half_shell_tables`` with a planted fault: the first upper
@@ -1328,6 +1823,7 @@ def main() -> int:
     env = phase_environment(torch)
     phase_build()
     cases = phase_kernels(torch)
+    cases.update(phase_rect_kernels(torch))
     cases.update(phase_list_kernels(torch))
     with tempfile.TemporaryDirectory(prefix="ljmd_chip_smoke_") as tmp:
         runs, final_cfg, final_state = phase_main_path(torch, tmp)
@@ -1338,8 +1834,11 @@ def main() -> int:
         runs["n4000_f32_neighbor"] = _cli_run("n4000_f32_neighbor", n4000, "neighbor", tmp, (),
                                               MAIN_KERNELS)
         full_runs, full_cross = phase_full_sweeps(torch, cfg5, states5["cap512_end"], tmp)
+        multi_runs, multi_cross, multi_drifts, multi_states = phase_multidevice(torch, tmp)
+    multi_rates = phase_multidevice_rates(torch, multi_states)
     runs.update(cp_runs)
     runs.update(full_runs)
+    runs.update(multi_runs)
     state5 = states5["cap512_end"]
     # A third stretch of the fluid: the capacity-512 run's end with the
     # velocities reversed (it retraces the stretch before it).
@@ -1363,7 +1862,9 @@ def main() -> int:
                 "fused_pencil_chunk": ("N=62500 cap=384", "float32"),
                 "fused_pencil_width_chunk": ("N=62500 cap=512", "float32"),
                 "pencil_sweep_full": ("N=62500 cap=512", "float32"),
-                "pencil_sweep_zband": ("N=62500 cap=512", "float32")}
+                "pencil_sweep_zband": ("N=62500 cap=512", "float32"),
+                "pair_sweep_rect": ("N=4000 d=2 hop", "float32"),
+                "pair_sweep_rect_newton": ("N=4000 d=4 hop", "float32")}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
@@ -1377,6 +1878,8 @@ def main() -> int:
         "fused_pencil_width_chunk": ("ljmd_tpu_torch/csrc/fused_pencil_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:609"),
         "pencil_sweep_full": ("ljmd_tpu_torch/csrc/pencil_sweep_full.cu", "ljmd_tpu/ops/pallas_pencil.py:309"),
         "pencil_sweep_zband": ("ljmd_tpu_torch/csrc/pencil_sweep_zband.cu", "ljmd_tpu/ops/pallas_pencil.py:256"),
+        "pair_sweep_rect": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:364"),
+        "pair_sweep_rect_newton": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:533"),
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
@@ -1400,12 +1903,24 @@ def main() -> int:
             # No single PyTorch call computes a cut-off LJ sweep, a fused
             # Verlet chunk or a greedy visit-list cover.
             "library_ms": None,
-            "timed_at": f"{head['shape']} {head['dtype']}", "cases": cases[name],
+            "timed_at": f"{head['shape']} {head['dtype']}",
+            "launches_by_run": {run: r["launches"][name] for run, r in runs.items()
+                                if r["launches"].get(name, 0)},
+            "cases": cases[name],
         }
         if name == "lj_pair_terms":
             entry["launches_counted_as"] = "launches of the kernels that inline it"
         if name == "pencil_sweep_hs":
+            # The mono kernel, n_pencils_i included: the strip cases (the
+            # sharded pencil engine's launches are counted here too).
             entry["also_replaces"] = "ljmd_tpu/ops/pallas_pencil2.py:394"
+            strip = next(c for c in cases[name]
+                         if c.get("n_pencils_i") and c["dtype"] == "float32"
+                         and c["shape"].startswith("N=62500 cap=384") and not c["observables"])
+            entry["strip"] = {k: strip[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "max_abs_err")}
+            entry["strip"]["launches_sharded_run"] = runs[
+                f"n62500_f32_sharded_pencil_d{STRIP_D}"]["launches"]["pencil_sweep_hs"]
         kernels.append(entry)
     log(f"main path runs: {json.dumps(runs)}")
     for n_label, rows_run, zsort_run in (("N=4000", "n4000_f32", "n4000_f32_zsort"),
@@ -1421,6 +1936,17 @@ def main() -> int:
                  "n4000_f32_zsort"):
         log(f"N=4000 float32 on {env['nvidia_smi']}: {name} "
             f"{runs[name]['particle_steps_per_s']:.4e} particle-steps/s")
+    for name in multi_runs:
+        log(f"multi-device production on {env['nvidia_smi']}: {name} "
+            f"{runs[name]['particle_steps_per_s']:.4e} particle-steps/s")
+    host = multi_rates.pop("host")
+    log(f"multi-device on {env['nvidia_smi']}: float64 cross checks "
+        + ", ".join(f"{k} {v:.3e}" for k, v in multi_cross.items()) + "; fast-step rates "
+        + ", ".join(f"{k} {v:.4e}" for k, v in multi_rates.items()) + "; host share "
+        + ", ".join(f"{k} {v:.4f}" for k, v in host.items()) + "; |dE/E| sharded vs single "
+        "card " + "; ".join(f"{k}: " + ", ".join(f"seed {x['seed']} {x['sharded']:.3e} vs "
+                                                 f"{x['single']:.3e}" for x in v)
+                            for k, v in multi_drifts.items()))
     log(f"card {env['nvidia_smi']}; zsort-vs-rows rel diff {vs_rows['zsort']:.3e}; "
         f"cellpair-vs-rows rel diff {vs_rows['cellpair']:.3e}; chunk paths "
         + ", ".join(f"{k} width {max(p['fused_width']['rel_diff_to_fused_static'].values()):.3e}"

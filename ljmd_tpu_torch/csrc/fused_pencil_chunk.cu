@@ -138,7 +138,8 @@ __global__ void __launch_bounds__(kPenStage) fused_pencil_kernel(PenChunkArgs<T>
         const int q = s0 / p.cap;
         pen_lower(p.tbl, p.n_pencils, q, lower);
         __syncthreads();
-        pen_table_pairs<T, EXT, false>(geo, sh, me, q, lower, p.tbl, p.shf, nullptr, acc);
+        pen_table_pairs<T, EXT, false>(geo, sh, me, q, true, lower, p.tbl, p.shf, nullptr,
+                                               acc);
       }
       pen_reduce<T, 3>(red, acc);
       if (owner) {

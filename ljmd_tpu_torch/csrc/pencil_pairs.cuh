@@ -142,8 +142,10 @@ __device__ __forceinline__ PenSlot<T> pen_shifted(const PenSlot<T>& me, T offx, 
   return s;
 }
 
-// lower[k] = the pencil whose k-th upper neighbour is q (tbl is a bijection
-// per k). Every thread of the block calls it; a barrier must follow.
+// lower[k] = the pencil whose k-th upper neighbour is q (over the first
+// n_pencils pencils' table rows; a full grid's table is a bijection per k, a
+// strip's leaves lower[k] as the caller set it where no row points at q).
+// Every thread of the block calls it; a barrier must follow.
 __device__ __forceinline__ void pen_lower(const int* tbl, int n_pencils, int q, int* lower) {
   const int t = threadIdx.y * kPenTile + threadIdx.x;
   for (int e = t; e < 4 * n_pencils; e += kPenStage) {
@@ -153,26 +155,32 @@ __device__ __forceinline__ void pen_lower(const int* tbl, int n_pencils, int q, 
 
 // All pairs of `me` (pencil q) over the half-shell tables, every partner
 // pencil at full capacity: its own pencil, its 4 upper neighbours (forward)
-// and the 4 pencils whose upper neighbour it is (backward). With `counts`,
-// partner pencils that are empty are skipped (the TPU grid kernel's gate).
+// and the 4 pencils whose upper neighbour it is (backward). `i_side` false
+// (a halo pencil of a strip, which has no table row) keeps the backward
+// pairs only; lower[k] < 0 (no row points at q) skips that backward pencil.
+// With `counts`, partner pencils that are empty are skipped (the TPU grid
+// kernel's gate).
 template <typename T, bool EXT, bool OBS>
 __device__ void pen_table_pairs(const PenGeom<T>& p, PenStage<T, EXT>& sh, const PenSlot<T>& me,
-                                int q, const int* lower, const int* tbl, const int* shf,
-                                const int* counts, PenAcc<T>& acc) {
+                                int q, bool i_side, const int* lower, const int* tbl,
+                                const int* shf, const int* counts, PenAcc<T>& acc) {
   const int cap = p.cap;
-  pen_segment<T, EXT, OBS>(p, sh, me, q * cap, cap, false, T(0), T(0), kPenNotSelf, false, acc);
+  if (i_side) {
+    pen_segment<T, EXT, OBS>(p, sh, me, q * cap, cap, false, T(0), T(0), kPenNotSelf, false,
+                             acc);
 #pragma unroll 1
-  for (int k = 0; k < 4; ++k) {
-    const int j = tbl[q * 4 + k];
-    if (counts != nullptr && counts[j] == 0) continue;
-    const T offx = mul_rn(static_cast<T>(shf[(q * 4 + k) * 2]), p.box);
-    const T offy = mul_rn(static_cast<T>(shf[(q * 4 + k) * 2 + 1]), p.box);
-    pen_segment<T, EXT, OBS>(p, sh, me, j * cap, cap, true, offx, offy, kPenAll, true, acc);
+    for (int k = 0; k < 4; ++k) {
+      const int j = tbl[q * 4 + k];
+      if (counts != nullptr && counts[j] == 0) continue;
+      const T offx = mul_rn(static_cast<T>(shf[(q * 4 + k) * 2]), p.box);
+      const T offy = mul_rn(static_cast<T>(shf[(q * 4 + k) * 2 + 1]), p.box);
+      pen_segment<T, EXT, OBS>(p, sh, me, j * cap, cap, true, offx, offy, kPenAll, true, acc);
+    }
   }
 #pragma unroll 1
   for (int k = 0; k < 4; ++k) {
     const int lp = lower[k];
-    if (counts != nullptr && counts[lp] == 0) continue;
+    if (lp < 0 || (counts != nullptr && counts[lp] == 0)) continue;
     const T offx = mul_rn(static_cast<T>(shf[(lp * 4 + k) * 2]), p.box);
     const T offy = mul_rn(static_cast<T>(shf[(lp * 4 + k) * 2 + 1]), p.box);
     pen_segment<T, EXT, OBS>(p, sh, pen_shifted(me, offx, offy), lp * cap, cap, false, T(0),

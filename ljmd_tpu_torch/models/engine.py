@@ -95,8 +95,11 @@ BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
 # Host reads of a device flag, per decision that depends on data (the JAX
 # engine takes them inside lax.cond): the cell-pair engine's per-step
 # displacement check and its predictive rebin trigger, the neighbor engine's
-# per-step rebuild check.
-HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0, "neighbor_rebuild": 0}
+# per-step rebuild check, and the sharded pencil engine's two and its default
+# chunk (``parallel/spatial_pencil.py``: one read per decision, after a pmax).
+HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0, "neighbor_rebuild": 0,
+              "sharded_pencil_moved": 0, "sharded_pencil_will_exceed": 0,
+              "sharded_pencil_chunk": 0}
 
 
 class Engine(NamedTuple):

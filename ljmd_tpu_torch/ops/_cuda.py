@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -38,7 +39,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ljmd_tpu_torch"
 SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
            "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
-           "pencil_sweep_full.cu", "pencil_sweep_zband.cu")
+           "pencil_sweep_full.cu", "pencil_sweep_zband.cu", "pair_sweep_rect.cu")
 HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "pencil_pairs.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,13 +54,16 @@ class LaunchCounts:
     NAMES = ("lj_pair_terms", "pair_sweep_tri", "pair_sweep", "fused_dense_chunk",
              "fused_dense_chunk_ext", "build_window_lists", "fused_dense_chunk_list",
              "pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_chunk",
-             "pencil_sweep_full", "pencil_sweep_zband")
+             "pencil_sweep_full", "pencil_sweep_zband", "pair_sweep_rect",
+             "pair_sweep_rect_newton")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
+        self._lock = threading.Lock()  # the ranks of a thread mesh launch at once
 
     def bump(self, name: str) -> None:
-        self.counts[name] += 1
+        with self._lock:
+            self.counts[name] += 1
 
     def reset(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -170,10 +174,18 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        real, real, real, real, real, real, _I, _I, _I, _P]
         fn.restype = _I
-        for name in ("pencil_sweep_hs", "pencil_sweep_full"):
-            fn = getattr(lib, f"ljmd_{name}_{suffix}")
-            fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, _I, _P]
-            fn.restype = _I
+        fn = getattr(lib, f"ljmd_pair_sweep_rect_{suffix}")
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
+        fn.restype = _I
+        fn = getattr(lib, f"ljmd_pair_sweep_rect_newton_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
+        fn.restype = _I
+        fn = getattr(lib, f"ljmd_pencil_sweep_hs_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
+        fn.restype = _I
+        fn = getattr(lib, f"ljmd_pencil_sweep_full_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, _I, _P]
+        fn.restype = _I
         fn = getattr(lib, f"ljmd_pencil_sweep_zband_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I

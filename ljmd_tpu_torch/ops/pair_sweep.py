@@ -12,10 +12,25 @@ rows 3..7 and columns >= n zero). The output is an (8, n_pad) row matrix:
   j != i by the ordered sweep (each pair twice: prefactors 2 / 12);
 - rows 6..7 and columns >= n: exactly zero (masks from global indices).
 
-``pair_sweep_tri`` launches ``csrc/pair_sweep_tri.cu`` and ``pair_sweep``
-``csrc/pair_sweep.cu`` on CUDA tensors; on CPU tensors each takes its plain
-twin (a dense (n, n) masked computation with the same row contract). Both
-divide exactly: the TPU kernels' approximate reciprocal is not ported.
+The rect sweeps of the particle-sharded path (``pallas_pair_sweep_rect``
+and ``pallas_pair_sweep_rect_newton``) take one rank's i rows (8, ni_pad)
+against a visiting j block (8, nj_pad) with global offsets ``gi0`` / ``gj0``
+(self pairs masked by global index, padding by ``n_i`` / ``n_j``):
+
+- ``pair_sweep_rect``: rows 0..2 the i-side force, rows 3..5 e / du / ddu of
+  every (i, j) pair (ordered pairs: prefactors 2 / 12 after the cross-rank
+  sum);
+- ``pair_sweep_rect_newton``: each pair of the active range
+  [i_lo, n_i) x [0, j_hi) once; returns (acc_i, acc_j): acc_i rows 0..2 the
+  i-side forces and rows 3..5 the pair-once partials (4 / 24), acc_j rows
+  0..2 the j-side reactions and rows 3..7 exactly 0.
+
+``pair_sweep_tri``, ``pair_sweep``, ``pair_sweep_rect`` and
+``pair_sweep_rect_newton`` launch ``csrc/pair_sweep_tri.cu``,
+``csrc/pair_sweep.cu`` and ``csrc/pair_sweep_rect.cu`` on CUDA tensors; on
+CPU tensors each takes its plain twin (a dense masked computation with the
+same row contract). All divide exactly: the TPU kernels' approximate
+reciprocal is not ported.
 
 In this package "pallas" names the ordered sweep's hand-written CUDA kernel,
 as the JAX package's backend of that name is its Pallas kernel: the names
@@ -38,6 +53,10 @@ __all__ = [
     "pair_forces_plain",
     "pair_sweep",
     "pair_sweep_plain",
+    "pair_sweep_rect",
+    "pair_sweep_rect_newton",
+    "pair_sweep_rect_newton_plain",
+    "pair_sweep_rect_plain",
     "pair_sweep_tri",
     "pair_sweep_tri_plain",
 ]
@@ -74,23 +93,40 @@ def pair_forces_plain(pos: torch.Tensor, n: int, box_length: float,
     return out
 
 
+def _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, want_observables,
+                i_lo=0, j_hi=None):
+    """(d (3, n_i, n_j) = x_i - x_j minimum image, coef, du, e, ddu) over the
+    pairs gi != gj inside the cutoff with li >= i_lo and lj < j_hi."""
+    d = pos_i[0:3, :n_i, None] - pos_j[0:3, None, :n_j]
+    d = d - box_length * torch.round(d * (1.0 / box_length))
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    li = torch.arange(n_i, device=pos_i.device)
+    lj = torch.arange(n_j, device=pos_i.device)
+    mask = ((r2 < rc_square) & ((gi0 + li)[:, None] != (gj0 + lj)[None, :])
+            & (li >= i_lo)[:, None] & (lj < (n_j if j_hi is None else j_hi))[None, :])
+    return (d, *lj_pair_terms_plain(r2, mask, want_observables))
+
+
+def _i_rows(pos_i, n_i, d, coef, du, e, ddu, want_observables):
+    out = torch.zeros_like(pos_i)
+    out[0:3, :n_i] = (coef[None] * d).sum(dim=-1)
+    if want_observables:
+        for row, term in ((3, e), (4, du), (5, ddu)):
+            out[row, :n_i] = term.sum(dim=-1)
+    return out
+
+
 def _sweep_plain(pos: torch.Tensor, n: int, box_length: float, rc_square: float,
                  want_observables: bool, obs_pairs: str) -> torch.Tensor:
-    """Dense twin of both sweeps; ``obs_pairs`` "upper" (j > i) or "all"."""
-    d, r2 = _pair_geometry(pos, n, box_length)
-    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
-    mask = (r2 < rc_square) & ~eye
-    coef, du, e, ddu = lj_pair_terms_plain(r2, mask, want_observables)
-    out = torch.zeros_like(pos)
-    out[0:3, :n] = (coef[None] * d).sum(dim=-1)
-    if want_observables:
-        if obs_pairs == "upper":
-            upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=pos.device), 1)
-            zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
-            e, du, ddu = (torch.where(upper, t, zero) for t in (e, du, ddu))
-        for row, term in ((3, e), (4, du), (5, ddu)):
-            out[row, :n] = term.sum(dim=-1)
-    return out
+    """Dense twin of both sweeps (the rect twin with i = j); ``obs_pairs``
+    "upper" (j > i) or "all"."""
+    d, coef, du, e, ddu = _rect_terms(pos, pos, n, n, 0, 0, box_length, rc_square,
+                                      want_observables)
+    if want_observables and obs_pairs == "upper":
+        upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=pos.device), 1)
+        zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        e, du, ddu = (torch.where(upper, t, zero) for t in (e, du, ddu))
+    return _i_rows(pos, n, d, coef, du, e, ddu, want_observables)
 
 
 def pair_sweep_tri_plain(pos: torch.Tensor, n: int, box_length: float,
@@ -144,6 +180,86 @@ def pair_sweep(pos: torch.Tensor, n: int, box_length: float,
     if pos.device.type == "cpu":
         return pair_sweep_plain(pos, n, box_length, rc_square, want_observables)
     return _launch("pair_sweep", pos, n, box_length, rc_square, want_observables)
+
+
+def pair_sweep_rect_plain(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
+                          box_length: float, rc_square: float,
+                          want_observables: bool = True) -> torch.Tensor:
+    """Plain PyTorch twin of the rect sweep (same (8, ni_pad) contract)."""
+    d, coef, du, e, ddu = _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square,
+                                      want_observables)
+    return _i_rows(pos_i, n_i, d, coef, du, e, ddu, want_observables)
+
+
+def pair_sweep_rect_newton_plain(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
+                                 box_length: float, rc_square: float, i_lo: int = 0,
+                                 j_hi: int | None = None, want_observables: bool = True):
+    """Plain PyTorch twin of the rect-Newton sweep: (acc_i, acc_j)."""
+    d, coef, du, e, ddu = _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square,
+                                      want_observables, i_lo, j_hi)
+    out_j = torch.zeros_like(pos_j)
+    out_j[0:3, :n_j] = -(coef[None] * d).sum(dim=1)
+    return _i_rows(pos_i, n_i, d, coef, du, e, ddu, want_observables), out_j
+
+
+def _check_rect(name, pos_i, pos_j, n_i, n_j):
+    for t in (pos_i, pos_j):
+        _cuda.require_cuda_rows(name, t)
+    if pos_j.device != pos_i.device or pos_j.dtype != pos_i.dtype:
+        raise ValueError(f"{name}: i and j rows must share device and dtype")
+    if not (0 <= n_i <= pos_i.shape[1] and 0 <= n_j <= pos_j.shape[1]):
+        raise ValueError(f"{name}: n_i={n_i}, n_j={n_j} outside the rows "
+                         f"({pos_i.shape[1]}, {pos_j.shape[1]})")
+
+
+def pair_sweep_rect(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int, box_length: float,
+                    rc_square: float, want_observables: bool = True) -> torch.Tensor:
+    """Rect sweep of i rows against a j block (module docstring): ONE launch
+    of ``csrc/pair_sweep_rect.cu`` on CUDA tensors, the twin on CPU ones."""
+    if pos_i.device.type == "cpu":
+        return pair_sweep_rect_plain(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square,
+                                     want_observables)
+    if pos_i.device.type != "cuda":
+        raise ValueError(f"pair_sweep_rect: unsupported device {pos_i.device}")
+    _check_rect("pair_sweep_rect", pos_i, pos_j, n_i, n_j)
+    out = torch.empty_like(pos_i)
+    lib = _cuda.library()
+    with torch.cuda.device(pos_i.device):
+        code = getattr(lib, f"ljmd_pair_sweep_rect_{_cuda.dtype_suffix(pos_i.dtype)}")(
+            pos_i.data_ptr(), pos_j.data_ptr(), out.data_ptr(), n_i, pos_i.shape[1], n_j,
+            pos_j.shape[1], int(gi0), int(gj0), float(box_length), 1.0 / float(box_length),
+            float(rc_square), int(want_observables), _cuda.stream_handle(pos_i))
+    _cuda.LAUNCHES.bump("pair_sweep_rect")
+    _cuda.check(code, "pair_sweep_rect")
+    return out
+
+
+def pair_sweep_rect_newton(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
+                           box_length: float, rc_square: float, i_lo: int = 0,
+                           j_hi: int | None = None, want_observables: bool = True):
+    """Pair-once rect sweep with the j reactions over [i_lo, n_i) x
+    [0, j_hi) (module docstring): ONE launch of ``csrc/pair_sweep_rect.cu``
+    on CUDA tensors (i-role and j-role blocks), the twin on CPU ones.
+    Returns (acc_i (8, ni_pad), acc_j (8, nj_pad))."""
+    if pos_i.device.type == "cpu":
+        return pair_sweep_rect_newton_plain(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length,
+                                            rc_square, i_lo, j_hi, want_observables)
+    if pos_i.device.type != "cuda":
+        raise ValueError(f"pair_sweep_rect_newton: unsupported device {pos_i.device}")
+    _check_rect("pair_sweep_rect_newton", pos_i, pos_j, n_i, n_j)
+    j_hi = n_j if j_hi is None else j_hi
+    out_i = torch.empty_like(pos_i)
+    out_j = torch.empty_like(pos_j)
+    lib = _cuda.library()
+    with torch.cuda.device(pos_i.device):
+        code = getattr(lib, f"ljmd_pair_sweep_rect_newton_{_cuda.dtype_suffix(pos_i.dtype)}")(
+            pos_i.data_ptr(), pos_j.data_ptr(), out_i.data_ptr(), out_j.data_ptr(), n_i,
+            pos_i.shape[1], n_j, pos_j.shape[1], int(gi0), int(gj0), int(i_lo), int(j_hi),
+            float(box_length), 1.0 / float(box_length), float(rc_square),
+            int(want_observables), _cuda.stream_handle(pos_i))
+    _cuda.LAUNCHES.bump("pair_sweep_rect_newton")
+    _cuda.check(code, "pair_sweep_rect_newton")
+    return out_i, out_j
 
 
 def lj_force_energy_pallas(r: torch.Tensor, box_length: float, rc_square: float,

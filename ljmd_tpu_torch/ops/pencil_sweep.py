@@ -23,6 +23,16 @@ minimum-image round). Output (8, n_slots):
 - rows 6..7 zero, and every row already multiplied by the validity row
   (the JAX kernel leaves that multiply to its caller).
 
+``n_pencils_i`` (the mono kernel's contract, for a strip of the sharded
+engine, ``parallel/spatial_pencil.py``): the slot matrix holds more pencils
+than the tables have rows, a strip of ``n_pencils_i`` i pencils and after it a
+halo; i runs over the first ``n_pencils_i`` pencils (the tables' rows), j over
+any pencil of the matrix, and the output has the matrix's full width (the
+halo's columns hold the reactions of the strip's pairs). ``counts`` then
+covers every pencil of the matrix, halo included (the halo's counts travel
+with the halo); the JAX kernel reads the i pencils' counts only, and gating
+a pair on an empty j pencil drops nothing but sentinel pairs.
+
 The full 9-neighbour sweeps count each pair twice, from each of its slots
 (prefactors 2 / 12), with the mask r^2 < rc^2, gi != gj, v_i * v_j > 0.5,
 so invalid slots are exactly 0 with no multiply afterwards; i-slices at or
@@ -195,7 +205,7 @@ def table_visits(n_pencils: int, capacity: int, tbl, shf, counts=None):
     cnt = np.full(P, cap) if counts is None else np.asarray(counts)
     classes = []
     for si in range(n_sub):
-        live = np.nonzero(si * TILE_I < cnt)[0]
+        live = np.nonzero(si * TILE_I < cnt[:P])[0]
         ista = live * cap + si * TILE_I
         zero = np.zeros_like(ista)
         classes.append((ista, ista, zero, zero, cap - si * TILE_I, True))
@@ -209,12 +219,14 @@ def table_visits(n_pencils: int, capacity: int, tbl, shf, counts=None):
 
 
 def pencil_sweep_hs_plain(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
-                          want_observables: bool = True):
+                          want_observables: bool = True, n_pencils_i: int | None = None):
     """Plain twin of ``pencil_sweep_hs``: the JAX grid kernel's visits (the
-    counts read on the host), evaluated in batches of dense tiles."""
+    counts read on the host), evaluated in batches of dense tiles; i over
+    the first ``n_pencils_i`` pencils (default: all of the grid's)."""
     out = torch.zeros_like(pos)
-    for ista, jsta, shx, shy, width, tri in table_visits(grid.n_pencils, grid.capacity,
-                                                         tbl.cpu(), shf.cpu(), counts.cpu()):
+    p_i = grid.n_pencils if n_pencils_i is None else n_pencils_i
+    for ista, jsta, shx, shy, width, tri in table_visits(p_i, grid.capacity, tbl.cpu(),
+                                                         shf.cpu(), counts.cpu()):
         accumulate_visits(out, pos, None, ista, jsta, shx, shy, width, tri,
                           grid.box_length, rc_square, want_observables)
     return out * pos[3:4]
@@ -311,12 +323,13 @@ def pencil_sweep_zband_plain(pos, tbl, counts, start_a, start_b, use_b, grid: Pe
     return out
 
 
-def _check_tables(name, pos, grid, *tables):
-    """pos: contiguous (8, n_slots) CUDA rows; each (table, size): a
-    contiguous (size,) int32 tensor on pos's device."""
+def _check_tables(name, pos, grid, *tables, n_slots=None):
+    """pos: contiguous (8, n_slots) CUDA rows (default: the grid's slots);
+    each (table, size): a contiguous (size,) int32 tensor on pos's device."""
     _cuda.require_cuda_rows(name, pos)
-    if pos.shape[1] != grid.n_slots:
-        raise ValueError(f"{name}: {pos.shape[1]} slots, the grid has {grid.n_slots}")
+    n_slots = grid.n_slots if n_slots is None else n_slots
+    if pos.shape[1] != n_slots:
+        raise ValueError(f"{name}: {pos.shape[1]} slots, expected {n_slots}")
     for t, size in tables:
         if (t.device != pos.device or t.dtype != torch.int32 or not t.is_contiguous()
                 or t.shape != (size,)):
@@ -325,23 +338,34 @@ def _check_tables(name, pos, grid, *tables):
 
 
 def pencil_sweep_hs(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
-                    want_observables: bool = True):
+                    want_observables: bool = True, n_pencils_i: int | None = None):
     """Half-shell sweep of an (8, n_slots) slot matrix (module docstring):
     ONE launch of ``csrc/pencil_sweep_hs.cu`` on CUDA tensors (the counts
-    read on the device), the plain twin on CPU tensors."""
+    read on the device), the plain twin on CPU tensors. With ``n_pencils_i``
+    the matrix is a strip plus its halo: (8, n_pencils * capacity) for any
+    n_pencils >= n_pencils_i, tables of n_pencils_i rows, counts of all
+    n_pencils."""
     if pos.device.type == "cpu":
-        return pencil_sweep_hs_plain(pos, tbl, counts, shf, grid, rc_square, want_observables)
+        return pencil_sweep_hs_plain(pos, tbl, counts, shf, grid, rc_square, want_observables,
+                                     n_pencils_i)
     if pos.device.type != "cuda":
         raise ValueError(f"pencil_sweep_hs: unsupported device {pos.device}")
-    P = grid.n_pencils
-    _check_tables("pencil_sweep_hs", pos, grid, (tbl, 4 * P), (counts, P), (shf, 8 * P))
+    cap = grid.capacity
+    if n_pencils_i is None:
+        p_i = p_all = grid.n_pencils
+    else:
+        p_i, p_all = n_pencils_i, pos.shape[1] // cap
+        if not 0 < p_i <= p_all:
+            raise ValueError(f"pencil_sweep_hs: n_pencils_i={p_i} outside [1, {p_all}]")
+    _check_tables("pencil_sweep_hs", pos, grid, (tbl, 4 * p_i), (counts, p_all), (shf, 8 * p_i),
+                  n_slots=p_all * cap)
     suffix = _cuda.dtype_suffix(pos.dtype)
     out = torch.zeros_like(pos)
     lib = _cuda.library()
     with torch.cuda.device(pos.device):
         code = getattr(lib, f"ljmd_pencil_sweep_hs_{suffix}")(
             pos.data_ptr(), out.data_ptr(), tbl.data_ptr(), counts.data_ptr(),
-            shf.data_ptr(), grid.n_pencils, grid.capacity, float(grid.box_length),
+            shf.data_ptr(), p_i, p_all, cap, float(grid.box_length),
             1.0 / float(grid.box_length), float(rc_square), int(want_observables),
             _cuda.stream_handle(pos))
     _cuda.LAUNCHES.bump("pencil_sweep_hs")

@@ -17,7 +17,16 @@ parity checks start both packages from one numpy state:
   ``pencil_carry_to_numpy``);
 - the neighbor engine's carry, (MDState, NeighborList): the list's indices,
   reference positions and sticky overflow flag (``neighbor_list_from_numpy``,
-  ``neighbor_carry_from_numpy``).
+  ``neighbor_carry_from_numpy``);
+- the particle-sharded engine's carry (``parallel/spatial.py``): a JAX
+  sharded MDState, or its compensated (MDState, rc, vc), as global (N, 3)
+  arrays, to the tuple of a mesh's per-rank carries and back
+  (``spatial_carry_from_numpy`` / ``spatial_carry_to_numpy``);
+- the sharded pencil engine's carry (``parallel/spatial_pencil.py``): a JAX
+  ``ShardedPencilCarry`` as global (8, n_slots) arrays, (n_pencils,) counts
+  and the flag, to the per-rank strips with their strip-plus-halo counts and
+  back (``sharded_pencil_carry_from_numpy`` /
+  ``sharded_pencil_carry_to_numpy``).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 
 from ljmd_tpu_torch.models.engine import ROW_PAD, PencilCarry, RowCarry, ZSortCarry
 from ljmd_tpu_torch.ops.neighbor import NeighborList
+from ljmd_tpu_torch.parallel.spatial_pencil import ShardedPencilCarry, augmented_counts
 from ljmd_tpu_torch.state import MDState
 
 __all__ = [
@@ -40,6 +50,10 @@ __all__ = [
     "neighbor_list_from_numpy",
     "row_carry_from_numpy",
     "row_carry_to_numpy",
+    "sharded_pencil_carry_from_numpy",
+    "sharded_pencil_carry_to_numpy",
+    "spatial_carry_from_numpy",
+    "spatial_carry_to_numpy",
     "state_from_numpy",
     "pencil_carry_from_numpy",
     "pencil_carry_to_numpy",
@@ -157,3 +171,64 @@ def neighbor_carry_from_numpy(carry, dtype=torch.float64, device="cpu"):
     state, nbrs = carry
     return (state_from_numpy(state, dtype, device),
             neighbor_list_from_numpy(nbrs, dtype, device))
+
+
+def spatial_carry_from_numpy(carry, mesh, dtype=torch.float64) -> tuple:
+    """The local ranks' carries of the particle-sharded engine from a global
+    MDState (a mapping or object of (N, 3) arrays, e.g. the JAX engine's
+    sharded carry) or a compensated (state, rc, vc) triple; rank s gets rows
+    [s N/d, (s+1) N/d)."""
+    compensated = isinstance(carry, tuple)
+    state = state_from_numpy(carry[0] if compensated else carry, dtype, mesh.device)
+    shards = [MDState(*parts) for parts in zip(*(mesh.split(getattr(state, k), 0)
+                                                   for k in STATE_FIELDS))]
+    if not compensated:
+        return tuple(shards)
+    rc, vc = (mesh.split(torch.as_tensor(np.array(x), dtype=dtype, device=mesh.device), 0)
+              for x in carry[1:])
+    return tuple(zip(shards, rc, vc))
+
+
+def spatial_carry_to_numpy(carry, mesh):
+    """The global arrays of a particle-sharded carry: {field: (N, 3)}, or
+    ({field: (N, 3)}, rc, vc) when compensated (the JAX engine's layout)."""
+    compensated = isinstance(carry[0], tuple)
+    shards = [c[0] for c in carry] if compensated else list(carry)
+
+    def glob(parts):
+        return mesh.gather(parts, 0).detach().cpu().numpy()
+
+    state = {k: glob([getattr(s, k) for s in shards]) for k in STATE_FIELDS}
+    if not compensated:
+        return state
+    return state, glob([c[1] for c in carry]), glob([c[2] for c in carry])
+
+
+_SHARDED_ROWS = ("r", "ru", "v", "a", "r_ref", "rc", "vc")
+
+
+def sharded_pencil_carry_from_numpy(arrays, mesh, m_xy: int, dtype=torch.float64) -> tuple:
+    """The local ranks' ``ShardedPencilCarry`` from global arrays (a mapping
+    or object, e.g. the JAX engine's carry): (8, n_slots) rows cut into
+    strips, the (m_xy^2,) counts into strip-plus-halo counts."""
+    get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
+    rows = {k: mesh.split(torch.as_tensor(np.array(get(k)), dtype=dtype, device=mesh.device),
+                          1) for k in _SHARDED_ROWS}
+    counts = torch.as_tensor(np.array(get("counts")), dtype=torch.int32, device=mesh.device)
+    every = augmented_counts(counts, m_xy, mesh.size)
+    flag = torch.as_tensor(np.array(get("overflow")), dtype=torch.bool, device=mesh.device)
+    return tuple(ShardedPencilCarry(counts=every[s], overflow=flag,
+                                    **{k: rows[k][i] for k in _SHARDED_ROWS})
+                 for i, s in enumerate(mesh.local_ranks))
+
+
+def sharded_pencil_carry_to_numpy(carries, mesh, m_xy: int) -> dict:
+    """{field: global array} of the sharded pencil engine's carry: (8,
+    n_slots) rows, the (m_xy^2,) counts (each strip's own, in rank order),
+    the flag."""
+    out = {k: mesh.gather([getattr(c, k) for c in carries], 1).detach().cpu().numpy()
+           for k in _SHARDED_ROWS}
+    own = [c.counts[:c.counts.numel() - m_xy] for c in carries]
+    out["counts"] = mesh.gather(own, 0).detach().cpu().numpy()
+    out["overflow"] = bool(carries[0].overflow)
+    return out

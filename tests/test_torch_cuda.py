@@ -402,3 +402,149 @@ def test_neighbor_engine_on_card_matches_cpu(cuda):
     assert not any(LAUNCHES.snapshot().values())
     np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
     assert not bool(gpu.diagnostics["neighbor_overflow"])
+
+
+def _rect_rows(n, ld, box, seed, device):
+    rng = np.random.default_rng(seed)
+    out = torch.zeros((8, ld), dtype=torch.float64)
+    out[0:3, :n] = torch.as_tensor(rng.uniform(0, box, (3, n)))
+    return out.to(device)
+
+
+# (n_i, n_j, gi0, gj0): the self block (gi0 == gj0), a hop between blocks,
+# and unequal blocks whose padding is not a tile multiple.
+RECT_CASES = [(200, 200, 400, 400), (200, 200, 400, 0), (130, 250, 0, 130)]
+
+
+@pytest.mark.parametrize("case", RECT_CASES)
+@pytest.mark.parametrize("want_obs", [True, False])
+def test_rect_kernel_matches_twin(cuda, case, want_obs):
+    """Kernel 6 (the ring's rect sweep) against its twin, every row."""
+    n_i, n_j, gi0, gj0 = case
+    pos_i = _rect_rows(n_i, 256, 7.0, 5, cuda)
+    pos_j = pos_i if gi0 == gj0 else _rect_rows(n_j, 256, 7.0, 6, cuda)
+    LAUNCHES.reset()
+    got = pair_sweep.pair_sweep_rect(pos_i, pos_j, n_i, n_j, gi0, gj0, 7.0, 6.25, want_obs)
+    assert LAUNCHES.snapshot()["pair_sweep_rect"] == 1
+    want = pair_sweep.pair_sweep_rect_plain(pos_i, pos_j, n_i, n_j, gi0, gj0, 7.0, 6.25,
+                                            want_obs)
+    for row in range(8):
+        _close(got[row], want[row])
+    assert bool((got[:, n_i:] == 0).all()) and bool((got[6:] == 0).all())
+
+
+@pytest.mark.parametrize("hop", ["self", "full", "half_low", "half_high"])
+@pytest.mark.parametrize("want_obs", [True, False])
+def test_rect_newton_kernel_matches_twin(cuda, hop, want_obs):
+    """Kernel 7 (the half ring's hops) against its twin: acc_i and acc_j on
+    every row, acc_j rows 3..7 exactly 0, at the gated half hop's ranges."""
+    n = 200
+    i_lo, j_hi = {"self": (0, n), "full": (0, n), "half_low": (n // 2, n),
+                  "half_high": (0, n // 2)}[hop]
+    gj0 = 600 if hop == "self" else 0
+    pos_i = _rect_rows(n, 256, 7.0, 7, cuda)
+    pos_j = pos_i if hop == "self" else _rect_rows(n, 256, 7.0, 8, cuda)
+    LAUNCHES.reset()
+    got = pair_sweep.pair_sweep_rect_newton(pos_i, pos_j, n, n, 600, gj0, 7.0, 6.25, i_lo,
+                                            j_hi, want_obs)
+    assert LAUNCHES.snapshot()["pair_sweep_rect_newton"] == 1
+    want = pair_sweep.pair_sweep_rect_newton_plain(pos_i, pos_j, n, n, 600, gj0, 7.0, 6.25,
+                                                   i_lo, j_hi, want_obs)
+    for g, w in zip(got, want):
+        for row in range(8):
+            _close(g[row], w[row])
+    assert bool((got[1][3:] == 0).all())
+
+
+def _strip(cuda):
+    """Rank 0's strip of a 2-rank split of _pencil_carry's 4x4 pencils and
+    its halo (rank 1's first x-column), with the strip tables."""
+    from ljmd_tpu_torch.ops import cell_list
+    from ljmd_tpu_torch.parallel import spatial_pencil as sp
+
+    cfg, c = _pencil_carry()
+    grid = cell_list.make_pencil_grid(cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin,
+                                      cfg.density)
+    m, cap = grid.m_xy, grid.capacity
+    p_loc = (m // 2) * m
+    r_aug = torch.cat([c.r[:, :p_loc * cap], c.r[:, p_loc * cap:(p_loc + m) * cap]], dim=1)
+    counts = sp.augmented_counts(c.counts, m, 2)[0]
+    tbl = torch.as_tensor(sp._local_half_shell_table(m, m // 2))
+    shf = torch.as_tensor(sp._device_shift_tables(m, m // 2, 2)[0])
+    return cfg, grid, p_loc, r_aug, tbl, counts, shf
+
+
+@pytest.mark.parametrize("want_obs", [True, False])
+def test_pencil_sweep_strip_kernel_matches_twin(cuda, want_obs):
+    """Kernel 14's n_pencils_i (a strip plus halo) against the twin."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+
+    cfg, grid, p_loc, r_aug, tbl, counts, shf = _strip(cuda)
+    want = pencil_sweep.pencil_sweep_hs(r_aug, tbl, counts, shf, grid, cfg.rc_square, want_obs,
+                                        n_pencils_i=p_loc)
+    got = pencil_sweep.pencil_sweep_hs(r_aug.to(cuda), tbl.to(cuda), counts.to(cuda),
+                                       shf.to(cuda), grid, cfg.rc_square, want_obs,
+                                       n_pencils_i=p_loc)
+    for row in range(8):
+        _close(got[row], want[row])
+    assert bool((got[3:, p_loc * grid.capacity:] == 0).all())  # the halo is never the i side
+
+
+@pytest.mark.parametrize("comm", ["half_ring", "ring", "all_gather"])
+def test_spatial_engine_on_card_matches_cpu(cuda, comm):
+    """The particle-sharded engine on a 4-rank thread mesh on the card
+    against the same on the CPU (float64, run_production), launching the
+    rect kernels (all_gather: plain torch, no kernel)."""
+    from ljmd_tpu_torch.parallel.mesh import make_mesh
+    from ljmd_tpu_torch.parallel.spatial import make_spatial_engine
+
+    cfg = SimConfig(num_cells=4, box_length=6.2, rc_over_box=2.5 / 6.2, dt=0.002,
+                    total_steps=40, output_interval=10, warmup_steps=5,
+                    target_total_energy=-800.0, dtype="float64")
+    state = initialize(cfg, backend="rows", device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh(particle=4, device=dev)
+        LAUNCHES.reset()
+        runs[str(dev)] = run_production(cfg, state, engine=make_spatial_engine(
+            cfg, mesh, comm=comm), device=dev)
+        mesh.close()
+    counts = LAUNCHES.snapshot()
+    need = {"half_ring": ("pair_sweep_tri", "pair_sweep_rect_newton"),
+            "ring": ("pair_sweep_rect",), "all_gather": ()}[comm]
+    assert all(counts[k] > 0 for k in need)
+    assert sum(counts.values()) == sum(counts[k] for k in need)  # no other kernel
+    np.testing.assert_allclose(runs["cuda"].series.cpu().numpy(), runs["cpu"].series.numpy(),
+                               rtol=1e-9)
+
+
+def test_sharded_pencil_engine_on_card_matches_cpu(cuda):
+    """The sharded pencil engine on a 2-rank thread mesh on the card
+    against the same on the CPU (float64), launching the strip sweep."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.parallel.mesh import make_mesh
+    from ljmd_tpu_torch.parallel.spatial_pencil import make_sharded_pencil_engine
+    from ljmd_tpu_torch.state import MDState
+
+    cfg, _ = _pencil_carry()
+    rng = np.random.default_rng(4)
+    r = torch.remainder(fcc_lattice(8, 13.4, dtype=torch.float64)
+                        + torch.as_tensor(rng.normal(0, 0.05, (2048, 3))), 13.4)
+    st = MDState(r=r, ru=r, v=torch.as_tensor(rng.normal(0, 1.0, (2048, 3))),
+                 a=torch.zeros_like(r))
+    ends = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh(particle=2, device=dev)
+        eng = make_sharded_pencil_engine(cfg, mesh, inner_chunk=8)
+        LAUNCHES.reset()
+        c, _ = eng.init(st)
+        c = eng.run_fast(c, 8)
+        c, obs = eng.step(c)
+        ends[str(dev)] = (eng.get_state(c), obs, bool(c[0].overflow))
+        mesh.close()
+    assert LAUNCHES.snapshot()["pencil_sweep_hs"] > 0
+    (s_gpu, o_gpu, f_gpu), (s_cpu, o_cpu, f_cpu) = ends["cuda"], ends["cpu"]
+    for f in ("r", "ru", "v", "a"):
+        _close(getattr(s_gpu, f), getattr(s_cpu, f), 1e-9)
+    assert float(o_gpu.epot) == pytest.approx(float(o_cpu.epot), rel=1e-10)
+    assert not f_gpu and not f_cpu
