@@ -33,7 +33,18 @@ checkout. Phases, each fatal on failure:
       the z-banded sweep (window 384), against its twin and against the full
       sweep;
    d. (in a.) the ordered N x N sweep at N=500 (n < n_pad) and N=4000, with
-      and without observables, and the (N, 3) force API around it;
+      and without observables, and the (N, 3) force API around it; the
+      dense chunk (and in b. the list chunk) with its persistent grid capped
+      at 4 tiles a block, bit-equal to the full grid;
+   e. the flag-gated dense chunk (kernel 8) on the experiments' melted
+      N=4000 fluid, float32 and float64, plain and extended: the fluid's
+      flags at tile_j 512 ... 4096, and all-zero, all-3 (bit-equal to the
+      unflagged chunk) and random 0/1 flags at 512;
+   f. the nine layout probes (kernel 17) at N=4096, 200 iterations, beside
+      200 calls of the library operation each stands for;
+   g. the pair-tile layout bodies (kernel 18) over 128 visits at N_PAD=4096
+      in the experiment's box and in a box of L = 8 (where the forces move
+      r past float32's resolution), and the transpose glue;
 4. the main path, each production with the launch counts set to 0 just
    before and read just after (a CLI run counts its whole process):
    a. rows (``--backend rows``): the CLI on the reference default cut to
@@ -61,17 +72,23 @@ checkout. Phases, each fatal on failure:
       (``half_shell=False``, ``z_band=True``) on the config-5 cut at capacity
       512 with ``inner_chunk=8``, from phase 4c's end; then from one float64
       state 100 steps of each against the half-shell engine, within 1e-9;
+   h. the experiment entry points (``python -m ljmd_tpu_torch.experiments.
+      overhead | zfloor | mosaic_support | layout``), each ``main`` once at
+      full size (kernels 8, 13, 17 and 18);
    every run must launch its kernels and no other engine's, keep
    ``zsort_invalid`` / ``pencil_overflow`` / ``neighbor_overflow`` False
    and conserve energy within a stated bound; the production runs write
    every artifact and give finite means and thermo;
 5. the three cell-pair chunk paths (fused static, fused width, unfused) from
    three N=62500 states, 100 steps each, at capacities 512 and the census:
-   states within PATHS_TOL in float64 and float32 (and the unfused path at
-   its default chunk of 12, timed, its overflow flag recorded); a planted
+   states within PATHS_TOL in float64 and float32; the unfused path at its
+   default chunk (sized from the fluid's top speed) must not set
+   ``pencil_overflow``, at JAX's 12 it is timed and its flag recorded; a planted
    fault (fused static over tables that miss two neighbour-pencil pairs)
    must exceed both limits;
-6. the rows question: whether the rows engine runs N=62500 at all;
+6. rows at config 5 (N=62500, the dense chunk's persistent grid): float64,
+   8 fused steps against the unfused cell-pair engine within 1e-9, and its
+   float32 ms per step;
 7. zsort and cellpair against rows on the card: one float64 N=4000 state,
    32 fused steps (resorts / rebins between chunks): within 1e-10;
 8. the rows path on the card and on the CPU from one state (N=256, 200
@@ -173,6 +190,21 @@ N4000_CUT = {"total_steps": 5_000, "warmup_steps": 1_000}
 N864_CUT = {"total_steps": 5_000, "warmup_steps": 1_000}
 CARD_VS_CPU_CUT = {"dtype": "float64", "total_steps": 200, "warmup_steps": 0}
 VS_ROWS_STEPS = 32
+# Kernel 8's checks: zfloor's tile_j sweep, steps compared, steps timed.
+FLAG_TILES = (512, 1024, 2048, 4096)
+FLAG_CHECK_STEPS = 4
+FLAG_CHUNK_STEPS = 8
+# Kernel 18's checks: every body (k1 and k2 also at 128 columns), steps.
+LAYOUT_ITEMS = ("k1-512", "k2b-512", "k2-512", "k3-512", "k4-512", "k4z-512", "k5a-512",
+                "k5b-512", "k5c-512", "k6-512", "k1-128", "k2b-128", "k2-128")
+LAYOUT_CHECK_STEPS = 2
+LAYOUT_DISP_TOL = 5e-3
+EXPERIMENT_KERNELS = ("fused_dense_chunk_flags", "mosaic_probes", "layout_bodies")
+# Phase 6: rows on config 5 against the unfused cell-pair engine.
+ROWS62500_STEPS = 8
+# The dense and list chunks' persistent grid capped for the bit check: each
+# block takes this many 32-particle tiles.
+TILES_PER_BLOCK = 4
 ZSORT_KERNELS = ("build_window_lists", "fused_dense_chunk_list")
 # The flagship step's run (entry()'s own total_steps) and the float64 checks
 # of PR 4's paths against the engines they duplicate.
@@ -474,6 +506,23 @@ def phase_kernels(torch) -> dict:
                 "shape": label, "dtype": dname, "max_abs_err": max(e[0] for e in errs),
                 "rel_err": worst, "ms": ms, "plain_ms": plain_ms})
 
+            # The persistent grid capped at TILES_PER_BLOCK tiles a block
+            # against the full grid, bit for bit.
+            cap_blocks = r.shape[1] // (32 * TILES_PER_BLOCK)
+            capped = {}
+            for extended in (False, True):
+                zero = torch.zeros_like(r)
+                ext = (zero, zero) if extended else (None, None)
+                args = ("fused_dense_chunk", extended, r, ext[0], v, ext[1], a, n, box, rc2,
+                        dt, 10)
+                full = fused._launch(*args)
+                cap = fused._launch(*args, grid_cap=cap_blocks)
+                capped["ext" if extended else "plain"] = all(
+                    g is None or bool(torch.equal(g, w)) for g, w in zip(cap, full))
+            require(all(capped.values()), f"fused_dense_chunk {label} {dname}: the grid capped "
+                                          f"at {cap_blocks} blocks differs from the full grid")
+            cases["fused_dense_chunk"][-1]["capped_grid_bit_identical"] = capped
+
             # Kernel 4: extended chunk (the path float32 configs take).
             if dname == "float32":
                 zero = torch.zeros_like(r)
@@ -497,7 +546,10 @@ def phase_kernels(torch) -> dict:
         per = "per call" if name.startswith("pair_sweep") else f"per {chunk}-step chunk"
         for c in cs:
             extra = (f", observables {c['observables']}" if "observables" in c else "") + (
-                f", force API (N, 3) call {c['force_api_ms']:.4f} ms" if "force_api_ms" in c else "")
+                f", force API (N, 3) call {c['force_api_ms']:.4f} ms" if "force_api_ms" in c else
+                "") + (f", grid capped at {TILES_PER_BLOCK} tiles a block bit-identical "
+                       f"{c['capped_grid_bit_identical']}" if "capped_grid_bit_identical" in c
+                       else "")
             log(f"kernel {name} {c['shape']} {c['dtype']}: rel err {c['rel_err']:.3e} "
                 f"(tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms vs plain "
                 f"{c['plain_ms']:.4f} ms {per}; bound {c['bound_ms']:.4f} ms{extra}")
@@ -750,6 +802,13 @@ def phase_list_kernels(torch) -> dict:
                 require(worst <= tol, f"fused_dense_chunk_list {label} {dname} {mode}: "
                                       f"rel err {worst:.3e} > {tol}")
                 errs.append({"mode": mode, "max_abs_err": max(x[0] for x in e), "rel_err": worst})
+            largs = (r, v, a, tiles, tcounts, n, L, cfg.rc_square, cfg.dt, k, 128, tj, None,
+                     None, False)
+            capped = all(bool(torch.equal(g, w)) for g, w in zip(
+                fused_list._launch(*largs, grid_cap=n_pad // (32 * TILES_PER_BLOCK)),
+                fused_list._launch(*largs)))
+            require(capped, f"fused_dense_chunk_list {label} {dname}: the grid capped at "
+                            f"{TILES_PER_BLOCK} tiles a block differs from the full grid")
             ms = cuda_time_ms(torch, lambda: fused_list.fused_dense_chunk_list(
                 r, v, a, *args, tile_j=tj), 10)
             plain_ms = cuda_time_ms(torch, lambda: fused_list.fused_dense_chunk_list_plain(
@@ -761,7 +820,8 @@ def phase_list_kernels(torch) -> dict:
                 "candidates": cand, "cut_pairs": cut,
                 "shape": label, "dtype": dname, "max_abs_err": max(x["max_abs_err"] for x in errs),
                 "rel_err": max(x["rel_err"] for x in errs), "modes": errs,
-                "visits": tcounts.tolist(), "ms": ms, "plain_ms": plain_ms})
+                "visits": tcounts.tolist(), "capped_grid_bit_identical": capped, "ms": ms,
+                "plain_ms": plain_ms})
     for c in cases["build_window_lists"]:
         log(f"kernel build_window_lists {c['shape']} {c['dtype']}: lists equal to the twin's "
             f"(fluid and random flags), tcounts {c['tcounts']}, {c['ms']:.4f} ms vs plain "
@@ -770,7 +830,8 @@ def phase_list_kernels(torch) -> dict:
         modes = ", ".join(f"{m['mode']} {m['rel_err']:.3e}" for m in c["modes"])
         log(f"kernel fused_dense_chunk_list {c['shape']} {c['dtype']}: rel err {modes} "
             f"(tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms "
-            f"per {k}-step chunk")
+            f"per {k}-step chunk; grid capped at {TILES_PER_BLOCK} tiles a block bit-identical "
+            f"{c['capped_grid_bit_identical']}")
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return cases
 
@@ -1055,6 +1116,303 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
     return cases
 
 
+# ---------------------------------------------------------------- phase 3e
+def gated_cut_pairs(torch, r, n: int, box_length: float, rc_square: float, upper) -> int:
+    """Pairs (i < j) of ``upper`` (an (n, n) bool matrix) inside the cutoff
+    under the minimum image, counted on the card in float64 in row blocks."""
+    x = r[0:3, :n].T.double()
+    total = 0
+    for i0 in range(0, n, 512):
+        d = x[i0:i0 + 512, None, :] - x[None, :, :]
+        d -= box_length * torch.round(d / box_length)
+        total += int((((d * d).sum(dim=-1) < rc_square) & upper[i0:i0 + 512]).sum())
+    return total
+
+
+def block_chunk_share(torch, flags, n: int, n_pad: int, tile_i: int, tile_j: int):
+    """(chunks the busiest block runs, the mean over blocks, chunks a block
+    has) of kernel 8 under ``flags``: a 32-row block runs a 128-column chunk
+    when its forward tile (j > i) or its backward tile (j < i) is active."""
+    f = (flags.reshape(n_pad // tile_i, n_pad // tile_j) > 0).cpu()
+    i0 = torch.arange(0, n_pad, 32)[:, None]
+    j0 = torch.arange(0, n, 128)[None, :]
+    fwd = (j0 + 127 > i0) & f[i0 // tile_i, j0 // tile_j]
+    bwd = (j0 < i0 + 31) & f[j0 // tile_i, i0 // tile_j]
+    run = (fwd | bwd).sum(dim=1)
+    return int(run.max()), float(run.double().mean()), j0.numel()
+
+
+def phase_flags_kernel(torch) -> dict:
+    """Kernel 8 (``fused_dense_chunk_flags``) against its plain version on
+    the experiments' own state (``experiments/_common.py::melted_zsort``:
+    N=4000, float32 melted 512 steps by the zsort engine), in float32 and
+    float64, plain and extended: with the fluid's flags (window rc + 0.7) at
+    each tile_j of zfloor's sweep, and at tile_j 512 with all-zero, all-3
+    and random 0/1 flags; all-3 flags bit-equal to the unflagged chunk."""
+    import numpy as np
+
+    from ljmd_tpu_torch.experiments._common import melted_zsort
+    from ljmd_tpu_torch.ops import fused, window_lists
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    cfg, _, c = melted_zsort(dev)
+    n, L, rc2, dt = cfg.n, cfg.box_length, cfg.rc_square, cfg.dt
+    n_pad = c.r.shape[1]
+    cases = []
+    for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        tol = KERNEL_TOL[dname]
+        r, v, a = (t.to(dtype) for t in (c.r, c.v, c.a))
+        zero = torch.zeros_like(r)
+        rows_bytes = 8 * n_pad * r.element_size()
+        for tj in FLAG_TILES:
+            real = window_lists.compute_tile_flags(r, n, 128, tj, L, cfg.rc + 0.7)
+            patterns = {"real": real}
+            if tj == FLAG_TILES[0]:
+                rand = np.random.default_rng(tj).integers(0, 2, real.numel()).astype(np.int32)
+                patterns.update(zero=torch.zeros_like(real), all3=torch.full_like(real, 3),
+                                random=torch.as_tensor(rand, device=dev))
+            for pname, flags in patterns.items():
+                errs = []
+                for mode in ("plain", "extended"):
+                    kw = {"r_lo": zero, "vc": zero} if mode == "extended" else {}
+                    args = (r, v, a, flags, n, L, rc2, dt, FLAG_CHECK_STEPS)
+                    got = fused.fused_dense_chunk_flags(*args, tile_j=tj, **kw)
+                    want = fused.fused_dense_chunk_flags_plain(*args, tile_j=tj, **kw)
+                    if pname == "all3":
+                        ref = (fused.fused_dense_chunk_ext(r, zero, v, zero, a, n, L, rc2, dt,
+                                                           FLAG_CHECK_STEPS) if kw else
+                               fused.fused_dense_chunk(r, v, a, n, L, rc2, dt, FLAG_CHECK_STEPS))
+                        require(all(bool(torch.equal(g, w)) for g, w in zip(got, ref)),
+                                f"fused_dense_chunk_flags {dname} {mode}: all-3 flags differ "
+                                "from the unflagged chunk")
+                    if kw:
+                        got = (got[0].double() + got[1].double(),
+                               got[2].double() + got[3].double(), got[4])
+                        want = (want[0].double() + want[1].double(),
+                                want[2].double() + want[3].double(), want[4])
+                    e = [rel_err(g, w) for g, w in zip(got, want)]
+                    worst = max(x[1] for x in e)
+                    require(worst <= tol, f"fused_dense_chunk_flags tile_j={tj} {pname} {dname} "
+                                          f"{mode}: rel err {worst:.3e} > {tol}")
+                    errs.append({"mode": mode, "max_abs_err": max(x[0] for x in e),
+                                 "rel_err": worst})
+                upper = torch.triu(fused.tile_gate(flags, n, n_pad, 128, tj), 1)
+                cand = int(upper.sum())
+                cut = gated_cut_pairs(torch, r, n, L, rc2, upper)
+                targs = (r, v, a, flags, n, L, rc2, dt, FLAG_CHUNK_STEPS)
+                busiest, mean, per_block = block_chunk_share(torch, flags, n, n_pad, 128, tj)
+                case = {**bound(dname, chunk_flops(FLAG_CHUNK_STEPS, cand, cut, n),
+                                6 * rows_bytes + 4 * flags.numel()),
+                        "shape": f"N={n} tile_j={tj} {pname}", "dtype": dname,
+                        "block_chunks": {"busiest": busiest, "mean": mean, "of": per_block},
+                        "active": int((flags > 0).sum()), "tiles": flags.numel(),
+                        "candidates": cand, "cut_pairs": cut, "modes": errs,
+                        "max_abs_err": max(x["max_abs_err"] for x in errs),
+                        "rel_err": max(x["rel_err"] for x in errs),
+                        "ms": cuda_time_ms(torch, lambda: fused.fused_dense_chunk_flags(
+                            *targs, tile_j=tj), 10)}
+                if pname == "real":
+                    case["plain_ms"] = cuda_time_ms(
+                        torch, lambda: fused.fused_dense_chunk_flags_plain(*targs, tile_j=tj), 1,
+                        warmup=1)
+                cases.append(case)
+    for c in cases:
+        modes = ", ".join(f"{m['mode']} {m['rel_err']:.3e}" for m in c["modes"])
+        plain = f" vs plain {c['plain_ms']:.4f} ms" if "plain_ms" in c else ""
+        bc = c["block_chunks"]
+        log(f"kernel fused_dense_chunk_flags {c['shape']} {c['dtype']} ({c['active']}/"
+            f"{c['tiles']} tiles active; the busiest block runs {bc['busiest']} of {bc['of']} "
+            f"column chunks, the mean {bc['mean']:.1f}): rel err {modes} "
+            f"(tol {KERNEL_TOL[c['dtype']]:.0e}), "
+            f"{c['ms']:.4f} ms{plain} per {FLAG_CHUNK_STEPS}-step chunk; bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {c['candidates']} candidates)")
+    LAUNCHES.reset()  # comparison launches do not count for the main path
+    return {"fused_dense_chunk_flags": cases}
+
+
+def probe_library(name: str, *inputs, iters: int):
+    """ITERS calls of the library operation probe ``name`` stands for
+    (``library_ms``; the port never calls these)."""
+    import torch
+
+    from ljmd_tpu_torch.experiments.mosaic_support import WINDOWS
+
+    x = inputs[-1]
+    offs = inputs[0].tolist() if len(inputs) == 2 else None
+    out = torch.zeros((8, 512) if name.startswith("lane") else (256, 128), dtype=x.dtype,
+                      device=x.device)
+    res = None
+    for i in range(iters):
+        if name in ("t8n", "t128"):
+            res = x.t().contiguous()
+        elif name in WINDOWS:
+            kind, scale = WINDOWS[name]
+            o = offs[i] * scale
+            if kind == "lane":
+                out[0] += x[0, o:o + 512]
+            else:
+                out += x[o:o + 256]
+            res = out
+        elif name == "roll":
+            res = torch.roll(x, offs[i], 1)
+        else:
+            res = torch.sum(x, dim=1)
+    return res
+
+
+def phase_probe_kernels(torch) -> dict:
+    """Kernel 17: each of the nine probes at N=4096, ITERS=200 against its
+    plain loop, timed beside it and beside ITERS calls of the library
+    operation it stands for (``probe_library``)."""
+    from ljmd_tpu_torch.experiments import mosaic_support as ms
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    tol = KERNEL_TOL["float32"]
+    cases = []
+    for name, label in ms.PROBES:
+        inputs = ms.probe_inputs(name, dev)
+        got, want = ms.probe(name, *inputs), ms.probe_plain(name, *inputs)
+        err, rel = rel_err(got, want)
+        require(rel <= tol, f"probe {name}: rel err {rel:.3e} > {tol}")
+        x = inputs[-1]
+        # Operations per iteration: an add per output element (transposes,
+        # windows, roll), a multiply and an add per input element (row sums).
+        per_iter = (2 * x.numel() if name.startswith("rowsum") else
+                    512 if name.startswith("lane") else got.numel())
+        nbytes = 4 * (x.numel() + got.numel() + (ms.ITERS if len(inputs) == 2 else 0))
+        cases.append({**bound("float32", ms.ITERS * per_iter, nbytes), "shape": name,
+                      "label": label, "dtype": "float32", "max_abs_err": err, "rel_err": rel,
+                      "ms": cuda_time_ms(torch, lambda: ms.probe(name, *inputs), 20),
+                      "plain_ms": cuda_time_ms(torch, lambda: ms.probe_plain(name, *inputs), 2,
+                                               warmup=1),
+                      "library_ms": cuda_time_ms(torch, lambda: probe_library(
+                          name, *inputs, iters=ms.ITERS), 2, warmup=1)})
+    for c in cases:
+        log(f"kernel mosaic_probes {c['label']}: rel err {c['rel_err']:.3e} (tol {tol:.0e}), "
+            f"{c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms vs library {c['library_ms']:.4f} "
+            f"ms per {ms.ITERS} iterations; bound {c['bound_ms']:.5f} ms ({c['bound_by']})")
+    LAUNCHES.reset()  # comparison launches do not count for the main path
+    return {"mosaic_probes": cases}
+
+
+def layout_cut_pairs(torch, r8, rT, name: str, ti, tj, v: int, tj_w: int, box: float,
+                     rc2: float) -> int:
+    """Pairs inside the cutoff over the body's v visits at the start state
+    (its positions move by ~1e-6 a step), counted on the card."""
+    total = 0
+    for t in range(v):
+        i_lo = int(ti[t]) * 128
+        xi = r8[0:3, i_lo:i_lo + 128].T.double()
+        if name == "k2":
+            xj = rT[8 * int(tj[t]):8 * int(tj[t]) + tj_w, 0:3].double()
+        else:
+            xj = r8[0:3, int(tj[t]) * tj_w:(int(tj[t]) + 1) * tj_w].T.double()
+        d = xi[:, None, :] - xj[None, :, :]
+        d -= box * torch.round(d / box)
+        total += int(((d * d).sum(dim=-1) < rc2).sum())
+    return total
+
+
+def phase_layout_kernels(torch) -> dict:
+    """Kernel 18: each body at N_PAD=4096 over the experiment's 128 visits,
+    LAYOUT_CHECK_STEPS steps, against its plain version, in the
+    experiment's box and in a box of lattice spacing 0.5 (L = 8, where the
+    forces, which reach r only through f * 1e-9, move it past float32's
+    resolution); the transpose glue at both shapes."""
+    from ljmd_tpu_torch.experiments import layout as ly
+    from ljmd_tpu_torch.experiments import mosaic_support as ms
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    tol = KERNEL_TOL["float32"]
+    steps, v = LAYOUT_CHECK_STEPS, ly.V_HI
+    ti, tj = ly.visit_lists(v, 7, ly.N_PAD)
+    dense_box = 0.5 * math.ceil(ly.N_PAD ** (1.0 / 3.0) - 1e-9)  # lattice spacing 0.5
+    cases = []
+    for box in (ly.L, dense_box):
+        r8, rT = ly.make_state(0, ly.N_PAD, dev, box=box)
+        for item in LAYOUT_ITEMS:
+            name, w = item.rsplit("-", 1)
+            tj_w = int(w)
+            lv = ly.variant_lists(name, tj_w, ti, tj, ly.N_PAD)
+            lists = [torch.tensor(x, dtype=torch.int32, device=dev) for x in lv]
+            args = (name, r8, rT, *lists, v, tj_w, steps)
+            got = ly.layout_body(*args, box=box)
+            want = ly.layout_body_plain(*args, box=box)
+            err, rel = rel_err(got, want)
+            moved = float((want[1] - r8[1]).abs().max())
+            require(rel <= tol, f"layout_body {item} L={box}: rel err {rel:.3e} > {tol}")
+            case = {"shape": f"{item} v={v} L={box}", "dtype": "float32", "max_abs_err": err,
+                    "rel_err": rel, "row1_moved": moved}
+            if box == ly.L:
+                cut = layout_cut_pairs(torch, r8, rT, name, *lv, v, tj_w, box, ly.RC2)
+                nbytes = 4 * (2 * r8.numel() + rT.numel() + 2 * v)
+                case.update(bound("float32", steps * (v * 128 * tj_w * FLOPS_CANDIDATE
+                                                      + cut * FLOPS_FORCE), nbytes))
+                case.update(cut_pairs=cut,
+                            ms=cuda_time_ms(torch, lambda: ly.layout_body(*args, box=box), 10),
+                            plain_ms=cuda_time_ms(torch, lambda: ly.layout_body_plain(
+                                *args, box=box), 1, warmup=1))
+            else:
+                # The displacement itself within LAYOUT_DISP_TOL: float32
+                # rounds r (~5e-7 at L = 8) far below it.
+                disp = float((got - want).abs().max()) / moved
+                case["disp_rel_err"] = disp
+                require(moved > 1e-4, f"layout_body {item} L={box}: the forces did not move r")
+                require(disp <= LAYOUT_DISP_TOL, f"layout_body {item} L={box}: displacement "
+                                                 f"rel err {disp:.3e} > {LAYOUT_DISP_TOL}")
+            cases.append(case)
+    for shape in ((8, ly.N_PAD), (ly.N_PAD, 8)):
+        x = torch.ones(shape, dtype=torch.float32, device=dev)
+        got, want = ms.transpose_scaled(x, ly.ITERS_LO), ms.transpose_scaled_plain(x, ly.ITERS_LO)
+        err, rel = rel_err(got, want)
+        require(rel <= tol, f"transpose_scaled {shape}: rel err {rel:.3e} > {tol}")
+        cases.append({**bound("float32", ly.ITERS_LO * x.numel(), 8 * x.numel()),
+                      "shape": f"transpose {shape} x {ly.ITERS_LO}", "dtype": "float32",
+                      "max_abs_err": err, "rel_err": rel,
+                      "ms": cuda_time_ms(torch, lambda: ms.transpose_scaled(x, ly.ITERS_LO), 10),
+                      "plain_ms": cuda_time_ms(torch, lambda: ms.transpose_scaled_plain(
+                          x, ly.ITERS_LO), 1, warmup=1)})
+    for c in cases:
+        timing = (f", {c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms; bound "
+                  f"{c['bound_ms']:.5f} ms ({c['bound_by']})" if "ms" in c else
+                  f", row 1 moved {c['row1_moved']:.3e}, displacement rel err "
+                  f"{c['disp_rel_err']:.3e} (tol {LAYOUT_DISP_TOL:.0e})")
+        log(f"kernel layout_bodies {c['shape']}: rel err {c['rel_err']:.3e} (tol {tol:.0e})"
+            f"{timing}")
+    LAUNCHES.reset()  # comparison launches do not count for the main path
+    return {"layout_bodies": cases}
+
+
+def phase_experiments(torch) -> dict:
+    """The experiment entry points (``ljmd_tpu_torch.experiments``), each
+    ``main`` once at its full size, the counts set to 0 just before and
+    read just after; each must launch its kernels."""
+    from ljmd_tpu_torch.experiments import layout, mosaic_support, overhead, zfloor
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    runs = {}
+    for name, mod, argv, need in (
+            ("exp_overhead", overhead, [], ("fused_dense_chunk_flags", "pencil_sweep_hs")),
+            ("exp_zfloor", zfloor, [], ("fused_dense_chunk_flags",)),
+            ("exp_mosaic_support", mosaic_support, [], ("mosaic_probes",)),
+            ("exp_layout", layout, list(LAYOUT_ITEMS) + ["trans", "dot"], ("layout_bodies",))):
+        log(f"{name}: python -m ljmd_tpu_torch.experiments.{name[4:]} {' '.join(argv)}")
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.time()
+        out = mod.main(["--device", DEVICE, *argv])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = LAUNCHES.snapshot()
+        _check_launches(name, counts, need)
+        runs[name] = {"wall_s": wall, "launches": counts, "result": out}
+    LAUNCHES.reset()
+    return runs
+
+
 # ---------------------------------------------------------------- phase 4
 def _drift(etot) -> float:
     import numpy as np
@@ -1089,7 +1447,8 @@ def _check_launches(run: str, counts: dict, needed: tuple, forbidden: tuple = ()
 
 FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
-                + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS)
+                + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
+                + EXPERIMENT_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -1648,14 +2007,16 @@ def phase_chunk_paths(torch, cfg, states: dict) -> dict:
 
     dev = torch.device(DEVICE)
     L = cfg.box_length
-    # The unfused path at the fused chunks' 8 steps between rebins; at its
-    # own default of 12 the fastest particles of this fluid may outrun the
-    # coverage slack (0.25 in xy) between two rebins, which the engine flags
-    # (as the JAX engine does): that run is timed and its flag recorded,
-    # but it is not compared.
+    # The unfused path at the fused chunks' 8 steps between rebins, at its
+    # default (sized from the fluid's top speed: it must not flag) and at
+    # JAX's fixed 12, where the fastest particles of this fluid may outrun
+    # the coverage slack (0.25 in xy) between two rebins, which the engine
+    # flags (as the JAX engine does): that run is timed and its flag
+    # recorded, but it is not compared.
     paths = {"fused_static": {"width_lists": False}, "fused_width": {"width_lists": True},
              "unfused": {"use_fused": False, "inner_chunk": 8},
-             "unfused_chunk12": {"use_fused": False}}
+             "unfused_default": {"use_fused": False},
+             "unfused_chunk12": {"use_fused": False, "inner_chunk": 12}}
     out = {}
     for sname, state in states.items():
         census = capacity_from_state(L, cfg.rc + cfg.neighbor_skin, state.r)
@@ -1715,28 +2076,50 @@ def phase_chunk_paths(torch, cfg, states: dict) -> dict:
 
 # ---------------------------------------------------------------- phase 6
 def phase_rows_at_62500(torch, cfg, state) -> dict:
-    """Whether the rows engine runs config 5 at all: its init (the tri
-    sweep) and one fused chunk of PENCIL_CHUNK_STEPS, whose wrapper refuses
-    a grid that cannot be co-resident."""
+    """The rows engine on config 5 (N=62500: the dense chunk's persistent
+    grid, 1956 tiles over the blocks the card holds): from ``state`` in
+    float64, ROWS62500_STEPS fused steps against the unfused cell-pair
+    engine at the same chunk, within CROSS_TOL (summation order only); then
+    its float32 ms per step over ROWS62500_STEPS after one untimed chunk."""
     from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
 
     dev = torch.device(DEVICE)
-    eng = pe.make_engine(cfg, "rows", dev)
+    k = ROWS62500_STEPS
+    cfg64 = cfg.replace(dtype="float64")
+    s64 = state.to(dtype=torch.float64)
+    rows = pe.make_engine(cfg64, "rows", dev)
+    c = rows.init(s64)[0]
     torch.cuda.synchronize()
     t0 = time.time()
-    c, _ = eng.init(state)
+    c = rows.run_fast(c, k)
     torch.cuda.synchronize()
-    out = {"init_sweep_s": time.time() - t0}
-    try:
-        t0 = time.time()
-        eng.run_fast(c, PENCIL_CHUNK_STEPS)
-        torch.cuda.synchronize()
-        out["fused_chunk"] = f"ran, {1e3 * (time.time() - t0) / PENCIL_CHUNK_STEPS:.3f} ms/step"
-    except RuntimeError as err:
-        out["fused_chunk"] = f"refused: {err}"
+    out = {"f64_ms_per_step": 1e3 * (time.time() - t0) / k}
+    cp = pe._cellpair_engine(cfg64, dev, use_fused=False, inner_chunk=k)
+    cc = cp.run_fast(cp.init(s64)[0], k)
+    require(not bool(cc.overflow), "rows vs cellpair at N=62500: pencil_overflow set")
+    out["f64_vs_cellpair"] = _cross_diff(torch, rows.get_state(c), cp.get_state(cc),
+                                         cfg.box_length)
+    require(out["f64_vs_cellpair"] <= CROSS_TOL,
+            f"rows and the unfused cell-pair engine disagree at N={cfg.n}: "
+            f"{out['f64_vs_cellpair']:.3e} > {CROSS_TOL}")
+    rows32 = pe.make_engine(cfg, "rows", dev)
+    c = rows32.run_fast(rows32.init(state)[0], k)
+    torch.cuda.synchronize()
     LAUNCHES.reset()
-    log(f"rows at N={cfg.n} float32: {json.dumps(out)}")
+    t0 = time.time()
+    c = rows32.run_fast(c, k)
+    torch.cuda.synchronize()
+    out["f32_ms_per_step"] = 1e3 * (time.time() - t0) / k
+    out["f32_launches"] = {n: v for n, v in LAUNCHES.snapshot().items() if v}
+    require(out["f32_launches"].get("fused_dense_chunk", 0) == 1,
+            "rows at N=62500: one fused chunk expected")
+    require(bool(torch.isfinite(c.v).all()), "rows at N=62500 float32: non-finite velocities")
+    LAUNCHES.reset()
+    log(f"rows at N={cfg.n} (config 5, persistent grid): float64 {k} fused steps vs the "
+        f"unfused cell-pair engine max rel diff over r, ru, v, a {out['f64_vs_cellpair']:.3e} "
+        f"(tol {CROSS_TOL:.0e}), {out['f64_ms_per_step']:.3f} ms/step; float32 "
+        f"{out['f32_ms_per_step']:.3f} ms/step")
     return out
 
 
@@ -1825,6 +2208,9 @@ def main() -> int:
     cases = phase_kernels(torch)
     cases.update(phase_rect_kernels(torch))
     cases.update(phase_list_kernels(torch))
+    cases.update(phase_flags_kernel(torch))
+    cases.update(phase_probe_kernels(torch))
+    cases.update(phase_layout_kernels(torch))
     with tempfile.TemporaryDirectory(prefix="ljmd_chip_smoke_") as tmp:
         runs, final_cfg, final_state = phase_main_path(torch, tmp)
         cp_runs, cfg5, states5 = phase_cellpair_path(torch, tmp)
@@ -1836,7 +2222,9 @@ def main() -> int:
         full_runs, full_cross = phase_full_sweeps(torch, cfg5, states5["cap512_end"], tmp)
         multi_runs, multi_cross, multi_drifts, multi_states = phase_multidevice(torch, tmp)
     multi_rates = phase_multidevice_rates(torch, multi_states)
+    exp_runs = phase_experiments(torch)
     runs.update(cp_runs)
+    runs.update(exp_runs)
     runs.update(full_runs)
     runs.update(multi_runs)
     state5 = states5["cap512_end"]
@@ -1845,7 +2233,7 @@ def main() -> int:
     states5["cap512_end_reversed"] = dataclasses.replace(state5, v=-state5.v)
     cases.update(phase_pencil_kernels(torch, cfg5, state5))
     paths = phase_chunk_paths(torch, cfg5, states5)
-    rows_question = phase_rows_at_62500(torch, cfg5, state5)
+    rows62500 = phase_rows_at_62500(torch, cfg5, state5)
     vs_rows = phase_engines_vs_rows(torch, final_cfg, final_state)
     series_err = phase_card_vs_cpu(torch)
 
@@ -1864,7 +2252,10 @@ def main() -> int:
                 "pencil_sweep_full": ("N=62500 cap=512", "float32"),
                 "pencil_sweep_zband": ("N=62500 cap=512", "float32"),
                 "pair_sweep_rect": ("N=4000 d=2 hop", "float32"),
-                "pair_sweep_rect_newton": ("N=4000 d=4 hop", "float32")}
+                "pair_sweep_rect_newton": ("N=4000 d=4 hop", "float32"),
+                "fused_dense_chunk_flags": ("N=4000 tile_j=512 real", "float32"),
+                "mosaic_probes": ("t8n", "float32"),
+                "layout_bodies": ("k1-512 v=128 L=16.796", "float32")}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
@@ -1880,6 +2271,9 @@ def main() -> int:
         "pencil_sweep_zband": ("ljmd_tpu_torch/csrc/pencil_sweep_zband.cu", "ljmd_tpu/ops/pallas_pencil.py:256"),
         "pair_sweep_rect": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:364"),
         "pair_sweep_rect_newton": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:533"),
+        "fused_dense_chunk_flags": ("ljmd_tpu_torch/csrc/fused_dense_chunk.cu", "ljmd_tpu/ops/pallas_fused.py:384"),
+        "mosaic_probes": ("ljmd_tpu_torch/csrc/mosaic_probes.cu", "scripts/exp_mosaic_support.py:65"),
+        "layout_bodies": ("ljmd_tpu_torch/csrc/layout_bodies.cu", "scripts/exp_layout.py:127"),
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
@@ -1888,7 +2282,8 @@ def main() -> int:
     # lj_pair_terms is a __device__ function with no launch of its own on the
     # main path: it runs inside every sweep and chunk launch, so its count is
     # theirs (its own element-wise kernel runs only in the comparison).
-    launches["lj_pair_terms"] = sum(launches[k] for k in MAIN_KERNELS if k != "build_window_lists")
+    launches["lj_pair_terms"] = sum(launches[k] for k in MAIN_KERNELS
+                                    if k not in ("build_window_lists", "mosaic_probes"))
     for k, n in launches.items():
         require(n > 0, f"kernel {k} was launched no time on the main path")
     kernels = []
@@ -1901,8 +2296,9 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             # No single PyTorch call computes a cut-off LJ sweep, a fused
-            # Verlet chunk or a greedy visit-list cover.
-            "library_ms": None,
+            # Verlet chunk or a greedy visit-list cover; the probes stand for
+            # library operations (ITERS calls of each, probe_library).
+            "library_ms": head.get("library_ms"),
             "timed_at": f"{head['shape']} {head['dtype']}",
             "launches_by_run": {run: r["launches"][name] for run, r in runs.items()
                                 if r["launches"].get(name, 0)},
@@ -1910,6 +2306,10 @@ def main() -> int:
         }
         if name == "lj_pair_terms":
             entry["launches_counted_as"] = "launches of the kernels that inline it"
+        if name == "layout_bodies":
+            entry["also_replaces"] = "scripts/exp_layout.py:308 and :324 (transposes)"
+            entry["slopes_ns_per_visit"] = {k: 1e9 * v for k, v in
+                                            runs["exp_layout"]["result"].items()}
         if name == "pencil_sweep_hs":
             # The mono kernel, n_pencils_i included: the strip cases (the
             # sharded pencil engine's launches are counted here too).
@@ -1953,8 +2353,9 @@ def main() -> int:
                     f" unfused {max(p['unfused']['rel_diff_to_fused_static'].values()):.3e}"
                     f" planted {max(p['planted_fault']['rel_diff_to_fused_static'].values()):.3e}"
                     for k, p in paths.items())
-        + f"; rows at N=62500: "
-        f"{rows_question['fused_chunk']}; card-vs-CPU series rel diff {series_err:.3e}; "
+        + f"; rows at N=62500 vs cellpair (float64) {rows62500['f64_vs_cellpair']:.3e}, "
+        f"float32 {rows62500['f32_ms_per_step']:.3f} ms/step; card-vs-CPU series rel diff "
+        f"{series_err:.3e}; "
         f"float64 cross checks: flagship step vs rows {flagship_cross:.3e}, rows ordered vs "
         f"tri {ordered_cross:.3e}, full9 vs half shell {full_cross['full9']:.3e}, zband vs half "
         f"shell {full_cross['zband']:.3e}")

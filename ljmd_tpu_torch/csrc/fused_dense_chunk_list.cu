@@ -21,9 +21,11 @@
 // (about 4.5M pair-once candidates per step at N = 4000, against the dense
 // kernel's 8M), plus one grid barrier per step.
 //
-// What the design does about that: a cooperative launch, one block per 32
-// particles (4 threads per particle, one per j-slice), as in
-// fused_dense_chunk.cu. The TPU kernel scatters each visit's j-side reactions
+// What the design does about that: a cooperative launch of a persistent
+// grid, min(n_pad / 32, the blocks the card keeps resident) blocks of 4 x 32
+// threads, each taking the 32-particle tiles w = blockIdx.x, blockIdx.x +
+// gridDim.x, ... in the same order in both phases of a step (4 threads per
+// particle, one per j-slice), as in fused_dense_chunk.cu. The TPU kernel scatters each visit's j-side reactions
 // into an accumulator that one sequential program owns; CUDA blocks run in
 // parallel, so here every listed window is evaluated from both sides
 // instead: a block walks all visits (the counts are read on the device) and
@@ -35,8 +37,9 @@
 // per step is needed: v, a and the forces of a particle are only ever
 // written by its own thread. fl(xi - xj) = -fl(xj - xi) and rint is
 // symmetric, so both sides see the same pair values as the TPU kernel; only
-// the summation order differs. Positions are double-buffered as in
-// fused_dense_chunk.cu; the wrapper checks co-residency before the launch.
+// the summation order differs, and it does not depend on the grid size.
+// Positions are double-buffered as in fused_dense_chunk.cu; the wrapper sizes
+// the grid from the occupancy API.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -150,9 +153,9 @@ __device__ void visit_segment(const ListArgs<T, EXT>& p, Shared<T, EXT>& sh,
 // Every visit that touches this block's 32 particles, both sides.
 template <typename T, bool EXT, bool OBS>
 __device__ void list_forces(const ListArgs<T, EXT>& p, Shared<T, EXT>& sh,
-                            const T* r_new, const T* lo_new, int gi, T xi, T yi,
-                            T zi, T xli, T yli, T zli, Acc<T>& acc) {
-  const int my_blk = (blockIdx.x * kListTileI) / kListGran;
+                            const T* r_new, const T* lo_new, int w, int gi, T xi,
+                            T yi, T zi, T xli, T yli, T zli, Acc<T>& acc) {
+  const int my_blk = (w * kListTileI) / kListGran;
   const int n_cats = 4 + p.n_tails;
   for (int cat = 0; cat < n_cats; ++cat) {
     const int cnt = p.tcounts[cat];
@@ -198,9 +201,7 @@ fused_list_kernel(ListArgs<T, EXT> p) {
   cg::grid_group grid = cg::this_grid();
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  const int i = blockIdx.x * kListTileI + tx;
-  const bool live_i = i < p.n;
-  const bool owner = live_i && ty == 0;
+  const int n_tiles = p.n_pad / kListTileI;
   const size_t n_pad = p.n_pad;
   const size_t plane = 8 * n_pad;
 
@@ -211,7 +212,9 @@ fused_list_kernel(ListArgs<T, EXT> p) {
     T* lo_new = EXT ? p.lobuf + ((s + 1) & 1) * plane : nullptr;
 
     // Phase 1: drift + first half-kick of the block's own particles.
-    if (owner) {
+    for (int w = blockIdx.x; w < n_tiles; w += gridDim.x) {
+      const int i = w * kListTileI + tx;
+      if (i >= p.n || ty != 0) continue;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const size_t k = c * n_pad + i;
@@ -236,57 +239,62 @@ fused_list_kernel(ListArgs<T, EXT> p) {
     grid.sync();
 
     // Phase 2: forces over the visit lists at the new positions.
-    const T xi = r_new[i];
-    const T yi = r_new[n_pad + i];
-    const T zi = r_new[2 * n_pad + i];
-    T xli = T(0), yli = T(0), zli = T(0);
-    if (EXT) {
-      xli = lo_new[i];
-      yli = lo_new[n_pad + i];
-      zli = lo_new[2 * n_pad + i];
-    }
-    Acc<T> acc = {T(0), T(0), T(0), T(0), T(0), T(0)};
     const bool want_obs = p.obs_last && s == p.n_steps - 1;
-    if (want_obs) {
-      list_forces<T, EXT, true>(p, sh, r_new, lo_new, i, xi, yi, zi, xli, yli, zli, acc);
-    } else {
-      list_forces<T, EXT, false>(p, sh, r_new, lo_new, i, xi, yi, zi, xli, yli, zli, acc);
-    }
-    __syncthreads();
-    sh.red[ty][0][tx] = acc.fx;
-    sh.red[ty][1][tx] = acc.fy;
-    sh.red[ty][2][tx] = acc.fz;
-    sh.red[ty][3][tx] = acc.e;
-    sh.red[ty][4][tx] = acc.du;
-    sh.red[ty][5][tx] = acc.ddu;
-    __syncthreads();
+    for (int w = blockIdx.x; w < n_tiles; w += gridDim.x) {
+      const int i = w * kListTileI + tx;
+      const bool owner = i < p.n && ty == 0;
+      const T xi = r_new[i];
+      const T yi = r_new[n_pad + i];
+      const T zi = r_new[2 * n_pad + i];
+      T xli = T(0), yli = T(0), zli = T(0);
+      if (EXT) {
+        xli = lo_new[i];
+        yli = lo_new[n_pad + i];
+        zli = lo_new[2 * n_pad + i];
+      }
+      Acc<T> acc = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      if (want_obs) {
+        list_forces<T, EXT, true>(p, sh, r_new, lo_new, w, i, xi, yi, zi, xli, yli, zli, acc);
+      } else {
+        list_forces<T, EXT, false>(p, sh, r_new, lo_new, w, i, xi, yi, zi, xli, yli, zli, acc);
+      }
+      __syncthreads();
+      sh.red[ty][0][tx] = acc.fx;
+      sh.red[ty][1][tx] = acc.fy;
+      sh.red[ty][2][tx] = acc.fz;
+      sh.red[ty][3][tx] = acc.e;
+      sh.red[ty][4][tx] = acc.du;
+      sh.red[ty][5][tx] = acc.ddu;
+      __syncthreads();
 
-    // a = 24 * raw sweep + second half-kick; obs rows 3..5 on the last step.
-    if (owner) {
+      // a = 24 * raw sweep + second half-kick; obs rows 3..5 on the last step.
+      if (owner) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        T f = sh.red[0][c][tx];
+        for (int c = 0; c < 3; ++c) {
+          T f = sh.red[0][c][tx];
 #pragma unroll
-        for (int q = 1; q < kListSlices; ++q) f = add_rn(f, sh.red[q][c][tx]);
-        const size_t k = c * n_pad + i;
-        const T ak = mul_rn(T(24), f);
-        p.a[k] = ak;
-        if (EXT) {
-          T vk = p.v[k];
-          T ck = p.vc[k];
-          comp_add_list(vk, ck, mul_rn(ak, p.half_dt));
-          p.v[k] = vk;
-          p.vc[k] = ck;
-        } else {
-          p.v[k] = add_rn(p.v[k], mul_rn(ak, p.half_dt));
-        }
-        if (want_obs) {
-          T o = sh.red[0][3 + c][tx];
+          for (int q = 1; q < kListSlices; ++q) f = add_rn(f, sh.red[q][c][tx]);
+          const size_t k = c * n_pad + i;
+          const T ak = mul_rn(T(24), f);
+          p.a[k] = ak;
+          if (EXT) {
+            T vk = p.v[k];
+            T ck = p.vc[k];
+            comp_add_list(vk, ck, mul_rn(ak, p.half_dt));
+            p.v[k] = vk;
+            p.vc[k] = ck;
+          } else {
+            p.v[k] = add_rn(p.v[k], mul_rn(ak, p.half_dt));
+          }
+          if (want_obs) {
+            T o = sh.red[0][3 + c][tx];
 #pragma unroll
-          for (int q = 1; q < kListSlices; ++q) o = add_rn(o, sh.red[q][3 + c][tx]);
-          p.obs[(3 + c) * n_pad + i] = o;
+            for (int q = 1; q < kListSlices; ++q) o = add_rn(o, sh.red[q][3 + c][tx]);
+            p.obs[(3 + c) * n_pad + i] = o;
+          }
         }
       }
+      __syncthreads();  // the owners have read sh.red before the next tile
     }
   }
 }
@@ -311,13 +319,13 @@ template <typename T, bool EXT>
 int launch_list(T* rbuf, T* lobuf, T* v, T* vc, T* a, T* obs, const int* tiles,
                 const int* tcounts, int max_t, int n_tails, int span, int n,
                 int n_pad, T box, T inv_box, T rc2, T dt, T half_dt,
-                T half_dt_sq, int n_steps, int obs_last, void* stream) {
+                T half_dt_sq, int n_steps, int obs_last, int blocks, void* stream) {
   ListArgs<T, EXT> p{rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails,
                      span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq,
                      n_steps, obs_last};
   void* args[] = {&p};
   const dim3 block(kListTileI, kListSlices);
-  const dim3 grid(n_pad / kListTileI);
+  const dim3 grid(blocks);
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(fused_list_kernel<T, EXT>), grid, block,
       args, 0, static_cast<cudaStream_t>(stream));
@@ -350,10 +358,10 @@ int ljmd_fused_dense_chunk_list_f32(float* rbuf, float* lobuf, float* v,
                                     int n_pad, float box, float inv_box,
                                     float rc2, float dt, float half_dt,
                                     float half_dt_sq, int n_steps, int obs_last,
-                                    int extended, void* stream) {
+                                    int extended, int blocks, void* stream) {
   return extended
-             ? ljmd::launch_list<float, true>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq, n_steps, obs_last, stream)
-             : ljmd::launch_list<float, false>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq, n_steps, obs_last, stream);
+             ? ljmd::launch_list<float, true>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq, n_steps, obs_last, blocks, stream)
+             : ljmd::launch_list<float, false>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq, n_steps, obs_last, blocks, stream);
 }
 
 int ljmd_fused_dense_chunk_list_f64(double* rbuf, double* lobuf, double* v,
@@ -363,10 +371,11 @@ int ljmd_fused_dense_chunk_list_f64(double* rbuf, double* lobuf, double* v,
                                     int n_pad, double box, double inv_box,
                                     double rc2, double dt, double half_dt,
                                     double half_dt_sq, int n_steps,
-                                    int obs_last, int extended, void* stream) {
+                                    int obs_last, int extended, int blocks,
+                                    void* stream) {
   return extended
-             ? ljmd::launch_list<double, true>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq, n_steps, obs_last, stream)
-             : ljmd::launch_list<double, false>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq, n_steps, obs_last, stream);
+             ? ljmd::launch_list<double, true>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq, n_steps, obs_last, blocks, stream)
+             : ljmd::launch_list<double, false>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq, n_steps, obs_last, blocks, stream);
 }
 
 }  // extern "C"

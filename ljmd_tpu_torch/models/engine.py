@@ -94,12 +94,29 @@ BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
 
 # Host reads of a device flag, per decision that depends on data (the JAX
 # engine takes them inside lax.cond): the cell-pair engine's per-step
-# displacement check and its predictive rebin trigger, the neighbor engine's
+# displacement check, its predictive rebin trigger and its unfused default
+# chunk (one read per ``run_fast``), the neighbor engine's
 # per-step rebuild check, and the sharded pencil engine's two and its default
 # chunk (``parallel/spatial_pencil.py``: one read per decision, after a pmax).
-HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0, "neighbor_rebuild": 0,
-              "sharded_pencil_moved": 0, "sharded_pencil_will_exceed": 0,
-              "sharded_pencil_chunk": 0}
+HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0, "cellpair_chunk": 0,
+              "neighbor_rebuild": 0, "sharded_pencil_moved": 0,
+              "sharded_pencil_will_exceed": 0, "sharded_pencil_chunk": 0}
+
+# Chunks sized from the fluid (the unfused cell-pair path's default here, the
+# sharded pencil engine's in parallel/spatial_pencil.py): the margin on the
+# top speed of the state a run starts from.
+CHUNK_SPEED_MARGIN = 1.5
+
+
+def chunk_from_speed(dt: float, reach: float, top_speed: float, max_chunk: int) -> int:
+    """The most steps, at most ``max_chunk`` and at least 1, in which a
+    particle at ``CHUNK_SPEED_MARGIN * top_speed`` moves less than ``reach``."""
+    if not math.isfinite(top_speed):
+        raise ValueError(f"top speed {top_speed}: the state is not finite")
+    step = dt * CHUNK_SPEED_MARGIN * top_speed
+    if step <= 0.0:
+        return max_chunk
+    return max(1, min(max_chunk, int(reach / step)))
 
 
 class Engine(NamedTuple):
@@ -701,6 +718,8 @@ class PencilCarry:
 
 
 CELLPAIR_TRIGGERS = ("always", "predictive", "never")
+# The unfused path's longest chunk (the JAX engine's fixed unfused chunk).
+UNFUSED_MAX_CHUNK = 12
 # Margin of the predictive rebin trigger on the coming chunk's travel.
 _PREDICT_SAFETY = 1.25
 
@@ -724,8 +743,13 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
 
     ``step``/``step_fast`` run one sweep per step with the JAX per-step
     displacement check (one host read of the "moved" flag per step).
-    ``run_fast`` advances in chunks of ``inner_chunk`` (8 fused, 12
-    unfused) with the rebin decision once per chunk: ``rebin_trigger``
+    ``run_fast`` advances in chunks of ``inner_chunk`` (8 fused; unfused,
+    by default, the most steps up to JAX's 12 in which a particle at 1.5x
+    the top speed of the state the run starts from stays inside half the
+    coverage slack: one host read per ``run_fast``, ``HOST_READS
+    ["cellpair_chunk"]``; JAX's fixed 12 lets config 5's fastest particles
+    outrun its 0.25 and sets ``pencil_overflow``) with the rebin decision
+    once per chunk: ``rebin_trigger``
     "always" (the plain default: rebin before every chunk, no host read),
     "predictive" (the compensated default: rebin when a particle could
     cross half the slack during the chunk; one host read per chunk) or
@@ -780,8 +804,9 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         width_lists = bool(use_fused and (int(n / P + 8.0) + 127) // 128 < cap // 128)
     if width_lists and not use_fused:
         raise ValueError("width_lists requires the fused pencil path")
+    fluid_chunk = inner_chunk is None and not use_fused
     if inner_chunk is None:
-        inner_chunk = 8 if use_fused else 12
+        inner_chunk = 8 if use_fused else UNFUSED_MAX_CHUNK
     zero_win = torch.zeros(((ns // TILE_I) * 9,), dtype=torch.int32, device=device)
 
     def sweep(pos, counts, wins, want_obs=True):
@@ -1010,11 +1035,19 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             c, _ = _step(c, False, False)
         return c
 
+    def _top_speed(c: PencilCarry) -> float:
+        v = (c.v + c.vc if compensated else c.v)[drift_rows]
+        HOST_READS["cellpair_chunk"] += 1
+        return float(torch.sqrt(torch.max(torch.sum(v * v, dim=0))))
+
     def _chunked(chunk):
         def run(c: PencilCarry, n_steps: int) -> PencilCarry:
-            full, rem = divmod(n_steps, inner_chunk)
+            k = inner_chunk
+            if fluid_chunk and n_steps > 0:
+                k = chunk_from_speed(dt, 0.5 * slack, _top_speed(c), UNFUSED_MAX_CHUNK)
+            full, rem = divmod(n_steps, k)
             for _ in range(full):
-                c = chunk(c, inner_chunk)
+                c = chunk(c, k)
             if rem:
                 c = chunk(c, rem)
             return c

@@ -39,7 +39,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ljmd_tpu_torch"
 SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
            "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
-           "pencil_sweep_full.cu", "pencil_sweep_zband.cu", "pair_sweep_rect.cu")
+           "pencil_sweep_full.cu", "pencil_sweep_zband.cu", "pair_sweep_rect.cu",
+           "mosaic_probes.cu", "layout_bodies.cu")
 HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "pencil_pairs.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,10 +53,10 @@ class LaunchCounts:
     """Plain integer launch counters, one per kernel wrapper."""
 
     NAMES = ("lj_pair_terms", "pair_sweep_tri", "pair_sweep", "fused_dense_chunk",
-             "fused_dense_chunk_ext", "build_window_lists", "fused_dense_chunk_list",
-             "pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_chunk",
+             "fused_dense_chunk_ext", "fused_dense_chunk_flags", "build_window_lists",
+             "fused_dense_chunk_list", "pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_chunk",
              "pencil_sweep_full", "pencil_sweep_zband", "pair_sweep_rect",
-             "pair_sweep_rect_newton")
+             "pair_sweep_rect_newton", "mosaic_probes", "layout_bodies")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -168,11 +169,11 @@ def library() -> ctypes.CDLL:
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, real,
-                       real, real, _I, _I, _P]
+                       real, real, _I, _I, _P, _I, _I, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       real, real, real, real, real, real, _I, _I, _I, _P]
+                       real, real, real, real, real, real, _I, _I, _I, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pair_sweep_rect_{suffix}")
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
@@ -193,7 +194,7 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        real, real, real, real, real, real, _I, _I, _I, _P]
         fn.restype = _I
-    lib.ljmd_fused_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_fused_max_blocks.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
     lib.ljmd_fused_max_blocks.restype = _I
     lib.ljmd_fused_tile_cols.restype = _I
     lib.ljmd_list_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
@@ -205,6 +206,17 @@ def library() -> ctypes.CDLL:
     lib.ljmd_pencil_tile_slots.restype = _I
     lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.ljmd_pack_window_lists.restype = _I
+    lib.ljmd_probe_transpose.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    lib.ljmd_probe_window.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    lib.ljmd_probe_roll.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    lib.ljmd_probe_rowsum.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    for name in ("transpose", "window", "roll", "rowsum"):
+        getattr(lib, f"ljmd_probe_{name}").restype = _I
+    lib.ljmd_layout_max_blocks.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.ljmd_layout_max_blocks.restype = _I
+    lib.ljmd_layout_body.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _F, _F, _F, _I, _P]
+    lib.ljmd_layout_body.restype = _I
     lib.ljmd_cuda_error_string.argtypes = [_I]
     lib.ljmd_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -172,7 +172,9 @@ def _max_blocks(device_index: int, element_size: int, extended: bool) -> int:
 
 
 def _launch(r, v, a, tiles, tcounts, n, box_length, rc_square, dt, n_steps,
-            tile_i, tile_j, r_lo, vc, obs_last):
+            tile_i, tile_j, r_lo, vc, obs_last, grid_cap=None):
+    """One launch of the kernel; ``grid_cap`` (tests and the smoke script
+    only) caps the persistent grid so that each block takes several tiles."""
     extended = r_lo is not None
     name = "fused_dense_chunk_list"
     _cuda.require_cuda_rows(name, *((r, r_lo, v, vc, a) if extended else (r, v, a)))
@@ -197,12 +199,11 @@ def _launch(r, v, a, tiles, tcounts, n, box_length, rc_square, dt, n_steps,
     vc_out = vc.clone() if extended else None
     obs = torch.zeros_like(r) if obs_last else None
     if n_steps > 0:
-        blocks = n_pad // lib.ljmd_list_tile_cols()
-        max_blocks = _max_blocks(r.device.index, r.element_size(), extended)
-        if blocks > max_blocks:
-            raise RuntimeError(
-                f"{name}: n_pad={n_pad} needs {blocks} co-resident blocks but this "
-                f"card holds at most {max_blocks}; the grid barrier cannot run")
+        # A persistent grid: each block takes its 32-particle tiles in turn.
+        blocks = min(n_pad // lib.ljmd_list_tile_cols(),
+                     _max_blocks(r.device.index, r.element_size(), extended))
+        if grid_cap is not None:
+            blocks = max(1, min(blocks, int(grid_cap)))
         with torch.cuda.device(r.device):
             code = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")(
                 rbuf.data_ptr(), lobuf.data_ptr() if extended else None,
@@ -211,7 +212,7 @@ def _launch(r, v, a, tiles, tcounts, n, box_length, rc_square, dt, n_steps,
                 tiles.data_ptr(), tcounts.data_ptr(), tiles.shape[1], n_tails,
                 tile_j // tile_i, n, n_pad, float(box_length), 1.0 / float(box_length),
                 float(rc_square), float(dt), 0.5 * dt, 0.5 * dt * dt, n_steps,
-                int(obs_last), int(extended), _cuda.stream_handle(r))
+                int(obs_last), int(extended), blocks, _cuda.stream_handle(r))
         _cuda.LAUNCHES.bump(name)
         _cuda.check(code, name)
     last = n_steps % 2

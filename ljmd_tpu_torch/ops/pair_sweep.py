@@ -81,12 +81,16 @@ def _pair_geometry(pos: torch.Tensor, n: int, box_length: float,
 
 
 def pair_forces_plain(pos: torch.Tensor, n: int, box_length: float,
-                      rc_square: float, lo: torch.Tensor | None = None) -> torch.Tensor:
+                      rc_square: float, lo: torch.Tensor | None = None,
+                      gate: torch.Tensor | None = None) -> torch.Tensor:
     """(8, n_pad) rows 0..2 = force / 24 on each particle, everything else 0
-    (the force-only sweep of the fused chunks)."""
+    (the force-only sweep of the fused chunks). ``gate``, an (n, n) bool
+    matrix, keeps only the pairs it marks."""
     d, r2 = _pair_geometry(pos, n, box_length, lo)
     eye = torch.eye(n, dtype=torch.bool, device=pos.device)
     mask = (r2 < rc_square) & ~eye
+    if gate is not None:
+        mask &= gate
     coef, _, _, _ = lj_pair_terms_plain(r2, mask, want_observables=False)
     out = torch.zeros_like(pos)
     out[0:3, :n] = (coef[None] * d).sum(dim=-1)

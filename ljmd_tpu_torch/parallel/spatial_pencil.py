@@ -34,7 +34,7 @@ single-device engine's xy slack, so a chunk must be short enough that no
 particle outruns skin / 2 in it. JAX fixes the chunk at 8 steps, which sets
 ``pencil_overflow`` at BASELINE config 5 (dt = 0.005, skin / 2 = 0.2). Here
 the default chunk follows the fluid: each ``run_fast`` takes the most steps,
-at most 8, in which a particle at ``CHUNK_SPEED_MARGIN`` times the top speed
+at most 8, in which a particle at ``engine.CHUNK_SPEED_MARGIN`` times the top speed
 of the state it starts from stays within skin / 2 (a ``pmax``, one host read
 in ``HOST_READS["sharded_pencil_chunk"]``).
 
@@ -50,7 +50,6 @@ rebins use the two-float wrap and permute the remainder rows with the slots.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -62,6 +61,7 @@ from ljmd_tpu_torch.models.engine import (
     HOST_READS,
     Engine,
     _effective_dtype,
+    chunk_from_speed,
 )
 from ljmd_tpu_torch.ops.cell_list import bin_to_slots, make_pencil_grid, rebin_gather_parts
 from ljmd_tpu_torch.ops.fused import comp_add, wrap_positions_ext
@@ -78,7 +78,6 @@ __all__ = ["ShardedPencilCarry", "augmented_counts", "default_inner_chunk",
 # equilibrium fluid's top speed grows far less; a fluid still heating up can
 # grow faster, hence a margin and not a fixed chunk).
 MAX_INNER_CHUNK = 8
-CHUNK_SPEED_MARGIN = 1.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,12 +147,7 @@ def augmented_counts(counts: torch.Tensor, m: int, d: int) -> list:
 def default_inner_chunk(cfg: SimConfig, top_speed: float) -> int:
     """The most steps, at most ``MAX_INNER_CHUNK`` and at least 1, in which
     a particle at ``CHUNK_SPEED_MARGIN * top_speed`` moves less than skin / 2."""
-    if not math.isfinite(top_speed):
-        raise ValueError(f"top speed {top_speed}: the state is not finite")
-    step = cfg.dt * CHUNK_SPEED_MARGIN * top_speed
-    if step <= 0.0:
-        return MAX_INNER_CHUNK
-    return max(1, min(MAX_INNER_CHUNK, int(0.5 * cfg.neighbor_skin / step)))
+    return chunk_from_speed(cfg.dt, 0.5 * cfg.neighbor_skin, top_speed, MAX_INNER_CHUNK)
 
 
 def make_sharded_pencil_engine(cfg: SimConfig, mesh, compensated: bool | None = None,

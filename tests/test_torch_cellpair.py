@@ -72,8 +72,9 @@ CASES = {
     # the compensated default: extended chunk, predictive trigger
     "fused_compensated_predictive": dict(compensated=True),
     "fused_never": dict(rebin_trigger="never"),
-    "unfused_always": dict(use_fused=False),
-    "unfused_predictive": dict(use_fused=False, rebin_trigger="predictive"),
+    # JAX's unfused chunk of 12 (the port's default sizes it from the fluid)
+    "unfused_always": dict(use_fused=False, inner_chunk=12),
+    "unfused_predictive": dict(use_fused=False, rebin_trigger="predictive", inner_chunk=12),
 }
 
 
@@ -111,6 +112,28 @@ def test_cellpair_engine_matches_jax(small, case):
     pc, po = peng.step(pc)
     _close_obs(po, jo, 1e-10)
     _close_states(peng.get_state(pc), je.get_state(jc))
+
+
+def test_cellpair_unfused_default_chunk_keeps_drift_check_clear(small):
+    """JAX's unfused chunk of 12 lets particles at a config-5-like top speed
+    outrun half the xy coverage slack between rebins (``pencil_overflow``
+    set); the default chunk, sized from the top speed of the state each
+    ``run_fast`` starts from, keeps it clear over the same 24 steps. The
+    rule at BASELINE config 5 (dt 0.005, half the slack 0.25) gives 7 steps
+    at a top speed of 4.5."""
+    assert pe.chunk_from_speed(0.005, 0.25, 4.5, pe.UNFUSED_MAX_CHUNK) == 7
+    assert pe.chunk_from_speed(0.005, 0.25, 0.0, pe.UNFUSED_MAX_CHUNK) == 12
+    jcfg, _, pstate = small
+    cfg = _port_cfg(jcfg).replace(dt=0.005)
+    # A uniform drift on the fluid: the same forces, a top speed near 7.
+    st = dataclasses.replace(pstate, v=pstate.v + torch.tensor([4.0, 0.0, 0.0],
+                                                                dtype=torch.float64))
+    flags = {}
+    for chunk in (12, None):
+        eng = pe._cellpair_engine(cfg, "cpu", use_fused=False, inner_chunk=chunk)
+        c = eng.run_fast(eng.init(st)[0], 24)
+        flags[chunk] = bool(eng.diagnostics(c)["pencil_overflow"])
+    assert flags == {12: True, None: False}
 
 
 def test_cellpair_production_matches_jax(small):

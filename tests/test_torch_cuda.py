@@ -548,3 +548,111 @@ def test_sharded_pencil_engine_on_card_matches_cpu(cuda):
         _close(getattr(s_gpu, f), getattr(s_cpu, f), 1e-9)
     assert float(o_gpu.epot) == pytest.approx(float(o_cpu.epot), rel=1e-10)
     assert not f_gpu and not f_cpu
+
+
+def _n4000_fluid(device, dtype):
+    """The N=4000 production box's perturbed FCC lattice, z-sorted, with
+    velocities and consistent accelerations, as (8, 4096) rows."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+
+    box, rc2 = 16.795961913825, (0.148845300604 * 16.795961913825) ** 2
+    rng = np.random.default_rng(40)
+    r = fcc_lattice(10, box, dtype=torch.float64).numpy()
+    r = np.mod(r + rng.normal(scale=0.07, size=r.shape), box)
+    r = r[np.argsort(r[:, 2])]
+    rows = torch.zeros((8, 4096), dtype=torch.float64)
+    rows[0:3, :4000] = torch.as_tensor(r.T)
+    v = torch.zeros_like(rows)
+    v[0:3, :4000] = torch.as_tensor(rng.uniform(-1.0, 1.0, (3, 4000)))
+    a = 24.0 * pair_sweep.pair_forces_plain(rows, 4000, box, rc2)
+    return (box, rc2, *(t.to(device=device, dtype=dtype) for t in (rows, v, a)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("extended", [False, True])
+def test_dense_chunk_capped_grid_is_bit_identical(cuda, dtype, extended):
+    """The persistent grid: capped at 32 blocks (4 tiles a block) the chunk
+    equals the uncapped one bit for bit; so does the list chunk at 48."""
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    box, rc2, r, v, a = _n4000_fluid(cuda, dtype)
+    zero = torch.zeros_like(r)
+    ext = (zero, zero) if extended else (None, None)
+    full = fused._launch("fused_dense_chunk", extended, r, ext[0], v, ext[1], a, 4000, box,
+                         rc2, 0.005, 6)
+    capped = fused._launch("fused_dense_chunk", extended, r, ext[0], v, ext[1], a, 4000, box,
+                           rc2, 0.005, 6, grid_cap=32)
+    for g, w in zip(capped, full):
+        assert g is None or torch.equal(g, w)
+    flags = window_lists.compute_tile_flags(r, 4000, 128, 128, box, 2.5 + 0.7)
+    tiles, counts = window_lists.build_window_lists(flags, 4000, 4096, 128, 512)
+    kw = dict(r_lo=zero, vc=zero) if extended else dict(r_lo=None, vc=None)
+    args = (r, v, a, tiles, counts, 4000, box, rc2, 0.005, 6, 128, 512, kw["r_lo"], kw["vc"],
+            False)
+    for g, w in zip(fused_list._launch(*args, grid_cap=48), fused_list._launch(*args)):
+        assert torch.equal(g, w)
+
+
+def _flag_patterns(r, box):
+    from ljmd_tpu_torch.ops import window_lists
+
+    real = window_lists.compute_tile_flags(r, 4000, 128, 512, box, 2.5 + 0.7)
+    rand = torch.as_tensor(np.random.default_rng(3).integers(0, 2, real.numel())
+                           .astype(np.int32), device=r.device)
+    return {"real": real, "zero": torch.zeros_like(real), "all3": torch.full_like(real, 3),
+            "random": rand}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("extended", [False, True])
+def test_flags_chunk_kernel_matches_twin(cuda, dtype, tol, extended):
+    """Kernel 8 against its plain version at N=4000 (128, 512) with real,
+    zero, all-3 and random 0/1 flags; all-3 flags equal the unflagged chunk
+    bit for bit."""
+    box, rc2, r, v, a = _n4000_fluid(cuda, dtype)
+    zero = torch.zeros_like(r)
+    kw = dict(r_lo=zero, vc=zero) if extended else {}
+    for name, flags in _flag_patterns(r, box).items():
+        got = fused.fused_dense_chunk_flags(r, v, a, flags, 4000, box, rc2, 0.005, 4, **kw)
+        want = fused.fused_dense_chunk_flags_plain(r, v, a, flags, 4000, box, rc2, 0.005, 4,
+                                                   **kw)
+        for g, w in zip(got, want):
+            _close(g, w, tol)
+        if name == "all3":
+            ref = (fused.fused_dense_chunk_ext(r, zero, v, zero, a, 4000, box, rc2, 0.005, 4)
+                   if extended else fused.fused_dense_chunk(r, v, a, 4000, box, rc2, 0.005, 4))
+            for g, w in zip(got, ref):
+                assert torch.equal(g, w)
+
+
+def test_mosaic_probes_match_plain(cuda):
+    """Kernel 17: each probe at N=4096, ITERS=200 against its plain loop."""
+    from ljmd_tpu_torch.experiments import mosaic_support as ms
+
+    for name, _ in ms.PROBES:
+        inputs = ms.probe_inputs(name, cuda)
+        got, want = ms.probe(name, *inputs), ms.probe_plain(name, *inputs)
+        _close(got, want, 1e-6)
+    x = torch.ones((4096, 8), device=cuda)
+    assert torch.equal(ms.transpose_scaled(x, 17), ms.transpose_scaled_plain(x, 17))
+
+
+@pytest.mark.parametrize("name", ["k1", "k2b", "k2", "k3", "k4", "k4z", "k5a", "k5b", "k5c",
+                                  "k6"])
+def test_layout_bodies_match_plain(cuda, name, monkeypatch):
+    """Kernel 18: each body at N_PAD=4096 (512 columns; k1 and k2 at 128
+    too), 4 steps over 24 visits, against its plain version, in a box of
+    L = 8 (lattice spacing 0.5: the forces, which reach r only through
+    f * 1e-9, move it well past float32's resolution)."""
+    from ljmd_tpu_torch.experiments import layout as ly
+
+    monkeypatch.setattr(ly, "L", 8.0)
+    r8, rT = ly.make_state(0, 4096, cuda)
+    ti, tj = ly.visit_lists(24, 7, 4096)
+    for tj_w in (512, 128) if name in ("k1", "k2") else (512,):
+        lists = [torch.tensor(x, dtype=torch.int32, device=cuda)
+                 for x in ly.variant_lists(name, tj_w, ti, tj, 4096)]
+        got = ly.layout_body(name, r8, rT, *lists, 24, tj_w, 4, box=8.0)
+        want = ly.layout_body_plain(name, r8, rT, *lists, 24, tj_w, 4, box=8.0)
+        assert float((want[1] - r8[1]).abs().max()) > 1e-4
+        _close(got, want, 1e-5)
