@@ -16,7 +16,9 @@ checkout. Phases, each fatal on failure:
    work (``bound_ms``):
    a. the rows path's kernels on seeded perturbed-FCC inputs at N=500 (the
       reference default's box) and N=4000 (``examples/n4000_production.json``),
-      float32 and float64;
+      float32 and float64; the dense chunk's launch shape (threads a
+      particle, work items, resident or streamed positions, blocks and warps
+      an SM) and its share of the bound;
    b. the zsort path's kernels at the zsort engine's own geometry for
       ``examples/n4000_production.json`` (n_pad 4096) and
       ``examples/n864_liquid.json`` (n_pad 896): the visit-list pack on the
@@ -28,7 +30,10 @@ checkout. Phases, each fatal on failure:
       fluid of phase 4c, at capacity 512 (the lattice's) and 384 (the
       post-warmup census), float32 and
       float64: the half-shell sweep with and without observables, the fused
-      pencil chunk and the width-listed chunk, each plain and extended; the
+      pencil chunk and the width-listed chunk, each plain and extended (the
+      width chunk with its launch shape, its per-block visit index's size,
+      build time and device operations, and the busiest block's staged
+      chunks beside the mean); the
       full 9-neighbour sweep with and without observables; at capacity 512
       the z-banded sweep (window 384), against its twin and against the full
       sweep;
@@ -39,7 +44,7 @@ checkout. Phases, each fatal on failure:
    e. the flag-gated dense chunk (kernel 8) on the experiments' melted
       N=4000 fluid, float32 and float64, plain and extended: the fluid's
       flags at tile_j 512 ... 4096, and all-zero, all-3 (bit-equal to the
-      unflagged chunk) and random 0/1 flags at 512;
+      unflagged chunk) and random 0/1 flags at 512, with its launch shape;
    f. the nine layout probes (kernel 17) at N=4096, 200 iterations, beside
       200 calls of the library operation each stands for;
    g. the pair-tile layout bodies (kernel 18) over 128 visits at N_PAD=4096
@@ -86,9 +91,9 @@ checkout. Phases, each fatal on failure:
    ``pencil_overflow``, at JAX's 12 it is timed and its flag recorded; a planted
    fault (fused static over tables that miss two neighbour-pencil pairs)
    must exceed both limits;
-6. rows at config 5 (N=62500, the dense chunk's persistent grid): float64,
-   8 fused steps against the unfused cell-pair engine within 1e-9, and its
-   float32 ms per step;
+6. rows at config 5 (N=62500, the dense chunk's persistent grid, positions
+   streamed): float64, 8 fused steps against the unfused cell-pair engine
+   within 1e-9, and its float32 ms per step, with the launch shapes;
 7. zsort and cellpair against rows on the card: one float64 N=4000 state,
    32 fused steps (resorts / rebins between chunks): within 1e-10;
 8. the rows path on the card and on the CPU from one state (N=256, 200
@@ -202,8 +207,9 @@ LAYOUT_DISP_TOL = 5e-3
 EXPERIMENT_KERNELS = ("fused_dense_chunk_flags", "mosaic_probes", "layout_bodies")
 # Phase 6: rows on config 5 against the unfused cell-pair engine.
 ROWS62500_STEPS = 8
-# The dense and list chunks' persistent grid capped for the bit check: each
-# block takes this many 32-particle tiles.
+# The dense, list and width chunks' persistent grid capped for the bit check:
+# each block takes this many work items (dense: 256 / S particles; list: 32
+# particles; width: 128 slots).
 TILES_PER_BLOCK = 4
 ZSORT_KERNELS = ("build_window_lists", "fused_dense_chunk_list")
 # The flagship step's run (entry()'s own total_steps) and the float64 checks
@@ -408,6 +414,23 @@ def sweep_flops(candidates: int, cut_pairs: int, want_obs: bool) -> float:
     return candidates * FLOPS_CANDIDATE + cut_pairs * (FLOPS_FORCE + (FLOPS_OBS if want_obs else 0))
 
 
+def plan_text(plan: dict) -> str:
+    """The dense chunk kernel's launch shape (``fused.dense_plan``) in words."""
+    return (f"S={plan['slices']} threads a particle, {plan['particles_per_item']} particles an "
+            f"item, {plan['items']} items, positions "
+            f"{'resident' if plan['resident'] else 'streamed'}, {plan['blocks_per_sm']} blocks "
+            f"an SM -> grid {plan['blocks']} on {plan['sms']} SMs, "
+            f"{plan['warps_per_sm']:.1f} warps an SM")
+
+
+def device_ops(torch, fn) -> int:
+    """Device operations (kernels, copies, fills) of one ``fn()``, counted
+    by torch.profiler."""
+    from ljmd_tpu_torch.utils.profiling import device_breakdown
+
+    return sum(v["count"] for v in device_breakdown(fn, top=1 << 30)["device_ms_by_name"].values())
+
+
 def phase_kernels(torch) -> dict:
     from ljmd_tpu_torch.ops import fused, pair_sweep, pair_terms
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
@@ -504,11 +527,12 @@ def phase_kernels(torch) -> dict:
             cases["fused_dense_chunk"].append({
                 **bound(dname, chunk_flops(chunk, cand, cut, n), 6 * rows_bytes),
                 "shape": label, "dtype": dname, "max_abs_err": max(e[0] for e in errs),
-                "rel_err": worst, "ms": ms, "plain_ms": plain_ms})
+                "rel_err": worst, "ms": ms, "plain_ms": plain_ms,
+                "plan": fused.dense_plan(r, False)})
 
-            # The persistent grid capped at TILES_PER_BLOCK tiles a block
-            # against the full grid, bit for bit.
-            cap_blocks = r.shape[1] // (32 * TILES_PER_BLOCK)
+            # The persistent grid capped at TILES_PER_BLOCK work items a
+            # block against the full grid, bit for bit.
+            cap_blocks = max(1, fused.dense_plan(r)["items"] // TILES_PER_BLOCK)
             capped = {}
             for extended in (False, True):
                 zero = torch.zeros_like(r)
@@ -541,15 +565,18 @@ def phase_kernels(torch) -> dict:
                 cases["fused_dense_chunk_ext"].append({
                     **bound(dname, chunk_flops(chunk, cand, cut, n), 10 * rows_bytes),
                     "shape": label, "dtype": dname, "max_abs_err": max(e[0] for e in errs),
-                    "rel_err": worst, "ms": ms, "plain_ms": plain_ms})
+                    "rel_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "plan": fused.dense_plan(r, True)})
     for name, cs in cases.items():
         per = "per call" if name.startswith("pair_sweep") else f"per {chunk}-step chunk"
         for c in cs:
             extra = (f", observables {c['observables']}" if "observables" in c else "") + (
                 f", force API (N, 3) call {c['force_api_ms']:.4f} ms" if "force_api_ms" in c else
-                "") + (f", grid capped at {TILES_PER_BLOCK} tiles a block bit-identical "
+                "") + (f", grid capped at {TILES_PER_BLOCK} work items a block bit-identical "
                        f"{c['capped_grid_bit_identical']}" if "capped_grid_bit_identical" in c
-                       else "")
+                       else "") + (
+                f"; {plan_text(c['plan'])}; {100 * c['bound_ms'] / c['ms']:.2f}% of the bound"
+                if "plan" in c else "")
             log(f"kernel {name} {c['shape']} {c['dtype']}: rel err {c['rel_err']:.3e} "
                 f"(tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms vs plain "
                 f"{c['plain_ms']:.4f} ms {per}; bound {c['bound_ms']:.4f} ms{extra}")
@@ -912,6 +939,32 @@ def strip_inputs(torch, c, grid, rank: int, rc_square: float):
     return (r_aug, tbl, counts, shf, grid, rc_square), p_loc, cand, cut
 
 
+def width_index_report(torch, lists, n_pencils: int, capacity: int, r) -> dict:
+    """Kernel 16's launch shape and its per-block visit index for the lists:
+    the index's entries, its build time (CUDA events) and device operations
+    (torch.profiler), and the staged 128-slot chunks a step of the busiest
+    and the mean block of the persistent grid (block b takes the ordered
+    items b, 2G - 1 - b, 2G + b, ...)."""
+    from ljmd_tpu_torch.ops import fused_pencil
+
+    def build():
+        return fused_pencil.width_index(*lists, n_pencils, capacity)
+
+    offsets, entries, order = (t.cpu().long() for t in build())
+    grid = fused_pencil.width_grid(r)
+    G, NB = grid["blocks"], order.numel()
+    chunks = torch.cat([torch.zeros(1, dtype=torch.long),
+                        torch.cumsum((entries[:int(offsets[-1])] >> 6) & 63, 0)])
+    cost = (chunks[offsets[1:]] - chunks[offsets[:-1]]).double()
+    pos = torch.arange(NB)
+    lane = torch.where((pos // G) % 2 == 0, pos % G, G - 1 - pos % G)
+    load = torch.zeros(G, dtype=torch.float64).index_add_(0, lane, cost[order])
+    return {"grid": grid,
+            "index": {"entries": int(offsets[-1]), "ms": cuda_time_ms(torch, build, 10),
+                      "device_ops": device_ops(torch, build),
+                      "busiest_chunks": float(load.max()), "mean_chunks": float(load.mean())}}
+
+
 def phase_pencil_kernels(torch, cfg, state) -> dict:
     """Kernels 13+14, 15, 16 and 11 (the cell-pair path) against their twins
     at config 5's geometry, from ``state`` (an N=62500 fluid), at each of
@@ -1078,6 +1131,16 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                           if mode == "extended" else {})
                     args = (c.r, c.v, c.a, *tabs, P, cap, L, rc2, dt, k_check)
                     got, want = kernel(*args, **kw), plain(*args, **kw)
+                    if name == "fused_pencil_width_chunk":
+                        # The persistent grid capped to a TILES_PER_BLOCK-th
+                        # (each block takes that many times the items), bit
+                        # for bit.
+                        g_cap = fused_pencil.width_grid(c.r, bool(kw))["blocks"] // TILES_PER_BLOCK
+                        capped = fused_pencil._launch_width(
+                            c.r, c.v, c.a, lists, P, cap, L, rc2, dt, k_check, kw.get("r_lo"),
+                            kw.get("vc"), grid_cap=g_cap)
+                        require(all(bool(torch.equal(g, w)) for g, w in zip(capped, got)),
+                                f"{name} {label} {dname} {mode}: the capped grid differs")
                     if mode == "extended":
                         got = (got[0].double() + got[1].double(),
                                got[2].double() + got[3].double(), got[4])
@@ -1092,13 +1155,16 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                     errs.append({"mode": mode, "max_abs_err": max(x[0] for x in e),
                                  "rel_err": worst})
                 targs = (c.r, c.v, c.a, *tabs, P, cap, L, rc2, dt, k_time)
-                cases[name].append({
+                case = {
                     **base, **bound(dname, chunk_flops(k_time, cand, cut, n),
                                     6 * slots_bytes + extra),
                     "max_abs_err": max(x["max_abs_err"] for x in errs),
                     "rel_err": max(x["rel_err"] for x in errs), "modes": errs,
                     "ms": cuda_time_ms(torch, lambda: kernel(*targs), 10),
-                    "plain_ms": cuda_time_ms(torch, lambda: plain(*targs), 1, warmup=1)})
+                    "plain_ms": cuda_time_ms(torch, lambda: plain(*targs), 1, warmup=1)}
+                if name == "fused_pencil_width_chunk":
+                    case.update(width_index_report(torch, lists, P, cap, c.r))
+                cases[name].append(case)
     for name, cs in cases.items():
         sweep = "observables" in cs[0]
         per = "per call" if sweep else f"per {k_time}-step chunk"
@@ -1108,6 +1174,14 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
             if "rel_err_vs_full" in c:
                 what += (f", window {c['window']} ({c['use_b']} window-B visits), vs the full "
                          f"sweep {c['rel_err_vs_full']:.3e}")
+            if "index" in c:
+                ix, wg = c["index"], c["grid"]
+                what += (f"; {wg['threads']} threads a 128-slot item, {wg['items']} items, grid "
+                         f"{wg['blocks']}; index: {ix['entries']} entries, built in "
+                         f"{ix['ms']:.4f} ms by {ix['device_ops']} device operations; the "
+                         f"busiest block runs {ix['busiest_chunks']:.0f} staged chunks a step, "
+                         f"the mean {ix['mean_chunks']:.1f}; "
+                         f"{100 * c['bound_ms'] / c['ms']:.2f}% of the bound")
             log(f"kernel {name} {c['shape']} {c['dtype']} (max count {c['counts_max']}): "
                 f"{what}, rel err {c['rel_err']:.3e} (tol {KERNEL_TOL[c['dtype']]:.0e}), "
                 f"{c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms {per}; bound "
@@ -1129,17 +1203,23 @@ def gated_cut_pairs(torch, r, n: int, box_length: float, rc_square: float, upper
     return total
 
 
-def block_chunk_share(torch, flags, n: int, n_pad: int, tile_i: int, tile_j: int):
-    """(chunks the busiest block runs, the mean over blocks, chunks a block
-    has) of kernel 8 under ``flags``: a 32-row block runs a 128-column chunk
-    when its forward tile (j > i) or its backward tile (j < i) is active."""
+def block_chunk_share(torch, flags, n: int, n_pad: int, tile_i: int, tile_j: int, plan: dict):
+    """(128-column granules the busiest block runs, the mean over blocks,
+    granules an item has) of kernel 8 under ``flags`` at the launch shape
+    ``plan``: an item of TI particles runs a granule when its forward tile
+    (j > i) or its backward tile (j < i) is active; block b runs items b,
+    b + grid, ..."""
+    ti, grid = plan["particles_per_item"], plan["blocks"]
     f = (flags.reshape(n_pad // tile_i, n_pad // tile_j) > 0).cpu()
-    i0 = torch.arange(0, n_pad, 32)[:, None]
+    i0 = torch.arange(0, n_pad, ti)[:, None]
     j0 = torch.arange(0, n, 128)[None, :]
-    fwd = (j0 + 127 > i0) & f[i0 // tile_i, j0 // tile_j]
-    bwd = (j0 < i0 + 31) & f[j0 // tile_i, i0 // tile_j]
-    run = (fwd | bwd).sum(dim=1)
-    return int(run.max()), float(run.double().mean()), j0.numel()
+    g1 = torch.clamp(j0 + 128, max=n)
+    fwd = (g1 - 1 > i0) & f[i0 // tile_i, j0 // tile_j]
+    bwd = (j0 < i0 + ti - 1) & f[j0 // tile_i, i0 // tile_j]
+    run = (fwd | bwd).sum(dim=1).double()
+    per_block = torch.zeros(grid, dtype=torch.float64).index_add_(
+        0, torch.arange(run.numel()) % grid, run)
+    return int(per_block.max()), float(per_block.mean()), j0.numel()
 
 
 def phase_flags_kernel(torch) -> dict:
@@ -1201,11 +1281,13 @@ def phase_flags_kernel(torch) -> dict:
                 cand = int(upper.sum())
                 cut = gated_cut_pairs(torch, r, n, L, rc2, upper)
                 targs = (r, v, a, flags, n, L, rc2, dt, FLAG_CHUNK_STEPS)
-                busiest, mean, per_block = block_chunk_share(torch, flags, n, n_pad, 128, tj)
+                plan = fused.dense_plan(r, False, True)
+                busiest, mean, per_item = block_chunk_share(torch, flags, n, n_pad, 128, tj, plan)
                 case = {**bound(dname, chunk_flops(FLAG_CHUNK_STEPS, cand, cut, n),
                                 6 * rows_bytes + 4 * flags.numel()),
                         "shape": f"N={n} tile_j={tj} {pname}", "dtype": dname,
-                        "block_chunks": {"busiest": busiest, "mean": mean, "of": per_block},
+                        "block_chunks": {"busiest": busiest, "mean": mean, "per_item": per_item},
+                        "plan": plan,
                         "active": int((flags > 0).sum()), "tiles": flags.numel(),
                         "candidates": cand, "cut_pairs": cut, "modes": errs,
                         "max_abs_err": max(x["max_abs_err"] for x in errs),
@@ -1222,11 +1304,12 @@ def phase_flags_kernel(torch) -> dict:
         plain = f" vs plain {c['plain_ms']:.4f} ms" if "plain_ms" in c else ""
         bc = c["block_chunks"]
         log(f"kernel fused_dense_chunk_flags {c['shape']} {c['dtype']} ({c['active']}/"
-            f"{c['tiles']} tiles active; the busiest block runs {bc['busiest']} of {bc['of']} "
-            f"column chunks, the mean {bc['mean']:.1f}): rel err {modes} "
+            f"{c['tiles']} tiles active; the busiest block runs {bc['busiest']} 128-column "
+            f"granules, the mean {bc['mean']:.1f}, {bc['per_item']} an item): rel err {modes} "
             f"(tol {KERNEL_TOL[c['dtype']]:.0e}), "
             f"{c['ms']:.4f} ms{plain} per {FLAG_CHUNK_STEPS}-step chunk; bound "
-            f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {c['candidates']} candidates)")
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {c['candidates']} candidates, "
+            f"{100 * c['bound_ms'] / c['ms']:.2f}% of it); {plan_text(c['plan'])}")
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return {"fused_dense_chunk_flags": cases}
 
@@ -2077,11 +2160,13 @@ def phase_chunk_paths(torch, cfg, states: dict) -> dict:
 # ---------------------------------------------------------------- phase 6
 def phase_rows_at_62500(torch, cfg, state) -> dict:
     """The rows engine on config 5 (N=62500: the dense chunk's persistent
-    grid, 1956 tiles over the blocks the card holds): from ``state`` in
+    grid, its work items in rounds over the blocks the card holds): from
+    ``state`` in
     float64, ROWS62500_STEPS fused steps against the unfused cell-pair
     engine at the same chunk, within CROSS_TOL (summation order only); then
     its float32 ms per step over ROWS62500_STEPS after one untimed chunk."""
     from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.ops import fused
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
 
     dev = torch.device(DEVICE)
@@ -2112,6 +2197,9 @@ def phase_rows_at_62500(torch, cfg, state) -> dict:
     torch.cuda.synchronize()
     out["f32_ms_per_step"] = 1e3 * (time.time() - t0) / k
     out["f32_launches"] = {n: v for n, v in LAUNCHES.snapshot().items() if v}
+    n_pad = -(-cfg.n // pe.ROW_PAD) * pe.ROW_PAD
+    out["plans"] = {d: fused.dense_plan(torch.zeros((8, n_pad), dtype=t, device=dev))
+                    for d, t in (("float32", torch.float32), ("float64", torch.float64))}
     require(out["f32_launches"].get("fused_dense_chunk", 0) == 1,
             "rows at N=62500: one fused chunk expected")
     require(bool(torch.isfinite(c.v).all()), "rows at N=62500 float32: non-finite velocities")
@@ -2119,7 +2207,8 @@ def phase_rows_at_62500(torch, cfg, state) -> dict:
     log(f"rows at N={cfg.n} (config 5, persistent grid): float64 {k} fused steps vs the "
         f"unfused cell-pair engine max rel diff over r, ru, v, a {out['f64_vs_cellpair']:.3e} "
         f"(tol {CROSS_TOL:.0e}), {out['f64_ms_per_step']:.3f} ms/step; float32 "
-        f"{out['f32_ms_per_step']:.3f} ms/step")
+        f"{out['f32_ms_per_step']:.3f} ms/step; dense chunk float32: "
+        f"{plan_text(out['plans']['float32'])}; float64: {plan_text(out['plans']['float64'])}")
     return out
 
 
@@ -2266,7 +2355,7 @@ def main() -> int:
         "fused_dense_chunk_list": ("ljmd_tpu_torch/csrc/fused_dense_chunk_list.cu", "ljmd_tpu/ops/pallas_fused.py:1383"),
         "pencil_sweep_hs": ("ljmd_tpu_torch/csrc/pencil_sweep_hs.cu", "ljmd_tpu/ops/pallas_pencil2.py:187"),
         "fused_pencil_chunk": ("ljmd_tpu_torch/csrc/fused_pencil_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:277"),
-        "fused_pencil_width_chunk": ("ljmd_tpu_torch/csrc/fused_pencil_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:609"),
+        "fused_pencil_width_chunk": ("ljmd_tpu_torch/csrc/fused_pencil_width_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:609"),
         "pencil_sweep_full": ("ljmd_tpu_torch/csrc/pencil_sweep_full.cu", "ljmd_tpu/ops/pallas_pencil.py:309"),
         "pencil_sweep_zband": ("ljmd_tpu_torch/csrc/pencil_sweep_zband.cu", "ljmd_tpu/ops/pallas_pencil.py:256"),
         "pair_sweep_rect": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:364"),

@@ -1,8 +1,8 @@
 // Device code shared by the cell-pair kernels (pencil_sweep_hs.cu,
-// fused_pencil_chunk.cu, pencil_sweep_full.cu, pencil_sweep_zband.cu): the
-// pair loop of one segment of partner slots and the half-shell neighbourhood
-// of a slot, from the tables or from the width lists; the i-side segment of
-// the full 9-neighbour sweeps.
+// fused_pencil_chunk.cu, fused_pencil_width_chunk.cu, pencil_sweep_full.cu,
+// pencil_sweep_zband.cu): the pair loop of one segment of partner slots and
+// the half-shell neighbourhood of a slot from the tables; the i-side segment
+// of the full 9-neighbour sweeps; the fused chunks' per-slot Verlet updates.
 //
 // Slot layout: (8, ns) row planes, ns = n_pencils * cap, x/y/z in rows 0..2,
 // row 3 the validity (1/0); pencil p owns slots [p*cap, (p+1)*cap), valid
@@ -188,66 +188,6 @@ __device__ void pen_table_pairs(const PenGeom<T>& p, PenStage<T, EXT>& sh, const
   }
 }
 
-// The five width lists (ops/fused_pencil.py build_width_lists), read on the
-// device.
-struct PenLists {
-  const int* self;      // (n_sub * P,) self-visit i blocks, class u at (u-1)*P
-  const int* self_cnt;  // (n_sub,)
-  const int* nbr_i;     // (P * n_sub * 4,) neighbour-visit i blocks
-  const int* nbr_j;     // packed (j_block << 4) | (shx+1) << 2 | (shy+1)
-  const int* nbr_off;   // (n_sub + 1,) class offsets
-};
-
-// All pairs of `me` (in 128-slot block blk) over the width lists: every
-// visit whose i block is blk (forward: its j range) and every visit whose j
-// range holds blk (backward: its 128 i slots). Self visits (class u: i block
-// ib, j blocks [ib, ib + u), triangular) give the partners above `me` in the
-// forward direction and those below it in the backward one.
-template <typename T, bool EXT>
-__device__ void pen_width_pairs(const PenGeom<T>& p, PenStage<T, EXT>& sh, const PenSlot<T>& me,
-                                int blk, const PenLists& wl, PenAcc<T>& acc) {
-  const int n_sub = p.cap / kPenGran;
-  const int P = p.n_pencils;
-#pragma unroll 1
-  for (int u = 1; u <= n_sub; ++u) {
-    const int cnt = wl.self_cnt[u - 1];
-#pragma unroll 1
-    for (int t = 0; t < cnt; ++t) {
-      const int ib = wl.self[(u - 1) * P + t];
-      if (blk < ib || blk >= ib + u) continue;
-      pen_segment<T, EXT, false>(p, sh, me, ib * kPenGran, kPenGran, false, T(0), T(0),
-                                 kPenBelow, false, acc);
-      if (ib == blk) {
-        pen_segment<T, EXT, false>(p, sh, me, ib * kPenGran, u * kPenGran, false, T(0), T(0),
-                                   kPenAbove, false, acc);
-      }
-    }
-  }
-#pragma unroll 1
-  for (int w = 1; w <= n_sub; ++w) {
-    const int end = wl.nbr_off[w];
-#pragma unroll 1
-    for (int t = wl.nbr_off[w - 1]; t < end; ++t) {
-      const int ib = wl.nbr_i[t];
-      const int pk = wl.nbr_j[t];
-      const int jb = pk >> 4;
-      const bool fwd = ib == blk;
-      const bool bwd = blk >= jb && blk < jb + w;
-      if (!fwd && !bwd) continue;
-      const T offx = mul_rn(static_cast<T>(((pk >> 2) & 3) - 1), p.box);
-      const T offy = mul_rn(static_cast<T>((pk & 3) - 1), p.box);
-      if (fwd) {
-        pen_segment<T, EXT, false>(p, sh, me, jb * kPenGran, w * kPenGran, true, offx, offy,
-                                   kPenAll, false, acc);
-      }
-      if (bwd) {
-        pen_segment<T, EXT, false>(p, sh, pen_shifted(me, offx, offy), ib * kPenGran, kPenGran,
-                                   false, T(0), T(0), kPenAll, false, acc);
-      }
-    }
-  }
-}
-
 // Partners staged by pen_i_segment: coordinates (x / y shifted where the
 // sweep shifts them) and the validity row.
 template <typename T>
@@ -328,6 +268,55 @@ __device__ __forceinline__ T pen_sum(const T (&red)[kPenSlices][ROWS][kPenTile],
 #pragma unroll
   for (int q = 1; q < kPenSlices; ++q) f = add_rn(f, red[q][c][threadIdx.x]);
   return f;
+}
+
+// Neumaier-compensated x += delta (as fused_dense_chunk.cu).
+template <typename T>
+__device__ __forceinline__ void pen_comp_add(T& x, T& c, T delta) {
+  const T y = add_rn(delta, c);
+  const T t = add_rn(x, y);
+  c = abs_(x) >= abs_(y) ? add_rn(sub_rn(x, t), y) : add_rn(sub_rn(y, t), x);
+  x = t;
+}
+
+// The fused chunks' phase 1 at element k of the slot planes: drift (r + v dt
+// + a dt^2/2 in the TPU kernel's order; extended: the two-float position
+// update with (v + vc) dt) into the new plane, and the first half-kick.
+template <typename T, bool EXT>
+__device__ __forceinline__ void pen_drift(size_t k, const T* r_cur, T* r_new, const T* lo_cur,
+                                          T* lo_new, T* v, T* vc, const T* a, T dt, T half_dt,
+                                          T half_dt_sq) {
+  if (EXT) {
+    const T delta = add_rn(mul_rn(add_rn(v[k], vc[k]), dt), mul_rn(a[k], half_dt_sq));
+    T x = r_cur[k];
+    T lo = lo_cur[k];
+    pen_comp_add(x, lo, delta);
+    r_new[k] = x;
+    lo_new[k] = lo;
+    T vk = v[k];
+    T ck = vc[k];
+    pen_comp_add(vk, ck, mul_rn(a[k], half_dt));
+    v[k] = vk;
+    vc[k] = ck;
+  } else {
+    r_new[k] = add_rn(add_rn(r_cur[k], mul_rn(v[k], dt)), mul_rn(a[k], half_dt_sq));
+    v[k] = add_rn(v[k], mul_rn(a[k], half_dt));
+  }
+}
+
+// The fused chunks' second half-kick at element k with the new acceleration.
+template <typename T, bool EXT>
+__device__ __forceinline__ void pen_kick(size_t k, T ak, T* v, T* vc, T* a, T half_dt) {
+  a[k] = ak;
+  if (EXT) {
+    T vk = v[k];
+    T ck = vc[k];
+    pen_comp_add(vk, ck, mul_rn(ak, half_dt));
+    v[k] = vk;
+    vc[k] = ck;
+  } else {
+    v[k] = add_rn(v[k], mul_rn(ak, half_dt));
+  }
 }
 
 }  // namespace ljmd

@@ -39,9 +39,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ljmd_tpu_torch"
 SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
            "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
-           "pencil_sweep_full.cu", "pencil_sweep_zband.cu", "pair_sweep_rect.cu",
-           "mosaic_probes.cu", "layout_bodies.cu")
-HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "pencil_pairs.cuh")
+           "fused_pencil_width_chunk.cu", "pencil_sweep_full.cu", "pencil_sweep_zband.cu",
+           "pair_sweep_rect.cu", "mosaic_probes.cu", "layout_bodies.cu")
+HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "pencil_pairs.cuh", "async_copy.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -169,7 +169,7 @@ def library() -> ctypes.CDLL:
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, real,
-                       real, real, _I, _I, _P, _I, _I, _I, _P]
+                       real, real, _I, _I, _P, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -191,18 +191,25 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_pencil_chunk_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       real, real, real, real, real, real, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, real, real, real, real, real, real,
+                       _I, _I, _I, _P]
         fn.restype = _I
-    lib.ljmd_fused_max_blocks.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
-    lib.ljmd_fused_max_blocks.restype = _I
-    lib.ljmd_fused_tile_cols.restype = _I
+        fn = getattr(lib, f"ljmd_fused_pencil_width_chunk_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, real, real, real, real, real,
+                       real, _I, _I, _I, _P]
+        fn.restype = _I
+    lib.ljmd_fused_plan.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_fused_plan.restype = _I
+    lib.ljmd_fused_block_threads.restype = _I
     lib.ljmd_list_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_list_max_blocks.restype = _I
     lib.ljmd_list_tile_cols.restype = _I
     lib.ljmd_pack_max_rows.restype = _I
-    lib.ljmd_pencil_max_blocks.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_pencil_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_pencil_max_blocks.restype = _I
+    lib.ljmd_width_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_width_max_blocks.restype = _I
+    lib.ljmd_width_block_threads.restype = _I
     lib.ljmd_pencil_tile_slots.restype = _I
     lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.ljmd_pack_window_lists.restype = _I

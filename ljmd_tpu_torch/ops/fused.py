@@ -10,9 +10,10 @@ unwrap update ``ru += r_end - r`` exactly.
 
 On a CUDA tensor each chunk is ONE cooperative launch of
 ``csrc/fused_dense_chunk.cu`` over a persistent grid (as many blocks as the
-card keeps resident, each taking its 32-particle tiles in turn); on a CPU
-tensor the plain twins below run a Python step loop over the dense sweep with
-the same updates. ``fused_dense_chunk_flags`` gates each pair on the
+card keeps resident, each taking its work items of 256 / S particles in
+turn, S threads a particle; ``dense_plan`` gives the shape); on a CPU tensor
+the plain twins below run a Python step loop over the dense sweep with the
+same updates. ``fused_dense_chunk_flags`` gates each pair on the
 activity flag of the (tile_i, tile_j) tile the TPU kernel computes it in.
 """
 
@@ -29,6 +30,7 @@ from ljmd_tpu_torch.ops.pair_sweep import pair_forces_plain
 __all__ = [
     "MAX_CHUNK_STEPS",
     "comp_add",
+    "dense_plan",
     "fused_dense_chunk",
     "fused_dense_chunk_ext",
     "fused_dense_chunk_flags",
@@ -138,23 +140,43 @@ def fused_dense_chunk_flags_plain(r, v, a, flags, n, box_length, rc_square, dt, 
 
 
 @functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int, element_size: int, extended: bool, flagged: bool) -> int:
-    """Blocks of the dense chunk kernel that fit on the card at once (cached:
-    the answer depends only on the card and the variant)."""
-    out = ctypes.c_int(0)
+def _plan(device_index: int, element_size: int, extended: bool, flagged: bool, n_pad: int,
+          slices: int) -> dict:
+    """The kernel's launch shape for a variant at n_pad (cached: it depends
+    only on the card, the variant, n_pad and a requested S)."""
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
-        _cuda.check(_cuda.library().ljmd_fused_max_blocks(element_size, int(extended),
-                                                           int(flagged), ctypes.byref(out)),
+        _cuda.check(_cuda.library().ljmd_fused_plan(element_size, int(extended), int(flagged),
+                                                     n_pad, slices, out),
                     "fused_dense_chunk occupancy query")
-    return out.value
+    s, resident, per_sm, sms, smem = out
+    threads = _cuda.library().ljmd_fused_block_threads()
+    items = n_pad * s // threads
+    return {"slices": s, "particles_per_item": threads // s, "items": items,
+            "resident": bool(resident), "blocks_per_sm": per_sm, "sms": sms,
+            "smem_bytes": smem, "blocks": min(items, per_sm * sms),
+            "warps_per_sm": min(items, per_sm * sms) * (threads // 32) / sms}
+
+
+def dense_plan(r, extended=False, flagged=False, slices=None) -> dict:
+    """The dense chunk kernel's launch shape for rows ``r`` (on the card):
+    threads a particle (``slices``, S), particles a work item, work items,
+    whether the position plane stays in shared memory for the whole step
+    (``resident``) or streams through a ring, blocks an SM holds, the
+    persistent grid (``blocks``) and the warps it puts on each SM.
+    ``slices`` asks for a given S instead of the occupancy rule's."""
+    _cuda.require_cuda_rows("dense_plan", r)
+    return _plan(r.device.index, r.element_size(), bool(extended), bool(flagged), r.shape[1],
+                 int(slices or 0))
 
 
 def _launch(name: str, extended: bool, r, r_lo, v, vc, a, n, box_length,
             rc_square, dt, n_steps, flags=None, tile_i=128, tile_j=512,
-            grid_cap=None):
+            grid_cap=None, slices=None):
     """One launch of the kernel. ``grid_cap`` (tests and the smoke script
     only) caps the persistent grid below what the card holds, so that each
-    block takes several tiles."""
+    block takes several work items; ``slices`` (measurements only) asks for
+    a given S."""
     tensors = (r, r_lo, v, vc, a) if extended else (r, v, a)
     _cuda.require_cuda_rows(name, *tensors)
     _check_steps(n_steps)
@@ -177,8 +199,8 @@ def _launch(name: str, extended: bool, r, r_lo, v, vc, a, n, box_length,
     vc_out = vc.clone() if extended else None
     if n_steps == 0:
         return rbuf[0], lobuf[0] if extended else None, v_out, vc_out, a_out
-    blocks = min(n_pad // lib.ljmd_fused_tile_cols(),
-                 _max_blocks(r.device.index, r.element_size(), extended, flags is not None))
+    plan = dense_plan(r, extended, flags is not None, slices)
+    blocks = plan["blocks"]
     if grid_cap is not None:
         blocks = max(1, min(blocks, int(grid_cap)))
     with torch.cuda.device(r.device):
@@ -188,8 +210,8 @@ def _launch(name: str, extended: bool, r, r_lo, v, vc, a, n, box_length,
             a_out.data_ptr(), n, n_pad, float(box_length),
             1.0 / float(box_length), float(rc_square), float(dt),
             0.5 * dt, 0.5 * dt * dt, n_steps, int(extended),
-            flags.data_ptr() if flags is not None else None, tile_i, tile_j, blocks,
-            _cuda.stream_handle(r),
+            flags.data_ptr() if flags is not None else None, tile_i, tile_j,
+            plan["slices"], int(plan["resident"]), blocks, _cuda.stream_handle(r),
         )
     _cuda.LAUNCHES.bump(name)
     _cuda.check(code, name)

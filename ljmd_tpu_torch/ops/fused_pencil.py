@@ -19,11 +19,19 @@ pencil's 128-granular active width, driven by the five visit lists of
 ``build_width_lists`` (built from the current bin's counts, valid until the
 next rebin). Returns (r, v, a) or, extended, (r, r_lo, v, vc, a).
 
-On CUDA tensors each chunk is ONE cooperative launch of
-``csrc/fused_pencil_chunk.cu`` (tables or lists read on the device); on CPU
-tensors the plain twins run a Python step loop over ``accumulate_visits``.
-The TPU kernel's ``mxu_reduce`` is an MXU layout experiment and is not
-ported.
+The width chunk reads the lists through a per-block visit index,
+``width_index``: for each 128-slot block the visits that touch it, with
+their role (``ROLES``), partner blocks and image shift, as CSR offsets and
+packed entries, and the blocks ordered by their partner count. The wrapper
+derives it on the device from the lists, once per list build (it keeps the
+last lists it indexed), with torch ops and no host read.
+
+On CUDA tensors each chunk is ONE cooperative launch (the static chunk:
+``csrc/fused_pencil_chunk.cu``, tables read on the device; the width chunk:
+``csrc/fused_pencil_width_chunk.cu``, the index read on the device); on CPU
+tensors the plain twins run a Python step loop, the static one over
+``accumulate_visits``, the width one block by block over the index. The TPU
+kernel's ``mxu_reduce`` is an MXU layout experiment and is not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from ljmd_tpu_torch.ops import _cuda
 from ljmd_tpu_torch.ops.fused import comp_add
+from ljmd_tpu_torch.ops.pair_terms import lj_pair_terms_plain
 from ljmd_tpu_torch.ops.pencil_sweep import TILE_I, accumulate_visits, table_visits
 
 __all__ = [
@@ -45,10 +54,27 @@ __all__ = [
     "fused_pencil_chunk_plain",
     "fused_pencil_width_chunk",
     "fused_pencil_width_chunk_plain",
+    "ROLES",
+    "width_index",
+    "width_grid",
+    "width_index_entries",
     "width_visits",
 ]
 
 MAX_PENCIL_CHUNK_STEPS = 128
+
+# Roles of a width-index entry (csrc/fused_pencil_width_chunk.cu): the block
+# `start` of a self visit below the indexed block (every partner counts);
+# the indexed block and those above it in its own self visit (every partner
+# but the slot itself); a neighbour visit from the block (partners shifted);
+# a neighbour visit whose j range holds the block (the block's slots
+# shifted).
+ROLES = ("self_below", "self_diag", "forward", "backward")
+_SELF_BELOW, _SELF_DIAG, _FORWARD, _BACKWARD = range(4)
+# Entry word: (start << 12) | (blocks << 6) | (role << 4) | (shx+1) << 2 | (shy+1).
+_START_BITS, _BLOCK_BITS = 19, 6
+# Chunks of 128 x 128 pairs the width twin evaluates at once.
+_INDEX_BATCH = 256
 
 
 def build_width_lists(counts, tbl, shf, n_pencils: int, capacity: int):
@@ -117,7 +143,8 @@ def build_width_lists(counts, tbl, shf, n_pencils: int, capacity: int):
 def width_visits(wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off, n_pencils: int,
                  capacity: int):
     """The visits of width lists as host arrays, in ``table_visits``'s
-    class form (reads the lists on the host: this is the twin's)."""
+    class form (reads the lists on the host): the reference the tests hold
+    ``width_index`` against."""
     P = n_pencils
     n_sub = capacity // TILE_I
     ws, wc = wl_self.cpu().numpy(), wl_self_cnt.cpu().numpy()
@@ -135,9 +162,140 @@ def width_visits(wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off, n_pencils
     return classes
 
 
-def _chunk_plain(classes, r, v, a, box_length, rc_square, dt, n_steps, r_lo, vc):
-    """Step loop of the twins over fixed visit classes (JAX kernel order:
-    drift + half-kick on whole matrices, sweep, a = 24 f * valid, kick)."""
+@functools.lru_cache(maxsize=8)
+def _index_static(n_pencils: int, n_sub: int, device: torch.device) -> dict:
+    """The record layout of ``width_index`` that depends only on the grid:
+    self records (class u, slot t of the class, block d of the visit) and
+    neighbour records (list entry e, backward block d), int32."""
+    i32, P = torch.int32, n_pencils
+    u = torch.arange(1, n_sub + 1, dtype=i32, device=device)[:, None, None]
+    t = torch.arange(P, dtype=i32, device=device)[None, :, None]
+    d = torch.arange(n_sub, dtype=i32, device=device)[None, None, :]
+    diag = d == 0
+    shape = (n_sub, P, n_sub)
+    blocks = torch.where(diag, u, 1).expand(shape)
+    return {
+        # t where the record exists (d < u), else past any class count
+        "t": torch.where(d < u, t, P + 1).expand(shape).contiguous(),
+        "d": d.expand(shape).contiguous(),
+        "self_bits": ((blocks << 6) | (diag.to(i32) << 4) | 5).contiguous(),  # no shift
+        "self_blocks": blocks.reshape(-1).contiguous(),
+        "e": torch.arange(P * n_sub * 4, dtype=i32, device=device),
+        "dd": torch.arange(n_sub, dtype=i32, device=device)[None, :],
+        "blocks": torch.arange(P * n_sub + 1, dtype=i32, device=device),
+    }
+
+
+def width_index(wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off, n_pencils: int,
+                capacity: int):
+    """The per-block visit index of the width lists, on the lists' device
+    with a few dozen torch ops (a stable sort of the visits' records by
+    block; no host read). Returns int32 (offsets (NB+1,), entries (R,),
+    order (NB,)) over the NB = n_pencils * n_sub 128-slot blocks: block b's
+    entries are entries[offsets[b]:offsets[b+1]], one per visit that touches
+    b (the entry words above; ``width_index_entries`` decodes them), in a
+    fixed order (self visits, then forward, then backward, each in list
+    order); ``order`` lists the blocks by their partner blocks, most first
+    (ties by index)."""
+    P = n_pencils
+    n_sub = capacity // TILE_I
+    NB = P * n_sub
+    if NB >= 1 << _START_BITS or n_sub >= 1 << _BLOCK_BITS:
+        raise ValueError(f"width_index: {P} pencils x {n_sub} blocks exceed the entry word")
+    st = _index_static(P, n_sub, wl_self.device)
+    # Self visits of class u (i block ib, j blocks [ib, ib + u)): touch block
+    # ib + d, d < u; the diagonal one (d = 0) pairs with all u blocks.
+    ib = wl_self.view(n_sub, P, 1)
+    s_tgt = torch.where(st["t"] < wl_self_cnt.view(n_sub, 1, 1), ib + st["d"], NB)
+    s_word = (ib << 12) | st["self_bits"]
+    # Neighbour visits of class w (i block nib, j blocks [jb, jb + w)):
+    # forward at nib, backward at each jb + d.
+    e, dd = st["e"], st["dd"]
+    live = e < wl_nbr_off[n_sub]
+    w = 1 + (e[:, None] >= wl_nbr_off[None, 1:n_sub]).sum(dim=1, dtype=torch.int32)
+    jb, sh = wl_nbr_j >> 4, wl_nbr_j & 15
+    f_tgt = torch.where(live, wl_nbr_i, NB)
+    f_word = (jb << 12) | (w << 6) | (sh | (_FORWARD << 4))
+    b_tgt = torch.where(live[:, None] & (dd < w[:, None]), jb[:, None] + dd, NB)
+    b_word = ((wl_nbr_i << 12) | (sh | (1 << 6 | _BACKWARD << 4)))[:, None].expand_as(b_tgt)
+    tgt = torch.cat([s_tgt.reshape(-1), f_tgt, b_tgt.reshape(-1)])
+    sorted_tgt, perm = torch.sort(tgt, stable=True)
+    entries = torch.cat([s_word.reshape(-1), f_word, b_word.reshape(-1)])[perm]
+    offsets = torch.searchsorted(sorted_tgt, st["blocks"], out_int32=True)
+    blocks = torch.cat([st["self_blocks"], w, torch.ones_like(b_tgt).reshape(-1)])
+    cost = torch.zeros((NB + 1,), dtype=torch.int32, device=tgt.device).index_add_(
+        0, tgt, blocks)[:NB]
+    order = torch.sort(cost, descending=True, stable=True).indices.to(torch.int32)
+    return offsets, entries, order
+
+
+def width_index_entries(index):
+    """The entries of a ``width_index`` on the host: a list over the blocks
+    of [(role, start block, blocks, shx, shy), ...] in index order."""
+    offsets, entries, _ = (t.cpu().long() for t in index)
+    out = []
+    for b in range(offsets.numel() - 1):
+        ws = entries[int(offsets[b]):int(offsets[b + 1])].tolist()
+        out.append([(ROLES[(x >> 4) & 3], x >> 12, (x >> 6) & 63, ((x >> 2) & 3) - 1,
+                     (x & 3) - 1) for x in ws])
+    return out
+
+
+def _index_forces(pos, lo, index, box_length, rc_square):
+    """Forces (rows 0..2, no 24, not multiplied by validity) on every slot
+    from the width index, block by block from each block's own side: its
+    entries' partner blocks, the self roles without the slot itself, the
+    forward role with the partners' x / y shifted, the backward role with
+    the block's own. The pair values are the kernel's; the sums run in
+    another order."""
+    dev, dt = pos.device, pos.dtype
+    offsets, entries, _ = (t.to(dev).long() for t in index)
+    n_ent = int(offsets[-1])
+    blk = torch.repeat_interleave(torch.arange(offsets.numel() - 1, device=dev),
+                                  offsets[1:] - offsets[:-1])
+    w = entries[:n_ent]
+    nblk = (w >> 6) & 63
+    # One chunk per partner block of each entry.
+    c_ent = torch.repeat_interleave(torch.arange(n_ent, device=dev), nblk)
+    first = torch.cumsum(nblk, 0) - nblk
+    c_q = (w >> 12)[c_ent] + torch.arange(c_ent.numel(), device=dev) - first[c_ent]
+    c_blk, c_w = blk[c_ent], w[c_ent]
+    L, inv_l = box_length, 1.0 / box_length
+    ar = torch.arange(TILE_I, device=dev)
+    f = torch.zeros((3, pos.shape[1]), dtype=dt, device=dev)
+    for b0 in range(0, c_q.numel(), _INDEX_BATCH):
+        sl = slice(b0, b0 + _INDEX_BATCH)
+        role, cw = (c_w[sl] >> 4) & 3, c_w[sl]
+        ii = c_blk[sl][:, None] * TILE_I + ar
+        jj = c_q[sl][:, None] * TILE_I + ar
+        offx = ((((cw >> 2) & 3) - 1).to(dt) * L)[:, None]
+        offy = (((cw & 3) - 1).to(dt) * L)[:, None]
+        fwd, bwd = (role == _FORWARD)[:, None], (role == _BACKWARD)[:, None]
+        xi = torch.where(bwd, pos[0][ii] + offx, pos[0][ii])
+        yi = torch.where(bwd, pos[1][ii] + offy, pos[1][ii])
+        xj = torch.where(fwd, pos[0][jj] + offx, pos[0][jj])
+        yj = torch.where(fwd, pos[1][jj] + offy, pos[1][jj])
+        dx = xi[:, :, None] - xj[:, None, :]
+        dy = yi[:, :, None] - yj[:, None, :]
+        dz = pos[2][ii][:, :, None] - pos[2][jj][:, None, :]
+        if lo is not None:
+            dx = dx + (lo[0][ii][:, :, None] - lo[0][jj][:, None, :])
+            dy = dy + (lo[1][ii][:, :, None] - lo[1][jj][:, None, :])
+            dz = dz + (lo[2][ii][:, :, None] - lo[2][jj][:, None, :])
+        dz = dz - L * torch.round(dz * inv_l)
+        r2 = dx * dx + dy * dy + dz * dz
+        mask = (r2 < rc_square) & ((role >= _FORWARD)[:, None, None]
+                                   | (ii[:, :, None] != jj[:, None, :]))
+        coef = lj_pair_terms_plain(r2, mask, False)[0]
+        for row, dr in enumerate((dx, dy, dz)):
+            f[row].index_add_(0, ii.reshape(-1), (coef * dr).sum(dim=2).reshape(-1))
+    return f
+
+
+def _chunk_plain(forces, r, v, a, dt, n_steps, r_lo, vc):
+    """Step loop of the twins over a force function of (r, r_lo) (JAX kernel
+    order: drift + half-kick on whole matrices, forces, a = 24 f * valid,
+    kick)."""
     _check_steps(n_steps)
     extended = r_lo is not None
     half_dt = 0.5 * dt
@@ -149,11 +307,8 @@ def _chunk_plain(classes, r, v, a, box_length, rc_square, dt, n_steps, r_lo, vc)
         else:
             r = r + v * dt + a * half_dt_sq
             v = v + a * half_dt
-        f = torch.zeros_like(r)
-        for ista, jsta, shx, shy, width, tri in classes:
-            accumulate_visits(f, r, r_lo, ista, jsta, shx, shy, width, tri, box_length,
-                              rc_square, False)
-        a = (24.0 * f) * r[3:4]
+        a = torch.zeros_like(r)
+        a[0:3] = (24.0 * forces(r, r_lo)) * r[3:4]
         if extended:
             v, vc = comp_add(v, vc, a * half_dt)
         else:
@@ -165,16 +320,26 @@ def fused_pencil_chunk_plain(r, v, a, tbl, shf, n_pencils, capacity, box_length,
                              rc_square, dt, n_steps, r_lo=None, vc=None):
     """Plain twin of ``fused_pencil_chunk``: every pencil at full capacity."""
     classes = table_visits(n_pencils, capacity, tbl.cpu(), shf.cpu())
-    return _chunk_plain(classes, r, v, a, box_length, rc_square, dt, n_steps, r_lo, vc)
+
+    def forces(pos, lo):
+        f = torch.zeros_like(pos)
+        for ista, jsta, shx, shy, width, tri in classes:
+            accumulate_visits(f, pos, lo, ista, jsta, shx, shy, width, tri, box_length,
+                              rc_square, False)
+        return f[0:3]
+
+    return _chunk_plain(forces, r, v, a, dt, n_steps, r_lo, vc)
 
 
 def fused_pencil_width_chunk_plain(r, v, a, wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j,
                                    wl_nbr_off, n_pencils, capacity, box_length, rc_square,
                                    dt, n_steps, r_lo=None, vc=None):
-    """Plain twin of ``fused_pencil_width_chunk``: the visits of the lists."""
-    classes = width_visits(wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off,
-                           n_pencils, capacity)
-    return _chunk_plain(classes, r, v, a, box_length, rc_square, dt, n_steps, r_lo, vc)
+    """Plain twin of ``fused_pencil_width_chunk``: the visits of the lists,
+    block by block through their ``width_index``."""
+    index = width_index(wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off, n_pencils,
+                        capacity)
+    return _chunk_plain(lambda pos, lo: _index_forces(pos, lo, index, box_length, rc_square),
+                        r, v, a, dt, n_steps, r_lo, vc)
 
 
 def _check_steps(n_steps: int) -> None:
@@ -185,18 +350,51 @@ def _check_steps(n_steps: int) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _max_blocks(device_index: int, element_size: int, extended: bool, width: bool) -> int:
-    """Blocks of the chunk kernel that fit on the card at once (cached: the
+    """Blocks of a chunk kernel that fit on the card at once (cached: the
     answer depends only on the card and the variant)."""
     out = ctypes.c_int(0)
+    lib = _cuda.library()
+    query = lib.ljmd_width_max_blocks if width else lib.ljmd_pencil_max_blocks
     with torch.cuda.device(device_index):
-        _cuda.check(_cuda.library().ljmd_pencil_max_blocks(element_size, int(extended),
-                                                           int(width), ctypes.byref(out)),
-                    "fused_pencil_chunk occupancy query")
+        _cuda.check(query(element_size, int(extended), ctypes.byref(out)),
+                    f"{'fused_pencil_width_chunk' if width else 'fused_pencil_chunk'} "
+                    "occupancy query")
+    if out.value < 1:
+        raise RuntimeError("no block of the chunk kernel fits on this card; the grid barrier "
+                           "cannot run")
     return out.value
 
 
-def _launch(name, r, v, a, tables, lists, n_pencils, capacity, box_length, rc_square, dt,
-            n_steps, r_lo, vc):
+def width_grid(r, extended=False) -> dict:
+    """The width chunk kernel's launch shape for slot rows ``r`` (on the
+    card): threads a block (128 slots x 4), work items (128-slot blocks),
+    blocks the card holds at once, and the persistent grid."""
+    _cuda.require_cuda_rows("width_grid", r)
+    items = r.shape[1] // TILE_I
+    resident = _max_blocks(r.device.index, r.element_size(), bool(extended), True)
+    return {"threads": _cuda.library().ljmd_width_block_threads(),
+            "items": items, "resident_blocks": resident, "blocks": min(items, resident)}
+
+
+# The last lists the width chunk indexed and their index: a rebin builds new
+# lists, so the index is derived once per list build.
+_LAST_INDEX: list = []
+
+
+def _index_of(lists, n_pencils, capacity):
+    key = (n_pencils, capacity, tuple(t._version for t in lists))
+    if _LAST_INDEX and _LAST_INDEX[1] == key and all(
+            a is b for a, b in zip(_LAST_INDEX[0], lists)):
+        return _LAST_INDEX[2]
+    index = width_index(*lists, n_pencils, capacity)
+    _LAST_INDEX[:] = [lists, key, index]
+    return index
+
+
+def _prepare(name, r, v, a, int_tables, n_pencils, capacity, n_steps, r_lo, vc):
+    """Checks, the two position planes (step s reads plane s & 1 and writes
+    the other; rows 3..7, validity and ids, are the same in both) and the
+    outputs of one chunk launch."""
     extended = r_lo is not None
     _cuda.require_cuda_rows(name, *((r, r_lo, v, vc, a) if extended else (r, v, a)))
     _check_steps(n_steps)
@@ -204,42 +402,69 @@ def _launch(name, r, v, a, tables, lists, n_pencils, capacity, box_length, rc_sq
     if ns != n_pencils * capacity or capacity % TILE_I:
         raise ValueError(f"{name}: {ns} slots != n_pencils * capacity "
                          f"({n_pencils} * {capacity}, a multiple of {TILE_I})")
-    for t in tables + lists:
+    for t in int_tables:
         if t.device != r.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: tables and lists must be contiguous int32 on {r.device}")
-    suffix = _cuda.dtype_suffix(r.dtype)
-    lib = _cuda.library()
-    # Two position planes: step s reads plane s & 1 and writes the other;
-    # rows 3..7 (validity, ids) are the same in both.
     rbuf = torch.stack([r, r])
     lobuf = torch.stack([r_lo, r_lo]) if extended else None
-    v_out, a_out = v.clone(), a.clone()
-    vc_out = vc.clone() if extended else None
-    if n_steps > 0:
-        width = bool(lists)
-        blocks = n_pencils * capacity // lib.ljmd_pencil_tile_slots()
-        max_blocks = _max_blocks(r.device.index, r.element_size(), extended, width)
-        if max_blocks < 1:
-            raise RuntimeError(f"{name}: no block of the kernel fits on this card; "
-                               "the grid barrier cannot run")
-        nul = [None] * 5
-        tbl, shf = tables if tables else (None, None)
-        with torch.cuda.device(r.device):
-            code = getattr(lib, f"ljmd_fused_pencil_chunk_{suffix}")(
-                rbuf.data_ptr(), lobuf.data_ptr() if extended else None,
-                v_out.data_ptr(), vc_out.data_ptr() if extended else None, a_out.data_ptr(),
-                tbl.data_ptr() if tbl is not None else None,
-                shf.data_ptr() if shf is not None else None,
-                *([t.data_ptr() for t in lists] if width else nul),
-                int(width), n_pencils, capacity, float(box_length), 1.0 / float(box_length),
-                float(rc_square), float(dt), 0.5 * dt, 0.5 * dt * dt, n_steps,
-                int(extended), min(blocks, max_blocks), _cuda.stream_handle(r))
-        _cuda.LAUNCHES.bump(name)
-        _cuda.check(code, name)
+    return rbuf, lobuf, v.clone(), vc.clone() if extended else None, a.clone()
+
+
+def _outputs(rbuf, lobuf, v_out, vc_out, a_out, n_steps):
     last = n_steps % 2
-    if extended:
+    if lobuf is not None:
         return rbuf[last], lobuf[last], v_out, vc_out, a_out
     return rbuf[last], v_out, a_out
+
+
+def _launch_static(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square, dt, n_steps,
+                   r_lo, vc):
+    name = "fused_pencil_chunk"
+    rbuf, lobuf, v_out, vc_out, a_out = _prepare(name, r, v, a, (tbl, shf), n_pencils,
+                                                 capacity, n_steps, r_lo, vc)
+    extended = lobuf is not None
+    if n_steps > 0:
+        lib = _cuda.library()
+        blocks = min(n_pencils * capacity // lib.ljmd_pencil_tile_slots(),
+                     _max_blocks(r.device.index, r.element_size(), extended, False))
+        with torch.cuda.device(r.device):
+            code = getattr(lib, f"ljmd_fused_pencil_chunk_{_cuda.dtype_suffix(r.dtype)}")(
+                rbuf.data_ptr(), lobuf.data_ptr() if extended else None,
+                v_out.data_ptr(), vc_out.data_ptr() if extended else None, a_out.data_ptr(),
+                tbl.data_ptr(), shf.data_ptr(), n_pencils, capacity, float(box_length),
+                1.0 / float(box_length), float(rc_square), float(dt), 0.5 * dt, 0.5 * dt * dt,
+                n_steps, int(extended), blocks, _cuda.stream_handle(r))
+        _cuda.LAUNCHES.bump(name)
+        _cuda.check(code, name)
+    return _outputs(rbuf, lobuf, v_out, vc_out, a_out, n_steps)
+
+
+def _launch_width(r, v, a, lists, n_pencils, capacity, box_length, rc_square, dt, n_steps,
+                  r_lo, vc, grid_cap=None):
+    """One launch of the width chunk kernel. ``grid_cap`` (tests and the
+    smoke script only) caps the persistent grid, so that each block takes
+    several work items."""
+    name = "fused_pencil_width_chunk"
+    rbuf, lobuf, v_out, vc_out, a_out = _prepare(name, r, v, a, lists, n_pencils, capacity,
+                                                 n_steps, r_lo, vc)
+    extended = lobuf is not None
+    if n_steps > 0:
+        off, ent, order = _index_of(lists, n_pencils, capacity)
+        blocks = width_grid(r, extended)["blocks"]
+        if grid_cap is not None:
+            blocks = max(1, min(blocks, int(grid_cap)))
+        lib = _cuda.library()
+        with torch.cuda.device(r.device):
+            code = getattr(lib, f"ljmd_fused_pencil_width_chunk_{_cuda.dtype_suffix(r.dtype)}")(
+                rbuf.data_ptr(), lobuf.data_ptr() if extended else None,
+                v_out.data_ptr(), vc_out.data_ptr() if extended else None, a_out.data_ptr(),
+                off.data_ptr(), ent.data_ptr(), order.data_ptr(), n_pencils, capacity,
+                float(box_length), 1.0 / float(box_length), float(rc_square), float(dt),
+                0.5 * dt, 0.5 * dt * dt, n_steps, int(extended), blocks,
+                _cuda.stream_handle(r))
+        _cuda.LAUNCHES.bump(name)
+        _cuda.check(code, name)
+    return _outputs(rbuf, lobuf, v_out, vc_out, a_out, n_steps)
 
 
 def fused_pencil_chunk(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square, dt,
@@ -252,21 +477,22 @@ def fused_pencil_chunk(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_sq
                                         rc_square, dt, n_steps, r_lo, vc)
     if r.device.type != "cuda":
         raise ValueError(f"fused_pencil_chunk: unsupported device {r.device}")
-    return _launch("fused_pencil_chunk", r, v, a, (tbl, shf), (), n_pencils, capacity,
-                   box_length, rc_square, dt, n_steps, r_lo, vc)
+    return _launch_static(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square, dt,
+                          n_steps, r_lo, vc)
 
 
 def fused_pencil_width_chunk(r, v, a, wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off,
                              n_pencils, capacity, box_length, rc_square, dt, n_steps,
                              r_lo=None, vc=None):
     """``fused_pencil_chunk`` with every visit at its pencils' active width,
-    driven by the ``build_width_lists`` lists (read on the device: no host
-    read). One launch on CUDA tensors; the plain twin on CPU tensors."""
+    driven by the ``build_width_lists`` lists through their ``width_index``
+    (derived on the device once per list build: no host read). One launch
+    on CUDA tensors; the plain twin on CPU tensors."""
     lists = (wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off)
     if r.device.type == "cpu":
         return fused_pencil_width_chunk_plain(r, v, a, *lists, n_pencils, capacity, box_length,
                                               rc_square, dt, n_steps, r_lo, vc)
     if r.device.type != "cuda":
         raise ValueError(f"fused_pencil_width_chunk: unsupported device {r.device}")
-    return _launch("fused_pencil_width_chunk", r, v, a, (), lists, n_pencils, capacity,
-                   box_length, rc_square, dt, n_steps, r_lo, vc)
+    return _launch_width(r, v, a, lists, n_pencils, capacity, box_length, rc_square, dt,
+                         n_steps, r_lo, vc)

@@ -571,11 +571,15 @@ def _n4000_fluid(device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("extended", [False, True])
 def test_dense_chunk_capped_grid_is_bit_identical(cuda, dtype, extended):
-    """The persistent grid: capped at 32 blocks (4 tiles a block) the chunk
-    equals the uncapped one bit for bit; so does the list chunk at 48."""
+    """The persistent grid at the occupancy rule's block shape (S threads a
+    particle, 256 / S particles a work item): capped at 32 blocks (several
+    work items a block) the chunk equals the uncapped one bit for bit; so
+    does the list chunk at 48."""
     from ljmd_tpu_torch.ops import fused_list, window_lists
 
     box, rc2, r, v, a = _n4000_fluid(cuda, dtype)
+    plan = fused.dense_plan(r, extended)
+    assert plan["slices"] >= 8 and plan["blocks"] > 32
     zero = torch.zeros_like(r)
     ext = (zero, zero) if extended else (None, None)
     full = fused._launch("fused_dense_chunk", extended, r, ext[0], v, ext[1], a, 4000, box,
@@ -591,6 +595,138 @@ def test_dense_chunk_capped_grid_is_bit_identical(cuda, dtype, extended):
             False)
     for g, w in zip(fused_list._launch(*args, grid_cap=48), fused_list._launch(*args)):
         assert torch.equal(g, w)
+
+
+def _jittered_fluid(n, seed, dtype, device):
+    """n particles on a jittered cubic lattice at rho = 0.8 (rc = 2.5), with
+    velocities and consistent accelerations, as (8, n_pad) rows."""
+    box = (n / 0.8) ** (1 / 3)
+    k = int(np.ceil(n ** (1 / 3)))
+    rng = np.random.default_rng(seed)
+    sites = np.stack(np.meshgrid(*(np.arange(k),) * 3, indexing="ij"), -1).reshape(-1, 3)[:n]
+    r = np.mod((sites + 0.5 + rng.normal(0, 0.05, (n, 3))) * box / k, box)
+    n_pad = -(-n // 128) * 128
+    rows = torch.zeros((8, n_pad), dtype=torch.float64)
+    rows[0:3, :n] = torch.as_tensor(r.T)
+    v = torch.zeros_like(rows)
+    v[0:3, :n] = torch.as_tensor(rng.uniform(-1.0, 1.0, (3, n)))
+    a = 24.0 * pair_sweep.pair_forces_plain(rows, n, box, 6.25)
+    return box, (*(t.to(device=device, dtype=dtype) for t in (rows, v, a)),)
+
+
+@pytest.mark.parametrize("mode", ["plain", "extended", "flags", "flags_extended"])
+@pytest.mark.parametrize("n,dtype,tol", [(500, torch.float64, 1e-10), (500, torch.float32, 1e-4),
+                                         (1000, torch.float64, 1e-10),
+                                         (1000, torch.float32, 1e-4),
+                                         (4000, torch.float32, 1e-4),
+                                         (4000, torch.float64, 1e-10)])
+def test_dense_template_matches_twin(cuda, n, dtype, tol, mode):
+    """Kernels 3 / 4 / 8 (one template) against their twins over 6 steps at
+    the occupancy rule's shape: N=500 (every SM), N=1000 (n not a multiple
+    of a work item's particles at S = 256: ragged), N=4000; plain, extended
+    and flag-gated (random 0/1 flags of (128, 512) tiles)."""
+    box, (r, v, a) = _jittered_fluid(n, n, dtype, cuda)
+    zero = torch.zeros_like(r)
+    ext = dict(r_lo=zero, vc=zero) if "extended" in mode else {}
+    plan = fused.dense_plan(r, bool(ext), mode.startswith("flags"))
+    assert plan["blocks"] >= min(plan["sms"], plan["items"])
+    LAUNCHES.reset()
+    if mode.startswith("flags"):
+        n_flags = (r.shape[1] // 128) * (r.shape[1] // 512)
+        flags = torch.as_tensor(np.random.default_rng(n).integers(0, 2, n_flags)
+                                .astype(np.int32), device=cuda)
+        got = fused.fused_dense_chunk_flags(r, v, a, flags, n, box, 6.25, 0.005, 6, **ext)
+        want = fused.fused_dense_chunk_flags_plain(r, v, a, flags, n, box, 6.25, 0.005, 6,
+                                                   **ext)
+        name = "fused_dense_chunk_flags"
+    elif ext:
+        got = fused.fused_dense_chunk_ext(r, zero, v, zero, a, n, box, 6.25, 0.005, 6)
+        want = fused.fused_dense_chunk_ext_plain(r, zero, v, zero, a, n, box, 6.25, 0.005, 6)
+        name = "fused_dense_chunk_ext"
+    else:
+        got = fused.fused_dense_chunk(r, v, a, n, box, 6.25, 0.005, 6)
+        want = fused.fused_dense_chunk_plain(r, v, a, n, box, 6.25, 0.005, 6)
+        name = "fused_dense_chunk"
+    assert LAUNCHES.snapshot()[name] == 1
+    if ext:  # compare the two-float values
+        got = (got[0].double() + got[1].double(), got[2].double() + got[3].double(), got[4])
+        want = (want[0].double() + want[1].double(), want[2].double() + want[3].double(),
+                want[4])
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+        assert bool((g[:, n:] == 0).all()) and bool((g[3:] == 0).all())
+
+
+def _width_fluid(cap, dtype, cuda):
+    """A cell-pair carry of N=6912 (12^3 cells, rho* = 0.8442, 6x6 pencils
+    of ~192 particles: two of the 128-slot blocks active) at capacity
+    ``cap``, from a numpy seed, and its geometry."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.ops import cell_list, pencil_sweep
+    from ljmd_tpu_torch.state import MDState
+
+    n = 4 * 12 ** 3
+    L = (n / 0.8442) ** (1 / 3)
+    cfg = SimConfig(num_cells=12, box_length=L, rc_over_box=2.5 / L, dt=0.004, dtype="float64",
+                    target_total_energy=-30000.0, neighbor_capacity=cap)
+    rng = np.random.default_rng(cap)
+    r = fcc_lattice(12, L, dtype=torch.float64)
+    r = torch.remainder(r + torch.as_tensor(rng.normal(0, 0.05, r.shape)), L)
+    v = torch.as_tensor(rng.normal(0, 1.0, r.shape))
+    eng = pe._cellpair_engine(cfg, cuda, width_lists=True)
+    c, _ = eng.init(MDState(r=r, ru=r, v=v, a=torch.zeros_like(r)).to(device=cuda))
+    grid = cell_list.make_pencil_grid(cfg.n, L, cfg.rc + cfg.neighbor_skin, cfg.density, cap)
+    tbl, shf = (torch.as_tensor(t, device=cuda)
+                for t in pencil_sweep.build_half_shell_tables(grid))
+    assert (grid.capacity, int(c.counts.max()) <= 256) == (cap, True)
+    c = {k: getattr(c, k).to(dtype) if getattr(c, k).is_floating_point() else getattr(c, k)
+         for k in ("r", "v", "a", "rc", "vc", "wl_self", "wl_self_cnt", "wl_nbr_i",
+                   "wl_nbr_j", "wl_nbr_off")}
+    return cfg, grid, c, (tbl, shf)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("cap", [384, 512])
+def test_width_chunk_kernel_matches_twin(cuda, cap, extended, dtype, tol):
+    """Kernel 16 at capacities 384 and 512 (blocks past the pencils' width
+    stay empty) against its twin over 6 steps; capped at 5 blocks (several
+    128-slot work items a block) it gives the same bits."""
+    from ljmd_tpu_torch.ops import fused_pencil
+
+    cfg, grid, c, _ = _width_fluid(cap, dtype, cuda)
+    lists = tuple(c[k] for k in ("wl_self", "wl_self_cnt", "wl_nbr_i", "wl_nbr_j",
+                                 "wl_nbr_off"))
+    args = (grid.n_pencils, cap, cfg.box_length, cfg.rc_square, cfg.dt, 6)
+    ext = dict(r_lo=c["rc"], vc=c["vc"]) if extended else {}
+    LAUNCHES.reset()
+    got = fused_pencil.fused_pencil_width_chunk(c["r"], c["v"], c["a"], *lists, *args, **ext)
+    assert LAUNCHES.snapshot()["fused_pencil_width_chunk"] == 1
+    want = fused_pencil.fused_pencil_width_chunk_plain(c["r"], c["v"], c["a"], *lists, *args,
+                                                       **ext)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+    capped = fused_pencil._launch_width(c["r"], c["v"], c["a"], lists, *args,
+                                        ext.get("r_lo"), ext.get("vc"), grid_cap=5)
+    for g, w in zip(capped, got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cap", [384, 512])
+def test_width_chunk_equals_static_chunk_float64(cuda, cap):
+    """Kernels 16 and 15 run the same pair set (the width lists skip only
+    empty blocks): float64 states after 8 steps agree within the chunk
+    paths' float64 tolerance, 1e-9 (chip_smoke.py PATHS_TOL)."""
+    from ljmd_tpu_torch.ops import fused_pencil
+
+    cfg, grid, c, tables = _width_fluid(cap, torch.float64, cuda)
+    lists = tuple(c[k] for k in ("wl_self", "wl_self_cnt", "wl_nbr_i", "wl_nbr_j",
+                                 "wl_nbr_off"))
+    args = (grid.n_pencils, cap, cfg.box_length, cfg.rc_square, cfg.dt, 8)
+    width = fused_pencil.fused_pencil_width_chunk(c["r"], c["v"], c["a"], *lists, *args)
+    static = fused_pencil.fused_pencil_chunk(c["r"], c["v"], c["a"], *tables, *args)
+    for g, w in zip(width, static):
+        _close(g, w, 1e-9)
 
 
 def _flag_patterns(r, box):
