@@ -965,6 +965,100 @@ def width_index_report(torch, lists, n_pencils: int, capacity: int, r) -> dict:
                       "busiest_chunks": float(load.max()), "mean_chunks": float(load.mean())}}
 
 
+def static_report(torch, c, tbl, shf, n_pencils: int, capacity: int, box_length: float,
+                  rc_square: float) -> dict:
+    """Kernel 15's launch shape (``static_plan``) and, under ``model``
+    (worked out here from this run's slots, not counted in the kernel): its
+    live work items and rounds over the persistent grid, the stages its
+    stream holds a step against the stream without skips (9 pencils x
+    capacity / 128 for every live item), and the cull's modelled body
+    share."""
+    from ljmd_tpu_torch.ops import fused_pencil
+
+    plan = fused_pencil.static_plan(c.r)
+    chunks = static_chunks(torch, c, tbl, shf, n_pencils, capacity)
+    item_live = (c.r[3].reshape(-1, 128)[:, 0] > 0.5).long()
+    live = int(item_live.sum())
+    # Block b takes the items at positions b, b + G, ... of the block-major
+    # order (csrc/fused_pencil_chunk.cu hs_item).
+    G, n_sub = plan["blocks"], capacity // 128
+    w = torch.arange(item_live.numel(), device=item_live.device)
+    lane = ((w % n_sub) * n_pencils + w // n_sub) % G
+    per_block = torch.zeros(G, dtype=torch.long, device=lane.device).index_add_(0, lane, item_live)
+    return {"static": plan,
+            "model": {"stages": {"live_items": live, "rounds": int(per_block.max()),
+                                 "staged": chunks[0].numel(),
+                                 "unskipped": live * 9 * (capacity // 128)},
+                      "body_share": modelled_body_share(torch, c.r, chunks, False, box_length,
+                                                        rc_square)}}
+
+
+def modelled_body_share(torch, pos, chunks, full_mic: bool, box_length: float,
+                        rc_square: float) -> dict:
+    """The modelled share of warp iterations that run the LJ body under the
+    cull of csrc/pencil_cull.cuh, worked out in float64 from the positions
+    the kernel starts from (no counter in the kernel): over the (128-slot
+    block, 128-slot partner stage) chunks of a kernel's stream (``chunks``:
+    i block, partner start slot, role 0 self / 1 forward / 2 backward / 3
+    full-MIC, image shifts), a warp being 32 consecutive slots facing one
+    partner, the iterations where any lane's pair holds the mask; and the
+    pairs inside the mask over the candidates."""
+    blk, q0, role, shx, shy = chunks
+    dev = pos.device
+    x = pos.double()
+    L = box_length
+    ar = torch.arange(128, device=dev)
+    body = hits = 0
+    n = blk.numel()
+    for b0 in range(0, n, 256):
+        sl = slice(b0, b0 + 256)
+        ii = blk[sl, None] * 128 + ar
+        jj = q0[sl, None] + ar
+        rl = role[sl, None]
+        offx, offy = (s[sl, None].double() * L for s in (shx, shy))
+        xi = torch.where(rl == 2, x[0][ii] + offx, x[0][ii])
+        yi = torch.where(rl == 2, x[1][ii] + offy, x[1][ii])
+        xj = torch.where(rl == 1, x[0][jj] + offx, x[0][jj])
+        yj = torch.where(rl == 1, x[1][jj] + offy, x[1][jj])
+        d = [xi[:, :, None] - xj[:, None, :], yi[:, :, None] - yj[:, None, :],
+             x[2][ii][:, :, None] - x[2][jj][:, None, :]]
+        for c in (range(3) if full_mic else (2,)):
+            d[c] = d[c] - L * torch.round(d[c] / L)
+        m = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] < rc_square
+        m &= ((rl == 1) | (rl == 2))[:, :, None] | (ii[:, :, None] != jj[:, None, :])
+        if full_mic:
+            m &= (x[3][ii][:, :, None] * x[3][jj][:, None, :]) > 0.5
+        hits += int(m.sum())
+        body += int(m.reshape(-1, 4, 32, 128).any(dim=2).sum())  # (chunk, warp, lane, partner)
+    return {"body": body / (n * 4 * 128), "pairs_in_mask": hits / (n * 128 * 128),
+            "chunks": n}
+
+
+def static_chunks(torch, c, tbl, shf, n_pencils: int, capacity: int):
+    """Kernel 15's (block, stage) chunks of one step, from its stream
+    (``static_stream``), in ``modelled_body_share``'s form."""
+    from ljmd_tpu_torch.ops import fused_pencil
+
+    offsets, entries, _ = (t.long() for t in fused_pencil.static_stream(
+        c.r[3], tbl, shf, fused_pencil.half_shell_lower(tbl, n_pencils), n_pencils, capacity))
+    dev = entries.device
+    nblk = (entries >> 6) & 63
+    ent = torch.repeat_interleave(torch.arange(entries.numel(), device=dev), nblk)
+    first = torch.cumsum(nblk, 0) - nblk
+    w = entries[ent]
+    q0 = ((w >> 12) + torch.arange(ent.numel(), device=dev) - first[ent]) * 128
+    role = torch.tensor([0, 0, 1, 2], device=dev)[(w >> 4) & 3]
+    return (ent // 9, q0, role, ((w >> 2) & 3) - 1, (w & 3) - 1)
+
+
+def zband_chunks(torch, plan):
+    """Kernel 12's (i-slice, kept stage) chunks, in ``modelled_body_share``'s
+    form."""
+    t = torch.nonzero(plan["keep"], as_tuple=True)[0]
+    zero = torch.zeros_like(t)
+    return (t, plan["start"][plan["keep"]], zero + 3, zero, zero)
+
+
 def phase_pencil_kernels(torch, cfg, state) -> dict:
     """Kernels 13+14, 15, 16 and 11 (the cell-pair path) against their twins
     at config 5's geometry, from ``state`` (an N=62500 fluid), at each of
@@ -1092,6 +1186,19 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                 wins = wins[:3]
                 zcand = zband_candidates(torch, valid, ftbl, wins, cap, window)
                 zband_bytes = 4 * (ftbl.numel() + c.counts.numel() + 3 * wins[0].numel())
+                # The kernel's launch shape; its stage plan (exact skips)
+                # and the cull's modelled body share, worked out from this
+                # run's slots (``model``: not counted in the kernel).
+                zplan = pencil_sweep.zband_stage_plan(c.counts, ftbl, *wins, P, cap, window)
+                zgrid = pencil_sweep.zband_grid(c.r)
+                live = int(((torch.arange(grid.n_slots // 128, device=dev) % (cap // 128)) * 128
+                            < c.counts.long().repeat_interleave(cap // 128)).sum())
+                zgrid.update(live_blocks=live, waves=-(-live // (zgrid["blocks_per_sm"]
+                                                                 * zgrid["sms"])))
+                zmodel = {"stages": {k: zplan[k] for k in ("stages", "kept", "b_inside_a",
+                                                          "a_past_count", "b_past_count")},
+                          "body_share": modelled_body_share(torch, c.r, zband_chunks(torch, zplan),
+                                                            True, L, rc2)}
                 for want_obs in (True, False):
                     args = (c.r, ftbl, c.counts, *wins, grid, rc2, window, want_obs)
                     got = pencil_sweep.pencil_sweep_zband(*args)
@@ -1110,7 +1217,8 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                         **base, **bound(dname, sweep_flops(zcand, cut, want_obs),
                                         2 * slots_bytes + zband_bytes),
                         "candidates": zcand, "window": window, "observables": want_obs,
-                        "use_b": int(wins[2].sum()), "max_abs_err": max(e[0] for e in errs),
+                        "use_b": int(wins[2].sum()), "launch": zgrid, "model": zmodel,
+                        "max_abs_err": max(e[0] for e in errs),
                         "rel_err": worst, "rel_err_vs_full": vs_full,
                         "ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_zband(*args),
                                            20),
@@ -1131,16 +1239,21 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                           if mode == "extended" else {})
                     args = (c.r, c.v, c.a, *tabs, P, cap, L, rc2, dt, k_check)
                     got, want = kernel(*args, **kw), plain(*args, **kw)
+                    # The persistent grid capped to a TILES_PER_BLOCK-th
+                    # (each block takes that many times the items), bit for
+                    # bit.
                     if name == "fused_pencil_width_chunk":
-                        # The persistent grid capped to a TILES_PER_BLOCK-th
-                        # (each block takes that many times the items), bit
-                        # for bit.
                         g_cap = fused_pencil.width_grid(c.r, bool(kw))["blocks"] // TILES_PER_BLOCK
                         capped = fused_pencil._launch_width(
                             c.r, c.v, c.a, lists, P, cap, L, rc2, dt, k_check, kw.get("r_lo"),
                             kw.get("vc"), grid_cap=g_cap)
-                        require(all(bool(torch.equal(g, w)) for g, w in zip(capped, got)),
-                                f"{name} {label} {dname} {mode}: the capped grid differs")
+                    else:
+                        g_cap = fused_pencil.static_plan(c.r, bool(kw))["blocks"] // TILES_PER_BLOCK
+                        capped = fused_pencil._launch_static(
+                            c.r, c.v, c.a, tbl, shf, P, cap, L, rc2, dt, k_check, kw.get("r_lo"),
+                            kw.get("vc"), grid_cap=g_cap)
+                    require(all(bool(torch.equal(g, w)) for g, w in zip(capped, got)),
+                            f"{name} {label} {dname} {mode}: the capped grid differs")
                     if mode == "extended":
                         got = (got[0].double() + got[1].double(),
                                got[2].double() + got[3].double(), got[4])
@@ -1164,6 +1277,8 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                     "plain_ms": cuda_time_ms(torch, lambda: plain(*targs), 1, warmup=1)}
                 if name == "fused_pencil_width_chunk":
                     case.update(width_index_report(torch, lists, P, cap, c.r))
+                else:
+                    case.update(static_report(torch, c, tbl, shf, P, cap, L, rc2))
                 cases[name].append(case)
     for name, cs in cases.items():
         sweep = "observables" in cs[0]
@@ -1172,8 +1287,31 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
             what = (f"observables {c['observables']}" if sweep else
                     ", ".join(f"{m['mode']} {m['rel_err']:.3e}" for m in c["modes"]))
             if "rel_err_vs_full" in c:
+                st, zg, sh = c["model"]["stages"], c["launch"], c["model"]["body_share"]
                 what += (f", window {c['window']} ({c['use_b']} window-B visits), vs the full "
-                         f"sweep {c['rel_err_vs_full']:.3e}")
+                         f"sweep {c['rel_err_vs_full']:.3e}; {zg['threads']} threads a 128-slot "
+                         f"slice, {zg['live_blocks']} of {zg['blocks']} slices live, "
+                         f"{zg['blocks_per_sm']} blocks an SM ({zg['warps_per_sm']} warps, "
+                         f"{zg['regs']} registers, {zg['spill_bytes']} spill bytes) -> "
+                         f"{zg['waves']} wave(s); modelled from this run's slots: window "
+                         f"stages a sweep {st['stages']}, {st['b_inside_a']} B inside A, "
+                         f"{st['a_past_count']} + {st['b_past_count']} past the count skipped, "
+                         f"{st['kept']} swept; modelled body share {100 * sh['body']:.2f}% of "
+                         f"warp iterations, {100 * sh['pairs_in_mask']:.2f}% of candidates in "
+                         f"the mask")
+            if "static" in c:
+                sp, st, sh = c["static"], c["model"]["stages"], c["model"]["body_share"]
+                what += (f"; S={sp['slices']} threads a slot, {sp['threads']} a block, "
+                         f"{st['live_items']} of {sp['items']} items live, {sp['blocks_per_sm']} "
+                         f"blocks an SM ({sp['warps_per_sm']} warps, {sp['regs']} registers, "
+                         f"{sp['spill_bytes']} spill bytes) -> grid {sp['blocks']}; modelled "
+                         f"from this run's slots: the busiest block runs {st['rounds']} live "
+                         f"items a step (mean {st['live_items'] / sp['blocks']:.2f}), stages a "
+                         f"step {st['staged']} of {st['unskipped']} "
+                         f"({st['unskipped'] - st['staged']} skipped), modelled body share {100 * sh['body']:.2f}% of warp "
+                         f"iterations, {100 * sh['pairs_in_mask']:.2f}% of candidates in the mask")
+            if sweep or "static" in c:
+                what += f"; {100 * c['bound_ms'] / c['ms']:.2f}% of the bound"
             if "index" in c:
                 ix, wg = c["index"], c["grid"]
                 what += (f"; {wg['threads']} threads a 128-slot item, {wg['items']} items, grid "
@@ -2336,6 +2474,7 @@ def main() -> int:
                 "build_window_lists": ("N=4000", "float32"),
                 "fused_dense_chunk_list": ("N=4000", "float32"),
                 "pencil_sweep_hs": ("N=62500 cap=512", "float32"),
+                "pencil_sweep_mono": ("N=62500 cap=384 strip", "float32"),
                 "fused_pencil_chunk": ("N=62500 cap=384", "float32"),
                 "fused_pencil_width_chunk": ("N=62500 cap=512", "float32"),
                 "pencil_sweep_full": ("N=62500 cap=512", "float32"),
@@ -2354,6 +2493,7 @@ def main() -> int:
         "build_window_lists": ("ljmd_tpu_torch/csrc/pack_window_lists.cu", "ljmd_tpu/ops/pallas_fused.py:803"),
         "fused_dense_chunk_list": ("ljmd_tpu_torch/csrc/fused_dense_chunk_list.cu", "ljmd_tpu/ops/pallas_fused.py:1383"),
         "pencil_sweep_hs": ("ljmd_tpu_torch/csrc/pencil_sweep_hs.cu", "ljmd_tpu/ops/pallas_pencil2.py:187"),
+        "pencil_sweep_mono": ("ljmd_tpu_torch/csrc/pencil_sweep_hs.cu", "ljmd_tpu/ops/pallas_pencil2.py:394"),
         "fused_pencil_chunk": ("ljmd_tpu_torch/csrc/fused_pencil_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:277"),
         "fused_pencil_width_chunk": ("ljmd_tpu_torch/csrc/fused_pencil_width_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:609"),
         "pencil_sweep_full": ("ljmd_tpu_torch/csrc/pencil_sweep_full.cu", "ljmd_tpu/ops/pallas_pencil.py:309"),
@@ -2373,11 +2513,23 @@ def main() -> int:
     # theirs (its own element-wise kernel runs only in the comparison).
     launches["lj_pair_terms"] = sum(launches[k] for k in MAIN_KERNELS
                                     if k not in ("build_window_lists", "mosaic_probes"))
+    # Kernel 14 (the mono kernel: a strip and its halo, n_pencils_i) is kernel
+    # 13's CUDA kernel; its row counts the sharded pencil engine's launches
+    # and is timed at the strip (no observables, as that engine's chunks), and
+    # kernel 13's row counts the other runs' launches, so no launch is in both.
+    sharded = f"n62500_f32_sharded_pencil_d{STRIP_D}"
+    launches["pencil_sweep_mono"] = runs[sharded]["launches"]["pencil_sweep_hs"]
+    launches["pencil_sweep_hs"] -= launches["pencil_sweep_mono"]
+    cases["pencil_sweep_mono"] = [c for c in cases["pencil_sweep_hs"] if c.get("n_pencils_i")]
     for k, n in launches.items():
         require(n > 0, f"kernel {k} was launched no time on the main path")
     kernels = []
     for name, (source, replaces) in meta.items():
-        head = next(c for c in cases[name] if (c["shape"], c["dtype"]) == headline[name])
+        if name == "pencil_sweep_mono":
+            head = next(c for c in cases[name] if c["shape"].startswith(headline[name][0])
+                        and c["dtype"] == headline[name][1] and not c["observables"])
+        else:
+            head = next(c for c in cases[name] if (c["shape"], c["dtype"]) == headline[name])
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
@@ -2390,8 +2542,11 @@ def main() -> int:
             "library_ms": head.get("library_ms"),
             "timed_at": f"{head['shape']} {head['dtype']}",
             "launches_by_run": {run: r["launches"][name] for run, r in runs.items()
-                                if r["launches"].get(name, 0)},
-            "cases": cases[name],
+                                if r["launches"].get(name, 0)
+                                and not (name == "pencil_sweep_hs" and run == sharded)},
+            # ``model`` holds figures worked out from the run's inputs (the
+            # stage plan, the cull's body share), not measured: the log has them.
+            "cases": [{k: v for k, v in c.items() if k != "model"} for c in cases[name]],
         }
         if name == "lj_pair_terms":
             entry["launches_counted_as"] = "launches of the kernels that inline it"
@@ -2400,16 +2555,12 @@ def main() -> int:
             entry["slopes_ns_per_visit"] = {k: 1e9 * v for k, v in
                                             runs["exp_layout"]["result"].items()}
         if name == "pencil_sweep_hs":
-            # The mono kernel, n_pencils_i included: the strip cases (the
-            # sharded pencil engine's launches are counted here too).
-            entry["also_replaces"] = "ljmd_tpu/ops/pallas_pencil2.py:394"
-            strip = next(c for c in cases[name]
-                         if c.get("n_pencils_i") and c["dtype"] == "float32"
-                         and c["shape"].startswith("N=62500 cap=384") and not c["observables"])
-            entry["strip"] = {k: strip[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "max_abs_err")}
-            entry["strip"]["launches_sharded_run"] = runs[
-                f"n62500_f32_sharded_pencil_d{STRIP_D}"]["launches"]["pencil_sweep_hs"]
+            entry["launches_counted_as"] = "launches outside the sharded pencil engine's run " \
+                                           "(those are pencil_sweep_mono's)"
+        if name == "pencil_sweep_mono":
+            entry["launches_counted_as"] = "launches of pencil_sweep_hs (one CUDA kernel) " \
+                                           "in the sharded pencil engine's run"
+            entry["launches_by_run"] = {sharded: launches[name]}
         kernels.append(entry)
     log(f"main path runs: {json.dumps(runs)}")
     for n_label, rows_run, zsort_run in (("N=4000", "n4000_f32", "n4000_f32_zsort"),

@@ -1,8 +1,10 @@
-// Device code shared by the cell-pair kernels (pencil_sweep_hs.cu,
-// fused_pencil_chunk.cu, fused_pencil_width_chunk.cu, pencil_sweep_full.cu,
-// pencil_sweep_zband.cu): the pair loop of one segment of partner slots and
-// the half-shell neighbourhood of a slot from the tables; the i-side segment
-// of the full 9-neighbour sweeps; the fused chunks' per-slot Verlet updates.
+// Device code shared by the cell-pair kernels: the pair loop of one segment
+// of partner slots and the half-shell neighbourhood of a slot from the
+// tables (pencil_sweep_hs.cu); the i-side segment of the full 9-neighbour
+// sweep (pencil_sweep_full.cu); the slot, accumulator and geometry types and
+// the fused chunks' per-slot Verlet updates (also fused_pencil_chunk.cu,
+// fused_pencil_width_chunk.cu, pencil_sweep_zband.cu and the culled stage
+// loop of pencil_cull.cuh).
 //
 // Slot layout: (8, ns) row planes, ns = n_pencils * cap, x/y/z in rows 0..2,
 // row 3 the validity (1/0); pencil p owns slots [p*cap, (p+1)*cap), valid

@@ -20,9 +20,11 @@ N=4000 (L=16.796, rc=2.5), float32 and float64; kernel 8
 n62500_large.json``, a jittered FCC lattice, 14x14 pencils) at capacities
 512 and 384: kernels 15 and 16 (the fused pencil chunks, 8 steps, float32
 and float64), kernel 13 (the half-shell sweep), kernel 11 (the full
-9-neighbour sweep) and, at 512, kernel 12 (the z-banded sweep), with
-observables; the rows engine's ``run_fast(8)`` at config 5 (ms a step,
-float32 and float64); the cell-pair engine's ``run_fast(8)`` with the width
+9-neighbour sweep) and kernel 12 (the z-banded sweep; its window is 384 at
+both capacities, so at 384 every window-B stage lies inside window A), with
+observables (the z-band also without them at 512, and in float64); the
+rows engine's ``run_fast(8)`` at config 5 (ms a step, float32 and
+float64); the cell-pair engine's ``run_fast(8)`` with the width
 lists at capacity 512 and a rebin before the chunk (the ``always``
 trigger), with the device operations (kernels, copies, fills) of one such
 call (torch.profiler); and ``initialize`` of config 5 cut to 500 warmup
@@ -196,6 +198,14 @@ def pencil_cases(torch, dev, root: Path) -> dict:
             out[f"fused_pencil_width_chunk {tag}"] = _ms(
                 torch, lambda: fused_pencil.fused_pencil_width_chunk(
                     c.r, c.v, c.a, *lists, P, cap, L, rc2, dt, 8), 5)
+            # The z-band (its window is the capacity at 384: every B stage
+            # lies inside A), with and without observables.
+            window = cell_list.default_z_window(grid, cfg.n, r_list)
+            wins = cell_list.compute_z_windows(c.r, c.r[3], c.counts, grid, window, r_list)[:3]
+            for want_obs in ((True, False) if (cap, dname) == (512, "float32") else (True,)):
+                out[f"pencil_sweep_zband {tag}{'' if want_obs else ' no obs'}"] = _ms(
+                    torch, lambda: pencil_sweep.pencil_sweep_zband(
+                        c.r, ftbl, c.counts, *wins, grid, rc2, window, want_obs), 20)
             if dname == "float64":
                 continue
             out[f"pencil_sweep_hs {tag}"] = _ms(torch, lambda: pencil_sweep.pencil_sweep_hs(
@@ -203,12 +213,6 @@ def pencil_cases(torch, dev, root: Path) -> dict:
             out[f"pencil_sweep_full {tag}"] = _ms(torch, lambda: pencil_sweep.pencil_sweep(
                 c.r, ftbl, c.counts, fshf, grid, rc2, True), 20)
             if cap == 512:
-                window = cell_list.default_z_window(grid, cfg.n, r_list)
-                wins = cell_list.compute_z_windows(c.r, c.r[3], c.counts, grid, window,
-                                                   r_list)[:3]
-                out[f"pencil_sweep_zband {tag}"] = _ms(
-                    torch, lambda: pencil_sweep.pencil_sweep_zband(c.r, ftbl, c.counts, *wins,
-                                                                   grid, rc2, window, True), 20)
                 # rebin + chunk of the width-listed engine, and its device ops
                 run = lambda: eng.run_fast(c, 8)  # noqa: E731
                 out[f"cellpair width run_fast(8) {tag}"] = _ms(torch, run, 5)

@@ -41,7 +41,8 @@ SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_w
            "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
            "fused_pencil_width_chunk.cu", "pencil_sweep_full.cu", "pencil_sweep_zband.cu",
            "pair_sweep_rect.cu", "mosaic_probes.cu", "layout_bodies.cu")
-HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "pencil_pairs.cuh", "async_copy.cuh")
+HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "pencil_pairs.cuh", "async_copy.cuh",
+           "pencil_cull.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -191,8 +192,8 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_pencil_chunk_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, real, real, real, real, real, real,
-                       _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, real, real, real, real, real,
+                       real, _I, _I, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_pencil_width_chunk_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, real, real, real, real, real,
@@ -205,12 +206,17 @@ def library() -> ctypes.CDLL:
     lib.ljmd_list_max_blocks.restype = _I
     lib.ljmd_list_tile_cols.restype = _I
     lib.ljmd_pack_max_rows.restype = _I
-    lib.ljmd_pencil_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
-    lib.ljmd_pencil_max_blocks.restype = _I
+    lib.ljmd_pencil_chunk_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_pencil_chunk_occupancy.restype = _I
+    lib.ljmd_pencil_chunk_slices.restype = _I
+    lib.ljmd_pencil_chunk_max_sub.restype = _I
+    lib.ljmd_zband_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_zband_occupancy.restype = _I
+    lib.ljmd_zband_block_threads.restype = _I
+    lib.ljmd_zband_max_window_stages.restype = _I
     lib.ljmd_width_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_width_max_blocks.restype = _I
     lib.ljmd_width_block_threads.restype = _I
-    lib.ljmd_pencil_tile_slots.restype = _I
     lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.ljmd_pack_window_lists.restype = _I
     lib.ljmd_probe_transpose.argtypes = [_P, _P, _I, _I, _I, _I, _P]

@@ -14,7 +14,14 @@ set, without observables:
   lo_i - lo_j (the image shift applies to the hi part only).
 
 ``fused_pencil_chunk`` sweeps every pencil at its full capacity from the
-half-shell tables. ``fused_pencil_width_chunk`` runs every visit at the
+half-shell tables: each 128-slot block meets, from its own side, the stages
+of its pencil, of its 4 upper neighbours and of the 4 pencils whose upper
+neighbour it is (``half_shell_lower``, the inverse table, which the wrapper
+builds once per table and keeps). A stage whose first slot is invalid holds
+no partner (valid slots are packed rank-first) and is skipped, as is a
+block whose first slot is invalid; ``static_stream`` writes that stream in
+``width_index``'s entry form, and the static twin runs through it.
+``fused_pencil_width_chunk`` runs every visit at the
 pencil's 128-granular active width, driven by the five visit lists of
 ``build_width_lists`` (built from the current bin's counts, valid until the
 next rebin). Returns (r, v, a) or, extended, (r, r_lo, v, vc, a).
@@ -27,11 +34,12 @@ derives it on the device from the lists, once per list build (it keeps the
 last lists it indexed), with torch ops and no host read.
 
 On CUDA tensors each chunk is ONE cooperative launch (the static chunk:
-``csrc/fused_pencil_chunk.cu``, tables read on the device; the width chunk:
-``csrc/fused_pencil_width_chunk.cu``, the index read on the device); on CPU
-tensors the plain twins run a Python step loop, the static one over
-``accumulate_visits``, the width one block by block over the index. The TPU
-kernel's ``mxu_reduce`` is an MXU layout experiment and is not ported.
+``csrc/fused_pencil_chunk.cu``, tables, the inverse table and the validity
+row read on the device, 8 threads a slot, the grid from ``static_plan``;
+the width chunk: ``csrc/fused_pencil_width_chunk.cu``, the index read on the
+device); on CPU tensors the plain twins run a Python step loop, block by
+block over the static stream or the width index. The TPU kernel's
+``mxu_reduce`` is an MXU layout experiment and is not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ import torch
 from ljmd_tpu_torch.ops import _cuda
 from ljmd_tpu_torch.ops.fused import comp_add
 from ljmd_tpu_torch.ops.pair_terms import lj_pair_terms_plain
-from ljmd_tpu_torch.ops.pencil_sweep import TILE_I, accumulate_visits, table_visits
+from ljmd_tpu_torch.ops.pencil_sweep import TILE_I
 
 __all__ = [
     "MAX_PENCIL_CHUNK_STEPS",
@@ -54,7 +62,10 @@ __all__ = [
     "fused_pencil_chunk_plain",
     "fused_pencil_width_chunk",
     "fused_pencil_width_chunk_plain",
+    "half_shell_lower",
     "ROLES",
+    "static_plan",
+    "static_stream",
     "width_index",
     "width_grid",
     "width_index_entries",
@@ -316,19 +327,59 @@ def _chunk_plain(forces, r, v, a, dt, n_steps, r_lo, vc):
     return (r, r_lo, v, vc, a) if extended else (r, v, a)
 
 
+def half_shell_lower(tbl, n_pencils: int) -> torch.Tensor:
+    """The inverse of the half-shell table ``tbl`` (n_pencils * 4,): int32
+    (n_pencils * 4,) on its device with ``lower[q * 4 + k]`` the pencil p
+    whose k-th upper neighbour is q (``tbl[p * 4 + k] == q``), -1 where no
+    pencil's is. On a full grid each k's map is a translation of the torus,
+    so every entry is set once. Torch ops, no host read."""
+    dev = tbl.device
+    e = torch.arange(4 * n_pencils, device=dev)
+    lower = torch.full((4 * n_pencils,), -1, dtype=torch.int32, device=dev)
+    lower[tbl.long() * 4 + e % 4] = (e // 4).to(torch.int32)
+    return lower
+
+
+def static_stream(valid, tbl, shf, lower, n_pencils: int, capacity: int):
+    """The static chunk's partner stream, block by block, in
+    ``width_index``'s form (offsets (NB+1,), entries, order (NB,), int32,
+    NB = n_pencils * capacity / 128): each block whose first slot is valid
+    has 9 entries, its own pencil (every partner but the slot itself), its
+    4 upper neighbours (forward: partners shifted) and the 4 pencils of
+    ``lower`` (backward: its slots shifted), each over that pencil's live
+    stages (the leading 128-slot stages whose first slot is valid, from the
+    validity row ``valid``); a block whose first slot is invalid has 9 empty
+    entries. The rule of ``csrc/fused_pencil_chunk.cu``, as torch ops."""
+    dev = valid.device
+    P, n_sub = n_pencils, capacity // TILE_I
+    first = valid.reshape(P, n_sub, TILE_I)[:, :, 0] > 0.5
+    live = torch.cumprod(first.long(), dim=1).sum(dim=1)
+    q = torch.arange(P, device=dev)
+    k = torch.arange(4, device=dev)
+    up, low = tbl.to(dev).long().reshape(P, 4), lower.to(dev).long().reshape(P, 4)
+    shf = shf.to(dev).long().reshape(P, 4, 2)
+    lp = low.clamp(min=0)
+    pencil = torch.cat([q[:, None], up, lp], dim=1)                           # (P, 9)
+    blocks = torch.where(torch.cat([q[:, None] >= 0, up >= 0, low >= 0], dim=1),
+                         live[pencil], 0)
+    role = torch.tensor([_SELF_DIAG] + [_FORWARD] * 4 + [_BACKWARD] * 4, device=dev)
+    shx = torch.cat([torch.zeros_like(q)[:, None], shf[:, :, 0], shf[lp, k, 0]], dim=1)
+    shy = torch.cat([torch.zeros_like(q)[:, None], shf[:, :, 1], shf[lp, k, 1]], dim=1)
+    word = ((pencil * n_sub) << 12) | (blocks << 6) | (role << 4) | ((shx + 1) << 2) | (shy + 1)
+    entries = torch.where(first[:, :, None], word[:, None, :], 0).reshape(-1).to(torch.int32)
+    NB = P * n_sub
+    return (torch.arange(NB + 1, dtype=torch.int32, device=dev) * 9, entries,
+            torch.arange(NB, dtype=torch.int32, device=dev))
+
+
 def fused_pencil_chunk_plain(r, v, a, tbl, shf, n_pencils, capacity, box_length,
                              rc_square, dt, n_steps, r_lo=None, vc=None):
-    """Plain twin of ``fused_pencil_chunk``: every pencil at full capacity."""
-    classes = table_visits(n_pencils, capacity, tbl.cpu(), shf.cpu())
-
-    def forces(pos, lo):
-        f = torch.zeros_like(pos)
-        for ista, jsta, shx, shy, width, tri in classes:
-            accumulate_visits(f, pos, lo, ista, jsta, shx, shy, width, tri, box_length,
-                              rc_square, False)
-        return f[0:3]
-
-    return _chunk_plain(forces, r, v, a, dt, n_steps, r_lo, vc)
+    """Plain twin of ``fused_pencil_chunk``: every block from its own side
+    over the live stages of its ``static_stream``."""
+    stream = static_stream(r[3], tbl, shf, half_shell_lower(tbl.to(r.device), n_pencils),
+                           n_pencils, capacity)
+    return _chunk_plain(lambda pos, lo: _index_forces(pos, lo, stream, box_length, rc_square),
+                        r, v, a, dt, n_steps, r_lo, vc)
 
 
 def fused_pencil_width_chunk_plain(r, v, a, wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j,
@@ -349,20 +400,48 @@ def _check_steps(n_steps: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int, element_size: int, extended: bool, width: bool) -> int:
-    """Blocks of a chunk kernel that fit on the card at once (cached: the
-    answer depends only on the card and the variant)."""
+def _max_blocks(device_index: int, element_size: int, extended: bool) -> int:
+    """Blocks of the width chunk kernel that fit on the card at once
+    (cached: the answer depends only on the card and the variant)."""
     out = ctypes.c_int(0)
-    lib = _cuda.library()
-    query = lib.ljmd_width_max_blocks if width else lib.ljmd_pencil_max_blocks
     with torch.cuda.device(device_index):
-        _cuda.check(query(element_size, int(extended), ctypes.byref(out)),
-                    f"{'fused_pencil_width_chunk' if width else 'fused_pencil_chunk'} "
-                    "occupancy query")
+        _cuda.check(_cuda.library().ljmd_width_max_blocks(element_size, int(extended),
+                                                          ctypes.byref(out)),
+                    "fused_pencil_width_chunk occupancy query")
     if out.value < 1:
         raise RuntimeError("no block of the chunk kernel fits on this card; the grid barrier "
                            "cannot run")
     return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _static_occupancy(device_index: int, element_size: int, extended: bool) -> tuple:
+    """(resident blocks an SM, SMs, registers a thread, spill bytes a
+    thread) of the static chunk kernel (cached)."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        _cuda.check(_cuda.library().ljmd_pencil_chunk_occupancy(
+            element_size, int(extended), out), "fused_pencil_chunk occupancy query")
+    return tuple(out)
+
+
+def static_plan(r, extended=False) -> dict:
+    """The static chunk kernel's launch shape for slot rows ``r`` (on the
+    card): S threads a slot (8, fixed in the kernel), threads a block (128 x
+    S), work items (128-slot blocks), resident blocks an SM (occupancy
+    API), the persistent grid, warps an SM, registers and spill bytes a
+    thread."""
+    _cuda.require_cuda_rows("static_plan", r)
+    items = r.shape[1] // TILE_I
+    per_sm, sms, regs, spill = _static_occupancy(r.device.index, r.element_size(),
+                                                 bool(extended))
+    if per_sm < 1:
+        raise RuntimeError("no block of the chunk kernel fits on this card; the grid barrier "
+                           "cannot run")
+    s = _cuda.library().ljmd_pencil_chunk_slices()
+    return {"slices": s, "threads": TILE_I * s, "items": items, "blocks_per_sm": per_sm,
+            "sms": sms, "blocks": min(items, per_sm * sms),
+            "warps_per_sm": per_sm * TILE_I * s // 32, "regs": regs, "spill_bytes": spill}
 
 
 def width_grid(r, extended=False) -> dict:
@@ -371,7 +450,7 @@ def width_grid(r, extended=False) -> dict:
     blocks the card holds at once, and the persistent grid."""
     _cuda.require_cuda_rows("width_grid", r)
     items = r.shape[1] // TILE_I
-    resident = _max_blocks(r.device.index, r.element_size(), bool(extended), True)
+    resident = _max_blocks(r.device.index, r.element_size(), bool(extended))
     return {"threads": _cuda.library().ljmd_width_block_threads(),
             "items": items, "resident_blocks": resident, "blocks": min(items, resident)}
 
@@ -417,23 +496,48 @@ def _outputs(rbuf, lobuf, v_out, vc_out, a_out, n_steps):
     return rbuf[last], v_out, a_out
 
 
+# The last half-shell table the static chunk inverted and its inverse: the
+# engine keeps its tables for the run, so the inverse is built once.
+_LAST_LOWER: list = []
+
+
+def _lower_of(tbl, n_pencils):
+    key = (n_pencils, tbl._version)
+    if _LAST_LOWER and _LAST_LOWER[0] is tbl and _LAST_LOWER[1] == key:
+        return _LAST_LOWER[2]
+    lower = half_shell_lower(tbl, n_pencils)
+    _LAST_LOWER[:] = [tbl, key, lower]
+    return lower
+
+
 def _launch_static(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square, dt, n_steps,
-                   r_lo, vc):
+                   r_lo, vc, grid_cap=None):
+    """One launch of the static chunk kernel. ``grid_cap`` caps the
+    persistent grid (each block then takes more work items): tests and the
+    smoke script only."""
     name = "fused_pencil_chunk"
     rbuf, lobuf, v_out, vc_out, a_out = _prepare(name, r, v, a, (tbl, shf), n_pencils,
                                                  capacity, n_steps, r_lo, vc)
     extended = lobuf is not None
+    if tbl.shape != (4 * n_pencils,) or shf.shape != (8 * n_pencils,):
+        raise ValueError(f"{name}: tables must be ({4 * n_pencils},) and ({8 * n_pencils},)")
     if n_steps > 0:
         lib = _cuda.library()
-        blocks = min(n_pencils * capacity // lib.ljmd_pencil_tile_slots(),
-                     _max_blocks(r.device.index, r.element_size(), extended, False))
+        if capacity // TILE_I > lib.ljmd_pencil_chunk_max_sub():
+            raise ValueError(f"{name}: capacity {capacity} above "
+                             f"{TILE_I * lib.ljmd_pencil_chunk_max_sub()}")
+        lower = _lower_of(tbl, n_pencils)
+        plan = static_plan(r, extended)
+        blocks = plan["blocks"]
+        if grid_cap is not None:
+            blocks = max(1, min(blocks, int(grid_cap)))
         with torch.cuda.device(r.device):
             code = getattr(lib, f"ljmd_fused_pencil_chunk_{_cuda.dtype_suffix(r.dtype)}")(
                 rbuf.data_ptr(), lobuf.data_ptr() if extended else None,
                 v_out.data_ptr(), vc_out.data_ptr() if extended else None, a_out.data_ptr(),
-                tbl.data_ptr(), shf.data_ptr(), n_pencils, capacity, float(box_length),
-                1.0 / float(box_length), float(rc_square), float(dt), 0.5 * dt, 0.5 * dt * dt,
-                n_steps, int(extended), blocks, _cuda.stream_handle(r))
+                tbl.data_ptr(), shf.data_ptr(), lower.data_ptr(), n_pencils, capacity,
+                float(box_length), 1.0 / float(box_length), float(rc_square), float(dt),
+                0.5 * dt, 0.5 * dt * dt, n_steps, int(extended), blocks, _cuda.stream_handle(r))
         _cuda.LAUNCHES.bump(name)
         _cuda.check(code, name)
     return _outputs(rbuf, lobuf, v_out, vc_out, a_out, n_steps)

@@ -44,7 +44,10 @@ past a pencil's count and empty partner pencils are skipped:
 - ``pencil_sweep_zband``: per (128-slot i-slice, neighbour), only the
   ``window`` ranks from ``start_a`` and, under ``use_b``, those from
   ``start_b`` that window A does not hold (``compute_z_windows``; ranks
-  z-sorted), with the full minimum image in x, y and z.
+  z-sorted), with the full minimum image in x, y and z. Windows are whole
+  128-rank stages, so the dedupe and the partner's count each mask whole
+  stages: ``zband_stage_plan`` lists the stages left, which the kernel and
+  the twin sweep.
 
 Each wrapper launches its ``csrc/`` kernel on CUDA tensors (``pencil_sweep_hs.cu``,
 ``pencil_sweep_full.cu``, ``pencil_sweep_zband.cu``) and takes its plain twin
@@ -53,6 +56,8 @@ facts and are not ported.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -74,6 +79,8 @@ __all__ = [
     "pencil_sweep_zband",
     "pencil_sweep_zband_plain",
     "sentinel_fill",
+    "zband_grid",
+    "zband_stage_plan",
 ]
 
 # The slot granule of pencils and visits.
@@ -305,21 +312,61 @@ def pencil_sweep_plain(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
     return out
 
 
+def zband_stage_plan(counts, tbl, start_a, start_b, use_b, n_pencils: int, capacity: int,
+                     window: int) -> dict:
+    """The z-banded sweep's window stages and which of them it sweeps: the
+    rule of ``csrc/pencil_sweep_zband.cu``, as torch ops on the tables'
+    device. Windows start on 128-slot boundaries and are multiples of 128,
+    so each is ``window / 128`` whole stages of 128 ranks, and a stage of
+    window B either lies inside window A or misses it. Of the stages of the
+    live visits (i-slices below their pencil's count, non-empty partner
+    pencils; window A always, window B under ``use_b``), two kinds are
+    skipped, both exactly: a window-B stage inside window A (the rank
+    dedupe masks all of it) and a stage whose first rank is at or past the
+    partner pencil's count (only invalid slots, which the validity test
+    masks). Returns ``start`` (T, 9, 2, W) int64 global slot of each stage
+    (window A at [:, :, 0], B at [:, :, 1]; T = n_pencils * capacity / 128
+    i-slices, W = window / 128), ``keep`` (T, 9, 2, W) bool, and the counts
+    ``stages`` (of the live visits), ``b_inside_a``, ``a_past_count`` and
+    ``b_past_count`` (B stages outside A past the count), ``kept``."""
+    dev = counts.device
+    P, cap = n_pencils, capacity
+    n_sub, n_win = cap // TILE_I, window // TILE_I
+    T = P * n_sub
+    cnt = counts.long()
+    t = torch.arange(T, device=dev)
+    j = tbl.long().to(dev).reshape(P, 9)[t // n_sub]                          # (T, 9)
+    cj = cnt[j]
+    live_visit = ((t % n_sub) * TILE_I < cnt[t // n_sub])[:, None] & (cj > 0)
+    sa, sb = (x.long().to(dev).reshape(T, 9) for x in (start_a, start_b))
+    ub = use_b.to(dev).reshape(T, 9) > 0
+    rank = torch.stack([sa, sb], dim=2)[..., None] + TILE_I * torch.arange(n_win, device=dev)
+    swept = torch.stack([live_visit, live_visit & ub], dim=2)[..., None].expand(rank.shape)
+    in_a = (rank >= sa[:, :, None, None]) & (rank < sa[:, :, None, None] + window)
+    in_a[:, :, 0] = False  # window A itself
+    past = rank >= cj[:, :, None, None]
+    keep = swept & ~in_a & ~past
+    b = swept[:, :, 1]
+    return {"start": j[:, :, None, None] * cap + rank, "keep": keep,
+            "stages": int(swept.sum()), "b_inside_a": int((b & in_a[:, :, 1]).sum()),
+            "a_past_count": int((swept[:, :, 0] & past[:, :, 0]).sum()),
+            "b_past_count": int((b & ~in_a[:, :, 1] & past[:, :, 1]).sum()),
+            "kept": int(keep.sum())}
+
+
 def pencil_sweep_zband_plain(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGrid,
                              rc_square, window: int, want_observables: bool = True):
-    """Plain twin of ``pencil_sweep_zband``: window A of every visit, then
-    window B (deduped against A) where ``use_b`` is set."""
+    """Plain twin of ``pencil_sweep_zband``: the stages of
+    ``zband_stage_plan`` that the sweep keeps, each 128-slot i-slice against
+    each kept 128-rank stage (no dedupe test: the skipped stages are the
+    ones it would mask)."""
     out = torch.zeros_like(pos)
-    cap = grid.capacity
-    p, si, k, j = _full_visits(grid, tbl.cpu(), counts.cpu())
-    e = (p * (cap // TILE_I) + si) * 9 + k
-    sa, sb, ub = (np.asarray(t.cpu())[e] for t in (start_a, start_b, use_b))
-    ista, a0 = p * cap + si * TILE_I, j * cap + sa
-    _i_side_visits(out, pos, ista, a0, window, None, None, None, grid.box_length, rc_square,
-                   want_observables)
-    b = ub > 0
-    _i_side_visits(out, pos, ista[b], j[b] * cap + sb[b], window, None, None, a0[b],
-                   grid.box_length, rc_square, want_observables)
+    plan = zband_stage_plan(counts.cpu(), tbl.cpu(), start_a.cpu(), start_b.cpu(), use_b.cpu(),
+                            grid.n_pencils, grid.capacity, window)
+    t, _, _, _ = (x.numpy() for x in torch.nonzero(plan["keep"], as_tuple=True))
+    jsta = plan["start"][plan["keep"]].numpy()
+    _i_side_visits(out, pos, t * TILE_I, jsta, TILE_I, None, None, None, grid.box_length,
+                   rc_square, want_observables)
     return out
 
 
@@ -405,22 +452,27 @@ def pencil_sweep_zband(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGr
     (module docstring): ONE launch of ``csrc/pencil_sweep_zband.cu`` on CUDA
     tensors, the plain twin on CPU tensors. The window tables are
     ``compute_z_windows``'s: their starts are multiples of 128 and at most
-    capacity - window, which the kernel relies on."""
+    capacity - window, which the kernel (and its stage skips,
+    ``zband_stage_plan``) relies on."""
     if pos.device.type == "cpu":
         return pencil_sweep_zband_plain(pos, tbl, counts, start_a, start_b, use_b, grid,
                                         rc_square, window, want_observables)
     if pos.device.type != "cuda":
         raise ValueError(f"pencil_sweep_zband: unsupported device {pos.device}")
     P, cap = grid.n_pencils, grid.capacity
-    if window % TILE_I or not TILE_I <= window <= cap:
+    lib = _cuda.library()
+    if (window % TILE_I or not TILE_I <= window <= cap
+            or window // TILE_I > lib.ljmd_zband_max_window_stages()):
         raise ValueError(f"pencil_sweep_zband: window {window} must be a multiple of 128 "
-                         f"in [128, capacity={cap}]")
+                         f"in [128, capacity={cap}], at most "
+                         f"{TILE_I * lib.ljmd_zband_max_window_stages()}")
     n_tab = grid.n_slots // TILE_I * 9
     _check_tables("pencil_sweep_zband", pos, grid, (tbl, 9 * P), (counts, P),
                   (start_a, n_tab), (start_b, n_tab), (use_b, n_tab))
+    if pos.data_ptr() % 16:
+        raise ValueError("pencil_sweep_zband: pos must start on a 16-byte boundary (cp.async)")
     suffix = _cuda.dtype_suffix(pos.dtype)
     out = torch.zeros_like(pos)
-    lib = _cuda.library()
     with torch.cuda.device(pos.device):
         code = getattr(lib, f"ljmd_pencil_sweep_zband_{suffix}")(
             pos.data_ptr(), out.data_ptr(), tbl.data_ptr(), counts.data_ptr(),
@@ -430,3 +482,19 @@ def pencil_sweep_zband(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGr
     _cuda.LAUNCHES.bump("pencil_sweep_zband")
     _cuda.check(code, "pencil_sweep_zband")
     return out
+
+
+def zband_grid(pos, want_observables: bool = True) -> dict:
+    """Kernel 12's launch shape for slot rows ``pos`` (on the card): threads
+    a block (128 slots x 4), blocks (128-slot i-slices), resident blocks an
+    SM, registers and spill bytes a thread, and the warps an SM."""
+    _cuda.require_cuda_rows("zband_grid", pos)
+    lib = _cuda.library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(pos.device):
+        _cuda.check(lib.ljmd_zband_occupancy(pos.element_size(), int(want_observables), out),
+                    "zband occupancy")
+    threads = lib.ljmd_zband_block_threads()
+    return {"threads": threads, "blocks": pos.shape[1] // TILE_I, "blocks_per_sm": out[0],
+            "sms": out[1], "regs": out[2], "spill_bytes": out[3],
+            "warps_per_sm": out[0] * threads // 32}

@@ -729,6 +729,53 @@ def test_width_chunk_equals_static_chunk_float64(cuda, cap):
         _close(g, w, 1e-9)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("cap", [384, 512])
+def test_static_chunk_kernel_matches_twin(cuda, cap, extended, dtype, tol):
+    """Kernel 15 at capacities 384 and 512 (~192 particles a pencil: the
+    stages past the second are empty and skipped) against its twin over 6
+    steps; capped at 5 blocks (several 128-slot work items a block) it gives
+    the same bits."""
+    from ljmd_tpu_torch.ops import fused_pencil
+
+    cfg, grid, c, tables = _width_fluid(cap, dtype, cuda)
+    args = (grid.n_pencils, cap, cfg.box_length, cfg.rc_square, cfg.dt, 6)
+    ext = dict(r_lo=c["rc"], vc=c["vc"]) if extended else {}
+    LAUNCHES.reset()
+    got = fused_pencil.fused_pencil_chunk(c["r"], c["v"], c["a"], *tables, *args, **ext)
+    assert LAUNCHES.snapshot()["fused_pencil_chunk"] == 1
+    want = fused_pencil.fused_pencil_chunk_plain(c["r"], c["v"], c["a"], *tables, *args, **ext)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+    capped = fused_pencil._launch_static(c["r"], c["v"], c["a"], *tables, *args,
+                                         ext.get("r_lo"), ext.get("vc"), grid_cap=5)
+    for g, w in zip(capped, got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("want_obs", [True, False])
+def test_zband_kernel_with_skips_matches_twin_and_full(cuda, want_obs, dtype, tol):
+    """Kernel 12 on the tall box, where both kinds of stage are skipped,
+    against its twin (the stages the plan keeps) and the full sweep."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+
+    grid, window, pos, counts, tbl, shf, wins = _tall_slots(cuda)
+    pos = pos.to(dtype)
+    plan = pencil_sweep.zband_stage_plan(counts, tbl, *wins, grid.n_pencils, grid.capacity,
+                                         window)
+    assert plan["b_inside_a"] > 0 and plan["a_past_count"] + plan["b_past_count"] > 0
+    args = (pos, tbl, counts, *wins, grid, 6.25, window, want_obs)
+    got = pencil_sweep.pencil_sweep_zband(*args)
+    want = pencil_sweep.pencil_sweep_zband_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                                   for a in args))
+    full = pencil_sweep.pencil_sweep(pos, tbl, counts, shf, grid, 6.25, want_obs)
+    for row in range(8):
+        _close(got[row], want[row], tol)
+        _close(got[row], full[row], tol)
+
+
 def _flag_patterns(r, box):
     from ljmd_tpu_torch.ops import window_lists
 
