@@ -764,6 +764,72 @@ def _same_lists(got, want) -> bool:
     return True
 
 
+def list_body_share(torch, r, stages, n: int, slices: int, box_length: float,
+                    rc_square: float) -> dict:
+    """The modelled share of warp iterations that run the LJ body under the
+    warp-vote cull of csrc/fused_dense_chunk_list.cu, worked out in float64
+    from the positions the kernel starts from (no counter in the kernel):
+    over the plan's (granule, 128-column stage) pairs (``stages``:
+    ``list_plan_stages``), a warp being 32 / S consecutive particles (S
+    threads each, S <= 32) or one particle's 32 threads (S = 64), thread
+    slice taking the columns slice, slice + S, ...; and the pairs inside the
+    mask over the candidates."""
+    offsets, col0, meta = stages
+    dev = r.device
+    x = r.double()
+    L = box_length
+    gran = torch.repeat_interleave(torch.arange(offsets.numel() - 1, device=dev),
+                                   offsets[1:] - offsets[:-1])
+    ar = torch.arange(128, device=dev)
+    pw, lw = max(1, 32 // slices), min(slices, 32)
+    body = hits = total = 0
+    for b0 in range(0, gran.numel(), 256):
+        sl = slice(b0, b0 + 256)
+        mt = meta[sl][:, None, None]
+        ii = (gran[sl][:, None] * 128 + ar)[:, :, None]
+        jj = (col0[sl][:, None] + ar)[:, None, :]
+        d = [x[c][ii] - x[c][jj] for c in range(3)]
+        for c, bit in ((0, 4), (1, 0), (2, 8)):
+            rd = d[c] - L * torch.round(d[c] / L)
+            d[c] = rd if bit == 0 else torch.where((mt & bit) > 0, rd, d[c])
+        m = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] < rc_square
+        fwd = (mt & 1) > 0
+        gr, gc = torch.where(fwd, ii, jj), torch.where(fwd, jj, ii)
+        ok = (gc > gr) & (gc < n) & (gr < n) & (gc >= (mt >> 4) * 128)
+        m &= ((mt & 2) == 0) | ok
+        hits += int(m.sum())
+        B = m.shape[0]
+        warps = m.reshape(B, 128 // pw, pw, 128 // slices, slices // lw, lw)
+        body += int(warps.any(dim=5).any(dim=2).sum())
+        total += B * (128 // pw) * (128 // slices) * (slices // lw)
+    return {"body": body / max(1, total), "pairs_in_mask": hits / max(1, gran.numel() * 128 * 128),
+            "stages": int(gran.numel())}
+
+
+def list_report(torch, r, tiles, tcounts, n: int, tile_j: int, box_length: float,
+                rc_square: float) -> dict:
+    """Kernel 10's launch shape (``list_plan``) and, under ``model`` (worked
+    out here from this run's lists and positions, not counted in the
+    kernel): the plan's 128-column stages a step over all work items, the
+    busiest block's against the mean, the visit entries every block of the
+    earlier port walked a step, and the cull's modelled body share."""
+    from ljmd_tpu_torch.ops import fused_list
+
+    plan = fused_list.list_plan(r)
+    stages = fused_list.list_plan_stages(tiles, tcounts, r.shape[1], tile_j)
+    per_gran = (stages[0][1:] - stages[0][:-1]).long()
+    w = torch.arange(plan["items"], device=per_gran.device)
+    cost = per_gran[w * plan["particles_per_item"] // 128]
+    per_block = torch.zeros(plan["blocks"], dtype=torch.long, device=cost.device).index_add_(
+        0, w % plan["blocks"], cost)
+    return {"launch": plan,
+            "model": {"stages": {"a_step": int(cost.sum()), "busiest_block": int(per_block.max()),
+                                 "mean_block": float(per_block.double().mean()),
+                                 "visits_walked_before": int(tcounts.sum())},
+                      "body_share": list_body_share(torch, r, stages, n, plan["slices"],
+                                                    box_length, rc_square)}}
+
+
 def phase_list_kernels(torch) -> dict:
     """Kernels 9 and 10 (the zsort path) against their twins, at the zsort
     engine's geometry for the N=4000 and N=864 configs."""
@@ -831,11 +897,13 @@ def phase_list_kernels(torch) -> dict:
                 errs.append({"mode": mode, "max_abs_err": max(x[0] for x in e), "rel_err": worst})
             largs = (r, v, a, tiles, tcounts, n, L, cfg.rc_square, cfg.dt, k, 128, tj, None,
                      None, False)
+            report = list_report(torch, r, tiles, tcounts, n, tj, L, cfg.rc_square)
+            g_cap = max(1, report["launch"]["blocks"] // TILES_PER_BLOCK)
             capped = all(bool(torch.equal(g, w)) for g, w in zip(
-                fused_list._launch(*largs, grid_cap=n_pad // (32 * TILES_PER_BLOCK)),
-                fused_list._launch(*largs)))
+                fused_list._launch(*largs, grid_cap=g_cap), fused_list._launch(*largs)))
             require(capped, f"fused_dense_chunk_list {label} {dname}: the grid capped at "
-                            f"{TILES_PER_BLOCK} tiles a block differs from the full grid")
+                            f"{g_cap} blocks ({TILES_PER_BLOCK}x the items a block) differs "
+                            "from the full grid")
             ms = cuda_time_ms(torch, lambda: fused_list.fused_dense_chunk_list(
                 r, v, a, *args, tile_j=tj), 10)
             plain_ms = cuda_time_ms(torch, lambda: fused_list.fused_dense_chunk_list_plain(
@@ -848,17 +916,27 @@ def phase_list_kernels(torch) -> dict:
                 "shape": label, "dtype": dname, "max_abs_err": max(x["max_abs_err"] for x in errs),
                 "rel_err": max(x["rel_err"] for x in errs), "modes": errs,
                 "visits": tcounts.tolist(), "capped_grid_bit_identical": capped, "ms": ms,
-                "plain_ms": plain_ms})
+                "plain_ms": plain_ms, **report})
     for c in cases["build_window_lists"]:
         log(f"kernel build_window_lists {c['shape']} {c['dtype']}: lists equal to the twin's "
             f"(fluid and random flags), tcounts {c['tcounts']}, {c['ms']:.4f} ms vs plain "
             f"{c['plain_ms']:.4f} ms per call")
     for c in cases["fused_dense_chunk_list"]:
         modes = ", ".join(f"{m['mode']} {m['rel_err']:.3e}" for m in c["modes"])
+        lp, st, sh = c["launch"], c["model"]["stages"], c["model"]["body_share"]
         log(f"kernel fused_dense_chunk_list {c['shape']} {c['dtype']}: rel err {modes} "
             f"(tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms "
-            f"per {k}-step chunk; grid capped at {TILES_PER_BLOCK} tiles a block bit-identical "
-            f"{c['capped_grid_bit_identical']}")
+            f"per {k}-step chunk; grid capped to a {TILES_PER_BLOCK}th bit-identical "
+            f"{c['capped_grid_bit_identical']}; S={lp['slices']} threads a particle, 256 a "
+            f"block, {lp['items']} items, positions "
+            f"{'resident' if lp['resident'] else 'streamed'}, {lp['blocks_per_sm']} blocks an "
+            f"SM -> grid {lp['blocks']} ({lp['warps_per_sm']:.1f} warps an SM, {lp['regs']} "
+            f"registers, {lp['spill_bytes']} spill bytes); modelled from this "
+            f"run's lists: {st['a_step']} plan stages a step (the busiest block "
+            f"{st['busiest_block']}, mean {st['mean_block']:.1f}; the earlier port walked "
+            f"{st['visits_walked_before']} visits a tile a step), modelled body share "
+            f"{100 * sh['body']:.2f}% of warp iterations, {100 * sh['pairs_in_mask']:.2f}% of "
+            f"candidates in the mask; {100 * c['bound_ms'] / c['ms']:.2f}% of the bound")
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return cases
 
@@ -1034,6 +1112,32 @@ def modelled_body_share(torch, pos, chunks, full_mic: bool, box_length: float,
             "chunks": n}
 
 
+def sweep_report(torch, pos, tbl, counts, shf, n_pencils_i: int, capacity: int,
+                 box_length: float, rc_square: float, want_obs: bool) -> dict:
+    """The half-shell sweep's launch shape (``sweep_hs_grid``) and, under
+    ``model`` (worked out here from this run's slots, not counted in the
+    kernel): its live work items and waves, the stages of its plan
+    (``hs_stage_plan``) against the earlier sweep's (every non-empty partner
+    at full capacity), the busiest item's stages beside the mean, and the
+    cull's modelled body share."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+
+    p_all = pos.shape[1] // capacity
+    plan = pencil_sweep.hs_stage_plan(counts, tbl, shf,
+                                      pencil_sweep.half_shell_lower(tbl, p_all), n_pencils_i,
+                                      p_all, capacity)
+    launch = pencil_sweep.sweep_hs_grid(pos, want_obs)
+    per_item = plan["live"].sum(dim=1)[:, None].expand_as(plan["item_live"])[plan["item_live"]]
+    launch.update(live_items=plan["items"],
+                  waves=-(-plan["items"] // (launch["blocks_per_sm"] * launch["sms"])))
+    return {"launch": launch,
+            "model": {"stages": {"kept": plan["kept"], "full": plan["full"],
+                                 "busiest_item": int(per_item.max()),
+                                 "mean_item": plan["kept"] / max(1, plan["items"])},
+                      "body_share": modelled_body_share(torch, pos, pencil_sweep.hs_chunks(plan),
+                                                        False, box_length, rc_square)}}
+
+
 def static_chunks(torch, c, tbl, shf, n_pencils: int, capacity: int):
     """Kernel 15's (block, stage) chunks of one step, from its stream
     (``static_stream``), in ``modelled_body_share``'s form."""
@@ -1102,7 +1206,10 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
             base = {"shape": label, "dtype": dname, "candidates": cand, "cut_pairs": cut,
                     "counts_max": int(c.counts.max())}
 
-            # Kernels 13 + 14: the sweep, rows 0..5 on the valid slots.
+            # Kernels 13 + 14: the sweep, rows 0..5 on the valid slots; its
+            # launch shape and modelled plan (with the observables: the
+            # engine's sampled sweep).
+            hs_report = sweep_report(torch, c.r, tbl, c.counts, shf, P, cap, L, rc2, True)
             for want_obs in (True, False):
                 args = (c.r, tbl, c.counts, shf, grid, rc2, want_obs)
                 got = pencil_sweep.pencil_sweep_hs(*args)
@@ -1115,7 +1222,7 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                                       f"rel err {worst:.3e} > {tol}")
                 cases["pencil_sweep_hs"].append({
                     **base, **bound(dname, sweep_flops(cand, cut, want_obs),
-                                    2 * slots_bytes + table_bytes),
+                                    2 * slots_bytes + table_bytes), **hs_report,
                     "observables": want_obs, "max_abs_err": max(e[0] for e in errs),
                     "rel_err": worst,
                     "ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_hs(*args), 20),
@@ -1127,6 +1234,10 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
             for rank in range(STRIP_D):
                 args, p_loc, s_cand, s_cut = strip_inputs(torch, c, grid, rank, rc2)
                 valid_aug = args[0][3] > 0.5
+                # Without observables: the sharded engine's chunk steps (rank
+                # 0's strip is timed and reported).
+                s_report = {} if rank else sweep_report(torch, args[0], args[1], args[2],
+                                                        args[3], p_loc, cap, L, rc2, False)
                 for want_obs in (True, False):
                     got = pencil_sweep.pencil_sweep_hs(*args, want_obs, n_pencils_i=p_loc)
                     want = pencil_sweep.pencil_sweep_hs_plain(*args, want_obs, n_pencils_i=p_loc)
@@ -1145,6 +1256,7 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                         t.numel() for t in args[1:4])
                     cases["pencil_sweep_hs"].append({
                         **base, **bound(dname, sweep_flops(s_cand, s_cut, want_obs), aug_bytes),
+                        **s_report,
                         "shape": f"{label} strip {p_loc}+{grid.m_xy}", "candidates": s_cand,
                         "cut_pairs": s_cut, "n_pencils_i": p_loc, "observables": want_obs,
                         "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
@@ -1299,6 +1411,17 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                          f"{st['kept']} swept; modelled body share {100 * sh['body']:.2f}% of "
                          f"warp iterations, {100 * sh['pairs_in_mask']:.2f}% of candidates in "
                          f"the mask")
+            if name == "pencil_sweep_hs":
+                sg, st, sh = c["launch"], c["model"]["stages"], c["model"]["body_share"]
+                what += (f"; S={sg['slices']} threads a slot, {sg['threads']} a 128-slot item, "
+                         f"{sg['live_items']} of {sg['blocks']} items live, "
+                         f"{sg['blocks_per_sm']} blocks an SM ({sg['warps_per_sm']} warps, "
+                         f"{sg['regs']} registers, {sg['spill_bytes']} spill bytes) -> "
+                         f"{sg['waves']} wave(s); modelled from this run's slots: stages "
+                         f"{st['kept']} of {st['full']} ({st['full'] - st['kept']} skipped), the "
+                         f"busiest item {st['busiest_item']} (mean {st['mean_item']:.2f}), "
+                         f"modelled body share {100 * sh['body']:.2f}% of warp iterations, "
+                         f"{100 * sh['pairs_in_mask']:.2f}% of candidates in the mask")
             if "static" in c:
                 sp, st, sh = c["static"], c["model"]["stages"], c["model"]["body_share"]
                 what += (f"; S={sp['slices']} threads a slot, {sp['threads']} a block, "

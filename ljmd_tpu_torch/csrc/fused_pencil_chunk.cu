@@ -232,14 +232,15 @@ __global__ void __launch_bounds__(kPenGran * kHsSlices) fused_pencil_kernel(HsCh
         const T* ly = EXT ? sb[4] : nullptr;
         const T* lz = EXT ? sb[5] : nullptr;
         if (sg == 0) {
-          cull_stage_hs<T, EXT, kHsSelf, S>(sb[0], sb[1], sb[2], lx, ly, lz, me, q0, offx, offy,
-                                            p.box, p.inv_box, p.rc2, acc);
+          cull_stage_hs<T, EXT, false, kHsSelf, S>(sb[0], sb[1], sb[2], lx, ly, lz, me, q0,
+                                                   offx, offy, p.box, p.inv_box, p.rc2, acc);
         } else if (sg <= 4) {
-          cull_stage_hs<T, EXT, kHsForward, S>(sb[0], sb[1], sb[2], lx, ly, lz, me, q0, offx,
-                                               offy, p.box, p.inv_box, p.rc2, acc);
+          cull_stage_hs<T, EXT, false, kHsForward, S>(sb[0], sb[1], sb[2], lx, ly, lz, me, q0,
+                                                      offx, offy, p.box, p.inv_box, p.rc2, acc);
         } else {
-          cull_stage_hs<T, EXT, kHsBackward, S>(sb[0], sb[1], sb[2], lx, ly, lz, me, q0, offx,
-                                                offy, p.box, p.inv_box, p.rc2, acc);
+          cull_stage_hs<T, EXT, false, kHsBackward, S>(sb[0], sb[1], sb[2], lx, ly, lz, me, q0,
+                                                       offx, offy, p.box, p.inv_box, p.rc2,
+                                                       acc);
         }
       }
 

@@ -1,6 +1,7 @@
 // The culled pair loop of one staged 128-partner stage, shared by the
-// redesigned static pencil chunk (fused_pencil_chunk.cu, kernel 15) and the
-// z-banded sweep (pencil_sweep_zband.cu, kernel 12).
+// redesigned static pencil chunk (fused_pencil_chunk.cu, kernel 15), the
+// half-shell sweep (pencil_sweep_hs.cu, kernels 13 / 14) and the z-banded
+// sweep (pencil_sweep_zband.cu, kernel 12).
 //
 // A block holds 128 slots x S partner slices: thread (slot tx, slice ty)
 // takes the partners jj = ty, ty + S, ... of the stage (the order of the
@@ -22,7 +23,7 @@
 
 namespace ljmd {
 
-// Roles of a stage of kernel 15's partner stream: the slot's own pencil
+// Roles of a stage of the half-shell partner stream (kernels 15, 13 / 14): the slot's own pencil
 // (every partner but the slot itself), a forward neighbour (partners'
 // x / y shifted by the image shift) or a backward one (the slot shifted).
 enum HsRole { kHsSelf = 0, kHsForward = 1, kHsBackward = 2 };
@@ -33,7 +34,7 @@ struct CullDisp {
 };
 
 // The culled loop over the thread's partners of one stage. cand(jj, m)
-// returns the candidate's displacement and sets its mask; body(d, m)
+// returns the candidate's displacement and sets its mask; body(d, m, jj)
 // accumulates it (a lane with m false adds exact zeros).
 template <int S, typename Cand, typename Body>
 __device__ __forceinline__ void cull_loop(Cand cand, Body body) {
@@ -42,13 +43,16 @@ __device__ __forceinline__ void cull_loop(Cand cand, Body body) {
   for (int jj = ty; jj < kPenGran; jj += S) {
     bool m;
     const auto d = cand(jj, m);
-    if (__any_sync(0xffffffffu, m)) body(d, m);
+    if (__any_sync(0xffffffffu, m)) body(d, m, jj);
   }
 }
 
-// Kernel 15: pairs of `me` with one staged stage (rows x, y, z and, EXT,
-// the remainders) of partner slots [q0, q0 + 128) in role ROLE.
-template <typename T, bool EXT, int ROLE, int S>
+// Kernels 15 and 13 / 14: pairs of `me` with one staged stage (rows x, y, z
+// and, EXT, the remainders) of partner slots [q0, q0 + 128) in role ROLE.
+// OBS sums e / du / ddu of the pairs of which `me` is the i side: every
+// forward pair, and the self stage's partners above `me` (the TPU kernel's
+// pair-once set; pass OBS false for a backward stage).
+template <typename T, bool EXT, bool OBS, int ROLE, int S>
 __device__ __forceinline__ void cull_stage_hs(const T* sx, const T* sy, const T* sz,
                                               const T* slx, const T* sly, const T* slz,
                                               const PenSlot<T>& me, int q0, T offx, T offy,
@@ -79,11 +83,16 @@ __device__ __forceinline__ void cull_stage_hs(const T* sx, const T* sy, const T*
     if (ROLE == kHsSelf) m = m && (q0 + jj != me.g);
     return d;
   };
-  auto body = [&](const CullDisp<T>& d, bool m) {
-    const PairTerms<T> pt = lj_pair_terms<T, false>(d.r2, m);
+  auto body = [&](const CullDisp<T>& d, bool m, int jj) {
+    const PairTerms<T> pt = lj_pair_terms<T, OBS>(d.r2, m);
     acc.fx = add_rn(acc.fx, mul_rn(pt.coef, d.dx));
     acc.fy = add_rn(acc.fy, mul_rn(pt.coef, d.dy));
     acc.fz = add_rn(acc.fz, mul_rn(pt.coef, d.dz));
+    if (OBS && (ROLE == kHsForward || q0 + jj > me.g)) {
+      acc.e = add_rn(acc.e, pt.e);
+      acc.du = add_rn(acc.du, pt.du);
+      acc.ddu = add_rn(acc.ddu, pt.ddu);
+    }
   };
   cull_loop<S>(cand, body);
 }
@@ -106,7 +115,7 @@ __device__ __forceinline__ void cull_stage_full(const T* sx, const T* sy, const 
     m = (d.r2 < rc2) && (q0 + jj != g) && (mul_rn(vi, sv[jj]) > T(0.5));
     return d;
   };
-  auto body = [&](const CullDisp<T>& d, bool m) {
+  auto body = [&](const CullDisp<T>& d, bool m, int) {
     const PairTerms<T> pt = lj_pair_terms<T, OBS>(d.r2, m);
     acc.fx = add_rn(acc.fx, mul_rn(pt.coef, d.dx));
     acc.fy = add_rn(acc.fy, mul_rn(pt.coef, d.dy));

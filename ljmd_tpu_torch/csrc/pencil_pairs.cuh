@@ -1,10 +1,8 @@
-// Device code shared by the cell-pair kernels: the pair loop of one segment
-// of partner slots and the half-shell neighbourhood of a slot from the
-// tables (pencil_sweep_hs.cu); the i-side segment of the full 9-neighbour
-// sweep (pencil_sweep_full.cu); the slot, accumulator and geometry types and
-// the fused chunks' per-slot Verlet updates (also fused_pencil_chunk.cu,
-// fused_pencil_width_chunk.cu, pencil_sweep_zband.cu and the culled stage
-// loop of pencil_cull.cuh).
+// Device code shared by the cell-pair kernels: the slot, accumulator and
+// geometry types; the i-side segment of the full 9-neighbour sweep
+// (pencil_sweep_full.cu); the fused chunks' per-slot Verlet updates
+// (fused_pencil_chunk.cu, fused_pencil_width_chunk.cu). The culled stage
+// loops of the half-shell kernels and the z-band are in pencil_cull.cuh.
 //
 // Slot layout: (8, ns) row planes, ns = n_pencils * cap, x/y/z in rows 0..2,
 // row 3 the validity (1/0); pencil p owns slots [p*cap, (p+1)*cap), valid
@@ -13,11 +11,11 @@
 // The TPU kernels evaluate each pair once, from its i side (a slot of the
 // pencil that owns the visit), and scatter the reaction onto the j side. CUDA
 // blocks run in parallel, so here every pair is evaluated from BOTH sides
-// ("pair-twice"): a block owns 32 slots and sums, for each, every pair it is
-// in. No atomics, so every result is deterministic and a slot's force is only
-// ever written by its own thread. The pair values are the TPU kernel's bit
-// for bit: seen from the j side, the displacement is the exact negation of the
-// i side's, because each side forms it the same way:
+// ("pair-twice"): a block owns a tile of slots and sums, for each, every
+// pair it is in. No atomics, so every result is deterministic and a slot's
+// force is only ever written by its own thread. The pair values are the TPU
+// kernel's bit for bit: seen from the j side, the displacement is the exact
+// negation of the i side's, because each side forms it the same way:
 //   forward  (j side is the partner): dx = x_i - (x_j + shift)   (TPU form);
 //   backward (i side is the partner): dx = (x_j + shift) - x_i
 //            = -(x_i - (x_j + shift)), the shift still added to the j side;
@@ -37,16 +35,6 @@ constexpr int kPenTile = 32;                      // slots of one work item
 constexpr int kPenSlices = 4;                     // threads per slot
 constexpr int kPenStage = kPenTile * kPenSlices;  // partners staged at once
 constexpr int kPenGran = 128;                     // pencil and visit granule
-
-// Which partners of a same-pencil segment count: every other slot, those
-// above the thread's slot, or those below it (neighbour segments: all).
-enum PenMask { kPenAll = 0, kPenNotSelf = 1, kPenAbove = 2, kPenBelow = 3 };
-
-template <typename T, bool EXT>
-struct PenStage {
-  T x[kPenStage], y[kPenStage], z[kPenStage];
-  T lx[EXT ? kPenStage : 1], ly[EXT ? kPenStage : 1], lz[EXT ? kPenStage : 1];
-};
 
 template <typename T>
 struct PenAcc {
@@ -71,124 +59,6 @@ struct PenGeom {
   T inv_box;
   T rc2;
 };
-
-// Pairs of `me` with the partner slots [q0, q0 + len), len a multiple of
-// kPenStage, summed into acc. Every thread of the block calls it with the
-// same segment (it stages partners in shared memory between barriers).
-// shift_partner adds (offx, offy) to the partners' x/y (a forward neighbour
-// segment); a backward segment passes `me` already shifted instead. `obs_all`
-// sums e/du/ddu of every pair (forward neighbour: `me` is the i side); same-
-// pencil segments sum those of the partners above `me`.
-template <typename T, bool EXT, bool OBS>
-__device__ void pen_segment(const PenGeom<T>& p, PenStage<T, EXT>& sh, const PenSlot<T>& me,
-                            int q0, int len, bool shift_partner, T offx, T offy, int mask,
-                            bool obs_all, PenAcc<T>& acc) {
-  const int t = threadIdx.y * kPenTile + threadIdx.x;
-  const size_t ns = p.ns;
-  for (int c0 = q0; c0 < q0 + len; c0 += kPenStage) {
-    __syncthreads();
-    const size_t q = static_cast<size_t>(c0) + t;
-    T xq = p.r[q];
-    T yq = p.r[ns + q];
-    if (shift_partner) {
-      xq = add_rn(xq, offx);
-      yq = add_rn(yq, offy);
-    }
-    sh.x[t] = xq;
-    sh.y[t] = yq;
-    sh.z[t] = p.r[2 * ns + q];
-    if (EXT) {
-      sh.lx[t] = p.lo[q];
-      sh.ly[t] = p.lo[ns + q];
-      sh.lz[t] = p.lo[2 * ns + q];
-    }
-    __syncthreads();
-    for (int jj = threadIdx.y; jj < kPenStage; jj += kPenSlices) {
-      const int gq = c0 + jj;
-      T dx = sub_rn(me.x, sh.x[jj]);
-      T dy = sub_rn(me.y, sh.y[jj]);
-      T dz = sub_rn(me.z, sh.z[jj]);
-      if (EXT) {
-        dx = add_rn(dx, sub_rn(me.lx, sh.lx[jj]));
-        dy = add_rn(dy, sub_rn(me.ly, sh.ly[jj]));
-        dz = add_rn(dz, sub_rn(me.lz, sh.lz[jj]));
-      }
-      dz = min_image(dz, p.box, p.inv_box);
-      const T r2 = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-      bool m = r2 < p.rc2;
-      bool obs_pair = obs_all;
-      if (mask != kPenAll) {
-        const bool above = gq > me.g;
-        const bool below = gq < me.g;
-        m = m && (mask == kPenNotSelf ? (above || below) : (mask == kPenAbove ? above : below));
-        obs_pair = above;
-      }
-      const PairTerms<T> pt = lj_pair_terms<T, OBS>(r2, m);
-      acc.fx = add_rn(acc.fx, mul_rn(pt.coef, dx));
-      acc.fy = add_rn(acc.fy, mul_rn(pt.coef, dy));
-      acc.fz = add_rn(acc.fz, mul_rn(pt.coef, dz));
-      if (OBS && obs_pair) {
-        acc.e = add_rn(acc.e, pt.e);
-        acc.du = add_rn(acc.du, pt.du);
-        acc.ddu = add_rn(acc.ddu, pt.ddu);
-      }
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ PenSlot<T> pen_shifted(const PenSlot<T>& me, T offx, T offy) {
-  PenSlot<T> s = me;
-  s.x = add_rn(me.x, offx);
-  s.y = add_rn(me.y, offy);
-  return s;
-}
-
-// lower[k] = the pencil whose k-th upper neighbour is q (over the first
-// n_pencils pencils' table rows; a full grid's table is a bijection per k, a
-// strip's leaves lower[k] as the caller set it where no row points at q).
-// Every thread of the block calls it; a barrier must follow.
-__device__ __forceinline__ void pen_lower(const int* tbl, int n_pencils, int q, int* lower) {
-  const int t = threadIdx.y * kPenTile + threadIdx.x;
-  for (int e = t; e < 4 * n_pencils; e += kPenStage) {
-    if (tbl[e] == q) lower[e & 3] = e >> 2;
-  }
-}
-
-// All pairs of `me` (pencil q) over the half-shell tables, every partner
-// pencil at full capacity: its own pencil, its 4 upper neighbours (forward)
-// and the 4 pencils whose upper neighbour it is (backward). `i_side` false
-// (a halo pencil of a strip, which has no table row) keeps the backward
-// pairs only; lower[k] < 0 (no row points at q) skips that backward pencil.
-// With `counts`, partner pencils that are empty are skipped (the TPU grid
-// kernel's gate).
-template <typename T, bool EXT, bool OBS>
-__device__ void pen_table_pairs(const PenGeom<T>& p, PenStage<T, EXT>& sh, const PenSlot<T>& me,
-                                int q, bool i_side, const int* lower, const int* tbl,
-                                const int* shf, const int* counts, PenAcc<T>& acc) {
-  const int cap = p.cap;
-  if (i_side) {
-    pen_segment<T, EXT, OBS>(p, sh, me, q * cap, cap, false, T(0), T(0), kPenNotSelf, false,
-                             acc);
-#pragma unroll 1
-    for (int k = 0; k < 4; ++k) {
-      const int j = tbl[q * 4 + k];
-      if (counts != nullptr && counts[j] == 0) continue;
-      const T offx = mul_rn(static_cast<T>(shf[(q * 4 + k) * 2]), p.box);
-      const T offy = mul_rn(static_cast<T>(shf[(q * 4 + k) * 2 + 1]), p.box);
-      pen_segment<T, EXT, OBS>(p, sh, me, j * cap, cap, true, offx, offy, kPenAll, true, acc);
-    }
-  }
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) {
-    const int lp = lower[k];
-    if (lp < 0 || (counts != nullptr && counts[lp] == 0)) continue;
-    const T offx = mul_rn(static_cast<T>(shf[(lp * 4 + k) * 2]), p.box);
-    const T offy = mul_rn(static_cast<T>(shf[(lp * 4 + k) * 2 + 1]), p.box);
-    pen_segment<T, EXT, OBS>(p, sh, pen_shifted(me, offx, offy), lp * cap, cap, false, T(0),
-                             T(0), kPenAll, false, acc);
-  }
-}
 
 // Partners staged by pen_i_segment: coordinates (x / y shifted where the
 // sweep shifts them) and the validity row.

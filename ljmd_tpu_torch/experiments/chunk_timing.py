@@ -2,6 +2,8 @@
 checkout, for comparing two checkouts on one card within one machine call:
 
     python ljmd_tpu_torch/experiments/chunk_timing.py [--root DIR] [--label NAME] [--sweep]
+        [--dump FILE [--inputs FILE]]
+    python ljmd_tpu_torch/experiments/chunk_timing.py --compare FILE_A FILE_B
 
 imports ``ljmd_tpu_torch`` from ``--root`` (default: the checkout holding
 this file), builds its kernels there, and prints one JSON line: the card
@@ -31,11 +33,29 @@ call (torch.profiler); and ``initialize`` of config 5 cut to 500 warmup
 steps on the cell-pair engine (the lattice capacity 512: width-listed
 chunks), seconds on the host clock.
 
+Kernel 10 (``fused_dense_chunk_list``, 16 steps: the zsort engine's inner
+chunk) runs on the z-sorted fluid of the N=4000 and N=864 configs
+(``examples/n4000_production.json``, ``n864_liquid.json``: a jittered FCC
+lattice in ascending-z column order with the engine's lists), in its plain,
+obs_last and extended modes, float32 and float64. The half-shell sweep
+(kernels 13 / 14) runs at both capacities with and without observables,
+float32 and float64, and on the strip of rank 0 of a 2-rank split of config
+5 at capacity 384 (``n_pencils_i``: 98 i pencils + a 14-pencil halo).
+
 ``--sweep`` (a checkout whose ``ops/fused.py`` has ``dense_plan``) also times
 the dense chunk at every block shape S (threads a particle) it takes: N=500
 and N=4000 as above (99 steps), and the rows engine's carry at config 5 (8
 steps, float32 and float64), each beside its plan (items, blocks, warps an
-SM).
+SM); where the checkout has ``fused_list.list_plan``, kernel 10 at every S
+it takes (float32 and float64, N=4000 and N=864).
+
+``--dump FILE`` saves the outputs of kernel 10 (every case above, 16 steps)
+and of the half-shell sweep (every case above) with ``torch.save``,
+the sweep's slot rows read from (or, the first time, written to) ``--inputs
+FILE``, so that both checkouts sweep the same slots;
+``--compare A B`` prints, per case, whether the sweep outputs are equal bit
+for bit (``torch.equal``; with the elements and rows that differ, and those
+on valid slots) and kernel 10's max |A - B| / max(1, max |B|).
 """
 
 from __future__ import annotations
@@ -206,10 +226,20 @@ def pencil_cases(torch, dev, root: Path) -> dict:
                 out[f"pencil_sweep_zband {tag}{'' if want_obs else ' no obs'}"] = _ms(
                     torch, lambda: pencil_sweep.pencil_sweep_zband(
                         c.r, ftbl, c.counts, *wins, grid, rc2, window, want_obs), 20)
+            # The half-shell sweep on the grid, and on rank 0's strip of a
+            # 2-rank split (at 384, the sharded engine's census capacity).
+            sargs, p_loc = strip_args(torch, c, grid, rc2)
+            for want_obs in (True, False):
+                o = "" if want_obs else " no obs"
+                out[f"pencil_sweep_hs {tag}{o}"] = _ms(
+                    torch, lambda: pencil_sweep.pencil_sweep_hs(
+                        c.r, tbl, c.counts, shf, grid, rc2, want_obs), 20)
+                if cap == 384:
+                    out[f"pencil_sweep_hs strip {p_loc}+{grid.m_xy} {tag}{o}"] = _ms(
+                        torch, lambda: pencil_sweep.pencil_sweep_hs(
+                            *sargs, want_obs, n_pencils_i=p_loc), 20)
             if dname == "float64":
                 continue
-            out[f"pencil_sweep_hs {tag}"] = _ms(torch, lambda: pencil_sweep.pencil_sweep_hs(
-                c.r, tbl, c.counts, shf, grid, rc2, True), 20)
             out[f"pencil_sweep_full {tag}"] = _ms(torch, lambda: pencil_sweep.pencil_sweep(
                 c.r, ftbl, c.counts, fshf, grid, rc2, True), 20)
             if cap == 512:
@@ -236,13 +266,202 @@ def pencil_cases(torch, dev, root: Path) -> dict:
     return out
 
 
+def _sorted_fluid(torch, cfg, n_pad, seed, dtype, dev):
+    """A jittered FCC lattice of ``cfg`` in ascending-z column order as
+    (8, n_pad) rows, with velocities and consistent accelerations (as
+    chip_smoke.py's ``sorted_fluid``)."""
+    import numpy as np
+
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.ops.pair_sweep import pair_forces_plain
+
+    rng = np.random.default_rng(seed)
+    L = cfg.box_length
+    r = fcc_lattice(cfg.num_cells, L, dtype=torch.float64).numpy()
+    n = r.shape[0]
+    r = np.mod(r + rng.normal(scale=0.04 * L / cfg.num_cells, size=r.shape), L)
+    order = np.argsort(r[:, 2])
+    v = rng.uniform(-0.5, 0.5, size=r.shape)
+    v -= v.mean(axis=0)
+
+    def rows(x):
+        out = torch.zeros((8, n_pad), dtype=dtype, device=dev)
+        out[0:3, :n] = torch.as_tensor(x[order].T, dtype=dtype, device=dev)
+        return out
+
+    r8 = rows(r)
+    return n, r8, rows(v), 24.0 * pair_forces_plain(r8, n, L, cfg.rc_square)
+
+
+LIST_MODES = ("plain", "obs_last", "extended")
+
+
+def list_inputs(torch, dev, root: Path):
+    """(label, dtype name, args, kwargs by mode, tile_j) of every kernel-10
+    case: the zsort engine's lists of the sorted fluid, 16 steps."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models.engine import zsort_geometry
+    from ljmd_tpu_torch.ops import window_lists
+
+    cases = []
+    for label, name in (("N=4000", "n4000_production.json"), ("N=864", "n864_liquid.json")):
+        cfg = load_config(str(root / "examples" / name))
+        geo = zsort_geometry(cfg, inner_chunk=16)
+        L, n_pad, tj = cfg.box_length, geo.n_pad, geo.tile_j
+        for dname in ("float32", "float64"):
+            n, r, v, a = _sorted_fluid(torch, cfg, n_pad, 4321 + cfg.num_cells,
+                                       getattr(torch, dname), dev)
+            flags = window_lists.compute_tile_flags(r, n, 128, 128, L, geo.window,
+                                                    cross_margin=0.6 * geo.sort_skin)
+            tiles, tcounts = window_lists.build_window_lists(flags, n, n_pad, 128, tj)
+            zero = torch.zeros_like(r)
+            kw = {"plain": {}, "obs_last": {"obs_last": True},
+                  "extended": {"r_lo": zero, "vc": zero}}
+            cases.append((label, dname, (r, v, a, tiles, tcounts, n, L, cfg.rc_square, cfg.dt,
+                                         16), kw, tj))
+    return cases
+
+
+def list_cases(torch, dev, root: Path, sweep: bool = False) -> dict:
+    from ljmd_tpu_torch.ops import fused_list
+
+    out = {}
+    for label, dname, args, kw, tj in list_inputs(torch, dev, root):
+        for mode in LIST_MODES:
+            out[f"fused_dense_chunk_list {label} {dname} {mode}"] = _ms(
+                torch, lambda: fused_list.fused_dense_chunk_list(*args, tile_j=tj, **kw[mode]), 10)
+        if sweep and hasattr(fused_list, "list_plan"):
+            r = args[0]
+            res = {}
+            for s in (4, 8, 16, 32, 64):
+                plan = fused_list.list_plan(r, slices=s)
+                ms = _ms(torch, lambda: fused_list._launch(*args, 128, tj, None, None, False,
+                                                           slices=s), 10)
+                res[f"S={s}"] = {"ms": ms, **{k: plan[k] for k in (
+                    "items", "blocks", "blocks_per_sm", "warps_per_sm", "resident")}}
+            out[f"fused_dense_chunk_list {label} {dname} plain by S"] = res
+    return out
+
+
+def strip_args(torch, c, grid, rc_square, d: int = 2, rank: int = 0):
+    """The half-shell sweep's arguments for ``rank``'s strip of a d-rank
+    split of the cell-pair carry ``c`` plus its halo, and the strip's i
+    pencils."""
+    from ljmd_tpu_torch.parallel import spatial_pencil as sp
+
+    m, cap = grid.m_xy, grid.capacity
+    m_xl = m // d
+    p_loc = m_xl * m
+    w = p_loc * cap
+    nxt = (rank + 1) % d
+    dev = c.r.device
+    r_aug = torch.cat([c.r[:, rank * w:(rank + 1) * w], c.r[:, nxt * w:nxt * w + m * cap]], 1)
+    counts = sp.augmented_counts(c.counts, m, d)[rank]
+    tbl = torch.as_tensor(sp._local_half_shell_table(m, m_xl), device=dev)
+    shf = torch.as_tensor(sp._device_shift_tables(m, m_xl, d)[rank], device=dev)
+    return (r_aug.contiguous(), tbl, counts.contiguous(), shf, grid, rc_square), p_loc
+
+
+def dump_outputs(torch, dev, root: Path, path: str, inputs_path: str = "") -> int:
+    """Save kernel 10's and the half-shell sweep's outputs (see the module
+    docstring). The sweep's slot rows come from the cell-pair engine's
+    binning, whose rank order within a pencil may differ between runs: with
+    ``inputs_path`` they are read from that file where it exists, else made
+    and written there, so that two checkouts sweep the same slots."""
+    import types
+
+    import numpy as np
+
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.ops import cell_list, fused_list, pencil_sweep
+    from ljmd_tpu_torch.state import MDState
+
+    out = {}
+    cfg = load_config(str(root / "examples" / "n62500_large.json"))
+    rng = np.random.default_rng(5)
+    r = fcc_lattice(cfg.num_cells, cfg.box_length, dtype=torch.float64)
+    r = torch.remainder(r + torch.as_tensor(rng.normal(0, 0.05, r.shape)), cfg.box_length)
+    v = torch.as_tensor(rng.normal(0, 0.8, r.shape))
+    state = MDState(r=r, ru=r, v=v, a=torch.zeros_like(r)).to(device=dev)
+    saved = torch.load(inputs_path) if inputs_path and Path(inputs_path).exists() else {}
+    made = {}
+    for cap in (512, 384):
+        grid = cell_list.make_pencil_grid(cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin,
+                                          cfg.density, cap)
+        tbl, shf = (torch.as_tensor(t, device=dev)
+                    for t in pencil_sweep.build_half_shell_tables(grid))
+        for dname in ("float32", "float64"):
+            key = f"cap={cap} {dname}"
+            if key in saved:
+                c = types.SimpleNamespace(r=saved[key]["r"].to(dev),
+                                          counts=saved[key]["counts"].to(dev))
+            else:
+                eng = pe._cellpair_engine(cfg.replace(neighbor_capacity=cap, dtype=dname), dev,
+                                          compensated=False, width_lists=True)
+                c = eng.init(state.to(dtype=getattr(torch, dname)))[0]
+                made[key] = {"r": c.r.cpu(), "counts": c.counts.cpu()}
+            sargs, p_loc = strip_args(torch, c, grid, cfg.rc_square)
+            for obs in (True, False):
+                out[f"hs {key} obs={obs}"] = [pencil_sweep.pencil_sweep_hs(
+                    c.r, tbl, c.counts, shf, grid, cfg.rc_square, obs).cpu(), c.r[3].cpu()]
+                out[f"hs strip {key} obs={obs}"] = [pencil_sweep.pencil_sweep_hs(
+                    *sargs, obs, n_pencils_i=p_loc).cpu(), sargs[0][3].cpu()]
+    if inputs_path and made:
+        torch.save(made, inputs_path)
+    torch.save(out, path)
+    for label, dname, args, kw, tj in list_inputs(torch, dev, root):
+        for mode in LIST_MODES:
+            res = fused_list.fused_dense_chunk_list(*args, tile_j=tj, **kw[mode])
+            out[f"list {label} {dname} {mode}"] = [t.cpu() for t in res]
+    torch.save(out, path)
+    print(f"chunk_timing: saved {len(out)} cases to {path}")
+    return 0
+
+
+def compare_dumps(path_a: str, path_b: str) -> int:
+    import torch
+
+    a, b = torch.load(path_a), torch.load(path_b)
+    report = {}
+    for key in sorted(set(a) & set(b)):
+        if key.startswith("hs"):
+            x, y = a[key][0], b[key][0]
+            diff = x != y
+            valid = a[key][1] > 0.5
+            report[key] = {"bit_identical": bool(torch.equal(x, y)),
+                           "inputs_equal": bool(torch.equal(a[key][1], b[key][1])),
+                           "differing": int(diff.sum()),
+                           "differing_valid": int((diff & valid[None]).sum()),
+                           "rows": sorted({int(r) for r in torch.nonzero(diff)[:, 0]}),
+                           "rel_err": float((x.double() - y.double()).abs().max())
+                           / max(1.0, float(y.double().abs().max()))}
+        else:
+            worst = 0.0
+            for x, y in zip(a[key], b[key]):
+                x64, y64 = x.double(), y.double()
+                worst = max(worst, float((x64 - y64).abs().max())
+                            / max(1.0, float(y64.abs().max())))
+            report[key] = {"rel_err": worst}
+    print(json.dumps({"compare": [path_a, path_b], "cases": report}))
+    return 0
+
+
 def main(argv=None) -> int:
     here = Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(here), help="checkout whose ljmd_tpu_torch is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--sweep", action="store_true", help="also time every dense block shape")
+    ap.add_argument("--dump", default="", help="save the list chunk's and sweep's outputs here")
+    ap.add_argument("--inputs", default="", help="with --dump: the sweep's slot rows (read "
+                                                 "where the file exists, else written)")
+    ap.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"),
+                    help="compare two --dump files and exit")
     args = ap.parse_args(argv)
+    if args.compare:
+        return compare_dumps(*args.compare)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -261,7 +480,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    if args.dump:
+        return dump_outputs(torch, dev, root, args.dump, args.inputs)
     times = dense_cases(torch, dev)
+    times.update(list_cases(torch, dev, root, args.sweep))
     times.update(pencil_cases(torch, dev, root))
     report = {"label": args.label, "root": str(root), "nvidia_smi": smi, "ms": times}
     if args.sweep:

@@ -174,7 +174,8 @@ def library() -> ctypes.CDLL:
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       real, real, real, real, real, real, _I, _I, _I, _I, _P]
+                       real, real, real, real, real, real, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                       _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pair_sweep_rect_{suffix}")
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
@@ -183,7 +184,7 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pencil_sweep_hs_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pencil_sweep_full_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, _I, _P]
@@ -202,9 +203,13 @@ def library() -> ctypes.CDLL:
     lib.ljmd_fused_plan.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.ljmd_fused_plan.restype = _I
     lib.ljmd_fused_block_threads.restype = _I
-    lib.ljmd_list_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
-    lib.ljmd_list_max_blocks.restype = _I
-    lib.ljmd_list_tile_cols.restype = _I
+    lib.ljmd_list_plan.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_list_plan.restype = _I
+    lib.ljmd_list_block_threads.restype = _I
+    lib.ljmd_sweep_hs_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_sweep_hs_occupancy.restype = _I
+    lib.ljmd_sweep_hs_slices.restype = _I
+    lib.ljmd_sweep_hs_max_sub.restype = _I
     lib.ljmd_pack_max_rows.restype = _I
     lib.ljmd_pencil_chunk_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_pencil_chunk_occupancy.restype = _I

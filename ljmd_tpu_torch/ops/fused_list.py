@@ -16,10 +16,18 @@ each visit's i side; the caller restores 4 / 24).
 The TPU kernel's ``mxu_reduce``, ``trans_acc`` and ``dual_acc`` options are
 TPU layout experiments and are not ported.
 
+Both the kernel and the twin evaluate the lists granule by granule: each
+128-column granule meets the 128-column stages of the visits that touch it,
+in list order (``list_plan_stages``: a visit whose i-block is the granule
+gives its j columns, "forward"; a visit whose j columns hold the granule
+gives its 128 i rows, "backward", the mask read from the other side), each
+pair from both of its sides. The kernel gathers that plan once per launch
+into a scratch the wrapper allocates (the lists do not change inside a
+chunk).
+
 On a CUDA tensor each chunk is ONE cooperative launch of
-``csrc/fused_dense_chunk_list.cu``; on a CPU tensor the plain twin expands
-the lists into dense (n_pad, n_pad) coverage and round masks and runs a
-Python step loop over them.
+``csrc/fused_dense_chunk_list.cu`` (the launch shape from ``list_plan``);
+on a CPU tensor the plain twin runs a Python step loop over the plan.
 """
 
 from __future__ import annotations
@@ -33,10 +41,16 @@ from ljmd_tpu_torch.ops import _cuda
 from ljmd_tpu_torch.ops.fused import MAX_CHUNK_STEPS, comp_add
 from ljmd_tpu_torch.ops.pair_terms import lj_pair_terms_plain
 
-__all__ = ["fused_dense_chunk_list", "fused_dense_chunk_list_plain", "list_coverage"]
+__all__ = ["fused_dense_chunk_list", "fused_dense_chunk_list_plain", "list_coverage",
+           "list_plan", "list_plan_stages", "list_plan_stride"]
 
 # The kernel's list granule: visits start and end on 128-column blocks.
 LIST_TILE_I = 128
+# A plan entry's meta word (csrc/fused_dense_chunk_list.cu): bit 0 forward,
+# 1 masked, 2 x round, 3 z round, bits 4.. the jmin block.
+_FWD, _MASKED, _MIC_X, _MIC_Z = 1, 2, 4, 8
+# Plan stages the twin evaluates at once.
+_STAGE_BATCH = 256
 
 
 def _categories(n_tails: int, span: int):
@@ -65,7 +79,8 @@ def list_coverage(tiles, tcounts, n, n_pad, tile_i, tile_j):
     ``cover[i, j]`` iff some visit with i on its row side covers the pair
     (i, j) un-masked; ``mic_x`` / ``mic_z`` where that visit takes the x / z
     minimum-image round (the y round is always taken). Reads the counts on
-    the host: this is the twin's, not the card path's."""
+    the host: a reference for tests and candidate counts, not the card
+    path."""
     n_tails = _check_lists(tiles, tcounts, n_pad, tile_i, tile_j)
     span = tile_j // tile_i
     dev = tiles.device
@@ -93,49 +108,104 @@ def list_coverage(tiles, tcounts, n, n_pad, tile_i, tile_j):
     return cover, mic_x, mic_z
 
 
-def _list_sweep(pos, lo, both, mx, mz, upper, box_length, rc_square, want_obs):
-    """Forces / 24 on every column from the covered pairs (pair-twice over
-    ``both``), and, when ``want_obs``, the e/du/ddu partials of the pairs
-    in ``upper`` summed on their row side: (8, n_pad) rows 0..2 / 3..5."""
-    x = pos[0:3]
-    d = x[:, :, None] - x[:, None, :]
-    if lo is not None:
-        xl = lo[0:3]
-        d = d + (xl[:, :, None] - xl[:, None, :])
-    inv_l = 1.0 / box_length
+def list_plan_stride(n_pad: int, tile_j: int) -> int:
+    """The most plan stages a 128-column granule can have: 3 n_b + span
+    (a row's visits start at least span blocks apart, so its forward
+    stages number at most n_b + span - 1; at most two visits of a row hold
+    a given block)."""
+    return 3 * (n_pad // LIST_TILE_I) + tile_j // LIST_TILE_I
+
+
+def list_plan_stages(tiles, tcounts, n_pad: int, tile_j: int):
+    """The visit plan of the list chunk, the rule of
+    ``csrc/fused_dense_chunk_list.cu`` as torch ops on the lists' device:
+    for each 128-column granule g, the 128-column stages of the visits that
+    touch it, in list order (categories, then the tails, each by its
+    count), each visit's forward stages (its i-block is g: its j columns,
+    one stage a block) before its backward one (its j columns hold g: its
+    128 i rows). Returns int64 (offsets (n_b + 1,), col0 (E,), meta (E,)):
+    granule g's stages are [offsets[g], offsets[g + 1]), ``col0`` each
+    stage's first column, ``meta`` its word (bit 0 forward, 1 masked, 2 x
+    round, 3 z round, bits 4.. the jmin block)."""
+    n_tails = _check_lists(tiles, tcounts, n_pad, LIST_TILE_I, tile_j)
+    span = tile_j // LIST_TILE_I
+    n_b = n_pad // LIST_TILE_I
+    dev = tiles.device
+    max_t = tiles.shape[1]
+    t = torch.arange(max_t, device=dev)
+    grans, keys, cols, metas = [], [], [], []
+    for cidx, row, wb, masked, rx, rz in _categories(n_tails, span):
+        live = t < tcounts[cidx].long()
+        ib, jb = tiles[row].long(), tiles[row + 1].long()
+        jmin = tiles[8].long() if cidx == 3 else torch.zeros_like(ib)
+        meta = (_MASKED * masked) | (_MIC_X * rx) | (_MIC_Z * rz) | (jmin << 4)
+        key = (cidx * max_t + t) * (span + 1)  # list order; forward d < span, backward span
+        for d in range(wb):
+            grans += [torch.where(live, ib, n_b), torch.where(live, jb + d, n_b)]
+            keys += [key + d, key + span]
+            cols += [(jb + d) * LIST_TILE_I, ib * LIST_TILE_I]
+            metas += [meta | _FWD, meta]
+    gran, key = torch.cat(grans), torch.cat(keys)
+    order = torch.argsort(gran * (len(_categories(n_tails, span)) * max_t * (span + 1)) + key)
+    gran = gran[order]
+    keep = gran < n_b
+    offsets = torch.searchsorted(gran[keep], torch.arange(n_b + 1, device=dev))
+    return offsets, torch.cat(cols)[order][keep], torch.cat(metas)[order][keep]
+
+
+def _plan_forces(pos, lo, plan, n, box_length, rc_square, want_obs):
+    """Forces / 24 on every column (rows 0..2) from the plan's stages, each
+    granule from its own side, and, when ``want_obs``, the e/du/ddu
+    partials of the forward stages (rows 3..5): (8, n_pad)."""
+    offsets, col0, meta = plan
+    dev, dt = pos.device, pos.dtype
+    L, inv_l = box_length, 1.0 / box_length
+    gran = torch.repeat_interleave(torch.arange(offsets.numel() - 1, device=dev),
+                                   offsets[1:] - offsets[:-1])
+    ar = torch.arange(LIST_TILE_I, device=dev)
+    out = torch.zeros_like(pos)
 
     def mic(c):
-        return c - box_length * torch.round(c * inv_l)
+        return c - L * torch.round(c * inv_l)
 
-    dx = torch.where(mx, mic(d[0]), d[0])
-    dy = mic(d[1])
-    dz = torch.where(mz, mic(d[2]), d[2])
-    r2 = dx * dx + dy * dy + dz * dz
-    in_range = r2 < rc_square
-    coef = lj_pair_terms_plain(r2, both & in_range, want_observables=False)[0]
-    force = torch.zeros_like(pos)
-    force[0] = (coef * dx).sum(dim=-1)
-    force[1] = (coef * dy).sum(dim=-1)
-    force[2] = (coef * dz).sum(dim=-1)
-    obs = None
-    if want_obs:
-        _, du, e, ddu = lj_pair_terms_plain(r2, upper & in_range, want_observables=True)
-        obs = torch.zeros_like(pos)
-        obs[3], obs[4], obs[5] = e.sum(dim=-1), du.sum(dim=-1), ddu.sum(dim=-1)
-    return force, obs
+    for b0 in range(0, gran.numel(), _STAGE_BATCH):
+        sl = slice(b0, b0 + _STAGE_BATCH)
+        mt = meta[sl][:, None, None]
+        ii = (gran[sl][:, None] * LIST_TILE_I + ar)[:, :, None]   # (B, 128, 1)
+        jj = (col0[sl][:, None] + ar)[:, None, :]                  # (B, 1, 128)
+        d = [pos[c][ii] - pos[c][jj] for c in range(3)]
+        if lo is not None:
+            d = [d[c] + (lo[c][ii] - lo[c][jj]) for c in range(3)]
+        dx = torch.where((mt & _MIC_X) > 0, mic(d[0]), d[0])
+        dy = mic(d[1])
+        dz = torch.where((mt & _MIC_Z) > 0, mic(d[2]), d[2])
+        r2 = dx * dx + dy * dy + dz * dz
+        fwd = (mt & _FWD) > 0
+        gr, gc = torch.where(fwd, ii, jj), torch.where(fwd, jj, ii)
+        pair_ok = (gc > gr) & (gc < n) & (gr < n) & (gc >= (mt >> 4) * LIST_TILE_I)
+        mask = (r2 < rc_square) & (((mt & _MASKED) == 0) | pair_ok)
+        coef, du, e, ddu = lj_pair_terms_plain(r2, mask, want_obs)
+        fi = ii.reshape(-1)
+        for row, dr in enumerate((dx, dy, dz)):
+            out[row].index_add_(0, fi, (coef * dr).sum(dim=2).reshape(-1))
+        if want_obs:
+            for row, term in ((3, e), (4, du), (5, ddu)):
+                out[row].index_add_(0, fi, torch.where(fwd, term, 0.0).sum(dim=2).reshape(-1))
+    return out
 
 
 def fused_dense_chunk_list_plain(r, v, a, tiles, tcounts, n, box_length, rc_square,
                                  dt, n_steps, tile_i=128, tile_j=512, r_lo=None,
                                  vc=None, obs_last=False):
-    """Plain twin of ``fused_dense_chunk_list``: the visit lists expanded
-    into dense coverage (``list_coverage``) and a Python loop of Verlet
-    steps over it."""
+    """Plain twin of ``fused_dense_chunk_list``: a Python loop of Verlet
+    steps over the visit plan (``list_plan_stages``)."""
     if not 0 <= n_steps <= MAX_CHUNK_STEPS:
         raise ValueError(f"n_steps={n_steps} outside [0, MAX_CHUNK_STEPS={MAX_CHUNK_STEPS}]")
+    if tile_i != LIST_TILE_I:
+        raise ValueError(f"fused_dense_chunk_list: needs tile_i={LIST_TILE_I}, got {tile_i}")
     extended = r_lo is not None
-    cover, mx, mz = list_coverage(tiles, tcounts, n, r.shape[1], tile_i, tile_j)
-    both, mx, mz = cover | cover.T, mx | mx.T, mz | mz.T
+    plan = list_plan_stages(tiles, tcounts, r.shape[1], tile_j)
+    real = (torch.arange(r.shape[1], device=r.device) < n).to(r.dtype)
     half_dt = 0.5 * dt
     half_dt_sq = 0.5 * dt * dt
     obs = torch.zeros_like(r)
@@ -147,34 +217,56 @@ def fused_dense_chunk_list_plain(r, v, a, tiles, tcounts, n, box_length, rc_squa
         else:
             r = r + v * dt + a * half_dt_sq
             v = v + a * half_dt
-        force, o = _list_sweep(r, r_lo, both, mx, mz, cover, box_length, rc_square, want_obs)
-        a = 24.0 * force
+        sweep = _plan_forces(r, r_lo, plan, n, box_length, rc_square, want_obs) * real
+        a = torch.zeros_like(r)
+        a[0:3] = 24.0 * sweep[0:3]
         if extended:
             v, vc = comp_add(v, vc, a * half_dt)
         else:
             v = v + a * half_dt
         if want_obs:
-            obs = o
+            obs[3:6] = sweep[3:6]
     out = (r, r_lo, v, vc, a) if extended else (r, v, a)
     return out + (obs,) if obs_last else out
 
 
 @functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int, element_size: int, extended: bool) -> int:
-    """Blocks of the list kernel that fit on the card at once (cached: the
-    answer depends only on the card and the variant)."""
-    out = ctypes.c_int(0)
+def _plan(device_index: int, element_size: int, extended: bool, n_pad: int, slices: int,
+          grid_cap: int) -> dict:
+    """The kernel's launch shape (cached: it depends only on the card, the
+    variant and these sizes)."""
+    out = (ctypes.c_int * 8)()
     with torch.cuda.device(device_index):
-        _cuda.check(_cuda.library().ljmd_list_max_blocks(element_size, int(extended),
-                                                          ctypes.byref(out)),
+        _cuda.check(_cuda.library().ljmd_list_plan(element_size, int(extended), n_pad, slices,
+                                                    grid_cap, out),
                     "fused_dense_chunk_list occupancy query")
-    return out.value
+    s, resident, per_sm, sms, smem, blocks, regs, spill = out
+    threads = _cuda.library().ljmd_list_block_threads()
+    items = n_pad * s // threads
+    return {"slices": s, "particles_per_item": threads // s, "items": items,
+            "resident": bool(resident), "blocks_per_sm": per_sm, "sms": sms,
+            "smem_bytes": smem, "blocks": blocks,
+            "warps_per_sm": blocks * (threads // 32) / sms, "regs": regs, "spill_bytes": spill}
+
+
+def list_plan(r, extended=False, slices=None, grid_cap=None) -> dict:
+    """The list chunk kernel's launch shape for rows ``r`` (on the card):
+    threads a particle (``slices``, S), particles a work item, work items,
+    whether the position plane stays in shared memory for the step
+    (``resident``) or streams through a ring, blocks an SM holds, the
+    persistent grid (``blocks``), the warps it puts on each SM, and
+    registers and spill bytes a thread. ``slices`` and ``grid_cap``
+    (measurements and tests only) ask for a given S or a capped grid."""
+    _cuda.require_cuda_rows("list_plan", r)
+    return _plan(r.device.index, r.element_size(), bool(extended), r.shape[1], int(slices or 0),
+                 int(grid_cap or 0))
 
 
 def _launch(r, v, a, tiles, tcounts, n, box_length, rc_square, dt, n_steps,
-            tile_i, tile_j, r_lo, vc, obs_last, grid_cap=None):
+            tile_i, tile_j, r_lo, vc, obs_last, grid_cap=None, slices=None):
     """One launch of the kernel; ``grid_cap`` (tests and the smoke script
-    only) caps the persistent grid so that each block takes several tiles."""
+    only) caps the persistent grid so that each block takes several work
+    items; ``slices`` (measurements only) asks for a given S."""
     extended = r_lo is not None
     name = "fused_dense_chunk_list"
     _cuda.require_cuda_rows(name, *((r, r_lo, v, vc, a) if extended else (r, v, a)))
@@ -199,11 +291,10 @@ def _launch(r, v, a, tiles, tcounts, n, box_length, rc_square, dt, n_steps,
     vc_out = vc.clone() if extended else None
     obs = torch.zeros_like(r) if obs_last else None
     if n_steps > 0:
-        # A persistent grid: each block takes its 32-particle tiles in turn.
-        blocks = min(n_pad // lib.ljmd_list_tile_cols(),
-                     _max_blocks(r.device.index, r.element_size(), extended))
-        if grid_cap is not None:
-            blocks = max(1, min(blocks, int(grid_cap)))
+        plan = list_plan(r, extended, slices, grid_cap)
+        stride = list_plan_stride(n_pad, tile_j)
+        n_b = n_pad // LIST_TILE_I
+        scratch = torch.empty((n_b * (2 * stride + 1),), dtype=torch.int32, device=r.device)
         with torch.cuda.device(r.device):
             code = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")(
                 rbuf.data_ptr(), lobuf.data_ptr() if extended else None,
@@ -212,7 +303,9 @@ def _launch(r, v, a, tiles, tcounts, n, box_length, rc_square, dt, n_steps,
                 tiles.data_ptr(), tcounts.data_ptr(), tiles.shape[1], n_tails,
                 tile_j // tile_i, n, n_pad, float(box_length), 1.0 / float(box_length),
                 float(rc_square), float(dt), 0.5 * dt, 0.5 * dt * dt, n_steps,
-                int(obs_last), int(extended), blocks, _cuda.stream_handle(r))
+                int(obs_last), int(extended), plan["slices"], int(plan["resident"]),
+                scratch.data_ptr(), scratch.data_ptr() + 4 * 2 * stride * n_b, stride,
+                plan["blocks"], _cuda.stream_handle(r))
         _cuda.LAUNCHES.bump(name)
         _cuda.check(code, name)
     last = n_steps % 2

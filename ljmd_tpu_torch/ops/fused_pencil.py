@@ -53,7 +53,7 @@ import torch
 from ljmd_tpu_torch.ops import _cuda
 from ljmd_tpu_torch.ops.fused import comp_add
 from ljmd_tpu_torch.ops.pair_terms import lj_pair_terms_plain
-from ljmd_tpu_torch.ops.pencil_sweep import TILE_I
+from ljmd_tpu_torch.ops.pencil_sweep import TILE_I, _lower_of, half_shell_lower
 
 __all__ = [
     "MAX_PENCIL_CHUNK_STEPS",
@@ -327,19 +327,6 @@ def _chunk_plain(forces, r, v, a, dt, n_steps, r_lo, vc):
     return (r, r_lo, v, vc, a) if extended else (r, v, a)
 
 
-def half_shell_lower(tbl, n_pencils: int) -> torch.Tensor:
-    """The inverse of the half-shell table ``tbl`` (n_pencils * 4,): int32
-    (n_pencils * 4,) on its device with ``lower[q * 4 + k]`` the pencil p
-    whose k-th upper neighbour is q (``tbl[p * 4 + k] == q``), -1 where no
-    pencil's is. On a full grid each k's map is a translation of the torus,
-    so every entry is set once. Torch ops, no host read."""
-    dev = tbl.device
-    e = torch.arange(4 * n_pencils, device=dev)
-    lower = torch.full((4 * n_pencils,), -1, dtype=torch.int32, device=dev)
-    lower[tbl.long() * 4 + e % 4] = (e // 4).to(torch.int32)
-    return lower
-
-
 def static_stream(valid, tbl, shf, lower, n_pencils: int, capacity: int):
     """The static chunk's partner stream, block by block, in
     ``width_index``'s form (offsets (NB+1,), entries, order (NB,), int32,
@@ -494,20 +481,6 @@ def _outputs(rbuf, lobuf, v_out, vc_out, a_out, n_steps):
     if lobuf is not None:
         return rbuf[last], lobuf[last], v_out, vc_out, a_out
     return rbuf[last], v_out, a_out
-
-
-# The last half-shell table the static chunk inverted and its inverse: the
-# engine keeps its tables for the run, so the inverse is built once.
-_LAST_LOWER: list = []
-
-
-def _lower_of(tbl, n_pencils):
-    key = (n_pencils, tbl._version)
-    if _LAST_LOWER and _LAST_LOWER[0] is tbl and _LAST_LOWER[1] == key:
-        return _LAST_LOWER[2]
-    lower = half_shell_lower(tbl, n_pencils)
-    _LAST_LOWER[:] = [tbl, key, lower]
-    return lower
 
 
 def _launch_static(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square, dt, n_steps,

@@ -23,6 +23,13 @@ minimum-image round). Output (8, n_slots):
 - rows 6..7 zero, and every row already multiplied by the validity row
   (the JAX kernel leaves that multiply to its caller).
 
+The kernel and its twin sweep it block by block: each 128-slot block of a
+pencil meets, from its own side, the stages of its pencil, of its 4 upper
+neighbours and of the 4 pencils whose upper neighbour it is
+(``half_shell_lower``, the inverse table, which the wrapper builds once per
+table and keeps), a stage only where its first rank is below the partner
+pencil's count (``hs_stage_plan``; the stages past it hold only sentinels).
+
 ``n_pencils_i`` (the mono kernel's contract, for a strip of the sharded
 engine, ``parallel/spatial_pencil.py``): the slot matrix holds more pencils
 than the tables have rows, a strip of ``n_pencils_i`` i pencils and after it a
@@ -58,6 +65,7 @@ facts and are not ported.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -72,6 +80,8 @@ __all__ = [
     "build_half_shell_tables",
     "build_shift_table",
     "build_tile_table",
+    "half_shell_lower",
+    "hs_stage_plan",
     "pencil_sweep",
     "pencil_sweep_hs",
     "pencil_sweep_hs_plain",
@@ -79,6 +89,7 @@ __all__ = [
     "pencil_sweep_zband",
     "pencil_sweep_zband_plain",
     "sentinel_fill",
+    "sweep_hs_grid",
     "zband_grid",
     "zband_stage_plan",
 ]
@@ -90,6 +101,11 @@ TILE_I = 128
 SENT_BASE = 1.0e4
 
 _HALF_SHELL = ((0, 1), (1, -1), (1, 0), (1, 1))
+# Roles of a half-shell stage (csrc/pencil_cull.cuh HsRole): the block's own
+# pencil, a forward neighbour (partners shifted), a backward one (the block
+# shifted); segment s of a block's plan has role _HS_ROLES[s].
+_HS_SELF, _HS_FORWARD, _HS_BACKWARD = range(3)
+_HS_ROLES = (_HS_SELF,) + (_HS_FORWARD,) * 4 + (_HS_BACKWARD,) * 4
 # Visits evaluated at once by the twins (bounds their temporaries).
 _VISIT_BATCH = 256
 # Pair-tile elements evaluated at once by the full sweeps' twins.
@@ -225,17 +241,131 @@ def table_visits(n_pencils: int, capacity: int, tbl, shf, counts=None):
     return classes
 
 
+def half_shell_lower(tbl, n_pencils: int) -> torch.Tensor:
+    """The inverse of the half-shell table ``tbl`` ((rows * 4,), rows <=
+    n_pencils: a strip's table has rows for its i pencils only): int32
+    (n_pencils * 4,) on its device with ``lower[q * 4 + k]`` the pencil p
+    whose k-th upper neighbour is q (``tbl[p * 4 + k] == q``), -1 where no
+    row's is. On a full grid each k's map is a translation of the torus, so
+    every entry is set once. Torch ops, no host read."""
+    dev = tbl.device
+    e = torch.arange(tbl.numel(), device=dev)
+    lower = torch.full((4 * n_pencils,), -1, dtype=torch.int32, device=dev)
+    lower[tbl.long() * 4 + e % 4] = (e // 4).to(torch.int32)
+    return lower
+
+
+def hs_stage_plan(counts, tbl, shf, lower, n_pencils_i: int, n_pencils: int,
+                  capacity: int) -> dict:
+    """The half-shell sweep's stage plan: the rule of
+    ``csrc/pencil_sweep_hs.cu``, as torch ops on the counts' device. Each
+    128-slot block (work item) of pencil q whose first rank is below
+    counts[q] is live; it meets 9 segments, its own pencil (an i pencil
+    only), its 4 upper neighbours (``tbl``, i pencils only; partners shifted
+    by ``shf``) and the 4 pencils of ``lower`` (the block shifted by their
+    row's shift), each over the partner's live stages: the 128-rank stages
+    whose first rank is below the partner's count (slots are packed
+    rank-first, so the rest hold only sentinels). Returns ``pencil`` (P, 9)
+    int64 partner pencil (-1: none), ``shift`` (P, 9, 2), ``live`` (P, 9)
+    stages, ``start`` (P, 9, n_sub) global slot of each stage, ``keep`` (P,
+    9, n_sub) bool, ``item_live`` (P, n_sub) bool, and the counts
+    ``items`` (live), ``full`` (the stages of the live items with every
+    non-empty partner pencil at full capacity: the earlier sweep's),
+    ``kept``."""
+    dev = counts.device
+    P, Pi, n_sub = n_pencils, n_pencils_i, capacity // TILE_I
+    cnt = counts.long().to(dev)
+    q = torch.arange(P, device=dev)
+    k = torch.arange(4, device=dev)
+    up = torch.full((P, 4), -1, dtype=torch.long, device=dev)
+    up[:Pi] = tbl.long().to(dev).reshape(Pi, 4)
+    shf_i = shf.long().to(dev).reshape(Pi, 4, 2)
+    sh_up = torch.zeros((P, 4, 2), dtype=torch.long, device=dev)
+    sh_up[:Pi] = shf_i
+    low = lower.long().to(dev).reshape(P, 4)
+    sh_low = torch.where((low >= 0)[:, :, None], shf_i[low.clamp(min=0), k], 0)
+    pencil = torch.cat([torch.where(q < Pi, q, -1)[:, None], up, low], dim=1)     # (P, 9)
+    shift = torch.cat([torch.zeros((P, 1, 2), dtype=torch.long, device=dev), sh_up, sh_low],
+                      dim=1)
+    pc = cnt[pencil.clamp(min=0)]
+    live = torch.where(pencil >= 0, ((pc + TILE_I - 1) // TILE_I).clamp(max=n_sub), 0)
+    c = torch.arange(n_sub, device=dev)
+    keep = c[None, None, :] < live[:, :, None]
+    start = pencil.clamp(min=0)[:, :, None] * capacity + c * TILE_I
+    item_live = c[None, :] * TILE_I < cnt[:, None]
+    per_q = item_live.sum(dim=1)
+    full = ((pencil >= 0) & (pc > 0)).sum(dim=1) * n_sub
+    return {"pencil": pencil, "shift": shift, "live": live, "start": start, "keep": keep,
+            "item_live": item_live, "items": int(per_q.sum()),
+            "full": int((per_q * full).sum()), "kept": int((per_q * live.sum(dim=1)).sum())}
+
+
+def hs_chunks(plan: dict):
+    """The (128-slot block, kept stage) chunks of a ``hs_stage_plan``, in
+    the kernel's order (block by block; each block's segments, then stages
+    in rank order): (block, partner start slot, role, shx, shy), int64."""
+    n_sub = plan["item_live"].shape[1]
+    both = plan["item_live"][:, :, None, None] & plan["keep"][:, None, :, :]
+    q, b, sg, c = torch.nonzero(both, as_tuple=True)
+    role = torch.tensor(_HS_ROLES, device=q.device)[sg]
+    shx, shy = plan["shift"][q, sg, 0], plan["shift"][q, sg, 1]
+    return q * n_sub + b, plan["start"][q, sg, c], role, shx, shy
+
+
+def _stage_sweep(out, pos, chunks, box_length, rc_square, want_observables):
+    """Add the pair terms of the (block, stage) ``chunks`` into ``out`` (8,
+    n_slots), each from its block's side: the self role without the slot
+    itself, the forward role with the partners' x / y shifted, the backward
+    role with the block's own; only z takes the round. e / du / ddu of the
+    pairs of which the block's slot is the i side (forward, and self
+    partners above the slot)."""
+    blk, q0, role, shx, shy = chunks
+    dev, dt = pos.device, pos.dtype
+    L, inv_l = box_length, 1.0 / box_length
+    ar = torch.arange(TILE_I, device=dev)
+    for b0 in range(0, blk.numel(), _VISIT_BATCH):
+        sl = slice(b0, b0 + _VISIT_BATCH)
+        rl = role[sl][:, None]
+        ii = blk[sl][:, None] * TILE_I + ar
+        jj = q0[sl][:, None] + ar
+        offx, offy = (sh[sl][:, None].to(dt) * L for sh in (shx, shy))
+        fwd, bwd = rl == _HS_FORWARD, rl == _HS_BACKWARD
+        xi = torch.where(bwd, pos[0][ii] + offx, pos[0][ii])
+        yi = torch.where(bwd, pos[1][ii] + offy, pos[1][ii])
+        xj = torch.where(fwd, pos[0][jj] + offx, pos[0][jj])
+        yj = torch.where(fwd, pos[1][jj] + offy, pos[1][jj])
+        dx = xi[:, :, None] - xj[:, None, :]
+        dy = yi[:, :, None] - yj[:, None, :]
+        dz = pos[2][ii][:, :, None] - pos[2][jj][:, None, :]
+        dz = dz - L * torch.round(dz * inv_l)
+        r2 = dx * dx + dy * dy + dz * dz
+        self_role = (rl == _HS_SELF)[:, :, None]
+        mask = (r2 < rc_square) & (~self_role | (ii[:, :, None] != jj[:, None, :]))
+        coef, du, e, ddu = lj_pair_terms_plain(r2, mask, want_observables)
+        fi = ii.reshape(-1)
+        for row, d in enumerate((dx, dy, dz)):
+            out[row].index_add_(0, fi, (coef * d).sum(dim=2).reshape(-1))
+        if want_observables:
+            i_side = fwd[:, :, None] | (self_role & (jj[:, None, :] > ii[:, :, None]))
+            for row, term in ((3, e), (4, du), (5, ddu)):
+                out[row].index_add_(0, fi, torch.where(i_side, term, 0.0).sum(dim=2).reshape(-1))
+
+
 def pencil_sweep_hs_plain(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
                           want_observables: bool = True, n_pencils_i: int | None = None):
-    """Plain twin of ``pencil_sweep_hs``: the JAX grid kernel's visits (the
-    counts read on the host), evaluated in batches of dense tiles; i over
-    the first ``n_pencils_i`` pencils (default: all of the grid's)."""
-    out = torch.zeros_like(pos)
+    """Plain twin of ``pencil_sweep_hs``: every live 128-slot block over the
+    kept stages of its ``hs_stage_plan``, in batches of dense tiles; i over
+    the first ``n_pencils_i`` pencils (default: all of the grid's), the
+    output as wide as ``pos``."""
+    cap = grid.capacity
+    p_all = pos.shape[1] // cap
     p_i = grid.n_pencils if n_pencils_i is None else n_pencils_i
-    for ista, jsta, shx, shy, width, tri in table_visits(p_i, grid.capacity, tbl.cpu(),
-                                                         shf.cpu(), counts.cpu()):
-        accumulate_visits(out, pos, None, ista, jsta, shx, shy, width, tri,
-                          grid.box_length, rc_square, want_observables)
+    dev = pos.device
+    tbl, shf = tbl.to(dev), shf.to(dev)
+    plan = hs_stage_plan(counts.to(dev), tbl, shf, half_shell_lower(tbl, p_all), p_i, p_all,
+                         cap)
+    out = torch.zeros_like(pos)
+    _stage_sweep(out, pos, hs_chunks(plan), grid.box_length, rc_square, want_observables)
     return out * pos[3:4]
 
 
@@ -384,6 +514,27 @@ def _check_tables(name, pos, grid, *tables, n_slots=None):
                              f"shaped {[sz for _, sz in tables]} for P={grid.n_pencils}")
 
 
+# The inverses of the half-shell tables the sweep and the static chunk
+# (ops/fused_pencil.py) were given (the engines keep their tables for the
+# run; a sharded run's ranks share one table, from several threads): built
+# once per table.
+_LOWER_CACHE: dict = {}
+_LOWER_LOCK = threading.Lock()
+
+
+def _lower_of(tbl, n_pencils: int):
+    key = (id(tbl), n_pencils)
+    with _LOWER_LOCK:
+        hit = _LOWER_CACHE.get(key)
+        if hit is not None and hit[0] is tbl and hit[1] == tbl._version:
+            return hit[2]
+        lower = half_shell_lower(tbl, n_pencils)
+        if len(_LOWER_CACHE) >= 8:
+            _LOWER_CACHE.clear()
+        _LOWER_CACHE[key] = (tbl, tbl._version, lower)
+        return lower
+
+
 def pencil_sweep_hs(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
                     want_observables: bool = True, n_pencils_i: int | None = None):
     """Half-shell sweep of an (8, n_slots) slot matrix (module docstring):
@@ -406,18 +557,41 @@ def pencil_sweep_hs(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
             raise ValueError(f"pencil_sweep_hs: n_pencils_i={p_i} outside [1, {p_all}]")
     _check_tables("pencil_sweep_hs", pos, grid, (tbl, 4 * p_i), (counts, p_all), (shf, 8 * p_i),
                   n_slots=p_all * cap)
+    lib = _cuda.library()
+    if cap // TILE_I > lib.ljmd_sweep_hs_max_sub():
+        raise ValueError(f"pencil_sweep_hs: capacity {cap} above "
+                         f"{TILE_I * lib.ljmd_sweep_hs_max_sub()}")
+    if pos.data_ptr() % 16:
+        raise ValueError("pencil_sweep_hs: pos must start on a 16-byte boundary (cp.async)")
     suffix = _cuda.dtype_suffix(pos.dtype)
     out = torch.zeros_like(pos)
-    lib = _cuda.library()
+    lower = _lower_of(tbl, p_all)
     with torch.cuda.device(pos.device):
         code = getattr(lib, f"ljmd_pencil_sweep_hs_{suffix}")(
             pos.data_ptr(), out.data_ptr(), tbl.data_ptr(), counts.data_ptr(),
-            shf.data_ptr(), p_i, p_all, cap, float(grid.box_length),
+            shf.data_ptr(), lower.data_ptr(), p_i, p_all, cap, float(grid.box_length),
             1.0 / float(grid.box_length), float(rc_square), int(want_observables),
             _cuda.stream_handle(pos))
     _cuda.LAUNCHES.bump("pencil_sweep_hs")
     _cuda.check(code, "pencil_sweep_hs")
     return out
+
+
+def sweep_hs_grid(pos, want_observables: bool = True) -> dict:
+    """The half-shell sweep's launch shape for slot rows ``pos`` (on the
+    card): threads a slot (S) and a block (128 x S), blocks (128-slot work
+    items), resident blocks an SM, registers and spill bytes a thread, and
+    the warps an SM."""
+    _cuda.require_cuda_rows("sweep_hs_grid", pos)
+    lib = _cuda.library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(pos.device):
+        _cuda.check(lib.ljmd_sweep_hs_occupancy(pos.element_size(), int(want_observables), out),
+                    "pencil_sweep_hs occupancy")
+    s = lib.ljmd_sweep_hs_slices()
+    return {"slices": s, "threads": TILE_I * s, "blocks": pos.shape[1] // TILE_I,
+            "blocks_per_sm": out[0], "sms": out[1], "regs": out[2], "spill_bytes": out[3],
+            "warps_per_sm": out[0] * TILE_I * s // 32}
 
 
 def pencil_sweep(pos, tbl, counts, shf, grid: PencilGrid, rc_square,

@@ -839,3 +839,134 @@ def test_layout_bodies_match_plain(cuda, name, monkeypatch):
         want = ly.layout_body_plain(name, r8, rT, *lists, 24, tj_w, 4, box=8.0)
         assert float((want[1] - r8[1]).abs().max()) > 1e-4
         _close(got, want, 1e-5)
+
+
+def _hs_in_kernel_order(pos, tbl, counts, shf, cap, box, rc2, want_obs, slices,
+                        n_pencils_i=None):
+    """The half-shell sweep summed in the kernel's order, as plain torch
+    (no fused or reordered arithmetic): each live 128-slot block over its
+    plan's stages (``hs_stage_plan``) in order, thread slice s taking the
+    partners s, s + S, ... of each stage, the S partial sums added in slice
+    order, times the validity. Every masked pair is added as an exact +-0,
+    which the kernel's skips and cull leave out."""
+    from ljmd_tpu_torch.ops import pencil_sweep as pps
+    from ljmd_tpu_torch.ops.pair_terms import lj_pair_terms_plain
+
+    dev, dt = pos.device, pos.dtype
+    p_all = pos.shape[1] // cap
+    p_i = p_all if n_pencils_i is None else n_pencils_i
+    plan = pps.hs_stage_plan(counts, tbl, shf, pps.half_shell_lower(tbl, p_all), p_i, p_all, cap)
+    blk, q0, role, shx, shy = pps.hs_chunks(plan)
+    items, n_st = torch.unique_consecutive(blk, return_counts=True)
+    first = torch.cumsum(n_st, 0) - n_st
+    item = torch.repeat_interleave(torch.arange(items.numel(), device=dev), n_st)
+    col = torch.arange(blk.numel(), device=dev) - first[item]
+    width = int(n_st.max())
+
+    def table(x, fill):
+        t = torch.full((items.numel(), width), fill, dtype=x.dtype, device=dev)
+        t[item, col] = x
+        return t
+
+    tq0, trole, tshx, tshy = table(q0, 0), table(role, -1), table(shx, 0), table(shy, 0)
+    g = items[:, None] * 128 + torch.arange(128, device=dev)           # (I, 128)
+    x, y, z = (pos[c][g][:, None, :] for c in range(3))                # (I, 1, 128)
+    s_ar = torch.arange(slices, device=dev)
+    acc = torch.zeros((6, items.numel(), slices, 128), dtype=dt, device=dev)
+    inv = 1.0 / box
+    for c in range(width):
+        rl = trole[:, c][:, None, None]
+        offx = (tshx[:, c].to(dt) * box)[:, None, None]
+        offy = (tshy[:, c].to(dt) * box)[:, None, None]
+        mx = torch.where(rl == 2, x + offx, x)
+        my = torch.where(rl == 2, y + offy, y)
+        for it in range(128 // slices):
+            jj = (tq0[:, c][:, None] + s_ar + slices * it)[:, :, None]   # (I, S, 1)
+            px = torch.where(rl == 1, pos[0][jj] + offx, pos[0][jj])
+            py = torch.where(rl == 1, pos[1][jj] + offy, pos[1][jj])
+            dx, dy, dz = mx - px, my - py, z - pos[2][jj]
+            dz = dz - box * torch.round(dz * inv)
+            r2 = dx * dx + dy * dy + dz * dz
+            m = (r2 < rc2) & (rl >= 0) & ((rl != 0) | (jj != g[:, None, :]))
+            coef, du, e, ddu = lj_pair_terms_plain(r2, m, want_obs)
+            for k, d in enumerate((dx, dy, dz)):
+                acc[k] = acc[k] + coef * d
+            if want_obs:
+                i_side = (rl == 1) | ((rl == 0) & (jj > g[:, None, :]))
+                for k, term in ((3, e), (4, du), (5, ddu)):
+                    acc[k] = torch.where(i_side, acc[k] + term, acc[k])
+    out = torch.zeros_like(pos)
+    total = acc[:, :, 0]
+    for s in range(1, slices):
+        total = total + acc[:, :, s]
+    rows = 6 if want_obs else 3
+    out[:rows, g.reshape(-1)] = total[:rows].reshape(rows, -1) * pos[3][g.reshape(-1)]
+    return out
+
+
+@pytest.mark.parametrize("strip", [False, True])
+@pytest.mark.parametrize("want_obs", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pencil_sweep_kernel_order_is_bit_exact(cuda, dtype, want_obs, strip):
+    """Kernels 13 / 14 (4 threads a slot: the earlier sweep's partner order
+    and sum) equal, bit for bit, the kernel's order summed in plain torch:
+    skipped stages and culled pairs change no bit."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+
+    if strip:
+        cfg, grid, p_loc, r, tbl, counts, shf = _strip(cuda)
+    else:
+        from ljmd_tpu_torch.ops import cell_list
+
+        cfg, c = _pencil_carry()
+        grid = cell_list.make_pencil_grid(cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin,
+                                          cfg.density)
+        tbl, shf = (torch.as_tensor(t) for t in pencil_sweep.build_half_shell_tables(grid))
+        r, counts, p_loc = c.r, c.counts, None
+    r, tbl, counts, shf = r.to(cuda, dtype), tbl.to(cuda), counts.to(cuda), shf.to(cuda)
+    got = pencil_sweep.pencil_sweep_hs(r, tbl, counts, shf, grid, cfg.rc_square, want_obs,
+                                       n_pencils_i=p_loc)
+    slices = pencil_sweep.sweep_hs_grid(r, want_obs)["slices"]
+    want = _hs_in_kernel_order(r, tbl, counts, shf, grid.capacity, grid.box_length,
+                               cfg.rc_square, want_obs, slices, p_loc)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("slices", [4, 8, 16, 32, 64])
+def test_list_chunk_block_shapes_match_twin(cuda, slices):
+    """Kernel 10 at every S it takes against its twin (obs_last, N=864,
+    every category and tail)."""
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    box, rc2 = 10.0776, 6.25
+    n, r = _sorted_lattice(6, box, 896, 5)
+    v = torch.zeros_like(r)
+    v[0:3, :n] = torch.as_tensor(np.random.default_rng(9).uniform(-1.0, 1.0, (3, n)))
+    a = 24.0 * pair_sweep.pair_forces_plain(r, n, box, rc2)
+    flags = torch.as_tensor(np.random.default_rng(6).choice(
+        [0, 1, 3, 5, 7], p=[0.3, 0.4, 0.1, 0.1, 0.1], size=(49,)).astype(np.int32))
+    tiles, counts = window_lists.build_window_lists_plain(flags, n, 896, 128, 256)
+    want = fused_list.fused_dense_chunk_list(r, v, a, tiles, counts, n, box, rc2, 0.004, 6,
+                                             tile_j=256, obs_last=True)
+    assert fused_list.list_plan(r.to(cuda), slices=slices)["slices"] == slices
+    got = fused_list._launch(r.to(cuda), v.to(cuda), a.to(cuda), tiles.to(cuda),
+                             counts.to(cuda), n, box, rc2, 0.004, 6, 128, 256, None, None, True,
+                             slices=slices)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("grid_cap", [1, 5, 17])
+def test_list_chunk_capped_grids_are_bit_identical(cuda, grid_cap):
+    """Kernel 10 under a capped persistent grid (each block then takes several
+    work items): 1, 5 and 17 blocks give the full grid's bits (float32, obs_last,
+    the N=4000 fluid)."""
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    box, rc2, r, v, a = _n4000_fluid(cuda, torch.float32)
+    flags = window_lists.compute_tile_flags(r, 4000, 128, 128, box, 2.5 + 0.7)
+    tiles, counts = window_lists.build_window_lists(flags, 4000, 4096, 128, 512)
+    args = (r, v, a, tiles, counts, 4000, box, rc2, 0.005, 4, 128, 512, None, None, True)
+    assert fused_list.list_plan(r, grid_cap=grid_cap)["blocks"] == grid_cap
+    for g, w in zip(fused_list._launch(*args, grid_cap=grid_cap), fused_list._launch(*args)):
+        assert torch.equal(g, w)
