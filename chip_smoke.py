@@ -34,7 +34,9 @@ checkout. Phases, each fatal on failure:
       width chunk with its launch shape, its per-block visit index's size,
       build time and device operations, and the busiest block's staged
       chunks beside the mean); the
-      full 9-neighbour sweep with and without observables; at capacity 512
+      full 9-neighbour sweep with and without observables (with its launch
+      shape and, modelled from the run's slots in the log, the partner
+      stages kept and skipped and the cull's body share); at capacity 512
       the z-banded sweep (window 384), against its twin and against the full
       sweep;
    d. (in a.) the ordered N x N sweep at N=500 (n < n_pad) and N=4000, with
@@ -106,7 +108,13 @@ checkout. Phases, each fatal on failure:
       compensated half ring's for N=500 over 2 (250 a rank): the self
       offset, a full hop, both sides of the gated half hop (whose two
       halves must add up to the full hop), observables on and off, float32
-      and float64; and (in 3c) the half-shell sweep's ``n_pencils_i`` on
+      and float64, on a shuffled lattice (every block pair has pairs in
+      the cutoff) and, for kernel 7 with its launch shape, in lattice
+      order (a rank's rows a slab, as in production); the tri sweep
+      (kernel 2) at the half ring's self blocks; their time on the card by
+      CUDA-graph replay beside that of back-to-back calls (the host's call
+      takes longer than a hop's kernel); and (in 3c) the
+      half-shell sweep's ``n_pencils_i`` on
       config 5's 2-rank strips (7x14 pencils plus a 14-pencil halo);
    b. ``run_production`` through the particle-sharded engine: half ring on
       4 ranks and ring on 2 on the N=4000 cut, the compensated engine on
@@ -379,6 +387,32 @@ def cuda_time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int) -> float:
+    """ms of one ``fn()`` on the card alone: ``reps`` calls captured in one
+    CUDA graph and replayed (CUDA events), for kernels whose launch takes
+    less time than the host's call (``cuda_time_ms`` of back-to-back calls
+    then times the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(dname: str, flops: float, nbytes: float) -> dict:
     """bound_ms / bound_by of work of ``flops`` operations and ``nbytes``
     bytes in ``dname`` (the constants above)."""
@@ -611,113 +645,159 @@ def phase_rect_kernels(torch) -> dict:
     (the low rank sweeps i rows >= ni/2 against block d/2, the high rank j
     rows < ni/2 against block 0; together the full block pair once),
     observables off and on, float32 and float64, on shuffled perturbed
-    lattices."""
+    lattices; kernel 7 also on the lattice in its own order (a rank's rows
+    are contiguous particle indices, as in production: its blocks are
+    slabs), with its launch shape (``rect_newton_plan``); kernel 2 at the
+    half ring's self blocks (a rank's rows). A hop's kernel takes less time
+    than the host's call, so ``ms`` is the card's time (``graph_ms``) and
+    ``calls_ms`` that of back-to-back calls."""
     import numpy as np
 
     from ljmd_tpu_torch.ops import pair_sweep
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
 
     dev = torch.device(DEVICE)
-    cases = {name: [] for name in RECT_KERNELS}
+    cases = {name: [] for name in RECT_KERNELS + ("pair_sweep_tri",)}
     for shape, which, d, rect_hops, newton_hops in RECT_SHAPES:
         label, k, box, rc = SHAPES[which]
         rc2 = rc * rc
         for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
             tol = KERNEL_TOL[dname]
-            n, r, _ = perturbed_fcc(k, box, 1234 + k, torch, dtype, dev)
+            n, lattice, _ = perturbed_fcc(k, box, 1234 + k, torch, dtype, dev)
             # Shuffled, so that every block pair has pairs inside the cutoff
             # (in lattice order blocks 0 and d/2 lie apart: the masks would go
             # untested).
+            r = lattice.clone()
             r[:, :n] = r[:, torch.as_tensor(np.random.default_rng(k).permutation(n), device=dev)]
             ni = n // d
             half = ni // 2
-
-            def blk(s):
-                out = torch.zeros((8, -(-ni // 128) * 128), dtype=dtype, device=dev)
-                out[:, :ni] = r[:, s * ni:(s + 1) * ni]
-                return out
-
-            rows_bytes = 8 * blk(0).shape[1] * r.element_size()
-            xyz = [blk(s)[0:3, :ni].T for s in range(d)]
             rect = {"self": (1, 1), "hop": (1, 0)}
             newton = {"self": ((1, 1, 0, ni),), "hop": ((1, 0, 0, ni),),
                       "half": ((0, d // 2, half, ni), (d // 2, 0, 0, half), (0, d // 2, 0, ni))}
-            for want_obs in (False, True):
-                for hop in rect_hops:
-                    si, sj = rect[hop]
-                    args = (blk(si), blk(sj), ni, ni, si * ni, sj * ni, box, rc2, want_obs)
-                    got = pair_sweep.pair_sweep_rect(*args)
-                    want = pair_sweep.pair_sweep_rect_plain(*args)
+            for order, src in (("", r), (" lattice", lattice)):
+                def blk(s):
+                    out = torch.zeros((8, -(-ni // 128) * 128), dtype=dtype, device=dev)
+                    out[:, :ni] = src[:, s * ni:(s + 1) * ni]
+                    return out
+
+                rows_bytes = 8 * blk(0).shape[1] * src.element_size()
+                xyz = [blk(s)[0:3, :ni].T for s in range(d)]
+                if newton_hops and not order:
+                    # The half ring's self block: the tri sweep over a rank's
+                    # rows (kernel 2's launches in the sharded runs).
+                    args = (blk(0), ni, box, rc2, True)
+                    got = pair_sweep.pair_sweep_tri(*args)
+                    want = pair_sweep.pair_sweep_tri_plain(*args)
                     errs = [rel_err(got[row], want[row]) for row in range(6)]
                     worst = max(e[1] for e in errs)
-                    tag = f"pair_sweep_rect {shape} {hop} {dname} obs={want_obs}"
-                    require(bool((got[6:] == 0).all()) and bool((got[:, ni:] == 0).all()),
-                            f"{tag}: padding rows/columns not zero")
-                    require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
-                    cand, cut = block_pairs(torch, xyz[si], xyz[sj], box, rc2, si * ni, sj * ni)
-                    cases["pair_sweep_rect"].append({
-                        **bound(dname, sweep_flops(cand, cut, want_obs), 3 * rows_bytes),
-                        "shape": f"{shape} {hop}", "dtype": dname,
-                        "observables": want_obs, "candidates": cand, "cut_pairs": cut,
+                    require(worst <= tol, f"pair_sweep_tri {shape} self block {dname}: rel err "
+                                          f"{worst:.3e} > {tol}")
+                    cand = ni * (ni - 1) // 2
+                    cut = pairs_within(torch, xyz[0], box, rc2)
+                    cases["pair_sweep_tri"].append({
+                        **bound(dname, sweep_flops(cand, cut, True), 2 * rows_bytes),
+                        "shape": f"{shape} self block", "dtype": dname, "observables": True,
+                        "candidates": cand, "cut_pairs": cut,
                         "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
-                        "ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_rect(*args), 50),
-                        "plain_ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_rect_plain(
-                            *args), 5)})
-                for hop in newton_hops:
-                    outs = []
-                    for si, sj, i_lo, j_hi in newton[hop]:
-                        args = (blk(si), blk(sj), ni, ni, si * ni, sj * ni, box, rc2, i_lo, j_hi,
-                                want_obs)
-                        got = pair_sweep.pair_sweep_rect_newton(*args)
-                        want = pair_sweep.pair_sweep_rect_newton_plain(*args)
-                        outs.append(got)
-                        errs = [rel_err(g[row], w[row]) for g, w in zip(got, want)
-                                for row in range(6)]
+                        "ms": graph_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args), 50),
+                        "calls_ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args),
+                                                 50),
+                        "plain_ms": cuda_time_ms(
+                            torch, lambda: pair_sweep.pair_sweep_tri_plain(*args), 5)})
+                for want_obs in (False, True):
+                    for hop in rect_hops if not order else ():
+                        si, sj = rect[hop]
+                        args = (blk(si), blk(sj), ni, ni, si * ni, sj * ni, box, rc2, want_obs)
+                        got = pair_sweep.pair_sweep_rect(*args)
+                        want = pair_sweep.pair_sweep_rect_plain(*args)
+                        errs = [rel_err(got[row], want[row]) for row in range(6)]
                         worst = max(e[1] for e in errs)
-                        tag = (f"pair_sweep_rect_newton {shape} {hop} [{i_lo}, {ni}) x [0, "
-                               f"{j_hi}) {dname} obs={want_obs}")
-                        require(bool((got[1][3:] == 0).all()), f"{tag}: acc_j rows 3..7 not 0")
-                        require(bool((got[0][6:] == 0).all()) and bool((got[0][:, ni:] == 0).all())
-                                and bool((got[1][:, ni:] == 0).all()), f"{tag}: padding not zero")
+                        tag = f"pair_sweep_rect {shape} {hop} {dname} obs={want_obs}"
+                        require(bool((got[6:] == 0).all()) and bool((got[:, ni:] == 0).all()),
+                                f"{tag}: padding rows/columns not zero")
                         require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
-                        if hop == "half" and (i_lo, j_hi) == (0, ni):
-                            continue  # the reference for the two halves, below
-                        side = "" if hop != "half" else ("_low" if i_lo else "_high")
                         cand, cut = block_pairs(torch, xyz[si], xyz[sj], box, rc2, si * ni,
-                                                sj * ni, i_lo, j_hi)
-                        cases["pair_sweep_rect_newton"].append({
-                            **bound(dname, sweep_flops(cand, cut, want_obs), 4 * rows_bytes),
-                            "shape": f"{shape} {hop}{side}", "dtype": dname,
-                            "observables": want_obs, "i_lo": i_lo, "j_hi": j_hi,
-                            "candidates": cand, "cut_pairs": cut,
+                                                sj * ni)
+                        cases["pair_sweep_rect"].append({
+                            **bound(dname, sweep_flops(cand, cut, want_obs), 3 * rows_bytes),
+                            "shape": f"{shape} {hop}", "dtype": dname,
+                            "observables": want_obs, "candidates": cand, "cut_pairs": cut,
                             "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
-                            "ms": cuda_time_ms(
-                                torch, lambda: pair_sweep.pair_sweep_rect_newton(*args), 50),
+                            "ms": graph_ms(torch, lambda: pair_sweep.pair_sweep_rect(*args), 50),
+                            "calls_ms": cuda_time_ms(
+                                torch, lambda: pair_sweep.pair_sweep_rect(*args), 50),
                             "plain_ms": cuda_time_ms(
-                                torch, lambda: pair_sweep.pair_sweep_rect_newton_plain(*args), 5)})
-                    if hop != "half":
-                        continue
-                    # The gated half hop's two sides cover the block pair {0, d/2}
-                    # once: the low rank's i side plus the high rank's reactions on
-                    # block 0, and so on.
-                    lo, hi, full = outs
-                    pairs = ((lo[0][0:3] + hi[1][0:3], full[0][0:3]),
-                             (lo[1][0:3] + hi[0][0:3], full[1][0:3]))
-                    if want_obs:
-                        pairs += ((lo[0][3:6].sum(1) + hi[0][3:6].sum(1), full[0][3:6].sum(1)),)
-                    cover = max(rel_err(a, b)[1] for a, b in pairs)
-                    require(cover <= tol, f"pair_sweep_rect_newton {shape} {dname} obs={want_obs}: "
-                                          f"the two halves of the gated hop differ from the full "
-                                          f"hop by {cover:.3e} > {tol}")
-                    cases["pair_sweep_rect_newton"][-1]["halves_vs_full_rel_err"] = cover
+                                torch, lambda: pair_sweep.pair_sweep_rect_plain(*args), 5)})
+                    for hop in newton_hops:
+                        outs = []
+                        for si, sj, i_lo, j_hi in newton[hop]:
+                            args = (blk(si), blk(sj), ni, ni, si * ni, sj * ni, box, rc2, i_lo,
+                                    j_hi, want_obs)
+                            got = pair_sweep.pair_sweep_rect_newton(*args)
+                            want = pair_sweep.pair_sweep_rect_newton_plain(*args)
+                            outs.append(got)
+                            errs = [rel_err(g[row], w[row]) for g, w in zip(got, want)
+                                    for row in range(6)]
+                            worst = max(e[1] for e in errs)
+                            tag = (f"pair_sweep_rect_newton {shape} {hop}{order} [{i_lo}, {ni}) "
+                                   f"x [0, {j_hi}) {dname} obs={want_obs}")
+                            require(bool((got[1][3:] == 0).all()), f"{tag}: acc_j rows 3..7 not 0")
+                            require(bool((got[0][6:] == 0).all())
+                                    and bool((got[0][:, ni:] == 0).all())
+                                    and bool((got[1][:, ni:] == 0).all()),
+                                    f"{tag}: padding not zero")
+                            require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
+                            if hop == "half" and (i_lo, j_hi) == (0, ni):
+                                continue  # the reference for the two halves, below
+                            side = "" if hop != "half" else ("_low" if i_lo else "_high")
+                            cand, cut = block_pairs(torch, xyz[si], xyz[sj], box, rc2, si * ni,
+                                                    sj * ni, i_lo, j_hi)
+                            cases["pair_sweep_rect_newton"].append({
+                                **bound(dname, sweep_flops(cand, cut, want_obs), 4 * rows_bytes),
+                                "shape": f"{shape} {hop}{side}{order}", "dtype": dname,
+                                "observables": want_obs, "i_lo": i_lo, "j_hi": j_hi,
+                                "candidates": cand, "cut_pairs": cut,
+                                "launch": pair_sweep.rect_newton_plan(args[0], args[1], ni, ni,
+                                                                      i_lo, j_hi, want_obs),
+                                "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+                                "ms": graph_ms(
+                                    torch, lambda: pair_sweep.pair_sweep_rect_newton(*args), 50),
+                                "calls_ms": cuda_time_ms(
+                                    torch, lambda: pair_sweep.pair_sweep_rect_newton(*args), 50),
+                                "plain_ms": cuda_time_ms(
+                                    torch, lambda: pair_sweep.pair_sweep_rect_newton_plain(*args),
+                                    5)})
+                        if hop != "half":
+                            continue
+                        # The gated half hop's two sides cover the block pair {0, d/2}
+                        # once: the low rank's i side plus the high rank's reactions on
+                        # block 0, and so on.
+                        lo, hi, full = outs
+                        pairs = ((lo[0][0:3] + hi[1][0:3], full[0][0:3]),
+                                 (lo[1][0:3] + hi[0][0:3], full[1][0:3]))
+                        if want_obs:
+                            pairs += ((lo[0][3:6].sum(1) + hi[0][3:6].sum(1),
+                                       full[0][3:6].sum(1)),)
+                        cover = max(rel_err(a, b)[1] for a, b in pairs)
+                        require(cover <= tol, f"pair_sweep_rect_newton {shape}{order} {dname} "
+                                              f"obs={want_obs}: the two halves of the gated hop "
+                                              f"differ from the full hop by {cover:.3e} > {tol}")
+                        cases["pair_sweep_rect_newton"][-1]["halves_vs_full_rel_err"] = cover
     for name, cs in cases.items():
         for c in cs:
+            lp = c.get("launch")
             log(f"kernel {name} {c['shape']} {c['dtype']} observables {c['observables']}: rel "
                 f"err {c['rel_err']:.3e} (tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms "
-                f"vs plain {c['plain_ms']:.4f} ms per call; bound {c['bound_ms']:.5f} ms "
+                f"on the card ({c['calls_ms']:.4f} ms a call back to back, the host's launch "
+                f"included) vs plain {c['plain_ms']:.4f} ms per call; bound "
+                f"{c['bound_ms']:.5f} ms "
                 f"({c['bound_by']}, {c['candidates']} candidates, {c['cut_pairs']} inside rc)"
                 + (f"; gated halves vs full hop {c['halves_vs_full_rel_err']:.3e}"
-                   if "halves_vs_full_rel_err" in c else ""))
+                   if "halves_vs_full_rel_err" in c else "")
+                + (f"; S={lp['slices']} threads a row, {lp['tile']} rows a block, "
+                   f"{lp['items']} live of {lp['blocks']} blocks, {lp['blocks_per_sm']} blocks "
+                   f"an SM ({lp['warps_per_sm']:.1f} warps of live blocks an SM, {lp['regs']} "
+                   f"registers, {lp['spill_bytes']} spill bytes)" if lp else ""))
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return cases
 
@@ -1078,9 +1158,10 @@ def modelled_body_share(torch, pos, chunks, full_mic: bool, box_length: float,
     the kernel starts from (no counter in the kernel): over the (128-slot
     block, 128-slot partner stage) chunks of a kernel's stream (``chunks``:
     i block, partner start slot, role 0 self / 1 forward / 2 backward / 3
-    full-MIC, image shifts), a warp being 32 consecutive slots facing one
-    partner, the iterations where any lane's pair holds the mask; and the
-    pairs inside the mask over the candidates."""
+    full-MIC / 4 the full sweep's shifted partner, image shifts), a warp
+    being 32 consecutive slots facing one partner, the iterations where any
+    lane's pair holds the mask; and the pairs inside the mask over the
+    candidates. Roles 3 and 4 also test the validity."""
     blk, q0, role, shx, shy = chunks
     dev = pos.device
     x = pos.double()
@@ -1096,16 +1177,16 @@ def modelled_body_share(torch, pos, chunks, full_mic: bool, box_length: float,
         offx, offy = (s[sl, None].double() * L for s in (shx, shy))
         xi = torch.where(rl == 2, x[0][ii] + offx, x[0][ii])
         yi = torch.where(rl == 2, x[1][ii] + offy, x[1][ii])
-        xj = torch.where(rl == 1, x[0][jj] + offx, x[0][jj])
-        yj = torch.where(rl == 1, x[1][jj] + offy, x[1][jj])
+        shifted = (rl == 1) | (rl == 4)
+        xj = torch.where(shifted, x[0][jj] + offx, x[0][jj])
+        yj = torch.where(shifted, x[1][jj] + offy, x[1][jj])
         d = [xi[:, :, None] - xj[:, None, :], yi[:, :, None] - yj[:, None, :],
              x[2][ii][:, :, None] - x[2][jj][:, None, :]]
         for c in (range(3) if full_mic else (2,)):
             d[c] = d[c] - L * torch.round(d[c] / L)
         m = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] < rc_square
         m &= ((rl == 1) | (rl == 2))[:, :, None] | (ii[:, :, None] != jj[:, None, :])
-        if full_mic:
-            m &= (x[3][ii][:, :, None] * x[3][jj][:, None, :]) > 0.5
+        m &= (rl < 3)[:, :, None] | ((x[3][ii][:, :, None] * x[3][jj][:, None, :]) > 0.5)
         hits += int(m.sum())
         body += int(m.reshape(-1, 4, 32, 128).any(dim=2).sum())  # (chunk, warp, lane, partner)
     return {"body": body / (n * 4 * 128), "pairs_in_mask": hits / (n * 128 * 128),
@@ -1161,6 +1242,30 @@ def zband_chunks(torch, plan):
     t = torch.nonzero(plan["keep"], as_tuple=True)[0]
     zero = torch.zeros_like(t)
     return (t, plan["start"][plan["keep"]], zero + 3, zero, zero)
+
+
+def full_report(torch, pos, tbl, counts, shf, n_pencils: int, capacity: int,
+                box_length: float, rc_square: float, want_obs: bool) -> dict:
+    """Kernel 11's launch shape (``full_grid``: 128-slot i-slices of 512
+    threads, blocks and warps an SM, registers, spills; live slices and
+    waves) and, under ``model`` (worked out here from this run's slots, not
+    counted in the kernel): the stages of its plan (``full_stage_plan``)
+    against the earlier sweep's (every non-empty partner at full capacity)
+    and the cull's modelled body share."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+
+    plan = pencil_sweep.full_stage_plan(counts, tbl, n_pencils, capacity)
+    launch = pencil_sweep.full_grid(pos, want_obs)
+    launch.update(live_blocks=plan["items"],
+                  waves=-(-plan["items"] // (launch["blocks_per_sm"] * launch["sms"])))
+    t, k, _ = torch.nonzero(plan["keep"], as_tuple=True)
+    e = (t // (capacity // 128)) * 9 + k
+    sh = shf.long().reshape(-1, 2)[e]
+    chunks = (t, plan["start"][plan["keep"]], torch.full_like(t, 4), sh[:, 0], sh[:, 1])
+    return {"launch": launch,
+            "model": {"stages": {k: plan[k] for k in ("stages", "past_count", "kept")},
+                      "body_share": modelled_body_share(torch, pos, chunks, False, box_length,
+                                                        rc_square)}}
 
 
 def phase_pencil_kernels(torch, cfg, state) -> dict:
@@ -1270,6 +1375,8 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
             full_table_bytes = 4 * (ftbl.numel() + fshf.numel() + c.counts.numel())
             full = {}
             for want_obs in (True, False):
+                f_report = full_report(torch, c.r, ftbl, c.counts, fshf, P, cap, L, rc2,
+                                       want_obs)
                 args = (c.r, ftbl, c.counts, fshf, grid, rc2, want_obs)
                 got = full[want_obs] = pencil_sweep.pencil_sweep(*args)
                 want = pencil_sweep.pencil_sweep_plain(*args)
@@ -1281,7 +1388,7 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                                       f"rel err {worst:.3e} > {tol}")
                 cases["pencil_sweep_full"].append({
                     **base, **bound(dname, sweep_flops(cand, cut, want_obs),
-                                    2 * slots_bytes + full_table_bytes),
+                                    2 * slots_bytes + full_table_bytes), **f_report,
                     "observables": want_obs, "max_abs_err": max(e[0] for e in errs),
                     "rel_err": worst,
                     "ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep(*args), 20),
@@ -1411,6 +1518,16 @@ def phase_pencil_kernels(torch, cfg, state) -> dict:
                          f"{st['kept']} swept; modelled body share {100 * sh['body']:.2f}% of "
                          f"warp iterations, {100 * sh['pairs_in_mask']:.2f}% of candidates in "
                          f"the mask")
+            if name == "pencil_sweep_full":
+                fg, st, sh = c["launch"], c["model"]["stages"], c["model"]["body_share"]
+                what += (f"; {fg['threads']} threads a 128-slot slice, {fg['live_blocks']} of "
+                         f"{fg['blocks']} slices live, {fg['blocks_per_sm']} blocks an SM "
+                         f"({fg['warps_per_sm']} warps, {fg['regs']} registers, "
+                         f"{fg['spill_bytes']} spill bytes) -> {fg['waves']} wave(s); modelled "
+                         f"from this run's slots: stages {st['kept']} of {st['stages']} "
+                         f"({st['past_count']} past the count skipped), modelled body share "
+                         f"{100 * sh['body']:.2f}% of warp iterations, "
+                         f"{100 * sh['pairs_in_mask']:.2f}% of candidates in the mask")
             if name == "pencil_sweep_hs":
                 sg, st, sh = c["launch"], c["model"]["stages"], c["model"]["body_share"]
                 what += (f"; S={sg['slices']} threads a slot, {sg['threads']} a 128-slot item, "
@@ -2556,7 +2673,9 @@ def main() -> int:
     env = phase_environment(torch)
     phase_build()
     cases = phase_kernels(torch)
-    cases.update(phase_rect_kernels(torch))
+    rect = phase_rect_kernels(torch)
+    cases["pair_sweep_tri"] += rect.pop("pair_sweep_tri")
+    cases.update(rect)
     cases.update(phase_list_kernels(torch))
     cases.update(phase_flags_kernel(torch))
     cases.update(phase_probe_kernels(torch))
@@ -2677,6 +2796,15 @@ def main() -> int:
             entry["also_replaces"] = "scripts/exp_layout.py:308 and :324 (transposes)"
             entry["slopes_ns_per_visit"] = {k: 1e9 * v for k, v in
                                             runs["exp_layout"]["result"].items()}
+        if name == "pair_sweep_rect_newton":
+            # The production order beside the shuffled headline (which tests
+            # the masks): a rank's rows are contiguous particle indices.
+            lat = next(c for c in cases[name] if c["shape"] == f"{head['shape']} lattice"
+                       and c["dtype"] == head["dtype"] and c["observables"] == head["observables"])
+            entry.update(lattice_ms=lat["ms"], lattice_bound_ms=lat["bound_ms"],
+                         launch=head["launch"])
+        if name == "pencil_sweep_full":
+            entry["launch"] = head["launch"]
         if name == "pencil_sweep_hs":
             entry["launches_counted_as"] = "launches outside the sharded pencil engine's run " \
                                            "(those are pencil_sweep_mono's)"

@@ -1,7 +1,8 @@
 // The culled pair loop of one staged 128-partner stage, shared by the
 // redesigned static pencil chunk (fused_pencil_chunk.cu, kernel 15), the
-// half-shell sweep (pencil_sweep_hs.cu, kernels 13 / 14) and the z-banded
-// sweep (pencil_sweep_zband.cu, kernel 12).
+// half-shell sweep (pencil_sweep_hs.cu, kernels 13 / 14), the z-banded
+// sweep (pencil_sweep_zband.cu, kernel 12) and the full 9-neighbour sweep
+// (pencil_sweep_full.cu, kernel 11).
 //
 // A block holds 128 slots x S partner slices: thread (slot tx, slice ty)
 // takes the partners jj = ty, ty + S, ... of the stage (the order of the
@@ -97,22 +98,40 @@ __device__ __forceinline__ void cull_stage_hs(const T* sx, const T* sy, const T*
   cull_loop<S>(cand, body);
 }
 
-// Kernel 12: i-side pairs of slot g at (xi, yi, zi), validity vi, with one
-// staged stage (rows x, y, z, validity) of partner slots [q0, q0 + 128):
-// the full minimum image in x, y and z, the mask r^2 < rc^2, gi != gj,
-// vi * vj > 0.5; e / du / ddu of every pair with OBS.
-template <typename T, bool OBS, int S>
+// How a stage of the full sweeps forms its candidates: kernel 12's full
+// minimum image; kernel 11's partners shifted by (offx, offy) with only z
+// rounded, dx = x_i - (x_j + offx) as the earlier port's staging formed it,
+// on the slot's own pencil (the gi != gj test), on another pencil with a
+// nonzero shift, or on another pencil with none (x_j + 0 = x_j up to the
+// sign of a zero, which changes no sum: the same bits).
+enum FullForm { kFullMinImage = 0, kFullOwn = 1, kFullShifted = 2, kFullUnshifted = 3 };
+
+// Kernels 12 and 11: i-side pairs of slot g at (xi, yi, zi), validity vi,
+// with one staged stage (rows x, y, z, validity) of partner slots [q0, q0 +
+// 128), the mask r^2 < rc^2, gi != gj, vi * vj > 0.5 (gi != gj tested only
+// where the stage can hold g: forms kFullMinImage and kFullOwn); e / du /
+// ddu of every pair with OBS.
+template <typename T, bool OBS, int S, int FORM>
 __device__ __forceinline__ void cull_stage_full(const T* sx, const T* sy, const T* sz,
                                                 const T* sv, int g, T xi, T yi, T zi, T vi,
-                                                int q0, T box, T inv_box, T rc2,
-                                                PenAcc<T>& acc) {
+                                                int q0, T offx, T offy, T box, T inv_box,
+                                                T rc2, PenAcc<T>& acc) {
   auto cand = [&](int jj, bool& m) {
     CullDisp<T> d;
-    d.dx = min_image(sub_rn(xi, sx[jj]), box, inv_box);
-    d.dy = min_image(sub_rn(yi, sy[jj]), box, inv_box);
+    if (FORM == kFullMinImage) {
+      d.dx = min_image(sub_rn(xi, sx[jj]), box, inv_box);
+      d.dy = min_image(sub_rn(yi, sy[jj]), box, inv_box);
+    } else if (FORM == kFullUnshifted) {
+      d.dx = sub_rn(xi, sx[jj]);
+      d.dy = sub_rn(yi, sy[jj]);
+    } else {
+      d.dx = sub_rn(xi, add_rn(sx[jj], offx));
+      d.dy = sub_rn(yi, add_rn(sy[jj], offy));
+    }
     d.dz = min_image(sub_rn(zi, sz[jj]), box, inv_box);
     d.r2 = add_rn(add_rn(mul_rn(d.dx, d.dx), mul_rn(d.dy, d.dy)), mul_rn(d.dz, d.dz));
-    m = (d.r2 < rc2) && (q0 + jj != g) && (mul_rn(vi, sv[jj]) > T(0.5));
+    m = (d.r2 < rc2) && (mul_rn(vi, sv[jj]) > T(0.5));
+    if (FORM == kFullMinImage || FORM == kFullOwn) m = m && (q0 + jj != g);
     return d;
   };
   auto body = [&](const CullDisp<T>& d, bool m, int) {

@@ -1,8 +1,7 @@
-// Device code shared by the cell-pair kernels: the slot, accumulator and
-// geometry types; the i-side segment of the full 9-neighbour sweep
-// (pencil_sweep_full.cu); the fused chunks' per-slot Verlet updates
-// (fused_pencil_chunk.cu, fused_pencil_width_chunk.cu). The culled stage
-// loops of the half-shell kernels and the z-band are in pencil_cull.cuh.
+// Device code shared by the cell-pair kernels: the slot and accumulator
+// types and the fused chunks' per-slot Verlet updates (fused_pencil_chunk.cu,
+// fused_pencil_width_chunk.cu). The culled stage loops of the sweeps and
+// chunks are in pencil_cull.cuh.
 //
 // Slot layout: (8, ns) row planes, ns = n_pencils * cap, x/y/z in rows 0..2,
 // row 3 the validity (1/0); pencil p owns slots [p*cap, (p+1)*cap), valid
@@ -31,10 +30,7 @@
 
 namespace ljmd {
 
-constexpr int kPenTile = 32;                      // slots of one work item
-constexpr int kPenSlices = 4;                     // threads per slot
-constexpr int kPenStage = kPenTile * kPenSlices;  // partners staged at once
-constexpr int kPenGran = 128;                     // pencil and visit granule
+constexpr int kPenGran = 128;  // pencil and visit granule
 
 template <typename T>
 struct PenAcc {
@@ -47,100 +43,6 @@ struct PenSlot {
   int g;
   T x, y, z, lx, ly, lz;
 };
-
-template <typename T>
-struct PenGeom {
-  const T* r;   // row 0 of the position plane
-  const T* lo;  // row 0 of the remainder plane (EXT only)
-  size_t ns;
-  int n_pencils;
-  int cap;
-  T box;
-  T inv_box;
-  T rc2;
-};
-
-// Partners staged by pen_i_segment: coordinates (x / y shifted where the
-// sweep shifts them) and the validity row.
-template <typename T>
-struct PenStageV {
-  T x[kPenStage], y[kPenStage], z[kPenStage], v[kPenStage];
-};
-
-// Pairs of slot g at (xi, yi, zi), validity vi, with the partner slots
-// [q0, q0 + len), len a multiple of kPenStage, from the i side only: the
-// full 9-neighbour sweeps (pencil_sweep_full.cu, pencil_sweep_zband.cu)
-// visit every pair from both of its slots, so nothing is scattered. The mask
-// is the TPU kernels': r^2 < rc^2, gi != gj, vi * vj > 0.5, and no partner in
-// [ex0, ex1) (the z-band's window B deduped against window A; an empty range
-// otherwise). FULL_MIC takes the minimum image in x, y and z (the z-banded
-// sweep has no shift table); else the partners' x / y are shifted by
-// (offx, offy) and only z takes the round. e/du/ddu of every pair are summed.
-// Every thread of the block calls it with the same segment.
-template <typename T, bool OBS, bool FULL_MIC>
-__device__ void pen_i_segment(const PenGeom<T>& p, PenStageV<T>& sh, int g, T xi, T yi, T zi,
-                              T vi, int q0, int len, T offx, T offy, int ex0, int ex1,
-                              PenAcc<T>& acc) {
-  const int t = threadIdx.y * kPenTile + threadIdx.x;
-  const size_t ns = p.ns;
-  for (int c0 = q0; c0 < q0 + len; c0 += kPenStage) {
-    __syncthreads();
-    const size_t q = static_cast<size_t>(c0) + t;
-    T xq = p.r[q];
-    T yq = p.r[ns + q];
-    if (!FULL_MIC) {
-      xq = add_rn(xq, offx);
-      yq = add_rn(yq, offy);
-    }
-    sh.x[t] = xq;
-    sh.y[t] = yq;
-    sh.z[t] = p.r[2 * ns + q];
-    sh.v[t] = p.r[3 * ns + q];
-    __syncthreads();
-    for (int jj = threadIdx.y; jj < kPenStage; jj += kPenSlices) {
-      const int gq = c0 + jj;
-      T dx = sub_rn(xi, sh.x[jj]);
-      T dy = sub_rn(yi, sh.y[jj]);
-      T dz = sub_rn(zi, sh.z[jj]);
-      if (FULL_MIC) {
-        dx = min_image(dx, p.box, p.inv_box);
-        dy = min_image(dy, p.box, p.inv_box);
-      }
-      dz = min_image(dz, p.box, p.inv_box);
-      const T r2 = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
-      const bool m = (r2 < p.rc2) && (gq != g) && (mul_rn(vi, sh.v[jj]) > T(0.5)) &&
-                     !(gq >= ex0 && gq < ex1);
-      const PairTerms<T> pt = lj_pair_terms<T, OBS>(r2, m);
-      acc.fx = add_rn(acc.fx, mul_rn(pt.coef, dx));
-      acc.fy = add_rn(acc.fy, mul_rn(pt.coef, dy));
-      acc.fz = add_rn(acc.fz, mul_rn(pt.coef, dz));
-      if (OBS) {
-        acc.e = add_rn(acc.e, pt.e);
-        acc.du = add_rn(acc.du, pt.du);
-        acc.ddu = add_rn(acc.ddu, pt.ddu);
-      }
-    }
-  }
-}
-
-// Sum the kPenSlices partial accumulators of each slot (red is shared).
-template <typename T, int ROWS>
-__device__ __forceinline__ void pen_reduce(T (&red)[kPenSlices][ROWS][kPenTile],
-                                           const PenAcc<T>& acc) {
-  __syncthreads();
-  const T parts[6] = {acc.fx, acc.fy, acc.fz, acc.e, acc.du, acc.ddu};
-#pragma unroll
-  for (int c = 0; c < ROWS; ++c) red[threadIdx.y][c][threadIdx.x] = parts[c];
-  __syncthreads();
-}
-
-template <typename T, int ROWS>
-__device__ __forceinline__ T pen_sum(const T (&red)[kPenSlices][ROWS][kPenTile], int c) {
-  T f = red[0][c][threadIdx.x];
-#pragma unroll
-  for (int q = 1; q < kPenSlices; ++q) f = add_rn(f, red[q][c][threadIdx.x]);
-  return f;
-}
 
 // Neumaier-compensated x += delta (as fused_dense_chunk.cu).
 template <typename T>

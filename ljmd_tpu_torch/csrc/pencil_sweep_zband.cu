@@ -130,8 +130,9 @@ pencil_sweep_zband_kernel(const T* __restrict__ pos, T* __restrict__ out,
     // copied into was last read at stage c - 2, before the previous barrier.
     __syncthreads();
     const T(*sb)[kPenGran] = stage[c % kZbRing];
-    cull_stage_full<T, OBS, kZbSlices>(sb[0], sb[1], sb[2], sb[3], g, xi, yi, zi, vi,
-                                       st_q0[c], box, inv_box, rc2, acc);
+    cull_stage_full<T, OBS, kZbSlices, kFullMinImage>(sb[0], sb[1], sb[2], sb[3], g, xi, yi, zi,
+                                                      vi, st_q0[c], T(0), T(0), box, inv_box,
+                                                      rc2, acc);
   }
 
   const T parts[6] = {acc.fx, acc.fy, acc.fz, acc.e, acc.du, acc.ddu};

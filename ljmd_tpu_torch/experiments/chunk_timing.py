@@ -1,5 +1,6 @@
-"""Card times of the fused chunk kernels and the pencil sweeps of one
-checkout, for comparing two checkouts on one card within one machine call:
+"""Card times of the fused chunk kernels, the pencil sweeps and the rect
+sweeps of one checkout, for comparing two checkouts on one card within one
+machine call:
 
     python ljmd_tpu_torch/experiments/chunk_timing.py [--root DIR] [--label NAME] [--sweep]
         [--dump FILE [--inputs FILE]]
@@ -22,9 +23,10 @@ N=4000 (L=16.796, rc=2.5), float32 and float64; kernel 8
 n62500_large.json``, a jittered FCC lattice, 14x14 pencils) at capacities
 512 and 384: kernels 15 and 16 (the fused pencil chunks, 8 steps, float32
 and float64), kernel 13 (the half-shell sweep), kernel 11 (the full
-9-neighbour sweep) and kernel 12 (the z-banded sweep; its window is 384 at
-both capacities, so at 384 every window-B stage lies inside window A), with
-observables (the z-band also without them at 512, and in float64); the
+9-neighbour sweep, float32 and float64, observables on and off) and kernel
+12 (the z-banded sweep; its window is 384 at both capacities, so at 384
+every window-B stage lies inside window A), with observables (the z-band
+also without them at 512, and in float64); the
 rows engine's ``run_fast(8)`` at config 5 (ms a step, float32 and
 float64); the cell-pair engine's ``run_fast(8)`` with the width
 lists at capacity 512 and a rebin before the chunk (the ``always``
@@ -32,6 +34,18 @@ trigger), with the device operations (kernels, copies, fills) of one such
 call (torch.profiler); and ``initialize`` of config 5 cut to 500 warmup
 steps on the cell-pair engine (the lattice capacity 512: width-listed
 chunks), seconds on the host clock.
+
+The multi-device path's hops (``rect_inputs``), float32 and float64,
+observables on and off, on a perturbed FCC lattice in its own order (a
+rank's rows a slab, as in production) and shuffled: kernel 7
+(``pair_sweep_rect_newton``) at the half ring's N=4000 d=4 full hop (1000 x
+1000) and both sides of its gated half hop, and both sides of the N=500 d=2
+half hop (250 rows); kernel 6 (``pair_sweep_rect``) at the ring's N=4000
+hops over 4 and 2 ranks (1000 x 1000, 2000 x 2000). A hop's kernel takes
+less time than the host's call, so these are timed on the card alone, as
+replays of a CUDA graph of 50 calls (``_graph_ms``), and as back-to-back
+calls ("calls"). Kernels 2 and 5 (``pair_sweep_tri``, ``pair_sweep``) at
+N=4000 beside them.
 
 Kernel 10 (``fused_dense_chunk_list``, 16 steps: the zsort engine's inner
 chunk) runs on the z-sorted fluid of the N=4000 and N=864 configs
@@ -47,15 +61,18 @@ the dense chunk at every block shape S (threads a particle) it takes: N=500
 and N=4000 as above (99 steps), and the rows engine's carry at config 5 (8
 steps, float32 and float64), each beside its plan (items, blocks, warps an
 SM); where the checkout has ``fused_list.list_plan``, kernel 10 at every S
-it takes (float32 and float64, N=4000 and N=864).
+it takes (float32 and float64, N=4000 and N=864); where it has
+``pair_sweep.rect_newton_plan``, kernel 7 at every S (no observables,
+every case above, on the card alone).
 
-``--dump FILE`` saves the outputs of kernel 10 (every case above, 16 steps)
-and of the half-shell sweep (every case above) with ``torch.save``,
-the sweep's slot rows read from (or, the first time, written to) ``--inputs
-FILE``, so that both checkouts sweep the same slots;
+``--dump FILE`` saves the outputs of kernel 10 (every case above, 16 steps),
+of the half-shell and the full 9-neighbour sweeps (both capacities and
+precisions, observables on and off) and of kernel 7 (every case above)
+with ``torch.save``, the sweeps' slot rows read from (or, the first time,
+written to) ``--inputs FILE``, so that both checkouts sweep the same slots;
 ``--compare A B`` prints, per case, whether the sweep outputs are equal bit
 for bit (``torch.equal``; with the elements and rows that differ, and those
-on valid slots) and kernel 10's max |A - B| / max(1, max |B|).
+on valid slots) and, for kernels 10 and 7, max |A - B| / max(1, max |B|).
 """
 
 from __future__ import annotations
@@ -81,6 +98,35 @@ def _ms(torch, fn, reps: int, warmup: int = 2, rounds: int = 3) -> float:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def _graph_ms(torch, fn, reps: int, rounds: int = 3) -> float:
+    """ms of one ``fn()`` on the card alone: ``reps`` calls captured in one
+    CUDA graph, the least over ``rounds`` replays of the mean (CUDA events).
+    The host's cost of a call (checks, allocation, the launch), which
+    ``_ms`` includes wherever it exceeds the kernel's time, is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
@@ -130,6 +176,99 @@ def dense_cases(torch, dev) -> dict:
                 out[f"fused_dense_chunk_flags {label} {dname} fluid flags"] = _ms(
                     torch, lambda: fused.fused_dense_chunk_flags(r, v, a, flags, n, box, rc2,
                                                                  dt, 8), 20)
+    return out
+
+
+def rect_inputs(torch, dev):
+    """(kernel, label, args) of the rect sweeps' cases at the multi-device
+    path's shapes, on perturbed FCC lattices (L=16.796, rc=2.5 at N=4000;
+    L=10, rc=4.9 at N=500) cut into the ranks' row blocks, float32 and
+    float64, in lattice order (a rank's rows are contiguous particle
+    indices, as in production: slabs) and shuffled; the rect-Newton sweep
+    (kernel 7) at the half ring's hops: N=4000 over 4 ranks the full hop
+    (1000 x 1000) and both sides of the gated half hop, N=500 over 2 both
+    sides of its half hop (250 rows); the rect sweep (kernel 6) at the
+    ring's N=4000 hops over 4 and 2 ranks (1000 x 1000, 2000 x 2000). Args
+    exclude the observables flag."""
+    import numpy as np
+
+    cases = []
+    for label, k, box, rc in (("N=4000", 10, 16.795961913825, 2.5), ("N=500", 5, 10.0, 4.9)):
+        for dname in ("float32", "float64"):
+            n, lattice, _ = _fcc_rows(torch, k, box, 1234 + k, getattr(torch, dname), dev)
+            shuffled = lattice.clone()
+            shuffled[:, :n] = shuffled[:, torch.as_tensor(np.random.default_rng(k).permutation(n),
+                                                         device=dev)]
+            for order, src in (("lattice", lattice), ("shuffled", shuffled)):
+                def blk(s, ni):
+                    out = torch.zeros((8, -(-ni // 128) * 128), dtype=src.dtype, device=dev)
+                    out[:, :ni] = src[:, s * ni:(s + 1) * ni]
+                    return out
+
+                tag = f"{order} {dname}"
+                if label == "N=4000":
+                    ni, h = n // 4, n // 8
+                    for name, si, sj, i_lo, j_hi in (("d=4 hop", 1, 0, 0, ni),
+                                                     ("d=4 half_low", 0, 2, h, ni),
+                                                     ("d=4 half_high", 2, 0, 0, h)):
+                        cases.append(("pair_sweep_rect_newton", f"{label} {name} {tag}",
+                                      (blk(si, ni), blk(sj, ni), ni, ni, si * ni, sj * ni, box,
+                                       rc * rc, i_lo, j_hi)))
+                    for d in (4, 2):
+                        ni = n // d
+                        cases.append(("pair_sweep_rect", f"{label} d={d} hop {tag}",
+                                      (blk(1, ni), blk(0, ni), ni, ni, ni, 0, box, rc * rc)))
+                else:
+                    ni, h = n // 2, n // 4
+                    for name, si, sj, i_lo, j_hi in (("d=2 half_low", 0, 1, h, ni),
+                                                     ("d=2 half_high", 1, 0, 0, h)):
+                        cases.append(("pair_sweep_rect_newton", f"{label} {name} {tag}",
+                                      (blk(si, ni), blk(sj, ni), ni, ni, si * ni, sj * ni, box,
+                                       rc * rc, i_lo, j_hi)))
+    return cases
+
+
+def rect_cases(torch, dev) -> dict:
+    """ms of kernels 7 and 6 (``rect_inputs``), observables on and off, on
+    the card alone (``_graph_ms``: a hop's kernel takes less time than the
+    host's call) and as back-to-back calls (``_ms``, "calls"); the dense
+    sweeps (kernels 2 and 5) at N=4000 beside them."""
+    from ljmd_tpu_torch.ops import pair_sweep
+
+    out = {}
+    for kernel, label, args in rect_inputs(torch, dev):
+        fn = getattr(pair_sweep, kernel)
+        for want_obs in (True, False):
+            key = f"{kernel} {label}{'' if want_obs else ' no obs'}"
+            out[key] = _graph_ms(torch, lambda: fn(*args, want_observables=want_obs), 50)
+            out[f"{key} calls"] = _ms(torch, lambda: fn(*args, want_observables=want_obs), 50)
+    n, r, _ = _fcc_rows(torch, 10, 16.795961913825, 1244, torch.float32, dev)
+    for kernel in ("pair_sweep_tri", "pair_sweep"):
+        out[f"{kernel} N=4000 float32"] = _ms(
+            torch, lambda: getattr(pair_sweep, kernel)(r, n, 16.795961913825, 6.25), 50)
+    return out
+
+
+def rect_sweep(torch, dev) -> dict:
+    """ms of kernel 7 on the card alone (``_graph_ms``) at each S it takes
+    (observables off, every rect-Newton case of ``rect_inputs``), with the
+    plan."""
+    from ljmd_tpu_torch.ops import pair_sweep
+
+    out = {}
+    for kernel, label, args in rect_inputs(torch, dev):
+        if kernel != "pair_sweep_rect_newton":
+            continue
+        pos_i, pos_j, n_i, n_j, gi0, gj0, box, rc2, i_lo, j_hi = args
+        res = {}
+        for s in (4, 8, 16, 32, 64, 128, 256):
+            plan = pair_sweep.rect_newton_plan(pos_i, pos_j, n_i, n_j, i_lo, j_hi, False, s)
+            ms = _graph_ms(torch, lambda: pair_sweep._launch_rect_newton(*args, False, slices=s),
+                           50)
+            res[s] = {"ms": ms, **{k: plan[k] for k in ("items", "blocks_per_sm", "warps_per_sm",
+                                                        "regs")}}
+        out[label] = {"chosen": pair_sweep.rect_newton_plan(pos_i, pos_j, n_i, n_j, i_lo, j_hi,
+                                                            False)["slices"], "by_slices": res}
     return out
 
 
@@ -238,10 +377,12 @@ def pencil_cases(torch, dev, root: Path) -> dict:
                     out[f"pencil_sweep_hs strip {p_loc}+{grid.m_xy} {tag}{o}"] = _ms(
                         torch, lambda: pencil_sweep.pencil_sweep_hs(
                             *sargs, want_obs, n_pencils_i=p_loc), 20)
+            for want_obs in (True, False):
+                out[f"pencil_sweep_full {tag}{'' if want_obs else ' no obs'}"] = _ms(
+                    torch, lambda: pencil_sweep.pencil_sweep(c.r, ftbl, c.counts, fshf, grid, rc2,
+                                                             want_obs), 20)
             if dname == "float64":
                 continue
-            out[f"pencil_sweep_full {tag}"] = _ms(torch, lambda: pencil_sweep.pencil_sweep(
-                c.r, ftbl, c.counts, fshf, grid, rc2, True), 20)
             if cap == 512:
                 # rebin + chunk of the width-listed engine, and its device ops
                 run = lambda: eng.run_fast(c, 8)  # noqa: E731
@@ -375,7 +516,7 @@ def dump_outputs(torch, dev, root: Path, path: str, inputs_path: str = "") -> in
     from ljmd_tpu_torch.config import load_config
     from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.models.lattice import fcc_lattice
-    from ljmd_tpu_torch.ops import cell_list, fused_list, pencil_sweep
+    from ljmd_tpu_torch.ops import cell_list, fused_list, pair_sweep, pencil_sweep
     from ljmd_tpu_torch.state import MDState
 
     out = {}
@@ -392,6 +533,8 @@ def dump_outputs(torch, dev, root: Path, path: str, inputs_path: str = "") -> in
                                           cfg.density, cap)
         tbl, shf = (torch.as_tensor(t, device=dev)
                     for t in pencil_sweep.build_half_shell_tables(grid))
+        ftbl = torch.as_tensor(pencil_sweep.build_tile_table(grid), device=dev)
+        fshf = torch.as_tensor(pencil_sweep.build_shift_table(grid), device=dev)
         for dname in ("float32", "float64"):
             key = f"cap={cap} {dname}"
             if key in saved:
@@ -406,6 +549,8 @@ def dump_outputs(torch, dev, root: Path, path: str, inputs_path: str = "") -> in
             for obs in (True, False):
                 out[f"hs {key} obs={obs}"] = [pencil_sweep.pencil_sweep_hs(
                     c.r, tbl, c.counts, shf, grid, cfg.rc_square, obs).cpu(), c.r[3].cpu()]
+                out[f"full {key} obs={obs}"] = [pencil_sweep.pencil_sweep(
+                    c.r, ftbl, c.counts, fshf, grid, cfg.rc_square, obs).cpu(), c.r[3].cpu()]
                 out[f"hs strip {key} obs={obs}"] = [pencil_sweep.pencil_sweep_hs(
                     *sargs, obs, n_pencils_i=p_loc).cpu(), sargs[0][3].cpu()]
     if inputs_path and made:
@@ -415,6 +560,11 @@ def dump_outputs(torch, dev, root: Path, path: str, inputs_path: str = "") -> in
         for mode in LIST_MODES:
             res = fused_list.fused_dense_chunk_list(*args, tile_j=tj, **kw[mode])
             out[f"list {label} {dname} {mode}"] = [t.cpu() for t in res]
+    for kernel, label, args in rect_inputs(torch, dev):
+        if kernel == "pair_sweep_rect_newton":
+            for obs in (True, False):
+                res = pair_sweep.pair_sweep_rect_newton(*args, want_observables=obs)
+                out[f"rect_newton {label} obs={obs}"] = [t.cpu() for t in res]
     torch.save(out, path)
     print(f"chunk_timing: saved {len(out)} cases to {path}")
     return 0
@@ -426,7 +576,7 @@ def compare_dumps(path_a: str, path_b: str) -> int:
     a, b = torch.load(path_a), torch.load(path_b)
     report = {}
     for key in sorted(set(a) & set(b)):
-        if key.startswith("hs"):
+        if key.startswith(("hs", "full")):
             x, y = a[key][0], b[key][0]
             diff = x != y
             valid = a[key][1] > 0.5
@@ -485,9 +635,14 @@ def main(argv=None) -> int:
     times = dense_cases(torch, dev)
     times.update(list_cases(torch, dev, root, args.sweep))
     times.update(pencil_cases(torch, dev, root))
+    times.update(rect_cases(torch, dev))
     report = {"label": args.label, "root": str(root), "nvidia_smi": smi, "ms": times}
     if args.sweep:
         report["slice_sweep"] = slice_sweep(torch, dev, root)
+        from ljmd_tpu_torch.ops import pair_sweep
+
+        if hasattr(pair_sweep, "rect_newton_plan"):
+            report["rect_newton_sweep"] = rect_sweep(torch, dev)
     print(json.dumps(report))
     return 0
 

@@ -23,7 +23,10 @@ against a visiting j block (8, nj_pad) with global offsets ``gi0`` / ``gj0``
 - ``pair_sweep_rect_newton``: each pair of the active range
   [i_lo, n_i) x [0, j_hi) once; returns (acc_i, acc_j): acc_i rows 0..2 the
   i-side forces and rows 3..5 the pair-once partials (4 / 24), acc_j rows
-  0..2 the j-side reactions and rows 3..7 exactly 0.
+  0..2 the j-side reactions and rows 3..7 exactly 0. Its kernel runs blocks
+  of rows of both roles in one launch: ``rect_newton_blocks`` says which are
+  live (the twin runs through the same rule), ``rect_newton_plan`` the S
+  threads a row that the occupancy API gives.
 
 ``pair_sweep_tri``, ``pair_sweep``, ``pair_sweep_rect`` and
 ``pair_sweep_rect_newton`` launch ``csrc/pair_sweep_tri.cu``,
@@ -39,6 +42,8 @@ reader finds the counterpart.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -59,6 +64,8 @@ __all__ = [
     "pair_sweep_rect_plain",
     "pair_sweep_tri",
     "pair_sweep_tri_plain",
+    "rect_newton_blocks",
+    "rect_newton_plan",
 ]
 
 # Columns of the row layout are padded to a multiple of this (the kernels
@@ -97,17 +104,15 @@ def pair_forces_plain(pos: torch.Tensor, n: int, box_length: float,
     return out
 
 
-def _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, want_observables,
-                i_lo=0, j_hi=None):
+def _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, want_observables):
     """(d (3, n_i, n_j) = x_i - x_j minimum image, coef, du, e, ddu) over the
-    pairs gi != gj inside the cutoff with li >= i_lo and lj < j_hi."""
+    pairs gi != gj inside the cutoff."""
     d = pos_i[0:3, :n_i, None] - pos_j[0:3, None, :n_j]
     d = d - box_length * torch.round(d * (1.0 / box_length))
     r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    li = torch.arange(n_i, device=pos_i.device)
-    lj = torch.arange(n_j, device=pos_i.device)
-    mask = ((r2 < rc_square) & ((gi0 + li)[:, None] != (gj0 + lj)[None, :])
-            & (li >= i_lo)[:, None] & (lj < (n_j if j_hi is None else j_hi))[None, :])
+    gi = gi0 + torch.arange(n_i, device=pos_i.device)
+    gj = gj0 + torch.arange(n_j, device=pos_i.device)
+    mask = (r2 < rc_square) & (gi[:, None] != gj[None, :])
     return (d, *lj_pair_terms_plain(r2, mask, want_observables))
 
 
@@ -195,15 +200,51 @@ def pair_sweep_rect_plain(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
     return _i_rows(pos_i, n_i, d, coef, du, e, ddu, want_observables)
 
 
+def _newton_range(n_i: int, n_j: int, i_lo: int, j_hi: int | None) -> tuple[int, int]:
+    """(i_lo, j_hi) of a rect-Newton call, j_hi None meaning n_j; raises
+    outside 0 <= i_lo <= n_i, 0 <= j_hi <= n_j."""
+    j_hi = n_j if j_hi is None else int(j_hi)
+    if not (0 <= i_lo <= n_i and 0 <= j_hi <= n_j):
+        raise ValueError(f"pair_sweep_rect_newton: active range [{i_lo}, {n_i}) x [0, {j_hi}) "
+                         f"outside the rows ({n_i}, {n_j})")
+    return int(i_lo), j_hi
+
+
+def rect_newton_blocks(n_i: int, n_j: int, i_lo: int, j_hi: int | None, tile: int):
+    """The live blocks of the rect-Newton kernel's two roles (the rule of
+    ``csrc/pair_sweep_rect.cu``): blocks of ``tile`` rows, the i role's over
+    the i rows and the j role's over the j rows; a block is live where its
+    rows meet the role's active rows ([i_lo, n_i), [0, j_hi)) and the
+    partner range ([0, j_hi), [i_lo, n_i)) is not empty. The others only
+    write zeros. Returns (i-role block indices, j-role block indices), int64."""
+    i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
+
+    def live(lo, hi, partners):
+        if lo >= hi or partners <= 0:
+            return torch.zeros(0, dtype=torch.long)
+        return torch.arange(lo // tile, (hi - 1) // tile + 1)
+
+    return live(i_lo, n_i, j_hi), live(0, j_hi, n_i - i_lo)
+
+
 def pair_sweep_rect_newton_plain(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
                                  box_length: float, rc_square: float, i_lo: int = 0,
                                  j_hi: int | None = None, want_observables: bool = True):
-    """Plain PyTorch twin of the rect-Newton sweep: (acc_i, acc_j)."""
-    d, coef, du, e, ddu = _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square,
-                                      want_observables, i_lo, j_hi)
-    out_j = torch.zeros_like(pos_j)
-    out_j[0:3, :n_j] = -(coef[None] * d).sum(dim=1)
-    return _i_rows(pos_i, n_i, d, coef, du, e, ddu, want_observables), out_j
+    """Plain PyTorch twin of the rect-Newton sweep: (acc_i, acc_j). It
+    evaluates the rows of the live blocks of ``rect_newton_blocks`` (any
+    tile: the rows they hold are the active range) against the active
+    partner range, as the kernel does."""
+    i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
+    out_i, out_j = torch.zeros_like(pos_i), torch.zeros_like(pos_j)
+    blocks_i, _ = rect_newton_blocks(n_i, n_j, i_lo, j_hi, ROW_PAD)
+    if blocks_i.numel() == 0:
+        return out_i, out_j
+    d, coef, du, e, ddu = _rect_terms(pos_i[:, i_lo:], pos_j, n_i - i_lo, j_hi, gi0 + i_lo, gj0,
+                                      box_length, rc_square, want_observables)
+    out_i[:, i_lo:] = _i_rows(pos_i[:, i_lo:], n_i - i_lo, d, coef, du, e, ddu,
+                              want_observables)
+    out_j[0:3, :j_hi] = -(coef[None] * d).sum(dim=1)
+    return out_i, out_j
 
 
 def _check_rect(name, pos_i, pos_j, n_i, n_j):
@@ -248,22 +289,56 @@ def pair_sweep_rect_newton(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
     if pos_i.device.type == "cpu":
         return pair_sweep_rect_newton_plain(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length,
                                             rc_square, i_lo, j_hi, want_observables)
+    return _launch_rect_newton(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, i_lo,
+                               j_hi, want_observables)
+
+
+def _launch_rect_newton(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, i_lo, j_hi,
+                        want_observables, slices=None):
+    """One launch of the rect-Newton kernel; ``slices`` (measurements and
+    tests only) asks for a given S instead of the occupancy rule's."""
     if pos_i.device.type != "cuda":
         raise ValueError(f"pair_sweep_rect_newton: unsupported device {pos_i.device}")
     _check_rect("pair_sweep_rect_newton", pos_i, pos_j, n_i, n_j)
-    j_hi = n_j if j_hi is None else j_hi
+    i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
+    for t in (pos_i, pos_j):
+        if t.data_ptr() % 16:
+            raise ValueError("pair_sweep_rect_newton: rows must start on a 16-byte boundary "
+                             "(cp.async)")
     out_i = torch.empty_like(pos_i)
     out_j = torch.empty_like(pos_j)
     lib = _cuda.library()
     with torch.cuda.device(pos_i.device):
         code = getattr(lib, f"ljmd_pair_sweep_rect_newton_{_cuda.dtype_suffix(pos_i.dtype)}")(
             pos_i.data_ptr(), pos_j.data_ptr(), out_i.data_ptr(), out_j.data_ptr(), n_i,
-            pos_i.shape[1], n_j, pos_j.shape[1], int(gi0), int(gj0), int(i_lo), int(j_hi),
+            pos_i.shape[1], n_j, pos_j.shape[1], int(gi0), int(gj0), i_lo, j_hi,
             float(box_length), 1.0 / float(box_length), float(rc_square),
-            int(want_observables), _cuda.stream_handle(pos_i))
+            int(want_observables), int(slices or 0), _cuda.stream_handle(pos_i))
     _cuda.LAUNCHES.bump("pair_sweep_rect_newton")
     _cuda.check(code, "pair_sweep_rect_newton")
     return out_i, out_j
+
+
+def rect_newton_plan(pos_i, pos_j, n_i: int, n_j: int, i_lo: int = 0, j_hi: int | None = None,
+                     want_observables: bool = True, slices: int | None = None) -> dict:
+    """The rect-Newton kernel's launch shape for these rows and active range
+    (on the card): threads a row (``slices``, S), rows a block (``tile``),
+    live blocks of both roles (``items``; ``rect_newton_blocks``), the grid
+    (``blocks``), resident blocks an SM, SMs, registers and spill bytes a
+    thread, and the warps the live blocks put on each SM. ``slices`` asks
+    for a given S instead of the occupancy rule's."""
+    _check_rect("rect_newton_plan", pos_i, pos_j, n_i, n_j)
+    i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
+    lib = _cuda.library()
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(pos_i.device):
+        _cuda.check(lib.ljmd_rect_newton_plan(pos_i.element_size(), int(want_observables),
+                                              pos_i.shape[1], pos_j.shape[1], n_i, i_lo, j_hi,
+                                              int(slices or 0), out), "rect_newton_plan")
+    plan = dict(zip(("slices", "tile", "items", "blocks", "blocks_per_sm", "sms", "regs",
+                     "spill_bytes"), out))
+    plan["warps_per_sm"] = plan["items"] * plan["tile"] * plan["slices"] / 32 / plan["sms"]
+    return plan
 
 
 def lj_force_energy_pallas(r: torch.Tensor, box_length: float, rc_square: float,

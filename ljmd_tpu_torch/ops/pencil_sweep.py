@@ -47,7 +47,9 @@ past a pencil's count and empty partner pencils are skipped:
 
 - ``pencil_sweep``: every slot of the 9 xy-neighbours (``build_tile_table``,
   the pencil itself at k = 4), x/y shifted by the static image shifts of
-  ``build_shift_table``, z rounded;
+  ``build_shift_table``, z rounded. A partner stage of 128 ranks at or past
+  the partner pencil's count holds only invalid slots: ``full_stage_plan``
+  lists the stages left, which the kernel and the twin sweep;
 - ``pencil_sweep_zband``: per (128-slot i-slice, neighbour), only the
   ``window`` ranks from ``start_a`` and, under ``use_b``, those from
   ``start_b`` that window A does not hold (``compute_z_windows``; ranks
@@ -80,6 +82,8 @@ __all__ = [
     "build_half_shell_tables",
     "build_shift_table",
     "build_tile_table",
+    "full_grid",
+    "full_stage_plan",
     "half_shell_lower",
     "hs_stage_plan",
     "pencil_sweep",
@@ -415,30 +419,49 @@ def _i_side_visits(out, pos, ista, jsta, width, shx, shy, excl, box_length, rc_s
                 out[row].index_add_(0, fi, term.sum(dim=2).reshape(-1))
 
 
-def _full_visits(grid: PencilGrid, tbl, counts):
-    """(pencil, i-slice, neighbour k, partner pencil) of every visit of the
-    full sweeps, as host arrays: i-slices at or past the pencil's count and
-    empty partner pencils skipped, as the JAX kernels gate them."""
-    P, n_sub = grid.n_pencils, grid.capacity // TILE_I
-    tbl = np.asarray(tbl).reshape(P, 9)
-    cnt = np.asarray(counts)
-    p, si, k = (a.ravel() for a in np.meshgrid(np.arange(P), np.arange(n_sub), np.arange(9),
-                                               indexing="ij"))
-    j = tbl[p, k]
-    live = (si * TILE_I < cnt[p]) & (cnt[j] > 0)
-    return p[live], si[live], k[live], j[live]
+def full_stage_plan(counts, tbl, n_pencils: int, capacity: int) -> dict:
+    """The full 9-neighbour sweep's stage plan: the rule of
+    ``csrc/pencil_sweep_full.cu``, as torch ops on the counts' device. Each
+    128-slot i-slice whose first rank is below its pencil's count is live; it
+    meets its 9 xy-neighbours k = 0..8 (``tbl``), each over the partner's
+    stages of 128 ranks whose first rank is below the partner's count (slots
+    are packed rank-first, so the rest hold only invalid slots, which the
+    validity test masks). Returns ``pencil`` (T, 9) int64 partner pencil of
+    each i-slice (T = n_pencils * capacity / 128), ``start`` (T, 9, n_sub)
+    global slot of each stage, ``keep`` (T, 9, n_sub) bool, ``item_live``
+    (T,) bool, and the counts ``items`` (live i-slices), ``stages`` (the
+    stages of the live slices with every non-empty partner at full capacity:
+    the earlier sweep's), ``past_count`` (those skipped) and ``kept``."""
+    dev = counts.device
+    P, n_sub = n_pencils, capacity // TILE_I
+    cnt = counts.long()
+    t = torch.arange(P * n_sub, device=dev)
+    q = t // n_sub
+    pencil = tbl.long().to(dev).reshape(P, 9)[q]                               # (T, 9)
+    cj = cnt[pencil]
+    item_live = (t % n_sub) * TILE_I < cnt[q]
+    c = torch.arange(n_sub, device=dev)
+    swept = (item_live[:, None] & (cj > 0))[:, :, None].expand(-1, -1, n_sub)
+    keep = swept & (c * TILE_I < cj[:, :, None])
+    stages, kept = int(swept.sum()), int(keep.sum())
+    return {"pencil": pencil, "start": pencil[:, :, None] * capacity + c * TILE_I, "keep": keep,
+            "item_live": item_live, "items": int(item_live.sum()), "stages": stages,
+            "past_count": stages - kept, "kept": kept}
 
 
 def pencil_sweep_plain(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
                        want_observables: bool = True):
-    """Plain twin of ``pencil_sweep``: the JAX kernel's visits (the counts
-    read on the host), evaluated in batches of dense tiles."""
+    """Plain twin of ``pencil_sweep``: each live 128-slot i-slice against
+    each stage that ``full_stage_plan`` keeps (the counts read on the host),
+    evaluated in batches of dense tiles."""
     out = torch.zeros_like(pos)
-    cap = grid.capacity
-    p, si, k, j = _full_visits(grid, tbl.cpu(), counts.cpu())
+    plan = full_stage_plan(counts.cpu(), tbl.cpu(), grid.n_pencils, grid.capacity)
+    t, k, _ = (x.numpy() for x in torch.nonzero(plan["keep"], as_tuple=True))
     shf = np.asarray(shf.cpu()).reshape(grid.n_pencils, 9, 2)
-    _i_side_visits(out, pos, p * cap + si * TILE_I, j * cap, cap, shf[p, k, 0], shf[p, k, 1],
-                   None, grid.box_length, rc_square, want_observables)
+    p = t // (grid.capacity // TILE_I)
+    _i_side_visits(out, pos, t * TILE_I, plan["start"][plan["keep"]].numpy(), TILE_I,
+                   shf[p, k, 0], shf[p, k, 1], None, grid.box_length, rc_square,
+                   want_observables)
     return out
 
 
@@ -604,20 +627,39 @@ def pencil_sweep(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
         return pencil_sweep_plain(pos, tbl, counts, shf, grid, rc_square, want_observables)
     if pos.device.type != "cuda":
         raise ValueError(f"pencil_sweep: unsupported device {pos.device}")
-    P = grid.n_pencils
+    P, cap = grid.n_pencils, grid.capacity
     _check_tables("pencil_sweep", pos, grid, (tbl, 9 * P), (counts, P), (shf, 18 * P))
+    lib = _cuda.library()
+    if cap // TILE_I > lib.ljmd_full_max_sub():
+        raise ValueError(f"pencil_sweep: capacity {cap} above {TILE_I * lib.ljmd_full_max_sub()}")
+    if pos.data_ptr() % 16:
+        raise ValueError("pencil_sweep: pos must start on a 16-byte boundary (cp.async)")
     suffix = _cuda.dtype_suffix(pos.dtype)
     out = torch.zeros_like(pos)
-    lib = _cuda.library()
     with torch.cuda.device(pos.device):
         code = getattr(lib, f"ljmd_pencil_sweep_full_{suffix}")(
             pos.data_ptr(), out.data_ptr(), tbl.data_ptr(), counts.data_ptr(),
-            shf.data_ptr(), P, grid.capacity, float(grid.box_length),
-            1.0 / float(grid.box_length), float(rc_square), int(want_observables),
-            _cuda.stream_handle(pos))
+            shf.data_ptr(), P, cap, float(grid.box_length), 1.0 / float(grid.box_length),
+            float(rc_square), int(want_observables), _cuda.stream_handle(pos))
     _cuda.LAUNCHES.bump("pencil_sweep_full")
     _cuda.check(code, "pencil_sweep_full")
     return out
+
+
+def full_grid(pos, want_observables: bool = True) -> dict:
+    """Kernel 11's launch shape for slot rows ``pos`` (on the card): threads
+    a block (128 slots x 4), blocks (128-slot i-slices), resident blocks an
+    SM, registers and spill bytes a thread, and the warps an SM."""
+    _cuda.require_cuda_rows("full_grid", pos)
+    lib = _cuda.library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(pos.device):
+        _cuda.check(lib.ljmd_full_occupancy(pos.element_size(), int(want_observables), out),
+                    "pencil_sweep_full occupancy")
+    threads = lib.ljmd_full_block_threads()
+    return {"threads": threads, "blocks": pos.shape[1] // TILE_I, "blocks_per_sm": out[0],
+            "sms": out[1], "regs": out[2], "spill_bytes": out[3],
+            "warps_per_sm": out[0] * threads // 32}
 
 
 def pencil_sweep_zband(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGrid, rc_square,

@@ -970,3 +970,120 @@ def test_list_chunk_capped_grids_are_bit_identical(cuda, grid_cap):
     assert fused_list.list_plan(r, grid_cap=grid_cap)["blocks"] == grid_cap
     for g, w in zip(fused_list._launch(*args, grid_cap=grid_cap), fused_list._launch(*args)):
         assert torch.equal(g, w)
+
+
+def _full_slots(cap, dtype):
+    """The N=2048 jittered lattice (L=13.4, 4x4 pencils) binned at capacity
+    ``cap`` with sentinels, pencil 1 emptied and pencil 2 cut to 77 slots
+    (slots stay packed rank-first), with the full sweep's tables; CPU."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.ops import cell_list, pencil_sweep
+
+    n, box = 2048, 13.4
+    rng = np.random.default_rng(3)
+    r = torch.remainder(fcc_lattice(8, box, dtype=torch.float64)
+                        + torch.as_tensor(rng.normal(0, 0.05, (n, 3))), box)
+    grid = cell_list.make_pencil_grid(n, box, 2.9, n / box**3, cap)
+    slot, ovf = cell_list.bin_to_slots(r, grid)
+    assert not bool(ovf)
+    pos = torch.zeros((8, grid.n_slots + 1), dtype=torch.float64)
+    pos[0:3, slot] = r.T
+    pos[3, slot] = 1.0
+    pos = pos[:, :grid.n_slots].contiguous()
+    rank = torch.arange(grid.n_slots) % cap
+    pencil = torch.arange(grid.n_slots) // cap
+    pos[3, (pencil == 1) | ((pencil == 2) & (rank >= 77))] = 0.0
+    pos = pencil_sweep.sentinel_fill(pos, pos[3], cap).to(dtype)
+    counts = pos[3].reshape(grid.n_pencils, cap).sum(1).to(torch.int32)
+    assert int(counts[1]) == 0 and int(counts[2]) == 77
+    tbl = torch.as_tensor(pencil_sweep.build_tile_table(grid))
+    shf = torch.as_tensor(pencil_sweep.build_shift_table(grid))
+    return grid, pos, counts, tbl, shf
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("want_obs", [True, False])
+@pytest.mark.parametrize("cap", [384, 512])
+def test_full_sweep_kernel_with_skips_matches_twin(cuda, cap, want_obs, dtype, tol):
+    """Kernel 11 (128-slot i-slices, exact stage skips, cp.async ring, warp
+    vote) against its twin at capacities 384 and 512, both precisions, with
+    an emptied and a short pencil: invalid slots and rows 6-7 exactly 0."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+
+    grid, pos, counts, tbl, shf = _full_slots(cap, dtype)
+    plan = pencil_sweep.full_stage_plan(counts, tbl, grid.n_pencils, cap)
+    assert plan["past_count"] > 0 and plan["kept"] < plan["stages"]
+    want = pencil_sweep.pencil_sweep_plain(pos, tbl, counts, shf, grid, 6.25, want_obs)
+    LAUNCHES.reset()
+    got = pencil_sweep.pencil_sweep(pos.to(cuda), tbl.to(cuda), counts.to(cuda), shf.to(cuda),
+                                    grid, 6.25, want_obs)
+    assert LAUNCHES.snapshot()["pencil_sweep_full"] == 1
+    for row in range(8):
+        _close(got[row], want[row], tol)
+    got = got.cpu()
+    assert bool((got[6:] == 0).all()) and bool((got[:, pos[3] == 0] == 0).all())
+    if not want_obs:
+        assert bool((got[3:] == 0).all())
+    launch = pencil_sweep.full_grid(pos.to(cuda), want_obs)
+    assert launch["threads"] == 512 and launch["blocks_per_sm"] >= 1
+
+
+def _newton_blocks(n, ld, box, seed, dtype, cuda):
+    """Two (8, ld) row blocks of n particles each, uniform in the box."""
+    return (_rect_rows(n, ld, box, seed, cuda).to(dtype),
+            _rect_rows(n, ld, box, seed + 1, cuda).to(dtype))
+
+
+@pytest.mark.parametrize("slices", [4, 8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_rect_newton_kernel_at_every_block_shape(cuda, slices, dtype, tol):
+    """Kernel 7 at every S that ``rect_newton_plan`` can choose: the full hop
+    and both sides of the gated half hop against the twin, observables on
+    and off, and the two halves adding up to the full hop."""
+    n, box = 200, 7.0
+    half = n // 2
+    a, b = _newton_blocks(n, 256, box, 21, dtype, cuda)
+    for want_obs in (True, False):
+        outs = []
+        for pos_i, pos_j, gi0, gj0, i_lo, j_hi in ((a, b, 0, n, half, n), (b, a, n, 0, 0, half),
+                                                   (a, b, 0, n, 0, n)):
+            plan = pair_sweep.rect_newton_plan(pos_i, pos_j, n, n, i_lo, j_hi, want_obs, slices)
+            assert (plan["slices"], plan["tile"]) == (slices, 256 // slices)
+            got = pair_sweep._launch_rect_newton(pos_i, pos_j, n, n, gi0, gj0, box, 6.25, i_lo,
+                                                 j_hi, want_obs, slices=slices)
+            want = pair_sweep.pair_sweep_rect_newton_plain(pos_i.cpu(), pos_j.cpu(), n, n, gi0,
+                                                           gj0, box, 6.25, i_lo, j_hi, want_obs)
+            for g, w in zip(got, want):
+                for row in range(8):
+                    _close(g[row], w[row], tol)
+                assert bool((g[:, n:] == 0).all())
+            assert bool((got[1][3:] == 0).all()) and bool((got[0][6:] == 0).all())
+            outs.append(got)
+        lo, hi, full = outs
+        _close(lo[0][0:3] + hi[1][0:3], full[0][0:3], tol)
+        _close(lo[1][0:3] + hi[0][0:3], full[1][0:3], tol)
+        if want_obs:
+            _close(lo[0][3:6].sum(1) + hi[0][3:6].sum(1), full[0][3:6].sum(1), tol)
+
+
+def test_rect_newton_plan_rule(cuda):
+    """The occupancy rule's S at the main path's shapes: the live blocks of
+    both roles fit one wave of at most 3 blocks an SM, each thread keeps a
+    partner, a doubled S would break one of those, and the inactive edge
+    cases launch only zero-writing blocks."""
+    for n, i_lo, j_hi in ((1000, 0, 1000), (1000, 500, 1000), (1000, 0, 500), (250, 125, 250)):
+        pad = -(-n // 128) * 128
+        a, b = _newton_blocks(n, pad, 16.8, 5, torch.float32, cuda)
+        plan = pair_sweep.rect_newton_plan(a, b, n, n, i_lo, j_hi)
+        bi, bj = pair_sweep.rect_newton_blocks(n, n, i_lo, j_hi, plan["tile"])
+        assert plan["items"] == bi.numel() + bj.numel()
+        wave = min(plan["blocks_per_sm"], 3) * plan["sms"]
+        assert plan["items"] <= wave and min(j_hi, n - i_lo) >= plan["slices"]
+        if plan["slices"] < 256:
+            bi, bj = pair_sweep.rect_newton_blocks(n, n, i_lo, j_hi, plan["tile"] // 2)
+            assert bi.numel() + bj.numel() > wave or min(j_hi, n - i_lo) < 2 * plan["slices"]
+    a, b = _newton_blocks(200, 256, 7.0, 5, torch.float64, cuda)
+    for i_lo, j_hi in ((200, 200), (0, 0)):
+        got = pair_sweep.pair_sweep_rect_newton(a, b, 200, 200, 0, 200, 7.0, 6.25, i_lo, j_hi)
+        assert not any(bool(g.any()) for g in got)
+        assert pair_sweep.rect_newton_plan(a, b, 200, 200, i_lo, j_hi)["items"] == 0
