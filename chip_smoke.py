@@ -111,9 +111,10 @@ checkout. Phases, each fatal on failure:
       and float64, on a shuffled lattice (every block pair has pairs in
       the cutoff) and, for kernel 7 with its launch shape, in lattice
       order (a rank's rows a slab, as in production); the tri sweep
-      (kernel 2) at the half ring's self blocks; their time on the card by
-      CUDA-graph replay beside that of back-to-back calls (the host's call
-      takes longer than a hop's kernel); and (in 3c) the
+      (kernel 2) at the half ring's self blocks; their time as back-to-back
+      calls (``ms``, as every kernel's) and, since the host's call takes
+      longer than a hop's kernel, on the card alone by CUDA-graph replay
+      (``card_ms``); and (in 3c) the
       half-shell sweep's ``n_pencils_i`` on
       config 5's 2-rank strips (7x14 pencils plus a 14-pencil halo);
    b. ``run_production`` through the particle-sharded engine: half ring on
@@ -648,9 +649,10 @@ def phase_rect_kernels(torch) -> dict:
     lattices; kernel 7 also on the lattice in its own order (a rank's rows
     are contiguous particle indices, as in production: its blocks are
     slabs), with its launch shape (``rect_newton_plan``); kernel 2 at the
-    half ring's self blocks (a rank's rows). A hop's kernel takes less time
-    than the host's call, so ``ms`` is the card's time (``graph_ms``) and
-    ``calls_ms`` that of back-to-back calls."""
+    half ring's self blocks (a rank's rows). ``ms`` is the time of a call
+    back to back, as for every other kernel; a hop's kernel takes less time
+    than the host's call, so ``card_ms`` gives the card's time alone
+    (``graph_ms``)."""
     import numpy as np
 
     from ljmd_tpu_torch.ops import pair_sweep
@@ -699,9 +701,8 @@ def phase_rect_kernels(torch) -> dict:
                         "shape": f"{shape} self block", "dtype": dname, "observables": True,
                         "candidates": cand, "cut_pairs": cut,
                         "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
-                        "ms": graph_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args), 50),
-                        "calls_ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args),
-                                                 50),
+                        "ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args), 50),
+                        "card_ms": graph_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args), 50),
                         "plain_ms": cuda_time_ms(
                             torch, lambda: pair_sweep.pair_sweep_tri_plain(*args), 5)})
                 for want_obs in (False, True):
@@ -723,8 +724,9 @@ def phase_rect_kernels(torch) -> dict:
                             "shape": f"{shape} {hop}", "dtype": dname,
                             "observables": want_obs, "candidates": cand, "cut_pairs": cut,
                             "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
-                            "ms": graph_ms(torch, lambda: pair_sweep.pair_sweep_rect(*args), 50),
-                            "calls_ms": cuda_time_ms(
+                            "ms": cuda_time_ms(
+                                torch, lambda: pair_sweep.pair_sweep_rect(*args), 50),
+                            "card_ms": graph_ms(
                                 torch, lambda: pair_sweep.pair_sweep_rect(*args), 50),
                             "plain_ms": cuda_time_ms(
                                 torch, lambda: pair_sweep.pair_sweep_rect_plain(*args), 5)})
@@ -760,9 +762,9 @@ def phase_rect_kernels(torch) -> dict:
                                 "launch": pair_sweep.rect_newton_plan(args[0], args[1], ni, ni,
                                                                       i_lo, j_hi, want_obs),
                                 "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
-                                "ms": graph_ms(
+                                "ms": cuda_time_ms(
                                     torch, lambda: pair_sweep.pair_sweep_rect_newton(*args), 50),
-                                "calls_ms": cuda_time_ms(
+                                "card_ms": graph_ms(
                                     torch, lambda: pair_sweep.pair_sweep_rect_newton(*args), 50),
                                 "plain_ms": cuda_time_ms(
                                     torch, lambda: pair_sweep.pair_sweep_rect_newton_plain(*args),
@@ -787,9 +789,9 @@ def phase_rect_kernels(torch) -> dict:
         for c in cs:
             lp = c.get("launch")
             log(f"kernel {name} {c['shape']} {c['dtype']} observables {c['observables']}: rel "
-                f"err {c['rel_err']:.3e} (tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms "
-                f"on the card ({c['calls_ms']:.4f} ms a call back to back, the host's launch "
-                f"included) vs plain {c['plain_ms']:.4f} ms per call; bound "
+                f"err {c['rel_err']:.3e} (tol {KERNEL_TOL[c['dtype']]:.0e}), {c['ms']:.4f} ms a "
+                f"call back to back, the host's call included ({c['card_ms']:.4f} ms on the card "
+                f"alone) vs plain {c['plain_ms']:.4f} ms per call; bound "
                 f"{c['bound_ms']:.5f} ms "
                 f"({c['bound_by']}, {c['candidates']} candidates, {c['cut_pairs']} inside rc)"
                 + (f"; gated halves vs full hop {c['halves_vs_full_rel_err']:.3e}"
@@ -2778,6 +2780,10 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            # Kernels 6 and 7: ``ms`` is a call back to back (the host's call
+            # included, as every row and every earlier PR times it), and
+            # ``card_ms`` the card's time alone (CUDA-graph replay).
+            **({"card_ms": head["card_ms"]} if "card_ms" in head else {}),
             # No single PyTorch call computes a cut-off LJ sweep, a fused
             # Verlet chunk or a greedy visit-list cover; the probes stand for
             # library operations (ITERS calls of each, probe_library).
@@ -2801,8 +2807,8 @@ def main() -> int:
             # the masks): a rank's rows are contiguous particle indices.
             lat = next(c for c in cases[name] if c["shape"] == f"{head['shape']} lattice"
                        and c["dtype"] == head["dtype"] and c["observables"] == head["observables"])
-            entry.update(lattice_ms=lat["ms"], lattice_bound_ms=lat["bound_ms"],
-                         launch=head["launch"])
+            entry.update(lattice_ms=lat["ms"], lattice_card_ms=lat["card_ms"],
+                         lattice_bound_ms=lat["bound_ms"], launch=head["launch"])
         if name == "pencil_sweep_full":
             entry["launch"] = head["launch"]
         if name == "pencil_sweep_hs":

@@ -16,6 +16,12 @@
 // never by position, as the Pallas kernels' global-index masks do. The dense
 // sweeps pass A = B with the full ranges and offsets 0.
 //
+// One launch may hold two problems, block ranges one after the other (an i
+// role with observables and a j role without, whose rows 3..7 are 0). No
+// caller passes a second problem since the rect-Newton sweep (kernel 7) got a
+// kernel of its own; it stays until kernel 6 is redesigned, because taking it
+// out changes the registers nvcc allots to every instantiation.
+//
 // What bounds it on the H100: arithmetic and instruction throughput, not
 // memory. The inputs are at most a few hundred KB and stay in L2; each call
 // evaluates O(n_a * n_b) pairs of ~30 instructions each (plus one IEEE
@@ -54,15 +60,19 @@ struct RowsProblem {
   int n_a, lda, a_lo, a_hi;
   int n_b, ldb, b_lo, b_hi;
   int ga0, gb0;
+  int obs;      // sum rows 3..5 (only where the template's OBS is set)
+  int blocks;   // lda / kTileI
 };
 
 template <typename T, bool OBS, bool OBS_ALL_J>
 __global__ void __launch_bounds__(kTileI * kSlicesJ)
-pair_rows_kernel(RowsProblem<T> p, T box, T inv_box, T rc2) {
+pair_rows_kernel(RowsProblem<T> p0, RowsProblem<T> p1, T box, T inv_box, T rc2) {
   __shared__ T sx[kTileJ], sy[kTileJ], sz[kTileJ];
   __shared__ T red[kSlicesJ][6][kTileI];
 
-  const int blk = blockIdx.x;
+  const bool second = blockIdx.x >= p0.blocks;
+  const RowsProblem<T> p = second ? p1 : p0;
+  const int blk = second ? blockIdx.x - p0.blocks : blockIdx.x;
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int i = blk * kTileI + tx;
@@ -76,6 +86,7 @@ pair_rows_kernel(RowsProblem<T> p, T box, T inv_box, T rc2) {
     return;  // the whole block: no active pair
   }
   const bool live_i = i >= p.a_lo && i < a_end;
+  const bool obs = OBS && p.obs;
   const int gi = p.ga0 + i;
   const T xi = live_i ? p.a[i] : T(0);
   const T yi = live_i ? p.a[p.lda + i] : T(0);
@@ -103,7 +114,7 @@ pair_rows_kernel(RowsProblem<T> p, T box, T inv_box, T rc2) {
       acc[0] = add_rn(acc[0], mul_rn(pt.coef, dx));
       acc[1] = add_rn(acc[1], mul_rn(pt.coef, dy));
       acc[2] = add_rn(acc[2], mul_rn(pt.coef, dz));
-      if (OBS && (OBS_ALL_J || gj > gi)) {
+      if (obs && (OBS_ALL_J || gj > gi)) {
         acc[3] = add_rn(acc[3], pt.e);
         acc[4] = add_rn(acc[4], pt.du);
         acc[5] = add_rn(acc[5], pt.ddu);
@@ -127,17 +138,26 @@ pair_rows_kernel(RowsProblem<T> p, T box, T inv_box, T rc2) {
   }
 }
 
-// One launch over a problem, lda / kTileI blocks.
+template <typename T>
+RowsProblem<T> rows_problem(const T* a, const T* b, T* out, int n_a, int lda, int a_lo,
+                            int a_hi, int n_b, int ldb, int b_lo, int b_hi, int ga0, int gb0,
+                            int obs) {
+  return RowsProblem<T>{a, b, out, n_a, lda, a_lo, a_hi, n_b, ldb, b_lo, b_hi, ga0, gb0, obs,
+                        lda / kTileI};
+}
+
+// One launch over one problem (p1 == nullptr) or two, back to back.
 template <typename T, bool OBS_ALL_J>
-int launch_rows_problem(const RowsProblem<T>& p, int want_obs, T box, T inv_box, T rc2,
-                        void* stream) {
+int launch_rows_problems(const RowsProblem<T>& p0, const RowsProblem<T>* p1, int want_obs,
+                         T box, T inv_box, T rc2, void* stream) {
   const dim3 block(kTileI, kSlicesJ);
-  const dim3 grid(p.lda / kTileI);
+  const RowsProblem<T> second = p1 ? *p1 : p0;
+  const dim3 grid(p0.blocks + (p1 ? p1->blocks : 0));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (want_obs) {
-    pair_rows_kernel<T, true, OBS_ALL_J><<<grid, block, 0, s>>>(p, box, inv_box, rc2);
+    pair_rows_kernel<T, true, OBS_ALL_J><<<grid, block, 0, s>>>(p0, second, box, inv_box, rc2);
   } else {
-    pair_rows_kernel<T, false, OBS_ALL_J><<<grid, block, 0, s>>>(p, box, inv_box, rc2);
+    pair_rows_kernel<T, false, OBS_ALL_J><<<grid, block, 0, s>>>(p0, second, box, inv_box, rc2);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -146,8 +166,9 @@ int launch_rows_problem(const RowsProblem<T>& p, int want_obs, T box, T inv_box,
 template <typename T, bool OBS_ALL_J>
 int launch_pair_rows(const T* pos, T* out, int n, int n_pad, T box, T inv_box, T rc2,
                      int want_obs, void* stream) {
-  const RowsProblem<T> p{pos, pos, out, n, n_pad, 0, n, n, n_pad, 0, n, 0, 0};
-  return launch_rows_problem<T, OBS_ALL_J>(p, want_obs, box, inv_box, rc2, stream);
+  const RowsProblem<T> p = rows_problem<T>(pos, pos, out, n, n_pad, 0, n, n, n_pad, 0, n, 0, 0,
+                                           1);
+  return launch_rows_problems<T, OBS_ALL_J>(p, nullptr, want_obs, box, inv_box, rc2, stream);
 }
 
 }  // namespace ljmd

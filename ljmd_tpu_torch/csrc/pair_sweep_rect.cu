@@ -39,11 +39,13 @@
 //   pair forces over the active i range. fl(xi - xj) == -fl(xj - xi) and the
 //   round is odd, so the two sides are exact negations (pair_rows.cuh).
 // - A block is 256 threads: tile = 256 / S rows, S threads a row taking
-//   partners slice, slice + S, ... S (a power of two, 4..256) comes from the
+//   partners slice, slice + S, ... S (a power of two, 4..128) comes from the
 //   occupancy API (rect_newton_plan): the largest S whose live blocks all
 //   run in one wave of at most 3 blocks an SM, each thread keeping a partner
 //   (1000 x 1000: S = 32, 250 blocks; the d=4 half hop S = 64, 375; N=500's
-//   half hop S = 64, 95). The S partial sums of a row are added by warp
+//   half hop S = 64, 95). S = 256 would need both roles' ranges >= 256
+//   rows, so >= 512 live blocks: more than one such wave on any card of
+//   fewer than 171 SMs. The S partial sums of a row are added by warp
 //   shuffles, then for S > 32 in shared memory warp by warp: a fixed order.
 // - The block stages its partner rows once, by cp.async through a ring of
 //   three 512-column buffers (the 1000-partner hop: both chunks in flight
@@ -69,15 +71,16 @@ constexpr int kRnChunk = 512;     // partner columns a staged chunk
 constexpr int kRnRing = 3;        // staging buffers
 constexpr int kRnAlign = 32;      // staged column granule (16-byte pieces, both types)
 constexpr int kRnMinSlices = 4;
-constexpr int kRnMaxSlices = kRnThreads;
+constexpr int kRnMaxSlices = 128;
 constexpr int kRnBlocksPerSm = 3;  // live blocks an SM at most (the S rule)
 
 template <typename T>
 int launch_rect(const T* pos_i, const T* pos_j, T* out, int n_i, int ni_pad, int n_j,
                 int nj_pad, int gi0, int gj0, T box, T inv_box, T rc2, int want_obs,
                 void* stream) {
-  const RowsProblem<T> p{pos_i, pos_j, out, n_i, ni_pad, 0, n_i, n_j, nj_pad, 0, n_j, gi0, gj0};
-  return launch_rows_problem<T, true>(p, want_obs, box, inv_box, rc2, stream);
+  const RowsProblem<T> p = rows_problem<T>(pos_i, pos_j, out, n_i, ni_pad, 0, n_i, n_j, nj_pad,
+                                           0, n_j, gi0, gj0, 1);
+  return launch_rows_problems<T, true>(p, nullptr, want_obs, box, inv_box, rc2, stream);
 }
 
 // One role of the rect-Newton launch: the active rows [a_lo, a_hi) of A
@@ -216,10 +219,6 @@ inline int rn_live_blocks(int a_lo, int a_hi, int b_lo, int b_hi, int tile) {
   return (a_hi - 1) / tile - a_lo / tile + 1;
 }
 
-// The launch shape at these ranges: out = {S, tile, live blocks, grid
-// blocks, resident blocks an SM, SMs, registers a thread, spill bytes a
-// thread}. `slices` > 0 asks for that S (a power of two in [4, 256]); 0 lets
-// the occupancy rule choose.
 // The occupancy facts of one instantiation on one device, asked once (the
 // kernel launches on every hop; the ranks of a thread mesh launch at once).
 struct RnOccupancy {
@@ -256,8 +255,11 @@ int rn_occupancy(RnOccupancy* occ) {
   return 0;
 }
 
+// The launch shape at these ranges: out = {S, tile, live blocks, grid
+// blocks, resident blocks an SM, SMs, registers a thread, spill bytes a
+// thread}.
 template <typename T, bool OBS>
-int rn_plan(int ni_pad, int nj_pad, int n_i, int i_lo, int j_hi, int slices, int* out) {
+int rn_plan(int ni_pad, int nj_pad, int n_i, int i_lo, int j_hi, int* out) {
   RnOccupancy occ;
   const int err = rn_occupancy<T, OBS>(&occ);
   if (err != 0) return err;
@@ -267,21 +269,17 @@ int rn_plan(int ni_pad, int nj_pad, int n_i, int i_lo, int j_hi, int slices, int
     const int tile = kRnThreads / s;
     return rn_live_blocks(i_lo, n_i, 0, j_hi, tile) + rn_live_blocks(0, j_hi, i_lo, n_i, tile);
   };
-  if (slices <= 0) {
-    // The largest S whose live blocks all run at once, at most
-    // kRnBlocksPerSm of them an SM, with at least one partner a thread on
-    // both roles; else (ranks far larger than the card) the smallest. The S
-    // sweep on the H100 (experiments/chunk_timing.py --sweep) put the best
-    // time there at every hop of the main path: more blocks an SM restage
-    // the partners more often than their shorter loops save.
-    const long long wave = static_cast<long long>(min(occ.per_sm, kRnBlocksPerSm)) * occ.sms;
-    const int cols = min(j_hi, n_i - i_lo);
-    slices = kRnMinSlices;
-    for (int s = kRnMinSlices; s <= kRnMaxSlices; s *= 2) {
-      if (live(s) <= wave && cols >= s) slices = s;
-    }
-  } else if (slices < kRnMinSlices || slices > kRnMaxSlices || (slices & (slices - 1))) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  // The largest S whose live blocks all run at once, at most kRnBlocksPerSm
+  // of them an SM, with at least one partner a thread on both roles; else
+  // (ranks far larger than the card) the smallest. An S sweep on the H100
+  // put the best time there, or within 0.0001 ms of it, at 19 of the main
+  // path's 20 hops: more blocks an SM restage the partners more often than
+  // their shorter loops save.
+  const long long wave = static_cast<long long>(min(occ.per_sm, kRnBlocksPerSm)) * occ.sms;
+  const int cols = min(j_hi, n_i - i_lo);
+  int slices = kRnMinSlices;
+  for (int s = kRnMinSlices; s <= kRnMaxSlices; s *= 2) {
+    if (live(s) <= wave && cols >= s) slices = s;
   }
   const int tile = kRnThreads / slices;
   out[0] = slices;
@@ -296,22 +294,21 @@ int rn_plan(int ni_pad, int nj_pad, int n_i, int i_lo, int j_hi, int slices, int
 }
 
 template <typename T>
-int rn_plan_any(int want_obs, int ni_pad, int nj_pad, int n_i, int i_lo, int j_hi, int slices,
-                int* out) {
-  return want_obs ? rn_plan<T, true>(ni_pad, nj_pad, n_i, i_lo, j_hi, slices, out)
-                  : rn_plan<T, false>(ni_pad, nj_pad, n_i, i_lo, j_hi, slices, out);
+int rn_plan_any(int want_obs, int ni_pad, int nj_pad, int n_i, int i_lo, int j_hi, int* out) {
+  return want_obs ? rn_plan<T, true>(ni_pad, nj_pad, n_i, i_lo, j_hi, out)
+                  : rn_plan<T, false>(ni_pad, nj_pad, n_i, i_lo, j_hi, out);
 }
 
 template <typename T>
 int launch_rect_newton(const T* pos_i, const T* pos_j, T* out_i, T* out_j, int n_i, int ni_pad,
                        int n_j, int nj_pad, int gi0, int gj0, int i_lo, int j_hi, T box,
-                       T inv_box, T rc2, int want_obs, int slices, void* stream) {
+                       T inv_box, T rc2, int want_obs, void* stream) {
   if (ni_pad % 128 || nj_pad % 128 || i_lo < 0 || i_lo > n_i || n_i > ni_pad || j_hi < 0 ||
       j_hi > n_j || n_j > nj_pad) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int plan[8];
-  const int err = rn_plan_any<T>(want_obs, ni_pad, nj_pad, n_i, i_lo, j_hi, slices, plan);
+  const int err = rn_plan_any<T>(want_obs, ni_pad, nj_pad, n_i, i_lo, j_hi, plan);
   if (err != 0) return err;
   const int S = plan[0];
   const int tile = plan[1];
@@ -347,36 +344,32 @@ int ljmd_pair_sweep_rect_f64(const double* pos_i, const double* pos_j, double* o
                                    inv_box, rc2, want_obs, stream);
 }
 
-// `slices` 0: the occupancy rule's S (ljmd_rect_newton_plan); > 0 asks for
-// that S (measurements and tests).
 int ljmd_pair_sweep_rect_newton_f32(const float* pos_i, const float* pos_j, float* out_i,
                                     float* out_j, int n_i, int ni_pad, int n_j, int nj_pad,
                                     int gi0, int gj0, int i_lo, int j_hi, float box,
-                                    float inv_box, float rc2, int want_obs, int slices,
-                                    void* stream) {
+                                    float inv_box, float rc2, int want_obs, void* stream) {
   return ljmd::launch_rect_newton<float>(pos_i, pos_j, out_i, out_j, n_i, ni_pad, n_j, nj_pad,
                                          gi0, gj0, i_lo, j_hi, box, inv_box, rc2, want_obs,
-                                         slices, stream);
+                                         stream);
 }
 
 int ljmd_pair_sweep_rect_newton_f64(const double* pos_i, const double* pos_j, double* out_i,
                                     double* out_j, int n_i, int ni_pad, int n_j, int nj_pad,
                                     int gi0, int gj0, int i_lo, int j_hi, double box,
-                                    double inv_box, double rc2, int want_obs, int slices,
-                                    void* stream) {
+                                    double inv_box, double rc2, int want_obs, void* stream) {
   return ljmd::launch_rect_newton<double>(pos_i, pos_j, out_i, out_j, n_i, ni_pad, n_j, nj_pad,
                                           gi0, gj0, i_lo, j_hi, box, inv_box, rc2, want_obs,
-                                          slices, stream);
+                                          stream);
 }
 
 // Kernel 7's launch shape (ljmd::rn_plan): out[0..7] = S, tile, live
 // blocks, grid blocks, resident blocks an SM, SMs, registers, spill bytes.
 int ljmd_rect_newton_plan(int dtype_bytes, int want_obs, int ni_pad, int nj_pad, int n_i,
-                          int i_lo, int j_hi, int slices, int* out) {
+                          int i_lo, int j_hi, int* out) {
   if (dtype_bytes == 4) {
-    return ljmd::rn_plan_any<float>(want_obs, ni_pad, nj_pad, n_i, i_lo, j_hi, slices, out);
+    return ljmd::rn_plan_any<float>(want_obs, ni_pad, nj_pad, n_i, i_lo, j_hi, out);
   }
-  return ljmd::rn_plan_any<double>(want_obs, ni_pad, nj_pad, n_i, i_lo, j_hi, slices, out);
+  return ljmd::rn_plan_any<double>(want_obs, ni_pad, nj_pad, n_i, i_lo, j_hi, out);
 }
 
 }  // extern "C"

@@ -61,9 +61,7 @@ the dense chunk at every block shape S (threads a particle) it takes: N=500
 and N=4000 as above (99 steps), and the rows engine's carry at config 5 (8
 steps, float32 and float64), each beside its plan (items, blocks, warps an
 SM); where the checkout has ``fused_list.list_plan``, kernel 10 at every S
-it takes (float32 and float64, N=4000 and N=864); where it has
-``pair_sweep.rect_newton_plan``, kernel 7 at every S (no observables,
-every case above, on the card alone).
+it takes (float32 and float64, N=4000 and N=864).
 
 ``--dump FILE`` saves the outputs of kernel 10 (every case above, 16 steps),
 of the half-shell and the full 9-neighbour sweeps (both capacities and
@@ -246,29 +244,6 @@ def rect_cases(torch, dev) -> dict:
     for kernel in ("pair_sweep_tri", "pair_sweep"):
         out[f"{kernel} N=4000 float32"] = _ms(
             torch, lambda: getattr(pair_sweep, kernel)(r, n, 16.795961913825, 6.25), 50)
-    return out
-
-
-def rect_sweep(torch, dev) -> dict:
-    """ms of kernel 7 on the card alone (``_graph_ms``) at each S it takes
-    (observables off, every rect-Newton case of ``rect_inputs``), with the
-    plan."""
-    from ljmd_tpu_torch.ops import pair_sweep
-
-    out = {}
-    for kernel, label, args in rect_inputs(torch, dev):
-        if kernel != "pair_sweep_rect_newton":
-            continue
-        pos_i, pos_j, n_i, n_j, gi0, gj0, box, rc2, i_lo, j_hi = args
-        res = {}
-        for s in (4, 8, 16, 32, 64, 128, 256):
-            plan = pair_sweep.rect_newton_plan(pos_i, pos_j, n_i, n_j, i_lo, j_hi, False, s)
-            ms = _graph_ms(torch, lambda: pair_sweep._launch_rect_newton(*args, False, slices=s),
-                           50)
-            res[s] = {"ms": ms, **{k: plan[k] for k in ("items", "blocks_per_sm", "warps_per_sm",
-                                                        "regs")}}
-        out[label] = {"chosen": pair_sweep.rect_newton_plan(pos_i, pos_j, n_i, n_j, i_lo, j_hi,
-                                                            False)["slices"], "by_slices": res}
     return out
 
 
@@ -639,10 +614,6 @@ def main(argv=None) -> int:
     report = {"label": args.label, "root": str(root), "nvidia_smi": smi, "ms": times}
     if args.sweep:
         report["slice_sweep"] = slice_sweep(torch, dev, root)
-        from ljmd_tpu_torch.ops import pair_sweep
-
-        if hasattr(pair_sweep, "rect_newton_plan"):
-            report["rect_newton_sweep"] = rect_sweep(torch, dev)
     print(json.dumps(report))
     return 0
 

@@ -181,8 +181,7 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pair_sweep_rect_newton_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, real, real, real, _I, _I,
-                       _P]
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pencil_sweep_hs_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
@@ -216,7 +215,7 @@ def library() -> ctypes.CDLL:
     lib.ljmd_pencil_chunk_occupancy.restype = _I
     lib.ljmd_pencil_chunk_slices.restype = _I
     lib.ljmd_pencil_chunk_max_sub.restype = _I
-    lib.ljmd_rect_newton_plan.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_rect_newton_plan.argtypes = [_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.ljmd_rect_newton_plan.restype = _I
     lib.ljmd_full_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_full_occupancy.restype = _I

@@ -25,8 +25,8 @@ against a visiting j block (8, nj_pad) with global offsets ``gi0`` / ``gj0``
   i-side forces and rows 3..5 the pair-once partials (4 / 24), acc_j rows
   0..2 the j-side reactions and rows 3..7 exactly 0. Its kernel runs blocks
   of rows of both roles in one launch: ``rect_newton_blocks`` says which are
-  live (the twin runs through the same rule), ``rect_newton_plan`` the S
-  threads a row that the occupancy API gives.
+  live, ``rect_newton_plan`` the S threads a row that the occupancy API
+  gives.
 
 ``pair_sweep_tri``, ``pair_sweep``, ``pair_sweep_rect`` and
 ``pair_sweep_rect_newton`` launch ``csrc/pair_sweep_tri.cu``,
@@ -216,7 +216,12 @@ def rect_newton_blocks(n_i: int, n_j: int, i_lo: int, j_hi: int | None, tile: in
     the i rows and the j role's over the j rows; a block is live where its
     rows meet the role's active rows ([i_lo, n_i), [0, j_hi)) and the
     partner range ([0, j_hi), [i_lo, n_i)) is not empty. The others only
-    write zeros. Returns (i-role block indices, j-role block indices), int64."""
+    write zeros. Returns (i-role block indices, j-role block indices), int64.
+
+    The kernel's rule (``rn_live_blocks``) runs only on the card; this copy
+    lets the CPU tests hold it against a brute-force count, and the card
+    tests hold the kernel's count (``rect_newton_plan``'s ``items``) equal
+    to it."""
     i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
 
     def live(lo, hi, partners):
@@ -230,14 +235,11 @@ def rect_newton_blocks(n_i: int, n_j: int, i_lo: int, j_hi: int | None, tile: in
 def pair_sweep_rect_newton_plain(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
                                  box_length: float, rc_square: float, i_lo: int = 0,
                                  j_hi: int | None = None, want_observables: bool = True):
-    """Plain PyTorch twin of the rect-Newton sweep: (acc_i, acc_j). It
-    evaluates the rows of the live blocks of ``rect_newton_blocks`` (any
-    tile: the rows they hold are the active range) against the active
-    partner range, as the kernel does."""
+    """Plain PyTorch twin of the rect-Newton sweep: (acc_i, acc_j), the
+    active rows [i_lo, n_i) against the active partners [0, j_hi)."""
     i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
     out_i, out_j = torch.zeros_like(pos_i), torch.zeros_like(pos_j)
-    blocks_i, _ = rect_newton_blocks(n_i, n_j, i_lo, j_hi, ROW_PAD)
-    if blocks_i.numel() == 0:
+    if i_lo == n_i or j_hi == 0:
         return out_i, out_j
     d, coef, du, e, ddu = _rect_terms(pos_i[:, i_lo:], pos_j, n_i - i_lo, j_hi, gi0 + i_lo, gj0,
                                       box_length, rc_square, want_observables)
@@ -289,14 +291,6 @@ def pair_sweep_rect_newton(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
     if pos_i.device.type == "cpu":
         return pair_sweep_rect_newton_plain(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length,
                                             rc_square, i_lo, j_hi, want_observables)
-    return _launch_rect_newton(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, i_lo,
-                               j_hi, want_observables)
-
-
-def _launch_rect_newton(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, i_lo, j_hi,
-                        want_observables, slices=None):
-    """One launch of the rect-Newton kernel; ``slices`` (measurements and
-    tests only) asks for a given S instead of the occupancy rule's."""
     if pos_i.device.type != "cuda":
         raise ValueError(f"pair_sweep_rect_newton: unsupported device {pos_i.device}")
     _check_rect("pair_sweep_rect_newton", pos_i, pos_j, n_i, n_j)
@@ -313,20 +307,19 @@ def _launch_rect_newton(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square,
             pos_i.data_ptr(), pos_j.data_ptr(), out_i.data_ptr(), out_j.data_ptr(), n_i,
             pos_i.shape[1], n_j, pos_j.shape[1], int(gi0), int(gj0), i_lo, j_hi,
             float(box_length), 1.0 / float(box_length), float(rc_square),
-            int(want_observables), int(slices or 0), _cuda.stream_handle(pos_i))
+            int(want_observables), _cuda.stream_handle(pos_i))
     _cuda.LAUNCHES.bump("pair_sweep_rect_newton")
     _cuda.check(code, "pair_sweep_rect_newton")
     return out_i, out_j
 
 
 def rect_newton_plan(pos_i, pos_j, n_i: int, n_j: int, i_lo: int = 0, j_hi: int | None = None,
-                     want_observables: bool = True, slices: int | None = None) -> dict:
+                     want_observables: bool = True) -> dict:
     """The rect-Newton kernel's launch shape for these rows and active range
     (on the card): threads a row (``slices``, S), rows a block (``tile``),
     live blocks of both roles (``items``; ``rect_newton_blocks``), the grid
     (``blocks``), resident blocks an SM, SMs, registers and spill bytes a
-    thread, and the warps the live blocks put on each SM. ``slices`` asks
-    for a given S instead of the occupancy rule's."""
+    thread, and the warps the live blocks put on each SM."""
     _check_rect("rect_newton_plan", pos_i, pos_j, n_i, n_j)
     i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
     lib = _cuda.library()
@@ -334,7 +327,7 @@ def rect_newton_plan(pos_i, pos_j, n_i: int, n_j: int, i_lo: int = 0, j_hi: int 
     with torch.cuda.device(pos_i.device):
         _cuda.check(lib.ljmd_rect_newton_plan(pos_i.element_size(), int(want_observables),
                                               pos_i.shape[1], pos_j.shape[1], n_i, i_lo, j_hi,
-                                              int(slices or 0), out), "rect_newton_plan")
+                                              out), "rect_newton_plan")
     plan = dict(zip(("slices", "tile", "items", "blocks", "blocks_per_sm", "sms", "regs",
                      "spill_bytes"), out))
     plan["warps_per_sm"] = plan["items"] * plan["tile"] * plan["slices"] / 32 / plan["sms"]

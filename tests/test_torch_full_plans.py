@@ -9,10 +9,11 @@ rect-Newton hop (kernel 7), as plain torch on the CPU, float64:
   package's ``pallas_pencil_sweep`` in interpret mode, with sentinels, one
   pencil emptied and one cut under 128 slots (the test asserts that stages
   were skipped), observables on and off;
-- ``rect_newton_blocks`` (the live blocks of both roles) against a
+- ``rect_newton_blocks`` (the live blocks of both roles, the kernel's rule,
+  whose count the card tests hold the kernel's plan to) against a
   brute-force test of every block, over ranges with ``i_lo`` on and off a
   tile boundary, ``j_hi = 0``, ``i_lo = n_i`` and the d=4 gated half hop;
-- the rect-Newton twin, which runs through that rule, against the JAX
+- the rect-Newton twin over the active range against the JAX
   package's ``pallas_pair_sweep_rect_newton`` in interpret mode on the row
   blocks of a jittered FCC lattice cut into 4 ranks, in lattice order (a
   rank's rows are a slab: blocks 0 and 2 lie farther apart than the cutoff)
