@@ -71,8 +71,8 @@ checkout. Phases, each fatal on failure:
       the force API through the ordered sweep) for its 2,000 steps; then from
       one float64 state 100 steps against the rows engine, within 1e-9;
    e. the rows engine with ``triangular=False`` (the ordered sweep on sampled
-      steps) on the N=4000 cut, and in float64 against ``triangular=True``:
-      the series within 1e-9;
+      steps) on the N=4000 cut; then from one float64 state 100 steps, each
+      sampled, against ``triangular=True``: the series within 1e-9;
    f. the neighbor engine (``--backend neighbor``, plain torch, no kernel) on
       the N=4000 cut: rate, drift, overflow flag, host reads;
    g. the cell-pair engine's full 9-neighbour and z-banded sweeps
@@ -196,6 +196,8 @@ SHAPES = [
 ]
 CHUNK_STEPS = 99  # run_fast(interval - 1) at output_interval = 100
 LIST_CHUNK_STEPS = 16  # the zsort engine's inner chunk at both zsort configs
+# Kernel 2 also at config 2's box (rows and zsort sample N=864 with it).
+TRI_SHAPES = SHAPES + [("N=864", 6, 10.077577148295, 0.248075501007 * 10.077577148295)]
 # Phase 3b shapes: (label, example config) at the zsort engine's geometry.
 ZSORT_SHAPES = [("N=4000", "n4000_production.json"), ("N=864", "n864_liquid.json")]
 # Phase 4 cuts of the example configs, and phase 6's.
@@ -458,6 +460,41 @@ def plan_text(plan: dict) -> str:
             f"{plan['warps_per_sm']:.1f} warps an SM")
 
 
+def rows_plan_text(lp: dict) -> str:
+    """The row-sweep kernels' launch shape (``rows_sweep_plan``,
+    ``rect_newton_plan``) in words."""
+    return (f"S={lp['slices']} threads a row, {lp['tile']} rows a block, {lp['items']} live of "
+            f"{lp['blocks']} blocks, {lp['blocks_per_sm']} blocks an SM ({lp['warps_per_sm']:.1f} "
+            f"warps of live blocks an SM, {lp['regs']} registers, {lp['spill_bytes']} spill "
+            f"bytes)")
+
+
+def tri_case(torch, label: str, dname: str, r, n: int, box: float, rc2: float,
+             want_obs: bool = True) -> dict:
+    """Kernel 2 on the (8, n_pad) rows ``r`` against its twin, rows 0..7 and
+    the padding, with its launch shape (``rows_sweep_plan``), its time back
+    to back (``ms``) and on the card alone (``card_ms``)."""
+    from ljmd_tpu_torch.ops import pair_sweep
+
+    args = (r, n, box, rc2, want_obs)
+    got = pair_sweep.pair_sweep_tri(*args)
+    want = pair_sweep.pair_sweep_tri_plain(*args)
+    errs = [rel_err(got[row], want[row]) for row in range(6)]
+    worst = max(e[1] for e in errs)
+    tag = f"pair_sweep_tri {label} {dname} obs={want_obs}"
+    require(bool((got[6:] == 0).all()) and bool((got[:, n:] == 0).all())
+            and (want_obs or bool((got[3:] == 0).all())), f"{tag}: padding not zero")
+    require(worst <= KERNEL_TOL[dname], f"{tag}: rel err {worst:.3e} > {KERNEL_TOL[dname]}")
+    cand, cut = n * (n - 1) // 2, pairs_within(torch, r[0:3, :n].T, box, rc2)
+    return {**bound(dname, sweep_flops(cand, cut, want_obs), 2 * 8 * r.shape[1] * r.element_size()),
+            "shape": label, "dtype": dname, "observables": want_obs, "candidates": cand,
+            "cut_pairs": cut, "launch": pair_sweep.rows_sweep_plan(r, n, None, None, want_obs),
+            "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+            "ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args), 50),
+            "card_ms": graph_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args), 50),
+            "plain_ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri_plain(*args), 5)}
+
+
 def device_ops(torch, fn) -> int:
     """Device operations (kernels, copies, fills) of one ``fn()``, counted
     by torch.profiler."""
@@ -508,20 +545,8 @@ def phase_kernels(torch) -> dict:
                 "ms": cuda_time_ms(torch, lambda: pair_terms.lj_pair_terms(r2, mask, True), 50),
                 "plain_ms": cuda_time_ms(torch, lambda: pair_terms.lj_pair_terms_plain(r2, mask, True), 20)})
 
-            # Kernel 2: tri sweep, rows 0..5 per column.
-            got = pair_sweep.pair_sweep_tri(r, n, box, rc2, True)
-            want = pair_sweep.pair_sweep_tri_plain(r, n, box, rc2, True)
-            errs = [rel_err(got[row], want[row]) for row in range(6)]
-            require(bool((got[6:] == 0).all()) and bool((got[:, n:] == 0).all()),
-                    f"pair_sweep_tri {label} {dname}: padding rows/columns not zero")
-            worst = max(e[1] for e in errs)
-            require(worst <= tol, f"pair_sweep_tri {label} {dname}: rel err {worst:.3e} > {tol}")
-            ms = cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri(r, n, box, rc2, True), 50)
-            plain_ms = cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri_plain(r, n, box, rc2, True), 5)
-            cases["pair_sweep_tri"].append({
-                **bound(dname, sweep_flops(cand, cut, True), 2 * rows_bytes),
-                "shape": label, "dtype": dname, "max_abs_err": max(e[0] for e in errs),
-                "rel_err": worst, "ms": ms, "plain_ms": plain_ms})
+            # Kernel 2: tri sweep, rows 0..7 per column (also at N=864, below).
+            cases["pair_sweep_tri"].append(tri_case(torch, label, dname, r, n, box, rc2))
 
             # Kernel 5: the ordered sweep, rows 0..5 per column, with and
             # without observables; the same pair work as kernel 2 (bound).
@@ -602,10 +627,16 @@ def phase_kernels(torch) -> dict:
                     "shape": label, "dtype": dname, "max_abs_err": max(e[0] for e in errs),
                     "rel_err": worst, "ms": ms, "plain_ms": plain_ms,
                     "plan": fused.dense_plan(r, True)})
+    for label, k, box, rc in TRI_SHAPES[len(SHAPES):]:
+        for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+            n, r, _ = perturbed_fcc(k, box, 1234 + k, torch, dtype, dev)
+            cases["pair_sweep_tri"].append(tri_case(torch, label, dname, r, n, box, rc * rc))
     for name, cs in cases.items():
         per = "per call" if name.startswith("pair_sweep") else f"per {chunk}-step chunk"
         for c in cs:
             extra = (f", observables {c['observables']}" if "observables" in c else "") + (
+                f", {c['card_ms']:.4f} ms on the card alone; {rows_plan_text(c['launch'])}"
+                if "launch" in c else "") + (
                 f", force API (N, 3) call {c['force_api_ms']:.4f} ms" if "force_api_ms" in c else
                 "") + (f", grid capped at {TILES_PER_BLOCK} work items a block bit-identical "
                        f"{c['capped_grid_bit_identical']}" if "capped_grid_bit_identical" in c
@@ -686,25 +717,11 @@ def phase_rect_kernels(torch) -> dict:
                 xyz = [blk(s)[0:3, :ni].T for s in range(d)]
                 if newton_hops and not order:
                     # The half ring's self block: the tri sweep over a rank's
-                    # rows (kernel 2's launches in the sharded runs).
-                    args = (blk(0), ni, box, rc2, True)
-                    got = pair_sweep.pair_sweep_tri(*args)
-                    want = pair_sweep.pair_sweep_tri_plain(*args)
-                    errs = [rel_err(got[row], want[row]) for row in range(6)]
-                    worst = max(e[1] for e in errs)
-                    require(worst <= tol, f"pair_sweep_tri {shape} self block {dname}: rel err "
-                                          f"{worst:.3e} > {tol}")
-                    cand = ni * (ni - 1) // 2
-                    cut = pairs_within(torch, xyz[0], box, rc2)
-                    cases["pair_sweep_tri"].append({
-                        **bound(dname, sweep_flops(cand, cut, True), 2 * rows_bytes),
-                        "shape": f"{shape} self block", "dtype": dname, "observables": True,
-                        "candidates": cand, "cut_pairs": cut,
-                        "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
-                        "ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args), 50),
-                        "card_ms": graph_ms(torch, lambda: pair_sweep.pair_sweep_tri(*args), 50),
-                        "plain_ms": cuda_time_ms(
-                            torch, lambda: pair_sweep.pair_sweep_tri_plain(*args), 5)})
+                    # rows (kernel 2's launches in the sharded runs; the fast
+                    # steps without observables).
+                    for want_obs in (True, False):
+                        cases["pair_sweep_tri"].append(tri_case(
+                            torch, f"{shape} self block", dname, blk(0), ni, box, rc2, want_obs))
                 for want_obs in (False, True):
                     for hop in rect_hops if not order else ():
                         si, sj = rect[hop]
@@ -723,6 +740,8 @@ def phase_rect_kernels(torch) -> dict:
                             **bound(dname, sweep_flops(cand, cut, want_obs), 3 * rows_bytes),
                             "shape": f"{shape} {hop}", "dtype": dname,
                             "observables": want_obs, "candidates": cand, "cut_pairs": cut,
+                            "launch": pair_sweep.rows_sweep_plan(args[0], ni, args[1], ni,
+                                                                 want_obs),
                             "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
                             "ms": cuda_time_ms(
                                 torch, lambda: pair_sweep.pair_sweep_rect(*args), 50),
@@ -796,10 +815,7 @@ def phase_rect_kernels(torch) -> dict:
                 f"({c['bound_by']}, {c['candidates']} candidates, {c['cut_pairs']} inside rc)"
                 + (f"; gated halves vs full hop {c['halves_vs_full_rel_err']:.3e}"
                    if "halves_vs_full_rel_err" in c else "")
-                + (f"; S={lp['slices']} threads a row, {lp['tile']} rows a block, "
-                   f"{lp['items']} live of {lp['blocks']} blocks, {lp['blocks_per_sm']} blocks "
-                   f"an SM ({lp['warps_per_sm']:.1f} warps of live blocks an SM, {lp['regs']} "
-                   f"registers, {lp['spill_bytes']} spill bytes)" if lp else ""))
+                + (f"; {rows_plan_text(lp)}" if lp else ""))
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return cases
 
@@ -2148,7 +2164,12 @@ def phase_flagship(torch) -> tuple[dict, float]:
 def phase_rows_ordered(torch, tmp: str) -> tuple[dict, float]:
     """The rows engine with ``triangular=False`` on the N=4000 cut (warmup
     by the default rows engine, untimed), then in float64 from one state
-    against ``triangular=True``: the sampled series within CROSS_TOL."""
+    against ``triangular=True`` over CROSS_STEPS steps, each one sampled (so
+    each runs the ordered sweep, kernel 5, or the tri sweep, kernel 2): the
+    sampled series within CROSS_TOL. The two kernels sum a row's pairs in
+    other orders, and over the whole 5,000-step cut the fluid's chaos grows
+    that last-bit difference to O(1) (1.8e-1 on an H100), as between any two
+    engines here; the other cross checks run CROSS_STEPS or fewer steps."""
     from ljmd_tpu_torch.config import load_config
     from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.models.simulation import initialize, run_production
@@ -2160,14 +2181,15 @@ def phase_rows_ordered(torch, tmp: str) -> tuple[dict, float]:
                              tuple(k for k in MAIN_KERNELS
                                    if k not in ("pair_sweep", "fused_dense_chunk")),
                              engine=pe._rows_engine(cfg, DEVICE, triangular=False))
-    cfg64 = cfg.replace(dtype="float64")
+    cfg64 = cfg.replace(dtype="float64", total_steps=CROSS_STEPS, warmup_steps=0,
+                        output_interval=1)
     s64 = state.to(dtype=torch.float64)
     series = [run_production(cfg64, s64, engine=pe._rows_engine(cfg64, DEVICE, triangular=tri),
                              device=DEVICE).series for tri in (False, True)]
     scale = series[1].abs().amax(dim=1, keepdim=True).clamp(min=1.0)
     cross = float(((series[0] - series[1]).abs() / scale).max())
-    log(f"rows triangular=False vs True (N={cfg.n}, float64, {cfg.total_steps} steps from one "
-        f"state): series rel diff {cross:.3e} (tol {CROSS_TOL:.0e})")
+    log(f"rows triangular=False vs True (N={cfg.n}, float64, {cfg64.total_steps} steps from one "
+        f"state, each sampled): series rel diff {cross:.3e} (tol {CROSS_TOL:.0e})")
     require(cross <= CROSS_TOL, "rows triangular=False and True disagree")
     return run, cross
 
@@ -2809,7 +2831,7 @@ def main() -> int:
                        and c["dtype"] == head["dtype"] and c["observables"] == head["observables"])
             entry.update(lattice_ms=lat["ms"], lattice_card_ms=lat["card_ms"],
                          lattice_bound_ms=lat["bound_ms"], launch=head["launch"])
-        if name == "pencil_sweep_full":
+        if name in ("pencil_sweep_full", "pair_sweep_tri", "pair_sweep_rect"):
             entry["launch"] = head["launch"]
         if name == "pencil_sweep_hs":
             entry["launches_counted_as"] = "launches outside the sharded pencil engine's run " \

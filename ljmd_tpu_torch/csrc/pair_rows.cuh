@@ -1,8 +1,6 @@
-// Device code shared by the dense row sweeps: the tri sweep (pair_sweep_tri.cu,
-// kernel 2), the ordered sweep (pair_sweep.cu, kernel 5) and the ring's rect
-// sweep of the multi-device path (pair_sweep_rect.cu, kernel 6). One
-// kernel template: a block owns 32 particles of a row matrix A and sums, for
-// each, its pairs with a range of the particles of a row matrix B.
+// The body of the ordered sweep (pair_sweep.cu, kernel 5): a block owns 32
+// particles of a row matrix A and sums, for each, its pairs with a range of
+// the particles of a row matrix B.
 //
 // Layout: (8, ld) row matrices, x/y/z in rows 0..2. A "problem" names A (its
 // first n_a columns are particles, those in [a_lo, a_hi) are active), B (n_b
@@ -10,22 +8,16 @@
 // (ga0, gb0). Output rows 0..2 hold the force on each active particle of A
 // without the 24 prefactor, summed over the active partners of B inside the
 // cutoff with gb != ga; rows 3..5 (observables) sum e / du / ddu over the same
-// pairs (OBS_ALL_J: the ordered and rect sweeps) or over those with gb > ga
-// (the tri sweep: each pair once, prefactors 4 / 24); rows 6..7 and every
-// column outside the active range are exactly 0. Padding is masked by index,
-// never by position, as the Pallas kernels' global-index masks do. The dense
-// sweeps pass A = B with the full ranges and offsets 0.
-//
-// One launch may hold two problems, block ranges one after the other (an i
-// role with observables and a j role without, whose rows 3..7 are 0). No
-// caller passes a second problem since the rect-Newton sweep (kernel 7) got a
-// kernel of its own; it stays until kernel 6 is redesigned, because taking it
-// out changes the registers nvcc allots to every instantiation.
+// pairs (OBS_ALL_J, the ordered sweep) or over those with gb > ga (each pair
+// once); rows 6..7 and every column outside the active range are exactly 0.
+// Padding is masked by index, never by position, as the Pallas kernels'
+// global-index masks do. The ordered sweep passes A = B with the full ranges
+// and offsets 0.
 //
 // What bounds it on the H100: arithmetic and instruction throughput, not
 // memory. The inputs are at most a few hundred KB and stay in L2; each call
 // evaluates O(n_a * n_b) pairs of ~30 instructions each (plus one IEEE
-// divide). At the main path's sizes (n = 500 and 4000, 1000 a rank) there are
+// divide). At the main path's sizes (n = 500 and 4000) there are
 // few particles per SM, so latency and occupancy matter as much as the count.
 //
 // What the design does about that: pair-twice without atomics. A block owns
@@ -66,13 +58,11 @@ struct RowsProblem {
 
 template <typename T, bool OBS, bool OBS_ALL_J>
 __global__ void __launch_bounds__(kTileI * kSlicesJ)
-pair_rows_kernel(RowsProblem<T> p0, RowsProblem<T> p1, T box, T inv_box, T rc2) {
+pair_rows_kernel(RowsProblem<T> p, T box, T inv_box, T rc2) {
   __shared__ T sx[kTileJ], sy[kTileJ], sz[kTileJ];
   __shared__ T red[kSlicesJ][6][kTileI];
 
-  const bool second = blockIdx.x >= p0.blocks;
-  const RowsProblem<T> p = second ? p1 : p0;
-  const int blk = second ? blockIdx.x - p0.blocks : blockIdx.x;
+  const int blk = blockIdx.x;
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int i = blk * kTileI + tx;
@@ -146,29 +136,20 @@ RowsProblem<T> rows_problem(const T* a, const T* b, T* out, int n_a, int lda, in
                         lda / kTileI};
 }
 
-// One launch over one problem (p1 == nullptr) or two, back to back.
-template <typename T, bool OBS_ALL_J>
-int launch_rows_problems(const RowsProblem<T>& p0, const RowsProblem<T>* p1, int want_obs,
-                         T box, T inv_box, T rc2, void* stream) {
-  const dim3 block(kTileI, kSlicesJ);
-  const RowsProblem<T> second = p1 ? *p1 : p0;
-  const dim3 grid(p0.blocks + (p1 ? p1->blocks : 0));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (want_obs) {
-    pair_rows_kernel<T, true, OBS_ALL_J><<<grid, block, 0, s>>>(p0, second, box, inv_box, rc2);
-  } else {
-    pair_rows_kernel<T, false, OBS_ALL_J><<<grid, block, 0, s>>>(p0, second, box, inv_box, rc2);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The dense sweeps: A = B = pos, every particle active, offsets 0.
+// The dense sweep: A = B = pos, every particle active, offsets 0.
 template <typename T, bool OBS_ALL_J>
 int launch_pair_rows(const T* pos, T* out, int n, int n_pad, T box, T inv_box, T rc2,
                      int want_obs, void* stream) {
   const RowsProblem<T> p = rows_problem<T>(pos, pos, out, n, n_pad, 0, n, n, n_pad, 0, n, 0, 0,
                                            1);
-  return launch_rows_problems<T, OBS_ALL_J>(p, nullptr, want_obs, box, inv_box, rc2, stream);
+  const dim3 block(kTileI, kSlicesJ);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (want_obs) {
+    pair_rows_kernel<T, true, OBS_ALL_J><<<p.blocks, block, 0, s>>>(p, box, inv_box, rc2);
+  } else {
+    pair_rows_kernel<T, false, OBS_ALL_J><<<p.blocks, block, 0, s>>>(p, box, inv_box, rc2);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ljmd

@@ -15,11 +15,11 @@
 // IEEE divide a pair, O(n^2) pairs), and at n = 4000 the few particles per
 // SM; the (8, n_pad) input stays in L2.
 //
-// What the design does about that: the tri sweep's body (kernel 2), shared in
-// pair_rows.cuh with its OBS_ALL_J flag set: the TPU kernel already evaluates
-// every pair from both sides, so on Hopper the two sweeps differ only in which
-// pairs rows 3..5 sum. 32 i x 4 j slices a block over a shared-memory j tile,
-// a fixed-order reduction: deterministic, no atomics.
+// What the design does about that: the row body of pair_rows.cuh with its
+// OBS_ALL_J flag set (the TPU kernel already evaluates every pair from both
+// sides): 32 i x 4 j slices a block over a shared-memory j tile, a
+// fixed-order reduction: deterministic, no atomics. It is not redesigned yet
+// (rows_sweep.cuh's rect kernel computes the same function with A = B).
 #include <cuda_runtime.h>
 
 #include "pair_rows.cuh"

@@ -8,19 +8,22 @@
 // counted once, so the caller restores the 4 / 24 prefactors), and rows 6..7
 // and every column >= n are exactly 0.
 //
-// What bounds it on the H100: the pair arithmetic (~30 instructions and one
-// IEEE divide a pair, O(n^2) pairs), and at n = 500 and 4000 the few
-// particles per SM; the (8, n_pad) input stays in L2.
+// What bounds it on the H100: the pair arithmetic (a displacement and r^2 a
+// candidate, ~30 instructions and one IEEE divide a pair inside the cutoff,
+// n^2 candidates), and at the main path's sizes (250 to 4000 rows) the few
+// rows an SM; the (8, n_pad) input stays in L2.
 //
-// What the design does about that: pair-twice without atomics, 32 particles
-// i x 4 j slices a block over a shared-memory j tile, a fixed-order
-// reduction: deterministic, and the per-pair values are the TPU kernel's bit
-// for bit, summed in another order. The body is shared with the ordered sweep
-// (kernel 5, pair_sweep.cu) in pair_rows.cuh, which explains it; here its
-// e/du/ddu rows sum j > i.
+// What the design does about that: the row-sweep body of rows_sweep.cuh
+// (which explains it) with its UPPER flag set, so rows 3..5 sum gj > gi:
+// 256-thread blocks of 256 / S rows, S threads a row from the occupancy API
+// (N=4000: S = 16, 250 blocks; a 1000-row self block S = 64; 250 rows
+// S = 128), partners staged by cp.async, a warp-vote cull and fixed-order
+// sums: pair-twice, no atomics, deterministic, the TPU kernel's per-pair
+// values bit for bit. The element-wise check of kernel 1 (lj_pair_terms.cuh)
+// lives here too.
 #include <cuda_runtime.h>
 
-#include "pair_rows.cuh"
+#include "rows_sweep.cuh"
 
 namespace ljmd {
 
@@ -59,6 +62,11 @@ int launch_pair_terms_eval(const T* r2, const unsigned char* mask, T* coef,
   return static_cast<int>(cudaGetLastError());
 }
 
+int tri_rows_plan(int dtype_bytes, int want_obs, int n, int n_pad, int* out) {
+  return dtype_bytes == 4 ? rows_plan_any<float, true>(want_obs, n, n_pad, n, out)
+                          : rows_plan_any<double, true>(want_obs, n, n_pad, n, out);
+}
+
 }  // namespace ljmd
 
 extern "C" {
@@ -66,13 +74,15 @@ extern "C" {
 int ljmd_pair_sweep_tri_f32(const float* pos, float* out, int n, int n_pad,
                             float box, float inv_box, float rc2, int want_obs,
                             void* stream) {
-  return ljmd::launch_pair_rows<float, false>(pos, out, n, n_pad, box, inv_box, rc2, want_obs, stream);
+  return ljmd::launch_rows_sweep<float, true>(pos, pos, out, n, n_pad, n, n_pad, 0, 0, box,
+                                              inv_box, rc2, want_obs, stream);
 }
 
 int ljmd_pair_sweep_tri_f64(const double* pos, double* out, int n, int n_pad,
                             double box, double inv_box, double rc2, int want_obs,
                             void* stream) {
-  return ljmd::launch_pair_rows<double, false>(pos, out, n, n_pad, box, inv_box, rc2, want_obs, stream);
+  return ljmd::launch_rows_sweep<double, true>(pos, pos, out, n, n_pad, n, n_pad, 0, 0, box,
+                                               inv_box, rc2, want_obs, stream);
 }
 
 int ljmd_pair_terms_f32(const float* r2, const unsigned char* mask, float* coef,

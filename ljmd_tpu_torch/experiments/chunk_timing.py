@@ -41,11 +41,17 @@ rank's rows a slab, as in production) and shuffled: kernel 7
 (``pair_sweep_rect_newton``) at the half ring's N=4000 d=4 full hop (1000 x
 1000) and both sides of its gated half hop, and both sides of the N=500 d=2
 half hop (250 rows); kernel 6 (``pair_sweep_rect``) at the ring's N=4000
-hops over 4 and 2 ranks (1000 x 1000, 2000 x 2000). A hop's kernel takes
-less time than the host's call, so these are timed on the card alone, as
-replays of a CUDA graph of 50 calls (``_graph_ms``), and as back-to-back
-calls ("calls"). Kernels 2 and 5 (``pair_sweep_tri``, ``pair_sweep``) at
-N=4000 beside them.
+hops and self offsets over 4 and 2 ranks (1000 x 1000, 2000 x 2000). The
+dense sweeps (``sweep_inputs``): kernel 2 (``pair_sweep_tri``) at the half
+ring's self blocks (1000 rows of N=4000 over 4 ranks, 250 of N=500 over 2;
+lattice order and shuffled, float32 and float64) and over the whole of
+N=4000, N=864 (``examples/n864_liquid.json``'s box) and N=500, float32 and
+float64; kernel 5 (``pair_sweep``) at N=4000 and N=500, float32 and
+float64. A hop's kernel takes less time than the host's call, so all these
+are timed on the card alone, as replays of a CUDA graph of 50 calls
+(``_graph_ms``), and as back-to-back calls ("calls"), observables on and
+off (the older checkouts' "pair_sweep_tri N=4000 float32", back to back with
+observables, is now that case's "calls").
 
 Kernel 10 (``fused_dense_chunk_list``, 16 steps: the zsort engine's inner
 chunk) runs on the z-sorted fluid of the N=4000 and N=864 configs
@@ -65,12 +71,12 @@ it takes (float32 and float64, N=4000 and N=864).
 
 ``--dump FILE`` saves the outputs of kernel 10 (every case above, 16 steps),
 of the half-shell and the full 9-neighbour sweeps (both capacities and
-precisions, observables on and off) and of kernel 7 (every case above)
-with ``torch.save``, the sweeps' slot rows read from (or, the first time,
+precisions, observables on and off) and of kernels 2, 5, 6 and 7 (every
+case above, observables on and off) with ``torch.save``, the sweeps' slot rows read from (or, the first time,
 written to) ``--inputs FILE``, so that both checkouts sweep the same slots;
-``--compare A B`` prints, per case, whether the sweep outputs are equal bit
-for bit (``torch.equal``; with the elements and rows that differ, and those
-on valid slots) and, for kernels 10 and 7, max |A - B| / max(1, max |B|).
+``--compare A B`` prints, per case, whether the outputs are equal bit for
+bit (``torch.equal``; for the pencil sweeps with the elements and rows that
+differ, and those on valid slots) and max |A - B| / max(1, max |B|).
 """
 
 from __future__ import annotations
@@ -186,8 +192,8 @@ def rect_inputs(torch, dev):
     (kernel 7) at the half ring's hops: N=4000 over 4 ranks the full hop
     (1000 x 1000) and both sides of the gated half hop, N=500 over 2 both
     sides of its half hop (250 rows); the rect sweep (kernel 6) at the
-    ring's N=4000 hops over 4 and 2 ranks (1000 x 1000, 2000 x 2000). Args
-    exclude the observables flag."""
+    ring's N=4000 hops and self offsets over 4 and 2 ranks (1000 x 1000,
+    2000 x 2000). Args exclude the observables flag."""
     import numpy as np
 
     cases = []
@@ -216,6 +222,8 @@ def rect_inputs(torch, dev):
                         ni = n // d
                         cases.append(("pair_sweep_rect", f"{label} d={d} hop {tag}",
                                       (blk(1, ni), blk(0, ni), ni, ni, ni, 0, box, rc * rc)))
+                        cases.append(("pair_sweep_rect", f"{label} d={d} self {tag}",
+                                      (blk(1, ni), blk(1, ni), ni, ni, ni, ni, box, rc * rc)))
                 else:
                     ni, h = n // 2, n // 4
                     for name, si, sj, i_lo, j_hi in (("d=2 half_low", 0, 1, h, ni),
@@ -226,24 +234,47 @@ def rect_inputs(torch, dev):
     return cases
 
 
+def sweep_inputs(torch, dev):
+    """(kernel, label, args) of the dense sweeps' cases (module docstring),
+    args without the observables flag: kernel 2 at the half ring's self
+    blocks (a rank's rows, as ``rect_inputs`` cuts them) and over whole
+    boxes, kernel 5 over whole boxes."""
+    import numpy as np
+
+    cases = []
+    for label, k, box, rc in (("N=4000", 10, 16.795961913825, 2.5), ("N=500", 5, 10.0, 4.9),
+                              ("N=864", 6, 10.077577148295, 0.248075501007 * 10.077577148295)):
+        for dname in ("float32", "float64"):
+            n, lattice, _ = _fcc_rows(torch, k, box, 1234 + k, getattr(torch, dname), dev)
+            cases.append(("pair_sweep_tri", f"{label} {dname}", (lattice, n, box, rc * rc)))
+            if label != "N=864":
+                cases.append(("pair_sweep", f"{label} {dname}", (lattice, n, box, rc * rc)))
+                shuffled = lattice.clone()
+                shuffled[:, :n] = shuffled[:, torch.as_tensor(
+                    np.random.default_rng(k).permutation(n), device=dev)]
+                ni = n // (4 if label == "N=4000" else 2)
+                for order, src in (("lattice", lattice), ("shuffled", shuffled)):
+                    blk = torch.zeros((8, -(-ni // 128) * 128), dtype=src.dtype, device=dev)
+                    blk[:, :ni] = src[:, ni:2 * ni]
+                    cases.append(("pair_sweep_tri", f"{label} self block {ni} {order} {dname}",
+                                  (blk, ni, box, rc * rc)))
+    return cases
+
+
 def rect_cases(torch, dev) -> dict:
-    """ms of kernels 7 and 6 (``rect_inputs``), observables on and off, on
-    the card alone (``_graph_ms``: a hop's kernel takes less time than the
-    host's call) and as back-to-back calls (``_ms``, "calls"); the dense
-    sweeps (kernels 2 and 5) at N=4000 beside them."""
+    """ms of kernels 7 and 6 (``rect_inputs``) and 2 and 5
+    (``sweep_inputs``), observables on and off, on the card alone
+    (``_graph_ms``: a hop's kernel takes less time than the host's call) and
+    as back-to-back calls (``_ms``, "calls")."""
     from ljmd_tpu_torch.ops import pair_sweep
 
     out = {}
-    for kernel, label, args in rect_inputs(torch, dev):
+    for kernel, label, args in rect_inputs(torch, dev) + sweep_inputs(torch, dev):
         fn = getattr(pair_sweep, kernel)
         for want_obs in (True, False):
             key = f"{kernel} {label}{'' if want_obs else ' no obs'}"
             out[key] = _graph_ms(torch, lambda: fn(*args, want_observables=want_obs), 50)
             out[f"{key} calls"] = _ms(torch, lambda: fn(*args, want_observables=want_obs), 50)
-    n, r, _ = _fcc_rows(torch, 10, 16.795961913825, 1244, torch.float32, dev)
-    for kernel in ("pair_sweep_tri", "pair_sweep"):
-        out[f"{kernel} N=4000 float32"] = _ms(
-            torch, lambda: getattr(pair_sweep, kernel)(r, n, 16.795961913825, 6.25), 50)
     return out
 
 
@@ -535,11 +566,11 @@ def dump_outputs(torch, dev, root: Path, path: str, inputs_path: str = "") -> in
         for mode in LIST_MODES:
             res = fused_list.fused_dense_chunk_list(*args, tile_j=tj, **kw[mode])
             out[f"list {label} {dname} {mode}"] = [t.cpu() for t in res]
-    for kernel, label, args in rect_inputs(torch, dev):
-        if kernel == "pair_sweep_rect_newton":
-            for obs in (True, False):
-                res = pair_sweep.pair_sweep_rect_newton(*args, want_observables=obs)
-                out[f"rect_newton {label} obs={obs}"] = [t.cpu() for t in res]
+    for kernel, label, args in rect_inputs(torch, dev) + sweep_inputs(torch, dev):
+        for obs in (True, False):
+            res = getattr(pair_sweep, kernel)(*args, want_observables=obs)
+            res = res if isinstance(res, tuple) else (res,)
+            out[f"{kernel} {label} obs={obs}"] = [t.cpu() for t in res]
     torch.save(out, path)
     print(f"chunk_timing: saved {len(out)} cases to {path}")
     return 0
@@ -568,7 +599,9 @@ def compare_dumps(path_a: str, path_b: str) -> int:
                 x64, y64 = x.double(), y.double()
                 worst = max(worst, float((x64 - y64).abs().max())
                             / max(1.0, float(y64.abs().max())))
-            report[key] = {"rel_err": worst}
+            report[key] = {"bit_identical": all(bool(torch.equal(x, y))
+                                                for x, y in zip(a[key], b[key])),
+                           "rel_err": worst}
     print(json.dumps({"compare": [path_a, path_b], "cases": report}))
     return 0
 

@@ -41,8 +41,8 @@ SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_w
            "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
            "fused_pencil_width_chunk.cu", "pencil_sweep_full.cu", "pencil_sweep_zband.cu",
            "pair_sweep_rect.cu", "mosaic_probes.cu", "layout_bodies.cu")
-HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "pencil_pairs.cuh", "async_copy.cuh",
-           "pencil_cull.cuh")
+HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "rows_sweep.cuh", "pencil_pairs.cuh",
+           "async_copy.cuh", "pencil_cull.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -217,6 +217,8 @@ def library() -> ctypes.CDLL:
     lib.ljmd_pencil_chunk_max_sub.restype = _I
     lib.ljmd_rect_newton_plan.argtypes = [_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.ljmd_rect_newton_plan.restype = _I
+    lib.ljmd_rows_sweep_plan.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_rows_sweep_plan.restype = _I
     lib.ljmd_full_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_full_occupancy.restype = _I
     lib.ljmd_full_block_threads.restype = _I

@@ -28,6 +28,13 @@ against a visiting j block (8, nj_pad) with global offsets ``gi0`` / ``gj0``
   live, ``rect_newton_plan`` the S threads a row that the occupancy API
   gives.
 
+The tri and rect sweeps run one role of the same row-sweep body
+(``csrc/rows_sweep.cuh``): ``rows_sweep_slices`` is its rule for S (threads
+a row), ``rows_sweep_blocks`` its live blocks, ``rows_sweep_plan`` the
+launch shape the kernel takes on the card. That kernel and kernel 7 stage
+partner rows by cp.async, so their wrappers refuse rows that do not start
+on a 16-byte boundary.
+
 ``pair_sweep_tri``, ``pair_sweep``, ``pair_sweep_rect`` and
 ``pair_sweep_rect_newton`` launch ``csrc/pair_sweep_tri.cu``,
 ``csrc/pair_sweep.cu`` and ``csrc/pair_sweep_rect.cu`` on CUDA tensors; on
@@ -66,11 +73,19 @@ __all__ = [
     "pair_sweep_tri_plain",
     "rect_newton_blocks",
     "rect_newton_plan",
+    "rows_sweep_blocks",
+    "rows_sweep_plan",
+    "rows_sweep_slices",
 ]
 
 # Columns of the row layout are padded to a multiple of this (the kernels
-# take blocks of 32 particles; 128 also matches the JAX package's minimum).
+# take blocks of up to 64 rows; 128 also matches the JAX package's minimum).
 ROW_PAD = 128
+# The row-sweep kernel's block (csrc/rows_sweep.cuh): threads, the range of S
+# (threads a row, powers of two) and the live blocks an SM its S rule allows.
+ROWS_THREADS = 256
+ROWS_MIN_SLICES, ROWS_MAX_SLICES = 4, 128
+ROWS_BLOCKS_PER_SM = 3
 
 
 def _pair_geometry(pos: torch.Tensor, n: int, box_length: float,
@@ -151,6 +166,13 @@ def pair_sweep_plain(pos: torch.Tensor, n: int, box_length: float,
     return _sweep_plain(pos, n, box_length, rc_square, want_observables, "all")
 
 
+def _require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The row-sweep kernels stage rows by cp.async: 16-byte row starts."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: rows must start on a 16-byte boundary (cp.async)")
+
+
 def _launch(name: str, pos: torch.Tensor, n: int, box_length: float, rc_square: float,
             want_observables: bool) -> torch.Tensor:
     if pos.device.type != "cuda":
@@ -178,6 +200,7 @@ def pair_sweep_tri(pos: torch.Tensor, n: int, box_length: float,
     tensor, the plain twin for a CPU tensor."""
     if pos.device.type == "cpu":
         return pair_sweep_tri_plain(pos, n, box_length, rc_square, want_observables)
+    _require_aligned("pair_sweep_tri", pos)
     return _launch("pair_sweep_tri", pos, n, box_length, rc_square, want_observables)
 
 
@@ -218,7 +241,7 @@ def rect_newton_blocks(n_i: int, n_j: int, i_lo: int, j_hi: int | None, tile: in
     partner range ([0, j_hi), [i_lo, n_i)) is not empty. The others only
     write zeros. Returns (i-role block indices, j-role block indices), int64.
 
-    The kernel's rule (``rn_live_blocks``) runs only on the card; this copy
+    The kernel's rule (``rows_live_blocks``) runs only on the card; this copy
     lets the CPU tests hold it against a brute-force count, and the card
     tests hold the kernel's count (``rect_newton_plan``'s ``items``) equal
     to it."""
@@ -269,6 +292,7 @@ def pair_sweep_rect(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int, box_le
     if pos_i.device.type != "cuda":
         raise ValueError(f"pair_sweep_rect: unsupported device {pos_i.device}")
     _check_rect("pair_sweep_rect", pos_i, pos_j, n_i, n_j)
+    _require_aligned("pair_sweep_rect", pos_i, pos_j)
     out = torch.empty_like(pos_i)
     lib = _cuda.library()
     with torch.cuda.device(pos_i.device):
@@ -295,10 +319,7 @@ def pair_sweep_rect_newton(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
         raise ValueError(f"pair_sweep_rect_newton: unsupported device {pos_i.device}")
     _check_rect("pair_sweep_rect_newton", pos_i, pos_j, n_i, n_j)
     i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
-    for t in (pos_i, pos_j):
-        if t.data_ptr() % 16:
-            raise ValueError("pair_sweep_rect_newton: rows must start on a 16-byte boundary "
-                             "(cp.async)")
+    _require_aligned("pair_sweep_rect_newton", pos_i, pos_j)
     out_i = torch.empty_like(pos_i)
     out_j = torch.empty_like(pos_j)
     lib = _cuda.library()
@@ -328,10 +349,70 @@ def rect_newton_plan(pos_i, pos_j, n_i: int, n_j: int, i_lo: int = 0, j_hi: int 
         _cuda.check(lib.ljmd_rect_newton_plan(pos_i.element_size(), int(want_observables),
                                               pos_i.shape[1], pos_j.shape[1], n_i, i_lo, j_hi,
                                               out), "rect_newton_plan")
+    return _plan_dict(out)
+
+
+def _plan_dict(out) -> dict:
     plan = dict(zip(("slices", "tile", "items", "blocks", "blocks_per_sm", "sms", "regs",
                      "spill_bytes"), out))
     plan["warps_per_sm"] = plan["items"] * plan["tile"] * plan["slices"] / 32 / plan["sms"]
     return plan
+
+
+def rows_sweep_blocks(n_rows: int, n_cols: int, tile: int) -> int:
+    """Live blocks of the row-sweep kernel (``csrc/rows_sweep.cuh``,
+    ``rows_live_blocks``) for the tri sweep (n_rows = n_cols = n) or the
+    rect sweep (n_i rows against n_j partners): blocks of ``tile`` rows that
+    meet the rows [0, n_rows) while there is a partner. The others only
+    write zeros."""
+    return -(-n_rows // tile) if n_rows > 0 and n_cols > 0 else 0
+
+
+def rows_sweep_slices(n_rows: int, n_cols: int, blocks_per_sm: int, sms: int) -> int:
+    """S, the threads a row of the tri and rect sweeps' kernel, by its rule
+    (``rows_slices`` in ``csrc/rows_sweep.cuh``): the largest power of two
+    in [4, 128] whose live blocks (``rows_sweep_blocks`` at tile = 256 / S)
+    all run in one wave of at most 3 blocks an SM (``blocks_per_sm``, the
+    occupancy API's resident blocks, capped at 3, times ``sms``), each
+    thread keeping at least one partner (n_cols >= S); where none does
+    (rows far larger than the card), the smallest.
+
+    The kernel's rule runs only on the card; this copy lets the CPU tests
+    hold it to its table, and the card tests hold ``rows_sweep_plan`` equal
+    to it."""
+    wave = min(blocks_per_sm, ROWS_BLOCKS_PER_SM) * sms
+    slices, s = ROWS_MIN_SLICES, ROWS_MIN_SLICES
+    while s <= ROWS_MAX_SLICES:
+        if rows_sweep_blocks(n_rows, n_cols, ROWS_THREADS // s) <= wave and n_cols >= s:
+            slices = s
+        s *= 2
+    return slices
+
+
+def rows_sweep_plan(pos_i, n_i: int, pos_j=None, n_j: int | None = None,
+                    want_observables: bool = True) -> dict:
+    """The launch shape (on the card) of the tri sweep over ``pos_i``'s
+    first n_i rows (``pos_j`` None) or of the rect sweep of those rows
+    against ``pos_j``'s first n_j: threads a row (``slices``, S;
+    ``rows_sweep_slices``), rows a block (``tile``), live blocks (``items``;
+    ``rows_sweep_blocks``), the grid (``blocks``), resident blocks an SM,
+    SMs, registers and spill bytes a thread, and the warps the live blocks
+    put on each SM."""
+    upper = pos_j is None
+    if upper:
+        _cuda.require_cuda_rows("rows_sweep_plan", pos_i)
+        n_j = n_i
+        if not 0 <= n_i <= pos_i.shape[1]:
+            raise ValueError(f"rows_sweep_plan: n={n_i} outside [0, n_pad={pos_i.shape[1]}]")
+    else:
+        _check_rect("rows_sweep_plan", pos_i, pos_j, n_i, n_j)
+    lib = _cuda.library()
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(pos_i.device):
+        _cuda.check(lib.ljmd_rows_sweep_plan(pos_i.element_size(), int(want_observables),
+                                             int(upper), n_i, pos_i.shape[1], n_j, out),
+                    "rows_sweep_plan")
+    return _plan_dict(out)
 
 
 def lj_force_energy_pallas(r: torch.Tensor, box_length: float, rc_square: float,

@@ -1096,3 +1096,81 @@ def test_rect_newton_plan_rule(cuda):
         got = pair_sweep.pair_sweep_rect_newton(a, b, 200, 200, 0, 200, 7.0, 6.25, i_lo, j_hi)
         assert not any(bool(g.any()) for g in got)
         assert pair_sweep.rect_newton_plan(a, b, 200, 200, i_lo, j_hi)["items"] == 0
+
+
+def _row_sweeps(kind, n, pos_i, pos_j, box, want_obs):
+    """(kernel output, twin output) of the tri sweep over pos_i's n rows or
+    of the rect sweep of them against pos_j (global offsets 0 and n)."""
+    if kind == "tri":
+        args = (pos_i, n, box, 6.25, want_obs)
+        return pair_sweep.pair_sweep_tri(*args), pair_sweep.pair_sweep_tri_plain(*args)
+    args = (pos_i, pos_j, n, n, 0, n, box, 6.25, want_obs)
+    return pair_sweep.pair_sweep_rect(*args), pair_sweep.pair_sweep_rect_plain(*args)
+
+
+@pytest.mark.parametrize("kind", ["tri", "rect"])
+@pytest.mark.parametrize("slices", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_row_sweep_kernels_at_every_block_shape(cuda, kind, slices, dtype, tol):
+    """Kernels 2 and 6 at every S that ``rows_sweep_plan`` can choose, each
+    at a row count where the rule chooses it (3 S / 2 rows: one wave, with a
+    partner a thread, at S but not at 2 S), against the twin on every row,
+    observables on and off; rows 6..7 and the padding exactly 0."""
+    n = 3 * slices // 2
+    box = (n / 0.58) ** (1.0 / 3.0)  # the density of 200 rows in a box of 7
+    pos_i, pos_j = _newton_blocks(n, -(-n // 128) * 128, box, 31, dtype, cuda)
+    for want_obs in (True, False):
+        plan = pair_sweep.rows_sweep_plan(pos_i, n, None if kind == "tri" else pos_j,
+                                          None if kind == "tri" else n, want_obs)
+        assert (plan["slices"], plan["tile"]) == (slices, 256 // slices)
+        name = "pair_sweep_tri" if kind == "tri" else "pair_sweep_rect"
+        LAUNCHES.reset()
+        got, want = _row_sweeps(kind, n, pos_i, pos_j, box, want_obs)
+        assert LAUNCHES.snapshot()[name] == 1
+        for row in range(8):
+            _close(got[row], want[row], tol)
+        assert bool((got[:, n:] == 0).all()) and bool((got[6:] == 0).all())
+        if not want_obs:
+            assert bool((got[3:] == 0).all())
+
+
+def test_row_sweep_plan_rule(cuda):
+    """The kernel's plan equals the Python rule (``rows_sweep_slices``,
+    ``rows_sweep_blocks``) at the main path's shapes (N=4000, 864 and 500,
+    the 1000- and 250-row self blocks, the ring's 1000 x 1000 and 2000 x
+    2000 hops) in both precisions, observables on and off, and at the empty
+    edge, whose launch writes only zeros."""
+    for n in (4000, 864, 500, 1000, 250, 2000):
+        pad = -(-n // 128) * 128
+        for dtype in (torch.float32, torch.float64):
+            a, b = _newton_blocks(n, pad, 16.8, 5, dtype, cuda)
+            for want_obs in (True, False):
+                for pos_j in (None, b):
+                    plan = pair_sweep.rows_sweep_plan(a, n, pos_j, None if pos_j is None else n,
+                                                      want_obs)
+                    s = pair_sweep.rows_sweep_slices(n, n, plan["blocks_per_sm"], plan["sms"])
+                    assert plan["slices"] == s and plan["tile"] == 256 // s
+                    assert plan["items"] == pair_sweep.rows_sweep_blocks(n, n, plan["tile"])
+                    assert plan["blocks"] == pad // plan["tile"]
+    a, b = _newton_blocks(200, 256, 7.0, 5, torch.float64, cuda)
+    got = pair_sweep.pair_sweep_rect(a, b, 200, 0, 0, 200, 7.0, 6.25)
+    assert not bool(got.any())
+    assert pair_sweep.rows_sweep_plan(a, 200, b, 0)["items"] == 0
+    assert not bool(pair_sweep.pair_sweep_tri(a, 0, 7.0, 6.25).any())
+
+
+def test_row_sweeps_refuse_misaligned_rows(cuda):
+    """Kernels 2, 6 and 7 stage rows by cp.async: rows that do not start on
+    a 16-byte boundary are refused, not read."""
+    for dtype in (torch.float32, torch.float64):
+        buf = torch.zeros(8 * 256 + 1, dtype=dtype, device=cuda)
+        bad = buf[1:].view(8, 256)
+        good = torch.zeros((8, 256), dtype=dtype, device=cuda)
+        assert bad.is_contiguous() and bad.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            pair_sweep.pair_sweep_tri(bad, 200, 7.0, 6.25)
+        for pos_i, pos_j in ((bad, good), (good, bad)):
+            with pytest.raises(ValueError, match="16-byte"):
+                pair_sweep.pair_sweep_rect(pos_i, pos_j, 200, 200, 0, 200, 7.0, 6.25)
+            with pytest.raises(ValueError, match="16-byte"):
+                pair_sweep.pair_sweep_rect_newton(pos_i, pos_j, 200, 200, 0, 200, 7.0, 6.25)
