@@ -22,7 +22,11 @@ checkout. Phases, each fatal on failure:
    b. the zsort path's kernels at the zsort engine's own geometry for
       ``examples/n4000_production.json`` (n_pad 4096) and
       ``examples/n864_liquid.json`` (n_pad 896): the visit-list pack on the
-      flags of a z-sorted fluid and on random flags (lists compared exactly),
+      flags of a z-sorted fluid and on random flags (lists compared exactly;
+      timed back to back and by CUDA-graph replay of the whole call, whose
+      device operations, the nodes of one call captured in a CUDA graph,
+      must be the kernel alone, and which the profiler must see as at most
+      one a call),
       the fused list chunk in its plain, ``obs_last`` and extended modes,
       float32 and float64;
    c. the cell-pair path's kernels at BASELINE config 5's geometry
@@ -40,7 +44,11 @@ checkout. Phases, each fatal on failure:
       the z-banded sweep (window 384), against its twin and against the full
       sweep;
    d. (in a.) the ordered N x N sweep at N=500 (n < n_pad) and N=4000, with
-      and without observables, and the (N, 3) force API around it; the
+      and without observables, with its launch shape, back to back and on
+      the card alone, and the (N, 3) force API around it; its rows 0..2
+      against the tri sweep's on the same positions (N=4000, 500, 864, both
+      precisions, observables on and off), logged bit-identical or not with
+      both kernels' S; the
       dense chunk (and in b. the list chunk) with its persistent grid capped
       at 4 tiles a block, bit-equal to the full grid;
    e. the flag-gated dense chunk (kernel 8) on the experiments' melted
@@ -71,8 +79,10 @@ checkout. Phases, each fatal on failure:
       the force API through the ordered sweep) for its 2,000 steps; then from
       one float64 state 100 steps against the rows engine, within 1e-9;
    e. the rows engine with ``triangular=False`` (the ordered sweep on sampled
-      steps) on the N=4000 cut; then from one float64 state 100 steps, each
-      sampled, against ``triangular=True``: the series within 1e-9;
+      steps) on the N=4000 cut; then from one float64 state against
+      ``triangular=True``: the series within 1e-9 over the whole 5,000-step
+      cut where 3d found the two kernels' forces bit-identical, else over
+      100 steps, each sampled;
    f. the neighbor engine (``--backend neighbor``, plain torch, no kernel) on
       the N=4000 cut: rate, drift, overflow flag, host reads;
    g. the cell-pair engine's full 9-neighbour and z-banded sweeps
@@ -223,6 +233,8 @@ ROWS62500_STEPS = 8
 # particles; width: 128 slots).
 TILES_PER_BLOCK = 4
 ZSORT_KERNELS = ("build_window_lists", "fused_dense_chunk_list")
+# The pack's calls under the profiler, for its reading of device operations.
+PROFILED_CALLS = 20
 # The flagship step's run (entry()'s own total_steps) and the float64 checks
 # of PR 4's paths against the engines they duplicate.
 FLAGSHIP_STEPS = 2_000
@@ -497,10 +509,18 @@ def tri_case(torch, label: str, dname: str, r, n: int, box: float, rc2: float,
 
 def device_ops(torch, fn) -> int:
     """Device operations (kernels, copies, fills) of one ``fn()``, counted
-    by torch.profiler."""
+    by torch.profiler (a reading: the profiler's trace can lose launches)."""
     from ljmd_tpu_torch.utils.profiling import device_breakdown
 
     return sum(v["count"] for v in device_breakdown(fn, top=1 << 30)["device_ms_by_name"].values())
+
+
+def graph_ops(fn) -> dict:
+    """Device operations of one ``fn()``, exactly: the nodes of the call
+    captured in a CUDA graph (``utils.profiling.graph_ops``)."""
+    from ljmd_tpu_torch.utils.profiling import graph_ops as count
+
+    return count(fn)
 
 
 def phase_kernels(torch) -> dict:
@@ -563,7 +583,10 @@ def phase_kernels(torch) -> dict:
                         "shape": label, "dtype": dname, "observables": want_obs,
                         "n_pad": r.shape[1], "max_abs_err": max(e[0] for e in errs),
                         "rel_err": worst,
+                        "launch": pair_sweep.pair_sweep_plan(r, n, want_obs),
                         "ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep(
+                            r, n, box, rc2, want_obs), 50),
+                        "card_ms": graph_ms(torch, lambda: pair_sweep.pair_sweep(
                             r, n, box, rc2, want_obs), 50),
                         "plain_ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_plain(
                             r, n, box, rc2, want_obs), 5)}
@@ -653,6 +676,39 @@ def phase_kernels(torch) -> dict:
     cases["lj_pair_terms"] = pair_terms_report
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return cases
+
+
+def phase_ordered_vs_tri(torch) -> tuple[list, bool]:
+    """Kernel 5's rows 0..2 against kernel 2's on the same positions (the
+    perturbed FCC boxes of TRI_SHAPES: N=4000, 500 and 864), float32 and
+    float64, observables on and off, with both launch shapes: the two
+    kernels run one row-sweep kernel whose UPPER flag gates only rows 3..5,
+    so at the same S the forces are equal bit for bit. Returns the cases and
+    whether every case has equal plans and bit-identical forces."""
+    from ljmd_tpu_torch.ops import pair_sweep
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    cases = []
+    for label, k, box, rc in TRI_SHAPES:
+        for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+            n, r, _ = perturbed_fcc(k, box, 1234 + k, torch, dtype, dev)
+            for want_obs in (True, False):
+                args = (r, n, box, rc * rc, want_obs)
+                ordered, tri = pair_sweep.pair_sweep(*args), pair_sweep.pair_sweep_tri(*args)
+                s5 = pair_sweep.pair_sweep_plan(r, n, want_obs)["slices"]
+                s2 = pair_sweep.rows_sweep_plan(r, n, None, None, want_obs)["slices"]
+                cases.append({"shape": label, "dtype": dname, "observables": want_obs,
+                              "slices_5": s5, "slices_2": s2,
+                              "bit_identical": bool(torch.equal(ordered[0:3], tri[0:3])),
+                              "rel_err": rel_err(ordered[0:3], tri[0:3])[1]})
+    same = all(c["bit_identical"] and c["slices_5"] == c["slices_2"] for c in cases)
+    for c in cases:
+        log(f"kernel pair_sweep vs pair_sweep_tri rows 0..2 {c['shape']} {c['dtype']} obs="
+            f"{c['observables']}: S {c['slices_5']} / {c['slices_2']}, bit-identical "
+            f"{c['bit_identical']} (rel diff {c['rel_err']:.3e})")
+    LAUNCHES.reset()  # comparison launches do not count for the main path
+    return cases, same
 
 
 def block_pairs(torch, xi, xj, box_length: float, rc_square: float, gi0: int, gj0: int,
@@ -964,7 +1020,19 @@ def phase_list_kernels(torch) -> dict:
                 require(_same_lists(got, want),
                         f"build_window_lists {label} {dname} {fname} flags: lists differ from the twin")
             tiles, tcounts = window_lists.build_window_lists(flags, n, n_pad, 128, tj)
-            ms = cuda_time_ms(torch, lambda: window_lists.build_window_lists(flags, n, n_pad, 128, tj), 50)
+            pack = lambda: window_lists.build_window_lists(flags, n, n_pad, 128, tj)  # noqa: E731
+            ms = cuda_time_ms(torch, pack, 50)
+            card_ms = graph_ms(torch, pack, 50)
+            # Device operations a call: exactly, from the nodes of one call
+            # captured in a CUDA graph; and from the profiler over
+            # PROFILED_CALLS calls, which can lose launches but never adds any.
+            ops = graph_ops(pack)
+            require(ops["ops"] == 1, f"build_window_lists {label} {dname}: {ops['nodes']} in "
+                                     "one call's graph, the kernel alone expected")
+            seen = device_ops(torch, lambda: [pack() for _ in range(PROFILED_CALLS)])
+            require(seen <= PROFILED_CALLS, f"build_window_lists {label} {dname}: the profiler "
+                                            f"saw {seen} device operations in {PROFILED_CALLS} "
+                                            "calls, one a call expected")
             plain_ms = cuda_time_ms(torch, lambda: window_lists.build_window_lists_plain(
                 flags, n, n_pad, 128, tj), 3, warmup=1)
             # Integer work, one operation per flag, counted at the float32 rate.
@@ -972,7 +1040,9 @@ def phase_list_kernels(torch) -> dict:
             cases["build_window_lists"].append({
                 **bound("float32", flags.numel(), list_bytes),
                 "shape": label, "dtype": dname, "max_abs_err": 0.0, "rel_err": 0.0,
-                "lists_equal": True, "tcounts": tcounts.tolist(), "ms": ms, "plain_ms": plain_ms})
+                "lists_equal": True, "tcounts": tcounts.tolist(), "ms": ms, "card_ms": card_ms,
+                "device_ops": ops["ops"], "graph_nodes": ops["nodes"],
+                "profiler_ops": seen, "profiled_calls": PROFILED_CALLS, "plain_ms": plain_ms})
 
             # Kernel 10: the fused list chunk, plain / obs_last / extended.
             args = (tiles, tcounts, n, L, cfg.rc_square, cfg.dt, k)
@@ -1017,8 +1087,10 @@ def phase_list_kernels(torch) -> dict:
                 "plain_ms": plain_ms, **report})
     for c in cases["build_window_lists"]:
         log(f"kernel build_window_lists {c['shape']} {c['dtype']}: lists equal to the twin's "
-            f"(fluid and random flags), tcounts {c['tcounts']}, {c['ms']:.4f} ms vs plain "
-            f"{c['plain_ms']:.4f} ms per call")
+            f"(fluid and random flags), tcounts {c['tcounts']}, {c['ms']:.4f} ms back to back, "
+            f"{c['card_ms']:.4f} ms on the card alone, {c['device_ops']} device operation(s) a "
+            f"call (graph nodes {c['graph_nodes']}; the profiler saw {c['profiler_ops']} in "
+            f"{c['profiled_calls']} calls), vs plain {c['plain_ms']:.4f} ms per call")
     for c in cases["fused_dense_chunk_list"]:
         modes = ", ".join(f"{m['mode']} {m['rel_err']:.3e}" for m in c["modes"])
         lp, st, sh = c["launch"], c["model"]["stages"], c["model"]["body_share"]
@@ -2161,15 +2233,17 @@ def phase_flagship(torch) -> tuple[dict, float]:
              "drift": drift, "launches": counts}, cross)
 
 
-def phase_rows_ordered(torch, tmp: str) -> tuple[dict, float]:
+def phase_rows_ordered(torch, tmp: str, same_forces: bool) -> tuple[dict, float]:
     """The rows engine with ``triangular=False`` on the N=4000 cut (warmup
     by the default rows engine, untimed), then in float64 from one state
-    against ``triangular=True`` over CROSS_STEPS steps, each one sampled (so
-    each runs the ordered sweep, kernel 5, or the tri sweep, kernel 2): the
-    sampled series within CROSS_TOL. The two kernels sum a row's pairs in
-    other orders, and over the whole 5,000-step cut the fluid's chaos grows
-    that last-bit difference to O(1) (1.8e-1 on an H100), as between any two
-    engines here; the other cross checks run CROSS_STEPS or fewer steps."""
+    against ``triangular=True``: the sampled series within CROSS_TOL. Where
+    kernels 5 and 2 gave bit-identical forces with equal plans
+    (``phase_ordered_vs_tri``: ``same_forces``) the two follow one
+    trajectory, and the comparison runs the whole 5,000-step cut at its
+    interval; otherwise the kernels sum a row's pairs in other orders, the
+    fluid's chaos grows that last-bit difference to O(1) over the cut (1.8e-1
+    on an H100 with other orders), and it runs CROSS_STEPS steps, each one
+    sampled (so each runs kernel 5 or kernel 2)."""
     from ljmd_tpu_torch.config import load_config
     from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.models.simulation import initialize, run_production
@@ -2181,15 +2255,20 @@ def phase_rows_ordered(torch, tmp: str) -> tuple[dict, float]:
                              tuple(k for k in MAIN_KERNELS
                                    if k not in ("pair_sweep", "fused_dense_chunk")),
                              engine=pe._rows_engine(cfg, DEVICE, triangular=False))
-    cfg64 = cfg.replace(dtype="float64", total_steps=CROSS_STEPS, warmup_steps=0,
-                        output_interval=1)
+    if same_forces:
+        cfg64 = cfg.replace(dtype="float64")
+    else:
+        cfg64 = cfg.replace(dtype="float64", total_steps=CROSS_STEPS, warmup_steps=0,
+                            output_interval=1)
     s64 = state.to(dtype=torch.float64)
     series = [run_production(cfg64, s64, engine=pe._rows_engine(cfg64, DEVICE, triangular=tri),
                              device=DEVICE).series for tri in (False, True)]
     scale = series[1].abs().amax(dim=1, keepdim=True).clamp(min=1.0)
     cross = float(((series[0] - series[1]).abs() / scale).max())
     log(f"rows triangular=False vs True (N={cfg.n}, float64, {cfg64.total_steps} steps from one "
-        f"state, each sampled): series rel diff {cross:.3e} (tol {CROSS_TOL:.0e})")
+        f"state, sampled every {cfg64.output_interval}; kernels 5 and 2 "
+        f"{'bit-identical' if same_forces else 'in other orders'}): series rel diff "
+        f"{cross:.3e} (tol {CROSS_TOL:.0e})")
     require(cross <= CROSS_TOL, "rows triangular=False and True disagree")
     return run, cross
 
@@ -2697,6 +2776,7 @@ def main() -> int:
     env = phase_environment(torch)
     phase_build()
     cases = phase_kernels(torch)
+    ordered_vs_tri, same_forces = phase_ordered_vs_tri(torch)
     rect = phase_rect_kernels(torch)
     cases["pair_sweep_tri"] += rect.pop("pair_sweep_tri")
     cases.update(rect)
@@ -2708,7 +2788,8 @@ def main() -> int:
         runs, final_cfg, final_state = phase_main_path(torch, tmp)
         cp_runs, cfg5, states5 = phase_cellpair_path(torch, tmp)
         runs["flagship_entry_f32"], flagship_cross = phase_flagship(torch)
-        runs["n4000_f32_rows_ordered"], ordered_cross = phase_rows_ordered(torch, tmp)
+        runs["n4000_f32_rows_ordered"], ordered_cross = phase_rows_ordered(torch, tmp,
+                                                                           same_forces)
         n4000 = load_config(str(REPO / "examples" / "n4000_production.json")).replace(**N4000_CUT)
         runs["n4000_f32_neighbor"] = _cli_run("n4000_f32_neighbor", n4000, "neighbor", tmp, (),
                                               MAIN_KERNELS)
@@ -2802,9 +2883,9 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            # Kernels 6 and 7: ``ms`` is a call back to back (the host's call
-            # included, as every row and every earlier PR times it), and
-            # ``card_ms`` the card's time alone (CUDA-graph replay).
+            # Kernels 2, 5, 6, 7 and 9: ``ms`` is a call back to back (the
+            # host's call included, as every row and every earlier PR times
+            # it), and ``card_ms`` the card's time alone (CUDA-graph replay).
             **({"card_ms": head["card_ms"]} if "card_ms" in head else {}),
             # No single PyTorch call computes a cut-off LJ sweep, a fused
             # Verlet chunk or a greedy visit-list cover; the probes stand for
@@ -2831,8 +2912,10 @@ def main() -> int:
                        and c["dtype"] == head["dtype"] and c["observables"] == head["observables"])
             entry.update(lattice_ms=lat["ms"], lattice_card_ms=lat["card_ms"],
                          lattice_bound_ms=lat["bound_ms"], launch=head["launch"])
-        if name in ("pencil_sweep_full", "pair_sweep_tri", "pair_sweep_rect"):
+        if name in ("pencil_sweep_full", "pair_sweep_tri", "pair_sweep_rect", "pair_sweep"):
             entry["launch"] = head["launch"]
+        if name == "pair_sweep":
+            entry["forces_vs_tri"] = {"bit_identical": same_forces, "cases": ordered_vs_tri}
         if name == "pencil_sweep_hs":
             entry["launches_counted_as"] = "launches outside the sharded pencil engine's run " \
                                            "(those are pencil_sweep_mono's)"

@@ -1,10 +1,12 @@
-// The row-sweep kernel of the tri sweep (kernel 2, pair_sweep_tri.cu) and
-// the ring's rect sweep (kernel 6, pair_sweep_rect.cu), with its launch
+// The row-sweep kernel of the tri sweep (kernel 2, pair_sweep_tri.cu), the
+// ring's rect sweep (kernel 6, pair_sweep_rect.cu) and the ordered sweep
+// (kernel 5, pair_sweep.cu: the rect sweep with A = B), with its launch
 // rule; the rect-Newton hop (kernel 7, pair_sweep_rect.cu) writes the same
 // body out for its two roles and shares the rule's host code.
 //
-// Replaces: ljmd_tpu/ops/pallas_lj.py's `_lj_tri_kernel` (:160) and
-// `_lj_rect_kernel` (:301); each source's header gives its contract.
+// Replaces: ljmd_tpu/ops/pallas_lj.py's `_lj_tri_kernel` (:160),
+// `_lj_rect_kernel` (:301) and `_lj_tile_kernel` (:48); each source's header
+// gives its contract.
 //
 // What bounds it on the H100: the pair arithmetic (~30 instructions and one
 // IEEE divide a pair inside the cutoff, a displacement and r^2 for every

@@ -57,7 +57,10 @@ Kernel 10 (``fused_dense_chunk_list``, 16 steps: the zsort engine's inner
 chunk) runs on the z-sorted fluid of the N=4000 and N=864 configs
 (``examples/n4000_production.json``, ``n864_liquid.json``: a jittered FCC
 lattice in ascending-z column order with the engine's lists), in its plain,
-obs_last and extended modes, float32 and float64. The half-shell sweep
+obs_last and extended modes, float32 and float64. Kernel 9
+(``build_window_lists``) packs those lists from the fluid's flags, timed on
+the card alone (a CUDA graph of 50 whole calls) and back to back
+("calls"). The half-shell sweep
 (kernels 13 / 14) runs at both capacities with and without observables,
 float32 and float64, and on the strip of rank 0 of a 2-rank split of config
 5 at capacity 384 (``n_pencils_i``: 98 i pencils + a 14-pencil halo).
@@ -70,6 +73,7 @@ SM); where the checkout has ``fused_list.list_plan``, kernel 10 at every S
 it takes (float32 and float64, N=4000 and N=864).
 
 ``--dump FILE`` saves the outputs of kernel 10 (every case above, 16 steps),
+of kernel 9 (its lists with ``zero_fill``),
 of the half-shell and the full 9-neighbour sweeps (both capacities and
 precisions, observables on and off) and of kernels 2, 5, 6 and 7 (every
 case above, observables on and off) with ``torch.save``, the sweeps' slot rows read from (or, the first time,
@@ -444,8 +448,9 @@ LIST_MODES = ("plain", "obs_last", "extended")
 
 
 def list_inputs(torch, dev, root: Path):
-    """(label, dtype name, args, kwargs by mode, tile_j) of every kernel-10
-    case: the zsort engine's lists of the sorted fluid, 16 steps."""
+    """(label, dtype name, args, kwargs by mode, tile_j, pack args) of every
+    kernel-10 case: the zsort engine's lists of the sorted fluid, 16 steps;
+    pack args are kernel 9's (flags, n, n_pad, tile_i, tile_j) for them."""
     from ljmd_tpu_torch.config import load_config
     from ljmd_tpu_torch.models.engine import zsort_geometry
     from ljmd_tpu_torch.ops import window_lists
@@ -465,15 +470,20 @@ def list_inputs(torch, dev, root: Path):
             kw = {"plain": {}, "obs_last": {"obs_last": True},
                   "extended": {"r_lo": zero, "vc": zero}}
             cases.append((label, dname, (r, v, a, tiles, tcounts, n, L, cfg.rc_square, cfg.dt,
-                                         16), kw, tj))
+                                         16), kw, tj, (flags, n, n_pad, 128, tj)))
     return cases
 
 
 def list_cases(torch, dev, root: Path, sweep: bool = False) -> dict:
-    from ljmd_tpu_torch.ops import fused_list
+    from ljmd_tpu_torch.ops import fused_list, window_lists
 
     out = {}
-    for label, dname, args, kw, tj in list_inputs(torch, dev, root):
+    for label, dname, args, kw, tj, pack in list_inputs(torch, dev, root):
+        # Kernel 9 on the card alone (a graph of 50 whole calls) and back to
+        # back (the host's call).
+        key = f"build_window_lists {label} {dname}"
+        out[key] = _graph_ms(torch, lambda: window_lists.build_window_lists(*pack), 50)
+        out[f"{key} calls"] = _ms(torch, lambda: window_lists.build_window_lists(*pack), 50)
         for mode in LIST_MODES:
             out[f"fused_dense_chunk_list {label} {dname} {mode}"] = _ms(
                 torch, lambda: fused_list.fused_dense_chunk_list(*args, tile_j=tj, **kw[mode]), 10)
@@ -522,7 +532,7 @@ def dump_outputs(torch, dev, root: Path, path: str, inputs_path: str = "") -> in
     from ljmd_tpu_torch.config import load_config
     from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.models.lattice import fcc_lattice
-    from ljmd_tpu_torch.ops import cell_list, fused_list, pair_sweep, pencil_sweep
+    from ljmd_tpu_torch.ops import cell_list, fused_list, pair_sweep, pencil_sweep, window_lists
     from ljmd_tpu_torch.state import MDState
 
     out = {}
@@ -562,10 +572,12 @@ def dump_outputs(torch, dev, root: Path, path: str, inputs_path: str = "") -> in
     if inputs_path and made:
         torch.save(made, inputs_path)
     torch.save(out, path)
-    for label, dname, args, kw, tj in list_inputs(torch, dev, root):
+    for label, dname, args, kw, tj, pack in list_inputs(torch, dev, root):
         for mode in LIST_MODES:
             res = fused_list.fused_dense_chunk_list(*args, tile_j=tj, **kw[mode])
             out[f"list {label} {dname} {mode}"] = [t.cpu() for t in res]
+        res = window_lists.build_window_lists(*pack, zero_fill=True)
+        out[f"build_window_lists {label} {dname}"] = [t.cpu() for t in res]
     for kernel, label, args in rect_inputs(torch, dev) + sweep_inputs(torch, dev):
         for obs in (True, False):
             res = getattr(pair_sweep, kernel)(*args, want_observables=obs)

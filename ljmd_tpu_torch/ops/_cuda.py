@@ -41,7 +41,7 @@ SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_w
            "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
            "fused_pencil_width_chunk.cu", "pencil_sweep_full.cu", "pencil_sweep_zband.cu",
            "pair_sweep_rect.cu", "mosaic_probes.cu", "layout_bodies.cu")
-HEADERS = ("lj_pair_terms.cuh", "pair_rows.cuh", "rows_sweep.cuh", "pencil_pairs.cuh",
+HEADERS = ("lj_pair_terms.cuh", "rows_sweep.cuh", "pencil_pairs.cuh",
            "async_copy.cuh", "pencil_cull.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -230,7 +230,7 @@ def library() -> ctypes.CDLL:
     lib.ljmd_width_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_width_max_blocks.restype = _I
     lib.ljmd_width_block_threads.restype = _I
-    lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     lib.ljmd_pack_window_lists.restype = _I
     lib.ljmd_probe_transpose.argtypes = [_P, _P, _I, _I, _I, _I, _P]
     lib.ljmd_probe_window.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]

@@ -28,12 +28,13 @@ against a visiting j block (8, nj_pad) with global offsets ``gi0`` / ``gj0``
   live, ``rect_newton_plan`` the S threads a row that the occupancy API
   gives.
 
-The tri and rect sweeps run one role of the same row-sweep body
-(``csrc/rows_sweep.cuh``): ``rows_sweep_slices`` is its rule for S (threads
-a row), ``rows_sweep_blocks`` its live blocks, ``rows_sweep_plan`` the
-launch shape the kernel takes on the card. That kernel and kernel 7 stage
-partner rows by cp.async, so their wrappers refuse rows that do not start
-on a 16-byte boundary.
+The tri, ordered and rect sweeps run one role of the same row-sweep kernel
+(``csrc/rows_sweep.cuh``; the ordered sweep is the rect sweep with i = j):
+``rows_sweep_slices`` is its rule for S (threads a row),
+``rows_sweep_blocks`` its live blocks, ``rows_sweep_plan`` (and
+``pair_sweep_plan`` for the ordered sweep) the launch shape the kernel takes
+on the card. That kernel and kernel 7 stage partner rows by cp.async, so
+their wrappers refuse rows that do not start on a 16-byte boundary.
 
 ``pair_sweep_tri``, ``pair_sweep``, ``pair_sweep_rect`` and
 ``pair_sweep_rect_newton`` launch ``csrc/pair_sweep_tri.cu``,
@@ -65,6 +66,7 @@ __all__ = [
     "pair_forces_plain",
     "pair_sweep",
     "pair_sweep_plain",
+    "pair_sweep_plan",
     "pair_sweep_rect",
     "pair_sweep_rect_newton",
     "pair_sweep_rect_newton_plain",
@@ -211,6 +213,7 @@ def pair_sweep(pos: torch.Tensor, n: int, box_length: float,
     for a CPU tensor."""
     if pos.device.type == "cpu":
         return pair_sweep_plain(pos, n, box_length, rc_square, want_observables)
+    _require_aligned("pair_sweep", pos)
     return _launch("pair_sweep", pos, n, box_length, rc_square, want_observables)
 
 
@@ -361,16 +364,16 @@ def _plan_dict(out) -> dict:
 
 def rows_sweep_blocks(n_rows: int, n_cols: int, tile: int) -> int:
     """Live blocks of the row-sweep kernel (``csrc/rows_sweep.cuh``,
-    ``rows_live_blocks``) for the tri sweep (n_rows = n_cols = n) or the
-    rect sweep (n_i rows against n_j partners): blocks of ``tile`` rows that
-    meet the rows [0, n_rows) while there is a partner. The others only
-    write zeros."""
+    ``rows_live_blocks``) for the tri and ordered sweeps (n_rows = n_cols =
+    n) or the rect sweep (n_i rows against n_j partners): blocks of ``tile``
+    rows that meet the rows [0, n_rows) while there is a partner. The others
+    only write zeros."""
     return -(-n_rows // tile) if n_rows > 0 and n_cols > 0 else 0
 
 
 def rows_sweep_slices(n_rows: int, n_cols: int, blocks_per_sm: int, sms: int) -> int:
-    """S, the threads a row of the tri and rect sweeps' kernel, by its rule
-    (``rows_slices`` in ``csrc/rows_sweep.cuh``): the largest power of two
+    """S, the threads a row of the tri, ordered and rect sweeps' kernel, by
+    its rule (``rows_slices`` in ``csrc/rows_sweep.cuh``): the largest power of two
     in [4, 128] whose live blocks (``rows_sweep_blocks`` at tile = 256 / S)
     all run in one wave of at most 3 blocks an SM (``blocks_per_sm``, the
     occupancy API's resident blocks, capped at 3, times ``sms``), each
@@ -413,6 +416,12 @@ def rows_sweep_plan(pos_i, n_i: int, pos_j=None, n_j: int | None = None,
                                              int(upper), n_i, pos_i.shape[1], n_j, out),
                     "rows_sweep_plan")
     return _plan_dict(out)
+
+
+def pair_sweep_plan(pos, n: int, want_observables: bool = True) -> dict:
+    """The ordered sweep's launch shape (on the card): the rect sweep's
+    (``rows_sweep_plan``) with the rows of ``pos`` against themselves."""
+    return rows_sweep_plan(pos, n, pos, n, want_observables)
 
 
 def lj_force_energy_pallas(r: torch.Tensor, box_length: float, rc_square: float,

@@ -23,12 +23,18 @@ Entries past the counts are unspecified unless ``zero_fill`` is set; the
 chunk kernel never reads them.
 
 ``build_window_lists`` launches ``csrc/pack_window_lists.cu`` on a CUDA
-tensor and runs the plain twin ``build_window_lists_plain`` (the sequential
-greedy cover of the Pallas kernel ``_pack_window_kernel``, in Python) on a
-CPU tensor.
+tensor (one device operation: the kernel finds each row's band itself) and
+runs the plain twin ``build_window_lists_plain`` (the sequential greedy cover
+of the Pallas kernel ``_pack_window_kernel``, in Python) on a CPU tensor.
+``build_window_lists_bitmask`` is the kernel's own form in plain Python (row
+bitmasks walked by first set bit, counts, an exclusive scan in the kernel's
+lane order, a second walk that writes): the CPU tests hold it to the twin
+and to the JAX kernel; nothing on the CUDA path calls it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -36,6 +42,7 @@ from ljmd_tpu_torch.ops import _cuda
 
 __all__ = [
     "build_window_lists",
+    "build_window_lists_bitmask",
     "build_window_lists_plain",
     "compute_tile_flags",
     "list_layout",
@@ -201,12 +208,108 @@ def build_window_lists_plain(flags: torch.Tensor, n: int, n_pad: int, tile_i: in
             torch.tensor(counts, dtype=torch.int32, device=dev))
 
 
+def _scan_rows(counts: list) -> tuple[list, list]:
+    """The kernel's exclusive scan of per-row category counts (a list of
+    n_b lists), in its order: per category, lane l of a warp sums its run of
+    q = ceil(n_b / 32) rows [l q, l q + q), the lane totals are scanned, and
+    lane l's rows take its exclusive total plus the counts before them in
+    its run. Returns (offsets per row, totals)."""
+    n_b = len(counts)
+    q = -(-n_b // 32)
+    n_cats = len(counts[0]) if counts else 0
+    offs = [[0] * n_cats for _ in range(n_b)]
+    totals = []
+    for c in range(n_cats):
+        acc = 0
+        for lane in range(32):
+            for r in range(min(lane * q, n_b), min(lane * q + q, n_b)):
+                offs[r][c] = acc
+                acc += counts[r][c]
+        totals.append(acc)
+    return offs, totals
+
+
+def build_window_lists_bitmask(flags: torch.Tensor, n: int, n_pad: int, tile_i: int,
+                               tile_j: int, tail_tiles: bool = True):
+    """The pack kernel's form in plain Python (``csrc/pack_window_lists.cu``),
+    the same lists as ``build_window_lists_plain``: each row's flags become
+    three bitmasks (active ``f > 0``, z round ``f & 2``, x round ``f & 4``;
+    the kernel holds them 32 flags a word, a word a lane); the cover walks
+    the active mask from its first set bit at or past the diagonal, a visit
+    a step, reading the window's z / x needs and the tail width as bits
+    [b, b + span) of the masks; pass 1 counts each row's visits per
+    category, ``_scan_rows`` turns the counts into offsets, and pass 2 walks
+    again and writes each visit at its offset. Entries past the counts are
+    zero. Used by the CPU tests only."""
+    _check_geometry(n, n_pad, tile_i, tile_j)
+    g = tile_i
+    span = tile_j // g
+    n_b = n_pad // g
+    n_tails, n_rows, max_t, n_cats = list_layout(n_pad, tile_i, tile_j, tail_tiles)
+    f = flags.reshape(-1).tolist()
+    win = (1 << span) - 1
+
+    def masks(row):  # the row's three masks as Python ints (bit b: block b)
+        out = [0, 0, 0]
+        for b, fl in enumerate(f[row * n_b:(row + 1) * n_b]):
+            for k, hit in enumerate((fl > 0, fl & 2, fl & 4)):
+                if hit:
+                    out[k] |= 1 << b
+        return out
+
+    def next_active(act, pos):  # the first set bit at or past pos, or -1
+        rest = act >> pos
+        return pos + (rest & -rest).bit_length() - 1 if rest else -1
+
+    def cover(row, act, zr, xr):  # yields (category, list row, j block, jmin)
+        b = next_active(act, row)
+        while b >= 0:
+            s = min(b, n_b - span)
+            width = ((act >> b) & win).bit_length() if n_tails else span
+            if width < span:
+                yield 4 + width - 1, 9 + 2 * (width - 1), b, -1
+            else:
+                needs_mask = (s * g < row * g + g or s * g + tile_j > n
+                              or row * g + g > n or b > s)
+                cat = 3 if needs_mask else (2 if (zr >> b) & win else (1 if (xr >> b) & win else 0))
+                yield cat, 2 * cat, s, (b if b > s else 0) if cat == 3 else -1
+            b = next_active(act, b + span)
+
+    row_masks = [masks(row) for row in range(n_b)]
+    counts = []
+    for row in range(n_b):
+        cnt = [0] * n_cats
+        for cat, *_ in cover(row, *row_masks[row]):
+            cnt[cat] += 1
+        counts.append(cnt)
+    offs, totals = _scan_rows(counts)
+    tiles = [[0] * max_t for _ in range(n_rows)]
+    for row in range(n_b):
+        pos = list(offs[row])
+        for cat, list_row, j_blk, jmin in cover(row, *row_masks[row]):
+            k = pos[cat]
+            tiles[list_row][k], tiles[list_row + 1][k] = row, j_blk
+            if jmin >= 0:
+                tiles[8][k] = jmin
+            pos[cat] += 1
+    dev = flags.device
+    return (torch.tensor(tiles, dtype=torch.int32, device=dev),
+            torch.tensor(totals, dtype=torch.int32, device=dev))
+
+
+@functools.lru_cache(maxsize=1)
+def _pack_max_rows() -> int:
+    """The pack kernel's largest n_b, asked of the library once."""
+    return _cuda.library().ljmd_pack_max_rows()
+
+
 def build_window_lists(flags: torch.Tensor, n: int, n_pad: int, tile_i: int,
                        tile_j: int, zero_fill: bool = False, tail_tiles: bool = True):
     """Visit lists (tiles, tcounts) of the (n_i * n_b,) block flags (flags at
-    ``tile_i`` x ``tile_i`` granularity). One kernel launch on a CUDA tensor;
-    the counts stay on the device. ``zero_fill`` zeroes the kernel's entries
-    past the counts (the twin's are always zero)."""
+    ``tile_i`` x ``tile_i`` granularity). One kernel launch on a CUDA tensor,
+    the only device operation with ``zero_fill=False``; the counts stay on
+    the device. ``zero_fill`` zeroes the kernel's entries past the counts
+    (the twin's are always zero)."""
     if flags.device.type == "cpu":
         return build_window_lists_plain(flags, n, n_pad, tile_i, tile_j, tail_tiles)
     if flags.device.type != "cuda":
@@ -216,19 +319,17 @@ def build_window_lists(flags: torch.Tensor, n: int, n_pad: int, tile_i: int,
     if flags.dtype != torch.int32 or flags.numel() != n_b * n_b:
         raise ValueError(f"build_window_lists: expected ({n_b * n_b},) int32 flags, "
                          f"got {tuple(flags.shape)} {flags.dtype}")
-    lib = _cuda.library()
-    if n_b > lib.ljmd_pack_max_rows():
+    if n_b > _pack_max_rows():
         raise ValueError(f"build_window_lists: {n_b} block rows > the kernel's "
-                         f"{lib.ljmd_pack_max_rows()}")
+                         f"{_pack_max_rows()}")
     n_tails, n_rows, max_t, n_cats = list_layout(n_pad, tile_i, tile_j, tail_tiles)
     flags = flags.contiguous()
-    spans = row_spans(flags, n_b).contiguous()
     alloc = torch.zeros if zero_fill else torch.empty
     tiles = alloc((n_rows, max_t), dtype=torch.int32, device=flags.device)
     tcounts = torch.empty((n_cats,), dtype=torch.int32, device=flags.device)
     with torch.cuda.device(flags.device):
-        code = lib.ljmd_pack_window_lists(
-            flags.data_ptr(), spans.data_ptr(), tiles.data_ptr(), tcounts.data_ptr(),
+        code = _cuda.library().ljmd_pack_window_lists(
+            flags.data_ptr(), tiles.data_ptr(), tcounts.data_ptr(),
             n, n_b, tile_i, tile_j, n_tails, max_t, _cuda.stream_handle(flags))
     _cuda.LAUNCHES.bump("build_window_lists")
     _cuda.check(code, "build_window_lists")

@@ -27,7 +27,12 @@ import time
 
 import torch
 
-__all__ = ["device_breakdown", "main"]
+__all__ = ["device_breakdown", "graph_ops", "main"]
+
+# CUgraphNodeType (cuda.h), for graph_ops.
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+               6: "wait_event", 7: "event_record", 8: "semaphore_signal", 9: "semaphore_wait",
+               10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
 
 
 def _merged_length(intervals) -> float:
@@ -72,6 +77,48 @@ def device_breakdown(fn, top: int = 15) -> dict:
             "idle_share": 1.0 - busy / wall if wall else None,
             "device_ms_by_name": {k: {"ms": ms, "count": n} for k, (ms, n) in kernels},
             "host_cuda_calls": host}
+
+
+def graph_ops(fn) -> dict:
+    """The device operations that one ``fn()`` submits, counted exactly:
+    after two calls on a side stream, one call is captured into a CUDA graph
+    and the graph's nodes are read through the driver (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``). Returns ``ops`` (every node but ``empty`` ones,
+    which do nothing) and ``nodes`` (the count by node type). A call that
+    reads the card back to the host cannot be captured and raises. Unlike
+    ``device_breakdown``, this does not rest on the profiler's activity
+    trace, which can come back without a call's launches."""
+    import ctypes
+
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def check(code: int, what: str) -> None:
+        if code != 0:
+            raise RuntimeError(f"graph_ops: {what} returned CUresult {code}")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(drv.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(drv.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    by_type: dict[str, int] = {}
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        check(drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        name = _NODE_TYPES.get(kind.value, f"type_{kind.value}")
+        by_type[name] = by_type.get(name, 0) + 1
+    graph.reset()
+    return {"ops": sum(v for k, v in by_type.items() if k != "empty"), "nodes": by_type}
 
 
 def _event_ms(fn, reps: int) -> tuple[float, float]:

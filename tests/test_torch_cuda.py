@@ -1174,3 +1174,115 @@ def test_row_sweeps_refuse_misaligned_rows(cuda):
                 pair_sweep.pair_sweep_rect(pos_i, pos_j, 200, 200, 0, 200, 7.0, 6.25)
             with pytest.raises(ValueError, match="16-byte"):
                 pair_sweep.pair_sweep_rect_newton(pos_i, pos_j, 200, 200, 0, 200, 7.0, 6.25)
+
+
+@pytest.mark.parametrize("slices", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_ordered_sweep_kernel_at_every_block_shape(cuda, slices, dtype, tol):
+    """Kernel 5 (the rect sweep's kernel with i = j) at every S that
+    ``pair_sweep_plan`` can choose, each at a row count where the rule
+    chooses it (3 S / 2 rows), against the twin on every row, observables on
+    and off; rows 6..7 and the padding exactly 0; rows 0..2 bit for bit the
+    tri sweep's (kernel 2, the same S and order)."""
+    n = 3 * slices // 2
+    box = (n / 0.58) ** (1.0 / 3.0)
+    pos, _ = _newton_blocks(n, -(-n // 128) * 128, box, 37, dtype, cuda)
+    for want_obs in (True, False):
+        plan = pair_sweep.pair_sweep_plan(pos, n, want_obs)
+        assert (plan["slices"], plan["tile"]) == (slices, 256 // slices)
+        assert plan["items"] == pair_sweep.rows_sweep_blocks(n, n, plan["tile"])
+        LAUNCHES.reset()
+        got = pair_sweep.pair_sweep(pos, n, box, 6.25, want_obs)
+        assert LAUNCHES.snapshot()["pair_sweep"] == 1
+        want = pair_sweep.pair_sweep_plain(pos, n, box, 6.25, want_obs)
+        for row in range(8):
+            _close(got[row], want[row], tol)
+        assert bool((got[:, n:] == 0).all()) and bool((got[6:] == 0).all())
+        if not want_obs:
+            assert bool((got[3:] == 0).all())
+        tri = pair_sweep.pair_sweep_tri(pos, n, box, 6.25, want_obs)
+        assert pair_sweep.rows_sweep_plan(pos, n, None, None, want_obs)["slices"] == slices
+        assert torch.equal(got[0:3], tri[0:3])
+
+
+def test_ordered_sweep_refuses_misaligned_rows(cuda):
+    """Kernel 5 stages rows by cp.async: rows off a 16-byte boundary are
+    refused, not read; fresh rows are taken."""
+    for dtype in (torch.float32, torch.float64):
+        buf = torch.zeros(8 * 256 + 1, dtype=dtype, device=cuda)
+        bad = buf[1:].view(8, 256)
+        assert bad.is_contiguous() and bad.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            pair_sweep.pair_sweep(bad, 200, 7.0, 6.25)
+        good = torch.zeros((8, 256), dtype=dtype, device=cuda)
+        assert not bool(pair_sweep.pair_sweep(good, 0, 7.0, 6.25).any())
+
+
+def _pack_flags(name, n_b, seed):
+    """(n_b * n_b,) int32 flags: random values 0..7, empty, all active with
+    every round, one active block a row, or each row's band running to the
+    row's end (as tests/test_torch_window_lists.py's patterns)."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros((n_b, n_b), dtype=np.int32)
+    if name == "random":
+        f = rng.integers(0, 8, size=(n_b, n_b))
+    elif name == "all_active":
+        f[:] = 7
+    elif name == "one_a_row":
+        f[np.arange(n_b), rng.integers(0, n_b, n_b)] = rng.integers(1, 8, n_b)
+    elif name == "band_to_end":
+        for row in range(n_b):
+            f[row, rng.integers(0, n_b):] = rng.choice([1, 3, 5, 7])
+    return torch.as_tensor(f.reshape(-1).astype(np.int32))
+
+
+def _same_prefix(got, want):
+    (gt, gc), (wt, wc) = (t.cpu() for t in got), want
+    assert torch.equal(gc, wc)
+    for c, k in enumerate(wc.tolist()):
+        lrows = ([2 * c, 2 * c + 1] + ([8] if c == 3 else [])) if c < 4 else \
+            [9 + 2 * (c - 4), 10 + 2 * (c - 4)]
+        assert torch.equal(gt[lrows, :k], wt[lrows, :k]), (c, k)
+
+
+@pytest.mark.parametrize("tail_tiles", [True, False])
+@pytest.mark.parametrize("n_b", [7, 32, 33, 64, 256, 1024])
+def test_pack_kernel_at_every_row_count(cuda, n_b, tail_tiles):
+    """Kernel 9 from one warp of rows to the kernel's 1024 (masks staged in
+    shared memory up to n_b = 256 here, read again at 1024; rows past 32 a
+    warp each take several), on random, empty, all-active, one-a-row and
+    band-to-the-end flags, zero_fill off and on: the twin's lists on the
+    count prefix, and zeros past it with zero_fill."""
+    from ljmd_tpu_torch.ops import window_lists
+
+    n_pad = 128 * n_b
+    n, tj = n_pad - 50, 128 * (6 if n_b == 33 else 4)
+    for k, name in enumerate(("random", "empty", "all_active", "one_a_row", "band_to_end")):
+        flags = _pack_flags(name, n_b, 100 * n_b + k)
+        want = window_lists.build_window_lists_plain(flags, n, n_pad, 128, tj, tail_tiles)
+        for zero_fill in (False, True):
+            LAUNCHES.reset()
+            got = window_lists.build_window_lists(flags.to(cuda), n, n_pad, 128, tj, zero_fill,
+                                                  tail_tiles)
+            assert LAUNCHES.snapshot()["build_window_lists"] == 1
+            _same_prefix(got, want)
+            if zero_fill:
+                assert torch.equal(got[0].cpu(), want[0]), name
+
+
+def test_pack_kernel_is_one_device_operation(cuda):
+    """A pack with zero_fill=False is the kernel's launch and nothing else
+    (the row bands are found in the kernel): one node in one call's CUDA
+    graph, and at most one device operation a call under the profiler
+    (whose trace can lose launches but adds none)."""
+    from ljmd_tpu_torch.ops import window_lists
+    from ljmd_tpu_torch.utils.profiling import device_breakdown, graph_ops
+
+    flags = _pack_flags("band_to_end", 32, 5).to(cuda)
+    pack = lambda: window_lists.build_window_lists(flags, 4000, 4096, 128, 512)  # noqa: E731
+    pack()
+    ops = graph_ops(pack)
+    assert ops["ops"] == 1 and ops["nodes"] == {"kernel": 1}, ops
+    seen = device_breakdown(lambda: [pack() for _ in range(10)],
+                            top=1 << 30)["device_ms_by_name"]
+    assert sum(v["count"] for v in seen.values()) <= 10, seen

@@ -7,13 +7,16 @@ twins against the JAX package's Pallas kernels at a rank's shapes, float64:
   and the 1000 x 1000 hop -> 64, the 2000 x 2000 hop -> 32, 250 rows and
   N=500 -> 128, N=864 -> 64; the smallest S where the rows are far larger
   than the card; and the rule against a brute-force search over S;
+- the ordered sweep's S (kernel 5 runs the rect sweep's kernel with i = j):
+  N=4000 -> 16, N=864 -> 64, N=500 -> 128, through the same rule;
 - ``rows_sweep_blocks`` (the live blocks) against a brute-force test of
   every block of the padded rows;
 - the tri twin against ``pallas_pair_sweep_tri`` in interpret mode on a
   250-row self block (rank 0 of the N=500 box over 2 ranks), and the rect
   twin against ``pallas_pair_sweep_rect`` at the 2-rank hop and self offset,
   on rank blocks of a jittered FCC lattice in its own order and shuffled,
-  observables on and off.
+  observables on and off; the ordered twin against ``pallas_pair_sweep``
+  on the whole N=500 box.
 
 Tolerances rtol = atol = 1e-9 (tests/test_torch_rect.py's): the pair
 arithmetic is the same and only the summation order differs.
@@ -46,6 +49,21 @@ def test_rows_sweep_slices_at_the_main_path_shapes(case, per_sm):
     s = prs.rows_sweep_slices(n_rows, n_cols, per_sm, SMS)
     assert s == want
     assert prs.rows_sweep_blocks(n_rows, n_cols, 256 // s) <= PER_SM * SMS
+
+
+# The ordered sweep (kernel 5) over whole boxes: N rows against themselves.
+ORDERED = [(4000, 16), (864, 64), (500, 128)]
+
+
+@pytest.mark.parametrize("per_sm", [PER_SM, 8])
+@pytest.mark.parametrize("case", ORDERED, ids=[f"N={n}" for n, _ in ORDERED])
+def test_ordered_sweep_slices_at_the_main_path_shapes(case, per_sm):
+    """``pair_sweep_plan`` asks the rect rule with the rows as their own
+    partners; the tri sweep (kernel 2) gets the same S, so their forces are
+    summed in one order."""
+    n, want = case
+    assert prs.rows_sweep_slices(n, n, per_sm, SMS) == want
+    assert prs.rows_sweep_blocks(n, n, 256 // want) <= PER_SM * SMS
 
 
 @pytest.mark.parametrize("case", [(10**6, 10**6, 4), (200_000, 50, 4), (1000, 20, 16),
@@ -133,3 +151,31 @@ def test_rect_twin_on_rank_blocks_matches_pallas(rank_blocks, hop, order, want_o
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
     assert not np.any(got[6:]) and not np.any(got[:, NI:])
     assert np.any(got[0:3])
+
+
+@pytest.fixture(scope="module")
+def n500_box():
+    """The whole jittered N=500 lattice (L=10, rc=4.9) as (8, 512) rows."""
+    rng = np.random.default_rng(19)
+    r = (np.asarray(j_fcc_lattice(5, L, dtype=jnp.float64)) + rng.normal(0, 0.05, (N, 3))) % L
+    pos = np.zeros((8, 512))
+    pos[0:3, :N] = r.T
+    return pos
+
+
+@pytest.mark.parametrize("want_obs", [True, False])
+def test_ordered_twin_on_the_n500_box_matches_pallas(n500_box, want_obs):
+    """Kernel 5's twin at the reference box, every row against
+    ``pallas_pair_sweep`` in interpret mode; rows 0..2 equal the tri twin's
+    and rows 3..5 sum twice its pair-once totals."""
+    want = np.asarray(jpl.pallas_pair_sweep(jnp.asarray(n500_box), N, L, RC2, tile_i=128,
+                                            tile_j=128, interpret=True,
+                                            want_observables=want_obs))
+    pos = torch.as_tensor(n500_box)
+    got = prs.pair_sweep(pos, N, L, RC2, want_observables=want_obs).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+    assert not np.any(got[6:]) and not np.any(got[:, N:])
+    assert np.any(got[3]) == want_obs
+    tri = prs.pair_sweep_tri(pos, N, L, RC2, want_observables=want_obs).numpy()
+    np.testing.assert_allclose(got[0:3], tri[0:3], rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(got[3:6].sum(1), 2 * tri[3:6].sum(1), rtol=1e-9, atol=1e-9)

@@ -1,6 +1,8 @@
 """The zsort engine's tile flags, visit-list pack and fused list chunk
 (``ljmd_tpu_torch/ops/window_lists.py``, ``ops/fused_list.py``) against the
-JAX package's (``ljmd_tpu/ops/pallas_fused.py``), float64 on the CPU.
+JAX package's (``ljmd_tpu/ops/pallas_fused.py``), float64 on the CPU; the
+pack also in its CUDA kernel's form (``build_window_lists_bitmask``) on
+random, empty, all-active, one-a-row and band-to-the-end flags.
 
 The JAX Pallas kernels run in interpret mode, as tests/test_tile_lists.py
 and tests/test_fused.py run them. Tolerances: flags and lists are integers
@@ -172,6 +174,53 @@ def test_pack_layout_helpers():
     with pytest.raises(ValueError, match="span"):
         window_lists.build_window_lists(torch.zeros(256, dtype=torch.int32), 2048, 2048,
                                         128, 9 * 128)
+
+
+def _pack_pattern(name, n_b, seed):
+    """(n_b * n_b,) int32 flags of one shape: random values 0..7, empty,
+    all active with every round, one active block a row, or each row's
+    band running from a random block to the row's end (n_b)."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros((n_b, n_b), dtype=np.int32)
+    if name == "random":
+        f = rng.integers(0, 8, size=(n_b, n_b))
+    elif name == "all_active":
+        f[:] = 7
+    elif name == "one_a_row":
+        f[np.arange(n_b), rng.integers(0, n_b, n_b)] = rng.integers(1, 8, n_b)
+    elif name == "band_to_end":
+        for row in range(n_b):
+            f[row, rng.integers(0, n_b):] = rng.choice([1, 3, 5, 7])
+    return f.reshape(-1).astype(np.int32)
+
+
+PATTERNS = ["random", "empty", "all_active", "one_a_row", "band_to_end"]
+
+
+@pytest.mark.parametrize("tail_tiles", [True, False], ids=["tails", "no_tails"])
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("n_b", [7, 32, 33, 64])
+def test_pack_bitmask_form_matches_twin_and_pallas(n_b, pattern, tail_tiles):
+    """The CUDA kernel's form (row bitmasks walked by first set bit, a scan
+    in warp order; ``build_window_lists_bitmask``) gives the sequential
+    twin's lists and the Pallas kernel's (interpret mode, zero_fill=True),
+    element for element, past the counts too; n < n_pad, so the padding
+    masks occur, and n_b = 33 and 64 cross a 32-row warp and a mask word."""
+    n_pad = 128 * n_b
+    n, tj = n_pad - 50, 128 * (6 if n_b == 33 else 4)
+    flags = _pack_pattern(pattern, n_b, n_b)
+    got = window_lists.build_window_lists_bitmask(torch.tensor(flags), n, n_pad, 128, tj,
+                                                  tail_tiles=tail_tiles)
+    want = window_lists.build_window_lists_plain(torch.tensor(flags), n, n_pad, 128, tj,
+                                                 tail_tiles=tail_tiles)
+    jt, jc = pf.build_window_lists_pallas(jnp.asarray(flags), n, n_pad, 128, tj,
+                                          interpret=True, zero_fill=True,
+                                          tail_tiles=tail_tiles)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jt))
+    assert (int(got[1].sum()) == 0) == (pattern == "empty")
 
 
 # ---------------------------------------------------------------- chunk
