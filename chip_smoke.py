@@ -139,7 +139,29 @@ checkout. Phases, each fatal on failure:
    c. the rates of both sharded engines at 1, 2 and 4 ranks (the sharded
       pencil at 1, 2 and 7: 14 pencil columns do not split over 4) beside
       the single-card engines', their flags clear; the time of one
-      thread-mesh hand-off at 1, 2 and 4 ranks and of one small launch.
+      thread-mesh hand-off at 1, 2 and 4 ranks and of one small launch;
+10. the analysis pipeline at BASELINE config 3 (``examples/n4000_production.json``
+    cut to 20,000 steps, warmup 1,000, interval 50: 380 frames): the CLI's
+    ``simulate --stream`` on the card (``auto`` -> zsort, the native writer),
+    then ``analyze --no-plots --device cuda``; in process on the same
+    rva.dat, ``compute_msd``, ``compute_vacf`` and ``compute_rdf`` on the
+    card (CUDA-event ms) against the same functions on the CPU, and the
+    card's analysis_summary.json against ``analyze_run`` on the CPU, each
+    within 1e-10 of the scale (float64); D_einstein and D_green_kubo logged;
+11. streaming kill-and-resume at config 5 (N=62500 cut as in 4c, ``auto`` ->
+    cellpair): ``init-config`` once; from its rv_init.dat B (in-memory
+    ``simulate``), A (``simulate --stream --chunk-samples 2``) and C (A's
+    command in another directory, SIGKILLed as soon as its first checkpoint
+    exists, then run again to the end); C must die mid-run (return code -9,
+    checkpoint sample in (0, 15)) and resume its carry verbatim, A, B and C's
+    rva.dat, instantaneous_energies.dat, corr / corrmean files, means.dat,
+    md_final_results.txt and summary.json must be equal byte for byte, no
+    checkpoint may be left, the flags clear, the native writer used; logs A's
+    and B's rates, checkpoint MB and ms a chunk, rva.dat MB/s, and the
+    cell-pair kernels' launches in A and in the warmup.
+
+The build (phase 2) also builds the native trajectory library
+(``utils/native.py``) with the host's C++ compiler.
 
 The lines before the last hold the particle-steps/s of the engines beside
 the card's name and power limit, one JSON object with the kernels' launches,
@@ -246,6 +268,14 @@ CROSS_TOL = 1e-9
 # post-warmup census 384; fused checks over PENCIL_CHECK_STEPS, timed over the
 # engine's fused inner chunk.
 N62500_CUT = {"total_steps": 2_000, "warmup_steps": 500}
+# Phase 10: BASELINE config 3, examples/n4000_production.json cut to 20,000
+# steps with a 1,000-step warmup (interval 50 kept: 380 frames, a 146 MB
+# rva.dat); card against CPU analysis, float64: only the summation order
+# differs (~1e-15 of each array's scale).
+ANALYSIS_CUT = {"total_steps": 20_000, "warmup_steps": 1_000}
+ANALYSIS_TOL = 1e-10
+# Phase 11: the streaming run's chunk (15 samples: 8 chunks, 8 checkpoints).
+KILL_CHUNK = 2
 PENCIL_CAPS = (512, 384)
 PENCIL_CHECK_STEPS = 4
 PENCIL_CHUNK_STEPS = 8
@@ -354,6 +384,12 @@ def phase_build() -> None:
     lib_path = _cuda.build(verbose=True)
     _cuda.library()
     log(f"build: {lib_path} ready in {time.time() - t0:.1f}s")
+    from ljmd_tpu_torch.utils import native
+
+    t0 = time.time()
+    require(native.available(), "the native trajectory library did not build (no C++ compiler?)")
+    log(f"build: {native.library_path()} (native rva.dat writer) ready in "
+        f"{time.time() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1996,6 +2032,44 @@ def _check_launches(run: str, counts: dict, needed: tuple, forbidden: tuple = ()
         require(counts.get(k, 0) == 0, f"{run}: kernel {k} launched on another engine's path")
 
 
+def _cli(name: str, args: list, timeout: int = 600) -> tuple[object, float]:
+    """``python -m ljmd_tpu_torch <args>`` from the checkout; fails the
+    phase on a non-zero exit. Returns (process, wall seconds)."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "ljmd_tpu_torch", *args], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.time() - t0
+    for line in proc.stdout.strip().splitlines():
+        log(f"  {name}| {line}")
+    require(proc.returncode == 0, f"{name}: CLI failed ({proc.returncode}):\n{proc.stderr}")
+    return proc, wall
+
+
+def _cli_json(proc, key: str) -> dict:
+    """The ``{"<key>": ...}`` line of a CLI run's output."""
+    for line in proc.stdout.splitlines():
+        if line.startswith(f'{{"{key}"'):
+            return json.loads(line)[key]
+    raise AssertionError(f"the CLI printed no {key} line")
+
+
+def _cli_rate(proc) -> float:
+    """The production particle-steps/s that ``simulate`` printed."""
+    line = next(x for x in proc.stdout.splitlines() if "particle-steps/s" in x)
+    return float(line.split("(")[1].split(" particle-steps/s")[0])
+
+
+def _write_cfg(tmp: str, name: str, cfg) -> str:
+    """``cfg`` as a JSON config file in ``tmp``; returns its path."""
+    keys = ("num_cells", "total_steps", "output_interval", "warmup_steps", "dt", "box_length",
+            "rc_over_box", "target_total_energy", "dtype", "seed", "compensated_sum",
+            "neighbor_skin", "neighbor_capacity")
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump({k: getattr(cfg, k) for k in keys}, f)
+    return path
+
+
 FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
                 + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
@@ -2007,36 +2081,13 @@ def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: t
     are the CLI process's own (it starts at 0 and prints them at the end)."""
     import numpy as np
 
-    cut = {k: getattr(cfg, k) for k in ("num_cells", "total_steps", "output_interval",
-                                         "warmup_steps", "dt", "box_length", "rc_over_box",
-                                         "target_total_energy", "dtype", "seed",
-                                         "compensated_sum", "neighbor_skin",
-                                         "neighbor_capacity")}
-    cfg_path = os.path.join(tmp, f"{name}.json")
-    with open(cfg_path, "w") as f:
-        json.dump(cut, f)
     out_dir = os.path.join(tmp, name)
-    cmd = [sys.executable, "-m", "ljmd_tpu_torch", "simulate", "--config", cfg_path,
-           "--out-dir", out_dir, "--device", DEVICE, "--backend", backend]
-    t0 = time.time()
-    proc = subprocess.run(cmd, cwd=str(REPO), capture_output=True, text=True, timeout=600)
-    wall = time.time() - t0
-    for line in proc.stdout.strip().splitlines():
-        log(f"  cli| {line}")
-    require(proc.returncode == 0, f"{name}: CLI run failed ({proc.returncode}):\n{proc.stderr}")
-    counts = diagnostics = rate = None
-    host_reads = {}
-    for line in proc.stdout.splitlines():
-        if line.startswith('{"kernel_launches"'):
-            counts = json.loads(line)["kernel_launches"]
-        elif line.startswith('{"host_reads"'):
-            host_reads = json.loads(line)["host_reads"]
-        elif line.startswith('{"diagnostics"'):
-            diagnostics = json.loads(line)["diagnostics"]
-        elif "particle-steps/s" in line:
-            rate = float(line.split("(")[1].split(" particle-steps/s")[0])
-    require(counts is not None and diagnostics is not None and rate is not None,
-            f"{name}: CLI printed no kernel_launches / diagnostics / rate line")
+    proc, wall = _cli(name, ["simulate", "--config", _write_cfg(tmp, name, cfg),
+                             "--out-dir", out_dir, "--device", DEVICE, "--backend", backend])
+    counts = _cli_json(proc, "kernel_launches")
+    host_reads = _cli_json(proc, "host_reads")
+    diagnostics = _cli_json(proc, "diagnostics")
+    rate = _cli_rate(proc)
     _check_launches(name, counts, needed, forbidden)
     require(not any(diagnostics.values()), f"{name}: diagnostic flag set: {diagnostics}")
     _check_artifacts(out_dir, with_frames=True)
@@ -2753,6 +2804,213 @@ def phase_card_vs_cpu(torch) -> float:
     return worst
 
 
+# ---------------------------------------------------------------- phase 10
+def _rel_scale_err(got, want) -> float:
+    """max |got - want| / max |want| (NaN-free arrays)."""
+    import numpy as np
+
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    require(got.shape == want.shape, f"shapes {got.shape} and {want.shape} differ")
+    require(bool(np.isfinite(got).all() and np.isfinite(want).all()), "non-finite values")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def _summary_diff(got, want, path: str = "") -> float:
+    """Worst relative difference of two analysis summaries (the same keys,
+    strings and counts equal, NaN where the other has NaN)."""
+    if isinstance(want, dict):
+        require(set(got) == set(want), f"summary keys differ at {path}: {set(got) ^ set(want)}")
+        return max([_summary_diff(got[k], want[k], f"{path}.{k}") for k in want] or [0.0])
+    if isinstance(want, float) or isinstance(got, float):
+        if math.isnan(want) or math.isnan(got):
+            require(math.isnan(want) and math.isnan(got), f"NaN at {path}: {got} vs {want}")
+            return 0.0
+        return abs(got - want) / max(abs(want), 1e-300)
+    require(got == want, f"summary differs at {path}: {got!r} vs {want!r}")
+    return 0.0
+
+
+def phase_analysis(torch, tmp: str) -> dict:
+    """BASELINE config 3 (N=4000 with g(r), MSD, VACF, D) on the card:
+    ``simulate --stream`` of the cut config (``auto`` -> zsort), then
+    ``analyze --no-plots --device cuda``; in process on the same rva.dat,
+    compute_msd / compute_vacf / compute_rdf on the card against the same
+    functions on the CPU, and the card's analysis_summary.json against
+    ``analyze_run`` on the CPU, each within ANALYSIS_TOL."""
+    from ljmd_tpu_torch.analysis.msd_vacf import compute_msd, compute_vacf
+    from ljmd_tpu_torch.analysis.rdf import compute_rdf
+    from ljmd_tpu_torch.analysis.report import analyze_run
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models.engine import auto_backend
+    from ljmd_tpu_torch.utils.native import read_rva_native
+
+    cfg = load_config(str(REPO / "examples" / "n4000_production.json")).replace(**ANALYSIS_CUT)
+    require(auto_backend(cfg, True, cfg.output_interval) == "zsort",
+            "auto does not route config 3 to zsort")
+    run_dir = os.path.join(tmp, "n4000_analysis")
+    proc, wall = _cli("n4000_stream", ["simulate", "--config", _write_cfg(tmp, "n4000_an", cfg),
+                                       "--out-dir", run_dir, "--device", DEVICE, "--stream"])
+    counts = _cli_json(proc, "kernel_launches")
+    _check_launches("n4000_f32_zsort_stream", counts, ZSORT_KERNELS,
+                    ("fused_dense_chunk",) + PENCIL_KERNELS)
+    diagnostics = _cli_json(proc, "diagnostics")
+    require(not any(diagnostics.values()), f"config 3 stream: diagnostics {diagnostics}")
+    stream = _cli_json(proc, "stream")
+    require(stream["writer"] == "native", f"config 3 stream: writer {stream['writer']}")
+    require("Python writer" not in proc.stderr, "config 3 stream: the Python writer ran")
+    _check_artifacts(run_dir, with_frames=True)
+    rate = _cli_rate(proc)
+    rva_mb = os.path.getsize(os.path.join(run_dir, "rva.dat")) / 1e6
+
+    an, an_wall = _cli("analyze", ["analyze", "--run-dir", run_dir, "--no-plots", "--device",
+                                   DEVICE])
+    with open(os.path.join(run_dir, "analysis_summary.json")) as f:
+        card_summary = json.load(f)
+    traj = card_summary["trajectory"]
+    n_frames = (cfg.total_steps - cfg.warmup_steps) // cfg.output_interval
+    require(traj["n_snapshots"] == n_frames, f"analysis read {traj['n_snapshots']} frames, "
+                                             f"expected {n_frames}")
+
+    data = read_rva_native(os.path.join(run_dir, "rva.dat"))
+    frames = {k: torch.as_tensor(getattr(data, k), dtype=torch.float64) for k in ("ru", "v", "r")}
+    dev = {k: v.to(DEVICE) for k, v in frames.items()}
+    max_lag = traj["max_lag"]
+    fns = {"compute_msd": (lambda f: compute_msd(f["ru"], max_lag=max_lag)),
+           "compute_vacf": (lambda f: compute_vacf(f["v"], max_lag=max_lag)),
+           "compute_rdf": (lambda f: compute_rdf(f["r"], data.box_length))}
+    report = {}
+    for name, fn in fns.items():
+        fn(dev)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        card = fn(dev)
+        end.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cpu = fn(frames)
+        cpu_s = time.perf_counter() - t0
+        err = _rel_scale_err(card.cpu().numpy(), cpu.numpy())
+        report[name] = {"card_ms": start.elapsed_time(end), "cpu_ms": 1e3 * cpu_s,
+                        "rel_err": err, "points": int(card.shape[0])}
+        require(err <= ANALYSIS_TOL, f"{name}: card and CPU differ by {err:.3e} of the scale")
+    t0 = time.perf_counter()
+    cpu_summary = analyze_run(run_dir, make_plots=False, device="cpu")
+    cpu_summary_s = time.perf_counter() - t0
+    summary_err = _summary_diff(card_summary, cpu_summary)
+    require(summary_err <= ANALYSIS_TOL,
+            f"analysis_summary.json: card and CPU differ by {summary_err:.3e}")
+    log(f"config 3 analysis (N={cfg.n}, {n_frames} frames, rva.dat {rva_mb:.1f} MB, max_lag "
+        f"{max_lag}, float64): " + ", ".join(
+            f"{k} card {v['card_ms']:.3f} ms, CPU {v['cpu_ms']:.1f} ms, rel err {v['rel_err']:.3e}"
+            for k, v in report.items())
+        + f"; summary card vs CPU {summary_err:.3e} (tol {ANALYSIS_TOL:.0e}); D_einstein "
+        f"{traj['D_einstein']:.6g}, D_green_kubo {traj['D_green_kubo']:.6g} (logged only: the VACF "
+        f"is sampled every {cfg.dt * cfg.output_interval:g} tau); analyze CLI wall {an_wall:.1f}s, "
+        f"CPU analyze_run {cpu_summary_s:.1f}s; stream production {rate:.4e} particle-steps/s, "
+        f"{json.dumps(stream)}")
+    return {"run": {"engine": "auto", "n": cfg.n, "wall_s": wall, "particle_steps_per_s": rate,
+                    "diagnostics": diagnostics, "launches": counts, "stream": stream},
+            "functions": report, "summary_rel_err": summary_err,
+            "D_einstein": traj["D_einstein"], "D_green_kubo": traj["D_green_kubo"]}
+
+
+# ---------------------------------------------------------------- phase 11
+def phase_kill_resume(torch, tmp: str) -> dict:
+    """BASELINE config 5 (N=62500, ``auto`` -> cellpair) cut as N62500_CUT:
+    ``init-config`` once, then from its rv_init.dat B (in-memory
+    ``simulate``), A (``simulate --stream --chunk-samples 2``) and C (A's
+    command in another directory, SIGKILLed once its first checkpoint
+    exists, then run again to the end). C must have died mid-run, A, B and
+    C's artifacts must be equal byte for byte, no checkpoint may be left,
+    the flags clear, the native writer used."""
+    import signal
+
+    import numpy as np
+
+    from ljmd_tpu_torch.config import load_config
+
+    cfg = load_config(str(REPO / "examples" / "n62500_large.json")).replace(**N62500_CUT)
+    cfg_path = _write_cfg(tmp, "n62500_kill", cfg)
+    n_samples = cfg.n_samples
+    base = os.path.join(tmp, "kill_resume")
+    init = os.path.join(base, "rv_init.dat")
+    proc, _ = _cli("init", ["init-config", "--config", cfg_path, "--out", init, "--device",
+                            DEVICE])
+    init_counts = _cli_json(proc, "kernel_launches")
+    common = ["--config", cfg_path, "--from-init", init, "--device", DEVICE]
+    dirs = {k: os.path.join(base, k) for k in ("A", "B", "C")}
+    stream_args = ["--stream", "--chunk-samples", str(KILL_CHUNK)]
+    b, _ = _cli("B", ["simulate", "--out-dir", dirs["B"], *common])
+    a, _ = _cli("A", ["simulate", "--out-dir", dirs["A"], *common, *stream_args])
+
+    cmd = [sys.executable, "-m", "ljmd_tpu_torch", "simulate", "--out-dir", dirs["C"], *common,
+           *stream_args]
+    ckpt = os.path.join(dirs["C"], "production_checkpoint.npz")
+    t0 = time.time()
+    victim = subprocess.Popen(cmd, cwd=str(REPO), stdout=subprocess.DEVNULL,
+                              stderr=subprocess.DEVNULL)
+    try:
+        while victim.poll() is None and not os.path.exists(ckpt) and time.time() - t0 < 600:
+            time.sleep(0.002)
+        victim.send_signal(signal.SIGKILL)
+    finally:
+        victim.wait()
+    require(victim.returncode == -signal.SIGKILL,
+            f"C was not killed mid-run: return code {victim.returncode} (it finished first)")
+    require(os.path.exists(ckpt), "C left no checkpoint")
+    with np.load(ckpt) as z:
+        killed_at = int(z["sample_idx"])
+    require(0 < killed_at < n_samples, f"C's checkpoint holds sample {killed_at} of {n_samples}")
+    c, _ = _cli("C", ["simulate", "--out-dir", dirs["C"], *common, *stream_args])
+
+    out = {}
+    for name, proc in (("A", a), ("B", b), ("C", c)):
+        flags = _cli_json(proc, "diagnostics")
+        require(not any(flags.values()), f"kill/resume {name}: diagnostics {flags}")
+        _check_artifacts(dirs[name], with_frames=True)
+        require(not os.path.exists(os.path.join(dirs[name], "production_checkpoint.npz")),
+                f"kill/resume {name}: a checkpoint was left after completion")
+        out[name] = {"particle_steps_per_s": _cli_rate(proc),
+                     "launches": _cli_json(proc, "kernel_launches"), "diagnostics": flags}
+    for name, proc in (("A", a), ("C", c)):
+        stream = _cli_json(proc, "stream")
+        require(stream["writer"] == "native" and "Python writer" not in proc.stderr,
+                f"kill/resume {name}: the native writer was not used ({stream['writer']})")
+        out[name]["stream"] = stream
+    require(out["C"]["stream"]["resumed_from"] == killed_at
+            and out["C"]["stream"]["carry"] == "verbatim",
+            f"C did not resume verbatim from sample {killed_at}: {out['C']['stream']}")
+    files = ["rva.dat", "instantaneous_energies.dat", "means.dat", "md_final_results.txt",
+             "summary.json"] + [f"{p}_{o}.dat" for p in ("corr", "corrmean")
+                                for o in ("epot", "ekin", "etot", "temp", "press")]
+    for f in files:
+        with open(os.path.join(dirs["B"], f), "rb") as fb:
+            want = fb.read()
+        for name in ("A", "C"):
+            with open(os.path.join(dirs[name], f), "rb") as fx:
+                require(fx.read() == want, f"kill/resume: {name}/{f} differs from B/{f}")
+    s = out["A"]["stream"]
+    per_chunk = {"checkpoint_mb": s["checkpoint_bytes"] / s["chunks"] / 1e6,
+                 "checkpoint_ms": 1e3 * s["checkpoint_s"] / s["chunks"]}
+    rva_mb_s = s["rva_bytes"] / 1e6 / s["write_s"] if s["write_s"] else None
+    kernels = {k: out["A"]["launches"].get(k, 0) for k in PENCIL_KERNELS}
+    require(kernels["pencil_sweep_hs"] > 0 and kernels["fused_pencil_chunk"] > 0,
+            f"A did not run the cell-pair kernels: {kernels}")
+    log(f"config 5 kill/resume (N={cfg.n}, {n_samples} samples, chunks of {KILL_CHUNK}): C "
+        f"SIGKILLed at sample {killed_at}, resumed verbatim; A = B = C byte for byte over "
+        f"{len(files)} files; production A (stream) {out['A']['particle_steps_per_s']:.4e}, B "
+        f"(in memory) {out['B']['particle_steps_per_s']:.4e} particle-steps/s (A / B "
+        f"{out['A']['particle_steps_per_s'] / out['B']['particle_steps_per_s']:.3f}); "
+        f"checkpoint {per_chunk['checkpoint_mb']:.2f} MB and {per_chunk['checkpoint_ms']:.1f} ms "
+        f"a chunk; rva.dat {s['rva_bytes'] / 1e6:.1f} MB at "
+        f"{rva_mb_s if rva_mb_s is None else round(rva_mb_s, 1)} MB/s (append + sync); "
+        f"launches in A {json.dumps(kernels)}, in the warmup (init-config) "
+        f"{json.dumps({k: init_counts.get(k, 0) for k in PENCIL_KERNELS})}")
+    return {"runs": out, "killed_at": killed_at, "per_chunk": per_chunk, "rva_mb_s": rva_mb_s,
+            "launches_A": kernels}
+
+
 def main() -> int:
     try:
         import torch
@@ -2795,6 +3053,12 @@ def main() -> int:
                                               MAIN_KERNELS)
         full_runs, full_cross = phase_full_sweeps(torch, cfg5, states5["cap512_end"], tmp)
         multi_runs, multi_cross, multi_drifts, multi_states = phase_multidevice(torch, tmp)
+        analysis = phase_analysis(torch, tmp)
+        runs["n4000_f32_zsort_stream"] = analysis.pop("run")
+        kill = phase_kill_resume(torch, tmp)
+        runs["n62500_f32_cellpair_stream"] = {
+            "engine": "auto", "n": cfg5.n, "launches": kill["runs"]["A"]["launches"],
+            "particle_steps_per_s": kill["runs"]["A"]["particle_steps_per_s"]}
     multi_rates = phase_multidevice_rates(torch, multi_states)
     exp_runs = phase_experiments(torch)
     runs.update(cp_runs)
@@ -2961,6 +3225,15 @@ def main() -> int:
         f"float64 cross checks: flagship step vs rows {flagship_cross:.3e}, rows ordered vs "
         f"tri {ordered_cross:.3e}, full9 vs half shell {full_cross['full9']:.3e}, zband vs half "
         f"shell {full_cross['zband']:.3e}")
+    log(f"analysis and streaming on {env['nvidia_smi']}: config 3 "
+        + ", ".join(f"{k} {v['card_ms']:.3f} ms" for k, v in analysis["functions"].items())
+        + f" (card vs CPU within {max(v['rel_err'] for v in analysis['functions'].values()):.3e}, "
+        f"summary {analysis['summary_rel_err']:.3e}), D_einstein {analysis['D_einstein']:.6g}, "
+        f"D_green_kubo {analysis['D_green_kubo']:.6g}; config 5 stream "
+        f"{kill['runs']['A']['particle_steps_per_s']:.4e} vs in memory "
+        f"{kill['runs']['B']['particle_steps_per_s']:.4e} particle-steps/s, checkpoint "
+        f"{kill['per_chunk']['checkpoint_mb']:.2f} MB / {kill['per_chunk']['checkpoint_ms']:.1f} "
+        f"ms a chunk, killed at sample {kill['killed_at']} and resumed bit for bit")
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,19 @@
 """Command-line interface of the PyTorch port (counterpart of
-``ljmd_tpu/cli.py:40-116, 279-355``):
+``ljmd_tpu/cli.py:40-135, 230-243, 279-355``):
 
   python -m ljmd_tpu_torch init-config --config <file> [--out rv_init.dat]
                                        [--device cuda] [--backend auto]
   python -m ljmd_tpu_torch simulate    --config <file> --out-dir <dir>
                                        [--from-init rv_init.dat] [--no-frames]
+                                       [--stream [--chunk-samples 64]]
                                        [--device cuda] [--backend auto]
+  python -m ljmd_tpu_torch analyze     --run-dir <dir> [--device cuda]
+                                       [--skip-rva] [--msd-fit-frac 0.5]
+                                       [--vacf-tmax-frac 1.0] [--rva-max-lag L]
+                                       [--origin-stride S] [--no-plots]
+  python -m ljmd_tpu_torch run-all     --config <file> --out-dir <dir>
+                                       (simulate, then analyze the run
+                                        directory: the run_all.sh pipeline)
 
 ``--backend``: auto (on a CUDA device zsort where it fits, cellpair for
 large N, rows otherwise; rows on the CPU), rows (or pallas, the JAX
@@ -13,7 +21,13 @@ package's name for it), zsort, cellpair, neighbor or dense.
 ``simulate`` ends with a ``{"diagnostics": ...}`` line (``zsort_invalid``,
 ``pencil_overflow``, ``neighbor_overflow``), a ``{"kernel_launches": ...}``
 line and a ``{"host_reads": ...}`` line (device flags the engines read on
-the host, ``engine.HOST_READS``).
+the host, ``engine.HOST_READS``); with ``--stream`` (the chunked driver,
+``models/streaming.py``: rva.dat written per chunk, a checkpoint per chunk,
+a rerun in the same ``--out-dir`` resumes bit for bit) also a
+``{"stream": ...}`` line (chunks, checkpoint bytes and seconds, frames and
+bytes written and the seconds spent on them, the writer, the resume point).
+``analyze`` plots with matplotlib; where it is not installed, pass
+``--no-plots``.
 
 ``--device`` is ``cuda`` by default (the port's kernels run on the card);
 ``--device cpu`` runs the same path through the kernels' plain PyTorch
@@ -56,20 +70,22 @@ def _sync(device: torch.device) -> None:
 
 
 def _check_initialized(state, cfg) -> None:
-    """Fail fast on an unusable initial state: NaN velocities mean the
-    target energy is below the lattice's potential energy (the reference
-    stops there too, md_initial_config_program.f90:257)."""
-    for name in ("r", "ru", "v", "a"):
-        if not bool(torch.isfinite(getattr(state, name)).all()):
-            raise SystemExit(
-                f"error: initial state.{name} is not finite. Most common "
-                f"cause: target_total_energy={cfg.target_total_energy} is "
-                "below the potential energy of the initial lattice, so the "
-                "velocity rescale has no solution. Raise target_total_energy."
-            )
-    r = state.r
-    if bool((r < 0).any()) or bool((r >= cfg.box_length).any()):
-        raise SystemExit("error: initial positions are not wrapped into [0, L)")
+    """Fail fast on an unusable initial state (the reference stops inside
+    rescale_velocities_to_target_energy when E_target < U,
+    md_initial_config_program.f90:257; the port's init surfaces that as NaN
+    velocities instead: catch it here before burning a full run)."""
+    from ljmd_tpu_torch.utils.debug import validate_state
+
+    try:
+        validate_state(state, cfg.box_length)
+    except FloatingPointError as e:
+        raise SystemExit(
+            f"error: initial state is not finite ({e}). Most common cause: "
+            f"target_total_energy={cfg.target_total_energy} is below the "
+            "potential energy of the initial lattice, so the velocity "
+            "rescale has no solution (reference aborts with 'target energy "
+            "too low'). Raise target_total_energy."
+        ) from e
 
 
 def _launch_report() -> str:
@@ -123,12 +139,21 @@ def cmd_simulate(args) -> int:
     _sync(device)
     t1 = time.time()
     record = not args.no_frames
-    out = run_production(cfg, state, backend=args.backend, record_frames=record,
-                         device=device)
+    out_dir = args.out_dir or "outputs/one_run"
+    stream_stats = None
+    if args.stream:
+        from ljmd_tpu_torch.models.streaming import run_production_streaming
+
+        stream_stats = {}
+        out = run_production_streaming(cfg, state, out_dir, backend=args.backend,
+                                       chunk_samples=args.chunk_samples, write_frames=record,
+                                       device=device, stats=stream_stats)
+    else:
+        out = run_production(cfg, state, backend=args.backend, record_frames=record,
+                             device=device)
     _sync(device)
     t2 = time.time()
-    out_dir = args.out_dir or "outputs/one_run"
-    write_run_artifacts(out_dir, cfg, out, write_frames=record)
+    write_run_artifacts(out_dir, cfg, out, write_frames=record and not args.stream)
     diagnostics = {k: bool(v) for k, v in out.diagnostics.items()}
     for k, v in diagnostics.items():
         if v:
@@ -140,9 +165,49 @@ def cmd_simulate(args) -> int:
     print(json.dumps({k: float(out.means.mean(k))
                       for k in ("epot", "ekin", "etot", "temp", "press")}))
     print(json.dumps({"diagnostics": diagnostics}))
+    if stream_stats is not None:
+        print(json.dumps({"stream": stream_stats}))
     print(_launch_report())
     print(_host_read_report())
     return 0
+
+
+def cmd_analyze(args) -> int:
+    from ljmd_tpu_torch.analysis.report import analyze_run
+
+    device = _device(args)
+    t0 = time.time()
+    summary = analyze_run(
+        args.run_dir,
+        skip_rva=args.skip_rva,
+        msd_fit_frac=args.msd_fit_frac,
+        vacf_tmax_frac=args.vacf_tmax_frac,
+        rva_max_lag=args.rva_max_lag,
+        origin_stride=args.origin_stride,
+        make_plots=not args.no_plots,
+        device=device,
+    )
+    traj = summary.get("trajectory", {})
+    if traj:
+        print(f"D_einstein={traj['D_einstein']:.6g}  D_green_kubo={traj['D_green_kubo']:.6g}")
+    print(f"analysis_summary.json written in {args.run_dir} on {device} "
+          f"({time.time() - t0:.2f}s)")
+    return 0
+
+
+def cmd_run_all(args) -> int:
+    """simulate, then analyze the run directory with the default flags
+    (run_all.sh:6-8; the kernels build at first use, inside simulate)."""
+    rc = cmd_simulate(args)
+    if rc:
+        return rc
+    args.run_dir = args.out_dir or "outputs/one_run"
+    args.skip_rva = False
+    args.msd_fit_frac = 0.5
+    args.vacf_tmax_frac = 1.0
+    args.rva_max_lag = None
+    args.origin_stride = None
+    return cmd_analyze(args)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -162,6 +227,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device to run on (default cuda; cpu runs "
                              "the kernels' plain PyTorch twins)")
 
+    def stream_args(sp):
+        sp.add_argument("--stream", action="store_true",
+                        help="chunked streaming driver: incremental trajectory + "
+                             "mid-run checkpoints, resumable after a crash")
+        sp.add_argument("--chunk-samples", type=int, default=64)
+
     sp = sub.add_parser("init-config", help="build + warm up an initial configuration")
     common(sp)
     sp.add_argument("--out", help="rv_init.dat path (reference binary format)")
@@ -173,7 +244,31 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--out-dir")
     sp.add_argument("--from-init", help="start from an rv_init.dat snapshot")
     sp.add_argument("--no-frames", action="store_true", help="skip rva.dat frames")
+    stream_args(sp)
     sp.set_defaults(fn=cmd_simulate)
+
+    sp = sub.add_parser("analyze", help="post-process a run directory")
+    sp.add_argument("--run-dir", required=True)
+    sp.add_argument("--skip-rva", action="store_true")
+    sp.add_argument("--msd-fit-frac", type=float, default=0.5)
+    sp.add_argument("--vacf-tmax-frac", type=float, default=1.0)
+    sp.add_argument("--rva-max-lag", type=int)
+    sp.add_argument("--origin-stride", type=int)
+    sp.add_argument("--no-plots", action="store_true",
+                    help="skip the PNGs (needed where matplotlib is not installed)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device of the trajectory analysis (default cuda)")
+    sp.set_defaults(fn=cmd_analyze)
+
+    sp = sub.add_parser("run-all", help="simulate + analyze pipeline")
+    common(sp)
+    sp.add_argument("--out-dir")
+    sp.add_argument("--from-init", help="start from an rv_init.dat snapshot")
+    sp.add_argument("--no-frames", action="store_true", help="skip rva.dat frames")
+    sp.add_argument("--no-plots", action="store_true",
+                    help="skip the PNGs (needed where matplotlib is not installed)")
+    stream_args(sp)
+    sp.set_defaults(fn=cmd_run_all)
     return p
 
 

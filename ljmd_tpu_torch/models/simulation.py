@@ -43,6 +43,7 @@ from ljmd_tpu_torch.models.lattice import (
 from ljmd_tpu_torch.state import MDState
 from ljmd_tpu_torch.stats.correlations import autocorr_all, block_corr_means
 from ljmd_tpu_torch.stats.moments import (
+    MeansAccum,
     MeansReport,
     instantaneous_temp_press,
     means_finalize,
@@ -58,6 +59,8 @@ __all__ = [
     "sample_steps",
     "initialize",
     "run_production",
+    "sample_cycle",
+    "finalize",
     "simulate",
 ]
 
@@ -226,20 +229,41 @@ def run_production(
     series_cols = []
     frame_states = []
     for _ in range(n_samples):
-        ecarry, ob = _advance(engine, ecarry, cfg.output_interval)
-        acc = means_update(acc, ob, cfg.n, cfg.volume)
-        temp, press = instantaneous_temp_press(ob, cfg.n, cfg.volume)
-        series_cols.append(torch.stack([ob.epot, ob.ekin, ob.epot + ob.ekin, temp, press]))
+        ecarry, acc, col = sample_cycle(engine, cfg, ecarry, acc)
+        series_cols.append(col)
         if record_frames:
             frame_states.append(engine.get_state(ecarry))
 
     ecarry, _ = _advance(engine, ecarry, epilogue, want_obs=False)
-    state = engine.get_state(ecarry)
-    diagnostics = engine.diagnostics(ecarry)
+    frames = None
+    if record_frames:
+        frames = Frames(*(torch.stack([getattr(s, k) for s in frame_states])
+                          for k in ("r", "ru", "v", "a")))
+    return finalize(cfg, engine, ecarry, torch.stack(series_cols, dim=1), acc, frames)
 
-    series = torch.stack(series_cols, dim=1)  # (5, n_samples)
+
+def sample_cycle(engine: Engine, cfg: SimConfig, ecarry, acc: MeansAccum):
+    """One sampled cycle of the production loop, the same calls in the same
+    order for ``run_production`` and the streaming driver (so their series
+    agree bit for bit): ``output_interval`` steps, the last with
+    observables, then the means and the series column
+    (md_simulation_program.f90:300-391). Returns (carry, means, (5,) column
+    ordered as SERIES_OBSERVABLES)."""
+    ecarry, ob = _advance(engine, ecarry, cfg.output_interval)
+    acc = means_update(acc, ob, cfg.n, cfg.volume)
+    temp, press = instantaneous_temp_press(ob, cfg.n, cfg.volume)
+    return ecarry, acc, torch.stack([ob.epot, ob.ekin, ob.epot + ob.ekin, temp, press])
+
+
+def finalize(cfg: SimConfig, engine: Engine, ecarry, series: torch.Tensor, acc: MeansAccum,
+             frames: Optional[Frames]) -> SimResult:
+    """The statistics of a finished production (both drivers): means and
+    stds, the centered ACF and its block average, the sample times, the
+    final state and the engine's diagnostics. ``series`` is (5, n_samples)
+    on the run's device."""
+    device, dtype = series.device, series.dtype
+    n_samples = series.shape[1]
     report = means_finalize(acc)
-
     max_lag = cfg.corr_max_lag
     n_blocks = cfg.corr_n_blocks(n_samples)
     if max_lag >= 1:
@@ -255,15 +279,9 @@ def run_production(
         corr_mean_norm = torch.zeros_like(corr_norm)
 
     steps = torch.as_tensor(sample_steps(cfg), dtype=dtype, device=device)
-    times = steps * cfg.dt
-
-    frames = None
-    if record_frames:
-        frames = Frames(*(torch.stack([getattr(s, k) for s in frame_states])
-                          for k in ("r", "ru", "v", "a")))
     return SimResult(
-        final_state=state,
-        times=times,
+        final_state=engine.get_state(ecarry),
+        times=steps * cfg.dt,
         series=series,
         means=report,
         corr=corr,
@@ -271,7 +289,7 @@ def run_production(
         corr_mean=corr_mean,
         corr_mean_norm=corr_mean_norm,
         frames=frames,
-        diagnostics=diagnostics,
+        diagnostics=engine.diagnostics(ecarry),
     )
 
 

@@ -1,5 +1,19 @@
-"""Where a production run's time goes on the card (counterpart of
-``ljmd_tpu/utils/profiling.py``, whose ``trace`` wraps ``jax.profiler``).
+"""Tracing and timing (counterpart of ``ljmd_tpu/utils/profiling.py``), and
+where a production run's time goes on the card.
+
+- ``trace(log_dir)``: context manager running the enclosed region under
+  ``torch.profiler`` (CPU and, where there is one, CUDA activity) and
+  writing a Chrome trace, ``log_dir/trace.json`` (Perfetto,
+  chrome://tracing).
+- ``Throughput``: wall-clock meter reporting steps/s and particle-steps/s
+  (the BASELINE metric), with the JAX package's report keys.
+- ``time_fn``: best-of-``iters`` wall time of a call, synchronizing the
+  device its tensors live on.
+- ``device_breakdown`` / ``graph_ops``: the card's busy time per kernel
+  under the profiler, and the device operations of one call counted from a
+  CUDA graph.
+
+Run as a script,
 
     python -m ljmd_tpu_torch.utils.profiling --config examples/n62500_large.json \\
         --total-steps 2000 --warmup-steps 500 [--backend auto] [--capacity 512]
@@ -22,17 +36,111 @@ initializes the config on the card and prints one JSON object:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
+import os
 import time
+from typing import Callable, Optional
 
 import torch
 
-__all__ = ["device_breakdown", "graph_ops", "main"]
+__all__ = ["trace", "Throughput", "time_fn", "device_breakdown", "graph_ops", "main"]
 
 # CUgraphNodeType (cuda.h), for graph_ops.
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
                6: "wait_event", 7: "event_record", 8: "semaphore_signal", 9: "semaphore_wait",
                10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, host_profiling: bool = False):
+    """Profile the enclosed region and write ``log_dir/trace.json`` (a
+    Chrome trace). CUDA activity is traced where a card is present; host
+    Python stacks only with ``host_profiling``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, with_stack=host_profiling) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@dataclasses.dataclass
+class Throughput:
+    """Step-throughput meter: accumulate (steps, elapsed) batches and report
+    rates."""
+
+    n_particles: int
+    steps: int = 0
+    elapsed: float = 0.0
+    _t0: Optional[float] = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, steps_done: int) -> None:
+        if self._t0 is None:
+            raise RuntimeError("Throughput.stop() without start()")
+        self.elapsed += time.perf_counter() - self._t0
+        self.steps += steps_done
+        self._t0 = None
+
+    @property
+    def steps_per_sec(self) -> float:
+        return self.steps / self.elapsed if self.elapsed else 0.0
+
+    @property
+    def particle_steps_per_sec(self) -> float:
+        return self.steps_per_sec * self.n_particles
+
+    def report(self) -> dict:
+        return {
+            "steps": self.steps,
+            "elapsed_s": self.elapsed,
+            "steps_per_sec": self.steps_per_sec,
+            "particle_steps_per_sec": self.particle_steps_per_sec,
+        }
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            yield from _tensors(x)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            yield from _tensors(x)
+
+
+def _sync_devices(*objs) -> None:
+    """Wait for every CUDA device the tensors in ``objs`` live on."""
+    for dev in {t.device for o in objs for t in _tensors(o) if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
+def time_fn(fn: Callable, *args, iters: int = 3, sync: Optional[Callable] = None) -> float:
+    """Best-of-``iters`` wall seconds of ``fn(*args)``, after one untimed
+    call. ``sync(out)`` must wait for the work (default: synchronize the CUDA
+    devices of the output's and the arguments' tensors; nothing on the
+    CPU)."""
+    sync = sync or (lambda out: _sync_devices(out, args))
+    sync(fn(*args))
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        sync(fn(*args))
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def _merged_length(intervals) -> float:
