@@ -159,6 +159,32 @@ checkout. Phases, each fatal on failure:
     checkpoint may be left, the flags clear, the native writer used; logs A's
     and B's rates, checkpoint MB and ms a chunk, rva.dat MB/s, and the
     cell-pair kernels' launches in A and in the warmup.
+12. the replica ensemble at BASELINE config 4 (``examples/ensemble64.json``:
+    R=64 replicas of N=256, 10,000 steps, float32; ``auto`` -> the rows
+    engine batched over the replicas):
+    a. the replica launches of kernels 2 and 3 at R=64, N=256 (float32 and
+       float64) and of kernel 4 at R=8, N=500 (dt=1e-4) against their
+       batched twins, replicas 0, 31 and 63 against one-replica launches bit
+       for bit, a planted NaN kept in its replica, kernel 3 under a capped
+       grid; each timed against the R one-replica launches it replaces
+       (kernel 2 also on the card alone);
+    b. ``ensemble --config examples/ensemble64.json`` through the CLI: 64/64
+       ok, the artifacts parsed, only replica launches; the same run in
+       process (its artifacts byte-equal to the CLI's), the replicas'
+       median |dE/E| <= 1e-3 and the worst within 3x the worst of the same
+       ensemble run in float64, replicas 0 and 63 against one-replica
+       ``run_production`` from their states (states bit for bit, series and
+       means within 1e-6);
+    c. the replica loop against the batched engine from the same states on a
+       2,000-step cut: both rates, final states bit-equal;
+    d. ``--stream --chunk-samples 32``: artifacts byte-equal to (b)'s, the
+       correlation stage's peak device memory within 1.5x one replica
+       group's lag products;
+    e. the N=864 ensemble (``auto`` -> zsort, the replica loop) at R=8 cut to
+       2,000 steps: kernels 9 and 10 launched R times one replica's count,
+       8/8 ok, its rate; the reference default in float32 (compensated:
+       kernel 4's replica launch) as an R=8 ensemble cut to 2,000 steps;
+    f. ``--per-run-dirs`` at R=4 on the cut: run_XXXX/ and several_runs.txt.
 
 The build (phase 2) also builds the native trajectory library
 (``utils/native.py``) with the host's C++ compiler.
@@ -206,6 +232,7 @@ DRIFT_BOUND = {
     "n4000_f32_ring_d2": 1e-3,
     "reference_default_f32_compensated_half_ring_d2": 1e-3,
     "n62500_f32_sharded_pencil_d2": 1e-3,
+    "ensemble64_f32_rows_batched": 1e-3,  # the replicas' median (ENSEMBLE_DRIFT_VS_F64)
 }
 
 # Kernel vs plain twin, max |kernel - twin| / max(1, max |twin|) per output
@@ -276,6 +303,49 @@ ANALYSIS_CUT = {"total_steps": 20_000, "warmup_steps": 1_000}
 ANALYSIS_TOL = 1e-10
 # Phase 11: the streaming run's chunk (15 samples: 8 chunks, 8 checkpoints).
 KILL_CHUNK = 2
+# Phase 12: BASELINE config 4 (examples/ensemble64.json: R=64 replicas of
+# N=256, L=6.84, rc=2.5, dt=0.005, 10,000 steps, interval 20, float32; auto ->
+# the rows engine, batched over the replicas). Kernels 2 and 3 at its shape
+# (the chunk over the 19 unsampled steps of a cycle), kernel 4 at the
+# reference default's (R=8, N=500, dt=1e-4: its compensated path; 99 steps);
+# the replicas checked bit for bit against one-replica launches. The loop
+# and per-run cuts keep its warmup (so its initial states); the N=864
+# ensemble (examples/n864_liquid.json, auto -> zsort: the replica loop) at
+# R=8, cut as phase 4's N=864 run is, to 2,000 steps.
+ENSEMBLE_BIT_REPLICAS = (0, 31, 63)
+ENSEMBLE_EXT_R = 8
+ENSEMBLE_CUT = {"total_steps": 2_000}
+ENSEMBLE_SINGLE_REPLICAS = (0, 63)
+ENSEMBLE_ZSORT_R = 8
+ENSEMBLE_ZSORT_CUT = {"total_steps": 2_000, "warmup_steps": 1_000}
+ENSEMBLE_PER_RUN_R = 4
+# Kernel 4's replica launch on the main path: the reference default in
+# float32 (N=500, dt=1e-4: compensated) as an R=8 ensemble, cut as phase 9's
+# compensated run is.
+ENSEMBLE_EXT_CUT = {"total_steps": 2_000, "warmup_steps": 500, "dtype": "float32"}
+# Config 4's drift: the replicas' median |dE/E| under DRIFT_BOUND, and the
+# worst replica under ENSEMBLE_DRIFT_VS_F64 x the worst of the same ensemble
+# in float64 (its own init, the same generators; experiments/ensemble_drift.py,
+# which also runs it compensated and at half the dt). The worst of 64
+# endpoint differences is set by the truncated potential's cutoff crossings
+# at N=256, not by the integrator: on the H100 (700 W) float64 reached
+# 1.147e-3 at dt=0.005 and 1.584e-3 at dt=0.0025 over the same time (1 and 4
+# of 64 replicas over 1e-3), float32 1.236e-3 (2 of 64), compensated float32
+# 1.198e-3, all with medians 3.0-3.5e-4; a precision loss would lift the
+# float32 ensemble over the float64 one, as DRIFT_VS_SINGLE's 3x does for
+# the sharded engines.
+ENSEMBLE_DRIFT_VS_F64 = 3.0
+# Replica q of the batched run against a one-replica run from its state:
+# the states bit for bit; the series and means to the rounding of the
+# replica axis's sums (float32: a 256-term sum in another order moves ~1e-7).
+ENSEMBLE_SERIES_RTOL = 1e-6
+# The streaming correlation stage's device-memory peak over one replica
+# group's lag products: under 1.5x (the ungrouped stage at config 4 holds 2x).
+CORR_PEAK_OVER_GROUP = 1.5
+ENSEMBLE_FILES = ["means.txt", "simulation_results.txt", "simulation_results.json"] + [
+    f"corrmean_runs_{o}.dat" for o in ("epot", "ekin", "etot", "temp", "press")]
+REPLICA_KERNELS = ("pair_sweep_tri_replicas", "fused_dense_chunk_replicas",
+                   "fused_dense_chunk_ext_replicas")
 PENCIL_CAPS = (512, 384)
 PENCIL_CHECK_STEPS = 4
 PENCIL_CHUNK_STEPS = 8
@@ -2073,7 +2143,7 @@ def _write_cfg(tmp: str, name: str, cfg) -> str:
 FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
                 + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
-                + EXPERIMENT_KERNELS)
+                + EXPERIMENT_KERNELS + REPLICA_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -2916,6 +2986,455 @@ def phase_analysis(torch, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------- phase 11
+# ---------------------------------------------------------------- phase 12
+def replica_stack(torch, num_cells: int, box: float, replicas: int, dtype, seed: int):
+    """R seeded perturbed-FCC boxes as (R, 8, n_pad) rows and velocities."""
+    parts = [perturbed_fcc(num_cells, box, seed + q, torch, dtype, torch.device(DEVICE))
+             for q in range(replicas)]
+    return parts[0][0], torch.stack([p[1] for p in parts]), torch.stack([p[2] for p in parts])
+
+
+def replica_checks(torch, fn, stacks: tuple, got: tuple, picks) -> dict:
+    """Replica q of ``got`` (``fn`` on the stacks) against ``fn`` on replica
+    q alone for q in ``picks``, bit for bit; and a NaN planted in one
+    position of replica 5: that replica's first output changes (a NaN
+    position fails every cutoff test, so its pairs drop out) and every
+    other replica's bits stay as they were."""
+    bits = {}
+    for q in picks:
+        alone = fn(*(s[q].contiguous() for s in stacks))
+        bits[q] = all(bool(torch.equal(g[q], w)) for g, w in zip(got, alone))
+    bad = [s.clone() for s in stacks]
+    bad[0][5, 0, 3] = float("nan")
+    out = fn(*bad)
+    keep = [q for q in range(stacks[0].shape[0]) if q != 5]
+    nan_isolated = (not bool(torch.equal(out[0][5], got[0][5]))
+                    and all(bool(torch.equal(o[keep], g[keep])) for o, g in zip(out, got)))
+    return {"bit_identical_to_alone": bits, "nan_isolated": nan_isolated}
+
+
+def phase_ensemble_kernels(torch) -> dict:
+    """Phase 12a: the replica launches of kernels 2, 3 and 4 against their
+    batched twins, against one-replica launches bit for bit, with a planted
+    NaN; one replica launch timed against the R one-replica launches it
+    replaces (back to back; kernel 2 also on the card alone)."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.ops import fused, pair_sweep
+
+    cfg = load_config(str(REPO / "examples" / "ensemble64.json"))
+    reps, k, box, rc2, dt = cfg.n_runs, cfg.num_cells, cfg.box_length, cfg.rc_square, cfg.dt
+    steps = cfg.output_interval - 1
+    label = f"R={reps} N={cfg.n}"
+    cases = {name: [] for name in REPLICA_KERNELS}
+    for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        tol = KERNEL_TOL[dname]
+        n, r, v = replica_stack(torch, k, box, reps, dtype, 4000)
+        a = 24.0 * pair_sweep.pair_forces_plain(r, n, box, rc2)
+        cand = reps * (n * (n - 1) // 2)
+        cut = sum(pairs_within(torch, r[q, 0:3, :n].T, box, rc2) for q in range(reps))
+        rows_bytes = 8 * r.shape[-1] * r.element_size() * reps
+        singles = [(r[q].contiguous(), v[q].contiguous(), a[q].contiguous()) for q in range(reps)]
+
+        def tri(p):
+            return (pair_sweep.pair_sweep_tri(p, n, box, rc2),)
+
+        got = tri(r)
+        want = pair_sweep.pair_sweep_tri_plain(r, n, box, rc2)
+        errs = [rel_err(got[0][:, row], want[:, row]) for row in range(6)]
+        worst = max(e[1] for e in errs)
+        tag = f"pair_sweep_tri_replicas {label} {dname}"
+        require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
+        checks = replica_checks(torch, tri, (r,), got, ENSEMBLE_BIT_REPLICAS)
+        require(all(checks["bit_identical_to_alone"].values()) and checks["nan_isolated"],
+                f"{tag}: replicas not independent: {checks}")
+        launch = pair_sweep.rows_sweep_plan(r[0], n)
+        launch = {**launch, "replicas": reps, "blocks": launch["blocks"] * reps,
+                  "items": launch["items"] * reps}
+        cases["pair_sweep_tri_replicas"].append({
+            **bound(dname, sweep_flops(cand, cut, True), 2 * rows_bytes),
+            "shape": label, "dtype": dname, "max_abs_err": max(e[0] for e in errs),
+            "rel_err": worst, **checks, "launch": launch,
+            "ms": cuda_time_ms(torch, lambda: tri(r), 50),
+            "card_ms": graph_ms(torch, lambda: tri(r), 20),
+            "loop_ms": cuda_time_ms(torch, lambda: [tri(s[0]) for s in singles], 10),
+            "loop_card_ms": graph_ms(torch, lambda: [tri(s[0]) for s in singles], 5),
+            "plain_ms": cuda_time_ms(torch, lambda: pair_sweep.pair_sweep_tri_plain(
+                r, n, box, rc2), 5)})
+
+        def chunk(r_, v_, a_):
+            return fused.fused_dense_chunk(r_, v_, a_, n, box, rc2, dt, steps)
+
+        got = chunk(r, v, a)
+        want = fused.fused_dense_chunk_plain(r, v, a, n, box, rc2, dt, steps)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        worst = max(e[1] for e in errs)
+        tag = f"fused_dense_chunk_replicas {label} {dname}"
+        require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
+        checks = replica_checks(torch, chunk, (r, v, a), got, ENSEMBLE_BIT_REPLICAS)
+        plan = fused.dense_plan(r)
+        full = fused._launch("fused_dense_chunk", False, r, None, v, None, a, n, box, rc2, dt,
+                             steps)
+        capped = fused._launch("fused_dense_chunk", False, r, None, v, None, a, n, box, rc2, dt,
+                               steps, grid_cap=max(1, plan["items"] // TILES_PER_BLOCK))
+        checks["capped_grid_bit_identical"] = all(
+            g is None or bool(torch.equal(g, w)) for g, w in zip(capped, full))
+        require(all(checks["bit_identical_to_alone"].values()) and checks["nan_isolated"]
+                and checks["capped_grid_bit_identical"], f"{tag}: replicas not independent "
+                                                          f"or grid-dependent: {checks}")
+        cases["fused_dense_chunk_replicas"].append({
+            **bound(dname, chunk_flops(steps, cand, cut, reps * n), 6 * rows_bytes),
+            "shape": label, "dtype": dname, "steps": steps,
+            "max_abs_err": max(e[0] for e in errs), "rel_err": worst, **checks, "plan": plan,
+            "ms": cuda_time_ms(torch, lambda: chunk(r, v, a), 20),
+            "loop_ms": cuda_time_ms(torch, lambda: [chunk(*s) for s in singles], 5),
+            "plain_ms": cuda_time_ms(torch, lambda: fused.fused_dense_chunk_plain(
+                r, v, a, n, box, rc2, dt, steps), 1, warmup=1)})
+
+    # Kernel 4: R=8 replicas of the reference default's box (N=500, rc=4.9,
+    # dt=1e-4, float32), its 99-step chunk; checked over 10 steps.
+    ext_label, ek, ebox, erc = SHAPES[0]
+    erc2, edt, ereps = erc * erc, 1e-4, ENSEMBLE_EXT_R
+    n, r, v = replica_stack(torch, ek, ebox, ereps, torch.float32, 5000)
+    a = 24.0 * pair_sweep.pair_forces_plain(r, n, ebox, erc2)
+    zero = torch.zeros_like(r)
+
+    def ext(steps_):
+        def fn(r_, lo_, v_, vc_, a_):
+            return fused.fused_dense_chunk_ext(r_, lo_, v_, vc_, a_, n, ebox, erc2, edt, steps_)
+        return fn
+
+    got = ext(10)(r, zero, v, zero, a)
+    want = fused.fused_dense_chunk_ext_plain(r, zero, v, zero, a, n, ebox, erc2, edt, 10)
+    errs = [rel_err(g, w) for g, w in ((got[0].double() + got[1].double(),
+                                        want[0].double() + want[1].double()),
+                                       (got[2].double() + got[3].double(),
+                                        want[2].double() + want[3].double()),
+                                       (got[4], want[4]))]
+    worst = max(e[1] for e in errs)
+    label = f"R={ereps} {ext_label}"
+    tag = f"fused_dense_chunk_ext_replicas {label} float32"
+    require(worst <= KERNEL_TOL["float32"], f"{tag}: rel err {worst:.3e}")
+    checks = replica_checks(torch, ext(10), (r, zero, v, zero, a), got, (0, 3, ereps - 1))
+    require(all(checks["bit_identical_to_alone"].values()) and checks["nan_isolated"],
+            f"{tag}: replicas not independent: {checks}")
+    singles = [tuple(t[q].contiguous() for t in (r, zero, v, zero, a)) for q in range(ereps)]
+    cand = ereps * (n * (n - 1) // 2)
+    cut = sum(pairs_within(torch, r[q, 0:3, :n].T, ebox, erc2) for q in range(ereps))
+    cases["fused_dense_chunk_ext_replicas"].append({
+        **bound("float32", chunk_flops(CHUNK_STEPS, cand, cut, ereps * n),
+                10 * 8 * r.shape[-1] * r.element_size() * ereps),
+        "shape": label, "dtype": "float32", "steps": CHUNK_STEPS,
+        "max_abs_err": max(e[0] for e in errs), "rel_err": worst, **checks,
+        "plan": fused.dense_plan(r, True),
+        "ms": cuda_time_ms(torch, lambda: ext(CHUNK_STEPS)(r, zero, v, zero, a), 5),
+        "loop_ms": cuda_time_ms(torch, lambda: [ext(CHUNK_STEPS)(*s) for s in singles], 3),
+        "plain_ms": cuda_time_ms(torch, lambda: fused.fused_dense_chunk_ext_plain(
+            r, zero, v, zero, a, n, ebox, erc2, edt, CHUNK_STEPS), 1, warmup=1)})
+    for name, cs in cases.items():
+        for c in cs:
+            bits = all(c["bit_identical_to_alone"].values())
+            extra = (f", on the card alone {c['card_ms']:.4f} ms (R one-replica launches "
+                     f"{c['loop_card_ms']:.4f}); {rows_plan_text(c['launch'])}"
+                     if "card_ms" in c else f"; {plan_text(c['plan'])}, {c['steps']} steps")
+            log(f"kernel {name} {c['shape']} {c['dtype']}: rel err {c['rel_err']:.3e} (tol "
+                f"{KERNEL_TOL[c['dtype']]:.0e}), replicas {list(c['bit_identical_to_alone'])} "
+                f"bit-identical to one-replica launches {bits}, planted NaN isolated "
+                f"{c['nan_isolated']}" + (f", capped grid bit-identical "
+                                          f"{c['capped_grid_bit_identical']}"
+                                          if "capped_grid_bit_identical" in c else "")
+                + f"; one replica launch {c['ms']:.4f} ms against the R one-replica launches "
+                f"back to back {c['loop_ms']:.4f} ms ({c['loop_ms'] / c['ms']:.1f}x), plain "
+                f"{c['plain_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
+                + extra)
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    LAUNCHES.reset()  # comparison launches do not count for the main path
+    return cases
+
+
+def _ensemble_cli(name: str, args: list) -> tuple:
+    """``python -m ljmd_tpu_torch ensemble <args>`` on the card: (its
+    ``{"ensemble": ...}`` summary, its launch counts, wall seconds)."""
+    proc, wall = _cli(name, ["ensemble", *args, "--device", DEVICE])
+    return _cli_json(proc, "ensemble"), _cli_json(proc, "kernel_launches"), wall
+
+
+def _ensemble_files(out_dir: str, replicas: int) -> None:
+    """The ensemble's artifacts are there and parse: R finite rows of means,
+    the cross-run JSON, five corrmean curves."""
+    import numpy as np
+
+    for f in ENSEMBLE_FILES:
+        path = os.path.join(out_dir, f)
+        require(os.path.isfile(path) and os.path.getsize(path) > 0, f"missing: {path}")
+    means = np.loadtxt(os.path.join(out_dir, "means.txt"), ndmin=2)
+    require(means.shape == (replicas, 11) and bool(np.isfinite(means).all()),
+            f"{out_dir}/means.txt: shape {means.shape} or non-finite")
+    with open(os.path.join(out_dir, "simulation_results.json")) as f:
+        results = json.load(f)
+    require(results["n_runs"] == replicas and all(
+        math.isfinite(v["mean"]) for v in results["cross_run"].values()),
+        f"{out_dir}/simulation_results.json")
+    for o in ("epot", "ekin", "etot", "temp", "press"):
+        curve = np.loadtxt(os.path.join(out_dir, f"corrmean_runs_{o}.dat"))
+        require(curve.ndim == 2 and bool(np.isfinite(curve).all()), f"corrmean_runs_{o}.dat")
+
+
+def _same_bytes(a: str, b: str, names) -> bool:
+    for f in names:
+        with open(os.path.join(a, f), "rb") as fa, open(os.path.join(b, f), "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def phase_ensemble(torch, tmp: str) -> dict:
+    """Phase 12b-f: config 4 through the CLI (in memory and --stream), the
+    same run in process against one-replica runs, the replica loop against
+    the batched engine, the N=864 ensemble through the zsort loop, and
+    --per-run-dirs."""
+    import numpy as np
+
+    from ljmd_tpu_torch.cli import write_ensemble_artifacts
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.experiments import ensemble_drift
+    from ljmd_tpu_torch.models.engine import (
+        _replica_loop_engine,
+        make_engine,
+        replica_backend,
+        replica_state,
+    )
+    from ljmd_tpu_torch.models.simulation import (
+        initialize_replicas,
+        replica_generators,
+        run_production,
+    )
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+    from ljmd_tpu_torch.parallel.ensemble import ensemble_aggregate
+
+    path = str(REPO / "examples" / "ensemble64.json")
+    cfg = load_config(path)
+    reps = cfg.n_runs
+    require(replica_backend(cfg, "auto", DEVICE, cfg.output_interval) == ("rows", True),
+            "auto does not route config 4 to the batched rows engine")
+    singles_k = ("pair_sweep_tri", "fused_dense_chunk", "fused_dense_chunk_ext")
+    no_rows = ZSORT_KERNELS + PENCIL_KERNELS + ("pair_sweep",)
+    runs, report = {}, {}
+
+    # (b) config 4 in full through the CLI, then in process from the same
+    # initial states (the replica generators are deterministic).
+    name = "ensemble64_f32_rows_batched"
+    out_mem = os.path.join(tmp, name)
+    summary, counts, wall = _ensemble_cli(name, ["--config", path, "--out-dir", out_mem])
+    _check_launches(name, counts, ("pair_sweep_tri_replicas", "fused_dense_chunk_replicas"),
+                    singles_k + no_rows + ("fused_dense_chunk_ext_replicas",))
+    require(summary["n_ok"] == reps and summary["batched"], f"{name}: {summary}")
+    _ensemble_files(out_mem, reps)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    states = initialize_replicas(cfg, replica_generators(cfg.seed, reps), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    LAUNCHES.reset()
+    t0 = time.time()
+    res = run_production(cfg, states, device=DEVICE)
+    torch.cuda.synchronize()
+    prod_s = time.time() - t0
+    in_counts = LAUNCHES.snapshot()
+    out = ensemble_aggregate(cfg, res)
+    write_ensemble_artifacts(os.path.join(tmp, "ensemble64_in_process"), cfg, out, reps)
+    same_as_cli = _same_bytes(out_mem, os.path.join(tmp, "ensemble64_in_process"),
+                              ENSEMBLE_FILES)
+    require(same_as_cli, f"{name}: the in-process run's artifacts differ from the CLI's")
+    drifts = [_drift(res.series[q, 2].cpu()) for q in range(reps)]
+    variants = ensemble_drift.main(["--device", DEVICE, "--config", path])
+    f64 = variants["float64"]
+    require(float(np.median(drifts)) <= DRIFT_BOUND[name]
+            and max(drifts) <= ENSEMBLE_DRIFT_VS_F64 * f64["max"],
+            f"{name}: |dE/E| median {np.median(drifts):.3e} (bound {DRIFT_BOUND[name]:.0e}), "
+            f"max {max(drifts):.3e} against float64's max {f64['max']:.3e} "
+            f"(bound {ENSEMBLE_DRIFT_VS_F64}x)")
+    vs_single = {}
+    for q in ENSEMBLE_SINGLE_REPLICAS:
+        one = run_production(cfg, replica_state(states, q), device=DEVICE)
+        bits = all(bool(torch.equal(getattr(res.final_state, f)[q], getattr(one.final_state, f)))
+                   for f in ("r", "ru", "v", "a"))
+        series = _rel_scale_err(res.series[q].cpu(), one.series.cpu())
+        means = _rel_scale_err(res.means.means[q].cpu(), one.means.means.cpu())
+        vs_single[q] = {"final_state_bit_identical": bits, "series_rel_err": series,
+                        "means_rel_err": means}
+        require(bits and series <= ENSEMBLE_SERIES_RTOL and means <= ENSEMBLE_SERIES_RTOL,
+                f"{name}: replica {q} against its one-replica run: {vs_single[q]}")
+    rate = reps * cfg.n * cfg.total_steps / prod_s
+    runs[name] = {"engine": "rows", "n": cfg.n, "replicas": reps, "launches": counts,
+                  "cli": summary, "cli_wall_s": wall, "init_s": init_s, "production_s": prod_s,
+                  "particle_steps_per_s": rate, "in_process_launches": in_counts,
+                  "max_drift": max(drifts), "median_drift": float(np.median(drifts)),
+                  "over_1e-3": sum(d > 1e-3 for d in drifts), "drift_variants": variants,
+                  "vs_single": vs_single}
+    log(f"{name}: R={reps} N={cfg.n} x {cfg.total_steps} steps, CLI wall {wall:.1f}s, CLI "
+        f"production {summary['production_s']:.3f}s = {summary['particle_steps_per_s']:.4e} "
+        f"aggregate particle-steps/s, {summary['n_ok']}/{reps} ok; in process init "
+        f"{init_s:.3f}s, production {prod_s:.3f}s = {rate:.4e}, artifacts byte-equal to the "
+        f"CLI's; |dE/E| median {np.median(drifts):.3e} (bound {DRIFT_BOUND[name]:.0e}), max "
+        f"{max(drifts):.3e} ({sum(d > 1e-3 for d in drifts)} of {reps} over 1e-3) against the "
+        f"float64 ensemble's max {f64['max']:.3e} (bound {ENSEMBLE_DRIFT_VS_F64}x; every variant: "
+        f"{json.dumps(variants)}); against one-replica runs {json.dumps(vs_single)}; CLI "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+
+    # (c) the design question: the replica loop against the batched engine on
+    # a 2,000-step cut from the same states.
+    cut = cfg.replace(**ENSEMBLE_CUT)
+    LAUNCHES.reset()
+    t0 = time.time()
+    batched = run_production(cut, states, device=DEVICE)
+    torch.cuda.synchronize()
+    t_b = time.time() - t0
+    b_counts = LAUNCHES.snapshot()
+    loop_engine = _replica_loop_engine([make_engine(cut, "rows", DEVICE) for _ in range(reps)])
+    LAUNCHES.reset()
+    t0 = time.time()
+    looped = run_production(cut, states, engine=loop_engine)
+    torch.cuda.synchronize()
+    t_l = time.time() - t0
+    l_counts = LAUNCHES.snapshot()
+    same = all(bool(torch.equal(getattr(batched.final_state, f), getattr(looped.final_state, f)))
+               for f in ("r", "ru", "v", "a"))
+    require(same, "ensemble64 cut: the replica loop's final states differ from the batched "
+                  "engine's")
+    _check_launches("ensemble64_f32_rows_loop", l_counts, singles_k[:2], REPLICA_KERNELS)
+    _check_launches("ensemble64_f32_rows_batched_cut", b_counts, REPLICA_KERNELS[:2], singles_k)
+    r_b = reps * cut.n * cut.total_steps / t_b
+    r_l = reps * cut.n * cut.total_steps / t_l
+    loop_series = _rel_scale_err(looped.series.cpu(), batched.series.cpu())
+    runs["ensemble64_f32_rows_loop"] = {"engine": "rows (loop)", "n": cut.n, "replicas": reps,
+                                        "launches": l_counts, "production_s": t_l,
+                                        "particle_steps_per_s": r_l}
+    report["loop_vs_batched"] = {"steps": cut.total_steps, "batched_s": t_b, "loop_s": t_l,
+                                 "batched_rate": r_b, "loop_rate": r_l,
+                                 "final_states_bit_identical": same,
+                                 "series_rel_err": loop_series, "batched_launches": b_counts}
+    log(f"ensemble64 cut to {cut.total_steps} steps from the same states: batched {t_b:.3f}s = "
+        f"{r_b:.4e} particle-steps/s, the replica loop {t_l:.3f}s = {r_l:.4e} (batched / loop "
+        f"{r_b / r_l:.1f}x); final states bit-identical {same}, series rel diff "
+        f"{loop_series:.3e}; launches batched {json.dumps({k: v for k, v in b_counts.items() if v})}"
+        f", loop {json.dumps({k: v for k, v in l_counts.items() if v})}")
+
+    # (d) --stream: the same artifacts byte for byte; the correlation stage's
+    # memory within its group.
+    name = "ensemble64_f32_rows_stream"
+    out_st = os.path.join(tmp, name)
+    st_summary, st_counts, st_wall = _ensemble_cli(
+        name, ["--config", path, "--out-dir", out_st, "--stream", "--chunk-samples", "32"])
+    _check_launches(name, st_counts, REPLICA_KERNELS[:2], singles_k + no_rows)
+    stream = st_summary["stream"]
+    peak_ratio = stream["corr_peak_bytes"] / stream["corr_group_bytes"]
+    equal = _same_bytes(out_st, out_mem, ENSEMBLE_FILES)
+    require(equal, f"{name}: the streamed artifacts differ from the in-memory run's")
+    require(peak_ratio <= CORR_PEAK_OVER_GROUP, f"{name}: the correlation stage's peak "
+            f"{stream['corr_peak_bytes']} B is {peak_ratio:.2f}x its group's lag products")
+    runs[name] = {"engine": "rows", "n": cfg.n, "replicas": reps, "launches": st_counts,
+                  "cli": st_summary, "cli_wall_s": st_wall,
+                  "particle_steps_per_s": st_summary["particle_steps_per_s"]}
+    log(f"{name}: --stream --chunk-samples 32, {stream['chunks']} chunks, artifacts byte-equal "
+        f"to the in-memory run's {equal}; correlation stage in groups of {stream['corr_group']} "
+        f"of {reps} replicas: peak {stream['corr_peak_bytes'] / 2**20:.2f} MiB = "
+        f"{peak_ratio:.3f}x a group's lag products ({stream['corr_group_bytes'] / 2**20:.2f} "
+        f"MiB; all {reps} at once: {stream['corr_group_bytes'] * reps / stream['corr_group'] / 2**20:.2f}"
+        f" MiB); init + production {st_summary['production_s']:.3f}s, CLI wall {st_wall:.1f}s")
+
+    # (e) the loop on another engine: N=864 (auto -> zsort), R=8.
+    name = "n864_f32_ensemble_zsort_loop"
+    zcfg = load_config(str(REPO / "examples" / "n864_liquid.json")).replace(**ENSEMBLE_ZSORT_CUT)
+    zreps = ENSEMBLE_ZSORT_R
+    require(replica_backend(zcfg, "auto", DEVICE, zcfg.output_interval) == ("zsort", False),
+            "auto does not route the N=864 ensemble to the zsort loop")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    zstates = initialize_replicas(zcfg, replica_generators(zcfg.seed, zreps), device=DEVICE)
+    torch.cuda.synchronize()
+    z_init = time.time() - t0
+    LAUNCHES.reset()
+    t0 = time.time()
+    zres = run_production(zcfg, zstates, device=DEVICE)
+    torch.cuda.synchronize()
+    z_prod = time.time() - t0
+    z_counts = LAUNCHES.snapshot()
+    zout = ensemble_aggregate(zcfg, zres)
+    flags = {k: bool(v.any()) for k, v in zres.diagnostics.items()}
+    LAUNCHES.reset()
+    one = run_production(zcfg, replica_state(zstates, 0), device=DEVICE)
+    one_counts = LAUNCHES.snapshot()
+    per_replica = all(z_counts[k] == zreps * one_counts[k] and one_counts[k] > 0
+                      for k in ZSORT_KERNELS)
+    z_same = all(bool(torch.equal(getattr(zres.final_state, f)[0], getattr(one.final_state, f)))
+                 for f in ("r", "ru", "v", "a"))
+    require(int(zout.n_ok) == zreps and not any(flags.values()) and per_replica and z_same,
+            f"{name}: n_ok {int(zout.n_ok)}, flags {flags}, launches {z_counts} against one "
+            f"replica's {one_counts}, replica 0 equal to its one-replica run {z_same}")
+    z_rate = zreps * zcfg.n * zcfg.total_steps / z_prod
+    runs[name] = {"engine": "zsort (loop)", "n": zcfg.n, "replicas": zreps, "launches": z_counts,
+                  "init_s": z_init, "production_s": z_prod, "particle_steps_per_s": z_rate,
+                  "diagnostics": flags}
+    log(f"{name}: R={zreps} N={zcfg.n} x {zcfg.total_steps} steps through the replica loop: "
+        f"init {z_init:.3f}s, production {z_prod:.3f}s = {z_rate:.4e} aggregate "
+        f"particle-steps/s, {int(zout.n_ok)}/{zreps} ok, flags {flags}; kernels 9 / 10 "
+        f"{z_counts['build_window_lists']} / {z_counts['fused_dense_chunk_list']} launches = "
+        f"{zreps} x one replica's ({one_counts['build_window_lists']} / "
+        f"{one_counts['fused_dense_chunk_list']}); replica 0 bit-identical to its one-replica "
+        f"run {z_same}")
+
+    # (e') the compensated replica chunk (kernel 4) on its main path: the
+    # reference default in float32 as an R=8 ensemble.
+    name = "reference_default_f32_ensemble8"
+    ecfg = load_config(str(REPO / "examples" / "reference_default.json")).replace(
+        **ENSEMBLE_EXT_CUT)
+    estates = initialize_replicas(ecfg, replica_generators(ecfg.seed, ENSEMBLE_EXT_R),
+                                  device=DEVICE)
+    LAUNCHES.reset()
+    t0 = time.time()
+    eres = run_production(ecfg, estates, device=DEVICE)
+    torch.cuda.synchronize()
+    e_prod = time.time() - t0
+    e_counts = LAUNCHES.snapshot()
+    _check_launches(name, e_counts, ("pair_sweep_tri_replicas", "fused_dense_chunk_ext_replicas"),
+                    singles_k + ("fused_dense_chunk_replicas",))
+    eout = ensemble_aggregate(ecfg, eres)
+    e_drift = max(_drift(eres.series[q, 2].cpu()) for q in range(ENSEMBLE_EXT_R))
+    require(int(eout.n_ok) == ENSEMBLE_EXT_R and e_drift <= DRIFT_BOUND["reference_default_f32"],
+            f"{name}: {int(eout.n_ok)} ok, max |dE/E| {e_drift:.3e}")
+    e_rate = ENSEMBLE_EXT_R * ecfg.n * ecfg.total_steps / e_prod
+    runs[name] = {"engine": "rows (compensated)", "n": ecfg.n, "replicas": ENSEMBLE_EXT_R,
+                  "launches": e_counts, "production_s": e_prod, "particle_steps_per_s": e_rate,
+                  "max_drift": e_drift}
+    log(f"{name}: R={ENSEMBLE_EXT_R} N={ecfg.n} x {ecfg.total_steps} steps (float32, dt=1e-4, "
+        f"compensated), production {e_prod:.3f}s = {e_rate:.4e} aggregate particle-steps/s, "
+        f"{int(eout.n_ok)}/{ENSEMBLE_EXT_R} ok, max |dE/E| {e_drift:.3e} (bound "
+        f"{DRIFT_BOUND['reference_default_f32']:.0e}); launches "
+        f"{json.dumps({k: v for k, v in e_counts.items() if v})}")
+
+    # (f) --per-run-dirs on the cut, R=4.
+    name = "ensemble64_per_run_dirs"
+    out_pr = os.path.join(tmp, name)
+    pr_summary, pr_counts, pr_wall = _ensemble_cli(
+        name, ["--config", _write_cfg(tmp, name, cut), "--out-dir", out_pr, "--n-runs",
+               str(ENSEMBLE_PER_RUN_R), "--per-run-dirs"])
+    with open(os.path.join(out_pr, "several_runs.txt")) as f:
+        listed = f.read().split()
+    want_dirs = [os.path.join(out_pr, f"run_{i:04d}") for i in range(ENSEMBLE_PER_RUN_R)]
+    require(listed == want_dirs, f"{name}: several_runs.txt lists {listed}")
+    for d in want_dirs:
+        _check_artifacts(d, with_frames=False)
+    _ensemble_files(out_pr, ENSEMBLE_PER_RUN_R)
+    runs[name] = {"engine": "rows", "n": cut.n, "replicas": ENSEMBLE_PER_RUN_R,
+                  "launches": pr_counts, "cli": pr_summary, "cli_wall_s": pr_wall,
+                  "particle_steps_per_s": pr_summary["particle_steps_per_s"]}
+    log(f"{name}: R={ENSEMBLE_PER_RUN_R} on the {cut.total_steps}-step cut, run_0000..run_"
+        f"{ENSEMBLE_PER_RUN_R - 1:04d} written, checked and listed in several_runs.txt; CLI wall "
+        f"{pr_wall:.1f}s")
+    return {"runs": runs, **report}
+
+
 def phase_kill_resume(torch, tmp: str) -> dict:
     """BASELINE config 5 (N=62500, ``auto`` -> cellpair) cut as N62500_CUT:
     ``init-config`` once, then from its rv_init.dat B (in-memory
@@ -3042,6 +3561,7 @@ def main() -> int:
     cases.update(phase_flags_kernel(torch))
     cases.update(phase_probe_kernels(torch))
     cases.update(phase_layout_kernels(torch))
+    cases.update(phase_ensemble_kernels(torch))
     with tempfile.TemporaryDirectory(prefix="ljmd_chip_smoke_") as tmp:
         runs, final_cfg, final_state = phase_main_path(torch, tmp)
         cp_runs, cfg5, states5 = phase_cellpair_path(torch, tmp)
@@ -3059,6 +3579,8 @@ def main() -> int:
         runs["n62500_f32_cellpair_stream"] = {
             "engine": "auto", "n": cfg5.n, "launches": kill["runs"]["A"]["launches"],
             "particle_steps_per_s": kill["runs"]["A"]["particle_steps_per_s"]}
+        ensemble = phase_ensemble(torch, tmp)
+        runs.update(ensemble["runs"])
     multi_rates = phase_multidevice_rates(torch, multi_states)
     exp_runs = phase_experiments(torch)
     runs.update(cp_runs)
@@ -3094,7 +3616,10 @@ def main() -> int:
                 "pair_sweep_rect_newton": ("N=4000 d=4 hop", "float32"),
                 "fused_dense_chunk_flags": ("N=4000 tile_j=512 real", "float32"),
                 "mosaic_probes": ("t8n", "float32"),
-                "layout_bodies": ("k1-512 v=128 L=16.796", "float32")}
+                "layout_bodies": ("k1-512 v=128 L=16.796", "float32"),
+                "pair_sweep_tri_replicas": ("R=64 N=256", "float32"),
+                "fused_dense_chunk_replicas": ("R=64 N=256", "float32"),
+                "fused_dense_chunk_ext_replicas": ("R=8 N=500", "float32")}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
@@ -3114,6 +3639,11 @@ def main() -> int:
         "fused_dense_chunk_flags": ("ljmd_tpu_torch/csrc/fused_dense_chunk.cu", "ljmd_tpu/ops/pallas_fused.py:384"),
         "mosaic_probes": ("ljmd_tpu_torch/csrc/mosaic_probes.cu", "scripts/exp_mosaic_support.py:65"),
         "layout_bodies": ("ljmd_tpu_torch/csrc/layout_bodies.cu", "scripts/exp_layout.py:127"),
+        # Kernels 2, 3 and 4 with a replica dimension: one launch for the R
+        # replicas of an ensemble (the JAX package's vmap of the same kernels).
+        "pair_sweep_tri_replicas": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
+        "fused_dense_chunk_replicas": ("ljmd_tpu_torch/csrc/fused_dense_chunk.cu", "ljmd_tpu/ops/pallas_fused.py:537"),
+        "fused_dense_chunk_ext_replicas": ("ljmd_tpu_torch/csrc/fused_dense_chunk.cu", "ljmd_tpu/ops/pallas_fused.py:465"),
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
@@ -3151,6 +3681,9 @@ def main() -> int:
             # host's call included, as every row and every earlier PR times
             # it), and ``card_ms`` the card's time alone (CUDA-graph replay).
             **({"card_ms": head["card_ms"]} if "card_ms" in head else {}),
+            # The replica launches: the R one-replica launches they replace,
+            # back to back (and for kernel 2 on the card alone).
+            **{k: head[k] for k in ("loop_ms", "loop_card_ms") if k in head},
             # No single PyTorch call computes a cut-off LJ sweep, a fused
             # Verlet chunk or a greedy visit-list cover; the probes stand for
             # library operations (ITERS calls of each, probe_library).
@@ -3225,6 +3758,18 @@ def main() -> int:
         f"float64 cross checks: flagship step vs rows {flagship_cross:.3e}, rows ordered vs "
         f"tri {ordered_cross:.3e}, full9 vs half shell {full_cross['full9']:.3e}, zband vs half "
         f"shell {full_cross['zband']:.3e}")
+    ens = runs["ensemble64_f32_rows_batched"]
+    lvb = ensemble["loop_vs_batched"]
+    log(f"ensemble on {env['nvidia_smi']}: config 4 (R=64, N=256, 10,000 steps, float32) CLI "
+        f"production {ens['cli']['production_s']:.3f}s = {ens['cli']['particle_steps_per_s']:.4e} "
+        f"aggregate particle-steps/s, in process {ens['particle_steps_per_s']:.4e}, "
+        f"{ens['cli']['n_ok']}/64 ok, max |dE/E| {ens['max_drift']:.3e}; on the 2,000-step cut "
+        f"batched {lvb['batched_rate']:.4e} against the replica loop {lvb['loop_rate']:.4e} "
+        f"({lvb['batched_rate'] / lvb['loop_rate']:.1f}x, final states bit-identical "
+        f"{lvb['final_states_bit_identical']}); stream "
+        f"{runs['ensemble64_f32_rows_stream']['particle_steps_per_s']:.4e} (init included); "
+        f"N=864 zsort loop R=8 "
+        f"{runs['n864_f32_ensemble_zsort_loop']['particle_steps_per_s']:.4e}")
     log(f"analysis and streaming on {env['nvidia_smi']}: config 3 "
         + ", ".join(f"{k} {v['card_ms']:.3f} ms" for k, v in analysis["functions"].items())
         + f" (card vs CPU within {max(v['rel_err'] for v in analysis['functions'].values()):.3e}, "

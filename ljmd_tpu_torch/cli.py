@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch port (counterpart of
-``ljmd_tpu/cli.py:40-135, 230-243, 279-355``):
+``ljmd_tpu/cli.py``):
 
   python -m ljmd_tpu_torch init-config --config <file> [--out rv_init.dat]
                                        [--device cuda] [--backend auto]
@@ -14,6 +14,10 @@
   python -m ljmd_tpu_torch run-all     --config <file> --out-dir <dir>
                                        (simulate, then analyze the run
                                         directory: the run_all.sh pipeline)
+  python -m ljmd_tpu_torch ensemble    --config <file> --out-dir <dir>
+                                       [--n-runs R] [--per-run-dirs]
+                                       [--stream [--chunk-samples 32]]
+                                       [--device cuda] [--backend auto]
 
 ``--backend``: auto (on a CUDA device zsort where it fits, cellpair for
 large N, rows otherwise; rows on the CPU), rows (or pallas, the JAX
@@ -27,7 +31,13 @@ a rerun in the same ``--out-dir`` resumes bit for bit) also a
 ``{"stream": ...}`` line (chunks, checkpoint bytes and seconds, frames and
 bytes written and the seconds spent on them, the writer, the resume point).
 ``analyze`` plots with matplotlib; where it is not installed, pass
-``--no-plots``.
+``--no-plots``. ``ensemble`` runs R replicas (``parallel/ensemble.py``:
+batched on the rows engine, a loop over replicas on any other) and writes
+means.txt, simulation_results.{txt,json} and corrmean_runs_*.dat, with
+``--per-run-dirs`` also run_XXXX/ per replica that is ok and
+several_runs.txt; it ends with an ``{"ensemble": ...}`` line (replicas, N,
+engine, production seconds, aggregate particle-steps/s, replicas ok, the
+kernels launched) and the ``{"kernel_launches": ...}`` line.
 
 ``--device`` is ``cuda`` by default (the port's kernels run on the card);
 ``--device cpu`` runs the same path through the kernels' plain PyTorch
@@ -195,6 +205,127 @@ def cmd_analyze(args) -> int:
     return 0
 
 
+def cmd_ensemble(args) -> int:
+    from ljmd_tpu_torch.models.engine import replica_backend
+    from ljmd_tpu_torch.models.simulation import (
+        initialize_replicas,
+        replica_generators,
+        run_production,
+    )
+    from ljmd_tpu_torch.parallel.ensemble import (
+        ensemble_aggregate,
+        ensemble_simulate_streaming,
+        replica_result,
+    )
+
+    if args.per_run_dirs and args.stream:
+        raise SystemExit("error: --per-run-dirs needs the in-memory ensemble, not --stream")
+    cfg = _load_cfg(args)
+    device = _device(args)
+    n_runs = args.n_runs or cfg.n_runs
+    out_dir = args.out_dir or "outputs"
+    os.makedirs(out_dir, exist_ok=True)
+    engine, batched = replica_backend(cfg, args.backend, device, cfg.output_interval)
+    t0 = time.time()
+    stream_stats = None
+    if args.stream:
+        # The series to the host per chunk, the correlations over replica
+        # groups; init and production are one call, timed together.
+        stream_stats = {}
+        out = ensemble_simulate_streaming(cfg, n_replicas=n_runs, backend=args.backend,
+                                          device=device, chunk_samples=args.chunk_samples,
+                                          stats=stream_stats)
+        _sync(device)
+        t1 = t0
+    else:
+        states = initialize_replicas(cfg, replica_generators(cfg.seed, n_runs),
+                                     backend=args.backend, device=device)
+        _sync(device)
+        t1 = time.time()
+        results = run_production(cfg, states, backend=args.backend, device=device)
+        out = ensemble_aggregate(cfg, results)
+        _sync(device)
+    t2 = time.time()
+    ok = out.replica_ok.cpu().numpy()
+    if args.per_run_dirs:
+        from ljmd_tpu_torch.io.artifacts import write_run_artifacts
+
+        # run_XXXX/ per replica that is ok + several_runs.txt
+        # (run_many_md.f90:59,74)
+        run_dirs = []
+        for i in range(n_runs):
+            d = os.path.join(out_dir, f"run_{i:04d}")
+            if ok[i]:
+                write_run_artifacts(d, cfg, replica_result(results, i), write_frames=False)
+                run_dirs.append(d)
+        with open(os.path.join(out_dir, "several_runs.txt"), "w") as f:
+            f.write("\n".join(run_dirs) + ("\n" if run_dirs else ""))
+    write_ensemble_artifacts(out_dir, cfg, out, n_runs)
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    summary = {"replicas": n_runs, "n": cfg.n, "engine": engine, "batched": batched,
+               "device": str(device), "init_s": t1 - t0, "production_s": t2 - t1,
+               "particle_steps_per_s": n_runs * cfg.n * cfg.total_steps / (t2 - t1),
+               "n_ok": int(ok.sum()),
+               "launches": {k: v for k, v in LAUNCHES.snapshot().items() if v}}
+    if stream_stats is not None:
+        summary["stream"] = stream_stats
+    print(json.dumps({"ensemble": summary}))
+    print(_launch_report())
+    print(f"{n_runs} replicas of N={cfg.n} x {cfg.total_steps} steps on {device} "
+          f"({engine}, {'batched' if batched else 'a loop over replicas'}): "
+          f"{int(ok.sum())} ok, {time.time() - t0:.1f}s; results in {out_dir}")
+    return 0
+
+
+def write_ensemble_artifacts(out_dir, cfg, out, n_runs) -> None:
+    """Cross-run ensemble artifact set: means.txt, simulation_results.{txt,json},
+    corrmean_runs_*.dat (the reference aggregator's output contract,
+    simulation_results.f90 / run_many_md.f90:74-82), in the JAX package's
+    text: the numbers go to numpy in their own dtype first."""
+    import numpy as np
+
+    from ljmd_tpu_torch.io.artifacts import CORR_OBS, write_corr_file
+    from ljmd_tpu_torch.stats.moments import OBSERVABLES
+
+    def host(x):
+        return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
+
+    os.makedirs(out_dir, exist_ok=True)
+    means = host(out.replica_means)
+    mean_of_means, std_of_means = host(out.mean_of_means), host(out.std_of_means)
+    thermo = {k: host(v) for k, v in out.thermo.as_dict().items()}
+    lines = ["# run  " + "  ".join(OBSERVABLES)]
+    for rmean in means:
+        lines.append("  ".join(f"{v: .12e}" for v in rmean))
+    with open(os.path.join(out_dir, "means.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+    results = {
+        "n_runs": int(n_runs),
+        "cross_run": {
+            name: {"mean": float(mean_of_means[i]), "std": float(std_of_means[i])}
+            for i, name in enumerate(OBSERVABLES)
+        },
+        "thermo_per_run": {k: v.tolist() for k, v in thermo.items()},
+    }
+    with open(os.path.join(out_dir, "simulation_results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+
+    cm = host(out.corr_mean_runs)
+    cnm = host(out.corr_norm_mean_runs)
+    for i, obs in enumerate(CORR_OBS):
+        write_corr_file(os.path.join(out_dir, f"corrmean_runs_{obs}.dat"), cm[i], cnm[i],
+                        block_mean=True)
+
+    with open(os.path.join(out_dir, "simulation_results.txt"), "w") as f:
+        f.write(f"# cross-run statistics over {n_runs} runs\n")
+        for i, name in enumerate(OBSERVABLES):
+            f.write(f"<{name}>: {mean_of_means[i]: .12e}  std: {std_of_means[i]: .12e}\n")
+        for k, arr in thermo.items():
+            f.write(f"{k}: mean {arr.mean(): .12e}  std {arr.std(): .12e}\n")
+
+
 def cmd_run_all(args) -> int:
     """simulate, then analyze the run directory with the default flags
     (run_all.sh:6-8; the kernels build at first use, inside simulate)."""
@@ -269,6 +400,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip the PNGs (needed where matplotlib is not installed)")
     stream_args(sp)
     sp.set_defaults(fn=cmd_run_all)
+
+    sp = sub.add_parser("ensemble", help="R replica runs + cross-run aggregation")
+    common(sp)
+    sp.add_argument("--out-dir")
+    sp.add_argument("--n-runs", type=int, help="replicas (default the config's n_runs)")
+    sp.add_argument("--per-run-dirs", action="store_true",
+                    help="also write run_XXXX/ artifact directories per replica "
+                         "(run_many_md parity)")
+    sp.add_argument("--stream", action="store_true",
+                    help="move the series to the host per chunk and run the "
+                         "correlations over replica groups")
+    sp.add_argument("--chunk-samples", type=int, default=32)
+    sp.set_defaults(fn=cmd_ensemble)
     return p
 
 

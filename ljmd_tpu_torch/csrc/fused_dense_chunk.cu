@@ -1,4 +1,5 @@
-// Kernels 3, 4 and 8: n_steps of velocity Verlet in ONE launch.
+// Kernels 3, 4 and 8: n_steps of velocity Verlet in ONE launch, for one
+// system or (kernels 3 and 4) for R independent replicas at once.
 //
 // Replaces: ljmd_tpu/ops/pallas_fused.py:537 `fused_dense_chunk`, :465
 // `fused_dense_chunk_ext` and :384 `fused_dense_chunk_flags` (one Pallas
@@ -80,6 +81,18 @@
 // instantiation: the unflagged ones (kernels 3 and 4) have no gate in their
 // pair loop. A thread visits its j in the same increasing order with and
 // without flags, so all-active flags give the unflagged chunk bit for bit.
+//
+// Replicas (kernels 3 and 4 on (R, 8, n_pad) stacks, the ensemble's rows
+// engine; the JAX package vmaps the Pallas kernel): fused_replicas_kernel,
+// its own kernel so that the one-system kernel keeps its code and registers.
+// The work items of all R replicas form one list, replica q's at q * (n_pad
+// / TI) ..., and each block takes a contiguous run of them (so its items
+// mostly share a replica, and it restages a resident plane only when the
+// replica changes). A work item never mixes replicas and S is the
+// one-replica plan's, so a particle's sums run in the order of a launch of
+// its replica alone: replica q equals that launch bit for bit, under any
+// grid, and a replica that blows up touches no other replica's planes. The
+// grid barrier is shared.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -389,7 +402,204 @@ __global__ void __launch_bounds__(kDenseThreads, 2) fused_dense_kernel(DenseArgs
   }
 }
 
-template <typename T, bool EXT, bool FLAGS>
+// R replicas (header): rbuf / lobuf hold two sets of R (8, n_pad) planes
+// (step s reads set s & 1 and writes set (s + 1) & 1), v / vc / a R planes;
+// replica q's plane at q * 8 * n_pad of each.
+template <typename T, bool EXT>
+__global__ void __launch_bounds__(kDenseThreads, 2)
+fused_replicas_kernel(DenseArgs<T> p, int replicas) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* red = reinterpret_cast<T*>(smem_raw);
+  T* planes = red + kDenseWarps * 3;
+  constexpr int kRows = EXT ? 6 : 3;
+
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int S = p.slices;
+  const int ti = kDenseThreads / S;
+  const int slice = tid & (S - 1);
+  const int pl = tid / S;
+  const bool owner = slice == 0;
+  const int n_items = p.n_pad / ti;  // a replica's
+  const int n = p.n;
+  const size_t plane = static_cast<size_t>(8) * p.n_pad;
+  const size_t set = plane * replicas;
+  // This block's work items, the same in both phases of every step (the
+  // owner thread of a particle alone touches its v, a and vc).
+  const int all_items = n_items * replicas;
+  const int per = (all_items + gridDim.x - 1) / gridDim.x;
+  const int w_first = blockIdx.x * per;
+  const int w_end = min(all_items, w_first + per);
+  const int n_cols = (n + kFlagCols - 1) / kFlagCols * kFlagCols;
+  const int n_chunks = (n_cols + kDenseChunk - 1) / kDenseChunk;
+  const int width = S < 32 ? S : 32;
+
+  for (int s = 0; s < p.n_steps; ++s) {
+    const T* r_cur0 = p.rbuf + (s & 1) * set;
+    T* r_new0 = p.rbuf + ((s + 1) & 1) * set;
+    const T* lo_cur0 = EXT ? p.lobuf + (s & 1) * set : nullptr;
+    T* lo_new0 = EXT ? p.lobuf + ((s + 1) & 1) * set : nullptr;
+
+    // Phase 1: position update + first half-kick (verlet.f90:58-74).
+    if (owner) {
+      for (int w = w_first; w < w_end; ++w) {
+        const int q = w / n_items;
+        const int i = (w - q * n_items) * ti + pl;
+        if (i >= n) continue;
+        const size_t off = q * plane;
+        const T* r_cur = r_cur0 + off;
+        T* r_new = r_new0 + off;
+        T* v = p.v + off;
+        T* a = p.a + off;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int k = c * p.n_pad + i;
+          if (EXT) {
+            T* vc = p.vc + off;
+            const T delta = add_rn(mul_rn(add_rn(v[k], vc[k]), p.dt), mul_rn(a[k], p.half_dt_sq));
+            T x = r_cur[k];
+            T lo = lo_cur0[off + k];
+            comp_add(x, lo, delta);
+            r_new[k] = x;
+            lo_new0[off + k] = lo;
+            T vk = v[k];
+            T ck = vc[k];
+            comp_add(vk, ck, mul_rn(a[k], p.half_dt));
+            v[k] = vk;
+            vc[k] = ck;
+          } else {
+            r_new[k] = add_rn(add_rn(r_cur[k], mul_rn(v[k], p.dt)), mul_rn(a[k], p.half_dt_sq));
+            v[k] = add_rn(v[k], mul_rn(a[k], p.half_dt));
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // Phase 2: forces at the new positions (all j != i) item by item;
+    // resident, the item's replica plane is staged (all of it, one commit
+    // group per chunk) where the block has not staged it yet this step.
+    bool first = true;
+    int staged = -1;
+    for (int w = w_first; w < w_end; ++w) {
+      const int q = w / n_items;
+      const int i0 = (w - q * n_items) * ti;
+      const size_t off = q * plane;
+      const T* r_new = r_new0 + off;
+      const T* lo_new = EXT ? lo_new0 + off : nullptr;
+      if (p.resident && q != staged) {
+        // The previous item (or step) ended in a barrier: no thread still
+        // reads the staged plane.
+        for (int c = 0; c < n_chunks; ++c) {
+          const int c0 = c * kDenseChunk;
+          stage_rows(planes + c0, p.n_pad, r_new, lo_new, p.n_pad, kRows, c0,
+                     min(kDenseChunk, n_cols - c0), tid, kDenseThreads);
+          cp_async_commit();
+        }
+        staged = q;
+        first = true;
+      }
+      DenseMe<T> me;
+      me.i = i0 + pl;
+      me.live = me.i < n;
+      me.x = me.live ? r_new[me.i] : T(0);
+      me.y = me.live ? r_new[p.n_pad + me.i] : T(0);
+      me.z = me.live ? r_new[2 * p.n_pad + me.i] : T(0);
+      me.lx = me.ly = me.lz = T(0);
+      if (EXT && me.live) {
+        me.lx = lo_new[me.i];
+        me.ly = lo_new[p.n_pad + me.i];
+        me.lz = lo_new[2 * p.n_pad + me.i];
+      }
+      me.fx = me.fy = me.fz = T(0);
+      if (p.resident) {
+        for (int c = 0; c < n_chunks; ++c) {
+          if (first) {  // block-uniform: the first item of a plane waits chunk by chunk
+            cp_async_wait(n_chunks - 1 - c);
+            __syncthreads();
+          }
+          const int c0 = c * kDenseChunk;
+          dense_chunk<T, EXT, false>(p, me, planes + c0, p.n_pad, c0, min(c0 + kDenseChunk, n),
+                                     i0, ti, slice);
+        }
+        first = false;
+      } else {
+        const int ld = kDenseChunk;
+        const int buf = kRows * kDenseChunk;
+        if (n_chunks > 0) {
+          stage_rows(planes, ld, r_new, lo_new, p.n_pad, kRows, 0, min(kDenseChunk, n_cols), tid,
+                     kDenseThreads);
+          cp_async_commit();
+        }
+        for (int c = 0; c < n_chunks; ++c) {
+          if (c + 1 < n_chunks) {
+            const int c0n = (c + 1) * kDenseChunk;
+            stage_rows(planes + ((c + 1) % kDenseRing) * buf, ld, r_new, lo_new, p.n_pad, kRows,
+                       c0n, min(kDenseChunk, n_cols - c0n), tid, kDenseThreads);
+            cp_async_commit();
+            cp_async_wait(1);
+          } else {
+            cp_async_wait(0);
+          }
+          __syncthreads();
+          const int c0 = c * kDenseChunk;
+          dense_chunk<T, EXT, false>(p, me, planes + (c % kDenseRing) * buf, ld, c0,
+                                     min(c0 + kDenseChunk, n), i0, ti, slice);
+        }
+      }
+
+      // The S partial sums of the particle, in a fixed order.
+      for (int o = width >> 1; o > 0; o >>= 1) {
+        me.fx = add_rn(me.fx, __shfl_down_sync(0xffffffffu, me.fx, o, width));
+        me.fy = add_rn(me.fy, __shfl_down_sync(0xffffffffu, me.fy, o, width));
+        me.fz = add_rn(me.fz, __shfl_down_sync(0xffffffffu, me.fz, o, width));
+      }
+      if (S > 32) {
+        const int warp = tid >> 5;
+        if ((tid & 31) == 0) {
+          red[warp * 3] = me.fx;
+          red[warp * 3 + 1] = me.fy;
+          red[warp * 3 + 2] = me.fz;
+        }
+        __syncthreads();
+        if (owner) {
+          for (int qq = 1; qq < S / 32; ++qq) {
+            me.fx = add_rn(me.fx, red[(warp + qq) * 3]);
+            me.fy = add_rn(me.fy, red[(warp + qq) * 3 + 1]);
+            me.fz = add_rn(me.fz, red[(warp + qq) * 3 + 2]);
+          }
+        }
+      }
+
+      // a = 24 * raw sweep + second half-kick.
+      if (owner && me.live) {
+        const T f[3] = {me.fx, me.fy, me.fz};
+        T* v = p.v + off;
+        T* a = p.a + off;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int k = c * p.n_pad + me.i;
+          const T ak = mul_rn(T(24), f[c]);
+          a[k] = ak;
+          if (EXT) {
+            T* vc = p.vc + off;
+            T vk = v[k];
+            T ck = vc[k];
+            comp_add(vk, ck, mul_rn(ak, p.half_dt));
+            v[k] = vk;
+            vc[k] = ck;
+          } else {
+            v[k] = add_rn(v[k], mul_rn(ak, p.half_dt));
+          }
+        }
+      }
+      __syncthreads();  // `red` and the staged planes are reused by the next item
+    }
+  }
+}
+
+// BATCH: the replica kernel's (FLAGS false).
+template <typename T, bool EXT, bool FLAGS, bool BATCH>
 int dense_plan(int n_pad, int slices, int* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -399,7 +609,8 @@ int dense_plan(int n_pad, int slices, int* out) {
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const void* fn = reinterpret_cast<const void*>(fused_dense_kernel<T, EXT, FLAGS>);
+  const void* fn = BATCH ? reinterpret_cast<const void*>(fused_replicas_kernel<T, EXT>)
+                        : reinterpret_cast<const void*>(fused_dense_kernel<T, EXT, FLAGS>);
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Resident where the whole plane fits with two blocks an SM.
@@ -451,10 +662,12 @@ int dense_plan(int n_pad, int slices, int* out) {
 }
 
 template <typename T, bool EXT>
-int launch_fused(DenseArgs<T> p, int blocks, void* stream) {
-  void* args[] = {&p};
-  const void* fn = p.flags ? reinterpret_cast<const void*>(fused_dense_kernel<T, EXT, true>)
-                           : reinterpret_cast<const void*>(fused_dense_kernel<T, EXT, false>);
+int launch_fused(DenseArgs<T> p, int replicas, int blocks, void* stream) {
+  void* args[] = {&p, &replicas};
+  const void* fn =
+      replicas > 1 ? reinterpret_cast<const void*>(fused_replicas_kernel<T, EXT>)
+      : p.flags    ? reinterpret_cast<const void*>(fused_dense_kernel<T, EXT, true>)
+                   : reinterpret_cast<const void*>(fused_dense_kernel<T, EXT, false>);
   cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(blocks), dim3(kDenseThreads), args, dense_smem_bytes<T, EXT>(p.resident, p.n_pad),
       static_cast<cudaStream_t>(stream));
@@ -466,14 +679,15 @@ int launch_fused(DenseArgs<T> p, int blocks, void* stream) {
 }
 
 template <typename T>
-int launch_fused_any(T* rbuf, T* lobuf, T* v, T* vc, T* a, int n, int n_pad, T box, T inv_box,
-                     T rc2, T dt, T half_dt, T half_dt_sq, int n_steps, int extended,
+int launch_fused_any(T* rbuf, T* lobuf, T* v, T* vc, T* a, int n, int n_pad, int replicas, T box,
+                     T inv_box, T rc2, T dt, T half_dt, T half_dt_sq, int n_steps, int extended,
                      const int* flags, int tile_i, int tile_j, int slices, int resident,
                      int blocks, void* stream) {
+  if (replicas < 1 || (flags && replicas > 1)) return static_cast<int>(cudaErrorInvalidValue);
   const DenseArgs<T> p{rbuf, lobuf, v, vc, a, n, n_pad, box, inv_box, rc2, dt, half_dt,
                        half_dt_sq, n_steps, flags, tile_i, tile_j, slices, resident};
-  return extended ? launch_fused<T, true>(p, blocks, stream)
-                  : launch_fused<T, false>(p, blocks, stream);
+  return extended ? launch_fused<T, true>(p, replicas, blocks, stream)
+                  : launch_fused<T, false>(p, replicas, blocks, stream);
 }
 
 }  // namespace ljmd
@@ -485,48 +699,61 @@ int ljmd_fused_block_threads() { return ljmd::kDenseThreads; }
 // The launch shape of a variant at n_pad: out = {slices, resident, blocks an
 // SM can hold (occupancy API, at the shared memory the launch will use),
 // SMs, dynamic shared memory bytes}. `slices` > 0 asks for that S (a power
-// of two in [4, 256]); 0 lets the occupancy rule choose. Sets the kernel's
-// dynamic shared memory limit to the card's opt-in maximum.
-int ljmd_fused_plan(int dtype_bytes, int extended, int flagged, int n_pad, int slices, int* out) {
+// of two in [4, 256]); 0 lets the occupancy rule choose. `batched`: the
+// replica kernel's (R > 1; ask with the one-replica plan's S). Sets the
+// kernel's dynamic shared memory limit to the card's opt-in maximum.
+int ljmd_fused_plan(int dtype_bytes, int extended, int flagged, int batched, int n_pad,
+                    int slices, int* out) {
   using ljmd::dense_plan;
+  if (flagged && batched) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype_bytes == 4) {
     if (flagged) {
-      return extended ? dense_plan<float, true, true>(n_pad, slices, out)
-                      : dense_plan<float, false, true>(n_pad, slices, out);
+      return extended ? dense_plan<float, true, true, false>(n_pad, slices, out)
+                      : dense_plan<float, false, true, false>(n_pad, slices, out);
     }
-    return extended ? dense_plan<float, true, false>(n_pad, slices, out)
-                    : dense_plan<float, false, false>(n_pad, slices, out);
+    if (batched) {
+      return extended ? dense_plan<float, true, false, true>(n_pad, slices, out)
+                      : dense_plan<float, false, false, true>(n_pad, slices, out);
+    }
+    return extended ? dense_plan<float, true, false, false>(n_pad, slices, out)
+                    : dense_plan<float, false, false, false>(n_pad, slices, out);
   }
   if (flagged) {
-    return extended ? dense_plan<double, true, true>(n_pad, slices, out)
-                    : dense_plan<double, false, true>(n_pad, slices, out);
+    return extended ? dense_plan<double, true, true, false>(n_pad, slices, out)
+                    : dense_plan<double, false, true, false>(n_pad, slices, out);
   }
-  return extended ? dense_plan<double, true, false>(n_pad, slices, out)
-                  : dense_plan<double, false, false>(n_pad, slices, out);
+  if (batched) {
+    return extended ? dense_plan<double, true, false, true>(n_pad, slices, out)
+                    : dense_plan<double, false, false, true>(n_pad, slices, out);
+  }
+  return extended ? dense_plan<double, true, false, false>(n_pad, slices, out)
+                  : dense_plan<double, false, false, false>(n_pad, slices, out);
 }
 
-// `blocks` (1 .. n_pad * slices / 256, at most the plan's blocks an SM x
-// SMs) is the persistent grid; `slices` and `resident` as the plan gave them
-// (the plan must have run for this variant); `flags` null runs every pair
-// (kernels 3 and 4).
+// `replicas` R >= 1: rbuf / lobuf are (2, R, 8, n_pad), v / vc / a (R, 8,
+// n_pad); R > 1 launches the replica kernel (no flags). `blocks` (1 .. R *
+// n_pad * slices / 256, at most the plan's blocks an SM x SMs) is the
+// persistent grid; `slices` and `resident` as the plan gave them (the plan
+// must have run for this variant); `flags` null runs every pair (kernels 3
+// and 4).
 int ljmd_fused_dense_chunk_f32(float* rbuf, float* lobuf, float* v, float* vc, float* a, int n,
-                               int n_pad, float box, float inv_box, float rc2, float dt,
-                               float half_dt, float half_dt_sq, int n_steps, int extended,
-                               const int* flags, int tile_i, int tile_j, int slices,
-                               int resident, int blocks, void* stream) {
-  return ljmd::launch_fused_any<float>(rbuf, lobuf, v, vc, a, n, n_pad, box, inv_box, rc2, dt,
-                                       half_dt, half_dt_sq, n_steps, extended, flags, tile_i,
-                                       tile_j, slices, resident, blocks, stream);
+                               int n_pad, int replicas, float box, float inv_box, float rc2,
+                               float dt, float half_dt, float half_dt_sq, int n_steps,
+                               int extended, const int* flags, int tile_i, int tile_j,
+                               int slices, int resident, int blocks, void* stream) {
+  return ljmd::launch_fused_any<float>(rbuf, lobuf, v, vc, a, n, n_pad, replicas, box, inv_box,
+                                       rc2, dt, half_dt, half_dt_sq, n_steps, extended, flags,
+                                       tile_i, tile_j, slices, resident, blocks, stream);
 }
 
 int ljmd_fused_dense_chunk_f64(double* rbuf, double* lobuf, double* v, double* vc, double* a,
-                               int n, int n_pad, double box, double inv_box, double rc2,
-                               double dt, double half_dt, double half_dt_sq, int n_steps,
-                               int extended, const int* flags, int tile_i, int tile_j,
-                               int slices, int resident, int blocks, void* stream) {
-  return ljmd::launch_fused_any<double>(rbuf, lobuf, v, vc, a, n, n_pad, box, inv_box, rc2, dt,
-                                        half_dt, half_dt_sq, n_steps, extended, flags, tile_i,
-                                        tile_j, slices, resident, blocks, stream);
+                               int n, int n_pad, int replicas, double box, double inv_box,
+                               double rc2, double dt, double half_dt, double half_dt_sq,
+                               int n_steps, int extended, const int* flags, int tile_i,
+                               int tile_j, int slices, int resident, int blocks, void* stream) {
+  return ljmd::launch_fused_any<double>(rbuf, lobuf, v, vc, a, n, n_pad, replicas, box, inv_box,
+                                        rc2, dt, half_dt, half_dt_sq, n_steps, extended, flags,
+                                        tile_i, tile_j, slices, resident, blocks, stream);
 }
 
 }  // extern "C"

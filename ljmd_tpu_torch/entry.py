@@ -18,8 +18,8 @@ one process per rank over an initialised ``torch.distributed`` group of
 1. one sampled interval of the particle-sharded half-ring step
    (``parallel/spatial.py``, the kernels on a card) with the means
    accumulator updated: the JAX phase's replica x particle mesh waits for
-   the ensemble's port (ROADMAP §1.7), so the step here is particle-only at
-   the same config, on all n_devices ranks;
+   the replica x particle step's slice (ROADMAP), so the step here is
+   particle-only at the same config, on all n_devices ranks;
 2. the sharded pencil engine (``parallel/spatial_pencil.py``) on 4, 2 or 1
    strips: a step, a fused 8-step ``run_fast``, a step;
 3. the compensated spatial engine (float32 at dt = 1e-4) on 2 ranks: its

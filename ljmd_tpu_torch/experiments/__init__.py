@@ -10,7 +10,9 @@ on the card (``--device cpu`` runs the plain versions at a toy size):
   at config 5's grid;
 - ``zfloor``: the flag-gated chunk's zero-flag floor across tile widths;
 - ``mosaic_support``: the nine layout probes (kernel 17);
-- ``layout``: the per-visit cost of the pair-tile layout bodies (kernel 18).
+- ``layout``: the per-visit cost of the pair-tile layout bodies (kernel 18);
+- ``ensemble_drift``: an ensemble's per-replica energy drift as configured,
+  in float64, compensated and at half the dt (is it the integrator's?).
 
 Times are CUDA-event times on the card; on the CPU they time the plain
 versions and are no device numbers.

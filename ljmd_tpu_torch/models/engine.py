@@ -30,6 +30,10 @@ Backends:
 - ``"auto"``: ``auto_backend``: on a CUDA device the JAX package's
   accelerator routing (``zsort`` where it fits, ``cellpair`` at n >= 8192
   where the pencil grid fits, else ``rows``); on the CPU ``rows``.
+
+``make_replica_engine`` builds an ensemble's engine for R replicas: the rows
+engine batched over a leading replica axis (one launch of each kernel for
+all R), or a loop over R engines of any other backend.
 """
 
 from __future__ import annotations
@@ -87,7 +91,8 @@ from ljmd_tpu_torch.ops.window_lists import build_window_lists, compute_tile_fla
 from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy
 
 __all__ = ["BACKENDS", "Engine", "HOST_READS", "PencilCarry", "RowCarry", "ROW_PAD",
-           "ZSortCarry", "auto_backend", "make_engine", "resolve_device", "zsort_geometry"]
+           "ZSortCarry", "auto_backend", "make_engine", "make_replica_engine", "replica_backend",
+           "replica_state", "resolve_device", "stack_states", "zsort_geometry"]
 
 # make_engine's backends ("pallas" is the JAX package's name for "rows").
 BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
@@ -227,8 +232,9 @@ def _neighbor_engine(cfg: SimConfig, device) -> Engine:
 @dataclasses.dataclass(frozen=True)
 class RowCarry:
     """Carry in row layout: each field is (8, n_pad) with x/y/z in rows
-    0..2, rows 3..7 and columns >= N identically zero. ``rc``/``vc`` are the
-    compensation terms (zeros when compensation is off)."""
+    0..2, rows 3..7 and columns >= N identically zero (the replica engine's:
+    (R, 8, n_pad), replica first). ``rc``/``vc`` are the compensation terms
+    (zeros when compensation is off)."""
 
     r: torch.Tensor
     ru: torch.Tensor
@@ -239,14 +245,25 @@ class RowCarry:
 
 
 def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
-                 triangular: bool = True) -> Engine:
+                 triangular: bool = True, replicas: int | None = None) -> Engine:
     """Dense rows engine: (N, 3) <-> (8, n_pad) conversion only at
     init/get_state; every step is row-matrix elementwise work plus the
     pair sweep; un-sampled stretches run in fused chunks of at most
     ``MAX_CHUNK_STEPS`` steps. ``triangular=True`` (the default) sweeps with
     the tri kernel (each pair once in the observables); ``False`` with the
-    ordered N x N sweep (each pair twice, prefactors 2 / 12)."""
+    ordered N x N sweep (each pair twice, prefactors 2 / 12).
+
+    ``replicas=R`` makes it the ensemble's engine for R independent
+    replicas (the JAX package ``vmap``s the one-system engine): states are
+    (R, N, 3), the carry's fields (R, 8, n_pad), observables (R,) tensors
+    (each replica's sums over its own rows), and each tri sweep and each
+    fused chunk is ONE launch for all R replicas (kernels 2, 3 and 4's
+    replica launches), each replica's rows bit for bit what a one-system
+    engine would give it. The observables' sums reduce an (R, n_pad) row at
+    once, so they may round otherwise than a one-system engine's."""
     device = resolve_device(device)
+    if replicas is not None and (replicas < 1 or not triangular):
+        raise ValueError("the replica rows engine takes replicas >= 1 and the tri sweep")
     n = cfg.n
     n_pad = -(-n // ROW_PAD) * ROW_PAD
     L = cfg.box_length
@@ -257,16 +274,25 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
         else (0.0, 0.0, 0.0)
     )
 
-    def to_rows(x: torch.Tensor) -> torch.Tensor:  # (N, 3) -> (8, n_pad)
-        out = torch.zeros((8, n_pad), dtype=dtype, device=device)
-        out[0:3, :n] = x.T.to(device=device, dtype=dtype)
+    batch = () if replicas is None else (replicas,)
+
+    def to_rows(x: torch.Tensor) -> torch.Tensor:  # (..., N, 3) -> (..., 8, n_pad)
+        out = torch.zeros(batch + (8, n_pad), dtype=dtype, device=device)
+        out[..., 0:3, :n] = x.transpose(-1, -2).to(device=device, dtype=dtype)
         return out
+
+    def from_rows(x: torch.Tensor) -> torch.Tensor:  # (..., 8, n_pad) -> (..., N, 3)
+        return x[..., 0:3, :n].transpose(-1, -2)
+
+    def total(x: torch.Tensor, dims: int) -> torch.Tensor:
+        """The sum over the trailing ``dims`` dimensions: a replica's own."""
+        return torch.sum(x) if replicas is None else torch.sum(x, dim=tuple(range(-dims, 0)))
 
     def accel(out: torch.Tensor) -> torch.Tensor:
         # a = 24 * raw sweep rows 0..2; rows 3..7 (the e/du/ddu partials)
         # zeroed.
         a = torch.zeros_like(out)
-        a[0:3] = 24.0 * out[0:3]
+        a[..., 0:3, :] = 24.0 * out[..., 0:3, :]
         return a
 
     sweep_fn = pair_sweep_tri if triangular else pair_sweep
@@ -279,10 +305,10 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
 
     def obs_from(out: torch.Tensor, ekin: torch.Tensor) -> StepObs:
         return StepObs(
-            epot=e_pref * torch.sum(out[3]) + e_t,
+            epot=e_pref * total(out[..., 3, :], 1) + e_t,
             ekin=ekin,
-            d_epot=d_pref * torch.sum(out[4]) + d_t,
-            dd_epot=d_pref * torch.sum(out[5]) + dd_t,
+            d_epot=d_pref * total(out[..., 4, :], 1) + d_t,
+            dd_epot=d_pref * total(out[..., 5, :], 1) + dd_t,
         )
 
     # Compensation in the increment-underflow regime (f32 at dt <= 1e-3, or
@@ -297,7 +323,7 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
         zero = torch.zeros_like(r8)
         carry = RowCarry(r=r8, ru=to_rows(state.ru), v=v8, a=accel(out),
                          rc=zero, vc=zero)
-        return carry, obs_from(out, 0.5 * torch.sum(v8 * v8))
+        return carry, obs_from(out, 0.5 * total(v8 * v8, 2))
 
     dt = cfg.dt
     half_dt = 0.5 * cfg.dt
@@ -320,7 +346,7 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
         else:
             v_new, vc_new = v_half + a_new * half_dt, vc_half
             v_eff = v_new
-        ekin = 0.5 * torch.sum(v_eff * v_eff)
+        ekin = 0.5 * total(v_eff * v_eff, 2)
         ru_new = c.ru + minimum_image(r_new - c.r, L)
         return (
             RowCarry(r=r_new, ru=ru_new, v=v_new, a=a_new, rc=rc_new, vc=vc_new),
@@ -335,8 +361,7 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
 
     def get_state(c: RowCarry) -> MDState:
         v = c.v + c.vc if compensated else c.v
-        return MDState(r=c.r[0:3, :n].T, ru=c.ru[0:3, :n].T, v=v[0:3, :n].T,
-                       a=c.a[0:3, :n].T)
+        return MDState(r=from_rows(c.r), ru=from_rows(c.ru), v=from_rows(v), a=from_rows(c.a))
 
     def run_fast(c: RowCarry, n_steps: int) -> RowCarry:
         """Fused advance in chunks of <= MAX_CHUNK_STEPS, with the unwrap
@@ -1135,3 +1160,93 @@ def make_engine(cfg: SimConfig, backend: str = "auto", device="cuda", state=None
     if backend == "dense":
         return _force_engine(cfg, device)
     raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+
+
+def replica_state(states: MDState, i: int) -> MDState:
+    """Replica ``i``'s (N, 3) state out of an (R, N, 3) MDState."""
+    return MDState(r=states.r[i], ru=states.ru[i], v=states.v[i], a=states.a[i])
+
+
+def stack_states(states) -> MDState:
+    """The (R, N, 3) MDState of a sequence of (N, 3) states."""
+    return MDState(*(torch.stack([getattr(s, k) for s in states])
+                     for k in ("r", "ru", "v", "a")))
+
+
+def _replica_loop_engine(engines: list) -> Engine:
+    """R one-system engines behind one Engine: states are (R, N, 3), the
+    carry is the tuple of the R carries, observables and diagnostics are
+    stacked over the replicas. Every call runs each replica's own engine in
+    turn, so replica i goes through exactly the calls, in the same order,
+    that a one-system run gives it: its rows and its observables bit for
+    bit, at R times the launches of one run."""
+    first = engines[0]
+
+    def obs_stack(obs) -> StepObs:
+        return StepObs(*(torch.stack([getattr(o, f.name) for o in obs])
+                         for f in dataclasses.fields(StepObs)))
+
+    def init(states: MDState):
+        carries, obs = zip(*(e.init(replica_state(states, i)) for i, e in enumerate(engines)))
+        return tuple(carries), obs_stack(obs)
+
+    def step(carries):
+        carries, obs = zip(*(e.step(c) for e, c in zip(engines, carries)))
+        return tuple(carries), obs_stack(obs)
+
+    def step_fast(carries):
+        return tuple((e.step_fast or e.step)(c)[0] for e, c in zip(engines, carries)), None
+
+    def run_fast(carries, n_steps: int):
+        return tuple(e.run_fast(c, n_steps) for e, c in zip(engines, carries))
+
+    def run_sample(carries, n_steps: int):
+        carries, obs = zip(*(e.run_sample(c, n_steps) for e, c in zip(engines, carries)))
+        return tuple(carries), obs_stack(obs)
+
+    def diagnostics(carries) -> dict:
+        per = [e.diagnostics(c) for e, c in zip(engines, carries)]
+        return {k: torch.stack([torch.as_tensor(d[k]) for d in per]) for k in per[0]}
+
+    return Engine(
+        init=init, step=step,
+        get_state=lambda carries: stack_states([e.get_state(c) for e, c in zip(engines, carries)]),
+        diagnostics=diagnostics, step_fast=step_fast,
+        run_fast=run_fast if first.run_fast is not None else None,
+        run_sample=run_sample if first.run_sample is not None else None,
+    )
+
+
+def replica_backend(cfg: SimConfig, backend: str = "auto", device="cuda",
+                    sample_interval: int | None = None) -> tuple[str, bool]:
+    """(the backend ``backend`` resolves to, whether the replica engine of
+    ``make_replica_engine`` is batched): the rows engine (``rows`` /
+    ``pallas``) batches its replicas, every other backend loops over them."""
+    device = resolve_device(device)
+    if backend == "auto":
+        backend = auto_backend(cfg, device.type == "cuda", sample_interval)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    return backend, backend in ("rows", "pallas")
+
+
+def make_replica_engine(cfg: SimConfig, replicas: int, backend: str = "auto", device="cuda",
+                        states: MDState | None = None,
+                        sample_interval: int | None = None) -> Engine:
+    """The engine of an R-replica ensemble on ``device``: (R, N, 3) states,
+    (R,) observables. Where ``backend`` resolves to the rows engine it is
+    that engine with ``replicas=R`` (one launch of kernels 2, 3 or 4 a
+    sweep or chunk for all R); every other backend (zsort, cellpair,
+    neighbor, dense) is a loop over R engines of its own
+    (``_replica_loop_engine``: R launches a step), each built as
+    ``make_engine`` builds it, from its replica of ``states`` where that
+    sizes the engine (cellpair's capacity)."""
+    device = resolve_device(device)
+    backend, batched = replica_backend(cfg, backend, device, sample_interval)
+    if batched:
+        return _rows_engine(cfg, device, replicas=replicas)
+    return _replica_loop_engine([
+        make_engine(cfg, backend, device,
+                    state=None if states is None else replica_state(states, i),
+                    sample_interval=sample_interval)
+        for i in range(replicas)])

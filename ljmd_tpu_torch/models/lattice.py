@@ -62,7 +62,11 @@ def remove_com_velocity(v: torch.Tensor) -> torch.Tensor:
 
 def rescale_to_target_energy(v: torch.Tensor, epot, target_total_energy) -> torch.Tensor:
     """Rescale velocities so E_pot + E_kin = target; NaN velocities when the
-    target is below the potential energy (the CLI checks for that)."""
-    ekin_old = 0.5 * torch.sum(v * v)
-    ekin_new = torch.as_tensor(target_total_energy, dtype=v.dtype, device=v.device) - epot
-    return v * torch.sqrt(ekin_new / ekin_old)
+    target is below the potential energy (the CLI checks for that). (R, N,
+    3) velocities with (R,) energies rescale each replica on its own."""
+    target = torch.as_tensor(target_total_energy, dtype=v.dtype, device=v.device)
+    if v.dim() == 2:
+        ekin_old = 0.5 * torch.sum(v * v)
+        return v * torch.sqrt((target - epot) / ekin_old)
+    ekin_old = 0.5 * torch.sum(v * v, dim=(-2, -1))
+    return v * torch.sqrt((target - epot) / ekin_old)[..., None, None]

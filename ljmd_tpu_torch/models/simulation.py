@@ -17,6 +17,14 @@ per <= 256 steps on the card) followed by one observable ``step``. Nothing
 in the loop waits for the device: statistics accumulate in device tensors. The cadence is exact for any (total, warmup,
 interval) through a prologue / epilogue split, including
 ``warmup % interval != 0``.
+
+Replica ensembles: ``initialize_replicas`` builds R initial states, one per
+CPU generator (``replica_generators``), and ``run_production`` given (R, N,
+3) states runs them on ``make_replica_engine``'s engine (the rows engine
+batched over the replicas, else a loop over per-replica engines): series
+(R, 5, n_samples), means (R, 11), correlations (R, 5, max_lag+1). The
+drivers and the statistics take the leading replica axis as it is; on one
+system they compute what they did before, op for op.
 """
 
 from __future__ import annotations
@@ -32,7 +40,10 @@ from ljmd_tpu_torch.models.engine import (
     Engine,
     _effective_dtype,
     make_engine,
+    make_replica_engine,
+    replica_backend,
     resolve_device,
+    stack_states,
 )
 from ljmd_tpu_torch.models.lattice import (
     fcc_lattice,
@@ -41,7 +52,12 @@ from ljmd_tpu_torch.models.lattice import (
     rescale_to_target_energy,
 )
 from ljmd_tpu_torch.state import MDState
-from ljmd_tpu_torch.stats.correlations import autocorr_all, block_corr_means
+from ljmd_tpu_torch.stats.correlations import (
+    autocorr_all,
+    block_corr_means,
+    corr_group_size,
+    grouped,
+)
 from ljmd_tpu_torch.stats.moments import (
     MeansAccum,
     MeansReport,
@@ -58,6 +74,8 @@ __all__ = [
     "SimResult",
     "sample_steps",
     "initialize",
+    "initialize_replicas",
+    "replica_generators",
     "run_production",
     "sample_cycle",
     "finalize",
@@ -83,7 +101,8 @@ class Frames:
 @dataclasses.dataclass(frozen=True)
 class SimResult:
     """Everything the reference's production driver emits, as tensors on
-    the run's device."""
+    the run's device (an ensemble's: every field but ``times`` with a
+    leading replica axis)."""
 
     final_state: MDState
     times: torch.Tensor       # (n_samples,) sample times step*dt
@@ -209,8 +228,13 @@ def run_production(
 ) -> SimResult:
     """Production run (md_simulation_program.f90:300-391 + finalization) on
     ``device`` (default: the device ``state`` lives on). Pass ``engine`` to
-    supply a pre-built Engine instead of ``backend``."""
+    supply a pre-built Engine instead of ``backend``. An (R, N, 3) ``state``
+    runs R replicas on ``make_replica_engine``'s engine."""
     device = resolve_device(state.device if device is None else device)
+    batch = tuple(state.r.shape[:-2])
+    if engine is None and batch:
+        engine = make_replica_engine(cfg, batch[0], backend, device, states=state,
+                                     sample_interval=cfg.output_interval)
     engine = engine or make_engine(cfg, backend, device, state=state,
                                    sample_interval=cfg.output_interval)
     prologue, n_samples, epilogue = _cadence(cfg)
@@ -225,7 +249,7 @@ def run_production(
     ecarry, _ = engine.init(state)
     ecarry, _ = _advance(engine, ecarry, prologue, want_obs=False)
 
-    acc = means_init(dtype=dtype, device=device)
+    acc = means_init(dtype=dtype, device=device, batch=batch)
     series_cols = []
     frame_states = []
     for _ in range(n_samples):
@@ -239,7 +263,7 @@ def run_production(
     if record_frames:
         frames = Frames(*(torch.stack([getattr(s, k) for s in frame_states])
                           for k in ("r", "ru", "v", "a")))
-    return finalize(cfg, engine, ecarry, torch.stack(series_cols, dim=1), acc, frames)
+    return finalize(cfg, engine, ecarry, torch.stack(series_cols, dim=-1), acc, frames)
 
 
 def sample_cycle(engine: Engine, cfg: SimConfig, ecarry, acc: MeansAccum):
@@ -248,11 +272,11 @@ def sample_cycle(engine: Engine, cfg: SimConfig, ecarry, acc: MeansAccum):
     agree bit for bit): ``output_interval`` steps, the last with
     observables, then the means and the series column
     (md_simulation_program.f90:300-391). Returns (carry, means, (5,) column
-    ordered as SERIES_OBSERVABLES)."""
+    ordered as SERIES_OBSERVABLES; an ensemble's (R, 5))."""
     ecarry, ob = _advance(engine, ecarry, cfg.output_interval)
     acc = means_update(acc, ob, cfg.n, cfg.volume)
     temp, press = instantaneous_temp_press(ob, cfg.n, cfg.volume)
-    return ecarry, acc, torch.stack([ob.epot, ob.ekin, ob.epot + ob.ekin, temp, press])
+    return ecarry, acc, torch.stack([ob.epot, ob.ekin, ob.epot + ob.ekin, temp, press], dim=-1)
 
 
 def finalize(cfg: SimConfig, engine: Engine, ecarry, series: torch.Tensor, acc: MeansAccum,
@@ -260,20 +284,28 @@ def finalize(cfg: SimConfig, engine: Engine, ecarry, series: torch.Tensor, acc: 
     """The statistics of a finished production (both drivers): means and
     stds, the centered ACF and its block average, the sample times, the
     final state and the engine's diagnostics. ``series`` is (5, n_samples)
-    on the run's device."""
+    on the run's device (an ensemble's (R, 5, n_samples), whose correlations
+    run over groups of ``corr_group_size`` replicas)."""
     device, dtype = series.device, series.dtype
-    n_samples = series.shape[1]
+    n_samples = series.shape[-1]
     report = means_finalize(acc)
     max_lag = cfg.corr_max_lag
     n_blocks = cfg.corr_n_blocks(n_samples)
+
+    def stage(fn):
+        if series.dim() == 2:
+            return fn(series)
+        return grouped(fn, series, corr_group_size(series.shape[0], n_samples, max_lag,
+                                                   series.element_size()))
+
     if max_lag >= 1:
-        corr, corr_norm = autocorr_all(series, max_lag, centered=True)
+        corr, corr_norm = stage(lambda s: autocorr_all(s, max_lag, centered=True))
     else:
-        corr = torch.zeros((5, 1), dtype=dtype, device=device)
-        corr_norm = torch.zeros((5, 1), dtype=dtype, device=device)
+        corr = torch.zeros(series.shape[:-1] + (1,), dtype=dtype, device=device)
+        corr_norm = torch.zeros_like(corr)
     if n_blocks >= 1 and max_lag >= 1:
-        corr_mean, corr_mean_norm = block_corr_means(
-            series, n_blocks=n_blocks, max_lag=max_lag, centered=True)
+        corr_mean, corr_mean_norm = stage(lambda s: block_corr_means(
+            s, n_blocks=n_blocks, max_lag=max_lag, centered=True))
     else:
         corr_mean = torch.zeros_like(corr)
         corr_mean_norm = torch.zeros_like(corr_norm)
@@ -291,6 +323,54 @@ def finalize(cfg: SimConfig, engine: Engine, ecarry, series: torch.Tensor, acc: 
         frames=frames,
         diagnostics=engine.diagnostics(ecarry),
     )
+
+
+def replica_generators(seed: int, replicas: int) -> list:
+    """The CPU generators of an ensemble's replicas: replica i's is seeded
+    with the first 64-bit word of ``numpy.random.SeedSequence(seed mod
+    2**64).spawn(replicas)[i]``. The streams are independent and
+    deterministic, and replica i's does not depend on ``replicas``, so
+    ``initialize(cfg, replica_generators(seed, R)[i])`` gives replica i's
+    state alone."""
+    seqs = np.random.SeedSequence(int(seed) % (1 << 64)).spawn(replicas)
+    return [torch.Generator().manual_seed(int(s.generate_state(1, np.uint64)[0])) for s in seqs]
+
+
+def initialize_replicas(cfg: SimConfig, generators, backend: str = "auto",
+                        device="cuda") -> MDState:
+    """``initialize`` for R replicas, one generator each: the (R, N, 3)
+    post-warmup states. Where ``backend`` resolves to the rows engine
+    (``replica_backend``) the replicas run together: the lattice, each
+    replica's velocities from its own generator, per-replica COM removal,
+    per-replica rescale to E_target, then the warmup on the replica rows
+    engine (one launch a chunk for all R). Any other backend initializes
+    each replica in turn with ``initialize``."""
+    device = resolve_device(device)
+    replicas = len(generators)
+    backend, batched = replica_backend(cfg, backend, device)
+    if not batched:
+        return stack_states([initialize(cfg, g, backend=backend, device=device)
+                             for g in generators])
+    dtype = _effective_dtype(cfg)
+    r = fcc_lattice(cfg.num_cells, cfg.box_length, dtype=dtype, device=device)
+    r = r.expand(replicas, -1, -1).contiguous()
+    v = torch.stack([random_velocities(g, cfg.n, dtype=dtype, device=device)
+                     for g in generators])
+    v = remove_com_velocity(v)
+
+    engine = make_replica_engine(cfg, replicas, backend, device)
+    state = MDState(r=r, ru=r, v=v, a=torch.zeros_like(r))
+    carry, obs = engine.init(state)
+    state = engine.get_state(carry)
+
+    v = rescale_to_target_energy(state.v, obs.epot, cfg.target_total_energy)
+    state = MDState(r=state.r, ru=state.ru, v=v, a=state.a)
+
+    if cfg.warmup_steps > 0:
+        carry, _ = engine.init(state)
+        carry, _ = _advance(engine, carry, cfg.warmup_steps, want_obs=False)
+        state = engine.get_state(carry)
+    return MDState(r=state.r, ru=state.r, v=state.v, a=state.a)
 
 
 def simulate(

@@ -15,7 +15,9 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` (Hopper), never
 of the pair terms).
 
 Every wrapper counts its launches in ``LAUNCHES`` so that a run can show that
-the main path went through the kernels.
+the main path went through the kernels; the replica launches of kernels 2, 3
+and 4 (one launch for the R replicas of an ensemble) count under their own
+names (``*_replicas``).
 """
 
 from __future__ import annotations
@@ -57,7 +59,9 @@ class LaunchCounts:
              "fused_dense_chunk_ext", "fused_dense_chunk_flags", "build_window_lists",
              "fused_dense_chunk_list", "pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_chunk",
              "pencil_sweep_full", "pencil_sweep_zband", "pair_sweep_rect",
-             "pair_sweep_rect_newton", "mosaic_probes", "layout_bodies")
+             "pair_sweep_rect_newton", "mosaic_probes", "layout_bodies",
+             "pair_sweep_tri_replicas", "fused_dense_chunk_replicas",
+             "fused_dense_chunk_ext_replicas")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -165,11 +169,14 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"ljmd_{name}_{suffix}")
             fn.argtypes = [_P, _P, _I, _I, real, real, real, _I, _P]
             fn.restype = _I
+        fn = getattr(lib, f"ljmd_pair_sweep_tri_replicas_{suffix}")
+        fn.argtypes = [_P, _P, _I, _I, _I, real, real, real, _I, _P]
+        fn.restype = _I
         fn = getattr(lib, f"ljmd_pair_terms_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, real, real, real, real,
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, real, real, real, real,
                        real, real, _I, _I, _P, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")
@@ -200,7 +207,7 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, real, real, real, real, real,
                        real, _I, _I, _I, _P]
         fn.restype = _I
-    lib.ljmd_fused_plan.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_fused_plan.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.ljmd_fused_plan.restype = _I
     lib.ljmd_fused_block_threads.restype = _I
     lib.ljmd_list_plan.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
@@ -268,19 +275,22 @@ def dtype_suffix(dtype: torch.dtype) -> str:
     raise TypeError(f"kernels take float32 or float64, got {dtype}")
 
 
-def require_cuda_rows(name: str, *tensors: torch.Tensor) -> None:
+def require_cuda_rows(name: str, *tensors: torch.Tensor, replicas: bool = False) -> None:
     """Check what every row-matrix kernel takes: CUDA, float32/float64, one
-    dtype and device, (8, n_pad) contiguous with n_pad a multiple of 128."""
+    dtype and device, (8, n_pad) contiguous with n_pad a multiple of 128;
+    with ``replicas``, (R, 8, n_pad) stacks of such rows, R >= 1."""
     ref = tensors[0]
+    want = 3 if replicas else 2
     for t in tensors:
         if t.device.type != "cuda" or t.device != ref.device:
             raise ValueError(f"{name}: all inputs must be on {ref.device}, got {t.device}")
         if t.dtype != ref.dtype:
             raise TypeError(f"{name}: mixed dtypes {ref.dtype} and {t.dtype}")
-        if t.dim() != 2 or t.shape[0] != 8 or t.shape != ref.shape:
-            raise ValueError(f"{name}: expected (8, n_pad) rows, got {tuple(t.shape)}")
-        if t.shape[1] % 128:
-            raise ValueError(f"{name}: n_pad={t.shape[1]} must be a multiple of 128")
+        if t.dim() != want or t.shape[-2] != 8 or t.shape != ref.shape or t.shape[0] < 1:
+            shape = "(R, 8, n_pad)" if replicas else "(8, n_pad)"
+            raise ValueError(f"{name}: expected {shape} rows, got {tuple(t.shape)}")
+        if t.shape[-1] % 128:
+            raise ValueError(f"{name}: n_pad={t.shape[-1]} must be a multiple of 128")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     dtype_suffix(ref.dtype)

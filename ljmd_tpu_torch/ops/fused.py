@@ -15,6 +15,13 @@ turn, S threads a particle; ``dense_plan`` gives the shape); on a CPU tensor
 the plain twins below run a Python step loop over the dense sweep with the
 same updates. ``fused_dense_chunk_flags`` gates each pair on the
 activity flag of the (tile_i, tile_j) tile the TPU kernel computes it in.
+
+``fused_dense_chunk`` and ``fused_dense_chunk_ext`` also take (R, 8, n_pad)
+stacks of R independent replicas (the ensemble's rows engine): on the card
+ONE launch advances all R (the work items of every replica in one persistent
+grid, at the single-replica plan's S, so replica q comes out bit for bit as
+a launch on replica q alone; counted as ``*_replicas``), on the CPU the
+twins run batched over the leading dimension.
 """
 
 from __future__ import annotations
@@ -141,13 +148,14 @@ def fused_dense_chunk_flags_plain(r, v, a, flags, n, box_length, rc_square, dt, 
 
 @functools.lru_cache(maxsize=None)
 def _plan(device_index: int, element_size: int, extended: bool, flagged: bool, n_pad: int,
-          slices: int) -> dict:
+          slices: int, batched: bool = False) -> dict:
     """The kernel's launch shape for a variant at n_pad (cached: it depends
-    only on the card, the variant, n_pad and a requested S)."""
+    only on the card, the variant, n_pad and a requested S); ``batched``:
+    the replica kernel's."""
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
         _cuda.check(_cuda.library().ljmd_fused_plan(element_size, int(extended), int(flagged),
-                                                     n_pad, slices, out),
+                                                     int(batched), n_pad, slices, out),
                     "fused_dense_chunk occupancy query")
     s, resident, per_sm, sms, smem = out
     threads = _cuda.library().ljmd_fused_block_threads()
@@ -164,23 +172,40 @@ def dense_plan(r, extended=False, flagged=False, slices=None) -> dict:
     whether the position plane stays in shared memory for the whole step
     (``resident``) or streams through a ring, blocks an SM holds, the
     persistent grid (``blocks``) and the warps it puts on each SM.
-    ``slices`` asks for a given S instead of the occupancy rule's."""
-    _cuda.require_cuda_rows("dense_plan", r)
-    return _plan(r.device.index, r.element_size(), bool(extended), bool(flagged), r.shape[1],
-                 int(slices or 0))
+    ``slices`` asks for a given S instead of the occupancy rule's. For an
+    (R, 8, n_pad) stack with R > 1 it is the replica kernel's shape at the
+    one-replica plan's S (so each replica sums in the one-replica order),
+    its ``items`` / ``blocks`` / ``warps_per_sm`` over all R replicas' work
+    items (``replicas`` R)."""
+    stacked = r.dim() == 3
+    _cuda.require_cuda_rows("dense_plan", r, replicas=stacked)
+    args = (r.device.index, r.element_size(), bool(extended), bool(flagged), r.shape[-1])
+    plan = _plan(*args, int(slices or 0))
+    if not stacked or r.shape[0] == 1:
+        return plan
+    plan = _plan(*args, plan["slices"], True)
+    items = plan["items"] * r.shape[0]
+    blocks = min(items, plan["blocks_per_sm"] * plan["sms"])
+    threads = _cuda.library().ljmd_fused_block_threads()
+    return {**plan, "replicas": r.shape[0], "items": items, "blocks": blocks,
+            "warps_per_sm": blocks * (threads // 32) / plan["sms"]}
 
 
 def _launch(name: str, extended: bool, r, r_lo, v, vc, a, n, box_length,
             rc_square, dt, n_steps, flags=None, tile_i=128, tile_j=512,
             grid_cap=None, slices=None):
-    """One launch of the kernel. ``grid_cap`` (tests and the smoke script
-    only) caps the persistent grid below what the card holds, so that each
-    block takes several work items; ``slices`` (measurements only) asks for
-    a given S."""
+    """One launch of the kernel, on (8, n_pad) rows or on (R, 8, n_pad)
+    replica stacks (counted as ``name + "_replicas"``). ``grid_cap`` (tests
+    and the smoke script only) caps the persistent grid below what the card
+    holds, so that each block takes several work items; ``slices``
+    (measurements only) asks for a given S."""
     tensors = (r, r_lo, v, vc, a) if extended else (r, v, a)
-    _cuda.require_cuda_rows(name, *tensors)
+    replicas = r.dim() == 3
+    if replicas and flags is not None:
+        raise ValueError(f"{name}: the flag-gated chunk takes one system, not replicas")
+    _cuda.require_cuda_rows(name, *tensors, replicas=replicas)
     _check_steps(n_steps)
-    n_pad = r.shape[1]
+    n_pad = r.shape[-1]
     if not 0 <= n <= n_pad:
         raise ValueError(f"{name}: n={n} outside [0, n_pad={n_pad}]")
     if flags is not None:
@@ -188,8 +213,8 @@ def _launch(name: str, extended: bool, r, r_lo, v, vc, a, n, box_length,
         flags = flags.contiguous()
     suffix = _cuda.dtype_suffix(r.dtype)
     lib = _cuda.library()
-    # Step s reads plane s % 2 and writes plane (s + 1) % 2.
-    rbuf = torch.zeros((2, 8, n_pad), dtype=r.dtype, device=r.device)
+    # Step s reads the planes [s % 2] and writes [(s + 1) % 2].
+    rbuf = torch.zeros((2,) + tuple(r.shape), dtype=r.dtype, device=r.device)
     rbuf[0].copy_(r)
     lobuf = None
     if extended:
@@ -207,21 +232,22 @@ def _launch(name: str, extended: bool, r, r_lo, v, vc, a, n, box_length,
         code = getattr(lib, f"ljmd_fused_dense_chunk_{suffix}")(
             rbuf.data_ptr(), lobuf.data_ptr() if extended else None,
             v_out.data_ptr(), vc_out.data_ptr() if extended else None,
-            a_out.data_ptr(), n, n_pad, float(box_length),
+            a_out.data_ptr(), n, n_pad, r.shape[0] if replicas else 1, float(box_length),
             1.0 / float(box_length), float(rc_square), float(dt),
             0.5 * dt, 0.5 * dt * dt, n_steps, int(extended),
             flags.data_ptr() if flags is not None else None, tile_i, tile_j,
             plan["slices"], int(plan["resident"]), blocks, _cuda.stream_handle(r),
         )
-    _cuda.LAUNCHES.bump(name)
+    _cuda.LAUNCHES.bump(name + "_replicas" if replicas else name)
     _cuda.check(code, name)
     last = n_steps % 2
     return rbuf[last], lobuf[last] if extended else None, v_out, vc_out, a_out
 
 
 def fused_dense_chunk(r, v, a, n, box_length, rc_square, dt, n_steps):
-    """Advance ``n_steps`` (<= MAX_CHUNK_STEPS) Verlet steps; returns
-    (r_end unwrapped, v, a). One kernel launch on CUDA tensors."""
+    """Advance ``n_steps`` (<= MAX_CHUNK_STEPS) Verlet steps of (8, n_pad)
+    rows, or of each replica of (R, 8, n_pad) stacks; returns (r_end
+    unwrapped, v, a). One kernel launch on CUDA tensors."""
     if r.device.type == "cpu":
         return fused_dense_chunk_plain(r, v, a, n, box_length, rc_square, dt, n_steps)
     if r.device.type != "cuda":
@@ -233,8 +259,9 @@ def fused_dense_chunk(r, v, a, n, box_length, rc_square, dt, n_steps):
 
 def fused_dense_chunk_ext(r, r_lo, v, vc, a, n, box_length, rc_square, dt,
                           n_steps):
-    """Extended-precision chunk: returns (r, r_lo, v, vc, a) after
-    ``n_steps``. One kernel launch on CUDA tensors."""
+    """Extended-precision chunk of (8, n_pad) rows or (R, 8, n_pad) replica
+    stacks: returns (r, r_lo, v, vc, a) after ``n_steps``. One kernel launch
+    on CUDA tensors."""
     if r.device.type == "cpu":
         return fused_dense_chunk_ext_plain(r, r_lo, v, vc, a, n, box_length,
                                            rc_square, dt, n_steps)

@@ -36,6 +36,12 @@ The tri, ordered and rect sweeps run one role of the same row-sweep kernel
 on the card. That kernel and kernel 7 stage partner rows by cp.async, so
 their wrappers refuse rows that do not start on a 16-byte boundary.
 
+``pair_sweep_tri`` also takes (R, 8, n_pad) stacks of R replicas (the
+ensemble's rows engine): ONE launch of ``csrc/pair_sweep_tri.cu``'s replica
+kernel (blockIdx.y the replica, the single-replica plan's S, so replica q's
+rows equal a launch on replica q alone bit for bit; counted as
+``pair_sweep_tri_replicas``), the twin batched on a CPU tensor.
+
 ``pair_sweep_tri``, ``pair_sweep``, ``pair_sweep_rect`` and
 ``pair_sweep_rect_newton`` launch ``csrc/pair_sweep_tri.cu``,
 ``csrc/pair_sweep.cu`` and ``csrc/pair_sweep_rect.cu`` on CUDA tensors; on
@@ -92,24 +98,27 @@ ROWS_BLOCKS_PER_SM = 3
 
 def _pair_geometry(pos: torch.Tensor, n: int, box_length: float,
                    lo: torch.Tensor | None = None):
-    """(3, n, n) minimum-image displacements d[c, i, j] = x_i - x_j (with the
-    two-float correction lo_i - lo_j when ``lo`` is given) and r^2."""
-    x = pos[0:3, :n]
-    d = x[:, :, None] - x[:, None, :]
+    """(..., 3, n, n) minimum-image displacements d[..., c, i, j] = x_i - x_j
+    (with the two-float correction lo_i - lo_j when ``lo`` is given) and
+    r^2, over the leading (replica) dimensions of (..., 8, n_pad) rows."""
+    x = pos[..., 0:3, :n]
+    d = x[..., :, :, None] - x[..., :, None, :]
     if lo is not None:
-        xl = lo[0:3, :n]
-        d = d + (xl[:, :, None] - xl[:, None, :])
+        xl = lo[..., 0:3, :n]
+        d = d + (xl[..., :, :, None] - xl[..., :, None, :])
     d = d - box_length * torch.round(d * (1.0 / box_length))
-    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    r2 = d[..., 0, :, :] * d[..., 0, :, :] + d[..., 1, :, :] * d[..., 1, :, :] \
+        + d[..., 2, :, :] * d[..., 2, :, :]
     return d, r2
 
 
 def pair_forces_plain(pos: torch.Tensor, n: int, box_length: float,
                       rc_square: float, lo: torch.Tensor | None = None,
                       gate: torch.Tensor | None = None) -> torch.Tensor:
-    """(8, n_pad) rows 0..2 = force / 24 on each particle, everything else 0
-    (the force-only sweep of the fused chunks). ``gate``, an (n, n) bool
-    matrix, keeps only the pairs it marks."""
+    """(..., 8, n_pad) rows 0..2 = force / 24 on each particle, everything
+    else 0 (the force-only sweep of the fused chunks), for each leading
+    (replica) index. ``gate``, an (n, n) bool matrix, keeps only the pairs
+    it marks."""
     d, r2 = _pair_geometry(pos, n, box_length, lo)
     eye = torch.eye(n, dtype=torch.bool, device=pos.device)
     mask = (r2 < rc_square) & ~eye
@@ -117,16 +126,17 @@ def pair_forces_plain(pos: torch.Tensor, n: int, box_length: float,
         mask &= gate
     coef, _, _, _ = lj_pair_terms_plain(r2, mask, want_observables=False)
     out = torch.zeros_like(pos)
-    out[0:3, :n] = (coef[None] * d).sum(dim=-1)
+    out[..., 0:3, :n] = (coef.unsqueeze(-3) * d).sum(dim=-1)
     return out
 
 
 def _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, want_observables):
-    """(d (3, n_i, n_j) = x_i - x_j minimum image, coef, du, e, ddu) over the
-    pairs gi != gj inside the cutoff."""
-    d = pos_i[0:3, :n_i, None] - pos_j[0:3, None, :n_j]
+    """(d (..., 3, n_i, n_j) = x_i - x_j minimum image, coef, du, e, ddu) over
+    the pairs gi != gj inside the cutoff, for each leading (replica) index."""
+    d = pos_i[..., 0:3, :n_i, None] - pos_j[..., 0:3, None, :n_j]
     d = d - box_length * torch.round(d * (1.0 / box_length))
-    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    r2 = d[..., 0, :, :] * d[..., 0, :, :] + d[..., 1, :, :] * d[..., 1, :, :] \
+        + d[..., 2, :, :] * d[..., 2, :, :]
     gi = gi0 + torch.arange(n_i, device=pos_i.device)
     gj = gj0 + torch.arange(n_j, device=pos_i.device)
     mask = (r2 < rc_square) & (gi[:, None] != gj[None, :])
@@ -135,17 +145,17 @@ def _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square, want_ob
 
 def _i_rows(pos_i, n_i, d, coef, du, e, ddu, want_observables):
     out = torch.zeros_like(pos_i)
-    out[0:3, :n_i] = (coef[None] * d).sum(dim=-1)
+    out[..., 0:3, :n_i] = (coef.unsqueeze(-3) * d).sum(dim=-1)
     if want_observables:
         for row, term in ((3, e), (4, du), (5, ddu)):
-            out[row, :n_i] = term.sum(dim=-1)
+            out[..., row, :n_i] = term.sum(dim=-1)
     return out
 
 
 def _sweep_plain(pos: torch.Tensor, n: int, box_length: float, rc_square: float,
                  want_observables: bool, obs_pairs: str) -> torch.Tensor:
-    """Dense twin of both sweeps (the rect twin with i = j); ``obs_pairs``
-    "upper" (j > i) or "all"."""
+    """Dense twin of both sweeps (the rect twin with i = j) over (..., 8,
+    n_pad) rows; ``obs_pairs`` "upper" (j > i) or "all"."""
     d, coef, du, e, ddu = _rect_terms(pos, pos, n, n, 0, 0, box_length, rc_square,
                                       want_observables)
     if want_observables and obs_pairs == "upper":
@@ -157,7 +167,8 @@ def _sweep_plain(pos: torch.Tensor, n: int, box_length: float, rc_square: float,
 
 def pair_sweep_tri_plain(pos: torch.Tensor, n: int, box_length: float,
                          rc_square: float, want_observables: bool = True) -> torch.Tensor:
-    """Plain PyTorch twin of the tri sweep (same (8, n_pad) row contract)."""
+    """Plain PyTorch twin of the tri sweep (same (8, n_pad) row contract),
+    and of its replica launch on (R, 8, n_pad) rows (each replica alone)."""
     return _sweep_plain(pos, n, box_length, rc_square, want_observables, "upper")
 
 
@@ -196,13 +207,35 @@ def _launch(name: str, pos: torch.Tensor, n: int, box_length: float, rc_square: 
     return out
 
 
+def _launch_replicas(pos: torch.Tensor, n: int, box_length: float, rc_square: float,
+                     want_observables: bool) -> torch.Tensor:
+    name = "pair_sweep_tri_replicas"
+    if pos.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {pos.device}")
+    _cuda.require_cuda_rows(name, pos, replicas=True)
+    if not 0 <= n <= pos.shape[-1]:
+        raise ValueError(f"{name}: n={n} outside [0, n_pad={pos.shape[-1]}]")
+    out = torch.empty_like(pos)
+    with torch.cuda.device(pos.device):
+        code = getattr(_cuda.library(), f"ljmd_{name}_{_cuda.dtype_suffix(pos.dtype)}")(
+            pos.data_ptr(), out.data_ptr(), n, pos.shape[-1], pos.shape[0], float(box_length),
+            1.0 / float(box_length), float(rc_square), int(want_observables),
+            _cuda.stream_handle(pos))
+    _cuda.LAUNCHES.bump(name)
+    _cuda.check(code, name)
+    return out
+
+
 def pair_sweep_tri(pos: torch.Tensor, n: int, box_length: float,
                    rc_square: float, want_observables: bool = True) -> torch.Tensor:
-    """Tri sweep of an (8, n_pad) row matrix: the CUDA kernel for a CUDA
-    tensor, the plain twin for a CPU tensor."""
+    """Tri sweep of an (8, n_pad) row matrix, or of each replica of an (R,
+    8, n_pad) stack in one launch: the CUDA kernel for a CUDA tensor, the
+    plain twin for a CPU tensor."""
     if pos.device.type == "cpu":
         return pair_sweep_tri_plain(pos, n, box_length, rc_square, want_observables)
     _require_aligned("pair_sweep_tri", pos)
+    if pos.dim() == 3:
+        return _launch_replicas(pos, n, box_length, rc_square, want_observables)
     return _launch("pair_sweep_tri", pos, n, box_length, rc_square, want_observables)
 
 

@@ -43,8 +43,10 @@ Two meshes:
   and reduce in rank order, as ``ThreadMesh`` does.
 
 ``make_mesh(particle=d, device=..., kind="thread" | "dist")`` builds one.
-``REPLICA_AXIS`` is named, but no mesh has a replica axis yet: it comes with
-the ensemble over replicas (``parallel/ensemble.py`` in JAX), still to port.
+``REPLICA_AXIS`` is named, but no mesh has a replica axis yet: the ensemble
+(``parallel/ensemble.py``) batches its replicas on one card, and the replica
+x particle mesh comes with the replica x particle step, still to port
+(ROADMAP).
 """
 
 from __future__ import annotations

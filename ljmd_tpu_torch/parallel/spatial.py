@@ -36,7 +36,8 @@ runs k fast steps inside one ``mesh.run``, and ``get_state`` joins the
 ranks' rows in rank order (``DistMesh``: an all-gather).
 
 The replica x particle step (``make_ensemble_spatial_step_fn``) waits for
-the ensemble's port (ROADMAP §1.7).
+its own slice: kernel 7 with a replica dimension and a replica axis in
+``make_mesh`` (ROADMAP).
 """
 
 from __future__ import annotations

@@ -11,14 +11,21 @@ rebuild of ``scripts/stats/stats_math.f90`` and the block machinery of
 
 Every function takes a batch of series along the leading dims; the lag sweep
 is one batched product over an unfolded (max_lag+1, n) window view, in place
-of the JAX package's ``vmap``.
+of the JAX package's ``vmap``. That product holds (max_lag+1) x n values a
+series, so an ensemble's correlation stage runs over groups of replicas
+(``grouped``, ``corr_group_size``): at most ``CORR_GROUP_BYTES`` of lag
+products at once, each replica's result the same as in one batched call.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["autocorr", "normalize_corr", "block_corr_means", "autocorr_all"]
+__all__ = ["CORR_GROUP_BYTES", "autocorr", "normalize_corr", "block_corr_means", "autocorr_all",
+           "corr_group_size", "grouped"]
+
+# The lag products an ensemble's correlation stage holds at once, at most.
+CORR_GROUP_BYTES = 64 << 20
 
 
 def autocorr(series: torch.Tensor, max_lag: int, centered: bool = False) -> torch.Tensor:
@@ -71,3 +78,20 @@ def block_corr_means(series: torch.Tensor, n_blocks: int, max_lag: int,
     corr_b = autocorr(blocks, max_lag, centered=centered)
     corrn_b = normalize_corr(corr_b)
     return torch.mean(corr_b, dim=-2), torch.mean(corrn_b, dim=-2)
+
+
+def corr_group_size(replicas: int, n_samples: int, max_lag: int, itemsize: int,
+                    budget: int = CORR_GROUP_BYTES) -> int:
+    """Replicas a group of the correlation stage: as many as keep their lag
+    products, 5 x (max_lag+1) x n_samples values of ``itemsize`` bytes a
+    replica, within ``budget`` bytes (at least 1, at most ``replicas``)."""
+    per = 5 * (max_lag + 1) * max(n_samples, 1) * itemsize
+    return max(1, min(replicas, budget // per))
+
+
+def grouped(fn, series, group: int):
+    """``fn`` over the leading (replica) axis of ``series`` (a tensor or a
+    host array) ``group`` replicas at a time, its outputs (a tuple of
+    tensors) concatenated along that axis."""
+    outs = [fn(series[g:g + group]) for g in range(0, series.shape[0], group)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))

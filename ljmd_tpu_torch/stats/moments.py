@@ -10,6 +10,11 @@ The accumulator is one (2, 11) tensor of sums and sums of squares of the
 SHIFTED samples x - shift (shift = the first sample): algebraically free,
 and necessary in float32, where <E^2> - <E>^2 on raw values loses all of
 Etot's small NVE variance to cancellation.
+
+Every function takes leading batch dimensions (a replica ensemble's (R,)
+observables give (R, 2, 11) moments and (R, 11) means, in place of the JAX
+package's ``vmap``); on unbatched (0-d) observables each computes what it
+did before, op for op.
 """
 
 from __future__ import annotations
@@ -71,11 +76,14 @@ class MeansReport:
         return self.stds[..., OBSERVABLES.index(name)]
 
 
-def means_init(dtype=torch.float32, device="cpu") -> MeansAccum:
+def means_init(dtype=torch.float32, device="cpu", batch: tuple = ()) -> MeansAccum:
+    """An empty accumulator; ``batch`` (e.g. ``(R,)``) prepends batch
+    dimensions to every field."""
+    batch = tuple(batch)
     return MeansAccum(
-        count=torch.zeros((), dtype=dtype, device=device),
-        moments=torch.zeros((2, NUM_OBSERVABLES), dtype=dtype, device=device),
-        shift=torch.zeros((NUM_OBSERVABLES,), dtype=dtype, device=device),
+        count=torch.zeros(batch, dtype=dtype, device=device),
+        moments=torch.zeros(batch + (2, NUM_OBSERVABLES), dtype=dtype, device=device),
+        shift=torch.zeros(batch + (NUM_OBSERVABLES,), dtype=dtype, device=device),
     )
 
 
@@ -103,22 +111,22 @@ def _sample_vector(obs: StepObs, n: int, volume: float) -> torch.Tensor:
         du * ekin_inv,
         du * du * ekin_inv,
         ddu * ekin_inv,
-    ])
+    ], dim=-1)
 
 
 def means_update(acc: MeansAccum, obs: StepObs, n: int, volume: float) -> MeansAccum:
     """Add one sample (md_means_add_sample)."""
     x = _sample_vector(obs, n, volume).to(acc.moments.dtype)
-    shift = torch.where(acc.count == 0, x, acc.shift)
+    shift = torch.where(acc.count[..., None] == 0, x, acc.shift)
     dx = x - shift
-    moments = acc.moments + torch.stack([dx, dx * dx])
+    moments = acc.moments + torch.stack([dx, dx * dx], dim=-2)
     return MeansAccum(count=acc.count + 1, moments=moments, shift=shift)
 
 
 def means_finalize(acc: MeansAccum) -> MeansReport:
     """Means and stds; std = sqrt(max(0, <x^2> - <x>^2)) (stats_math.f90:56-61)."""
-    inv_n = 1.0 / acc.count
-    dmean = acc.moments[0] * inv_n
-    second = acc.moments[1] * inv_n
+    inv_n = 1.0 / acc.count[..., None]
+    dmean = acc.moments[..., 0, :] * inv_n
+    second = acc.moments[..., 1, :] * inv_n
     var = torch.clamp(second - dmean * dmean, min=0.0)
     return MeansReport(count=acc.count, means=acc.shift + dmean, stds=torch.sqrt(var))

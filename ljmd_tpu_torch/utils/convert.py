@@ -3,8 +3,8 @@
 ``jax.random`` and ``torch.Generator`` never draw the same numbers, so
 parity checks start both packages from one numpy state:
 
-- ``MDState`` fields as (N, 3) arrays (``state_from_numpy`` /
-  ``state_to_numpy``);
+- ``MDState`` fields as (N, 3) arrays, or an ensemble's as (R, N, 3) (JAX's
+  vmapped states; ``state_from_numpy`` / ``state_to_numpy``);
 - ``RowCarry`` fields as (8, n_pad) row matrices, re-padded between the JAX
   engine's padding and this port's (``row_carry_from_numpy`` /
   ``row_carry_to_numpy``);
@@ -73,14 +73,20 @@ _PENCIL_INT = ("counts", "win_a", "win_b", "use_b", "wl_self", "wl_self_cnt", "w
 
 
 def state_from_numpy(arrays, dtype=torch.float64, device="cpu") -> MDState:
-    """MDState from a mapping (or object with attributes) of (N, 3) arrays."""
+    """MDState from a mapping (or object with attributes) of (N, 3) arrays,
+    or of an ensemble's (R, N, 3) arrays (e.g. the JAX package's vmapped
+    initial states), all of one shape."""
     get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
-    return MDState(*(torch.as_tensor(np.array(get(k)), dtype=dtype, device=device)
-                     for k in STATE_FIELDS))
+    fields = [np.array(get(k)) for k in STATE_FIELDS]
+    shape = fields[0].shape
+    if len(shape) not in (2, 3) or shape[-1] != 3 or any(f.shape != shape for f in fields):
+        raise ValueError(f"expected (N, 3) or (R, N, 3) state arrays of one shape, got "
+                         f"{[f.shape for f in fields]}")
+    return MDState(*(torch.as_tensor(f, dtype=dtype, device=device) for f in fields))
 
 
 def state_to_numpy(state: MDState) -> dict:
-    """{field: (N, 3) float array} of an MDState, on the host."""
+    """{field: (N, 3) or (R, N, 3) float array} of an MDState, on the host."""
     return {k: getattr(state, k).detach().cpu().numpy() for k in STATE_FIELDS}
 
 

@@ -1286,3 +1286,104 @@ def test_pack_kernel_is_one_device_operation(cuda):
     seen = device_breakdown(lambda: [pack() for _ in range(10)],
                             top=1 << 30)["device_ms_by_name"]
     assert sum(v["count"] for v in seen.values()) <= 10, seen
+
+
+def _replica_fluids(replicas, n, dtype, device, seed=40):
+    """R independent jittered fluids of n particles (one box) as (R, 8,
+    n_pad) stacks of rows, velocities and accelerations."""
+    parts = [_jittered_fluid(n, seed + q, dtype, device) for q in range(replicas)]
+    box = parts[0][0]
+    return box, tuple(torch.stack([p[1][k] for p in parts]) for k in range(3))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["tri", "chunk", "chunk_ext"])
+def test_replica_launches_equal_single_launches(cuda, kernel, dtype, tol):
+    """Kernels 2, 3 and 4 on (R, 8, n_pad) stacks: ONE launch (counted as
+    ``*_replicas``) whose replica q equals a launch on replica q alone bit
+    for bit, and matches the batched twin; at N=256 (ensemble64's N) and
+    N=500 (the reference default's)."""
+    for n, replicas in ((256, 7), (500, 3)):
+        box, (r, v, a) = _replica_fluids(replicas, n, dtype, cuda)
+        zero = torch.zeros_like(r)
+        if kernel == "tri":
+            def run(*x):
+                return (pair_sweep.pair_sweep_tri(x[0], n, box, 6.25),)
+            twin = (pair_sweep.pair_sweep_tri_plain(r, n, box, 6.25),)
+            name = "pair_sweep_tri"
+        elif kernel == "chunk":
+            def run(*x):
+                return fused.fused_dense_chunk(x[0], x[1], x[2], n, box, 6.25, 0.005, 7)
+            twin = fused.fused_dense_chunk_plain(r, v, a, n, box, 6.25, 0.005, 7)
+            name = "fused_dense_chunk"
+        else:
+            def run(*x):
+                return fused.fused_dense_chunk_ext(x[0], x[3], x[1], x[3], x[2], n, box, 6.25,
+                                                   1e-4, 7)
+            twin = fused.fused_dense_chunk_ext_plain(r, zero, v, zero, a, n, box, 6.25, 1e-4, 7)
+            name = "fused_dense_chunk_ext"
+        LAUNCHES.reset()
+        got = run(r, v, a, zero)
+        counts = LAUNCHES.snapshot()
+        assert counts[name + "_replicas"] == 1 and counts[name] == 0
+        for q in range(replicas):
+            alone = run(r[q].contiguous(), v[q].contiguous(), a[q].contiguous(),
+                        zero[q].contiguous())
+            for g, w in zip(got, alone):
+                assert torch.equal(g[q], w), (n, q)
+        for g, w in zip(got, twin):
+            _close(g, w, tol)
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_replica_chunk_capped_grid_and_planted_nan(cuda, extended):
+    """The replica chunk with its persistent grid capped (several replicas'
+    items a block, the resident plane restaged) equals the full grid bit
+    for bit; a NaN planted in one replica leaves every other's bits as
+    they were."""
+    n, replicas = 256, 9
+    box, (r, v, a) = _replica_fluids(replicas, n, torch.float32, cuda)
+    zero = torch.zeros_like(r)
+    ext = (zero, zero) if extended else (None, None)
+
+    def launch(pos, **kw):
+        return fused._launch("fused_dense_chunk", extended, pos, ext[0], v, ext[1], a, n, box,
+                             6.25, 0.005, 5, **kw)
+
+    full = launch(r)
+    assert fused.dense_plan(r, extended)["items"] == replicas * fused.dense_plan(r[0])["items"]
+    for g, w in zip(launch(r, grid_cap=5), full):
+        assert g is None or torch.equal(g, w)
+    bad = r.clone()
+    bad[4, 0, 17] = float("nan")
+    poisoned = launch(bad)
+    assert not bool(torch.isfinite(poisoned[0][4]).all())
+    keep = [q for q in range(replicas) if q != 4]
+    for g, w in zip(poisoned, full):
+        assert g is None or torch.equal(g[keep], w[keep])
+    tri = pair_sweep.pair_sweep_tri(bad, n, box, 6.25)
+    assert torch.equal(tri[keep], pair_sweep.pair_sweep_tri(r, n, box, 6.25)[keep])
+
+
+def test_replica_ensemble_on_card_equals_single_runs(cuda):
+    """The ensemble's batched rows engine on the card: each replica's final
+    state equals a one-system run_production from its initial state bit
+    for bit, through the replica launches only; the series agree to the
+    rounding of the batched sums; the replica loop (dense) agrees too."""
+    from ljmd_tpu_torch.models.engine import replica_state
+    from ljmd_tpu_torch.models.simulation import initialize_replicas, replica_generators
+
+    cfg = SimConfig(num_cells=4, box_length=6.839903786707, rc_over_box=0.365502217277,
+                    dt=0.005, total_steps=400, output_interval=20, warmup_steps=100,
+                    target_total_energy=-1050.0, dtype="float32", seed=99)
+    states = initialize_replicas(cfg, replica_generators(cfg.seed, 4), device=cuda)
+    LAUNCHES.reset()
+    res = run_production(cfg, states, device=cuda)
+    counts = LAUNCHES.snapshot()
+    assert counts["pair_sweep_tri_replicas"] > 0 and counts["fused_dense_chunk_replicas"] > 0
+    assert counts["pair_sweep_tri"] == 0 and counts["fused_dense_chunk"] == 0
+    for q in (0, 3):
+        one = run_production(cfg, replica_state(states, q), device=cuda)
+        for k in ("r", "ru", "v", "a"):
+            assert torch.equal(getattr(res.final_state, k)[q], getattr(one.final_state, k))
+        _close(res.series[q], one.series, 1e-6)

@@ -7,7 +7,7 @@ times; the card runs them at full size (``chip_smoke.py``)."""
 import pytest
 import torch
 
-from ljmd_tpu_torch.experiments import layout, mosaic_support, overhead, zfloor
+from ljmd_tpu_torch.experiments import ensemble_drift, layout, mosaic_support, overhead, zfloor
 
 torch.set_num_threads(1)
 
@@ -63,6 +63,24 @@ def test_layout_main(monkeypatch, capsys):
                   "dot-transpose (N,8)->(8,N) chunked"):
         assert label in text, label
     assert len(out) == 7 and text.count("ns/unit") == 7
+
+
+def test_ensemble_drift_main(tmp_path, capsys):
+    """Four variants of a 2-replica N=32 ensemble: one line and one entry
+    each; halving dt doubles the steps, warmup and interval."""
+    cfg = tmp_path / "ens.json"
+    cfg.write_text('{"num_cells": 2, "box_length": 3.6, "rc_over_box": 0.45, '
+                   '"total_steps": 60, "output_interval": 10, "warmup_steps": 10, '
+                   '"dt": 0.003, "dtype": "float32", "target_total_energy": -60.0, '
+                   '"seed": 2, "n_runs": 2}')
+    out = ensemble_drift.main(["--device", "cpu", "--config", str(cfg)])
+    text = capsys.readouterr().out
+    assert "N=32 R=2 dt=0.003 total=60 float32" in text
+    assert list(out) == ["as configured", "float64", "float32 compensated", "float64 dt/2"]
+    assert all(0.0 <= v["median"] <= v["p90"] <= v["max"] for v in out.values())
+    half = ensemble_drift.variants(ensemble_drift.load_config(str(cfg)))["float64 dt/2"]
+    assert (half.dt, half.total_steps, half.warmup_steps, half.output_interval) == \
+        (0.0015, 120, 20, 20)
 
 
 def test_experiments_refuse_a_missing_card():
