@@ -180,11 +180,41 @@ checkout. Phases, each fatal on failure:
     d. ``--stream --chunk-samples 32``: artifacts byte-equal to (b)'s, the
        correlation stage's peak device memory within 1.5x one replica
        group's lag products;
-    e. the N=864 ensemble (``auto`` -> zsort, the replica loop) at R=8 cut to
-       2,000 steps: kernels 9 and 10 launched R times one replica's count,
-       8/8 ok, its rate; the reference default in float32 (compensated:
-       kernel 4's replica launch) as an R=8 ensemble cut to 2,000 steps;
-    f. ``--per-run-dirs`` at R=4 on the cut: run_XXXX/ and several_runs.txt.
+    e. the N=864 ensemble (``auto`` -> zsort, batched) cut to
+       2,000 steps: at R=8 the replica loop over one-system zsort engines
+       (the yardstick: kernels 9 and 10 launched R times one replica's
+       count, 8/8 ok, its rate) and the batched engine from the same states
+       (final states bit-equal to the loop's); at R=64 through the CLI
+       (64/64 ok, no flag set, only the replica launches of kernels 9 and
+       10) and in process (replica 0 bit-equal to its one-system zsort run),
+       its rate against the loop's; the reference default in float32
+       (compensated: kernel 4's replica launch) as an R=8 ensemble cut to
+       2,000 steps;
+    f. ``--per-run-dirs`` at R=4 on the cut: run_XXXX/ and several_runs.txt;
+    and for the replica axis:
+    a'. the replica launches of kernel 7 at R=8 on the half ring's d=4 hop
+       (1000 x 1000 of N=4000) and at R=32 on config 4's d=2 half hop (128
+       rows a rank), of kernel 6 at R=8 on the ring's 2000 x 2000 hop and at
+       R=32 on config 4's d=2 ring (the rank's self block, where gi0 = gj0,
+       and the visiting block), of kernel 2 at R=32 on config 4's 128-row
+       self block, of kernels 9 and 10 at R=64 on config 2's N=864 (kernel
+       10 plain and extended), float32 and float64: against their twins,
+       replicas 0, mid
+       and last against one-replica launches bit for bit, a planted NaN (the
+       pack: planted flags) kept in its replica, kernel 10 under a capped
+       grid; each timed against its R one-replica launches (``loop_ms``;
+       kernels 6, 7 and 9 also on the card alone);
+    g. config 4 through the replica x particle half-ring step
+       (``make_ensemble_spatial_step_fn``) on a (replica=2, particle=2)
+       thread mesh, cut to 2,000 steps: only replica launches, replicas 0 /
+       31 / 63 bit-equal to ``make_spatial_step_fn`` on a 2-rank mesh run on
+       each alone, the drift (median under 1e-3, the worst within 3x the
+       batched rows engine's worst on the same cut), the aggregate rate and
+       ms a step, float64 against the batched rows engine over 100 steps
+       (1e-9); 200 steps of the ring (kernel 6's replica launch), its
+       replicas 0 / 31 / 63 bit-equal to ``make_spatial_engine(comm="ring")``
+       on a 2-rank mesh run on each alone;
+       ``dryrun_multichip(4)`` (9b) runs the same step on a (2, 2) mesh.
 
 The build (phase 2) also builds the native trajectory library
 (``utils/native.py``) with the host's C++ compiler.
@@ -346,6 +376,29 @@ ENSEMBLE_FILES = ["means.txt", "simulation_results.txt", "simulation_results.jso
     f"corrmean_runs_{o}.dat" for o in ("epot", "ekin", "etot", "temp", "press")]
 REPLICA_KERNELS = ("pair_sweep_tri_replicas", "fused_dense_chunk_replicas",
                    "fused_dense_chunk_ext_replicas")
+# Phase 12, the replica axis: the replica launches of kernels 6 and 7 (the replica x
+# particle step's hops) and of kernels 9 and 10 (the batched zsort engine).
+# (a) kernel 7 at R=8 on the half ring's d=4 hop (1000 x 1000 of N=4000) and
+# at R=32 on config 4's d=2 half hop (128 rows a rank, the low rank's [64,
+# 128) x [0, 128)); kernel 6 at R=8 on the ring's 2000 x 2000 and at R=32 on
+# config 4's d=2 ring (the high rank's self block and its visiting block);
+# kernel 2 at R=32 on config 4's 128-row self block; kernels 9 and 10 at
+# R=64 on config 2's N=864 (n_pad 896, the 16-step chunk); replicas 0, mid
+# and last against one-replica launches bit for bit. (b) config 4 through
+# the replica x particle half ring on a (replica=2, particle=2) thread mesh,
+# cut to 2,000 steps (plus REPLICA_RING_STEPS of the ring, for kernel 6's
+# replica launch), its replicas REPLICA_PARTICLE_BITS against one-replica
+# sharded runs, its drift beside the batched rows engine's on the same cut,
+# float64 against that engine over CROSS_STEPS. (c) the N=864 ensemble at
+# R=64 through the CLI (auto -> zsort, batched) on ENSEMBLE_ZSORT_CUT.
+REPLICA_HOP_KERNELS = ("pair_sweep_rect_replicas", "pair_sweep_rect_newton_replicas")
+REPLICA_ZSORT_KERNELS = ("build_window_lists_replicas", "fused_dense_chunk_list_replicas")
+REPLICA_HOP_R, REPLICA_HALF_R, REPLICA_LIST_R = 8, 32, 64
+REPLICA_PARTICLE_MESH = (2, 2)  # (replica, particle)
+REPLICA_PARTICLE_CUT = {"total_steps": 2_000}
+REPLICA_PARTICLE_BITS = (0, 31, 63)
+REPLICA_RING_STEPS = 200
+ENSEMBLE_ZSORT_BATCHED_R = 64
 PENCIL_CAPS = (512, 384)
 PENCIL_CHECK_STEPS = 4
 PENCIL_CHUNK_STEPS = 8
@@ -2143,7 +2196,8 @@ def _write_cfg(tmp: str, name: str, cfg) -> str:
 FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
                 + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
-                + EXPERIMENT_KERNELS + REPLICA_KERNELS)
+                + EXPERIMENT_KERNELS + REPLICA_KERNELS + REPLICA_HOP_KERNELS
+                + REPLICA_ZSORT_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -2994,18 +3048,18 @@ def replica_stack(torch, num_cells: int, box: float, replicas: int, dtype, seed:
     return parts[0][0], torch.stack([p[1] for p in parts]), torch.stack([p[2] for p in parts])
 
 
-def replica_checks(torch, fn, stacks: tuple, got: tuple, picks) -> dict:
+def replica_checks(torch, fn, stacks: tuple, got: tuple, picks, col: int = 3) -> dict:
     """Replica q of ``got`` (``fn`` on the stacks) against ``fn`` on replica
     q alone for q in ``picks``, bit for bit; and a NaN planted in one
-    position of replica 5: that replica's first output changes (a NaN
-    position fails every cutoff test, so its pairs drop out) and every
-    other replica's bits stay as they were."""
+    position of replica 5 (column ``col``, an active row): that replica's
+    first output changes (a NaN position fails every cutoff test, so its
+    pairs drop out) and every other replica's bits stay as they were."""
     bits = {}
     for q in picks:
         alone = fn(*(s[q].contiguous() for s in stacks))
         bits[q] = all(bool(torch.equal(g[q], w)) for g, w in zip(got, alone))
     bad = [s.clone() for s in stacks]
-    bad[0][5, 0, 3] = float("nan")
+    bad[0][5, 0, col] = float("nan")
     out = fn(*bad)
     keep = [q for q in range(stacks[0].shape[0]) if q != 5]
     nan_isolated = (not bool(torch.equal(out[0][5], got[0][5]))
@@ -3150,6 +3204,539 @@ def phase_ensemble_kernels(torch) -> dict:
 
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return cases
+
+
+def replica_case(torch, name: str, label: str, dname: str, fn, twin, stacks: tuple,
+                 flops: float, nbytes: float, col: int = 3, card: bool = True,
+                 compare=None, reps: int = 50, loop_reps: int = 10, plain_reps: int = 3) -> dict:
+    """One replica launch (``fn`` on the (R, ...) ``stacks``) against its
+    twin (``compare`` maps both outputs to the arrays compared), replicas 0,
+    R/2 and R-1 against one-replica launches bit for bit, a planted NaN
+    (``replica_checks``); timed back to back (``ms``), the R one-replica
+    launches it replaces back to back (``loop_ms``), with ``card`` both on
+    the card alone too (``card_ms``, ``loop_card_ms``), and the twin."""
+    reps_r = stacks[0].shape[0]
+    tol = KERNEL_TOL[dname]
+    got = fn(*stacks)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = twin(*stacks)
+    torch.cuda.synchronize()
+    twin_ms = 1e3 * (time.time() - t0)
+    cg, cw = (compare(got), compare(want)) if compare else (got, want)
+    errs = [rel_err(g, w) for g, w in zip(cg, cw)]
+    worst = max(e[1] for e in errs)
+    tag = f"{name} {label} {dname}"
+    require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
+    checks = replica_checks(torch, fn, stacks, got, (0, reps_r // 2, reps_r - 1), col)
+    require(all(checks["bit_identical_to_alone"].values()) and checks["nan_isolated"],
+            f"{tag}: replicas not independent: {checks}")
+    singles = [tuple(x[q].contiguous() for x in stacks) for q in range(reps_r)]
+    case = {**bound(dname, flops, nbytes), "shape": label, "dtype": dname, "replicas": reps_r,
+            "max_abs_err": max(e[0] for e in errs), "rel_err": worst, **checks,
+            "ms": cuda_time_ms(torch, lambda: fn(*stacks), reps),
+            "loop_ms": cuda_time_ms(torch, lambda: [fn(*x) for x in singles], loop_reps),
+            # plain_reps 0: the comparison's own call of the twin (host clock
+            # after a synchronize), for twins that take seconds
+            "plain_ms": (cuda_time_ms(torch, lambda: twin(*stacks), plain_reps, warmup=1)
+                         if plain_reps else twin_ms)}
+    if card:
+        case["card_ms"] = graph_ms(torch, lambda: fn(*stacks), reps)
+        case["loop_card_ms"] = graph_ms(torch, lambda: [fn(*x) for x in singles],
+                                        max(1, loop_reps // 2))
+    return case
+
+
+def _replica_block_stacks(torch, which: int, d: int, blocks: tuple, reps: int, dtype,
+                          seed: int):
+    """R shuffled perturbed lattices of SHAPES[which] cut into d rank blocks:
+    (n a rank, [(R, 8, ld) stack of block b for b in ``blocks``], [each
+    replica's (n, 3) rows of each block])."""
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    _, k, box, _ = SHAPES[which]
+    per = {b: [] for b in blocks}
+    for q in range(reps):
+        n, lattice, _ = perturbed_fcc(k, box, seed + q, torch, dtype, dev)
+        r = lattice.clone()
+        r[:, :n] = r[:, torch.as_tensor(np.random.default_rng(seed + q).permutation(n),
+                                        device=dev)]
+        ni = n // d
+        for b in blocks:
+            out = torch.zeros((8, -(-ni // 128) * 128), dtype=dtype, device=dev)
+            out[:, :ni] = r[:, b * ni:(b + 1) * ni]
+            per[b].append(out)
+    return ni, [torch.stack(per[b]) for b in blocks]
+
+
+def replica_launch(plan: dict, replicas: int) -> dict:
+    """A row-sweep kernel's one-replica launch shape (``rows_sweep_plan``,
+    ``rect_newton_plan``) as its replica launch's: ``blockIdx.y`` the
+    replica, so R times the blocks and live blocks."""
+    return {**plan, "replicas": replicas, "blocks": plan["blocks"] * replicas,
+            "items": plan["items"] * replicas}
+
+
+def phase_replica_kernels(torch) -> dict:
+    """Phase 12a': the replica launches of kernels 6, 7, 9 and 10
+    (REPLICA_HOP_KERNELS, REPLICA_ZSORT_KERNELS) against their twins, against
+    one-replica launches bit for bit (replicas 0, mid, last), with a planted
+    NaN (kernel 9: planted flags), each timed against the R one-replica
+    launches it replaces (``loop_ms``; kernels 6, 7 and 9 also on the card
+    alone)."""
+    import numpy as np
+
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models.engine import zsort_geometry
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.ops import fused_list, pair_sweep, window_lists
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    cases = {name: [] for name in ("pair_sweep_tri_replicas",) + REPLICA_HOP_KERNELS
+             + REPLICA_ZSORT_KERNELS}
+    ens = load_config(str(REPO / "examples" / "ensemble64.json"))
+    for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        # Kernel 7: the half ring's full hop at N=4000 d=4 (block 1 visiting
+        # block 0's rows), R=8, observables off (the fast steps) and on.
+        _, _, box, rc = SHAPES[1]
+        rc2 = rc * rc
+        ni, (pi, pj) = _replica_block_stacks(torch, 1, 4, (0, 1), REPLICA_HOP_R, dtype, 1500)
+        cand = cut = 0
+        for q in range(REPLICA_HOP_R):
+            c_, k_ = block_pairs(torch, pi[q, 0:3, :ni].T, pj[q, 0:3, :ni].T, box, rc2, 0, ni)
+            cand, cut = cand + c_, cut + k_
+        rows_bytes = 8 * pi.shape[-1] * pi.element_size() * REPLICA_HOP_R
+        for want_obs in (False, True):
+            def newton(a, b, obs=want_obs):
+                return pair_sweep.pair_sweep_rect_newton(a, b, ni, ni, 0, ni, box, rc2, 0, ni,
+                                                         obs)
+
+            def newton_twin(a, b, obs=want_obs):
+                return pair_sweep.pair_sweep_rect_newton_plain(a, b, ni, ni, 0, ni, box, rc2, 0,
+                                                               ni, obs)
+
+            c = replica_case(torch, "pair_sweep_rect_newton_replicas",
+                             f"R={REPLICA_HOP_R} N=4000 d=4 hop", dname, newton, newton_twin,
+                             (pi, pj), sweep_flops(cand, cut, want_obs), 4 * rows_bytes)
+            c.update(observables=want_obs, candidates=cand, cut_pairs=cut,
+                     launch=replica_launch(pair_sweep.rect_newton_plan(
+                         pi[0], pj[0], ni, ni, 0, ni, want_obs), REPLICA_HOP_R))
+            cases["pair_sweep_rect_newton_replicas"].append(c)
+        # Kernel 7 at config 4's d=2 half hop: the low rank's i rows [64, 128)
+        # against the visiting block's [0, 128), R=32 (a row of the (2, 2)
+        # mesh holds 32 of the 64 replicas).
+        box4, rc4 = ens.box_length, ens.rc_square
+        ni4 = ens.n // 2
+        stacks, halves = [], []
+        for q in range(REPLICA_HALF_R):
+            rng = np.random.default_rng(2500 + q)
+            r = fcc_lattice(ens.num_cells, box4, dtype=torch.float64).numpy()
+            r = np.mod(r + rng.normal(scale=0.04 * box4 / ens.num_cells, size=r.shape), box4)
+            r = r[rng.permutation(len(r))]
+            halves.append([torch.as_tensor(r[b * ni4:(b + 1) * ni4], device=dev)
+                           for b in (0, 1)])
+        for b in (0, 1):
+            st = torch.zeros((REPLICA_HALF_R, 8, 128), dtype=dtype, device=dev)
+            for q in range(REPLICA_HALF_R):
+                st[q, 0:3, :ni4] = halves[q][b].T.to(dtype)
+            stacks.append(st)
+        cand = cut = 0
+        for q in range(REPLICA_HALF_R):
+            c_, k_ = block_pairs(torch, halves[q][0], halves[q][1], box4, rc4, 0, ni4,
+                                 ni4 // 2, ni4)
+            cand, cut = cand + c_, cut + k_
+
+        block_bytes = 8 * 128 * stacks[0].element_size() * REPLICA_HALF_R
+        for want_obs in (False, True):
+            def half(a, b, obs=want_obs):
+                return pair_sweep.pair_sweep_rect_newton(a, b, ni4, ni4, 0, ni4, box4, rc4,
+                                                         ni4 // 2, ni4, obs)
+
+            def half_twin(a, b, obs=want_obs):
+                return pair_sweep.pair_sweep_rect_newton_plain(a, b, ni4, ni4, 0, ni4, box4,
+                                                               rc4, ni4 // 2, ni4, obs)
+
+            c = replica_case(torch, "pair_sweep_rect_newton_replicas",
+                             f"R={REPLICA_HALF_R} N=256 d=2 half hop", dname, half, half_twin,
+                             tuple(stacks), sweep_flops(cand, cut, want_obs), 4 * block_bytes,
+                             col=ni4 - 1)
+            c.update(observables=want_obs, candidates=cand, cut_pairs=cut,
+                     launch=replica_launch(pair_sweep.rect_newton_plan(
+                         stacks[0][0], stacks[1][0], ni4, ni4, ni4 // 2, ni4, want_obs),
+                         REPLICA_HALF_R))
+            cases["pair_sweep_rect_newton_replicas"].append(c)
+
+        # Kernel 6 at config 4's d=2 ring, R=32: the high rank's first sweep
+        # (its own block, gi0 = gj0: the i != j exclusion) and its second
+        # (the visiting low block), observables off and on (the ring's steps).
+        for role, (bj, gj0) in (("self", (1, ni4)), ("hop", (0, 0))):
+            cand = cut = 0
+            for q in range(REPLICA_HALF_R):
+                c_, k_ = block_pairs(torch, halves[q][1], halves[q][bj], box4, rc4, ni4, gj0)
+                cand, cut = cand + c_, cut + k_
+            for want_obs in (False, True):
+                def ring(a, b, obs=want_obs, gj0=gj0):
+                    return (pair_sweep.pair_sweep_rect(a, b, ni4, ni4, ni4, gj0, box4, rc4,
+                                                       obs),)
+
+                def ring_twin(a, b, obs=want_obs, gj0=gj0):
+                    return (pair_sweep.pair_sweep_rect_plain(a, b, ni4, ni4, ni4, gj0, box4,
+                                                             rc4, obs),)
+
+                c = replica_case(torch, "pair_sweep_rect_replicas",
+                                 f"R={REPLICA_HALF_R} N=256 d=2 {role}", dname, ring, ring_twin,
+                                 (stacks[1], stacks[bj]), sweep_flops(cand, cut, want_obs),
+                                 3 * block_bytes)
+                c.update(observables=want_obs, candidates=cand, cut_pairs=cut,
+                         launch=replica_launch(pair_sweep.rows_sweep_plan(
+                             stacks[1][0], ni4, stacks[bj][0], ni4, want_obs), REPLICA_HALF_R))
+                cases["pair_sweep_rect_replicas"].append(c)
+
+        # Kernel 2 at config 4's d=2 half ring, R=32: the low rank's self
+        # block (128 rows), observables off and on (the half ring's steps).
+        cand = REPLICA_HALF_R * (ni4 * (ni4 - 1) // 2)
+        cut = sum(pairs_within(torch, halves[q][0], box4, rc4) for q in range(REPLICA_HALF_R))
+        for want_obs in (False, True):
+            def tri(a, obs=want_obs):
+                return (pair_sweep.pair_sweep_tri(a, ni4, box4, rc4, obs),)
+
+            def tri_twin(a, obs=want_obs):
+                return (pair_sweep.pair_sweep_tri_plain(a, ni4, box4, rc4, obs),)
+
+            c = replica_case(torch, "pair_sweep_tri_replicas",
+                             f"R={REPLICA_HALF_R} N=256 d=2 self block", dname, tri, tri_twin,
+                             (stacks[0],), sweep_flops(cand, cut, want_obs), 2 * block_bytes)
+            c.update(observables=want_obs, candidates=cand, cut_pairs=cut,
+                     launch=replica_launch(pair_sweep.rows_sweep_plan(
+                         stacks[0][0], ni4, want_observables=want_obs), REPLICA_HALF_R))
+            cases["pair_sweep_tri_replicas"].append(c)
+
+        # Kernel 6: the ring's hop at N=4000 d=2 (2000 x 2000), R=8.
+        ni, (pi, pj) = _replica_block_stacks(torch, 1, 2, (0, 1), REPLICA_HOP_R, dtype, 1600)
+        cand = cut = 0
+        for q in range(REPLICA_HOP_R):
+            c_, k_ = block_pairs(torch, pi[q, 0:3, :ni].T, pj[q, 0:3, :ni].T, box, rc2, 0, ni)
+            cand, cut = cand + c_, cut + k_
+        rows_bytes = 8 * pi.shape[-1] * pi.element_size() * REPLICA_HOP_R
+        for want_obs in (False, True):
+            def rect(a, b, obs=want_obs):
+                return (pair_sweep.pair_sweep_rect(a, b, ni, ni, 0, ni, box, rc2, obs),)
+
+            def rect_twin(a, b, obs=want_obs):
+                return (pair_sweep.pair_sweep_rect_plain(a, b, ni, ni, 0, ni, box, rc2, obs),)
+
+            c = replica_case(torch, "pair_sweep_rect_replicas",
+                             f"R={REPLICA_HOP_R} N=4000 d=2 hop", dname, rect, rect_twin,
+                             (pi, pj), sweep_flops(cand, cut, want_obs), 3 * rows_bytes,
+                             plain_reps=1)
+            c.update(observables=want_obs, candidates=cand, cut_pairs=cut,
+                     launch=replica_launch(pair_sweep.rows_sweep_plan(pi[0], ni, pj[0], ni,
+                                                                      want_obs), REPLICA_HOP_R))
+            cases["pair_sweep_rect_replicas"].append(c)
+
+        # Kernels 9 and 10 at config 2's N=864 (the zsort geometry: n_pad 896,
+        # tile_j 512), R=64 sorted fluids, the 16-step chunk.
+        zcfg = load_config(str(REPO / "examples" / "n864_liquid.json"))
+        geo = zsort_geometry(zcfg, inner_chunk=LIST_CHUNK_STEPS)
+        L, n_pad, tj, k = zcfg.box_length, geo.n_pad, geo.tile_j, LIST_CHUNK_STEPS
+        parts = [sorted_fluid(zcfg, n_pad, 6000 + q, torch, dtype, dev)
+                 for q in range(REPLICA_LIST_R)]
+        n = parts[0][0]
+        r, v, a = (torch.stack([x[i] for x in parts]) for i in (1, 2, 3))
+        flags = window_lists.compute_tile_flags(r, n, 128, 128, L, geo.window,
+                                                cross_margin=0.6 * geo.sort_skin)
+        label = f"R={REPLICA_LIST_R} N={n}"
+
+        def pack(f, zero_fill=True):
+            return window_lists.build_window_lists(f, n, n_pad, 128, tj, zero_fill=zero_fill)
+
+        got = pack(flags)
+        t0 = time.time()
+        want = window_lists.build_window_lists(flags.cpu(), n, n_pad, 128, tj)
+        pack_plain_ms = 1e3 * (time.time() - t0)  # the twin (Python, the CPU), once
+        require(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]),
+                f"build_window_lists_replicas {label} {dname}: lists differ from the twin's")
+        bits = {q: all(bool(torch.equal(g[q], w)) for g, w in zip(got, pack(flags[q])))
+                for q in (0, REPLICA_LIST_R // 2, REPLICA_LIST_R - 1)}
+        bad = flags.clone()
+        bad[5] = 0  # no active block: replica 5 gets empty lists
+        planted = pack(bad)
+        keep = [q for q in range(REPLICA_LIST_R) if q != 5]
+        isolated = (not bool(torch.equal(planted[1][5], got[1][5]))
+                    and all(bool(torch.equal(p[keep], g[keep])) for p, g in zip(planted, got)))
+        require(all(bits.values()) and isolated,
+                f"build_window_lists_replicas {label} {dname}: replicas not independent "
+                f"(bits {bits}, planted flags isolated {isolated})")
+        tiles, tcounts = pack(flags, zero_fill=False)
+        ops = graph_ops(lambda: pack(flags, False))
+        require(ops["ops"] == 1, f"build_window_lists_replicas {label} {dname}: "
+                                 f"{ops['nodes']} in one call's graph, the kernel alone expected")
+        singles = [flags[q].contiguous() for q in range(REPLICA_LIST_R)]
+        cases["build_window_lists_replicas"].append({
+            **bound("float32", flags.numel(), 4 * (flags.numel() + tiles.numel()
+                                                    + tcounts.numel())),
+            "shape": label, "dtype": dname, "replicas": REPLICA_LIST_R, "max_abs_err": 0.0,
+            "rel_err": 0.0, "lists_equal": True, "bit_identical_to_alone": bits,
+            "planted_flags_isolated": isolated, "device_ops": ops["ops"],
+            "visits": int(tcounts.sum()),
+            "ms": cuda_time_ms(torch, lambda: pack(flags, False), 50),
+            "card_ms": graph_ms(torch, lambda: pack(flags, False), 50),
+            "loop_ms": cuda_time_ms(torch, lambda: [pack(f, False) for f in singles], 10),
+            "loop_card_ms": graph_ms(torch, lambda: [pack(f, False) for f in singles], 5),
+            "plain_ms": pack_plain_ms})
+
+        cand = cut = 0
+        for q in range(REPLICA_LIST_R):
+            cover = fused_list.list_coverage(tiles[q], tcounts[q], n, n_pad, 128, tj)[0]
+            cand += int(cover[:n, :n].sum())
+            cut += pairs_within(torch, r[q, 0:3, :n].T, L, zcfg.rc_square)
+        rows_bytes = 8 * n_pad * r.element_size() * REPLICA_LIST_R
+        zero = torch.zeros_like(r)
+        for mode in ("plain", "extended"):
+            ext = mode == "extended"
+            if ext:
+                def chunk(r_, lo_, v_, vc_, a_, t_, c_):
+                    return fused_list.fused_dense_chunk_list(r_, v_, a_, t_, c_, n, L,
+                                                             zcfg.rc_square, zcfg.dt, k,
+                                                             tile_j=tj, r_lo=lo_, vc=vc_)
+
+                def chunk_twin(r_, lo_, v_, vc_, a_, t_, c_):
+                    return fused_list.fused_dense_chunk_list_plain(r_, v_, a_, t_, c_, n, L,
+                                                                   zcfg.rc_square, zcfg.dt, k,
+                                                                   tile_j=tj, r_lo=lo_,
+                                                                   vc=vc_)
+
+                stacks = (r, zero, v, zero, a, tiles, tcounts)
+
+                def compare(out):
+                    return (out[0].double() + out[1].double(),
+                            out[2].double() + out[3].double(), out[4])
+            else:
+                def chunk(r_, v_, a_, t_, c_):
+                    return fused_list.fused_dense_chunk_list(r_, v_, a_, t_, c_, n, L,
+                                                             zcfg.rc_square, zcfg.dt, k,
+                                                             tile_j=tj)
+
+                def chunk_twin(r_, v_, a_, t_, c_):
+                    return fused_list.fused_dense_chunk_list_plain(r_, v_, a_, t_, c_, n, L,
+                                                                   zcfg.rc_square, zcfg.dt, k,
+                                                                   tile_j=tj)
+
+                stacks, compare = (r, v, a, tiles, tcounts), None
+            c = replica_case(torch, "fused_dense_chunk_list_replicas",
+                             label + (" extended" if ext else ""), dname, chunk, chunk_twin,
+                             stacks, chunk_flops(k, cand, cut, REPLICA_LIST_R * n),
+                             (10 if ext else 6) * rows_bytes, card=False, compare=compare,
+                             reps=10, loop_reps=2, plain_reps=0)
+            plan = fused_list.list_replicas_plan(r, ext)
+            largs = (r, v, a, tiles, tcounts, n, L, zcfg.rc_square, zcfg.dt, k, 128, tj,
+                     zero if ext else None, zero if ext else None, False)
+            capped = all(bool(torch.equal(g, w)) for g, w in zip(
+                fused_list._launch(*largs, grid_cap=max(1, plan["blocks"] // TILES_PER_BLOCK)),
+                fused_list._launch(*largs)))
+            require(capped, f"fused_dense_chunk_list_replicas {label} {mode} {dname}: a capped "
+                            "grid differs from the full grid")
+            c.update(steps=k, candidates=cand, cut_pairs=cut, visits=int(tcounts.sum()),
+                     capped_grid_bit_identical=capped, plan=plan)
+            cases["fused_dense_chunk_list_replicas"].append(c)
+    for name, cs in cases.items():
+        for c in cs:
+            bits = all(c["bit_identical_to_alone"].values())
+            card = (f"; on the card alone {c['card_ms']:.4f} ms against the R launches' "
+                    f"{c['loop_card_ms']:.4f} ({c['loop_card_ms'] / c['card_ms']:.1f}x)"
+                    if "card_ms" in c else "")
+            if "launch" in c:
+                shape = rows_plan_text(c["launch"])
+            elif "plan" in c:
+                lp = c["plan"]
+                shape = (f"S={lp['slices']} (the one-replica plan's), {lp['items']} items, "
+                         f"{'resident' if lp['resident'] else 'streamed'}, grid {lp['blocks']} "
+                         f"({lp['blocks_per_sm']} blocks an SM, {lp['regs']} registers, "
+                         f"{lp['spill_bytes']} spill bytes), capped grid bit-identical "
+                         f"{c['capped_grid_bit_identical']}, {c['steps']} steps")
+            else:
+                shape = (f"{c['device_ops']} device operation a call, {c['visits']} visits, "
+                         f"planted flags isolated {c['planted_flags_isolated']}")
+            log(f"kernel {name} {c['shape']} {c['dtype']}"
+                + (f" observables {c['observables']}" if "observables" in c else "")
+                + f": rel err {c['rel_err']:.3e} (tol {KERNEL_TOL[c['dtype']]:.0e}), replicas "
+                f"{list(c['bit_identical_to_alone'])} bit-identical to one-replica launches "
+                f"{bits}" + (f", planted NaN isolated {c['nan_isolated']}"
+                             if "nan_isolated" in c else "")
+                + f"; one replica launch {c['ms']:.4f} ms back to back against the R "
+                f"one-replica launches {c['loop_ms']:.4f} ({c['loop_ms'] / c['ms']:.1f}x){card};"
+                f" plain {c['plain_ms']:.4f} ms; bound {c['bound_ms']:.5f} ms ({c['bound_by']}); "
+                + shape)
+    LAUNCHES.reset()  # comparison launches do not count for the main path
+    return cases
+
+
+def phase_replica_particle(torch) -> dict:
+    """Phase 12g: config 4 (64 x N=256, float32) through the
+    replica x particle half-ring step on a (replica=2, particle=2) thread
+    mesh on the card for REPLICA_PARTICLE_CUT's steps from the batched rows
+    engine's post-warmup states, the observables each step, etot sampled
+    every interval: launches of the replica kernels only, the aggregate rate
+    and ms a step; replicas REPLICA_PARTICLE_BITS bit for bit against
+    ``make_spatial_step_fn`` on a particle=2 mesh run on that replica alone;
+    the drift (median under DRIFT_BOUND, the worst within
+    DRIFT_VS_SINGLE["float32"] x the batched rows engine's worst on the same
+    cut and cadence from the same states); float64 against the batched rows
+    engine over CROSS_STEPS (CROSS_TOL); REPLICA_RING_STEPS of the ring
+    (kernel 6's replica launch), its replicas REPLICA_PARTICLE_BITS bit for
+    bit against ``make_spatial_engine(comm="ring")`` on a particle=2 mesh
+    run on that replica alone. dryrun_multichip(4) runs the same step in
+    phase 9b."""
+    import numpy as np
+
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.simulation import initialize_replicas, replica_generators
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+    from ljmd_tpu_torch.parallel import spatial as psp
+    from ljmd_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = load_config(str(REPO / "examples" / "ensemble64.json")).replace(
+        **REPLICA_PARTICLE_CUT)
+    reps, interval, L = cfg.n_runs, cfg.output_interval, cfg.box_length
+    n_rep, n_par = REPLICA_PARTICLE_MESH
+    states = initialize_replicas(cfg, replica_generators(cfg.seed, reps), device=DEVICE)
+    one_system = ("pair_sweep_tri", "pair_sweep_rect", "pair_sweep_rect_newton",
+                  "fused_dense_chunk", "fused_dense_chunk_ext") + ZSORT_KERNELS
+    out = {"runs": {}}
+
+    mesh = make_mesh(particle=n_par, replica=n_rep, device=DEVICE)
+    one_mesh = make_mesh(particle=n_par, device=DEVICE)
+    try:
+        fn = psp.make_ensemble_spatial_step_fn(cfg, mesh, comm="half_ring")
+        c, obs = fn.init(psp.shard_replica_states(states, mesh, cfg))
+        etot = [obs.epot + obs.ekin]
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.time()
+        for s in range(cfg.total_steps):
+            c, obs = fn(c)
+            if (s + 1) % interval == 0:
+                etot.append(obs.epot + obs.ekin)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        counts = LAUNCHES.snapshot()
+        name = f"ensemble64_f32_replica_particle_half_ring_{n_rep}x{n_par}"
+        _check_launches(name, counts, ("pair_sweep_tri_replicas",
+                                       "pair_sweep_rect_newton_replicas"),
+                        one_system + ("pair_sweep_rect_replicas",) + REPLICA_ZSORT_KERNELS)
+        got = psp.gather_replica_states(c, mesh)
+        series = torch.stack(etot, dim=1).cpu()
+        drifts = [_drift(series[q]) for q in range(reps)]
+        require(all(math.isfinite(x) for x in drifts), f"{name}: non-finite energies")
+
+        # The batched rows engine on the same cut and cadence from the same
+        # states: its drift for the gate.
+        rows = pe._rows_engine(cfg, DEVICE, replicas=reps)
+        rc, robs = rows.init(states)
+        r_etot = [robs.epot + robs.ekin]
+        for _ in range(cfg.total_steps // interval):
+            rc = rows.run_fast(rc, interval - 1)
+            rc, robs = rows.step(rc)
+            r_etot.append(robs.epot + robs.ekin)
+        r_series = torch.stack(r_etot, dim=1).cpu()
+        r_drifts = [_drift(r_series[q]) for q in range(reps)]
+        limit = DRIFT_VS_SINGLE["float32"]
+        require(float(np.median(drifts)) <= DRIFT_BOUND["ensemble64_f32_rows_batched"]
+                and max(drifts) <= limit * max(r_drifts),
+                f"{name}: |dE/E| median {np.median(drifts):.3e}, max {max(drifts):.3e} against "
+                f"the batched rows engine's max {max(r_drifts):.3e} (limit {limit}x)")
+
+        # Replicas against one-replica sharded runs from their states.
+        bits = {}
+        one = psp.make_spatial_engine(cfg, one_mesh, comm="half_ring")
+        for q in REPLICA_PARTICLE_BITS:
+            cq, _ = one.init(pe.replica_state(states, q))
+            for _ in range(cfg.total_steps):
+                cq, _ = one.step(cq)
+            want = one.get_state(cq)
+            bits[q] = all(bool(torch.equal(getattr(got, f)[q], getattr(want, f)))
+                          for f in ("r", "ru", "v", "a"))
+        require(all(bits.values()), f"{name}: replicas against one-replica sharded runs: {bits}")
+
+        # float64 against the batched rows engine from the same states.
+        cfg64 = cfg.replace(dtype="float64")
+        s64 = states.to(dtype=torch.float64)
+        fn64 = psp.make_ensemble_spatial_step_fn(cfg64, mesh, comm="half_ring")
+        c64, _ = fn64.init(psp.shard_replica_states(s64, mesh, cfg64))
+        for _ in range(CROSS_STEPS):
+            c64, _ = fn64(c64)
+        rows64 = pe._rows_engine(cfg64, DEVICE, replicas=reps)
+        ref = rows64.get_state(rows64.run_fast(rows64.init(s64)[0], CROSS_STEPS))
+        cross = _cross_diff(torch, psp.gather_replica_states(c64, mesh), ref, L)
+        require(cross <= CROSS_TOL, f"{name} float64: {cross:.3e} from the batched rows engine "
+                                    f"over {CROSS_STEPS} steps (tol {CROSS_TOL:.0e})")
+
+        # The ring: kernel 6's replica launch.
+        ring = psp.make_ensemble_spatial_step_fn(cfg, mesh, comm="ring")
+        cr, _ = ring.init(psp.shard_replica_states(states, mesh, cfg))
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t1 = time.time()
+        for _ in range(REPLICA_RING_STEPS):
+            cr, robs = ring(cr)
+        torch.cuda.synchronize()
+        ring_s = time.time() - t1
+        ring_counts = LAUNCHES.snapshot()
+        ring_name = f"ensemble64_f32_replica_particle_ring_{n_rep}x{n_par}"
+        _check_launches(ring_name, ring_counts, ("pair_sweep_rect_replicas",),
+                        one_system + ("pair_sweep_tri_replicas",
+                                      "pair_sweep_rect_newton_replicas")
+                        + REPLICA_ZSORT_KERNELS)
+        require(bool(torch.isfinite(robs.epot).all()), f"{ring_name}: non-finite observables")
+        ring_got = psp.gather_replica_states(cr, mesh)
+        ring_bits = {}
+        one_ring = psp.make_spatial_engine(cfg, one_mesh, comm="ring")
+        for q in REPLICA_PARTICLE_BITS:
+            cq, _ = one_ring.init(pe.replica_state(states, q))
+            for _ in range(REPLICA_RING_STEPS):
+                cq, _ = one_ring.step(cq)
+            want = one_ring.get_state(cq)
+            ring_bits[q] = all(bool(torch.equal(getattr(ring_got, f)[q], getattr(want, f)))
+                               for f in ("r", "ru", "v", "a"))
+        require(all(ring_bits.values()),
+                f"{ring_name}: replicas against one-replica sharded ring runs: {ring_bits}")
+    finally:
+        mesh.close()
+        one_mesh.close()
+    rate = reps * cfg.n * cfg.total_steps / seconds
+    ring_rate = reps * cfg.n * REPLICA_RING_STEPS / ring_s
+    out["runs"][name] = {"engine": "replica x particle half ring", "n": cfg.n,
+                         "replicas": reps, "mesh": list(REPLICA_PARTICLE_MESH),
+                         "launches": counts, "production_s": seconds,
+                         "particle_steps_per_s": rate,
+                         "ms_per_step": 1e3 * seconds / cfg.total_steps,
+                         "max_drift": max(drifts), "median_drift": float(np.median(drifts)),
+                         "rows_max_drift": max(r_drifts), "bit_identical_to_one_replica": bits,
+                         "f64_vs_rows": cross}
+    out["runs"][ring_name] = {"engine": "replica x particle ring", "n": cfg.n, "replicas": reps,
+                              "launches": ring_counts, "production_s": ring_s,
+                              "particle_steps_per_s": ring_rate,
+                              "ms_per_step": 1e3 * ring_s / REPLICA_RING_STEPS,
+                              "bit_identical_to_one_replica": ring_bits}
+    log(f"{name}: R={reps} N={cfg.n} x {cfg.total_steps} steps (observables every step) on a "
+        f"(replica={n_rep}, particle={n_par}) thread mesh on the card: {seconds:.3f}s = "
+        f"{rate:.4e} aggregate particle-steps/s, {1e3 * seconds / cfg.total_steps:.4f} ms a "
+        f"step; replicas {list(bits)} bit-identical to one-replica sharded runs "
+        f"{all(bits.values())}; |dE/E| median {np.median(drifts):.3e}, max {max(drifts):.3e} "
+        f"against the batched rows engine's max {max(r_drifts):.3e} (median "
+        f"{np.median(r_drifts):.3e}; limit {limit}x) on the same cut and cadence; float64 vs "
+        f"the batched rows engine over {CROSS_STEPS} steps {cross:.3e} (tol {CROSS_TOL:.0e}); "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    log(f"{ring_name}: {REPLICA_RING_STEPS} steps {ring_s:.3f}s = {ring_rate:.4e} aggregate "
+        f"particle-steps/s, {1e3 * ring_s / REPLICA_RING_STEPS:.4f} ms a step; replicas "
+        f"{list(ring_bits)} bit-identical to one-replica sharded ring runs "
+        f"{all(ring_bits.values())}; launches "
+        f"{json.dumps({k: v for k, v in ring_counts.items() if v})}")
+    LAUNCHES.reset()
+    return out
 
 
 def _ensemble_cli(name: str, args: list) -> tuple:
@@ -3343,20 +3930,26 @@ def phase_ensemble(torch, tmp: str) -> dict:
         f"MiB; all {reps} at once: {stream['corr_group_bytes'] * reps / stream['corr_group'] / 2**20:.2f}"
         f" MiB); init + production {st_summary['production_s']:.3f}s, CLI wall {st_wall:.1f}s")
 
-    # (e) the loop on another engine: N=864 (auto -> zsort), R=8.
+    # (e) the N=864 ensemble (auto -> zsort, batched): the replica
+    # loop over one-system zsort engines at R=8, the yardstick, then the
+    # batched engine from the same states (bit-equal), then R=64 batched
+    # through the CLI, and in process replica 0 against its one-system run.
     name = "n864_f32_ensemble_zsort_loop"
     zcfg = load_config(str(REPO / "examples" / "n864_liquid.json")).replace(**ENSEMBLE_ZSORT_CUT)
     zreps = ENSEMBLE_ZSORT_R
-    require(replica_backend(zcfg, "auto", DEVICE, zcfg.output_interval) == ("zsort", False),
-            "auto does not route the N=864 ensemble to the zsort loop")
+    require(replica_backend(zcfg, "auto", DEVICE, zcfg.output_interval) == ("zsort", True),
+            "auto does not route the N=864 ensemble to the batched zsort engine")
     torch.cuda.synchronize()
     t0 = time.time()
     zstates = initialize_replicas(zcfg, replica_generators(zcfg.seed, zreps), device=DEVICE)
     torch.cuda.synchronize()
     z_init = time.time() - t0
+    loop = _replica_loop_engine([make_engine(zcfg, "zsort", DEVICE,
+                                             sample_interval=zcfg.output_interval)
+                                 for _ in range(zreps)])
     LAUNCHES.reset()
     t0 = time.time()
-    zres = run_production(zcfg, zstates, device=DEVICE)
+    zres = run_production(zcfg, zstates, engine=loop)
     torch.cuda.synchronize()
     z_prod = time.time() - t0
     z_counts = LAUNCHES.snapshot()
@@ -3377,12 +3970,65 @@ def phase_ensemble(torch, tmp: str) -> dict:
                   "init_s": z_init, "production_s": z_prod, "particle_steps_per_s": z_rate,
                   "diagnostics": flags}
     log(f"{name}: R={zreps} N={zcfg.n} x {zcfg.total_steps} steps through the replica loop: "
-        f"init {z_init:.3f}s, production {z_prod:.3f}s = {z_rate:.4e} aggregate "
+        f"init {z_init:.3f}s (batched), production {z_prod:.3f}s = {z_rate:.4e} aggregate "
         f"particle-steps/s, {int(zout.n_ok)}/{zreps} ok, flags {flags}; kernels 9 / 10 "
         f"{z_counts['build_window_lists']} / {z_counts['fused_dense_chunk_list']} launches = "
         f"{zreps} x one replica's ({one_counts['build_window_lists']} / "
         f"{one_counts['fused_dense_chunk_list']}); replica 0 bit-identical to its one-replica "
         f"run {z_same}")
+    name = f"n864_f32_ensemble_zsort_batched_r{zreps}"
+    LAUNCHES.reset()
+    t0 = time.time()
+    bres = run_production(zcfg, zstates, device=DEVICE)
+    torch.cuda.synchronize()
+    b_prod = time.time() - t0
+    b_counts = LAUNCHES.snapshot()
+    b_same = all(bool(torch.equal(getattr(bres.final_state, f), getattr(zres.final_state, f)))
+                 for f in ("r", "ru", "v", "a"))
+    _check_launches(name, b_counts, REPLICA_ZSORT_KERNELS, ZSORT_KERNELS + ("pair_sweep_tri",))
+    require(b_same, f"{name}: final states differ from the replica loop's")
+    b_rate = zreps * zcfg.n * zcfg.total_steps / b_prod
+    report["zsort_loop_vs_batched"] = {"replicas": zreps, "loop_rate": z_rate,
+                                       "batched_rate": b_rate,
+                                       "final_states_bit_identical": b_same,
+                                       "batched_launches": b_counts}
+    log(f"{name}: the batched zsort engine from the loop's states: {b_prod:.3f}s = {b_rate:.4e} "
+        f"(batched / loop {b_rate / z_rate:.2f}x), final states bit-identical to the loop's "
+        f"{b_same}; launches {json.dumps({k: v for k, v in b_counts.items() if v})}")
+
+    # (e'') R=64 through the CLI (auto -> zsort, batched): the main path.
+    name = "n864_f32_ensemble_zsort_batched"
+    zr = ENSEMBLE_ZSORT_BATCHED_R
+    out_z = os.path.join(tmp, name)
+    zsum, zc, zwall = _ensemble_cli(name, ["--config", _write_cfg(tmp, name, zcfg), "--out-dir",
+                                           out_z, "--n-runs", str(zr)])
+    _check_launches(name, zc, REPLICA_ZSORT_KERNELS,
+                    ZSORT_KERNELS + ("pair_sweep_tri", "pair_sweep", "fused_dense_chunk",
+                                     "fused_dense_chunk_ext") + REPLICA_KERNELS[1:])
+    require(zsum["n_ok"] == zr and zsum["batched"] and zsum["engine"] == "zsort"
+            and not any(zsum["flags"].values()), f"{name}: {zsum}")
+    _ensemble_files(out_z, zr)
+    states64 = initialize_replicas(zcfg, replica_generators(zcfg.seed, zr), device=DEVICE)
+    res64 = run_production(zcfg, states64, device=DEVICE)
+    one = run_production(zcfg, replica_state(states64, 0), device=DEVICE)
+    same0 = all(bool(torch.equal(getattr(res64.final_state, f)[0], getattr(one.final_state, f)))
+                for f in ("r", "ru", "v", "a"))
+    ok64 = int(ensemble_aggregate(zcfg, res64).n_ok)
+    require(same0 and ok64 == zr and not bool(res64.diagnostics["zsort_invalid"].any()),
+            f"{name}: in process {ok64}/{zr} ok, replica 0 bit-identical to its one-system "
+            f"zsort run {same0}")
+    runs[name] = {"engine": "zsort (batched)", "n": zcfg.n, "replicas": zr, "launches": zc,
+                  "cli": zsum, "cli_wall_s": zwall,
+                  "particle_steps_per_s": zsum["particle_steps_per_s"],
+                  "replica0_bit_identical_to_one_system": same0}
+    report["zsort_loop_vs_batched"]["cli_r64_rate"] = zsum["particle_steps_per_s"]
+    log(f"{name}: R={zr} N={zcfg.n} x {zcfg.total_steps} steps through the CLI (auto -> zsort, "
+        f"batched): init {zsum['init_s']:.3f}s, production {zsum['production_s']:.3f}s = "
+        f"{zsum['particle_steps_per_s']:.4e} aggregate particle-steps/s against the R={zreps} "
+        f"loop's {z_rate:.4e} ({zsum['particle_steps_per_s'] / z_rate:.1f}x), {zsum['n_ok']}/{zr}"
+        f" ok, flags {zsum['flags']}, CLI wall {zwall:.1f}s; in process replica 0 bit-identical "
+        f"to its one-system zsort run {same0}; CLI launches "
+        f"{json.dumps({k: v for k, v in zc.items() if v})}")
 
     # (e') the compensated replica chunk (kernel 4) on its main path: the
     # reference default in float32 as an R=8 ensemble.
@@ -3550,8 +4196,16 @@ def main() -> int:
 
     from ljmd_tpu_torch.config import load_config
 
+    start = time.time()
+    marks = {}
+
+    def mark(name: str) -> None:
+        marks[name] = round(time.time() - start, 1)
+        log(f"[{marks[name]:.1f}s] {name} done")
+
     env = phase_environment(torch)
     phase_build()
+    mark("build")
     cases = phase_kernels(torch)
     ordered_vs_tri, same_forces = phase_ordered_vs_tri(torch)
     rect = phase_rect_kernels(torch)
@@ -3561,10 +4215,18 @@ def main() -> int:
     cases.update(phase_flags_kernel(torch))
     cases.update(phase_probe_kernels(torch))
     cases.update(phase_layout_kernels(torch))
+    mark("phase 3")
     cases.update(phase_ensemble_kernels(torch))
+    mark("phase 12a")
+    replica = phase_replica_kernels(torch)
+    cases["pair_sweep_tri_replicas"] += replica.pop("pair_sweep_tri_replicas")
+    cases.update(replica)
+    mark("phase 12a'")
     with tempfile.TemporaryDirectory(prefix="ljmd_chip_smoke_") as tmp:
         runs, final_cfg, final_state = phase_main_path(torch, tmp)
+        mark("phase 4a-b")
         cp_runs, cfg5, states5 = phase_cellpair_path(torch, tmp)
+        mark("phase 4c")
         runs["flagship_entry_f32"], flagship_cross = phase_flagship(torch)
         runs["n4000_f32_rows_ordered"], ordered_cross = phase_rows_ordered(torch, tmp,
                                                                            same_forces)
@@ -3572,17 +4234,26 @@ def main() -> int:
         runs["n4000_f32_neighbor"] = _cli_run("n4000_f32_neighbor", n4000, "neighbor", tmp, (),
                                               MAIN_KERNELS)
         full_runs, full_cross = phase_full_sweeps(torch, cfg5, states5["cap512_end"], tmp)
+        mark("phase 4d-g")
         multi_runs, multi_cross, multi_drifts, multi_states = phase_multidevice(torch, tmp)
+        mark("phase 9b")
         analysis = phase_analysis(torch, tmp)
         runs["n4000_f32_zsort_stream"] = analysis.pop("run")
+        mark("phase 10")
         kill = phase_kill_resume(torch, tmp)
         runs["n62500_f32_cellpair_stream"] = {
             "engine": "auto", "n": cfg5.n, "launches": kill["runs"]["A"]["launches"],
             "particle_steps_per_s": kill["runs"]["A"]["particle_steps_per_s"]}
+        mark("phase 11")
         ensemble = phase_ensemble(torch, tmp)
         runs.update(ensemble["runs"])
+        mark("phase 12b-f")
+        runs.update(phase_replica_particle(torch)["runs"])
+        mark("phase 12g")
     multi_rates = phase_multidevice_rates(torch, multi_states)
+    mark("phase 9c")
     exp_runs = phase_experiments(torch)
+    mark("phase 4h")
     runs.update(cp_runs)
     runs.update(exp_runs)
     runs.update(full_runs)
@@ -3592,10 +4263,14 @@ def main() -> int:
     # velocities reversed (it retraces the stretch before it).
     states5["cap512_end_reversed"] = dataclasses.replace(state5, v=-state5.v)
     cases.update(phase_pencil_kernels(torch, cfg5, state5))
+    mark("phase 3c")
     paths = phase_chunk_paths(torch, cfg5, states5)
+    mark("phase 5")
     rows62500 = phase_rows_at_62500(torch, cfg5, state5)
+    mark("phase 6")
     vs_rows = phase_engines_vs_rows(torch, final_cfg, final_state)
     series_err = phase_card_vs_cpu(torch)
+    mark("phases 7-8")
 
     # Headline shape per kernel: where the main path runs it at full size;
     # every case is listed beside it.
@@ -3619,7 +4294,16 @@ def main() -> int:
                 "layout_bodies": ("k1-512 v=128 L=16.796", "float32"),
                 "pair_sweep_tri_replicas": ("R=64 N=256", "float32"),
                 "fused_dense_chunk_replicas": ("R=64 N=256", "float32"),
-                "fused_dense_chunk_ext_replicas": ("R=8 N=500", "float32")}
+                "fused_dense_chunk_ext_replicas": ("R=8 N=500", "float32"),
+                # Kernels 6 and 7's replica launches at the replica x particle
+                # step's: R=32 replicas of config 4's 128-row rank blocks, with
+                # observables (the step's).
+                "pair_sweep_rect_replicas": (f"R={REPLICA_HALF_R} N=256 d=2 hop", "float32",
+                                             True),
+                "pair_sweep_rect_newton_replicas": (f"R={REPLICA_HALF_R} N=256 d=2 half hop",
+                                                    "float32", True),
+                "build_window_lists_replicas": (f"R={REPLICA_LIST_R} N=864", "float32"),
+                "fused_dense_chunk_list_replicas": (f"R={REPLICA_LIST_R} N=864", "float32")}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
@@ -3644,6 +4328,12 @@ def main() -> int:
         "pair_sweep_tri_replicas": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
         "fused_dense_chunk_replicas": ("ljmd_tpu_torch/csrc/fused_dense_chunk.cu", "ljmd_tpu/ops/pallas_fused.py:537"),
         "fused_dense_chunk_ext_replicas": ("ljmd_tpu_torch/csrc/fused_dense_chunk.cu", "ljmd_tpu/ops/pallas_fused.py:465"),
+        # Kernels 6, 7, 9 and 10 with a replica dimension: the replica x
+        # particle step's hops and the batched zsort engine's pack and chunk.
+        "pair_sweep_rect_replicas": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:364"),
+        "pair_sweep_rect_newton_replicas": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:533"),
+        "build_window_lists_replicas": ("ljmd_tpu_torch/csrc/pack_window_lists.cu", "ljmd_tpu/ops/pallas_fused.py:803"),
+        "fused_dense_chunk_list_replicas": ("ljmd_tpu_torch/csrc/fused_dense_chunk_list.cu", "ljmd_tpu/ops/pallas_fused.py:1383"),
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
@@ -3653,7 +4343,8 @@ def main() -> int:
     # main path: it runs inside every sweep and chunk launch, so its count is
     # theirs (its own element-wise kernel runs only in the comparison).
     launches["lj_pair_terms"] = sum(launches[k] for k in MAIN_KERNELS
-                                    if k not in ("build_window_lists", "mosaic_probes"))
+                                    if k not in ("build_window_lists", "mosaic_probes",
+                                                 "build_window_lists_replicas"))
     # Kernel 14 (the mono kernel: a strip and its halo, n_pencils_i) is kernel
     # 13's CUDA kernel; its row counts the sharded pencil engine's launches
     # and is timed at the strip (no observables, as that engine's chunks), and
@@ -3666,11 +4357,13 @@ def main() -> int:
         require(n > 0, f"kernel {k} was launched no time on the main path")
     kernels = []
     for name, (source, replaces) in meta.items():
+        shape, dname, *obs = headline[name]
         if name == "pencil_sweep_mono":
-            head = next(c for c in cases[name] if c["shape"].startswith(headline[name][0])
-                        and c["dtype"] == headline[name][1] and not c["observables"])
+            head = next(c for c in cases[name] if c["shape"].startswith(shape)
+                        and c["dtype"] == dname and not c["observables"])
         else:
-            head = next(c for c in cases[name] if (c["shape"], c["dtype"]) == headline[name])
+            head = next(c for c in cases[name] if (c["shape"], c["dtype"]) == (shape, dname)
+                        and (not obs or c["observables"] == obs[0]))
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
@@ -3688,7 +4381,8 @@ def main() -> int:
             # Verlet chunk or a greedy visit-list cover; the probes stand for
             # library operations (ITERS calls of each, probe_library).
             "library_ms": head.get("library_ms"),
-            "timed_at": f"{head['shape']} {head['dtype']}",
+            "timed_at": f"{head['shape']} {head['dtype']}"
+                        + (f" observables {obs[0]}" if obs else ""),
             "launches_by_run": {run: r["launches"][name] for run, r in runs.items()
                                 if r["launches"].get(name, 0)
                                 and not (name == "pencil_sweep_hs" and run == sharded)},
@@ -3769,7 +4463,15 @@ def main() -> int:
         f"{lvb['final_states_bit_identical']}); stream "
         f"{runs['ensemble64_f32_rows_stream']['particle_steps_per_s']:.4e} (init included); "
         f"N=864 zsort loop R=8 "
-        f"{runs['n864_f32_ensemble_zsort_loop']['particle_steps_per_s']:.4e}")
+        f"{runs['n864_f32_ensemble_zsort_loop']['particle_steps_per_s']:.4e}, batched R=8 "
+        f"{ensemble['zsort_loop_vs_batched']['batched_rate']:.4e}, batched R=64 (CLI) "
+        f"{runs['n864_f32_ensemble_zsort_batched']['particle_steps_per_s']:.4e}")
+    rp = next(r for k, r in runs.items() if k.startswith("ensemble64_f32_replica_particle_half"))
+    log(f"replica x particle on {env['nvidia_smi']}: config 4 (R=64, N=256, 2,000 steps) on a "
+        f"(replica, particle) = {tuple(rp['mesh'])} thread mesh {rp['particle_steps_per_s']:.4e} "
+        f"aggregate particle-steps/s, {rp['ms_per_step']:.4f} ms a step, max |dE/E| "
+        f"{rp['max_drift']:.3e} (batched rows {rp['rows_max_drift']:.3e}), float64 vs rows "
+        f"{rp['f64_vs_rows']:.3e}")
     log(f"analysis and streaming on {env['nvidia_smi']}: config 3 "
         + ", ".join(f"{k} {v['card_ms']:.3f} ms" for k, v in analysis["functions"].items())
         + f" (card vs CPU within {max(v['rel_err'] for v in analysis['functions'].values()):.3e}, "
@@ -3779,6 +4481,7 @@ def main() -> int:
         f"{kill['runs']['B']['particle_steps_per_s']:.4e} particle-steps/s, checkpoint "
         f"{kill['per_chunk']['checkpoint_mb']:.2f} MB / {kill['per_chunk']['checkpoint_ms']:.1f} "
         f"ms a chunk, killed at sample {kill['killed_at']} and resumed bit for bit")
+    log(f"phase times (s since start, on {env['nvidia_smi']}): {json.dumps(marks)}")
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,12 +32,13 @@ a rerun in the same ``--out-dir`` resumes bit for bit) also a
 bytes written and the seconds spent on them, the writer, the resume point).
 ``analyze`` plots with matplotlib; where it is not installed, pass
 ``--no-plots``. ``ensemble`` runs R replicas (``parallel/ensemble.py``:
-batched on the rows engine, a loop over replicas on any other) and writes
-means.txt, simulation_results.{txt,json} and corrmean_runs_*.dat, with
-``--per-run-dirs`` also run_XXXX/ per replica that is ok and
+batched on the rows and zsort engines, a loop over replicas on any other)
+and writes means.txt, simulation_results.{txt,json} and corrmean_runs_*.dat,
+with ``--per-run-dirs`` also run_XXXX/ per replica that is ok and
 several_runs.txt; it ends with an ``{"ensemble": ...}`` line (replicas, N,
 engine, production seconds, aggregate particle-steps/s, replicas ok, the
-kernels launched) and the ``{"kernel_launches": ...}`` line.
+kernels launched, and in memory the replicas each diagnostic flag is set
+in) and the ``{"kernel_launches": ...}`` line.
 
 ``--device`` is ``cuda`` by default (the port's kernels run on the card);
 ``--device cpu`` runs the same path through the kernels' plain PyTorch
@@ -270,6 +271,9 @@ def cmd_ensemble(args) -> int:
                "launches": {k: v for k, v in LAUNCHES.snapshot().items() if v}}
     if stream_stats is not None:
         summary["stream"] = stream_stats
+    else:  # the replicas whose diagnostic flags are set, per flag
+        summary["flags"] = {k: int(torch.as_tensor(v).sum())
+                            for k, v in results.diagnostics.items()}
     print(json.dumps({"ensemble": summary}))
     print(_launch_report())
     print(f"{n_runs} replicas of N={cfg.n} x {cfg.total_steps} steps on {device} "

@@ -72,6 +72,18 @@
 //   a pencil's slots); the cull still beat the plain loop by 3-10% on the
 //   H100 at N = 4000 and 864 in both precisions (PERF.md §6), so it is the
 //   only build.
+//
+// Replicas (the batched zsort engine; the JAX package vmaps the Pallas
+// kernel): the REPLICAS instantiation of the same kernel, whose offsets fold
+// away in the one-system one (that one keeps its code and registers). Each
+// replica has its own lists and counts, and its own visit plans in the
+// global scratch (R x n_b granules, gathered by the grid at the start of the
+// launch). The work items of all R replicas form one list, replica q's at q
+// * (n_pad / TI) ..., and each block takes a contiguous run of them, so it
+// restages a resident plane only when the replica changes. A work item never
+// mixes replicas and S is the one-replica plan's, so a particle's sums run
+// in the order of a launch of its replica alone: replica q equals that launch
+// bit for bit, under any grid. The grid barrier is shared.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -316,12 +328,20 @@ __device__ __forceinline__ T slice_sum(T x, int S, int width, T* red, int tid) {
   return x;
 }
 
-template <typename T, bool EXT>
-__global__ void __launch_bounds__(kListThreads, 2) fused_list_kernel(ListArgs<T> p) {
-  // rbuf / lobuf hold two (8, n_pad) planes: step s reads plane s & 1 and
-  // writes plane (s + 1) & 1; other blocks write them during the launch, so
-  // they are read through plain loads or cp.async.cg (through L2), never
-  // __ldg.
+// One system, or (REPLICAS) the R replicas of a stack in one launch: rbuf /
+// lobuf then hold two sets of R (8, n_pad) planes (step s reads set s & 1
+// and writes set (s + 1) & 1), v / vc / a / obs R planes, replica q's plane
+// at q * 8 * n_pad of each; tiles holds R lists at q * tiles_stride, tcounts
+// R counts at q * (4 + n_tails); plan / plan_n hold the plans of the R x n_b
+// granules, replica q's at q * n_b. In the one-system instantiation
+// `replicas` and `tiles_stride` are unused and every replica offset folds
+// to 0, so its code and registers are the kernel's as it was before it had
+// replicas.
+template <typename T, bool EXT, bool REPLICAS>
+__global__ void __launch_bounds__(kListThreads, 2)
+fused_list_kernel(ListArgs<T> p, int replicas, int tiles_stride) {
+  // rbuf / lobuf: other blocks write them during the launch, so they are
+  // read through plain loads or cp.async.cg (through L2), never __ldg.
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kRows = EXT ? 6 : 3;
   T* red = reinterpret_cast<T*>(smem_raw);
@@ -336,81 +356,151 @@ __global__ void __launch_bounds__(kListThreads, 2) fused_list_kernel(ListArgs<T>
   const int slice = tid & (S - 1);
   const int pl = tid / S;
   const bool owner = slice == 0;
-  const int n_items = p.n_pad / ti;
+  const int n_items = p.n_pad / ti;  // a replica's
   const size_t n_pad = p.n_pad;
   const size_t plane = 8 * n_pad;
+  const size_t set = REPLICAS ? plane * replicas : plane;
   const int width = S < 32 ? S : 32;
 
-  // The visit plan of every granule, once per launch: block b gathers the
-  // plans of granules b, b + G, ... into the scratch, then the grid waits.
+  // The visit plan of every granule (of every replica's), once per launch:
+  // block b gathers the plans of granules b, b + G, ... into the scratch,
+  // each from its replica's lists, then the grid waits.
   const int n_cats = 4 + p.n_tails;
-  if (tid == 0) {
-    int run = 0;
-    for (int c = 0; c < n_cats; ++c) {
-      cat_start[c] = run;
-      run += p.tcounts[c];
-    }
-    cat_start[n_cats] = run;
-  }
-  __syncthreads();
   const int n_b = p.n_pad / kListGran;
-  for (int g = blockIdx.x; g < n_b; g += gridDim.x) {
-    const int cnt = gather_plan(p, cat_start, n_cats, g,
-                                p.plan + static_cast<size_t>(g) * p.plan_stride, p.plan_stride,
-                                scan);
-    if (tid == 0) p.plan_n[g] = cnt;
+  if constexpr (REPLICAS) {
+    int cats_of = -1;
+    for (int gq = blockIdx.x; gq < replicas * n_b; gq += gridDim.x) {
+      const int q = gq / n_b;
+      if (q != cats_of) {
+        __syncthreads();  // cat_start's previous values have been read
+        if (tid == 0) {
+          int run = 0;
+          for (int c = 0; c < n_cats; ++c) {
+            cat_start[c] = run;
+            run += p.tcounts[q * n_cats + c];
+          }
+          cat_start[n_cats] = run;
+        }
+        __syncthreads();
+        cats_of = q;
+      }
+      ListArgs<T> pq = p;
+      pq.tiles = p.tiles + static_cast<size_t>(q) * tiles_stride;
+      const int cnt = gather_plan(pq, cat_start, n_cats, gq - q * n_b,
+                                  p.plan + static_cast<size_t>(gq) * p.plan_stride,
+                                  p.plan_stride, scan);
+      if (tid == 0) p.plan_n[gq] = cnt;
+    }
+  } else {
+    if (tid == 0) {
+      int run = 0;
+      for (int c = 0; c < n_cats; ++c) {
+        cat_start[c] = run;
+        run += p.tcounts[c];
+      }
+      cat_start[n_cats] = run;
+    }
+    __syncthreads();
+    for (int g = blockIdx.x; g < n_b; g += gridDim.x) {
+      const int cnt = gather_plan(p, cat_start, n_cats, g,
+                                  p.plan + static_cast<size_t>(g) * p.plan_stride,
+                                  p.plan_stride, scan);
+      if (tid == 0) p.plan_n[g] = cnt;
+    }
   }
   grid.sync();
 
+  // This block's work items, the same in both phases of every step (the
+  // owner thread of a particle alone touches its v, a and vc): items
+  // blockIdx.x, + G, ... of one system; with REPLICAS a contiguous run of
+  // the R replicas' items (replica q's at q * n_items ...), so that a block
+  // restages a resident plane only when the replica changes.
+  int w_first = 0, w_end = 0;
+  if constexpr (REPLICAS) {
+    const int all_items = n_items * replicas;
+    const int per = (all_items + gridDim.x - 1) / gridDim.x;
+    w_first = blockIdx.x * per;
+    w_end = min(all_items, w_first + per);
+  }
   for (int s = 0; s < p.n_steps; ++s) {
-    const T* r_cur = p.rbuf + (s & 1) * plane;
-    T* r_new = p.rbuf + ((s + 1) & 1) * plane;
-    const T* lo_cur = EXT ? p.lobuf + (s & 1) * plane : nullptr;
-    T* lo_new = EXT ? p.lobuf + ((s + 1) & 1) * plane : nullptr;
+    const T* r_cur0 = p.rbuf + (s & 1) * set;
+    T* r_new0 = p.rbuf + ((s + 1) & 1) * set;
+    const T* lo_cur0 = EXT ? p.lobuf + (s & 1) * set : nullptr;
+    T* lo_new0 = EXT ? p.lobuf + ((s + 1) & 1) * set : nullptr;
 
     // Phase 1: drift + first half-kick of the block's own particles.
     if (owner) {
-      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
-        const int i = w * ti + pl;
+      for (int w = REPLICAS ? w_first : blockIdx.x; w < (REPLICAS ? w_end : n_items);
+           w += REPLICAS ? 1 : gridDim.x) {
+        const int q = REPLICAS ? w / n_items : 0;
+        const int i = (w - q * n_items) * ti + pl;
         if (i >= p.n) continue;
+        const size_t off = REPLICAS ? q * plane : 0;
+        const T* r_cur = r_cur0 + off;
+        T* r_new = r_new0 + off;
+        T* v = p.v + off;
+        T* a = p.a + off;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
           const size_t k = c * n_pad + i;
           if (EXT) {
+            T* vc = p.vc + off;
             const T delta =
-                add_rn(mul_rn(add_rn(p.v[k], p.vc[k]), p.dt), mul_rn(p.a[k], p.half_dt_sq));
+                add_rn(mul_rn(add_rn(v[k], vc[k]), p.dt), mul_rn(a[k], p.half_dt_sq));
             T x = r_cur[k];
-            T lo = lo_cur[k];
+            T lo = lo_cur0[off + k];
             comp_add_list(x, lo, delta);
             r_new[k] = x;
-            lo_new[k] = lo;
-            T vk = p.v[k];
-            T ck = p.vc[k];
-            comp_add_list(vk, ck, mul_rn(p.a[k], p.half_dt));
-            p.v[k] = vk;
-            p.vc[k] = ck;
+            lo_new0[off + k] = lo;
+            T vk = v[k];
+            T ck = vc[k];
+            comp_add_list(vk, ck, mul_rn(a[k], p.half_dt));
+            v[k] = vk;
+            vc[k] = ck;
           } else {
-            r_new[k] =
-                add_rn(add_rn(r_cur[k], mul_rn(p.v[k], p.dt)), mul_rn(p.a[k], p.half_dt_sq));
-            p.v[k] = add_rn(p.v[k], mul_rn(p.a[k], p.half_dt));
+            r_new[k] = add_rn(add_rn(r_cur[k], mul_rn(v[k], p.dt)), mul_rn(a[k], p.half_dt_sq));
+            v[k] = add_rn(v[k], mul_rn(a[k], p.half_dt));
           }
         }
       }
     }
     grid.sync();
 
-    // Phase 2: stage the new plane (resident), then forces over each work
-    // item's plan at the new positions.
-    if (p.resident) {
-      stage_rows(planes, p.n_pad, r_new, lo_new, n_pad, kRows, 0, p.n_pad, tid, kListThreads);
-      cp_async_commit();
-      cp_async_wait(0);
-      __syncthreads();
+    // Phase 2: stage the new plane (resident; with REPLICAS item by item,
+    // where the block has not staged the item's replica yet this step), then
+    // forces over each work item's plan at the new positions.
+    if constexpr (!REPLICAS) {
+      if (p.resident) {
+        stage_rows(planes, p.n_pad, r_new0, lo_new0, n_pad, kRows, 0, p.n_pad, tid,
+                   kListThreads);
+        cp_async_commit();
+        cp_async_wait(0);
+        __syncthreads();
+      }
     }
     const bool want_obs = p.obs_last && s == p.n_steps - 1;
-    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    int staged = -1;
+    for (int w = REPLICAS ? w_first : blockIdx.x; w < (REPLICAS ? w_end : n_items);
+         w += REPLICAS ? 1 : gridDim.x) {
+      const int q = REPLICAS ? w / n_items : 0;
+      const int i0 = (w - q * n_items) * ti;
+      const size_t off = REPLICAS ? q * plane : 0;
+      const T* r_new = r_new0 + off;
+      const T* lo_new = EXT ? lo_new0 + off : nullptr;
+      if constexpr (REPLICAS) {
+        if (p.resident && q != staged) {
+          // The previous item (or step) ended in a barrier: no thread still
+          // reads the staged plane.
+          stage_rows(planes, p.n_pad, r_new, lo_new, n_pad, kRows, 0, p.n_pad, tid,
+                     kListThreads);
+          cp_async_commit();
+          cp_async_wait(0);
+          __syncthreads();
+          staged = q;
+        }
+      }
       ListMe<T> me;
-      me.i = w * ti + pl;
+      me.i = i0 + pl;
       me.x = r_new[me.i];
       me.y = r_new[n_pad + me.i];
       me.z = r_new[2 * n_pad + me.i];
@@ -421,7 +511,7 @@ __global__ void __launch_bounds__(kListThreads, 2) fused_list_kernel(ListArgs<T>
         me.lz = lo_new[2 * n_pad + me.i];
       }
       me.fx = me.fy = me.fz = me.e = me.du = me.ddu = T(0);
-      const int g = (w * ti) / kListGran;
+      const int g = (REPLICAS ? q * n_b : 0) + i0 / kListGran;
       const int2* ent = p.plan + static_cast<size_t>(g) * p.plan_stride;
       const int n_ent = p.plan_n[g];
       if (want_obs) {
@@ -445,24 +535,27 @@ __global__ void __launch_bounds__(kListThreads, 2) fused_list_kernel(ListArgs<T>
       if (owner && me.i < p.n) {
         const T f[3] = {fx, fy, fz};
         const T o[3] = {e, du, ddu};
+        T* v = p.v + off;
+        T* a = p.a + off;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
           const size_t k2 = c * n_pad + me.i;
           const T ak = mul_rn(T(24), f[c]);
-          p.a[k2] = ak;
+          a[k2] = ak;
           if (EXT) {
-            T vk = p.v[k2];
-            T ck = p.vc[k2];
+            T* vc = p.vc + off;
+            T vk = v[k2];
+            T ck = vc[k2];
             comp_add_list(vk, ck, mul_rn(ak, p.half_dt));
-            p.v[k2] = vk;
-            p.vc[k2] = ck;
+            v[k2] = vk;
+            vc[k2] = ck;
           } else {
-            p.v[k2] = add_rn(p.v[k2], mul_rn(ak, p.half_dt));
+            v[k2] = add_rn(v[k2], mul_rn(ak, p.half_dt));
           }
-          if (want_obs) p.obs[(3 + c) * n_pad + me.i] = o[c];
+          if (want_obs) p.obs[off + (3 + c) * n_pad + me.i] = o[c];
         }
       }
-      __syncthreads();  // `red` and the ring are reused by the next item
+      __syncthreads();  // `red` and the staged planes are reused by the next item
     }
     // The next step's phase 1 touches only the owners' own v / a and the
     // other position plane; the staged plane is rewritten only after the
@@ -470,17 +563,18 @@ __global__ void __launch_bounds__(kListThreads, 2) fused_list_kernel(ListArgs<T>
   }
 }
 
-template <typename T, bool EXT>
+// BATCH: the replica instantiation.
+template <typename T, bool EXT, bool BATCH = false>
 const void* list_kernel() {
-  return reinterpret_cast<const void*>(fused_list_kernel<T, EXT>);
+  return reinterpret_cast<const void*>(fused_list_kernel<T, EXT, BATCH>);
 }
 
 // Blocks an SM at `bytes` of dynamic shared memory (the kernel's limit set
 // first to what the card lets a block opt in to, less its static shared
 // memory).
-template <typename T, bool EXT>
+template <typename T, bool EXT, bool BATCH>
 cudaError_t list_per_sm(size_t bytes, int optin, int* per_sm) {
-  const void* fn = list_kernel<T, EXT>();
+  const void* fn = list_kernel<T, EXT, BATCH>();
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return err;
@@ -492,9 +586,10 @@ cudaError_t list_per_sm(size_t bytes, int optin, int* per_sm) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kListThreads, bytes);
 }
 
-// The launch shape (see ljmd_list_plan).
-template <typename T, bool EXT>
-int list_plan(int n_pad, int slices, int grid_cap, int* out) {
+// The launch shape (see ljmd_list_plan; BATCH: the replica kernel's for
+// `replicas` replicas, at the given S).
+template <typename T, bool EXT, bool BATCH>
+int list_plan(int n_pad, int slices, int grid_cap, int* out, int replicas = 1) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -503,16 +598,16 @@ int list_plan(int n_pad, int slices, int grid_cap, int* out) {
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (slices > 0 && (slices < kListMinSlices || slices > kListMaxSlices ||
-                     (slices & (slices - 1)))) {
+  if ((slices > 0 && (slices < kListMinSlices || slices > kListMaxSlices ||
+                      (slices & (slices - 1)))) || (BATCH && slices <= 0) || replicas < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // Resident where the whole plane fits with two blocks an SM.
   int per_sm = 0;
-  err = list_per_sm<T, EXT>(list_smem_bytes<T, EXT>(1, n_pad), optin, &per_sm);
+  err = list_per_sm<T, EXT, BATCH>(list_smem_bytes<T, EXT>(1, n_pad), optin, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int resident = per_sm >= 2;
-  err = list_per_sm<T, EXT>(list_smem_bytes<T, EXT>(resident, n_pad), optin, &per_sm);
+  err = list_per_sm<T, EXT, BATCH>(list_smem_bytes<T, EXT>(resident, n_pad), optin, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);  // no grid barrier
   const long long resident_blocks = static_cast<long long>(per_sm) * sms;
@@ -539,11 +634,11 @@ int list_plan(int n_pad, int slices, int grid_cap, int* out) {
       }
     }
   }
-  const long long items = static_cast<long long>(n_pad) * slices / kListThreads;
+  const long long items = static_cast<long long>(n_pad) * slices / kListThreads * replicas;
   int blocks = static_cast<int>(items < resident_blocks ? items : resident_blocks);
   if (grid_cap > 0 && grid_cap < blocks) blocks = grid_cap;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, list_kernel<T, EXT>());
+  err = cudaFuncGetAttributes(&attr, list_kernel<T, EXT, BATCH>());
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = slices;
   out[1] = resident;
@@ -557,11 +652,12 @@ int list_plan(int n_pad, int slices, int grid_cap, int* out) {
 }
 
 template <typename T, bool EXT>
-int launch_list(ListArgs<T> p, int blocks, void* stream) {
-  void* args[] = {&p};
+int launch_list(ListArgs<T> p, int blocks, void* stream, int replicas, int tiles_stride) {
+  void* args[] = {&p, &replicas, &tiles_stride};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      list_kernel<T, EXT>(), dim3(blocks), dim3(kListThreads), args,
-      list_smem_bytes<T, EXT>(p.resident, p.n_pad), static_cast<cudaStream_t>(stream));
+      replicas > 0 ? list_kernel<T, EXT, true>() : list_kernel<T, EXT, false>(), dim3(blocks),
+      dim3(kListThreads), args, list_smem_bytes<T, EXT>(p.resident, p.n_pad),
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the launch error
     return static_cast<int>(err);
@@ -574,8 +670,9 @@ int launch_list_any(T* rbuf, T* lobuf, T* v, T* vc, T* a, T* obs, const int* til
                     const int* tcounts, int max_t, int n_tails, int span, int n, int n_pad, T box,
                     T inv_box, T rc2, T dt, T half_dt, T half_dt_sq, int n_steps, int obs_last,
                     int extended, int slices, int resident, int* plan, int* plan_n,
-                    int plan_stride, int blocks, void* stream) {
-  if (4 + n_tails > kListMaxCats) return static_cast<int>(cudaErrorInvalidValue);
+                    int plan_stride, int blocks, void* stream, int replicas = 0,
+                    int tiles_stride = 0) {
+  if (4 + n_tails > kListMaxCats || replicas < 0) return static_cast<int>(cudaErrorInvalidValue);
   const ListArgs<T> p{rbuf,    lobuf,    v,
                       vc,      a,        obs,
                       tiles,   tcounts,  max_t,
@@ -585,8 +682,8 @@ int launch_list_any(T* rbuf, T* lobuf, T* v, T* vc, T* a, T* obs, const int* til
                       half_dt_sq, n_steps, obs_last,
                       slices,  resident, reinterpret_cast<int2*>(plan),
                       plan_n,  plan_stride};
-  return extended ? launch_list<T, true>(p, blocks, stream)
-                  : launch_list<T, false>(p, blocks, stream);
+  return extended ? launch_list<T, true>(p, blocks, stream, replicas, tiles_stride)
+                  : launch_list<T, false>(p, blocks, stream, replicas, tiles_stride);
 }
 
 }  // namespace ljmd
@@ -605,11 +702,26 @@ int ljmd_list_block_threads() { return ljmd::kListThreads; }
 int ljmd_list_plan(int dtype_bytes, int extended, int n_pad, int slices, int grid_cap,
                    int* out) {
   if (dtype_bytes == 4) {
-    return extended ? ljmd::list_plan<float, true>(n_pad, slices, grid_cap, out)
-                    : ljmd::list_plan<float, false>(n_pad, slices, grid_cap, out);
+    return extended ? ljmd::list_plan<float, true, false>(n_pad, slices, grid_cap, out)
+                    : ljmd::list_plan<float, false, false>(n_pad, slices, grid_cap, out);
   }
-  return extended ? ljmd::list_plan<double, true>(n_pad, slices, grid_cap, out)
-                  : ljmd::list_plan<double, false>(n_pad, slices, grid_cap, out);
+  return extended ? ljmd::list_plan<double, true, false>(n_pad, slices, grid_cap, out)
+                  : ljmd::list_plan<double, false, false>(n_pad, slices, grid_cap, out);
+}
+
+// The replica kernel's launch shape for `replicas` replicas at S = `slices`
+// (the one-replica plan's; > 0): out as ljmd_list_plan's, the grid over all
+// R replicas' work items.
+int ljmd_list_replicas_plan(int dtype_bytes, int extended, int n_pad, int slices, int replicas,
+                            int grid_cap, int* out) {
+  if (dtype_bytes == 4) {
+    return extended
+               ? ljmd::list_plan<float, true, true>(n_pad, slices, grid_cap, out, replicas)
+               : ljmd::list_plan<float, false, true>(n_pad, slices, grid_cap, out, replicas);
+  }
+  return extended
+             ? ljmd::list_plan<double, true, true>(n_pad, slices, grid_cap, out, replicas)
+             : ljmd::list_plan<double, false, true>(n_pad, slices, grid_cap, out, replicas);
 }
 
 // `slices`, `resident`, `blocks` as ljmd_list_plan gave them for the same
@@ -640,6 +752,39 @@ int ljmd_fused_dense_chunk_list_f64(double* rbuf, double* lobuf, double* v, doub
                                        n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt,
                                        half_dt_sq, n_steps, obs_last, extended, slices, resident,
                                        plan, plan_n, plan_stride, blocks, stream);
+}
+
+// R replicas in one launch (the replica kernel): rbuf / lobuf (2, R, 8,
+// n_pad), v / vc / a / obs (R, 8, n_pad), tiles (R, 9 + 2 n_tails, max_t),
+// tcounts (R, 4 + n_tails); `slices`, `resident`, `blocks` as
+// ljmd_list_replicas_plan gave them; plan (R * n_b * plan_stride * 2,) and
+// plan_n (R * n_b,) int32 scratch.
+int ljmd_fused_dense_chunk_list_replicas_f32(
+    float* rbuf, float* lobuf, float* v, float* vc, float* a, float* obs, const int* tiles,
+    const int* tcounts, int max_t, int n_tails, int span, int n, int n_pad, int replicas,
+    float box, float inv_box, float rc2, float dt, float half_dt, float half_dt_sq, int n_steps,
+    int obs_last, int extended, int slices, int resident, int* plan, int* plan_n,
+    int plan_stride, int blocks, void* stream) {
+  if (replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return ljmd::launch_list_any<float>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t, n_tails,
+                                      span, n, n_pad, box, inv_box, rc2, dt, half_dt, half_dt_sq,
+                                      n_steps, obs_last, extended, slices, resident, plan, plan_n,
+                                      plan_stride, blocks, stream, replicas,
+                                      (9 + 2 * n_tails) * max_t);
+}
+
+int ljmd_fused_dense_chunk_list_replicas_f64(
+    double* rbuf, double* lobuf, double* v, double* vc, double* a, double* obs, const int* tiles,
+    const int* tcounts, int max_t, int n_tails, int span, int n, int n_pad, int replicas,
+    double box, double inv_box, double rc2, double dt, double half_dt, double half_dt_sq,
+    int n_steps, int obs_last, int extended, int slices, int resident, int* plan, int* plan_n,
+    int plan_stride, int blocks, void* stream) {
+  if (replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return ljmd::launch_list_any<double>(rbuf, lobuf, v, vc, a, obs, tiles, tcounts, max_t,
+                                       n_tails, span, n, n_pad, box, inv_box, rc2, dt, half_dt,
+                                       half_dt_sq, n_steps, obs_last, extended, slices, resident,
+                                       plan, plan_n, plan_stride, blocks, stream, replicas,
+                                       (9 + 2 * n_tails) * max_t);
 }
 
 }  // extern "C"

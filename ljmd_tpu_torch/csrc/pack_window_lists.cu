@@ -23,6 +23,11 @@
 //   pass 2 walks again and writes each visit at its offset: the sequential
 //   kernel's order, no atomics.
 //
+// Replicas (the batched zsort engine): one launch packs R replicas' lists,
+// block q replica q's, each block the one-system block on its replica's
+// flags, lists and counts (the REPLICAS instantiation; its offsets fold away
+// in the one-system one, whose code and registers stay as they were).
+//
 // Contract: flags (n_b * n_b,) int32 of compute_tile_flags (bit 0 active,
 // bit 1 z round, bit 2 x round, > 0 visited) at tile_i x tile_i. Out: tiles
 // (9 + 2 * n_tails, max_t) and tcounts (4 + n_tails,), element for element
@@ -133,9 +138,18 @@ __device__ __forceinline__ void cover_row(const PackArgs& a, int row, unsigned a
   }
 }
 
-// One block: minBlocks = 1 lets ptxas use up to 64 registers a thread (aiming
-// at two 1024-thread blocks an SM, it spilled the scan's state at 32).
+// One block (REPLICAS: block q packs replica q, whose flags, lists and counts
+// lie at q times their sizes): minBlocks = 1 lets ptxas use up to 64
+// registers a thread (aiming at two 1024-thread blocks an SM, it spilled the
+// scan's state at 32).
+template <bool REPLICAS>
 __global__ void __launch_bounds__(kPackMaxWarps * 32, 1) pack_window_kernel(PackArgs a) {
+  if (REPLICAS) {
+    const size_t q = blockIdx.x;
+    a.flags += q * a.n_b * a.n_b;
+    a.tiles += q * (9 + 2 * a.n_tails) * static_cast<size_t>(a.max_t);
+    a.tcounts += q * a.n_cats;
+  }
   extern __shared__ int smem[];
   int* offs = smem;  // [n_cats][n_b]: counts, then offsets
   unsigned* stage = reinterpret_cast<unsigned*>(smem + a.n_cats * a.n_b);
@@ -206,11 +220,15 @@ extern "C" {
 
 int ljmd_pack_max_rows() { return ljmd::kPackMaxRows; }
 
+// `replicas` 0: one system; R >= 1: flags (R, n_b * n_b), tiles (R, 9 + 2
+// n_tails, max_t), tcounts (R, 4 + n_tails), packed by the replica kernel (R
+// blocks).
 int ljmd_pack_window_lists(const int* flags, int* tiles, int* tcounts, int n, int n_b,
-                           int tile_i, int tile_j, int n_tails, int max_t, void* stream) {
+                           int tile_i, int tile_j, int n_tails, int max_t, int replicas,
+                           void* stream) {
   const int span = tile_i > 0 ? tile_j / tile_i : 0;
   if (n_b < 1 || n_b > ljmd::kPackMaxRows || span < 1 || span > ljmd::kPackMaxSpan ||
-      span > n_b || (n_tails != 0 && n_tails != span - 1)) {
+      span > n_b || (n_tails != 0 && n_tails != span - 1) || replicas < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ljmd::PackArgs a{flags, tiles, tcounts, n, n_b, tile_i, tile_j, span, n_tails,
@@ -219,8 +237,13 @@ int ljmd_pack_window_lists(const int* flags, int* tiles, int* tcounts, int n, in
   const size_t masks = sizeof(unsigned) * 3 * static_cast<size_t>(n_b) * a.words;
   a.staged = counts + masks <= ljmd::kPackSmemBytes;
   const int threads = 32 * (n_b < ljmd::kPackMaxWarps ? n_b : ljmd::kPackMaxWarps);
-  ljmd::pack_window_kernel<<<1, threads, counts + (a.staged ? masks : 0),
-                             static_cast<cudaStream_t>(stream)>>>(a);
+  const size_t smem = counts + (a.staged ? masks : 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (replicas > 0) {
+    ljmd::pack_window_kernel<true><<<replicas, threads, smem, s>>>(a);
+  } else {
+    ljmd::pack_window_kernel<false><<<1, threads, smem, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

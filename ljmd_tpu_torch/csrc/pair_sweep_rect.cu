@@ -42,6 +42,14 @@
 // Its kernel writes rows_sweep_block's body out: called through that device
 // function, nvcc allotted it other registers (float64 56 / 58 -> 48 / 52)
 // and it ran 3-10% slower in float64 on the H100, bit for bit the same.
+//
+// Replicas (the replica x particle step: a rank's R_local replicas, their
+// rows (R, 8, ld) stacks): one launch each, blockIdx.y the replica, at the
+// one-replica launch's S and grid, so replica q's outputs equal a launch on
+// replica q's rows bit for bit and never read another replica's. Kernel 6's
+// is its own kernel around rows_sweep_block; kernel 7's is the REPLICAS
+// instantiation of its written-out kernel, whose replica offsets fold away in
+// the one-system instantiation (its code and registers stay as they were).
 #include <cuda_runtime.h>
 
 #include "rows_sweep.cuh"
@@ -50,13 +58,23 @@ namespace ljmd {
 
 // Kernel 7: rows_sweep_block's body written out with both roles (the header
 // says why).
-template <typename T, bool OBS>
+// Role p of replica q: its rows at q * 8 * ld of each stack.
+template <typename T>
+__device__ __forceinline__ RowsRole<T> replica_role(RowsRole<T> p, size_t q) {
+  p.a += q * 8 * p.lda;
+  p.b += q * 8 * p.ldb;
+  p.out += q * 8 * p.lda;
+  return p;
+}
+
+template <typename T, bool OBS, bool REPLICAS = false>
 __global__ void __launch_bounds__(kRowsThreads)
 rect_newton_kernel(RowsRole<T> r0, RowsRole<T> r1, int S, T box, T inv_box, T rc2) {
   __shared__ __align__(16) T ring[kRowsRing][3][kRowsChunk];
   __shared__ T red[kRowsWarps][6];
   const bool second = static_cast<int>(blockIdx.x) >= r0.blocks;
-  const RowsRole<T> p = second ? r1 : r0;
+  const RowsRole<T> p =
+      REPLICAS ? replica_role(second ? r1 : r0, blockIdx.y) : (second ? r1 : r0);
   const int blk = second ? blockIdx.x - r0.blocks : blockIdx.x;
   const int tid = threadIdx.x;
   const int tile = kRowsThreads / S;
@@ -159,6 +177,40 @@ rect_newton_kernel(RowsRole<T> r0, RowsRole<T> r1, int S, T box, T inv_box, T rc
   }
 }
 
+// Kernel 6's replica launch: blockIdx.y the replica.
+template <typename T, bool OBS>
+__global__ void __launch_bounds__(kRowsThreads)
+rect_replicas_kernel(RowsRole<T> p, int S, T box, T inv_box, T rc2) {
+  rows_sweep_block<T, OBS, false>(replica_role(p, blockIdx.y), blockIdx.x, S, box, inv_box,
+                                  rc2);
+}
+
+// R rect sweeps, replica q's rows [0, n_i) of its (8, ni_pad) matrix against
+// the partners [0, n_j) of its (8, nj_pad) one, in one launch of (ni_pad /
+// tile, R) blocks at the one-replica plan's S.
+template <typename T>
+int launch_rect_replicas(const T* pos_i, const T* pos_j, T* out, int n_i, int ni_pad, int n_j,
+                         int nj_pad, int replicas, int gi0, int gj0, T box, T inv_box, T rc2,
+                         int want_obs, void* stream) {
+  if (ni_pad % 128 || nj_pad % 128 || n_i < 0 || n_i > ni_pad || n_j < 0 || n_j > nj_pad ||
+      replicas < 1 || replicas > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int plan[8];
+  const int err = rows_plan_any<T, false>(want_obs, n_i, ni_pad, n_j, plan);
+  if (err != 0) return err;
+  const RowsRole<T> p =
+      rows_role<T>(pos_i, pos_j, out, ni_pad, 0, n_i, nj_pad, 0, n_j, gi0, gj0, 1, plan[1]);
+  const dim3 grid(p.blocks, replicas);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (want_obs) {
+    rect_replicas_kernel<T, true><<<grid, kRowsThreads, 0, s>>>(p, plan[0], box, inv_box, rc2);
+  } else {
+    rect_replicas_kernel<T, false><<<grid, kRowsThreads, 0, s>>>(p, plan[0], box, inv_box, rc2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Kernel 7's launch shape at these ranges (rows_plan_out's fields).
 template <typename T, bool OBS>
 int rn_plan(int ni_pad, int nj_pad, int n_i, int i_lo, int j_hi, int* out) {
@@ -184,12 +236,14 @@ int rn_plan_any(int want_obs, int ni_pad, int nj_pad, int n_i, int i_lo, int j_h
                   : rn_plan<T, false>(ni_pad, nj_pad, n_i, i_lo, j_hi, out);
 }
 
+// One hop, or (replicas > 0) the hop of each of R replicas' (8, ld) rows in
+// one launch of (one-replica grid, R) blocks at the one-replica plan's S.
 template <typename T>
 int launch_rect_newton(const T* pos_i, const T* pos_j, T* out_i, T* out_j, int n_i, int ni_pad,
                        int n_j, int nj_pad, int gi0, int gj0, int i_lo, int j_hi, T box,
-                       T inv_box, T rc2, int want_obs, void* stream) {
+                       T inv_box, T rc2, int want_obs, void* stream, int replicas = 0) {
   if (ni_pad % 128 || nj_pad % 128 || i_lo < 0 || i_lo > n_i || n_i > ni_pad || j_hi < 0 ||
-      j_hi > n_j || n_j > nj_pad) {
+      j_hi > n_j || n_j > nj_pad || replicas < 0 || replicas > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int plan[8];
@@ -201,8 +255,19 @@ int launch_rect_newton(const T* pos_i, const T* pos_j, T* out_i, T* out_j, int n
                                       gi0, gj0, 1, tile);
   const RowsRole<T> jr = rows_role<T>(pos_j, pos_i, out_j, nj_pad, 0, j_hi, ni_pad, i_lo, n_i,
                                       gj0, gi0, 0, tile);
-  const dim3 grid(ir.blocks + jr.blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (replicas > 0) {
+    const dim3 grid(ir.blocks + jr.blocks, replicas);
+    if (want_obs) {
+      rect_newton_kernel<T, true, true><<<grid, kRowsThreads, 0, s>>>(ir, jr, S, box, inv_box,
+                                                                      rc2);
+    } else {
+      rect_newton_kernel<T, false, true><<<grid, kRowsThreads, 0, s>>>(ir, jr, S, box, inv_box,
+                                                                       rc2);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(ir.blocks + jr.blocks);
   if (want_obs) {
     rect_newton_kernel<T, true><<<grid, kRowsThreads, 0, s>>>(ir, jr, S, box, inv_box, rc2);
   } else {
@@ -245,6 +310,47 @@ int ljmd_pair_sweep_rect_newton_f64(const double* pos_i, const double* pos_j, do
   return ljmd::launch_rect_newton<double>(pos_i, pos_j, out_i, out_j, n_i, ni_pad, n_j, nj_pad,
                                           gi0, gj0, i_lo, j_hi, box, inv_box, rc2, want_obs,
                                           stream);
+}
+
+// pos_i / out (and out_i) are (R, 8, ni_pad), pos_j (and out_j) (R, 8,
+// nj_pad): replica q's sweep as the one-replica entry's on its rows.
+int ljmd_pair_sweep_rect_replicas_f32(const float* pos_i, const float* pos_j, float* out,
+                                      int n_i, int ni_pad, int n_j, int nj_pad, int replicas,
+                                      int gi0, int gj0, float box, float inv_box, float rc2,
+                                      int want_obs, void* stream) {
+  return ljmd::launch_rect_replicas<float>(pos_i, pos_j, out, n_i, ni_pad, n_j, nj_pad, replicas,
+                                           gi0, gj0, box, inv_box, rc2, want_obs, stream);
+}
+
+int ljmd_pair_sweep_rect_replicas_f64(const double* pos_i, const double* pos_j, double* out,
+                                      int n_i, int ni_pad, int n_j, int nj_pad, int replicas,
+                                      int gi0, int gj0, double box, double inv_box, double rc2,
+                                      int want_obs, void* stream) {
+  return ljmd::launch_rect_replicas<double>(pos_i, pos_j, out, n_i, ni_pad, n_j, nj_pad,
+                                            replicas, gi0, gj0, box, inv_box, rc2, want_obs,
+                                            stream);
+}
+
+int ljmd_pair_sweep_rect_newton_replicas_f32(const float* pos_i, const float* pos_j,
+                                             float* out_i, float* out_j, int n_i, int ni_pad,
+                                             int n_j, int nj_pad, int replicas, int gi0, int gj0,
+                                             int i_lo, int j_hi, float box, float inv_box,
+                                             float rc2, int want_obs, void* stream) {
+  if (replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return ljmd::launch_rect_newton<float>(pos_i, pos_j, out_i, out_j, n_i, ni_pad, n_j, nj_pad,
+                                         gi0, gj0, i_lo, j_hi, box, inv_box, rc2, want_obs,
+                                         stream, replicas);
+}
+
+int ljmd_pair_sweep_rect_newton_replicas_f64(const double* pos_i, const double* pos_j,
+                                             double* out_i, double* out_j, int n_i, int ni_pad,
+                                             int n_j, int nj_pad, int replicas, int gi0, int gj0,
+                                             int i_lo, int j_hi, double box, double inv_box,
+                                             double rc2, int want_obs, void* stream) {
+  if (replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return ljmd::launch_rect_newton<double>(pos_i, pos_j, out_i, out_j, n_i, ni_pad, n_j, nj_pad,
+                                          gi0, gj0, i_lo, j_hi, box, inv_box, rc2, want_obs,
+                                          stream, replicas);
 }
 
 // Kernel 7's launch shape (ljmd::rn_plan): out[0..7] = S, tile, live

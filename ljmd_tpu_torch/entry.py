@@ -15,11 +15,12 @@ one device, the counterpart of the JAX virtual CPU mesh; ``kind="dist"``:
 one process per rank over an initialised ``torch.distributed`` group of
 ``n_devices``) and runs, on tiny shapes:
 
-1. one sampled interval of the particle-sharded half-ring step
-   (``parallel/spatial.py``, the kernels on a card) with the means
-   accumulator updated: the JAX phase's replica x particle mesh waits for
-   the replica x particle step's slice (ROADMAP), so the step here is
-   particle-only at the same config, on all n_devices ranks;
+1. the full multi-device production step: on a (replica = n/2, particle =
+   2) mesh (n even; else (n, 1)), 2 x replica replicas of N = 32 through
+   the replica x particle half-ring step (``parallel/spatial.py``
+   ``make_ensemble_spatial_step_fn``, the replica launches of kernels 2 and
+   7 on a card) for one sampled interval, then each replica's means
+   accumulator updated (JAX's phase, ``__graft_entry__.py:120-200``);
 2. the sharded pencil engine (``parallel/spatial_pencil.py``) on 4, 2 or 1
    strips: a step, a fused 8-step ``run_fast``, a step;
 3. the compensated spatial engine (float32 at dt = 1e-4) on 2 ranks: its
@@ -77,9 +78,9 @@ def dryrun_multichip(n_devices: int, device="cuda", kind: str = "thread") -> Non
 
     from ljmd_tpu_torch.parallel.mesh import make_mesh
     from ljmd_tpu_torch.parallel.spatial import (
+        make_ensemble_spatial_step_fn,
         make_spatial_engine,
-        make_spatial_step_fn,
-        shard_state,
+        shard_replica_states,
     )
     from ljmd_tpu_torch.parallel.spatial_pencil import make_sharded_pencil_engine
     from ljmd_tpu_torch.stats.moments import means_init, means_update
@@ -89,14 +90,16 @@ def dryrun_multichip(n_devices: int, device="cuda", kind: str = "thread") -> Non
         raise ValueError(f"the process group has {dist.get_world_size()} ranks, "
                          f"asked for {n_devices}")
 
-    def mesh_of(k: int):
-        """A k-rank mesh, or None on a process outside it (kind="dist")."""
+    def mesh_of(k: int, replica: int = 1):
+        """A replica x k-rank mesh, or None on a process outside it
+        (kind="dist")."""
         if kind != "dist":
-            return make_mesh(particle=k, device=device, kind=kind)
-        group = None if k == n_devices else dist.new_group(list(range(k)))
-        if dist.get_rank() >= k:
+            return make_mesh(particle=k, device=device, kind=kind, replica=replica)
+        size = replica * k
+        group = None if size == n_devices else dist.new_group(list(range(size)))
+        if dist.get_rank() >= size:
             return None
-        return make_mesh(particle=k, device=device, kind="dist", group=group)
+        return make_mesh(particle=k, device=device, kind="dist", group=group, replica=replica)
 
     def fluid(cfg, seed):
         r = fcc_lattice(cfg.num_cells, cfg.box_length, dtype=torch.float32, device=device)
@@ -109,25 +112,32 @@ def dryrun_multichip(n_devices: int, device="cuda", kind: str = "thread") -> Non
             raise RuntimeError(f"non-finite observables in {what}: epot={obs.epot} "
                                f"ekin={obs.ekin}")
 
-    # 1. One sampled interval of the half-ring step on every rank (N = 32).
+    # 1. The replica x particle production step: 2 x replica replicas of
+    # N = 32, one sampled interval, then the per-replica means.
+    particle = 2 if n_devices % 2 == 0 else 1
+    replica = n_devices // particle
     cfg = config_from_density(num_cells=2, density=0.7, dt=0.002, dtype="float32",
                               total_steps=8, output_interval=4, warmup_steps=0,
                               target_total_energy=-20.0)
-    mesh = mesh_of(n_devices)
+    mesh = mesh_of(particle, replica)
     try:
-        step = make_spatial_step_fn(cfg, mesh, comm="half_ring")
-        st = fluid(cfg, 0)
-        st = MDState(st.r, st.ru, st.v, make_force_fn(cfg, "dense", device)(st.r).a)
-        carry = shard_state(st, mesh, cfg)
+        step = make_ensemble_spatial_step_fn(cfg, mesh, comm="half_ring")
+        force = make_force_fn(cfg, "dense", device)
+        reps = [fluid(cfg, q) for q in range(2 * replica)]
+        st = MDState(*(torch.stack([getattr(x, k) for x in reps]) for k in ("r", "ru", "v")),
+                     torch.stack([force(x.r).a for x in reps]))
+        carry = shard_replica_states(st, mesh, cfg)
         for _ in range(cfg.output_interval):
             carry, obs = step(carry)
-        acc = means_update(means_init(torch.float32, device), obs, cfg.n, cfg.volume)
-        finite(obs, "the half-ring step")
+        acc = means_update(means_init(torch.float32, device, batch=(2 * replica,)), obs, cfg.n,
+                           cfg.volume)
+        finite(obs, "the replica x particle step")
         if not bool(torch.isfinite(acc.moments).all()):
-            raise RuntimeError("non-finite means accumulator in the half-ring dryrun")
-        print(f"dryrun_multichip OK: half-ring on {n_devices} particle ranks ({kind} mesh, "
-              f"{device}), N={cfg.n}, one interval of {cfg.output_interval} steps; "
-              f"epot={float(obs.epot):.4f} ekin={float(obs.ekin):.4f}")
+            raise RuntimeError("non-finite means accumulator in the replica x particle dryrun")
+        print(f"dryrun_multichip OK: mesh=(replica={replica}, particle={particle}) ({kind} "
+              f"mesh, {device}), {2 * replica} replicas of N={cfg.n}, half-ring, one interval "
+              f"of {cfg.output_interval} steps; epot[0]={float(obs.epot[0]):.4f} "
+              f"ekin[0]={float(obs.ekin[0]):.4f}")
     finally:
         mesh.close()
 

@@ -32,8 +32,8 @@ Backends:
   where the pencil grid fits, else ``rows``); on the CPU ``rows``.
 
 ``make_replica_engine`` builds an ensemble's engine for R replicas: the rows
-engine batched over a leading replica axis (one launch of each kernel for
-all R), or a loop over R engines of any other backend.
+or zsort engine batched over a leading replica axis (one launch of each
+kernel for all R), or a loop over R engines of any other backend.
 """
 
 from __future__ import annotations
@@ -151,6 +151,12 @@ def _effective_dtype(cfg: SimConfig) -> torch.dtype:
     the H100 run float64 natively, so nothing truncates here and the
     precision policy follows the requested dtype.)"""
     return torch.float64 if cfg.dtype == "float64" else torch.float32
+
+
+def _replica_total(x: torch.Tensor, dims: int, replicas: int | None) -> torch.Tensor:
+    """The sum over the trailing ``dims`` dimensions, a replica's own (the
+    whole sum for one system, ``replicas`` None)."""
+    return torch.sum(x) if replicas is None else torch.sum(x, dim=tuple(range(-dims, 0)))
 
 
 def _force_engine(cfg: SimConfig, device, backend: str = "dense") -> Engine:
@@ -285,8 +291,7 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
         return x[..., 0:3, :n].transpose(-1, -2)
 
     def total(x: torch.Tensor, dims: int) -> torch.Tensor:
-        """The sum over the trailing ``dims`` dimensions: a replica's own."""
-        return torch.sum(x) if replicas is None else torch.sum(x, dim=tuple(range(-dims, 0)))
+        return _replica_total(x, dims, replicas)
 
     def accel(out: torch.Tensor) -> torch.Tensor:
         # a = 24 * raw sweep rows 0..2; rows 3..7 (the e/du/ddu partials)
@@ -507,7 +512,7 @@ def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | Non
 def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                   sort_skin: float | None = None, tile_j: int | None = None,
                   extended: bool | None = None, slab_sort: bool | None = None,
-                  trigger: str = "always") -> Engine:
+                  trigger: str = "always", replicas: int | None = None) -> Engine:
     """Dense fused engine with sorted tile skipping (JAX ``_zsort_engine``).
 
     Particles are kept in ascending-z column order (or (x-slab, z) with
@@ -516,8 +521,23 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     ``invalid`` past 0.6 * skin), re-sorts, recomputes the block flags and
     rebuilds the visit lists, all on the device with no host read (the
     "always" trigger). Per-step ``step``/``step_fast`` use the
-    order-agnostic tri sweep."""
+    order-agnostic tri sweep.
+
+    ``replicas=R`` makes it the ensemble's engine for R independent
+    replicas (the JAX package ``vmap``s the one-system engine): states are
+    (R, N, 3), every carry field has a leading replica axis (``invalid``
+    (R,), one flag a replica), observables are (R,) tensors, and each tri
+    sweep, visit-list pack and fused list chunk is ONE launch for all R
+    (kernels 2, 9 and 10's replica launches), each replica over its own
+    sorted order and lists. The sort keys are unique, so each replica's
+    order is the one-system engine's; the flags, gathers and the travel
+    check act on each replica alone; so replica q's rows are bit for bit
+    what a one-system engine gives it. The observables' sums reduce an (R,
+    n_pad) row at once, so they may round otherwise."""
     device = resolve_device(device)
+    if replicas is not None and replicas < 1:
+        raise ValueError("the replica zsort engine takes replicas >= 1")
+    batch = () if replicas is None else (replicas,)
     dtype = _effective_dtype(cfg)
     if extended is None:
         extended = (cfg.compensated_sum or cfg.dt <= 1.0e-3) and dtype == torch.float32
@@ -530,18 +550,21 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         tail_corrections(n, cfg.volume, cfg.rc) if cfg.use_tail_corrections else (0.0, 0.0, 0.0)
     )
 
+    def total(x: torch.Tensor, dims: int) -> torch.Tensor:
+        return _replica_total(x, dims, replicas)
+
     def sweep(pos, want_obs=True):
         return pair_sweep_tri(pos, n, L, cfg.rc_square, want_observables=want_obs)
 
     def accel(out):
         a = torch.zeros_like(out)
-        a[0:3] = 24.0 * out[0:3]
+        a[..., 0:3, :] = 24.0 * out[..., 0:3, :]
         return a
 
     def obs_from(out, ekin):
-        return StepObs(epot=4.0 * torch.sum(out[3]) + e_t, ekin=ekin,
-                       d_epot=24.0 * torch.sum(out[4]) + d_t,
-                       dd_epot=24.0 * torch.sum(out[5]) + dd_t)
+        return StepObs(epot=4.0 * total(out[..., 3, :], 1) + e_t, ekin=ekin,
+                       d_epot=24.0 * total(out[..., 4, :], 1) + d_t,
+                       dd_epot=24.0 * total(out[..., 5, :], 1) + dd_t)
 
     def _lists(r8):
         flags = compute_tile_flags(r8, n, tile_i, tile_i, L, geo.window,
@@ -554,47 +577,55 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
 
     def _sort(r8, ru8, v8, a8, ids, rlo, vcc):
         # Packed unique int32 keys (index in the low bits): torch.sort is
-        # then deterministic. Quantization only orders z within a bucket.
-        zq = torch.clamp((r8[2] * ((1 << zq_bits) / L)).to(torch.int32), 0, (1 << zq_bits) - 1)
+        # then deterministic, and a replica's order is its own alone.
+        # Quantization only orders z within a bucket.
+        zq = torch.clamp((r8[..., 2, :] * ((1 << zq_bits) / L)).to(torch.int32), 0,
+                         (1 << zq_bits) - 1)
         if slab_sort:
-            xb = torch.clamp((r8[0] * (geo.n_slabs / L)).to(torch.int32), 0, geo.n_slabs - 1)
+            xb = torch.clamp((r8[..., 0, :] * (geo.n_slabs / L)).to(torch.int32), 0,
+                             geo.n_slabs - 1)
             kq = (xb << zq_bits) | zq
         else:
             kq = zq
         kq = torch.where(ids >= 0, kq, (1 << (30 - bits_pad)) - 1)  # padding last
-        packed = torch.sort((kq << bits_pad) | col).values
+        packed = torch.sort((kq << bits_pad) | col, dim=-1).values
         order = (packed & ((1 << bits_pad) - 1)).long()
         # Permute only the data-carrying rows 0..2 (rows 3..7 are zero, and
         # rlo / vc are zero outside the extended mode).
-        parts = [r8[0:3], ru8[0:3], v8[0:3], a8[0:3]]
+        parts = [r8[..., 0:3, :], ru8[..., 0:3, :], v8[..., 0:3, :], a8[..., 0:3, :]]
         if extended:
-            parts += [rlo[0:3], vcc[0:3]]
-        stacked = torch.cat(parts, dim=0)[:, order]
-        pad5 = torch.zeros((5, n_pad), dtype=dtype, device=device)
+            parts += [rlo[..., 0:3, :], vcc[..., 0:3, :]]
+        stacked = torch.cat(parts, dim=-2)
+        if replicas is None:
+            stacked, ids = stacked[:, order], ids[order]
+        else:
+            stacked = torch.take_along_dim(stacked, order[:, None, :], dim=-1)
+            ids = torch.take_along_dim(ids, order, dim=-1)
+        pad5 = torch.zeros(batch + (5, n_pad), dtype=dtype, device=device)
 
         def emb(k):
-            return torch.cat([stacked[3 * k:3 * k + 3], pad5], dim=0)
+            return torch.cat([stacked[..., 3 * k:3 * k + 3, :], pad5], dim=-2)
 
         rlo2, vcc2 = (emb(4), emb(5)) if extended else (rlo, vcc)
-        return emb(0), emb(1), emb(2), emb(3), ids[order], rlo2, vcc2
+        return emb(0), emb(1), emb(2), emb(3), ids, rlo2, vcc2
 
     def to_rows(x):
-        out = torch.zeros((8, n_pad), dtype=dtype, device=device)
-        out[0:3, :n] = x.T.to(device=device, dtype=dtype)
+        out = torch.zeros(batch + (8, n_pad), dtype=dtype, device=device)
+        out[..., 0:3, :n] = x.transpose(-1, -2).to(device=device, dtype=dtype)
         return out
 
     def init(state: MDState):
-        ids = torch.where(col < n, col, -1)
-        zero = torch.zeros((8, n_pad), dtype=dtype, device=device)
+        ids = torch.where(col < n, col, -1).expand(batch + (n_pad,))
+        zero = torch.zeros(batch + (8, n_pad), dtype=dtype, device=device)
         r8, ru8, v8, a8, ids, rlo, vcc = _sort(to_rows(state.r), to_rows(state.ru),
                                                to_rows(state.v), zero, ids, zero, zero)
         out = sweep(r8)
         tiles, tcounts = _lists(r8)
         carry = ZSortCarry(r=r8, ru=ru8, v=v8, a=accel(out), ids=ids, r_ref=r8,
                            tiles=tiles, tcounts=tcounts,
-                           invalid=torch.zeros((), dtype=torch.bool, device=device),
+                           invalid=torch.zeros(batch, dtype=torch.bool, device=device),
                            rlo=rlo, vc=vcc)
-        return carry, obs_from(out, 0.5 * torch.sum(v8 * v8))
+        return carry, obs_from(out, 0.5 * total(v8 * v8, 2))
 
     dt = cfg.dt
     half_dt = 0.5 * cfg.dt
@@ -618,7 +649,7 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         else:
             v_new, vc_new = v_half + a_new * half_dt, vc_half
             v_eff = v_new
-        ekin = 0.5 * torch.sum(v_eff * v_eff)
+        ekin = 0.5 * total(v_eff * v_eff, 2)
         ru_new = c.ru + minimum_image(r_new - c.r, L)
         carry = dataclasses.replace(c, r=r_new, ru=ru_new, v=v_new, a=a_new, rlo=rlo,
                                     vc=vc_new)
@@ -627,10 +658,11 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     def _resort(c: ZSortCarry) -> ZSortCarry:
         # Per-axis staleness: only travel along a sorted axis (z; x too with
         # slabs) can push a pair's gap past the window.
-        d = minimum_image(c.r[0:3] - c.r_ref[0:3], L)
+        d = minimum_image(c.r[..., 0:3, :] - c.r_ref[..., 0:3, :], L)
         valid = (c.ids >= 0).to(dtype)
-        dz2 = d[2] * d[2]
-        moved2 = torch.max((torch.maximum(d[0] * d[0], dz2) if slab_sort else dz2) * valid)
+        dz2 = d[..., 2, :] * d[..., 2, :]
+        moved = (torch.maximum(d[..., 0, :] * d[..., 0, :], dz2) if slab_sort else dz2) * valid
+        moved2 = torch.max(moved) if replicas is None else torch.amax(moved, dim=-1)
         invalid = c.invalid | (moved2 > geo.invalid_thresh)
         r8, ru8, v8, a8, ids, rlo, vcc = _sort(c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc)
         tiles, tcounts = _lists(r8)
@@ -675,15 +707,16 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
             c = _chunk(c, inner_chunk)
         c, obs8 = _chunk(c, rem, obs=True)
         v_eff = c.v + c.vc if extended else c.v
-        return c, obs_from(obs8, 0.5 * torch.sum(v_eff * v_eff))
+        return c, obs_from(obs8, 0.5 * total(v_eff * v_eff, 2))
 
     def get_state(c: ZSortCarry) -> MDState:
         idx = torch.where(c.ids >= 0, c.ids, n).long()
+        rep = () if replicas is None else (torch.arange(replicas, device=device)[:, None],)
 
         def scatter(arr):
-            out = torch.zeros((n + 1, 3), dtype=dtype, device=device)
-            out[idx] = arr[0:3].T
-            return out[:n]
+            out = torch.zeros(batch + (n + 1, 3), dtype=dtype, device=device)
+            out[rep + (idx,)] = arr[..., 0:3, :].transpose(-1, -2)
+            return out[..., :n, :]
 
         v8 = c.v + c.vc if extended else c.v
         return MDState(r=scatter(c.r), ru=scatter(c.ru), v=scatter(v8), a=scatter(c.a))
@@ -1221,28 +1254,32 @@ def replica_backend(cfg: SimConfig, backend: str = "auto", device="cuda",
                     sample_interval: int | None = None) -> tuple[str, bool]:
     """(the backend ``backend`` resolves to, whether the replica engine of
     ``make_replica_engine`` is batched): the rows engine (``rows`` /
-    ``pallas``) batches its replicas, every other backend loops over them."""
+    ``pallas``) and the zsort engine batch their replicas, every other
+    backend loops over them."""
     device = resolve_device(device)
     if backend == "auto":
         backend = auto_backend(cfg, device.type == "cuda", sample_interval)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    return backend, backend in ("rows", "pallas")
+    return backend, backend in ("rows", "pallas", "zsort")
 
 
 def make_replica_engine(cfg: SimConfig, replicas: int, backend: str = "auto", device="cuda",
                         states: MDState | None = None,
                         sample_interval: int | None = None) -> Engine:
     """The engine of an R-replica ensemble on ``device``: (R, N, 3) states,
-    (R,) observables. Where ``backend`` resolves to the rows engine it is
-    that engine with ``replicas=R`` (one launch of kernels 2, 3 or 4 a
-    sweep or chunk for all R); every other backend (zsort, cellpair,
-    neighbor, dense) is a loop over R engines of its own
+    (R,) observables. Where ``backend`` resolves to the rows or zsort engine
+    it is that engine with ``replicas=R`` (one launch of kernels 2, 3 or 4
+    a sweep or chunk for all R; zsort: of kernels 2, 9 and 10); every other
+    backend (cellpair, neighbor, dense) is a loop over R engines of its own
     (``_replica_loop_engine``: R launches a step), each built as
     ``make_engine`` builds it, from its replica of ``states`` where that
-    sizes the engine (cellpair's capacity)."""
+    sizes the engine (cellpair's capacity). ``_replica_loop_engine`` of R
+    one-system engines stays the yardstick of the batched ones."""
     device = resolve_device(device)
     backend, batched = replica_backend(cfg, backend, device, sample_interval)
+    if batched and backend == "zsort":
+        return _zsort_engine(cfg, device, replicas=replicas, **_zsort_kwargs(sample_interval))
     if batched:
         return _rows_engine(cfg, device, replicas=replicas)
     return _replica_loop_engine([

@@ -15,9 +15,10 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` (Hopper), never
 of the pair terms).
 
 Every wrapper counts its launches in ``LAUNCHES`` so that a run can show that
-the main path went through the kernels; the replica launches of kernels 2, 3
-and 4 (one launch for the R replicas of an ensemble) count under their own
-names (``*_replicas``).
+the main path went through the kernels; the replica launches of kernels 2,
+3, 4, 6, 7, 9 and 10 (one launch for the R replicas of an ensemble, or a
+rank's replicas in the replica x particle step) count under their own names
+(``*_replicas``).
 """
 
 from __future__ import annotations
@@ -61,7 +62,9 @@ class LaunchCounts:
              "pencil_sweep_full", "pencil_sweep_zband", "pair_sweep_rect",
              "pair_sweep_rect_newton", "mosaic_probes", "layout_bodies",
              "pair_sweep_tri_replicas", "fused_dense_chunk_replicas",
-             "fused_dense_chunk_ext_replicas")
+             "fused_dense_chunk_ext_replicas", "pair_sweep_rect_replicas",
+             "pair_sweep_rect_newton_replicas", "build_window_lists_replicas",
+             "fused_dense_chunk_list_replicas")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -184,11 +187,23 @@ def library() -> ctypes.CDLL:
                        real, real, real, real, real, real, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                        _P]
         fn.restype = _I
+        fn = getattr(lib, f"ljmd_fused_dense_chunk_list_replicas_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       real, real, real, real, real, real, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                       _P]
+        fn.restype = _I
         fn = getattr(lib, f"ljmd_pair_sweep_rect_{suffix}")
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
         fn.restype = _I
+        fn = getattr(lib, f"ljmd_pair_sweep_rect_replicas_{suffix}")
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
+        fn.restype = _I
         fn = getattr(lib, f"ljmd_pair_sweep_rect_newton_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]
+        fn.restype = _I
+        fn = getattr(lib, f"ljmd_pair_sweep_rect_newton_replicas_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, real, real, real, _I,
+                       _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pencil_sweep_hs_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, real, real, real, _I, _P]
@@ -212,6 +227,8 @@ def library() -> ctypes.CDLL:
     lib.ljmd_fused_block_threads.restype = _I
     lib.ljmd_list_plan.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.ljmd_list_plan.restype = _I
+    lib.ljmd_list_replicas_plan.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.ljmd_list_replicas_plan.restype = _I
     lib.ljmd_list_block_threads.restype = _I
     lib.ljmd_sweep_hs_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_sweep_hs_occupancy.restype = _I
@@ -237,7 +254,7 @@ def library() -> ctypes.CDLL:
     lib.ljmd_width_max_blocks.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_width_max_blocks.restype = _I
     lib.ljmd_width_block_threads.restype = _I
-    lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.ljmd_pack_window_lists.restype = _I
     lib.ljmd_probe_transpose.argtypes = [_P, _P, _I, _I, _I, _I, _P]
     lib.ljmd_probe_window.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]

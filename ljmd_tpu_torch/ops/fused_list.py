@@ -28,6 +28,13 @@ chunk).
 On a CUDA tensor each chunk is ONE cooperative launch of
 ``csrc/fused_dense_chunk_list.cu`` (the launch shape from ``list_plan``);
 on a CPU tensor the plain twin runs a Python step loop over the plan.
+
+Replicas (the batched zsort engine): (R, 8, n_pad) rows with (R, rows, max_t)
+lists and (R, n_cats) counts, each replica over its own lists, in ONE launch
+of the kernel's replica kernel (counted as ``fused_dense_chunk_list_replicas``;
+the launch shape ``list_replicas_plan``, at the one-replica plan's S, so
+replica q's rows equal a launch on replica q alone bit for bit); on a CPU
+tensor the twin runs replica by replica.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from ljmd_tpu_torch.ops.fused import MAX_CHUNK_STEPS, comp_add
 from ljmd_tpu_torch.ops.pair_terms import lj_pair_terms_plain
 
 __all__ = ["fused_dense_chunk_list", "fused_dense_chunk_list_plain", "list_coverage",
-           "list_plan", "list_plan_stages", "list_plan_stride"]
+           "list_plan", "list_plan_stages", "list_plan_stride", "list_replicas_plan"]
 
 # The kernel's list granule: visits start and end on 128-column blocks.
 LIST_TILE_I = 128
@@ -198,7 +205,14 @@ def fused_dense_chunk_list_plain(r, v, a, tiles, tcounts, n, box_length, rc_squa
                                  dt, n_steps, tile_i=128, tile_j=512, r_lo=None,
                                  vc=None, obs_last=False):
     """Plain twin of ``fused_dense_chunk_list``: a Python loop of Verlet
-    steps over the visit plan (``list_plan_stages``)."""
+    steps over the visit plan (``list_plan_stages``); on (R, 8, n_pad) rows
+    with (R, ...) lists, replica by replica."""
+    if r.dim() == 3:
+        outs = [fused_dense_chunk_list_plain(
+            r[q], v[q], a[q], tiles[q], tcounts[q], n, box_length, rc_square, dt, n_steps,
+            tile_i, tile_j, None if r_lo is None else r_lo[q], None if vc is None else vc[q],
+            obs_last) for q in range(r.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     if not 0 <= n_steps <= MAX_CHUNK_STEPS:
         raise ValueError(f"n_steps={n_steps} outside [0, MAX_CHUNK_STEPS={MAX_CHUNK_STEPS}]")
     if tile_i != LIST_TILE_I:
@@ -232,21 +246,27 @@ def fused_dense_chunk_list_plain(r, v, a, tiles, tcounts, n, box_length, rc_squa
 
 @functools.lru_cache(maxsize=None)
 def _plan(device_index: int, element_size: int, extended: bool, n_pad: int, slices: int,
-          grid_cap: int) -> dict:
+          grid_cap: int, replicas: int = 0) -> dict:
     """The kernel's launch shape (cached: it depends only on the card, the
-    variant and these sizes)."""
+    variant and these sizes); ``replicas`` > 0: the replica kernel's for
+    that many replicas, at the given S (the one-replica plan's)."""
     out = (ctypes.c_int * 8)()
+    lib = _cuda.library()
     with torch.cuda.device(device_index):
-        _cuda.check(_cuda.library().ljmd_list_plan(element_size, int(extended), n_pad, slices,
-                                                    grid_cap, out),
-                    "fused_dense_chunk_list occupancy query")
+        if replicas:
+            code = lib.ljmd_list_replicas_plan(element_size, int(extended), n_pad, slices,
+                                               replicas, grid_cap, out)
+        else:
+            code = lib.ljmd_list_plan(element_size, int(extended), n_pad, slices, grid_cap, out)
+        _cuda.check(code, "fused_dense_chunk_list occupancy query")
     s, resident, per_sm, sms, smem, blocks, regs, spill = out
-    threads = _cuda.library().ljmd_list_block_threads()
-    items = n_pad * s // threads
-    return {"slices": s, "particles_per_item": threads // s, "items": items,
+    threads = lib.ljmd_list_block_threads()
+    plan = {"slices": s, "particles_per_item": threads // s,
+            "items": max(1, replicas) * n_pad * s // threads,
             "resident": bool(resident), "blocks_per_sm": per_sm, "sms": sms,
             "smem_bytes": smem, "blocks": blocks,
             "warps_per_sm": blocks * (threads // 32) / sms, "regs": regs, "spill_bytes": spill}
+    return {**plan, "replicas": replicas} if replicas else plan
 
 
 def list_plan(r, extended=False, slices=None, grid_cap=None) -> dict:
@@ -262,26 +282,48 @@ def list_plan(r, extended=False, slices=None, grid_cap=None) -> dict:
                  int(grid_cap or 0))
 
 
+def list_replicas_plan(r, extended=False, grid_cap=None) -> dict:
+    """The replica kernel's launch shape for (R, 8, n_pad) rows ``r`` (on
+    the card): ``list_plan``'s fields at the one-replica plan's S, its work
+    items and persistent grid over all R replicas."""
+    _cuda.require_cuda_rows("list_replicas_plan", r, replicas=True)
+    slices = list_plan(r[0], extended)["slices"]
+    return _plan(r.device.index, r.element_size(), bool(extended), r.shape[-1], slices,
+                 int(grid_cap or 0), r.shape[0])
+
+
 def _launch(r, v, a, tiles, tcounts, n, box_length, rc_square, dt, n_steps,
             tile_i, tile_j, r_lo, vc, obs_last, grid_cap=None, slices=None):
-    """One launch of the kernel; ``grid_cap`` (tests and the smoke script
-    only) caps the persistent grid so that each block takes several work
-    items; ``slices`` (measurements only) asks for a given S."""
+    """One launch of the kernel, on (8, n_pad) rows or (R, 8, n_pad) replica
+    stacks with (R, ...) lists (the replica kernel, counted as ``name +
+    "_replicas"``); ``grid_cap`` (tests and the smoke script only) caps the
+    persistent grid so that each block takes several work items; ``slices``
+    (measurements only, one system) asks for a given S."""
     extended = r_lo is not None
+    replicas = r.dim() == 3
     name = "fused_dense_chunk_list"
-    _cuda.require_cuda_rows(name, *((r, r_lo, v, vc, a) if extended else (r, v, a)))
-    n_pad = r.shape[1]
+    _cuda.require_cuda_rows(name, *((r, r_lo, v, vc, a) if extended else (r, v, a)),
+                            replicas=replicas)
+    n_pad = r.shape[-1]
+    batch = tuple(r.shape[:1]) if replicas else ()
     if not 0 <= n_steps <= MAX_CHUNK_STEPS:
         raise ValueError(f"n_steps={n_steps} outside [0, MAX_CHUNK_STEPS={MAX_CHUNK_STEPS}]")
     if not 0 <= n <= n_pad:
         raise ValueError(f"{name}: n={n} outside [0, n_pad={n_pad}]")
-    n_tails = _check_lists(tiles, tcounts, n_pad, tile_i, tile_j)
+    if tiles.shape[:len(batch)] != batch or tcounts.shape[:len(batch)] != batch \
+            or tiles.dim() != 2 + len(batch):
+        raise ValueError(f"{name}: lists {tuple(tiles.shape)} / {tuple(tcounts.shape)} do not "
+                         f"match rows {tuple(r.shape)}")
+    n_tails = _check_lists(tiles[0] if replicas else tiles, tcounts[0] if replicas else tcounts,
+                           n_pad, tile_i, tile_j)
     for t in (tiles, tcounts):
         if t.device != r.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: tiles / tcounts must be contiguous int32 on {r.device}")
+    if replicas and slices is not None:
+        raise ValueError(f"{name}: the replica launch takes the one-replica plan's S")
     suffix = _cuda.dtype_suffix(r.dtype)
     lib = _cuda.library()
-    rbuf = torch.zeros((2, 8, n_pad), dtype=r.dtype, device=r.device)
+    rbuf = torch.zeros((2,) + tuple(r.shape), dtype=r.dtype, device=r.device)
     rbuf[0].copy_(r)
     lobuf = None
     if extended:
@@ -291,22 +333,24 @@ def _launch(r, v, a, tiles, tcounts, n, box_length, rc_square, dt, n_steps,
     vc_out = vc.clone() if extended else None
     obs = torch.zeros_like(r) if obs_last else None
     if n_steps > 0:
-        plan = list_plan(r, extended, slices, grid_cap)
+        plan = (list_replicas_plan(r, extended, grid_cap) if replicas
+                else list_plan(r, extended, slices, grid_cap))
         stride = list_plan_stride(n_pad, tile_j)
-        n_b = n_pad // LIST_TILE_I
+        n_b = n_pad // LIST_TILE_I * (batch[0] if replicas else 1)  # granules of all replicas
         scratch = torch.empty((n_b * (2 * stride + 1),), dtype=torch.int32, device=r.device)
+        entry = f"ljmd_{name}_replicas_{suffix}" if replicas else f"ljmd_{name}_{suffix}"
         with torch.cuda.device(r.device):
-            code = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")(
+            code = getattr(lib, entry)(
                 rbuf.data_ptr(), lobuf.data_ptr() if extended else None,
                 v_out.data_ptr(), vc_out.data_ptr() if extended else None,
                 a_out.data_ptr(), obs.data_ptr() if obs_last else None,
-                tiles.data_ptr(), tcounts.data_ptr(), tiles.shape[1], n_tails,
-                tile_j // tile_i, n, n_pad, float(box_length), 1.0 / float(box_length),
+                tiles.data_ptr(), tcounts.data_ptr(), tiles.shape[-1], n_tails,
+                tile_j // tile_i, n, n_pad, *batch, float(box_length), 1.0 / float(box_length),
                 float(rc_square), float(dt), 0.5 * dt, 0.5 * dt * dt, n_steps,
                 int(obs_last), int(extended), plan["slices"], int(plan["resident"]),
                 scratch.data_ptr(), scratch.data_ptr() + 4 * 2 * stride * n_b, stride,
                 plan["blocks"], _cuda.stream_handle(r))
-        _cuda.LAUNCHES.bump(name)
+        _cuda.LAUNCHES.bump(name + "_replicas" if replicas else name)
         _cuda.check(code, name)
     last = n_steps % 2
     out = ((rbuf[last], lobuf[last], v_out, vc_out, a_out) if extended
@@ -318,9 +362,10 @@ def fused_dense_chunk_list(r, v, a, tiles, tcounts, n, box_length, rc_square, dt
                            n_steps, tile_i=128, tile_j=512, r_lo=None, vc=None,
                            obs_last=False):
     """Advance ``n_steps`` (<= MAX_CHUNK_STEPS) Verlet steps over the visit
-    lists. Returns (r, v, a) or, with ``r_lo``/``vc``, (r, r_lo, v, vc, a),
-    plus the obs rows when ``obs_last``. One kernel launch on CUDA tensors;
-    the counts are read on the device."""
+    lists, of (8, n_pad) rows or of each replica of (R, 8, n_pad) stacks over
+    its own lists. Returns (r, v, a) or, with ``r_lo``/``vc``, (r, r_lo, v,
+    vc, a), plus the obs rows when ``obs_last``. One kernel launch on CUDA
+    tensors; the counts are read on the device."""
     if r.device.type == "cpu":
         return fused_dense_chunk_list_plain(r, v, a, tiles, tcounts, n, box_length,
                                             rc_square, dt, n_steps, tile_i, tile_j,

@@ -37,10 +37,16 @@ on the card. That kernel and kernel 7 stage partner rows by cp.async, so
 their wrappers refuse rows that do not start on a 16-byte boundary.
 
 ``pair_sweep_tri`` also takes (R, 8, n_pad) stacks of R replicas (the
-ensemble's rows engine): ONE launch of ``csrc/pair_sweep_tri.cu``'s replica
-kernel (blockIdx.y the replica, the single-replica plan's S, so replica q's
-rows equal a launch on replica q alone bit for bit; counted as
-``pair_sweep_tri_replicas``), the twin batched on a CPU tensor.
+ensemble's rows and zsort engines, a rank's replicas in the replica x
+particle step): ONE launch of ``csrc/pair_sweep_tri.cu``'s replica kernel
+(blockIdx.y the replica, the single-replica plan's S, so replica q's rows
+equal a launch on replica q alone bit for bit; counted as
+``pair_sweep_tri_replicas``), the twin batched on a CPU tensor. So do
+``pair_sweep_rect`` and ``pair_sweep_rect_newton`` (the replica x particle
+step's hops; ``csrc/pair_sweep_rect.cu``'s replica launches, counted as
+``pair_sweep_rect_replicas`` / ``pair_sweep_rect_newton_replicas``): i rows
+(R, 8, ni_pad) against j blocks (R, 8, nj_pad), replica q against replica
+q.
 
 ``pair_sweep_tri``, ``pair_sweep``, ``pair_sweep_rect`` and
 ``pair_sweep_rect_newton`` launch ``csrc/pair_sweep_tri.cu``,
@@ -253,7 +259,8 @@ def pair_sweep(pos: torch.Tensor, n: int, box_length: float,
 def pair_sweep_rect_plain(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
                           box_length: float, rc_square: float,
                           want_observables: bool = True) -> torch.Tensor:
-    """Plain PyTorch twin of the rect sweep (same (8, ni_pad) contract)."""
+    """Plain PyTorch twin of the rect sweep (same (8, ni_pad) contract), and
+    of its replica launch on (R, 8, ni_pad) / (R, 8, nj_pad) rows."""
     d, coef, du, e, ddu = _rect_terms(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square,
                                       want_observables)
     return _i_rows(pos_i, n_i, d, coef, du, e, ddu, want_observables)
@@ -295,49 +302,60 @@ def pair_sweep_rect_newton_plain(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0
                                  box_length: float, rc_square: float, i_lo: int = 0,
                                  j_hi: int | None = None, want_observables: bool = True):
     """Plain PyTorch twin of the rect-Newton sweep: (acc_i, acc_j), the
-    active rows [i_lo, n_i) against the active partners [0, j_hi)."""
+    active rows [i_lo, n_i) against the active partners [0, j_hi); on (R,
+    8, n_pad) stacks, each replica's."""
     i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
     out_i, out_j = torch.zeros_like(pos_i), torch.zeros_like(pos_j)
     if i_lo == n_i or j_hi == 0:
         return out_i, out_j
-    d, coef, du, e, ddu = _rect_terms(pos_i[:, i_lo:], pos_j, n_i - i_lo, j_hi, gi0 + i_lo, gj0,
-                                      box_length, rc_square, want_observables)
-    out_i[:, i_lo:] = _i_rows(pos_i[:, i_lo:], n_i - i_lo, d, coef, du, e, ddu,
-                              want_observables)
-    out_j[0:3, :j_hi] = -(coef[None] * d).sum(dim=1)
+    d, coef, du, e, ddu = _rect_terms(pos_i[..., i_lo:], pos_j, n_i - i_lo, j_hi, gi0 + i_lo,
+                                      gj0, box_length, rc_square, want_observables)
+    out_i[..., i_lo:] = _i_rows(pos_i[..., i_lo:], n_i - i_lo, d, coef, du, e, ddu,
+                                want_observables)
+    out_j[..., 0:3, :j_hi] = -(coef.unsqueeze(-3) * d).sum(dim=-2)
     return out_i, out_j
 
 
-def _check_rect(name, pos_i, pos_j, n_i, n_j):
+def _check_rect(name, pos_i, pos_j, n_i, n_j) -> list:
+    """Check i and j rows ((8, ld) each, or (R, 8, ld) stacks of one R) and
+    return the leading replica count as a list ([] or [R])."""
+    replicas = pos_i.dim() == 3
     for t in (pos_i, pos_j):
-        _cuda.require_cuda_rows(name, t)
+        _cuda.require_cuda_rows(name, t, replicas=replicas)
     if pos_j.device != pos_i.device or pos_j.dtype != pos_i.dtype:
         raise ValueError(f"{name}: i and j rows must share device and dtype")
-    if not (0 <= n_i <= pos_i.shape[1] and 0 <= n_j <= pos_j.shape[1]):
+    if pos_j.shape[:-2] != pos_i.shape[:-2]:
+        raise ValueError(f"{name}: i rows {tuple(pos_i.shape)} and j rows "
+                         f"{tuple(pos_j.shape)} hold different replica counts")
+    if not (0 <= n_i <= pos_i.shape[-1] and 0 <= n_j <= pos_j.shape[-1]):
         raise ValueError(f"{name}: n_i={n_i}, n_j={n_j} outside the rows "
-                         f"({pos_i.shape[1]}, {pos_j.shape[1]})")
+                         f"({pos_i.shape[-1]}, {pos_j.shape[-1]})")
+    return [pos_i.shape[0]] if replicas else []
 
 
 def pair_sweep_rect(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int, box_length: float,
                     rc_square: float, want_observables: bool = True) -> torch.Tensor:
-    """Rect sweep of i rows against a j block (module docstring): ONE launch
-    of ``csrc/pair_sweep_rect.cu`` on CUDA tensors, the twin on CPU ones."""
+    """Rect sweep of i rows against a j block (module docstring), or of
+    each replica's of (R, 8, n_pad) stacks: ONE launch of
+    ``csrc/pair_sweep_rect.cu`` on CUDA tensors, the twin on CPU ones."""
     if pos_i.device.type == "cpu":
         return pair_sweep_rect_plain(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length, rc_square,
                                      want_observables)
     if pos_i.device.type != "cuda":
         raise ValueError(f"pair_sweep_rect: unsupported device {pos_i.device}")
-    _check_rect("pair_sweep_rect", pos_i, pos_j, n_i, n_j)
+    reps = _check_rect("pair_sweep_rect", pos_i, pos_j, n_i, n_j)
     _require_aligned("pair_sweep_rect", pos_i, pos_j)
+    name = "pair_sweep_rect_replicas" if reps else "pair_sweep_rect"
     out = torch.empty_like(pos_i)
     lib = _cuda.library()
     with torch.cuda.device(pos_i.device):
-        code = getattr(lib, f"ljmd_pair_sweep_rect_{_cuda.dtype_suffix(pos_i.dtype)}")(
-            pos_i.data_ptr(), pos_j.data_ptr(), out.data_ptr(), n_i, pos_i.shape[1], n_j,
-            pos_j.shape[1], int(gi0), int(gj0), float(box_length), 1.0 / float(box_length),
-            float(rc_square), int(want_observables), _cuda.stream_handle(pos_i))
-    _cuda.LAUNCHES.bump("pair_sweep_rect")
-    _cuda.check(code, "pair_sweep_rect")
+        code = getattr(lib, f"ljmd_{name}_{_cuda.dtype_suffix(pos_i.dtype)}")(
+            pos_i.data_ptr(), pos_j.data_ptr(), out.data_ptr(), n_i, pos_i.shape[-1], n_j,
+            pos_j.shape[-1], *reps, int(gi0), int(gj0), float(box_length),
+            1.0 / float(box_length), float(rc_square), int(want_observables),
+            _cuda.stream_handle(pos_i))
+    _cuda.LAUNCHES.bump(name)
+    _cuda.check(code, name)
     return out
 
 
@@ -345,28 +363,30 @@ def pair_sweep_rect_newton(pos_i, pos_j, n_i: int, n_j: int, gi0: int, gj0: int,
                            box_length: float, rc_square: float, i_lo: int = 0,
                            j_hi: int | None = None, want_observables: bool = True):
     """Pair-once rect sweep with the j reactions over [i_lo, n_i) x
-    [0, j_hi) (module docstring): ONE launch of ``csrc/pair_sweep_rect.cu``
-    on CUDA tensors (i-role and j-role blocks), the twin on CPU ones.
-    Returns (acc_i (8, ni_pad), acc_j (8, nj_pad))."""
+    [0, j_hi) (module docstring), or each replica's of (R, 8, n_pad) stacks:
+    ONE launch of ``csrc/pair_sweep_rect.cu`` on CUDA tensors (i-role and
+    j-role blocks), the twin on CPU ones. Returns (acc_i (8, ni_pad), acc_j
+    (8, nj_pad)), with the leading R of stacks."""
     if pos_i.device.type == "cpu":
         return pair_sweep_rect_newton_plain(pos_i, pos_j, n_i, n_j, gi0, gj0, box_length,
                                             rc_square, i_lo, j_hi, want_observables)
     if pos_i.device.type != "cuda":
         raise ValueError(f"pair_sweep_rect_newton: unsupported device {pos_i.device}")
-    _check_rect("pair_sweep_rect_newton", pos_i, pos_j, n_i, n_j)
+    reps = _check_rect("pair_sweep_rect_newton", pos_i, pos_j, n_i, n_j)
     i_lo, j_hi = _newton_range(n_i, n_j, i_lo, j_hi)
     _require_aligned("pair_sweep_rect_newton", pos_i, pos_j)
+    name = "pair_sweep_rect_newton_replicas" if reps else "pair_sweep_rect_newton"
     out_i = torch.empty_like(pos_i)
     out_j = torch.empty_like(pos_j)
     lib = _cuda.library()
     with torch.cuda.device(pos_i.device):
-        code = getattr(lib, f"ljmd_pair_sweep_rect_newton_{_cuda.dtype_suffix(pos_i.dtype)}")(
+        code = getattr(lib, f"ljmd_{name}_{_cuda.dtype_suffix(pos_i.dtype)}")(
             pos_i.data_ptr(), pos_j.data_ptr(), out_i.data_ptr(), out_j.data_ptr(), n_i,
-            pos_i.shape[1], n_j, pos_j.shape[1], int(gi0), int(gj0), i_lo, j_hi,
+            pos_i.shape[-1], n_j, pos_j.shape[-1], *reps, int(gi0), int(gj0), i_lo, j_hi,
             float(box_length), 1.0 / float(box_length), float(rc_square),
             int(want_observables), _cuda.stream_handle(pos_i))
-    _cuda.LAUNCHES.bump("pair_sweep_rect_newton")
-    _cuda.check(code, "pair_sweep_rect_newton")
+    _cuda.LAUNCHES.bump(name)
+    _cuda.check(code, name)
     return out_i, out_j
 
 
@@ -383,7 +403,7 @@ def rect_newton_plan(pos_i, pos_j, n_i: int, n_j: int, i_lo: int = 0, j_hi: int 
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(pos_i.device):
         _cuda.check(lib.ljmd_rect_newton_plan(pos_i.element_size(), int(want_observables),
-                                              pos_i.shape[1], pos_j.shape[1], n_i, i_lo, j_hi,
+                                              pos_i.shape[-1], pos_j.shape[-1], n_i, i_lo, j_hi,
                                               out), "rect_newton_plan")
     return _plan_dict(out)
 
@@ -446,7 +466,7 @@ def rows_sweep_plan(pos_i, n_i: int, pos_j=None, n_j: int | None = None,
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(pos_i.device):
         _cuda.check(lib.ljmd_rows_sweep_plan(pos_i.element_size(), int(want_observables),
-                                             int(upper), n_i, pos_i.shape[1], n_j, out),
+                                             int(upper), n_i, pos_i.shape[-1], n_j, out),
                     "rows_sweep_plan")
     return _plan_dict(out)
 

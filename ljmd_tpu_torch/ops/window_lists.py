@@ -26,6 +26,13 @@ chunk kernel never reads them.
 tensor (one device operation: the kernel finds each row's band itself) and
 runs the plain twin ``build_window_lists_plain`` (the sequential greedy cover
 of the Pallas kernel ``_pack_window_kernel``, in Python) on a CPU tensor.
+
+Replicas (the batched zsort engine): ``compute_tile_flags`` takes (R, 8,
+n_pad) rows and gives (R, n_i * n_j) flags, each replica's its own;
+``build_window_lists`` takes those and gives (R, rows, max_t) lists and (R,
+n_cats) counts in ONE launch of the pack kernel's replica kernel (a block a
+replica, counted as ``build_window_lists_replicas``), the twin replica by
+replica on a CPU tensor.
 ``build_window_lists_bitmask`` is the kernel's own form in plain Python (row
 bitmasks walked by first set bit, counts, an exclusive scan in the kernel's
 lane order, a second walk that writes): the CPU tests hold it to the twin
@@ -59,7 +66,8 @@ def compute_tile_flags(r: torch.Tensor, n: int, tile_i: int, tile_j: int,
                        face_margin: float | None = None,
                        x_window: float | None = None,
                        cross_margin: float | None = None) -> torch.Tensor:
-    """(n_i * n_j,) int32 tile-pair flags for a SORTED (8, n_pad) layout:
+    """(n_i * n_j,) int32 tile-pair flags for a SORTED (8, n_pad) layout
+    (for (R, 8, n_pad) rows, (R, n_i * n_j): each replica's):
     bit 0 active, bit 1 z round needed, bit 2 x round needed (0 = never
     visited). A tile pair is active iff on every tested axis the circular gap
     between the two column sets' coordinate intervals is below the axis
@@ -68,7 +76,8 @@ def compute_tile_flags(r: torch.Tensor, n: int, tile_i: int, tile_j: int,
     side could cross a face before the next resort (within ``cross_margin``
     of it) while the other is within ``face_margin`` of the same face.
     Columns >= n are excluded; all-padding tiles are inactive."""
-    n_pad = r.shape[1]
+    n_pad = r.shape[-1]
+    batch = r.shape[:-2]
     L = box_length
     inf = float("inf")  # a Python scalar: a device tensor made from it would sync
     real = torch.arange(n_pad, device=r.device) < n
@@ -81,9 +90,9 @@ def compute_tile_flags(r: torch.Tensor, n: int, tile_i: int, tile_j: int,
         x = torch.where(real, coord, inf)
 
         def intervals(tile):
-            xt = x.reshape(n_pad // tile, tile)
-            lo = xt.amin(dim=1)
-            hi = torch.where(torch.isfinite(xt), xt, -inf).amax(dim=1)
+            xt = x.reshape(*batch, n_pad // tile, tile)
+            lo = xt.amin(dim=-1)
+            hi = torch.where(torch.isfinite(xt), xt, -inf).amax(dim=-1)
             return lo, hi  # lo = +inf / hi = -inf for all-padding tiles
 
         i_lo, i_hi = intervals(tile_i)
@@ -92,8 +101,8 @@ def compute_tile_flags(r: torch.Tensor, n: int, tile_i: int, tile_j: int,
         def gap(a_lo, a_hi, b_lo, b_hi):
             return torch.clamp(torch.maximum(b_lo - a_hi, a_lo - b_hi), min=0.0)
 
-        a_lo, a_hi = i_lo[:, None], i_hi[:, None]
-        b_lo, b_hi = j_lo[None, :], j_hi[None, :]
+        a_lo, a_hi = i_lo[..., :, None], i_hi[..., :, None]
+        b_lo, b_hi = j_lo[..., None, :], j_hi[..., None, :]
         finite = torch.isfinite(a_hi) & torch.isfinite(b_hi)
         direct = (gap(a_lo, a_hi, b_lo, b_hi) < win) & finite
         wrapped = (torch.minimum(gap(a_lo, a_hi, b_lo - L, b_hi - L),
@@ -102,18 +111,20 @@ def compute_tile_flags(r: torch.Tensor, n: int, tile_i: int, tile_j: int,
         b0_i, bl_i = i_lo < face_margin, i_hi > L - face_margin
         s0_j, sl_j = j_lo < cross_margin, j_hi > L - cross_margin
         b0_j, bl_j = j_lo < face_margin, j_hi > L - face_margin
-        hazard = ((s0_i[:, None] & b0_j[None, :]) | (b0_i[:, None] & s0_j[None, :])
-                  | (sl_i[:, None] & bl_j[None, :]) | (bl_i[:, None] & sl_j[None, :]))
+        hazard = ((s0_i[..., :, None] & b0_j[..., None, :])
+                  | (b0_i[..., :, None] & s0_j[..., None, :])
+                  | (sl_i[..., :, None] & bl_j[..., None, :])
+                  | (bl_i[..., :, None] & sl_j[..., None, :]))
         return direct | wrapped, wrapped | (direct & hazard)
 
-    active, round_z = axis_terms(r[2], window)
+    active, round_z = axis_terms(r[..., 2, :], window)
     if x_window is None:
         round_x = active
     else:
-        active_x, round_x = axis_terms(r[0], x_window)
+        active_x, round_x = axis_terms(r[..., 0, :], x_window)
         active = active & active_x
     flags = 1 + 2 * round_z.to(torch.int32) + 4 * round_x.to(torch.int32)
-    return torch.where(active, flags, torch.zeros_like(flags)).reshape(-1)
+    return torch.where(active, flags, torch.zeros_like(flags)).reshape(*batch, -1)
 
 
 def window_max_t(n_pad: int, tile_i: int, tile_j: int) -> int:
@@ -306,31 +317,41 @@ def _pack_max_rows() -> int:
 def build_window_lists(flags: torch.Tensor, n: int, n_pad: int, tile_i: int,
                        tile_j: int, zero_fill: bool = False, tail_tiles: bool = True):
     """Visit lists (tiles, tcounts) of the (n_i * n_b,) block flags (flags at
-    ``tile_i`` x ``tile_i`` granularity). One kernel launch on a CUDA tensor,
-    the only device operation with ``zero_fill=False``; the counts stay on
-    the device. ``zero_fill`` zeroes the kernel's entries past the counts
-    (the twin's are always zero)."""
+    ``tile_i`` x ``tile_i`` granularity), or of each replica's of (R, n_i *
+    n_b) flags ((R, rows, max_t) lists, (R, n_cats) counts). One kernel
+    launch on a CUDA tensor, the only device operation with
+    ``zero_fill=False``; the counts stay on the device. ``zero_fill`` zeroes
+    the kernel's entries past the counts (the twin's are always zero)."""
+    replicas = flags.dim() == 2
     if flags.device.type == "cpu":
+        if replicas:
+            lists = [build_window_lists_plain(f, n, n_pad, tile_i, tile_j, tail_tiles)
+                     for f in flags]
+            return tuple(torch.stack(x) for x in zip(*lists))
         return build_window_lists_plain(flags, n, n_pad, tile_i, tile_j, tail_tiles)
     if flags.device.type != "cuda":
         raise ValueError(f"build_window_lists: unsupported device {flags.device}")
     _check_geometry(n, n_pad, tile_i, tile_j)
     n_b = n_pad // tile_i
-    if flags.dtype != torch.int32 or flags.numel() != n_b * n_b:
-        raise ValueError(f"build_window_lists: expected ({n_b * n_b},) int32 flags, "
-                         f"got {tuple(flags.shape)} {flags.dtype}")
+    batch = tuple(flags.shape[:1]) if replicas else ()
+    if flags.dtype != torch.int32 or flags.shape[len(batch):] != (n_b * n_b,) \
+            or (replicas and flags.shape[0] < 1):
+        raise ValueError(f"build_window_lists: expected ({n_b * n_b},) or (R, {n_b * n_b}) "
+                         f"int32 flags, got {tuple(flags.shape)} {flags.dtype}")
     if n_b > _pack_max_rows():
         raise ValueError(f"build_window_lists: {n_b} block rows > the kernel's "
                          f"{_pack_max_rows()}")
     n_tails, n_rows, max_t, n_cats = list_layout(n_pad, tile_i, tile_j, tail_tiles)
     flags = flags.contiguous()
     alloc = torch.zeros if zero_fill else torch.empty
-    tiles = alloc((n_rows, max_t), dtype=torch.int32, device=flags.device)
-    tcounts = torch.empty((n_cats,), dtype=torch.int32, device=flags.device)
+    tiles = alloc(batch + (n_rows, max_t), dtype=torch.int32, device=flags.device)
+    tcounts = torch.empty(batch + (n_cats,), dtype=torch.int32, device=flags.device)
+    name = "build_window_lists_replicas" if replicas else "build_window_lists"
     with torch.cuda.device(flags.device):
         code = _cuda.library().ljmd_pack_window_lists(
             flags.data_ptr(), tiles.data_ptr(), tcounts.data_ptr(),
-            n, n_b, tile_i, tile_j, n_tails, max_t, _cuda.stream_handle(flags))
-    _cuda.LAUNCHES.bump("build_window_lists")
-    _cuda.check(code, "build_window_lists")
+            n, n_b, tile_i, tile_j, n_tails, max_t, batch[0] if replicas else 0,
+            _cuda.stream_handle(flags))
+    _cuda.LAUNCHES.bump(name)
+    _cuda.check(code, name)
     return tiles, tcounts

@@ -17,12 +17,23 @@ a replica grid axis. Here:
   with ``replicas=R`` (``models/engine.py``), whose tri sweeps (kernel 2) and
   fused chunks (kernels 3 and 4) are ONE launch for all R replicas, each
   replica's rows bit for bit what a one-system run gives it;
-- every other backend (zsort, cellpair, neighbor, dense) runs a loop over
+- so do they on the zsort engine (the N=864 ensemble: ``auto`` picks zsort
+  on the card) with ``replicas=R``: its visit-list packs (kernel 9) and
+  list chunks (kernel 10) are one launch for all R, each replica over its own
+  sorted order and lists;
+- every other backend (cellpair, neighbor, dense) runs a loop over
   replicas: each replica has its own engine, initialized by ``initialize``,
   and each step of the ensemble steps every replica's engine in turn
   (``make_replica_engine``), exactly the calls of a one-system
   ``run_production``: the same result as per-replica runs stacked, at R
   launches a step.
+
+``ensemble_simulate(..., mesh=)`` splits the replicas over a mesh's replica
+axis (``parallel/mesh.py``, the JAX package's ``P(REPLICA_AXIS)`` sharding):
+each rank runs its row's R / r replicas as above on its device (the ranks of
+a row, along the particle axis, each run the row's replicas, as JAX's
+particle axis does not split replicas), and the results are gathered in
+replica order: each replica's result is what the unsharded run gives it.
 
 ``ensemble_simulate_streaming`` moves the sampled series to the host after
 each chunk of samples and runs the correlation stage over groups of
@@ -54,6 +65,8 @@ from ljmd_tpu_torch.models.simulation import (
     run_production,
     sample_cycle,
 )
+from ljmd_tpu_torch.parallel.mesh import REPLICA_AXIS
+from ljmd_tpu_torch.state import MDState
 from ljmd_tpu_torch.stats.correlations import (
     CORR_GROUP_BYTES,
     autocorr_all,
@@ -153,20 +166,57 @@ class ReplicaStats:
 
 def ensemble_simulate(cfg: SimConfig, n_replicas: Optional[int] = None,
                       seed: Optional[int] = None, backend: str = "auto", device="cuda",
-                      keep_per_replica: bool = False):
+                      keep_per_replica: bool = False, mesh=None):
     """Run ``n_replicas`` (default cfg.n_runs) independent simulations on
     ``device`` and aggregate them: ``initialize_replicas`` from
     ``replica_generators(seed or cfg.seed, R)``, then ``run_production`` of
     the (R, N, 3) states, which takes given initial states as well (module
-    docstring: batched on the rows engine, a loop over replicas on any
-    other). With ``keep_per_replica=True`` returns (EnsembleResult, batched
+    docstring: batched on the rows and zsort engines, a loop over replicas on
+    any other). With ``mesh`` (``parallel/mesh.py``) the replicas split over
+    its replica axis, each rank's on the mesh's device (module docstring).
+    With ``keep_per_replica=True`` returns (EnsembleResult, batched
     SimResult), for per-run artifacts (``replica_result``)."""
     r = cfg.n_runs if n_replicas is None else int(n_replicas)
     gens = replica_generators(cfg.seed if seed is None else seed, r)
-    states = initialize_replicas(cfg, gens, backend=backend, device=device)
-    results = run_production(cfg, states, backend=backend, device=device)
+    if mesh is None:
+        states = initialize_replicas(cfg, gens, backend=backend, device=device)
+        results = run_production(cfg, states, backend=backend, device=device)
+    else:
+        results = _on_mesh(cfg, gens, backend, mesh)
     agg = ensemble_aggregate(cfg, results)
     return (agg, results) if keep_per_replica else agg
+
+
+def _on_mesh(cfg: SimConfig, gens: list, backend: str, mesh) -> SimResult:
+    """The batched SimResult of the replicas of ``gens`` split over the
+    mesh's replica axis: row q runs replicas [q R/r, (q + 1) R/r)."""
+    if len(gens) % mesh.replica:
+        raise ValueError(f"{len(gens)} replicas not divisible by replica-axis size "
+                         f"{mesh.replica}")
+    per = len(gens) // mesh.replica
+
+    def rank(comm, row_gens):
+        states = initialize_replicas(cfg, row_gens, backend=backend, device=comm.device)
+        return run_production(cfg, states, backend=backend, device=comm.device)
+
+    parts = mesh.run(rank, [gens[q * per:(q + 1) * per] for q, _ in mesh.coords])
+
+    def join(get):
+        return mesh.gather([get(p) for p in parts], 0, REPLICA_AXIS)
+
+    first = parts[0]
+    return dataclasses.replace(
+        first,
+        final_state=MDState(*(join(lambda p, k=k: getattr(p.final_state, k))
+                              for k in ("r", "ru", "v", "a"))),
+        series=join(lambda p: p.series),
+        means=MeansReport(*(join(lambda p, k=k: getattr(p.means, k))
+                            for k in ("count", "means", "stds"))),
+        corr=join(lambda p: p.corr), corr_norm=join(lambda p: p.corr_norm),
+        corr_mean=join(lambda p: p.corr_mean), corr_mean_norm=join(lambda p: p.corr_mean_norm),
+        frames=None,
+        diagnostics={k: join(lambda p, k=k: torch.as_tensor(p.diagnostics[k]))
+                     for k in first.diagnostics})
 
 
 def replica_result(results: SimResult, i: int) -> SimResult:

@@ -35,12 +35,23 @@ of ``run_fast``) drops the observable rows inside the kernels and the psums.
 runs k fast steps inside one ``mesh.run``, and ``get_state`` joins the
 ranks' rows in rank order (``DistMesh``: an all-gather).
 
-The replica x particle step (``make_ensemble_spatial_step_fn``) waits for
-its own slice: kernel 7 with a replica dimension and a replica axis in
-``make_mesh`` (ROADMAP).
+The replica x particle step (``make_ensemble_spatial_step_fn``, the JAX
+package's ``vmap`` of the step inside ``shard_map``) runs on a (replica,
+particle) mesh: row q of the mesh holds replicas [q R/r, (q + 1) R/r) of the
+(R, N, 3) states (``shard_replica_states``), each rank their particle shard
+as (R/r, N/d, 3) tensors. Every step function above takes such batches: the
+rows are (R/r, 8, n_pad) stacks, each tri sweep and each hop is ONE replica
+launch of kernel 2, 6 or 7 for the rank's replicas (each replica's rows bit
+for bit what a one-replica launch gives them), ``ppermute`` carries the
+stacks, ``psum`` sums (R/r,) vectors over the row. So replica q's state
+after a step is bit for bit what ``make_spatial_step_fn`` on a particle mesh
+gives replica q alone; its observables are summed per replica, over an
+(R/r, n_pad) row at once, so they may round otherwise.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -55,13 +66,17 @@ from ljmd_tpu_torch.ops.pair_sweep import (
     pair_sweep_rect_newton,
     pair_sweep_tri,
 )
+from ljmd_tpu_torch.parallel.mesh import PARTICLE_AXIS, REPLICA_AXIS
 from ljmd_tpu_torch.state import MDState, StepObs
 
 __all__ = [
     "COMMS",
+    "gather_replica_states",
     "lj_rect_partials",
+    "make_ensemble_spatial_step_fn",
     "make_spatial_engine",
     "make_spatial_step_fn",
+    "shard_replica_states",
     "shard_state",
 ]
 
@@ -71,33 +86,47 @@ COMMS = ("half_ring", "ring", "all_gather")
 def lj_rect_partials(r_local, r_all, gi_offset: int, box_length: float, rc_square: float):
     """Local i rows (ni, 3), global indices from ``gi_offset``, against all
     N positions (N, 3): (a_local (ni, 3) without the 24 prefactor, e, du,
-    ddu summed over ordered pairs i != j, no prefactors)."""
+    ddu summed over ordered pairs i != j, no prefactors); for (R, ni, 3)
+    against (R, N, 3), each replica's (the sums (R,))."""
     inv_l = 1.0 / box_length
-    dx, dy, dz = (minimum_image(r_local[:, k][:, None] - r_all[:, k][None, :], box_length, inv_l)
-                  for k in range(3))
+    dx, dy, dz = (minimum_image(r_local[..., :, None, k] - r_all[..., None, :, k], box_length,
+                                inv_l) for k in range(3))
     r2 = dx * dx + dy * dy + dz * dz
-    gi = gi_offset + torch.arange(r_local.shape[0], device=r_local.device)
-    gj = torch.arange(r_all.shape[0], device=r_local.device)
+    gi = gi_offset + torch.arange(r_local.shape[-2], device=r_local.device)
+    gj = torch.arange(r_all.shape[-2], device=r_local.device)
     mask = (r2 < rc_square) & (gi[:, None] != gj[None, :])
     pair_e, du_r, pair_ddu, inv_r2 = _pair_terms(r2, mask)
     coef = -du_r * inv_r2
-    a = torch.stack([(coef * dx).sum(1), (coef * dy).sum(1), (coef * dz).sum(1)], dim=-1)
-    return a, pair_e.sum(), du_r.sum(), pair_ddu.sum()
+    a = torch.stack([(coef * dx).sum(-1), (coef * dy).sum(-1), (coef * dz).sum(-1)], dim=-1)
+    return a, _total(pair_e, 2), _total(du_r, 2), _total(pair_ddu, 2)
+
+
+def _total(x: torch.Tensor, dims: int) -> torch.Tensor:
+    """The sum over the trailing ``dims`` dimensions (a replica's own)."""
+    return x.sum(dim=tuple(range(-dims, 0)))
 
 
 def _to_rows(r_local: torch.Tensor) -> torch.Tensor:
-    ni = r_local.shape[0]
-    pos = torch.zeros((8, -(-ni // ROW_PAD) * ROW_PAD), dtype=r_local.dtype,
-                      device=r_local.device)
-    pos[0:3, :ni] = r_local.T
+    """(..., ni, 3) positions as (..., 8, n_pad) rows."""
+    ni = r_local.shape[-2]
+    pos = torch.zeros(r_local.shape[:-2] + (8, -(-ni // ROW_PAD) * ROW_PAD),
+                      dtype=r_local.dtype, device=r_local.device)
+    pos[..., 0:3, :ni] = r_local.transpose(-1, -2)
     return pos
+
+
+def _from_rows(acc: torch.Tensor, ni: int):
+    """(a_raw (..., ni, 3), e, du, ddu) of (..., 8, n_pad) sweep rows."""
+    return (acc[..., 0:3, :ni].transpose(-1, -2), acc[..., 3, :].sum(-1),
+            acc[..., 4, :].sum(-1), acc[..., 5, :].sum(-1))
 
 
 def _ring_partials(comm, r_local, box_length, rc_square, want_obs=True):
     """Ring pass of j blocks: d rect sweeps, d - 1 ``ppermute(+1)`` hops.
     Returns (a_raw (ni, 3) without the 24 prefactor, e, du, ddu) over the
-    ordered pairs (i local, j anywhere, i != j)."""
-    ni, d = r_local.shape[0], comm.size
+    ordered pairs (i local, j anywhere, i != j); for (R, ni, 3) each
+    replica's."""
+    ni, d = r_local.shape[-2], comm.size
     gi0 = comm.rank * ni
     pos_i = _to_rows(r_local)
     pos_j = pos_i
@@ -108,13 +137,14 @@ def _ring_partials(comm, r_local, box_length, rc_square, want_obs=True):
                                     want_obs)
         if s + 1 < d:
             pos_j = comm.ppermute(pos_j, 1)
-    return acc[0:3, :ni].T, acc[3].sum(), acc[4].sum(), acc[5].sum()
+    return _from_rows(acc, ni)
 
 
 def _half_ring_partials(comm, r_local, box_length, rc_square, want_obs=True):
     """Pair-once half-ring decomposition (module docstring). Returns
-    (a_raw (ni, 3) without the 24 prefactor, e, du, ddu) pair-once."""
-    ni, d, my = r_local.shape[0], comm.size, comm.rank
+    (a_raw (ni, 3) without the 24 prefactor, e, du, ddu) pair-once; for
+    (R, ni, 3) each replica's."""
+    ni, d, my = r_local.shape[-2], comm.size, comm.rank
     gi0 = my * ni
     h_full = (d - 1) // 2
     has_half = d % 2 == 0 and d > 1
@@ -138,14 +168,16 @@ def _half_ring_partials(comm, r_local, box_length, rc_square, want_obs=True):
         acc, facc = acc + out_i, facc + out_j
     if total_hops:
         acc = acc + comm.ppermute(facc, -total_hops)  # facc rows 3..7 are zero
-    return acc[0:3, :ni].T, acc[3].sum(), acc[4].sum(), acc[5].sum()
+    return _from_rows(acc, ni)
 
 
 def _make_local_step(cfg: SimConfig, comm_kind: str = "half_ring"):
     """The rank-local velocity-Verlet step (one shard): ``step_local(comm,
     carry)`` -> (carry, StepObs), with ``.init_local`` (the t=0 force
     evaluation) and ``.fast_local`` (no observables) beside it and
-    ``.compensated`` (the carry is then (MDState, rc, vc))."""
+    ``.compensated`` (the carry is then (MDState, rc, vc)). The carry's
+    tensors are (n_local, 3), or (R, n_local, 3) for R replicas (the
+    observables then (R,))."""
     if comm_kind not in COMMS:
         raise ValueError(f"unknown comm {comm_kind!r}; expected one of {COMMS}")
     dtype = _effective_dtype(cfg)
@@ -161,11 +193,11 @@ def _make_local_step(cfg: SimConfig, comm_kind: str = "half_ring"):
         elif comm_kind == "ring":
             a_raw, e, du, ddu = _ring_partials(comm, r_local, L, cfg.rc_square, want_obs)
         else:
-            r_all = comm.all_gather(r_local)
-            a_raw, e, du, ddu = lj_rect_partials(r_local, r_all, comm.rank * r_local.shape[0],
+            r_all = comm.all_gather(r_local.movedim(-2, 0)).movedim(0, -2)
+            a_raw, e, du, ddu = lj_rect_partials(r_local, r_all, comm.rank * r_local.shape[-2],
                                                  L, cfg.rc_square)
         if not want_obs:
-            zero = torch.zeros((), dtype=dtype, device=r_local.device)
+            zero = torch.zeros(r_local.shape[:-2], dtype=dtype, device=r_local.device)
             return 24.0 * a_raw, zero, zero, zero
         e, du, ddu = comm.psum(e), comm.psum(du), comm.psum(ddu)
         if comm_kind == "half_ring":  # pair once
@@ -188,12 +220,12 @@ def _make_local_step(cfg: SimConfig, comm_kind: str = "half_ring"):
             if not want_obs:
                 return new
             v_eff = v_new + vc_new
-            return new, obs(epot, comm.psum(0.5 * torch.sum(v_eff * v_eff)), d_epot, dd_epot)
+            return new, obs(epot, comm.psum(0.5 * _total(v_eff * v_eff, 2)), d_epot, dd_epot)
 
         def init_local(comm, carry):
             state, rc, vc = carry
             a_new, epot, d_epot, dd_epot = local_force(comm, state.r)
-            ekin = comm.psum(0.5 * torch.sum(state.v * state.v))
+            ekin = comm.psum(0.5 * _total(state.v * state.v, 2))
             return ((MDState(r=state.r, ru=state.ru, v=state.v, a=a_new), rc, vc),
                     obs(epot, ekin, d_epot, dd_epot))
     else:
@@ -206,13 +238,13 @@ def _make_local_step(cfg: SimConfig, comm_kind: str = "half_ring"):
             new = MDState(r=r_new, ru=ru_new, v=v_new, a=a_new)
             if not want_obs:
                 return new
-            return new, obs(epot, comm.psum(0.5 * torch.sum(v_new * v_new)), d_epot, dd_epot)
+            return new, obs(epot, comm.psum(0.5 * _total(v_new * v_new, 2)), d_epot, dd_epot)
 
         def init_local(comm, state):
             """t = 0 force evaluation on the shard (the reference drivers'
             initial force call, md_simulation_program.f90:236)."""
             a_new, epot, d_epot, dd_epot = local_force(comm, state.r)
-            ekin = comm.psum(0.5 * torch.sum(state.v * state.v))
+            ekin = comm.psum(0.5 * _total(state.v * state.v, 2))
             return (MDState(r=state.r, ru=state.ru, v=state.v, a=a_new),
                     obs(epot, ekin, d_epot, dd_epot))
 
@@ -300,3 +332,64 @@ def make_spatial_engine(cfg: SimConfig, mesh, comm: str = "half_ring") -> Engine
 
     return Engine(init=init, step=step, get_state=get_state, diagnostics=lambda c: {},
                   step_fast=step, run_fast=run_fast)
+
+
+def shard_replica_states(states: MDState, mesh, cfg: SimConfig | None = None,
+                         compensated: bool = False) -> tuple:
+    """The local ranks' shards of (R, N, 3) states on a (replica, particle)
+    mesh (JAX's ``P(replica, particle, None)``): rank (q, s) holds replicas
+    [q R/r, (q+1) R/r) and their particles [s N/d, (s+1) N/d), on the mesh's
+    device (in ``cfg``'s dtype when given); compensated: each shard with
+    zero rc / vc beside it."""
+    replicas, n = states.r.shape[0], states.r.shape[1]
+    if replicas % mesh.replica or n % mesh.size:
+        raise ValueError(f"{replicas} replicas of N={n} not divisible by the mesh's "
+                         f"{mesh.replica} replica x {mesh.size} particle ranks")
+    dtype = states.r.dtype if cfg is None else _effective_dtype(cfg)
+    states = states.to(device=mesh.device, dtype=dtype)
+    axes = ((0, 1), (REPLICA_AXIS, PARTICLE_AXIS))
+    fields = [mesh.split(getattr(states, k), *axes) for k in ("r", "ru", "v", "a")]
+    shards = tuple(MDState(*parts) for parts in zip(*fields))
+    if compensated:
+        return tuple((s, torch.zeros_like(s.r), torch.zeros_like(s.r)) for s in shards)
+    return shards
+
+
+def gather_replica_states(carry, mesh, compensated: bool = False) -> MDState:
+    """The (R, N, 3) states of the local ranks' carries (the compensation
+    terms folded into v), in replica and particle order (``DistMesh``: an
+    all-gather)."""
+    shards = [c[0] for c in carry] if compensated else list(carry)
+    v = [c[0].v + c[2] for c in carry] if compensated else [s.v for s in shards]
+    axes = ((0, 1), (REPLICA_AXIS, PARTICLE_AXIS))
+    return MDState(r=mesh.gather([s.r for s in shards], *axes),
+                   ru=mesh.gather([s.ru for s in shards], *axes),
+                   v=mesh.gather(v, *axes), a=mesh.gather([s.a for s in shards], *axes))
+
+
+def make_ensemble_spatial_step_fn(cfg: SimConfig, mesh, comm: str = "half_ring"):
+    """Replica x particle sharding (``parallel/spatial.py:564-610``): one
+    velocity-Verlet step of every replica, the replicas over the mesh's
+    replica axis and each replica's particles over its particle axis.
+    ``fn(carry)`` -> (carry, StepObs of (R,) tensors, in replica order); the
+    carry is the tuple of the local ranks' (R/r, N/d, 3) MDStates
+    (``shard_replica_states``; compensated: (MDState, rc, vc) each,
+    ``fn.compensated`` says which); ``fn.init(carry)`` is the t = 0 force
+    evaluation; ``gather_replica_states`` joins a carry. Each rank's tri
+    sweep and hops are replica launches of kernels 2, 6 and 7 (module
+    docstring). cfg.n must be divisible by the particle axis and the
+    replica count by the replica axis."""
+    _check_divides(cfg, mesh)
+    step_local = _make_local_step(cfg, comm)
+    fields = [f.name for f in dataclasses.fields(StepObs)]
+
+    def joined(outs):
+        return tuple(c for c, _ in outs), StepObs(*(
+            mesh.gather([getattr(o, f) for _, o in outs], 0, REPLICA_AXIS) for f in fields))
+
+    def fn(carry):
+        return joined(mesh.run(step_local, carry))
+
+    fn.init = lambda carry: joined(mesh.run(step_local.init_local, carry))
+    fn.compensated = step_local.compensated
+    return fn

@@ -1387,3 +1387,241 @@ def test_replica_ensemble_on_card_equals_single_runs(cuda):
         for k in ("r", "ru", "v", "a"):
             assert torch.equal(getattr(res.final_state, k)[q], getattr(one.final_state, k))
         _close(res.series[q], one.series, 1e-6)
+
+
+def _nan_confined(got, poisoned, q_bad):
+    """Replica q_bad's first output changed and every other replica's bits
+    stayed as they were."""
+    keep = [q for q in range(got[0].shape[0]) if q != q_bad]
+    assert not torch.equal(poisoned[0][q_bad], got[0][q_bad])
+    for g, p in zip(got, poisoned):
+        assert torch.equal(p[keep], g[keep])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("hop", ["rect", "self", "full", "half_low", "half_high"])
+def test_rect_replica_launches_equal_single_launches(cuda, hop, dtype, tol):
+    """Kernels 6 ("rect") and 7 (the other hops) on (R, 8, ld) stacks: ONE
+    launch (``*_replicas``) whose replica q equals a launch on replica q
+    alone bit for bit, matching the batched twin; a NaN planted in one
+    replica stays there."""
+    n, reps = 200, 5
+    i_lo, j_hi = {"half_low": (n // 2, n), "half_high": (0, n // 2)}.get(hop, (0, n))
+    gj0 = 600 if hop == "self" else 0
+    pos_i = torch.stack([_rect_rows(n, 256, 7.0, 20 + q, cuda) for q in range(reps)]).to(dtype)
+    pos_j = pos_i if hop == "self" else torch.stack(
+        [_rect_rows(n, 256, 7.0, 40 + q, cuda) for q in range(reps)]).to(dtype)
+    if hop == "rect":
+        name = "pair_sweep_rect"
+
+        def run(pi, pj):
+            return (pair_sweep.pair_sweep_rect(pi, pj, n, n, 600, gj0, 7.0, 6.25),)
+
+        twin = (pair_sweep.pair_sweep_rect_plain(pos_i, pos_j, n, n, 600, gj0, 7.0, 6.25),)
+    else:
+        name = "pair_sweep_rect_newton"
+
+        def run(pi, pj):
+            return pair_sweep.pair_sweep_rect_newton(pi, pj, n, n, 600, gj0, 7.0, 6.25, i_lo,
+                                                     j_hi)
+
+        twin = pair_sweep.pair_sweep_rect_newton_plain(pos_i, pos_j, n, n, 600, gj0, 7.0, 6.25,
+                                                       i_lo, j_hi)
+    LAUNCHES.reset()
+    got = run(pos_i, pos_j)
+    counts = LAUNCHES.snapshot()
+    assert counts[name + "_replicas"] == 1 and counts[name] == 0
+    for q in range(reps):
+        for g, w in zip(got, run(pos_i[q].contiguous(), pos_j[q].contiguous())):
+            assert torch.equal(g[q], w), q
+    for g, w in zip(got, twin):
+        _close(g, w, tol)
+    bad = pos_i.clone()
+    bad[2, 0, 150 if hop == "half_low" else 3] = float("nan")
+    _nan_confined(got, run(bad, bad if hop == "self" else pos_j), 2)
+
+
+def _replica_lists(reps, dtype, cuda, seed=5):
+    """R sorted N=864 fluids (n_pad 896) with velocities, accelerations and
+    weighted random block flags of their own (every category and the tails
+    occur), as CUDA stacks."""
+    box, rc2 = 10.0776, 6.25
+    rows, vs = [], []
+    for q in range(reps):
+        n, r = _sorted_lattice(6, box, 896, seed + q)
+        v = torch.zeros_like(r)
+        v[0:3, :n] = torch.as_tensor(np.random.default_rng(seed + 50 + q).uniform(-1, 1, (3, n)))
+        rows.append(r)
+        vs.append(v)
+    r, v = torch.stack(rows), torch.stack(vs)
+    a = 24.0 * pair_sweep.pair_forces_plain(r, n, box, rc2)
+    flags = torch.as_tensor(np.random.default_rng(seed).choice(
+        [0, 1, 3, 5, 7], p=[0.3, 0.4, 0.1, 0.1, 0.1], size=(reps, 49)).astype(np.int32))
+    return n, box, rc2, *(t.to(device=cuda, dtype=dtype) for t in (r, v, a)), flags.to(cuda)
+
+
+def test_pack_replica_launch_equals_single_launches(cuda):
+    """Kernel 9 on (R, n_b^2) flags: ONE launch (a block a replica) whose
+    replica q equals a launch on replica q's flags alone (zero_fill: every
+    entry), and the twin on the count prefix; flags changed in one replica
+    change only its lists. At N=864 and at N=4000's n_pad 4096."""
+    from ljmd_tpu_torch.ops import window_lists
+
+    for n_pad, tile_j in ((896, 256), (4096, 512)):
+        n_b = n_pad // 128
+        flags = torch.as_tensor(np.random.default_rng(n_b).integers(0, 8, (6, n_b * n_b)).astype(
+            np.int32)).to(cuda)
+        n = n_pad - 32
+        LAUNCHES.reset()
+        tiles, counts = window_lists.build_window_lists(flags, n, n_pad, 128, tile_j,
+                                                        zero_fill=True)
+        assert LAUNCHES.snapshot()["build_window_lists_replicas"] == 1
+        for q in range(6):
+            t1, c1 = window_lists.build_window_lists(flags[q], n, n_pad, 128, tile_j,
+                                                     zero_fill=True)
+            assert torch.equal(tiles[q], t1) and torch.equal(counts[q], c1)
+            wt, wc = window_lists.build_window_lists_plain(flags[q].cpu(), n, n_pad, 128, tile_j)
+            assert torch.equal(counts[q].cpu(), wc)
+        bad = flags.clone()
+        bad[3] = 7
+        t2, c2 = window_lists.build_window_lists(bad, n, n_pad, 128, tile_j, zero_fill=True)
+        keep = [q for q in range(6) if q != 3]
+        assert torch.equal(t2[keep], tiles[keep]) and torch.equal(c2[keep], counts[keep])
+        assert not torch.equal(c2[3], counts[3])
+
+
+def test_pack_one_replica_stack_is_a_replica_launch(cuda):
+    """A (1, n_b^2) flag stack goes through the replica launch (counted as
+    ``build_window_lists_replicas``, never as the one-system kernel) and
+    equals the one-system launch on its flags."""
+    from ljmd_tpu_torch.ops import window_lists
+
+    n_pad, n_b = 896, 7
+    flags = torch.as_tensor(np.random.default_rng(3).integers(0, 8, (1, n_b * n_b)).astype(
+        np.int32)).to(cuda)
+    LAUNCHES.reset()
+    tiles, counts = window_lists.build_window_lists(flags, 864, n_pad, 128, 256, zero_fill=True)
+    got = LAUNCHES.snapshot()
+    assert got["build_window_lists_replicas"] == 1 and got["build_window_lists"] == 0
+    t1, c1 = window_lists.build_window_lists(flags[0], 864, n_pad, 128, 256, zero_fill=True)
+    assert torch.equal(tiles[0], t1) and torch.equal(counts[0], c1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("mode", ["plain", "extended", "obs_last"])
+def test_list_chunk_replica_launch_equals_single_launches(cuda, mode, dtype, tol):
+    """Kernel 10 on (R, 8, 896) stacks with (R, ...) lists: ONE launch whose
+    replica q equals a launch on replica q alone bit for bit (under a capped
+    grid too), matching the twin; a NaN planted in one replica stays
+    there."""
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    reps = 4
+    n, box, rc2, r, v, a, flags = _replica_lists(reps, dtype, cuda)
+    tiles, counts = window_lists.build_window_lists(flags, n, 896, 128, 256)
+    extended, obs_last = mode == "extended", mode == "obs_last"
+    zero = torch.zeros_like(r)
+    kw = dict(r_lo=zero, vc=zero) if extended else {}
+
+    def run(r_, v_, a_, t_, c_, **more):
+        ekw = {k: x[:r_.shape[0]] if r_.dim() == 3 else x[0] for k, x in kw.items()}
+        return fused_list._launch(r_, v_, a_, t_, c_, n, box, rc2, 0.004, 6, 128, 256,
+                                  ekw.get("r_lo"), ekw.get("vc"), obs_last, **more)
+
+    LAUNCHES.reset()
+    got = run(r, v, a, tiles, counts)
+    assert LAUNCHES.snapshot()["fused_dense_chunk_list_replicas"] == 1
+    got = tuple(g for g in got if g is not None)
+    for q in range(reps):
+        alone = tuple(x for x in run(r[q], v[q], a[q], tiles[q], counts[q]) if x is not None)
+        for g, w in zip(got, alone):
+            assert torch.equal(g[q], w), q
+    capped = tuple(g for g in run(r, v, a, tiles, counts, grid_cap=7) if g is not None)
+    for g, w in zip(capped, got):
+        assert torch.equal(g, w)
+    twin = fused_list.fused_dense_chunk_list_plain(
+        r.cpu(), v.cpu(), a.cpu(), tiles.cpu(), counts.cpu(), n, box, rc2, 0.004, 6,
+        tile_j=256, obs_last=obs_last, **{k: x.cpu() for k, x in kw.items()})
+    for g, w in zip(got, twin):
+        _close(g, w, tol)
+    bad = r.clone()
+    bad[1, 2, 5] = float("nan")
+    poisoned = tuple(g for g in run(bad, v, a, tiles, counts) if g is not None)
+    _nan_confined(got, poisoned, 1)
+
+
+def test_zsort_ensemble_on_card_equals_single_runs(cuda):
+    """The batched zsort engine on the card: through the replica launches
+    of kernels 9 and 10 only, each replica's final state equal to a
+    one-system zsort run from its initial state bit for bit."""
+    from ljmd_tpu_torch.models.engine import replica_state
+    from ljmd_tpu_torch.models.simulation import initialize_replicas, replica_generators
+
+    cfg = SimConfig(num_cells=5, box_length=8.55, rc_over_box=2.5 / 8.55, dt=0.003,
+                    total_steps=200, output_interval=20, warmup_steps=20,
+                    target_total_energy=-2300.0, dtype="float32")
+    states = initialize_replicas(cfg, replica_generators(3, 4), backend="rows", device=cuda)
+    LAUNCHES.reset()
+    res = run_production(cfg, states, backend="zsort", device=cuda)
+    counts = LAUNCHES.snapshot()
+    assert counts["build_window_lists_replicas"] > 0
+    assert counts["fused_dense_chunk_list_replicas"] > 0
+    assert counts["build_window_lists"] == 0 and counts["fused_dense_chunk_list"] == 0
+    assert not bool(res.diagnostics["zsort_invalid"].any())
+    for q in (0, 3):
+        one = run_production(cfg, replica_state(states, q), backend="zsort", device=cuda)
+        for k in ("r", "ru", "v", "a"):
+            assert torch.equal(getattr(res.final_state, k)[q], getattr(one.final_state, k))
+        _close(res.series[q], one.series, 1e-5)
+
+
+@pytest.mark.parametrize("comm", ["half_ring", "ring"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_replica_x_particle_step_on_card_equals_single_runs(cuda, comm, dtype):
+    """The replica x particle step on a (2, 2) thread mesh on the card:
+    replica launches only, each replica's shards after 20 steps equal to
+    make_spatial_step_fn on a 2-rank particle mesh on that replica alone,
+    bit for bit."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.parallel import spatial as psp
+    from ljmd_tpu_torch.parallel.mesh import make_mesh
+    from ljmd_tpu_torch.state import MDState
+
+    cfg = SimConfig(num_cells=4, box_length=6.84, rc_over_box=2.5 / 6.84, dt=0.004,
+                    total_steps=100, output_interval=10, warmup_steps=0,
+                    target_total_energy=-1000.0, dtype=dtype)
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    rng = np.random.default_rng(3)
+    lattice = fcc_lattice(4, cfg.box_length, dtype=torch.float64).numpy()
+    r = np.stack([(lattice + rng.normal(0, 0.05, lattice.shape)) % cfg.box_length
+                  for _ in range(4)])
+    v = rng.uniform(-0.5, 0.5, r.shape)
+    st = MDState(*(torch.as_tensor(x, dtype=tdt, device=cuda)
+                   for x in (r, r, v - v.mean(1, keepdims=True), np.zeros_like(r))))
+    mesh, one_mesh = (make_mesh(particle=2, replica=2, device=cuda),
+                      make_mesh(particle=2, device=cuda))
+    try:
+        fn = psp.make_ensemble_spatial_step_fn(cfg, mesh, comm=comm)
+        c, _ = fn.init(psp.shard_replica_states(st, mesh, cfg))
+        LAUNCHES.reset()
+        for _ in range(20):
+            c, obs = fn(c)
+        counts = LAUNCHES.snapshot()
+        hop = "pair_sweep_rect_newton" if comm == "half_ring" else "pair_sweep_rect"
+        assert counts[hop + "_replicas"] > 0 and counts[hop] == 0
+        one = psp.make_spatial_step_fn(cfg, one_mesh, comm=comm)
+        init_local = psp._make_local_step(cfg, comm).init_local
+        got = psp.gather_replica_states(c, mesh)
+        for q in (0, 3):
+            cq = psp.shard_state(MDState(*(getattr(st, k)[q] for k in ("r", "ru", "v", "a"))),
+                                 one_mesh, cfg)
+            cq = tuple(x for x, _ in one_mesh.run(init_local, cq))
+            for _ in range(20):
+                cq, oq = one(cq)
+            for k in ("r", "ru", "v", "a"):
+                want = one_mesh.gather([getattr(x, k) for x in cq])
+                assert torch.equal(getattr(got, k)[q], want), (q, k)
+            _close(obs.epot[q], oq.epot, 1e-5 if dtype == "float32" else 1e-12)
+    finally:
+        mesh.close()
+        one_mesh.close()

@@ -255,8 +255,8 @@ def test_thread_mesh_raise_in_one_rank_surfaces_without_hang():
 
 
 def test_make_mesh_rejects_what_it_does_not_have():
-    with pytest.raises(TypeError, match="replica"):  # no replica axis until the ensemble
-        make_mesh(particle=2, replica=2, device="cpu")
+    with pytest.raises(ValueError, match="at least one rank"):  # an axis of no rank
+        make_mesh(particle=2, replica=0, device="cpu")
     with pytest.raises(ValueError, match="kind"):
         make_mesh(particle=2, device="cpu", kind="mpi")
     with pytest.raises(RuntimeError, match="init_process_group"):
