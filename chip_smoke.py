@@ -55,11 +55,17 @@ checkout. Phases, each fatal on failure:
       N=4000 fluid, float32 and float64, plain and extended: the fluid's
       flags at tile_j 512 ... 4096, and all-zero, all-3 (bit-equal to the
       unflagged chunk) and random 0/1 flags at 512, with its launch shape;
-   f. the nine layout probes (kernel 17) at N=4096, 200 iterations, beside
-      200 calls of the library operation each stands for;
+   f. the nine layout probes (kernel 17) at N=4096, 200 iterations, back to
+      back and on the card alone (CUDA-graph replay), beside 200 calls of the
+      library operation each stands for (both ways); each probe's 1,000
+      iterations must take at least 1.5x its 200 on the card alone (a loop
+      the compiler cut short takes about 1x);
    g. the pair-tile layout bodies (kernel 18) over 128 visits at N_PAD=4096
       in the experiment's box and in a box of L = 8 (where the forces move
-      r past float32's resolution), and the transpose glue;
+      r past float32's resolution), k5c also with 64 visits in its masked
+      loop, each body back to back and on the card alone (also at 32
+      visits: the slope per visit-step) with its launch plan, and the
+      transpose glue;
 4. the main path, each production with the launch counts set to 0 just
    before and read just after (a CLI run counts its whole process):
    a. rows (``--backend rows``): the CLI on the reference default cut to
@@ -304,6 +310,11 @@ LAYOUT_ITEMS = ("k1-512", "k2b-512", "k2-512", "k3-512", "k4-512", "k4z-512", "k
                 "k5b-512", "k5c-512", "k6-512", "k1-128", "k2b-128", "k2-128")
 LAYOUT_CHECK_STEPS = 2
 LAYOUT_DISP_TOL = 5e-3
+# k5c's masked loop also runs with this many of the visits (the experiment
+# keeps 0), and the probes' gate: 5 x ITERS iterations on the card alone take
+# at least this multiple of ITERS'.
+LAYOUT_MASKED = 64
+PROBE_SCALING = 1.5
 EXPERIMENT_KERNELS = ("fused_dense_chunk_flags", "mosaic_probes", "layout_bodies")
 # Phase 6: rows on config 5 against the unfused cell-pair engine.
 ROWS62500_STEPS = 8
@@ -1941,15 +1952,14 @@ def phase_flags_kernel(torch) -> dict:
     return {"fused_dense_chunk_flags": cases}
 
 
-def probe_library(name: str, *inputs, iters: int):
+def probe_library(name: str, offs: list | None, x, iters: int):
     """ITERS calls of the library operation probe ``name`` stands for
-    (``library_ms``; the port never calls these)."""
+    (``library_ms``; the port never calls these); ``offs`` as a host list,
+    so that the calls can be captured in a CUDA graph."""
     import torch
 
     from ljmd_tpu_torch.experiments.mosaic_support import WINDOWS
 
-    x = inputs[-1]
-    offs = inputs[0].tolist() if len(inputs) == 2 else None
     out = torch.zeros((8, 512) if name.startswith("lane") else (256, 128), dtype=x.dtype,
                       device=x.device)
     res = None
@@ -1973,8 +1983,11 @@ def probe_library(name: str, *inputs, iters: int):
 
 def phase_probe_kernels(torch) -> dict:
     """Kernel 17: each of the nine probes at N=4096, ITERS=200 against its
-    plain loop, timed beside it and beside ITERS calls of the library
-    operation it stands for (``probe_library``)."""
+    plain loop, timed back to back (``ms``) and on the card alone
+    (``card_ms``, CUDA-graph replay) beside ITERS calls of the library
+    operation it stands for (``probe_library``, both ways); the gate: on the
+    card alone, 5 x ITERS iterations take at least PROBE_SCALING x the time
+    of ITERS (a loop the compiler cut short takes about 1x)."""
     from ljmd_tpu_torch.experiments import mosaic_support as ms
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
 
@@ -1987,6 +2000,14 @@ def phase_probe_kernels(torch) -> dict:
         err, rel = rel_err(got, want)
         require(rel <= tol, f"probe {name}: rel err {rel:.3e} > {tol}")
         x = inputs[-1]
+        offs = inputs[0].tolist() if len(inputs) == 2 else None
+        long_inputs = ms.probe_inputs(name, dev, iters=5 * ms.ITERS)
+        card_ms = graph_ms(torch, lambda: ms.probe(name, *inputs), 20)
+        card_5x_ms = graph_ms(torch, lambda: ms.probe(name, *long_inputs, iters=5 * ms.ITERS), 20)
+        require(card_5x_ms >= PROBE_SCALING * card_ms,
+                f"probe {name}: {5 * ms.ITERS} iterations take {card_5x_ms:.4f} ms on the card, "
+                f"{card_5x_ms / card_ms:.2f}x the {ms.ITERS} iterations' {card_ms:.4f} ms "
+                f"(gate {PROBE_SCALING}x): the loop was cut short")
         # Operations per iteration: an add per output element (transposes,
         # windows, roll), a multiply and an add per input element (row sums).
         per_iter = (2 * x.numel() if name.startswith("rowsum") else
@@ -1995,14 +2016,22 @@ def phase_probe_kernels(torch) -> dict:
         cases.append({**bound("float32", ms.ITERS * per_iter, nbytes), "shape": name,
                       "label": label, "dtype": "float32", "max_abs_err": err, "rel_err": rel,
                       "ms": cuda_time_ms(torch, lambda: ms.probe(name, *inputs), 20),
+                      "card_ms": card_ms, "card_5x_ms": card_5x_ms,
+                      "plan": ms.probe_plan(name, tuple(x.shape)),
                       "plain_ms": cuda_time_ms(torch, lambda: ms.probe_plain(name, *inputs), 2,
                                                warmup=1),
                       "library_ms": cuda_time_ms(torch, lambda: probe_library(
-                          name, *inputs, iters=ms.ITERS), 2, warmup=1)})
+                          name, offs, x, ms.ITERS), 2, warmup=1),
+                      "library_card_ms": graph_ms(torch, lambda: probe_library(
+                          name, offs, x, ms.ITERS), 2)})
     for c in cases:
         log(f"kernel mosaic_probes {c['label']}: rel err {c['rel_err']:.3e} (tol {tol:.0e}), "
-            f"{c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms vs library {c['library_ms']:.4f} "
-            f"ms per {ms.ITERS} iterations; bound {c['bound_ms']:.5f} ms ({c['bound_by']})")
+            f"{c['ms']:.4f} ms back to back, {c['card_ms']:.4f} ms on the card alone "
+            f"({5 * ms.ITERS} iterations {c['card_5x_ms']:.4f} ms, "
+            f"{c['card_5x_ms'] / c['card_ms']:.2f}x) vs plain {c['plain_ms']:.4f} ms vs library "
+            f"{c['library_ms']:.4f} ms ({c['library_card_ms']:.4f} ms on the card alone) per "
+            f"{ms.ITERS} iterations; bound {c['bound_ms']:.5f} ms ({c['bound_by']}); plan "
+            f"{c['plan']}")
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return {"mosaic_probes": cases}
 
@@ -2030,7 +2059,10 @@ def phase_layout_kernels(torch) -> dict:
     LAYOUT_CHECK_STEPS steps, against its plain version, in the
     experiment's box and in a box of lattice spacing 0.5 (L = 8, where the
     forces, which reach r only through f * 1e-9, move it past float32's
-    resolution); the transpose glue at both shapes."""
+    resolution), and k5c with LAYOUT_MASKED visits in its masked loop too;
+    in the experiment's box each body back to back (``ms``) and on the card
+    alone (``card_ms``, CUDA-graph replay; also at 32 visits, for the slope
+    per visit-step); the transpose glue at both shapes."""
     from ljmd_tpu_torch.experiments import layout as ly
     from ljmd_tpu_torch.experiments import mosaic_support as ms
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
@@ -2040,38 +2072,48 @@ def phase_layout_kernels(torch) -> dict:
     steps, v = LAYOUT_CHECK_STEPS, ly.V_HI
     ti, tj = ly.visit_lists(v, 7, ly.N_PAD)
     dense_box = 0.5 * math.ceil(ly.N_PAD ** (1.0 / 3.0) - 1e-9)  # lattice spacing 0.5
+    items = [(item, 0) for item in LAYOUT_ITEMS] + [("k5c-512", LAYOUT_MASKED)]
     cases = []
     for box in (ly.L, dense_box):
         r8, rT = ly.make_state(0, ly.N_PAD, dev, box=box)
-        for item in LAYOUT_ITEMS:
+        for item, masked in items:
             name, w = item.rsplit("-", 1)
             tj_w = int(w)
             lv = ly.variant_lists(name, tj_w, ti, tj, ly.N_PAD)
             lists = [torch.tensor(x, dtype=torch.int32, device=dev) for x in lv]
             args = (name, r8, rT, *lists, v, tj_w, steps)
-            got = ly.layout_body(*args, box=box)
-            want = ly.layout_body_plain(*args, box=box)
+            got = ly.layout_body(*args, box=box, masked=masked)
+            want = ly.layout_body_plain(*args, box=box, masked=masked)
             err, rel = rel_err(got, want)
             moved = float((want[1] - r8[1]).abs().max())
-            require(rel <= tol, f"layout_body {item} L={box}: rel err {rel:.3e} > {tol}")
-            case = {"shape": f"{item} v={v} L={box}", "dtype": "float32", "max_abs_err": err,
-                    "rel_err": rel, "row1_moved": moved}
-            if box == ly.L:
+            tag = f"{item} v={v}" + (f" masked={masked}" if masked else "") + f" L={box}"
+            require(rel <= tol, f"layout_body {tag}: rel err {rel:.3e} > {tol}")
+            case = {"shape": tag, "dtype": "float32", "max_abs_err": err, "rel_err": rel,
+                    "row1_moved": moved}
+            if box == ly.L and not masked:
                 cut = layout_cut_pairs(torch, r8, rT, name, *lv, v, tj_w, box, ly.RC2)
                 nbytes = 4 * (2 * r8.numel() + rT.numel() + 2 * v)
                 case.update(bound("float32", steps * (v * 128 * tj_w * FLOPS_CANDIDATE
                                                       + cut * FLOPS_FORCE), nbytes))
+                lo = (name, r8, rT, *lists, ly.V_LO, tj_w, steps)
+                cap = ly._max_blocks(dev.index, ly.VARIANTS[name][0])
+                card_ms = graph_ms(torch, lambda: ly.layout_body(*args, box=box), 10)
+                card_lo_ms = graph_ms(torch, lambda: ly.layout_body(*lo, box=box), 10)
                 case.update(cut_pairs=cut,
                             ms=cuda_time_ms(torch, lambda: ly.layout_body(*args, box=box), 10),
+                            card_ms=card_ms, card_ms_v32=card_lo_ms,
+                            card_ns_per_visit_step=1e6 * (card_ms - card_lo_ms)
+                            / ((v - ly.V_LO) * steps),
+                            plan=ly.layout_plan(name, v, tj_w, cap),
                             plain_ms=cuda_time_ms(torch, lambda: ly.layout_body_plain(
                                 *args, box=box), 1, warmup=1))
-            else:
+            elif box != ly.L:
                 # The displacement itself within LAYOUT_DISP_TOL: float32
                 # rounds r (~5e-7 at L = 8) far below it.
                 disp = float((got - want).abs().max()) / moved
                 case["disp_rel_err"] = disp
-                require(moved > 1e-4, f"layout_body {item} L={box}: the forces did not move r")
-                require(disp <= LAYOUT_DISP_TOL, f"layout_body {item} L={box}: displacement "
+                require(moved > 1e-4, f"layout_body {tag}: the forces did not move r")
+                require(disp <= LAYOUT_DISP_TOL, f"layout_body {tag}: displacement "
                                                  f"rel err {disp:.3e} > {LAYOUT_DISP_TOL}")
             cases.append(case)
     for shape in ((8, ly.N_PAD), (ly.N_PAD, 8)):
@@ -2083,13 +2125,23 @@ def phase_layout_kernels(torch) -> dict:
                       "shape": f"transpose {shape} x {ly.ITERS_LO}", "dtype": "float32",
                       "max_abs_err": err, "rel_err": rel,
                       "ms": cuda_time_ms(torch, lambda: ms.transpose_scaled(x, ly.ITERS_LO), 10),
+                      "card_ms": graph_ms(torch, lambda: ms.transpose_scaled(x, ly.ITERS_LO), 10),
                       "plain_ms": cuda_time_ms(torch, lambda: ms.transpose_scaled_plain(
                           x, ly.ITERS_LO), 1, warmup=1)})
     for c in cases:
-        timing = (f", {c['ms']:.4f} ms vs plain {c['plain_ms']:.4f} ms; bound "
-                  f"{c['bound_ms']:.5f} ms ({c['bound_by']})" if "ms" in c else
-                  f", row 1 moved {c['row1_moved']:.3e}, displacement rel err "
-                  f"{c['disp_rel_err']:.3e} (tol {LAYOUT_DISP_TOL:.0e})")
+        if "ms" in c:
+            timing = (f", {c['ms']:.4f} ms back to back, {c['card_ms']:.4f} ms on the card alone"
+                      + (f" (32 visits {c['card_ms_v32']:.4f} ms: "
+                         f"{c['card_ns_per_visit_step']:.1f} ns a visit-step; plan {c['plan']})"
+                         if "plan" in c else "")
+                      + f" vs plain {c['plain_ms']:.4f} ms; bound {c['bound_ms']:.5f} ms "
+                      f"({c['bound_by']}, {100 * c['bound_ms'] / c['card_ms']:.2f}% of it on the "
+                      f"card alone)")
+        elif "disp_rel_err" in c:
+            timing = (f", row 1 moved {c['row1_moved']:.3e}, displacement rel err "
+                      f"{c['disp_rel_err']:.3e} (tol {LAYOUT_DISP_TOL:.0e})")
+        else:
+            timing = ""
         log(f"kernel layout_bodies {c['shape']}: rel err {c['rel_err']:.3e} (tol {tol:.0e})"
             f"{timing}")
     LAUNCHES.reset()  # comparison launches do not count for the main path
@@ -4370,10 +4422,14 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            # Kernels 2, 5, 6, 7 and 9: ``ms`` is a call back to back (the
-            # host's call included, as every row and every earlier PR times
-            # it), and ``card_ms`` the card's time alone (CUDA-graph replay).
+            # Kernels 2, 5, 6, 7, 9, 17 and 18: ``ms`` is a call back to back
+            # (the host's call included, as every row and every earlier PR
+            # times it), and ``card_ms`` the card's time alone (CUDA-graph
+            # replay).
             **({"card_ms": head["card_ms"]} if "card_ms" in head else {}),
+            # The probes' library operation (ITERS calls) on the card alone.
+            **({"library_card_ms": head["library_card_ms"]} if "library_card_ms" in head
+               else {}),
             # The replica launches: the R one-replica launches they replace,
             # back to back (and for kernel 2 on the card alone).
             **{k: head[k] for k in ("loop_ms", "loop_card_ms") if k in head},

@@ -3,7 +3,7 @@ sweeps of one checkout, for comparing two checkouts on one card within one
 machine call:
 
     python ljmd_tpu_torch/experiments/chunk_timing.py [--root DIR] [--label NAME] [--sweep]
-        [--dump FILE [--inputs FILE]]
+        [--dump FILE [--inputs FILE]] [--experiments]
     python ljmd_tpu_torch/experiments/chunk_timing.py --compare FILE_A FILE_B
 
 imports ``ljmd_tpu_torch`` from ``--root`` (default: the checkout holding
@@ -72,6 +72,14 @@ steps, float32 and float64), each beside its plan (items, blocks, warps an
 SM); where the checkout has ``fused_list.list_plan``, kernel 10 at every S
 it takes (float32 and float64, N=4000 and N=864).
 
+``--experiments`` times only kernels 17 and 18 (``experiment_cases``): each
+of the nine probes at ITERS=200 on the card alone (graph replay) and back to
+back, and each layout body at 32 and 128 visits, 512 and 128 columns, 2
+steps a call: its kernel's device time from torch.profiler (``_kernel_ms``:
+an older wrapper copies the visit counts from the host, which a CUDA graph
+cannot capture) and the call back to back, with the slope per visit-step
+between the two visit counts.
+
 ``--dump FILE`` saves the outputs of kernel 10 (every case above, 16 steps),
 of kernel 9 (its lists with ``zero_fill``),
 of the half-shell and the full 9-neighbour sweeps (both capacities and
@@ -139,6 +147,71 @@ def _graph_ms(torch, fn, reps: int, rounds: int = 3) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
     return best
+
+
+def _kernel_ms(torch, calls, reps: int, name_part: str) -> list[float]:
+    """Device ms of one launch of each call's kernel (kernel names holding
+    ``name_part``), from one torch.profiler session that runs calls[0]
+    ``reps`` times, then calls[1], ...: the kernel alone, without the
+    wrapper's own small launches, for wrappers a CUDA graph cannot capture
+    (an older one copies its counts from the host). A session that lost
+    launches (a process's first can) is run again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for c in calls:
+                for _ in range(reps):
+                    c()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if name_part in e.name
+                      and e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if len(evs) == reps * len(calls):
+            return [sum(e.time_range.elapsed_us() for e in evs[k * reps:(k + 1) * reps])
+                    / reps / 1e3 for k in range(len(calls))]
+    raise RuntimeError(f"the profiler saw {len(evs)} launches of {name_part}, "
+                       f"not {reps * len(calls)}, three times")
+
+
+# Kernels 17 and 18 (--experiments): the probes at ITERS, the bodies at 32 and
+# 128 visits, each at 512 and 128 columns, LAYOUT_STEPS steps a call.
+LAYOUT_BODIES = ("k1", "k2b", "k2", "k3", "k4", "k4z", "k5a", "k5b", "k5c", "k6")
+LAYOUT_STEPS = 2
+
+
+def experiment_cases(torch, dev) -> dict:
+    """Kernel 17's nine probes (``probe``: on the card alone by graph replay,
+    and back to back) and kernel 18's bodies (``layout_body``: the kernel's
+    device time by ``_kernel_ms``, and the call back to back) through the
+    wrappers every checkout since PR 6 shares, with each body's slope per
+    visit-step between 32 and 128 visits."""
+    from ljmd_tpu_torch.experiments import layout as ly
+    from ljmd_tpu_torch.experiments import mosaic_support as ms
+
+    out = {}
+    for name, _ in ms.PROBES:
+        inputs = ms.probe_inputs(name, dev)
+        out[f"probe {name} card"] = _graph_ms(torch, lambda: ms.probe(name, *inputs), 20)
+        out[f"probe {name} calls"] = _ms(torch, lambda: ms.probe(name, *inputs), 20)
+    r8, rT = ly.make_state(0, ly.N_PAD, dev)
+    ti, tj = ly.visit_lists(128, 7, ly.N_PAD)
+    for name in LAYOUT_BODIES:
+        for tj_w in (512, 128):
+            lists = [torch.tensor(x, dtype=torch.int32, device=dev)
+                     for x in ly.variant_lists(name, tj_w, ti, tj, ly.N_PAD)]
+            calls = [lambda v=v: ly.layout_body(name, r8, rT, *lists, v, tj_w, LAYOUT_STEPS)
+                     for v in (32, 128)]
+            kern = dict(zip((32, 128), _kernel_ms(torch, calls, 10, "layout_kernel")))
+            for v, call in zip((32, 128), calls):
+                out[f"layout {name}-{tj_w} v={v} kernel"] = kern[v]
+                out[f"layout {name}-{tj_w} v={v} calls"] = _ms(torch, call, 10)
+            out[f"layout {name}-{tj_w} ns per visit-step"] = \
+                1e6 * (kern[128] - kern[32]) / (96 * LAYOUT_STEPS)
+    return out
 
 
 def _fcc_rows(torch, num_cells, box, seed, dtype, dev):
@@ -627,6 +700,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dump", default="", help="save the list chunk's and sweep's outputs here")
     ap.add_argument("--inputs", default="", help="with --dump: the sweep's slot rows (read "
                                                  "where the file exists, else written)")
+    ap.add_argument("--experiments", action="store_true",
+                    help="time only kernels 17 and 18 (experiment_cases)")
     ap.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"),
                     help="compare two --dump files and exit")
     args = ap.parse_args(argv)
@@ -652,6 +727,10 @@ def main(argv=None) -> int:
                          check=True).stdout.strip().splitlines()[0]
     if args.dump:
         return dump_outputs(torch, dev, root, args.dump, args.inputs)
+    if args.experiments:
+        print(json.dumps({"label": args.label, "root": str(root), "nvidia_smi": smi,
+                          "ms": experiment_cases(torch, dev)}))
+        return 0
     times = dense_cases(torch, dev)
     times.update(list_cases(torch, dev, root, args.sweep))
     times.update(pencil_cases(torch, dev, root))

@@ -49,6 +49,9 @@ OUTER = 20
 V_LO, V_HI = 32, 128
 ITERS_LO, ITERS_HI = 64, 512  # the transpose probes, not chained
 REPS = 5
+# The kernel's launch shape (csrc/layout_bodies.cu): warps a block, and the
+# rows and columns of a warp's sub-tile.
+LAYOUT_WARPS, SUB = 8, 32
 DEFAULT = ("k1-512", "k2b-512", "k2-512", "k3-512", "k1-128", "k2b-128", "k2-128", "trans",
            "dot")
 
@@ -142,14 +145,15 @@ def _tile_terms(xi, xj, box, rc2, mic_z, mask_fn=None):
 
 
 def layout_body_plain(name: str, r, rT, ti, tj, v: int, tj_w: int, steps: int,
-                      box: float = L, rc2: float = RC2) -> torch.Tensor:
+                      box: float = L, rc2: float = RC2, masked: int = 0) -> torch.Tensor:
     """The body's plain PyTorch version: the TPU body's arithmetic, visit
-    by visit. Returns r after ``steps`` steps."""
+    by visit. Returns r after ``steps`` steps. ``masked`` is k5c's second
+    count (``cnt_ref[1]``: its masked loop's visits, 0 in the experiment)."""
     _, layout, dual, mic_z, tail, second, pure = VARIANTS[name]
     r = r.clone()
     n_pad = r.shape[1]
     ti, tj = [int(t) for t in ti], [int(t) for t in tj]
-    counts = (v, 0)
+    counts = (v, masked)
     for _ in range(steps):
         r[0] += 1e-6
         f = [torch.zeros_like(r), torch.zeros_like(r)]
@@ -209,12 +213,66 @@ def _max_blocks(device_index: int, kernel: int) -> int:
     return out.value
 
 
+def _n_work(cnt: int, dual: bool, tail: bool) -> int:
+    """Visits a pass runs: pairs of visits with dual accumulators, plus the
+    odd tail visit where the body has one."""
+    n = 2 * (cnt // 2) if dual else cnt
+    return cnt if tail and cnt % 2 else n
+
+
+def layout_plan(name: str, v: int, tj_w: int, cap: int, masked: int = 0) -> dict:
+    """The body's launch plan (``csrc/layout_bodies.cu``) on a card that
+    holds ``cap`` blocks at once: warp items are 32 x 32 sub-tiles of a
+    visit (``layout_items``), blocks of LAYOUT_WARPS warps, as many blocks
+    as the items fill, at most ``cap``. PURE splits the visits into n_vc
+    chunks, each warp item one (g, s) sub-tile over a chunk."""
+    _, _, dual, _, tail, second, pure = VARIANTS[name]
+    n_sl = tj_w // SUB
+    if pure:
+        groups = 4 * n_sl
+        n_vc = max(1, min(v, cap * LAYOUT_WARPS // groups))
+        works = [v]
+        items = groups * n_vc if v > 0 else 0
+    else:
+        n_vc = 0
+        works = [_n_work(v, dual, tail)] + ([_n_work(masked, dual, tail)] if second else [])
+        items = sum(works) * 4 * n_sl
+    blocks = max(1, min(cap, -(-items // LAYOUT_WARPS)))
+    return {"name": name, "v": v, "tj_w": tj_w, "n_sl": n_sl, "n_vc": n_vc, "works": works,
+            "items": items, "blocks": blocks, "warps": blocks * LAYOUT_WARPS, "pure": pure}
+
+
+def layout_items(plan: dict) -> list[tuple]:
+    """Each warp's sub-tiles in the kernel's order: (warp, pass, visit, i
+    group g, column slice s). The sub-tile's rows are 32 g .. 32 g + 31 of
+    the visit's i tile, its columns 32 s .. 32 s + 31 of its j range; at step
+    k lane l pairs row 32 g + l with column 32 s + (l + k) mod 32."""
+    out = []
+    n_sl, nw = plan["n_sl"], plan["warps"]
+    if plan["pure"]:
+        groups, v = 4 * n_sl, plan["v"]
+        for gw in range(nw):
+            for w in range(gw, plan["items"], nw):
+                grp = w % groups
+                out += [(gw, 0, t, grp % 4, grp // 4)
+                        for t in range(w // groups, v, plan["n_vc"])]
+        return out
+    items0 = plan["works"][0] * 4 * n_sl
+    for gw in range(nw):
+        for it in range(gw, plan["items"], nw):
+            pass_ = int(it >= items0)
+            local = it - (items0 if pass_ else 0)
+            out.append((gw, pass_, local // (4 * n_sl), local % 4, (local // 4) % n_sl))
+    return out
+
+
 def layout_body(name: str, r, rT, ti, tj, v: int, tj_w: int, steps: int,
-                box: float = L, rc2: float = RC2) -> torch.Tensor:
+                box: float = L, rc2: float = RC2, masked: int = 0) -> torch.Tensor:
     """One launch of the body on CUDA tensors (``ti``/``tj`` int32 on the
-    card), the plain version on CPU tensors. Returns r after ``steps``."""
+    card), the plain version on CPU tensors. Returns r after ``steps``.
+    ``masked``: k5c's masked-loop count, read on the device."""
     if r.device.type == "cpu":
-        return layout_body_plain(name, r, rT, ti, tj, v, tj_w, steps, box, rc2)
+        return layout_body_plain(name, r, rT, ti, tj, v, tj_w, steps, box, rc2, masked)
     kernel, _, _, _, _, _, pure = VARIANTS[name]
     n_pad = r.shape[1]
     if r.device.type != "cuda" or r.dtype != torch.float32 or r.shape != (8, n_pad) \
@@ -226,26 +284,29 @@ def layout_body(name: str, r, rT, ti, tj, v: int, tj_w: int, steps: int,
         raise ValueError(f"layout_body {name}: n_pad={n_pad} and tj_w={tj_w} must be "
                          "multiples of 128, tj_w <= n_pad")
     for t in (ti, tj):
-        if t.device != r.device or t.dtype != torch.int32 or t.numel() < v:
-            raise ValueError(f"layout_body {name}: ti / tj must be >= {v} int32 on {r.device}")
+        if t.device != r.device or t.dtype != torch.int32 or t.numel() < max(v, masked) \
+                or masked < 0:
+            raise ValueError(f"layout_body {name}: ti / tj must be >= {max(v, masked)} int32 "
+                             f"on {r.device}, masked >= 0")
     dev = r.device
     r_out = r.clone()
-    f, f2 = torch.zeros_like(r), torch.zeros_like(r)
-    fT, fT2 = torch.zeros_like(rT), torch.zeros_like(rT)
-    acc = torch.zeros((128, n_pad) if pure else (1,), dtype=r.dtype, device=dev)
-    cnt = torch.tensor([v, 0], dtype=torch.int32, device=dev)
-    cap = _max_blocks(dev.index, kernel)
-    if pure:
-        n_sl = tj_w // 32
-        blocks = n_sl * max(1, min(v, cap // n_sl))
-    else:
-        blocks = max(1, min(v, cap))
+    # The kernel zeroes what it reads of f, f2, fT, fT2 every step; PURE's
+    # acc only its first tj_w columns, and reads row 1 to n_pad.
+    f, f2 = torch.empty_like(r), torch.empty_like(r)
+    fT, fT2 = torch.empty_like(rT), torch.empty_like(rT)
+    acc = (torch.zeros((128, n_pad), dtype=r.dtype, device=dev) if pure
+           else torch.empty((1,), dtype=r.dtype, device=dev))
+    # The device counts by fills (no host copy: a call can be captured in a
+    # CUDA graph).
+    cnt = torch.full((2,), v, dtype=torch.int32, device=dev)
+    cnt[1:].fill_(masked)
+    plan = layout_plan(name, v, tj_w, _max_blocks(dev.index, kernel), masked)
     with torch.cuda.device(dev):
         code = _cuda.library().ljmd_layout_body(
             kernel, r_out.data_ptr(), rT.data_ptr(), f.data_ptr(), f2.data_ptr(),
             fT.data_ptr(), fT2.data_ptr(), acc.data_ptr(), ti.data_ptr(), tj.data_ptr(),
             cnt.data_ptr(), v, n_pad, tj_w, steps, float(box), 1.0 / float(box), float(rc2),
-            blocks, _cuda.stream_handle(r))
+            plan["n_vc"], plan["blocks"], _cuda.stream_handle(r))
     _cuda.LAUNCHES.bump("layout_bodies")
     _cuda.check(code, f"layout_body {name}")
     return r_out

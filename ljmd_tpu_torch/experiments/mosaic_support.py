@@ -36,6 +36,7 @@ from ljmd_tpu_torch.ops import _cuda
 N = 4096
 ITERS = 200  # loop iterations inside the kernel to expose per-op cost
 REPS = 3
+GATHER_THREADS = 128  # threads a window / roll block (csrc/mosaic_probes.cu)
 
 # (name, label as the JAX script prints it)
 PROBES = (
@@ -117,6 +118,84 @@ def probe_plain(name: str, *inputs, iters: int | None = None, n: int | None = No
     return out.contiguous()
 
 
+def transpose_plan(rows: int, cols: int) -> dict:
+    """The transpose kernel's launch plan for an (rows, cols) input (rows a
+    multiple of 4): a block holds a tr x tc tile of x, padded to tc + pad
+    floats a row, and thread t = oc * (tr // 4) + q writes output row c0 + oc,
+    columns r0 + 4q .. r0 + 4q + 3 as one float4 (``csrc/mosaic_probes.cu``)."""
+    if rows % 4 or rows < 1 or cols < 1:
+        raise ValueError(f"transpose: rows={rows} must be a positive multiple of 4, cols >= 1")
+    if rows <= 8:
+        tr, tc, pad = rows, 32, 4
+    elif cols <= 8:
+        tr, tc, pad = 32, cols, 1
+    else:
+        tr, tc, pad = 16, 16, 2
+    return {"kind": "transpose", "rows": rows, "cols": cols, "tile": (tr, tc), "pad": pad,
+            "grid": (-(-cols // tc), -(-rows // tr)), "threads": tr * tc // 4}
+
+
+def gather_plan(name: str, shape: tuple) -> dict:
+    """The window / roll kernel's launch plan: block b takes slice b // n_jb
+    (x and out offset sl * sl_stride, staged x[sl * sl_stride + k * ld] for
+    k < len) and outputs j = (b % n_jb) * threads * ept + u * threads + t
+    (u < ept, j < count), each at sl * sl_stride + j * ld."""
+    rows, cols = shape
+    # (slices, slice stride, element stride, staged length, outputs, scale,
+    # outputs a thread)
+    if name == "roll":
+        n_sl, sl_stride, ld, length, count, scale, ept = rows, cols, 1, cols, cols, 1, 1
+    elif WINDOWS[name][0] == "lane":
+        n_sl, sl_stride, ld, length, count, ept = 1, 0, 1, cols, 512, 1
+        scale = WINDOWS[name][1]
+    else:
+        n_sl, sl_stride, ld, length, count, ept = cols, 1, cols, rows, 256, 2
+        scale = WINDOWS[name][1]
+    n_jb = -(-count // (GATHER_THREADS * ept))
+    return {"kind": "gather", "roll": name == "roll", "scale": scale, "n_sl": n_sl,
+            "sl_stride": sl_stride, "ld": ld, "len": length, "count": count, "ept": ept,
+            "n_jb": n_jb, "blocks": n_sl * n_jb, "threads": GATHER_THREADS}
+
+
+def probe_plan(name: str, x_shape: tuple) -> dict:
+    """The launch plan of probe ``name`` on an input of ``x_shape``."""
+    if name in ("t8n", "t128"):
+        return transpose_plan(*x_shape)
+    if name in WINDOWS or name == "roll":
+        return gather_plan(name, x_shape)
+    return {"kind": "rowsum", "store": name == "rowsum_store", "rows": x_shape[0],
+            "width": x_shape[1], "blocks": x_shape[0], "threads": 32}
+
+
+def plan_outputs(plan: dict) -> list[int]:
+    """The flat output indices each thread of the plan writes, in launch
+    order (block, thread), as the kernel computes them."""
+    out = []
+    if plan["kind"] == "transpose":
+        (tr, tc), rows, cols = plan["tile"], plan["rows"], plan["cols"]
+        gx, gy = plan["grid"]
+        for by in range(gy):
+            for bx in range(gx):
+                c0, r0 = bx * tc, by * tr
+                for t in range(plan["threads"]):
+                    oc, q = divmod(t, tr // 4)
+                    if c0 + oc < cols and r0 + 4 * q < rows:
+                        out += [(c0 + oc) * rows + r0 + 4 * q + k for k in range(4)]
+    elif plan["kind"] == "gather":
+        per_block = plan["threads"] * plan["ept"]
+        for b in range(plan["blocks"]):
+            sl, jb = divmod(b, plan["n_jb"])
+            for t in range(plan["threads"]):
+                for u in range(plan["ept"]):
+                    j = jb * per_block + u * plan["threads"] + t
+                    if j < plan["count"]:
+                        out.append(sl * plan["sl_stride"] + j * plan["ld"])
+    else:
+        for r in range(plan["blocks"]):
+            out += ([(s * plan["rows"] + r) * 8 for s in range(32)] if plan["store"] else [r])
+    return out
+
+
 def probe(name: str, *inputs, iters: int | None = None, n: int | None = None) -> torch.Tensor:
     """Run the probe: one kernel launch on a CUDA tensor, the plain version
     on a CPU tensor."""
@@ -125,30 +204,38 @@ def probe(name: str, *inputs, iters: int | None = None, n: int | None = None) ->
     x = inputs[-1]
     if x.device.type == "cpu":
         return probe_plain(name, *inputs, iters=iters, n=n)
-    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"probe {name}: x must be contiguous float32 on a CUDA device")
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous() \
+            or x.dim() != 2 or iters < 1:
+        raise ValueError(f"probe {name}: x must be 2-D contiguous float32 on a CUDA device, "
+                         f"iters >= 1")
     if len(inputs) == 2:
         offs = inputs[0]
-        if offs.device != x.device or offs.dtype != torch.int32 or offs.numel() < iters:
-            raise ValueError(f"probe {name}: offs must be >= {iters} int32 on {x.device}")
+        if offs.device != x.device or offs.dtype != torch.int32 or offs.numel() < iters \
+                or not offs.is_contiguous():
+            raise ValueError(f"probe {name}: offs must be >= {iters} contiguous int32 on "
+                             f"{x.device}")
+    plan = probe_plan(name, tuple(x.shape))
+    if (name.startswith("sublane") and x.shape[1] != 128) \
+            or (name.startswith("lane") and x.shape[1] < 512) \
+            or (plan["kind"] == "rowsum" and (x.shape[1] % 32 or x.shape[1] > 512
+                                              or (plan["store"] and n < 32 * x.shape[0]))):
+        raise ValueError(f"probe {name}: shape {tuple(x.shape)} (n={n}) is not the probe's")
     lib = _cuda.library()
     out = torch.zeros(_out_shape(name, x, n), dtype=x.dtype, device=x.device)
     stream = _cuda.stream_handle(x)
     with torch.cuda.device(x.device):
-        if name in ("t8n", "t128"):
+        if plan["kind"] == "transpose":
             code = lib.ljmd_probe_transpose(x.data_ptr(), out.data_ptr(), x.shape[0],
-                                            x.shape[1], iters, 0, stream)
-        elif name in WINDOWS:
-            kind, scale = WINDOWS[name]
-            ld, count = (1, 512) if kind == "lane" else (128, 256 * 128)
-            code = lib.ljmd_probe_window(inputs[0].data_ptr(), x.data_ptr(), out.data_ptr(),
-                                         iters, scale, ld, count, stream)
-        elif name == "roll":
-            code = lib.ljmd_probe_roll(inputs[0].data_ptr(), x.data_ptr(), out.data_ptr(),
-                                       iters, x.shape[0], x.shape[1], stream)
+                                            x.shape[1], iters, 0, *plan["tile"], plan["pad"],
+                                            stream)
+        elif plan["kind"] == "gather":
+            code = lib.ljmd_probe_gather(inputs[0].data_ptr(), x.data_ptr(), out.data_ptr(),
+                                         iters, plan["scale"], int(plan["roll"]), plan["n_sl"],
+                                         plan["sl_stride"], plan["ld"], plan["len"],
+                                         plan["count"], plan["ept"], stream)
         else:
             code = lib.ljmd_probe_rowsum(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-                                         iters, int(name == "rowsum_store"), stream)
+                                         iters, int(plan["store"]), stream)
     _cuda.LAUNCHES.bump("mosaic_probes")
     _cuda.check(code, f"probe {name}")
     return out
@@ -160,13 +247,16 @@ def transpose_scaled(x: torch.Tensor, iters: int) -> torch.Tensor:
     count goes to ``layout_bodies``, whose row lists these glue probes)."""
     if x.device.type == "cpu":
         return transpose_scaled_plain(x, iters)
-    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("transpose_scaled: x must be contiguous float32 on a CUDA device")
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous() \
+            or x.dim() != 2 or iters < 1:
+        raise ValueError("transpose_scaled: x must be 2-D contiguous float32 on a CUDA device, "
+                         "iters >= 1")
+    plan = transpose_plan(*x.shape)
     out = torch.empty((x.shape[1], x.shape[0]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         code = _cuda.library().ljmd_probe_transpose(x.data_ptr(), out.data_ptr(), x.shape[0],
-                                                    x.shape[1], iters, 1,
-                                                    _cuda.stream_handle(x))
+                                                    x.shape[1], iters, 1, *plan["tile"],
+                                                    plan["pad"], _cuda.stream_handle(x))
     _cuda.LAUNCHES.bump("layout_bodies")
     _cuda.check(code, "transpose_scaled")
     return out

@@ -256,16 +256,15 @@ def library() -> ctypes.CDLL:
     lib.ljmd_width_block_threads.restype = _I
     lib.ljmd_pack_window_lists.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.ljmd_pack_window_lists.restype = _I
-    lib.ljmd_probe_transpose.argtypes = [_P, _P, _I, _I, _I, _I, _P]
-    lib.ljmd_probe_window.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
-    lib.ljmd_probe_roll.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    lib.ljmd_probe_transpose.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.ljmd_probe_gather.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.ljmd_probe_rowsum.argtypes = [_P, _P, _I, _I, _I, _I, _P]
-    for name in ("transpose", "window", "roll", "rowsum"):
+    for name in ("transpose", "gather", "rowsum"):
         getattr(lib, f"ljmd_probe_{name}").restype = _I
     lib.ljmd_layout_max_blocks.argtypes = [_I, ctypes.POINTER(_I)]
     lib.ljmd_layout_max_blocks.restype = _I
     lib.ljmd_layout_body.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _F, _F, _F, _I, _P]
+                                     _I, _F, _F, _F, _I, _I, _P]
     lib.ljmd_layout_body.restype = _I
     lib.ljmd_cuda_error_string.argtypes = [_I]
     lib.ljmd_cuda_error_string.restype = ctypes.c_char_p

@@ -841,6 +841,81 @@ def test_layout_bodies_match_plain(cuda, name, monkeypatch):
         _close(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("iters", [1, 37])
+def test_mosaic_probes_odd_iteration_counts(cuda, iters):
+    """Kernel 17 at iteration counts off its unrolling (8 and 4) and below a
+    32-slot round (rowsum_store), against the plain loops."""
+    from ljmd_tpu_torch.experiments import mosaic_support as ms
+
+    for name, _ in ms.PROBES:
+        inputs = ms.probe_inputs(name, cuda, iters=iters)
+        got = ms.probe(name, *inputs, iters=iters)
+        _close(got, ms.probe_plain(name, *inputs, iters=iters), 1e-6)
+
+
+@pytest.mark.parametrize("shape", [(4, 100), (12, 40), (36, 9), (100, 3), (128, 128)])
+def test_transpose_kernel_ragged_tiles(cuda, shape):
+    """The transpose plan's three tile shapes with ragged edges."""
+    from ljmd_tpu_torch.experiments import mosaic_support as ms
+
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    assert torch.equal(ms.transpose_scaled(x, 7), ms.transpose_scaled_plain(x, 7))
+
+
+@pytest.mark.parametrize("name,v,tj_w,masked,cap", [
+    ("k1", 31, 512, 0, None),    # odd v, fewer items than the card's warps
+    ("k2", 31, 128, 0, None),
+    ("k3", 31, 512, 0, None),    # dual with an odd count: its last visit dropped
+    ("k5b", 31, 512, 0, None),   # the DYN tail visit
+    ("k5b", 31, 128, 0, 3),      # ... on a grid capped to 3 blocks
+    ("k5c", 24, 512, 17, None),  # a non-zero masked count
+    ("k5c", 31, 128, 31, 3),
+    ("k6", 24, 128, 0, None),    # PURE at 128 columns
+    ("k6", 31, 512, 0, 3),
+])
+def test_layout_body_plans_match_plain(cuda, name, v, tj_w, masked, cap, monkeypatch):
+    """Kernel 18 off the experiment's shapes (L = 8, as above): odd and
+    small visit counts, the tail, k5c's masked loop with visits in it, PURE
+    at 128 columns, and grids capped below the items (every warp several)."""
+    from ljmd_tpu_torch.experiments import layout as ly
+
+    monkeypatch.setattr(ly, "L", 8.0)
+    if cap is not None:
+        monkeypatch.setattr(ly, "_max_blocks", lambda index, kernel: cap)
+    r8, rT = ly.make_state(0, 4096, cuda)
+    ti, tj = ly.visit_lists(max(v, masked), 7, 4096)
+    lists = [torch.tensor(x, dtype=torch.int32, device=cuda)
+             for x in ly.variant_lists(name, tj_w, ti, tj, 4096)]
+    got = ly.layout_body(name, r8, rT, *lists, v, tj_w, 3, box=8.0, masked=masked)
+    want = ly.layout_body_plain(name, r8, rT, *lists, v, tj_w, 3, box=8.0, masked=masked)
+    assert float((want[1] - r8[1]).abs().max()) > 1e-4
+    _close(got, want, 1e-5)
+    if masked:
+        plain0 = ly.layout_body_plain(name, r8, rT, *lists, v, tj_w, 3, box=8.0)
+        assert not torch.equal(want, plain0)  # the masked loop had pairs
+
+
+def test_experiment_kernels_capture_in_a_graph(cuda):
+    """A probe and a layout body (a cooperative launch) replayed from a CUDA
+    graph give the eager call's result."""
+    from ljmd_tpu_torch.experiments import layout as ly
+    from ljmd_tpu_torch.experiments import mosaic_support as ms
+
+    inputs = ms.probe_inputs("roll", cuda)
+    r8, rT = ly.make_state(0, 4096, cuda, box=8.0)
+    lists = [torch.tensor(x, dtype=torch.int32, device=cuda) for x in ly.visit_lists(16, 7, 4096)]
+    eager = (ms.probe("roll", *inputs), ly.layout_body("k4", r8, rT, *lists, 16, 512, 2, box=8.0))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = (ms.probe("roll", *inputs), ly.layout_body("k4", r8, rT, *lists, 16, 512, 2,
+                                                          box=8.0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], eager[0])
+    _close(out[1], eager[1], 1e-6)
+
+
 def _hs_in_kernel_order(pos, tbl, counts, shf, cap, box, rc2, want_obs, slices,
                         n_pencils_i=None):
     """The half-shell sweep summed in the kernel's order, as plain torch
