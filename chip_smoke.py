@@ -221,6 +221,26 @@ checkout. Phases, each fatal on failure:
        replicas 0 / 31 / 63 bit-equal to ``make_spatial_engine(comm="ring")``
        on a 2-rank mesh run on each alone;
        ``dryrun_multichip(4)`` (9b) runs the same step on a (2, 2) mesh.
+    h. config 5's fluid as an R=8 ensemble (``auto`` -> the batched cell-pair
+       engine): the batched warmup (500 steps at the lattice capacity 512:
+       kernel 16's replica launch), production cut to 2,000 steps at the
+       replicas' largest census capacity (kernels 13 and 15's replica
+       launches), then the replica loop of 8 one-system engines at that
+       capacity from the same states: both aggregate rates, series and final
+       states bit-equal, flags clear, each replica's drift under 1e-3; then
+       the replica launches of kernels 13 and 15 at that capacity and of
+       kernel 16 at 512 on the post-warmup states: against their twins, every
+       replica bit for bit against its one-replica launch (float32, float64,
+       and the chunks extended), the chunks under a capped grid, one launch
+       for all R, each timed back to back, on the card alone (graph replay)
+       and against the R one-replica launches (``loop_ms``);
+    i. the zsort resort triggers on N=4000 cut to 5,000 steps from one state:
+       ``always``, ``static`` and ``predictive`` through ``run_production``
+       (rate, resorts against checks, host reads, ``zsort_invalid`` False,
+       drift under 1e-3), ``never`` over 500 steps (its flag reported, not
+       gated); then an R=8 ``predictive`` ensemble at N=864 (2,000 steps)
+       against one-system engines: states bit-equal, series within 1e-6, each
+       replica's resort count its own.
 
 The build (phase 2) also builds the native trajectory library
 (``utils/native.py``) with the host's C++ compiler.
@@ -269,6 +289,10 @@ DRIFT_BOUND = {
     "reference_default_f32_compensated_half_ring_d2": 1e-3,
     "n62500_f32_sharded_pencil_d2": 1e-3,
     "ensemble64_f32_rows_batched": 1e-3,  # the replicas' median (ENSEMBLE_DRIFT_VS_F64)
+    "n62500_f32_ensemble_cellpair": 1e-3,  # each replica's
+    "n4000_f32_zsort_always": 1e-3,
+    "n4000_f32_zsort_static": 1e-3,
+    "n4000_f32_zsort_predictive": 1e-3,
 }
 
 # Kernel vs plain twin, max |kernel - twin| / max(1, max |twin|) per output
@@ -410,6 +434,33 @@ REPLICA_PARTICLE_CUT = {"total_steps": 2_000}
 REPLICA_PARTICLE_BITS = (0, 31, 63)
 REPLICA_RING_STEPS = 200
 ENSEMBLE_ZSORT_BATCHED_R = 64
+# Phase 12h: config 5's fluid (examples/n62500_large.json) as an R=8 ensemble
+# (auto -> the batched cell-pair engine): the batched warmup (500 steps at the
+# lattice capacity 512: kernel 16's replica launch), production cut to 2,000
+# steps (interval 100) at the replicas' largest census capacity (kernels 13
+# and 15's replica launches), then the replica loop of 8 one-system engines
+# at that capacity from the same states (the yardstick: bit-equal); then the
+# replica launches of kernels 13 and 15 at that capacity and of kernel 16 at
+# 512 on the post-warmup states, against their twins and against one-replica
+# launches bit for bit (float32, float64, extended), timed against the R
+# one-replica launches they replace.
+CELLPAIR_ENSEMBLE_R = 8
+CELLPAIR_ENSEMBLE_CUT = {"total_steps": 2_000, "warmup_steps": 500}
+REPLICA_PENCIL_KERNELS = ("pencil_sweep_hs_replicas", "fused_pencil_chunk_replicas",
+                          "fused_pencil_width_chunk_replicas")
+# Phase 12i: the zsort resort triggers on examples/n4000_production.json cut
+# as n4000_f32_zsort (5,000 steps) from one post-warmup state; "never" (a
+# floor, its invalid flag reported, not gated) over TRIGGER_NEVER_STEPS; then
+# an R=8 "predictive" ensemble on examples/n864_liquid.json cut as the N=864
+# ensemble (ENSEMBLE_ZSORT_CUT) against one-system engines, bit for bit.
+ZSORT_TRIGGER_RUNS = ("always", "static", "predictive")
+# Host-clock rates of one engine spread between runs more than a trigger
+# moves them: each trigger's production runs TRIGGER_ROUNDS times, the order
+# reversed every other round, and its median and its wins over "always" in
+# the same round are reported.
+TRIGGER_ROUNDS = 5
+TRIGGER_NEVER_STEPS = 500
+TRIGGER_BATCH_R = 8
 PENCIL_CAPS = (512, 384)
 PENCIL_CHECK_STEPS = 4
 PENCIL_CHUNK_STEPS = 8
@@ -1383,6 +1434,20 @@ def width_index_report(torch, lists, n_pencils: int, capacity: int, r) -> dict:
                       "busiest_chunks": float(load.max()), "mean_chunks": float(load.mean())}}
 
 
+def static_rounds(torch, r, n_pencils: int, capacity: int, blocks: int) -> dict:
+    """Kernel 15's live items (first slot valid) over its persistent grid of
+    ``blocks``, block b taking the items at positions b, b + G, ... of the
+    block-major order (csrc/fused_pencil_chunk.cu hs_item): the busiest
+    block's and the mean (worked out from the slots, not counted)."""
+    live = (r[3].reshape(-1, 128)[:, 0] > 0.5).long()
+    n_sub = capacity // 128
+    w = torch.arange(live.numel(), device=live.device)
+    lane = ((w % n_sub) * n_pencils + w // n_sub) % blocks
+    per = torch.zeros(blocks, dtype=torch.long, device=live.device).index_add_(0, lane, live)
+    return {"live_items": int(live.sum()), "busiest_block": int(per.max()),
+            "mean_block": float(live.sum()) / blocks}
+
+
 def static_report(torch, c, tbl, shf, n_pencils: int, capacity: int, box_length: float,
                   rc_square: float) -> dict:
     """Kernel 15's launch shape (``static_plan``) and, under ``model``
@@ -1395,16 +1460,10 @@ def static_report(torch, c, tbl, shf, n_pencils: int, capacity: int, box_length:
 
     plan = fused_pencil.static_plan(c.r)
     chunks = static_chunks(torch, c, tbl, shf, n_pencils, capacity)
-    item_live = (c.r[3].reshape(-1, 128)[:, 0] > 0.5).long()
-    live = int(item_live.sum())
-    # Block b takes the items at positions b, b + G, ... of the block-major
-    # order (csrc/fused_pencil_chunk.cu hs_item).
-    G, n_sub = plan["blocks"], capacity // 128
-    w = torch.arange(item_live.numel(), device=item_live.device)
-    lane = ((w % n_sub) * n_pencils + w // n_sub) % G
-    per_block = torch.zeros(G, dtype=torch.long, device=lane.device).index_add_(0, lane, item_live)
+    rounds = static_rounds(torch, c.r, n_pencils, capacity, plan["blocks"])
+    live = rounds["live_items"]
     return {"static": plan,
-            "model": {"stages": {"live_items": live, "rounds": int(per_block.max()),
+            "model": {"stages": {"live_items": live, "rounds": rounds["busiest_block"],
                                  "staged": chunks[0].numel(),
                                  "unskipped": live * 9 * (capacity // 128)},
                       "body_share": modelled_body_share(torch, c.r, chunks, False, box_length,
@@ -2249,7 +2308,7 @@ FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
                 + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
                 + EXPERIMENT_KERNELS + REPLICA_KERNELS + REPLICA_HOP_KERNELS
-                + REPLICA_ZSORT_KERNELS)
+                + REPLICA_ZSORT_KERNELS + REPLICA_PENCIL_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -4133,6 +4192,404 @@ def phase_ensemble(torch, tmp: str) -> dict:
     return {"runs": runs, **report}
 
 
+def _final_carry(engine):
+    """``engine`` with its ``get_state`` keeping the carry it was last given
+    (``run_production`` ends with the final carry's), and that holder."""
+    held = {}
+
+    def get_state(c):
+        held["carry"] = c
+        return engine.get_state(c)
+
+    return engine._replace(get_state=get_state), held
+
+
+def phase_cellpair_ensemble(torch, tmp: str) -> dict:
+    """Phase 12h: config 5's fluid as an R=8 ensemble through the batched
+    cell-pair engine against the replica loop, then the replica launches of
+    kernels 13, 15 and 16 (CELLPAIR_ENSEMBLE_R's comment)."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.simulation import (
+        initialize_replicas,
+        replica_generators,
+        run_production,
+    )
+    from ljmd_tpu_torch.ops import cell_list, fused_pencil, pencil_sweep
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+    from ljmd_tpu_torch.parallel.ensemble import ensemble_aggregate
+
+    dev = torch.device(DEVICE)
+    cfg = load_config(str(REPO / "examples" / "n62500_large.json")).replace(
+        **CELLPAIR_ENSEMBLE_CUT)
+    reps, n = CELLPAIR_ENSEMBLE_R, cfg.n
+    require(pe.replica_backend(cfg, "auto", DEVICE, cfg.output_interval) == ("cellpair", True),
+            "auto does not route config 5's ensemble to the batched cell-pair engine")
+    runs, report = {}, {}
+
+    # (b) the batched warmup at the lattice capacity, its launches counted.
+    name = "n62500_f32_ensemble_cellpair_warmup"
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    t0 = time.time()
+    states = initialize_replicas(cfg, replica_generators(cfg.seed, reps), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    counts = LAUNCHES.snapshot()
+    _check_launches(name, counts, ("pencil_sweep_hs_replicas",
+                                   "fused_pencil_width_chunk_replicas"),
+                    PENCIL_KERNELS + ("fused_pencil_chunk_replicas",))
+    runs[name] = {"engine": "cellpair (batched)", "n": n, "replicas": reps, "launches": counts,
+                  "init_s": init_s,
+                  "particle_steps_per_s": reps * n * cfg.warmup_steps / init_s}
+    cap = pe.replica_capacity(cfg, states)
+    pcfg = cfg.replace(neighbor_capacity=cap)
+    lattice = cell_list.make_pencil_grid(n, cfg.box_length, cfg.rc + cfg.neighbor_skin,
+                                         cfg.density).capacity
+    log(f"{name}: R={reps} N={n}, warmup {cfg.warmup_steps} steps at the lattice capacity "
+        f"{lattice} in {init_s:.3f}s (init included); the replicas' censuses -> capacity {cap}")
+
+    # (b) production: the batched engine, then the loop from the same states.
+    out = {}
+    for kind in ("batched", "loop"):
+        name = f"n62500_f32_ensemble_cellpair_{kind}"
+        engine = None if kind == "batched" else pe._replica_loop_engine(
+            [pe.make_engine(pcfg, "cellpair", DEVICE) for _ in range(reps)])
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+        t0 = time.time()
+        res = run_production(pcfg, states, engine=engine, device=DEVICE)
+        torch.cuda.synchronize()
+        prod = time.time() - t0
+        counts, reads = LAUNCHES.snapshot(), dict(pe.HOST_READS)
+        chunks = ("fused_pencil_chunk", "fused_pencil_width_chunk")
+        if kind == "batched":
+            _check_launches(name, counts, ("pencil_sweep_hs_replicas",), PENCIL_KERNELS)
+            require(sum(counts[k + "_replicas"] for k in chunks) > 0,
+                    f"{name}: no replica launch of a fused chunk")
+        else:
+            _check_launches(name, counts, ("pencil_sweep_hs",), REPLICA_PENCIL_KERNELS)
+            require(sum(counts[k] for k in chunks) > 0, f"{name}: no fused chunk launched")
+        flags = {k: bool(v.any()) for k, v in res.diagnostics.items()}
+        require(not any(flags.values()), f"{name}: diagnostic flag set: {flags}")
+        require(bool(torch.isfinite(res.series).all()), f"{name}: non-finite series")
+        drifts = [_drift(res.series[q, 2].cpu()) for q in range(reps)]
+        agg = ensemble_aggregate(pcfg, res)
+        rate = reps * n * pcfg.total_steps / prod
+        out[kind] = res
+        runs[name] = {"engine": f"cellpair ({kind})", "n": n, "replicas": reps, "capacity": cap,
+                      "launches": counts, "host_reads": reads, "production_s": prod,
+                      "particle_steps_per_s": rate, "drifts": drifts, "diagnostics": flags,
+                      "n_ok": int(agg.n_ok)}
+        log(f"{name}: R={reps} N={n} x {pcfg.total_steps} steps at capacity {cap}: production "
+            f"{prod:.3f}s = {rate:.4e} aggregate particle-steps/s, {int(agg.n_ok)}/{reps} ok, "
+            f"flags {flags}, host reads {json.dumps({k: v for k, v in reads.items() if v})}, "
+            f"|dE/E| per replica {', '.join(f'{d:.3e}' for d in drifts)} (bound "
+            f"{DRIFT_BOUND['n62500_f32_ensemble_cellpair']:.0e}); launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        require(max(drifts) < DRIFT_BOUND["n62500_f32_ensemble_cellpair"] and
+                int(agg.n_ok) == reps, f"{name}: drift over bound or a replica not ok")
+    same_series = bool(torch.equal(out["batched"].series, out["loop"].series))
+    same_states = all(bool(torch.equal(getattr(out["batched"].final_state, f),
+                                       getattr(out["loop"].final_state, f)))
+                      for f in ("r", "ru", "v", "a"))
+    b_rate = runs["n62500_f32_ensemble_cellpair_batched"]["particle_steps_per_s"]
+    l_rate = runs["n62500_f32_ensemble_cellpair_loop"]["particle_steps_per_s"]
+    report["loop_vs_batched"] = {"replicas": reps, "capacity": cap, "batched_rate": b_rate,
+                                 "loop_rate": l_rate, "series_bit_identical": same_series,
+                                 "final_states_bit_identical": same_states}
+    log(f"cellpair ensemble: batched {b_rate:.4e} against the replica loop {l_rate:.4e} "
+        f"aggregate particle-steps/s (batched / loop {b_rate / l_rate:.3f}x); series "
+        f"bit-identical {same_series}, final states bit-identical {same_states}")
+    require(same_series and same_states,
+            "cellpair ensemble: the batched engine differs from the replica loop")
+
+    # (a) the replica launches on the post-warmup states.
+    k_check, k_time = PENCIL_CHECK_STEPS, PENCIL_CHUNK_STEPS
+    L, rc2, dt = cfg.box_length, cfg.rc_square, cfg.dt
+    cuts = [pairs_within(torch, states.r[q], L, rc2) for q in range(reps)]
+    cases = {k: [] for k in REPLICA_PENCIL_KERNELS}
+    for kernel, kcap in (("pencil_sweep_hs", cap), ("fused_pencil_chunk", cap),
+                         ("fused_pencil_width_chunk", 512)):
+        grid = cell_list.make_pencil_grid(n, L, cfg.rc + cfg.neighbor_skin, cfg.density, kcap)
+        P, ns = grid.n_pencils, grid.n_slots
+        tbl, shf = (torch.as_tensor(t, device=dev)
+                    for t in pencil_sweep.build_half_shell_tables(grid))
+        rtbl, rshf = pencil_sweep.replica_tables(tbl, shf, P, reps)
+        label = f"R={reps} N={n} " + ("cap=512" if kcap == 512 and kernel.endswith("width_chunk")
+                                      else "census")
+        modes = (("float32", False), ("float64", False)) + (
+            () if kernel == "pencil_sweep_hs" else (("float32", True),))
+        for dname, extended in modes:
+            dtype = torch.float32 if dname == "float32" else torch.float64
+            tol = KERNEL_TOL[dname]
+            eng = pe._cellpair_engine(cfg.replace(neighbor_capacity=kcap, dtype=dname), dev,
+                                      compensated=False, replicas=reps,
+                                      width_lists=kernel.endswith("width_chunk"))
+            c, _ = eng.init(states.to(dtype=dtype))
+            require(not bool(c.overflow.any()), f"{kernel}_replicas {label}: overflow")
+            valid = c.r[3] > 0.5
+            zero = torch.zeros_like(c.r)
+            ext = {"r_lo": zero, "vc": zero} if extended else {}
+            lists = (c.wl_self, c.wl_self_cnt, c.wl_nbr_i, c.wl_nbr_j, c.wl_nbr_off)
+            one_lists = [fused_pencil.build_width_lists(c.counts[q * P:(q + 1) * P], tbl, shf,
+                                                        P, kcap) for q in range(reps)]
+            singles = [{"r": c.r[:, q * ns:(q + 1) * ns].contiguous(),
+                        "v": c.v[:, q * ns:(q + 1) * ns].contiguous(),
+                        "a": c.a[:, q * ns:(q + 1) * ns].contiguous(),
+                        "counts": c.counts[q * P:(q + 1) * P].contiguous(),
+                        "lists": one_lists[q],
+                        **({"r_lo": zero[:, :ns].contiguous(), "vc": zero[:, :ns].contiguous()}
+                           if extended else {})} for q in range(reps)]
+
+            def stack_fn(steps, plain=False):
+                if kernel == "pencil_sweep_hs":
+                    if plain:
+                        return lambda: (pencil_sweep.pencil_sweep_hs_plain(
+                            c.r, rtbl, c.counts, rshf, grid, rc2, True, n_pencils_i=reps * P),)
+                    return lambda: (pencil_sweep.pencil_sweep_hs(
+                        c.r, rtbl, c.counts, rshf, grid, rc2, True, replicas=reps),)
+                if kernel == "fused_pencil_chunk":
+                    if plain:
+                        return lambda: fused_pencil.fused_pencil_chunk_plain(
+                            c.r, c.v, c.a, rtbl, rshf, reps * P, kcap, L, rc2, dt, steps, **ext)
+                    return lambda: fused_pencil.fused_pencil_chunk(
+                        c.r, c.v, c.a, rtbl, rshf, P, kcap, L, rc2, dt, steps, replicas=reps,
+                        **ext)
+                if plain:
+                    return lambda: fused_pencil.fused_pencil_width_chunk_plain(
+                        c.r, c.v, c.a, *lists, reps * P, kcap, L, rc2, dt, steps, **ext)
+                return lambda: fused_pencil.fused_pencil_width_chunk(
+                    c.r, c.v, c.a, *lists, P, kcap, L, rc2, dt, steps, replicas=reps, **ext)
+
+            def one_fn(x, steps):
+                e = {k: x[k] for k in ("r_lo", "vc") if k in x}
+                if kernel == "pencil_sweep_hs":
+                    return lambda: (pencil_sweep.pencil_sweep_hs(x["r"], tbl, x["counts"], shf,
+                                                                 grid, rc2, True),)
+                if kernel == "fused_pencil_chunk":
+                    return lambda: fused_pencil.fused_pencil_chunk(
+                        x["r"], x["v"], x["a"], tbl, shf, P, kcap, L, rc2, dt, steps, **e)
+                return lambda: fused_pencil.fused_pencil_width_chunk(
+                    x["r"], x["v"], x["a"], *x["lists"], P, kcap, L, rc2, dt, steps, **e)
+
+            steps = 1 if kernel == "pencil_sweep_hs" else k_check
+            LAUNCHES.reset()
+            got = stack_fn(steps)()
+            require(LAUNCHES.snapshot()[kernel + "_replicas"] == 1,
+                    f"{kernel}_replicas {label}: not one launch for all replicas")
+            want = stack_fn(steps, plain=True)()
+            if extended:
+                got = (got[0].double() + got[1].double(), got[2].double() + got[3].double(),
+                       got[4])
+                want = (want[0].double() + want[1].double(), want[2].double() + want[3].double(),
+                        want[4])
+            rows = slice(0, 6) if kernel == "pencil_sweep_hs" else slice(0, 3)
+            errs = [rel_err(g[rows][:, valid], w[rows][:, valid]) for g, w in zip(got, want)]
+            worst = max(e[1] for e in errs)
+            tag = f"{kernel}_replicas {label} {dname}{' extended' if extended else ''}"
+            require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
+            got = stack_fn(steps)()
+            alone = {}
+            for q, x in enumerate(singles):
+                one = one_fn(x, steps)()
+                alone[q] = all(bool(torch.equal(g[:, q * ns:(q + 1) * ns], w))
+                               for g, w in zip(got, one))
+            require(all(alone.values()), f"{tag}: replicas differ from one-replica launches: "
+                                         f"{alone}")
+            launch = {"items": reps * ns // 128}
+            if kernel == "fused_pencil_chunk":
+                plan = fused_pencil.static_plan(c.r, extended)
+                capped = fused_pencil._launch_static(
+                    c.r, c.v, c.a, rtbl, rshf, reps * P, kcap, L, rc2, dt, steps, ext.get("r_lo"),
+                    ext.get("vc"), grid_cap=max(1, plan["blocks"] // TILES_PER_BLOCK))
+                launch.update(blocks=plan["blocks"],
+                              **static_rounds(torch, c.r, reps * P, kcap, plan["blocks"]),
+                              one_replica=static_rounds(torch, singles[0]["r"], P, kcap,
+                                                        fused_pencil.static_plan(
+                                                            singles[0]["r"], extended)["blocks"]))
+            elif kernel == "fused_pencil_width_chunk":
+                wg = fused_pencil.width_grid(c.r, extended)
+                capped = fused_pencil._launch_width(
+                    c.r, c.v, c.a, lists, reps * P, kcap, L, rc2, dt, steps, ext.get("r_lo"),
+                    ext.get("vc"), grid_cap=max(1, wg["blocks"] // TILES_PER_BLOCK))
+                launch.update(blocks=wg["blocks"])
+            else:
+                capped = None
+                launch.update(pencil_sweep.sweep_hs_grid(c.r, True))
+            if capped is not None:
+                require(all(bool(torch.equal(g, w)) for g, w in zip(capped, stack_fn(steps)())),
+                        f"{tag}: the capped grid differs")
+            size = c.r.element_size()
+            one_bytes = 8 * ns * size
+            cands = [pencil_candidates(c.counts[q * P:(q + 1) * P], tbl) for q in range(reps)]
+            if kernel == "pencil_sweep_hs":
+                flops = sum(sweep_flops(cd, ct, True) for cd, ct in zip(cands, cuts))
+                nbytes = reps * (2 * one_bytes + 4 * (tbl.numel() + shf.numel() + P))
+                t_steps = 1
+            else:
+                flops = sum(chunk_flops(k_time, cd, ct, n) for cd, ct in zip(cands, cuts))
+                extra = 4 * (tbl.numel() + shf.numel() + P) if kernel == "fused_pencil_chunk" \
+                    else 4 * sum(t.numel() for t in lists) // reps
+                nbytes = reps * (6 * one_bytes + extra)
+                t_steps = k_time
+            stack_t = stack_fn(t_steps)
+            ones_t = [one_fn(x, t_steps) for x in singles]
+            case = {**bound(dname, flops, nbytes),
+                    "shape": label + (" extended" if extended else ""), "dtype": dname,
+                    "observables": True, "replicas": reps, "capacity": kcap,
+                    "candidates": sum(cands), "cut_pairs": sum(cuts),
+                    "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+                    "bit_identical_to_alone": all(alone.values()), "launch": launch,
+                    "ms": cuda_time_ms(torch, stack_t, 10),
+                    "card_ms": graph_ms(torch, stack_t, 5),
+                    "loop_ms": cuda_time_ms(torch, lambda: [f() for f in ones_t], 3)}
+            # The twin of a stack takes seconds a call: timed for the
+            # kernels line's headline case (float32, plain) only.
+            if dname == "float32" and not extended:
+                case["plain_ms"] = cuda_time_ms(torch, stack_fn(t_steps, plain=True), 1, warmup=0)
+            cases[kernel + "_replicas"].append(case)
+            log(f"kernel {tag} (capacity {kcap}): rel err {worst:.3e} (tol {tol:.0e}), replicas "
+                f"bit-identical to one-replica launches {case['bit_identical_to_alone']}, "
+                f"{case['ms']:.4f} ms back to back, card alone {case['card_ms']:.4f}, the "
+                f"{reps} one-replica launches {case['loop_ms']:.4f} (loop / replica launch "
+                f"{case['loop_ms'] / case['ms']:.3f}x), plain "
+                + (f"{case['plain_ms']:.2f} ms" if "plain_ms" in case else "not timed") + " per "
+                f"{'call' if t_steps == 1 else f'{t_steps}-step chunk'}; bound "
+                f"{case['bound_ms']:.4f} ms ({case['bound_by']}); launch {json.dumps(launch)}")
+    LAUNCHES.reset()  # comparison launches do not count for the main path
+    return {"runs": runs, "cases": cases, "report": report}
+
+
+def phase_zsort_triggers(torch, tmp: str) -> dict:
+    """Phase 12i: the zsort resort triggers (ZSORT_TRIGGER_RUNS' comment):
+    each trigger's rate, resorts fired against checks, host reads,
+    ``zsort_invalid`` and drift; then the batched R=8 predictive ensemble at
+    N=864 against one-system engines bit for bit, each replica's resort
+    count its own."""
+    import numpy as np
+
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.simulation import (
+        initialize,
+        initialize_replicas,
+        replica_generators,
+        run_production,
+    )
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    cfg = load_config(str(REPO / "examples" / "n4000_production.json")).replace(**N4000_CUT)
+    kw = pe._zsort_kwargs(cfg.output_interval)
+    state = initialize(cfg, device=DEVICE)
+    runs, report = {}, {}
+    for trigger in ZSORT_TRIGGER_RUNS:
+        name = f"n4000_f32_zsort_{trigger}"
+        engine, held = _final_carry(pe._zsort_engine(cfg, DEVICE, trigger=trigger, **kw))
+        run, _ = _production_run(torch, name, cfg, state, tmp, ZSORT_KERNELS,
+                                 ("fused_dense_chunk",) + REPLICA_ZSORT_KERNELS, engine=engine)
+        resorts = int(held["carry"].resorts)
+        checks = resorts if trigger == "always" else run["host_reads"]["zsort_fire"]
+        geo = pe.zsort_geometry(cfg, trigger=trigger, **kw)
+        runs[name] = {**run, "engine": f"zsort ({trigger})", "resorts": resorts,
+                      "checks": checks, "sort_skin": geo.sort_skin}
+        log(f"{name}: trigger {trigger}, skin {geo.sort_skin:.4f}: {resorts} resorts of "
+            f"{checks} checks, host reads {run['host_reads']['zsort_fire']}, zsort_invalid "
+            f"{run['diagnostics']['zsort_invalid']}, {run['particle_steps_per_s']:.4e} "
+            f"particle-steps/s, |dE/E| {run['drift']:.3e}")
+    rates = {t: [runs[f"n4000_f32_zsort_{t}"]["particle_steps_per_s"]]
+             for t in ZSORT_TRIGGER_RUNS}
+    for rnd in range(1, TRIGGER_ROUNDS):
+        for trigger in ZSORT_TRIGGER_RUNS[::-1] if rnd % 2 else ZSORT_TRIGGER_RUNS:
+            engine = pe._zsort_engine(cfg, DEVICE, trigger=trigger, **kw)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            run_production(cfg, state, engine=engine, record_frames=True)
+            torch.cuda.synchronize()
+            rates[trigger].append(cfg.n * cfg.total_steps / (time.time() - t0))
+    median = {t: float(np.median(v)) for t, v in rates.items()}
+    wins = {t: sum(r > a for r, a in zip(rates[t], rates["always"]))
+            for t in ZSORT_TRIGGER_RUNS if t != "always"}
+    report["rounds"] = {"rates": rates, "median": median, "wins_over_always": wins}
+    log(f"zsort triggers at N=4000, {TRIGGER_ROUNDS} rounds (order reversed every other "
+        f"round): median particle-steps/s "
+        + ", ".join(f"{t} {v:.4e}" for t, v in median.items())
+        + "; rounds beating always in the same round "
+        + ", ".join(f"{t} {w}/{TRIGGER_ROUNDS}" for t, w in wins.items())
+        + "; rates " + json.dumps({t: [float(f"{x:.4e}") for x in v] for t, v in rates.items()}))
+    # "never": a floor, over a short stretch; its flag reported.
+    name = "n4000_f32_zsort_never"
+    ncfg = cfg.replace(total_steps=TRIGGER_NEVER_STEPS, warmup_steps=0)
+    engine, held = _final_carry(pe._zsort_engine(ncfg, DEVICE, trigger="never", **kw))
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+    t0 = time.time()
+    res = run_production(ncfg, state, engine=engine)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    runs[name] = {"engine": "zsort (never)", "n": ncfg.n, "launches": LAUNCHES.snapshot(),
+                  "production_s": wall, "particle_steps_per_s": ncfg.n * ncfg.total_steps / wall,
+                  "resorts": int(held["carry"].resorts),
+                  "host_reads": pe.HOST_READS["zsort_fire"],
+                  "zsort_invalid": bool(res.diagnostics["zsort_invalid"]),
+                  "drift": _drift(res.series[2].cpu())}
+    require(runs[name]["resorts"] == 0 and runs[name]["host_reads"] == 0,
+            f"{name}: resorted or read the host")
+    log(f"{name}: {ncfg.total_steps} steps with no resort: "
+        f"{runs[name]['particle_steps_per_s']:.4e} particle-steps/s, zsort_invalid "
+        f"{runs[name]['zsort_invalid']} (a floor: not gated), |dE/E| {runs[name]['drift']:.3e}")
+    report["vs_always"] = {t: v / median["always"] for t, v in median.items()}
+    report["vs_always"]["never"] = runs[name]["particle_steps_per_s"] / median["always"]
+    log(f"zsort triggers at N=4000: median rate over always's "
+        + ", ".join(f"{t} {v:.3f}x" for t, v in report["vs_always"].items()))
+
+    # the batched predictive ensemble at N=864
+    zcfg = load_config(str(REPO / "examples" / "n864_liquid.json")).replace(**ENSEMBLE_ZSORT_CUT)
+    zkw = pe._zsort_kwargs(zcfg.output_interval)
+    reps = TRIGGER_BATCH_R
+    zstates = initialize_replicas(zcfg, replica_generators(zcfg.seed, reps), device=DEVICE)
+    name = f"n864_f32_ensemble_zsort_predictive_r{reps}"
+    engine, held = _final_carry(pe._zsort_engine(zcfg, DEVICE, trigger="predictive",
+                                                 replicas=reps, **zkw))
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+    t0 = time.time()
+    res = run_production(zcfg, zstates, engine=engine)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = LAUNCHES.snapshot()
+    _check_launches(name, counts, REPLICA_ZSORT_KERNELS, ZSORT_KERNELS)
+    reads = pe.HOST_READS["zsort_fire"]
+    resorts = held["carry"].resorts.tolist()
+    flags = bool(res.diagnostics["zsort_invalid"].any())
+    same, own = {}, {}
+    for q in range(reps):
+        e1, h1 = _final_carry(pe._zsort_engine(zcfg, DEVICE, trigger="predictive", **zkw))
+        one = run_production(zcfg, pe.replica_state(zstates, q), engine=e1)
+        same[q] = all(bool(torch.equal(getattr(res.final_state, f)[q],
+                                       getattr(one.final_state, f)))
+                      for f in ("r", "ru", "v", "a"))
+        same[q] &= bool(torch.allclose(res.series[q], one.series, rtol=ENSEMBLE_SERIES_RTOL,
+                                       atol=0.0))
+        own[q] = int(h1["carry"].resorts) == resorts[q]
+    rate = reps * zcfg.n * zcfg.total_steps / wall
+    runs[name] = {"engine": "zsort (predictive, batched)", "n": zcfg.n, "replicas": reps,
+                  "launches": counts, "production_s": wall, "particle_steps_per_s": rate,
+                  "resorts": resorts, "host_reads": reads, "zsort_invalid": flags}
+    report["batched_predictive"] = {"replicas_equal_one_system": same, "resorts_own": own}
+    log(f"{name}: R={reps} N={zcfg.n} x {zcfg.total_steps} steps, predictive: {wall:.3f}s = "
+        f"{rate:.4e} aggregate particle-steps/s, {reads} host reads, resorts per replica "
+        f"{resorts}, zsort_invalid {flags}; replicas bit-equal to one-system engines (states; "
+        f"series within {ENSEMBLE_SERIES_RTOL}) {same}, each replica's resort count its "
+        f"one-system engine's {own}")
+    require(all(same.values()) and all(own.values()) and not flags,
+            f"{name}: the batched predictive engine differs from its one-system engines")
+    return {"runs": runs, "report": report}
+
+
 def phase_kill_resume(torch, tmp: str) -> dict:
     """BASELINE config 5 (N=62500, ``auto`` -> cellpair) cut as N62500_CUT:
     ``init-config`` once, then from its rv_init.dat B (in-memory
@@ -4302,6 +4759,13 @@ def main() -> int:
         mark("phase 12b-f")
         runs.update(phase_replica_particle(torch)["runs"])
         mark("phase 12g")
+        cp_ensemble = phase_cellpair_ensemble(torch, tmp)
+        runs.update(cp_ensemble["runs"])
+        cases.update(cp_ensemble["cases"])
+        mark("phase 12h")
+        triggers = phase_zsort_triggers(torch, tmp)
+        runs.update(triggers["runs"])
+        mark("phase 12i")
     multi_rates = phase_multidevice_rates(torch, multi_states)
     mark("phase 9c")
     exp_runs = phase_experiments(torch)
@@ -4355,7 +4819,16 @@ def main() -> int:
                 "pair_sweep_rect_newton_replicas": (f"R={REPLICA_HALF_R} N=256 d=2 half hop",
                                                     "float32", True),
                 "build_window_lists_replicas": (f"R={REPLICA_LIST_R} N=864", "float32"),
-                "fused_dense_chunk_list_replicas": (f"R={REPLICA_LIST_R} N=864", "float32")}
+                "fused_dense_chunk_list_replicas": (f"R={REPLICA_LIST_R} N=864", "float32"),
+                # Kernels 13, 15 and 16's replica launches at the batched
+                # cell-pair ensemble's: config 5, R=8, production at the
+                # census capacity (13, 15), warmup at the lattice's 512 (16).
+                "pencil_sweep_hs_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 census",
+                                             "float32", True),
+                "fused_pencil_chunk_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 census",
+                                                "float32"),
+                "fused_pencil_width_chunk_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 cap=512",
+                                                      "float32")}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
@@ -4386,6 +4859,11 @@ def main() -> int:
         "pair_sweep_rect_newton_replicas": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:533"),
         "build_window_lists_replicas": ("ljmd_tpu_torch/csrc/pack_window_lists.cu", "ljmd_tpu/ops/pallas_fused.py:803"),
         "fused_dense_chunk_list_replicas": ("ljmd_tpu_torch/csrc/fused_dense_chunk_list.cu", "ljmd_tpu/ops/pallas_fused.py:1383"),
+        # Kernels 13, 15 and 16 over a flat stack of R pencil grids (the
+        # batched cell-pair engine): one launch for all R.
+        "pencil_sweep_hs_replicas": ("ljmd_tpu_torch/csrc/pencil_sweep_hs.cu", "ljmd_tpu/ops/pallas_pencil2.py:187"),
+        "fused_pencil_chunk_replicas": ("ljmd_tpu_torch/csrc/fused_pencil_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:277"),
+        "fused_pencil_width_chunk_replicas": ("ljmd_tpu_torch/csrc/fused_pencil_width_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:609"),
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
@@ -4528,6 +5006,29 @@ def main() -> int:
         f"aggregate particle-steps/s, {rp['ms_per_step']:.4f} ms a step, max |dE/E| "
         f"{rp['max_drift']:.3e} (batched rows {rp['rows_max_drift']:.3e}), float64 vs rows "
         f"{rp['f64_vs_rows']:.3e}")
+    cpl = cp_ensemble["report"]["loop_vs_batched"]
+    cpb = runs["n62500_f32_ensemble_cellpair_batched"]
+    log(f"cellpair ensemble on {env['nvidia_smi']}: config 5 (R={cpl['replicas']}, N=62500, "
+        f"2,000 steps, capacity {cpl['capacity']}) batched {cpl['batched_rate']:.4e} against "
+        f"the replica loop {cpl['loop_rate']:.4e} aggregate particle-steps/s "
+        f"({cpl['batched_rate'] / cpl['loop_rate']:.3f}x), series and final states "
+        f"bit-identical {cpl['series_bit_identical'] and cpl['final_states_bit_identical']}, "
+        f"max |dE/E| {max(cpb['drifts']):.3e}, flags {cpb['diagnostics']}")
+    zpred = runs[f"n864_f32_ensemble_zsort_predictive_r{TRIGGER_BATCH_R}"]
+    rounds = triggers["report"]["rounds"]
+    log(f"zsort triggers on {env['nvidia_smi']}: N=4000 (5,000 steps), medians of "
+        f"{TRIGGER_ROUNDS} alternated rounds "
+        + ", ".join(f"{t} {v:.4e}" for t, v in rounds["median"].items())
+        + ", rounds beating always " + json.dumps(rounds["wins_over_always"]) + "; first round "
+        + ", ".join(f"{t} {runs[f'n4000_f32_zsort_{t}']['particle_steps_per_s']:.4e} "
+                    f"({runs[f'n4000_f32_zsort_{t}']['resorts']} resorts of "
+                    f"{runs[f'n4000_f32_zsort_{t}']['checks']} checks)"
+                    for t in ZSORT_TRIGGER_RUNS)
+        + f", never ({TRIGGER_NEVER_STEPS} steps) "
+        f"{runs['n4000_f32_zsort_never']['particle_steps_per_s']:.4e} (zsort_invalid "
+        f"{runs['n4000_f32_zsort_never']['zsort_invalid']}); N=864 R={TRIGGER_BATCH_R} "
+        f"predictive batched {zpred['particle_steps_per_s']:.4e}, resorts per replica "
+        f"{zpred['resorts']}")
     log(f"analysis and streaming on {env['nvidia_smi']}: config 3 "
         + ", ".join(f"{k} {v['card_ms']:.3f} ms" for k, v in analysis["functions"].items())
         + f" (card vs CPU within {max(v['rel_err'] for v in analysis['functions'].values()):.3e}, "

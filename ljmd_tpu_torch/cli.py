@@ -32,7 +32,8 @@ a rerun in the same ``--out-dir`` resumes bit for bit) also a
 bytes written and the seconds spent on them, the writer, the resume point).
 ``analyze`` plots with matplotlib; where it is not installed, pass
 ``--no-plots``. ``ensemble`` runs R replicas (``parallel/ensemble.py``:
-batched on the rows and zsort engines, a loop over replicas on any other)
+batched on the rows, zsort and cell-pair engines, a loop over replicas on
+neighbor and dense)
 and writes means.txt, simulation_results.{txt,json} and corrmean_runs_*.dat,
 with ``--per-run-dirs`` also run_XXXX/ per replica that is ok and
 several_runs.txt; it ends with an ``{"ensemble": ...}`` line (replicas, N,

@@ -31,9 +31,9 @@ Backends:
   accelerator routing (``zsort`` where it fits, ``cellpair`` at n >= 8192
   where the pencil grid fits, else ``rows``); on the CPU ``rows``.
 
-``make_replica_engine`` builds an ensemble's engine for R replicas: the rows
-or zsort engine batched over a leading replica axis (one launch of each
-kernel for all R), or a loop over R engines of any other backend.
+``make_replica_engine`` builds an ensemble's engine for R replicas: the rows,
+zsort or cell-pair engine batched over the replicas (one launch of each
+kernel for all R), or a loop over R engines of neighbor or dense.
 """
 
 from __future__ import annotations
@@ -85,6 +85,7 @@ from ljmd_tpu_torch.ops.pencil_sweep import (
     pencil_sweep,
     pencil_sweep_hs,
     pencil_sweep_zband,
+    replica_tables,
     sentinel_fill,
 )
 from ljmd_tpu_torch.ops.window_lists import build_window_lists, compute_tile_flags
@@ -92,7 +93,8 @@ from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy
 
 __all__ = ["BACKENDS", "Engine", "HOST_READS", "PencilCarry", "RowCarry", "ROW_PAD",
            "ZSortCarry", "auto_backend", "make_engine", "make_replica_engine", "replica_backend",
-           "replica_state", "resolve_device", "stack_states", "zsort_geometry"]
+           "replica_capacity", "replica_state", "resolve_device", "stack_states",
+           "zsort_geometry"]
 
 # make_engine's backends ("pallas" is the JAX package's name for "rows").
 BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
@@ -100,11 +102,13 @@ BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
 # Host reads of a device flag, per decision that depends on data (the JAX
 # engine takes them inside lax.cond): the cell-pair engine's per-step
 # displacement check, its predictive rebin trigger and its unfused default
-# chunk (one read per ``run_fast``), the neighbor engine's
+# chunk (one read per ``run_fast``), the zsort engine's cond'd resort
+# triggers (one read per chunk), the neighbor engine's
 # per-step rebuild check, and the sharded pencil engine's two and its default
 # chunk (``parallel/spatial_pencil.py``: one read per decision, after a pmax).
+# A replica engine reads whether any replica's flag is set, once per decision.
 HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0, "cellpair_chunk": 0,
-              "neighbor_rebuild": 0, "sharded_pencil_moved": 0,
+              "zsort_fire": 0, "neighbor_rebuild": 0, "sharded_pencil_moved": 0,
               "sharded_pencil_will_exceed": 0, "sharded_pencil_chunk": 0}
 
 # Chunks sized from the fluid (the unfused cell-pair path's default here, the
@@ -157,6 +161,16 @@ def _replica_total(x: torch.Tensor, dims: int, replicas: int | None) -> torch.Te
     """The sum over the trailing ``dims`` dimensions, a replica's own (the
     whole sum for one system, ``replicas`` None)."""
     return torch.sum(x) if replicas is None else torch.sum(x, dim=tuple(range(-dims, 0)))
+
+
+def _pick_replicas(fire: torch.Tensor, new, old):
+    """The carry whose replica q is ``new``'s where ``fire[q]``, else
+    ``old``'s: every tensor field with the replica axis first."""
+    def pick(a, b):
+        return torch.where(fire.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return dataclasses.replace(new, **{f.name: pick(getattr(new, f.name), getattr(old, f.name))
+                                       for f in dataclasses.fields(new)})
 
 
 def _force_engine(cfg: SimConfig, device, backend: str = "dense") -> Engine:
@@ -411,7 +425,8 @@ class ZSortCarry:
     a sticky ``invalid`` flag (a particle outran the sort skin between two
     sorts: results suspect). ``rlo``/``vc`` are the two-float position
     remainders and velocity compensation of the extended mode (zeros
-    otherwise)."""
+    otherwise). ``resorts`` (int32) counts the resorts since ``init`` (not
+    in the JAX carry: the resort triggers' measurements read it)."""
 
     r: torch.Tensor
     ru: torch.Tensor
@@ -424,11 +439,14 @@ class ZSortCarry:
     invalid: torch.Tensor
     rlo: torch.Tensor
     vc: torch.Tensor
+    resorts: torch.Tensor
 
 
-# The JAX engine's resort triggers; only "always" (what make_engine uses) is
-# ported. The others skip resorts behind a lax.cond, which has no
-# counterpart without a host read of the firing condition.
+# The JAX engine's resort triggers. "always" (what make_engine uses) resorts
+# before every chunk with no decision; "predictive" and "static" decide on
+# the device and skip the resort behind a lax.cond in JAX, here behind one
+# host read of the firing flag a chunk (HOST_READS["zsort_fire"]), so that a
+# skipped resort launches nothing; "never" never resorts.
 ZSORT_TRIGGERS = ("always", "predictive", "static", "never")
 # The window lists' block granule (the JAX engine's tile_i).
 ZSORT_TILE_I = 128
@@ -441,6 +459,7 @@ class ZSortGeometry:
     sort_skin: float
     window: float
     invalid_thresh: float
+    resort_thresh: float
     n_slabs: int
     slab_sort: bool
     tile_j: int
@@ -455,20 +474,21 @@ def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | Non
                    trigger: str = "always") -> ZSortGeometry:
     """Skin, window, slab mode, tile width, padding and sort-key bits of the
     zsort engine (JAX ``engine.py:488-684``, same constants; tail lists on).
-    Raises ValueError where the JAX engine does: an unknown trigger, a box
-    too small for the window or for the one-chunk travel skin, too few
-    x-slabs, too few sort-key bits; NotImplementedError for the triggers
-    that are not ported."""
+    The default skin is the one-chunk travel bound under "always" and the
+    travel-bound auto skin under the cond'd triggers. Raises ValueError
+    where the JAX engine does: an unknown trigger, a box too small for the
+    window or (under "always") for the one-chunk travel skin, too few
+    x-slabs, too few sort-key bits."""
     if trigger not in ZSORT_TRIGGERS:
         raise ValueError(f"unknown resort trigger {trigger!r}")
-    if trigger != "always":
-        raise NotImplementedError(
-            f"resort trigger {trigger!r} is not ported to ljmd_tpu_torch yet: "
-            "ROADMAP.md Open items §1.5 (zsort triggers)")
-    if sort_skin is None:
+    if sort_skin is None and trigger == "always":
         # The flags only have to stay valid across ONE chunk:
         # 0.6 * skin >= 1.15 * v_max * inner_chunk * dt with v_max ~ 4.4.
         sort_skin = max(0.3, 8.5 * inner_chunk * cfg.dt)
+    if sort_skin is None:
+        # Resorts fire at 0.25 * skin and the flags hold to 0.6 * skin: the
+        # gap covers a chunk's worst travel with ~15% margin.
+        sort_skin = min(0.7, max(0.3, 14.5 * inner_chunk * cfg.dt))
     L = cfg.box_length
     n = cfg.n
     # The flag window must respect the minimum image (window < L/2).
@@ -476,10 +496,10 @@ def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | Non
     if clamped_skin < 0.15:
         raise ValueError("box too small for z-sorted tile skipping (rc ~ L/2); "
                          "use the rows engine")
-    if clamped_skin < 0.999 * min(sort_skin, 8.5 * inner_chunk * cfg.dt):
+    if trigger == "always" and clamped_skin < 0.999 * min(sort_skin, 8.5 * inner_chunk * cfg.dt):
         raise ValueError(
             "box too small for the unconditional-resort skin at this "
-            f"inner_chunk={inner_chunk}; reduce inner_chunk")
+            f"inner_chunk={inner_chunk}; reduce inner_chunk or use a cond'd trigger")
     sort_skin = clamped_skin
     # The flags stay valid up to 0.6 * skin per-axis travel (the invalid
     # bound), hence the 1.2 x skin margin of the window.
@@ -502,8 +522,8 @@ def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | Non
                          f"n_pad={n_pad}, slabs={slab_bits} bits); use the pencil engine")
     return ZSortGeometry(
         sort_skin=sort_skin, window=window, invalid_thresh=(0.6 * sort_skin) ** 2,
-        n_slabs=n_slabs, slab_sort=slab_sort, tile_j=tile_j, n_pad=n_pad,
-        bits_pad=bits_pad, zq_bits=zq_bits,
+        resort_thresh=(0.25 * sort_skin) ** 2, n_slabs=n_slabs, slab_sort=slab_sort,
+        tile_j=tile_j, n_pad=n_pad, bits_pad=bits_pad, zq_bits=zq_bits,
         # The JAX list kernel's SMEM cliff; kept so both packages route alike.
         fused_viable=(n_pad // ZSORT_TILE_I) ** 2 <= 32768,
     )
@@ -517,11 +537,17 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
 
     Particles are kept in ascending-z column order (or (x-slab, z) with
     ``slab_sort``); before every fused chunk of at most ``inner_chunk``
-    steps the engine checks the travel since the last sort (sticky
-    ``invalid`` past 0.6 * skin), re-sorts, recomputes the block flags and
-    rebuilds the visit lists, all on the device with no host read (the
-    "always" trigger). Per-step ``step``/``step_fast`` use the
-    order-agnostic tri sweep.
+    steps the engine checks the travel along the sorted axes since the last
+    sort (sticky ``invalid`` past 0.6 * skin) and, under ``trigger``,
+    re-sorts, recomputes the block flags and rebuilds the visit lists:
+    "always" (the default) before every chunk, all on the device with no
+    host read; "predictive" when a particle's sorted-axis travel plus its
+    own velocity's look-ahead over the chunk could pass 0.6 * skin;
+    "static" at a travel of skin / 4; "never" not at all (floor
+    measurements only). Under "predictive" and "static" the engine reads
+    the firing flag on the host once a chunk (``HOST_READS["zsort_fire"]``)
+    and a check that does not fire launches nothing. Per-step
+    ``step``/``step_fast`` use the order-agnostic tri sweep.
 
     ``replicas=R`` makes it the ensemble's engine for R independent
     replicas (the JAX package ``vmap``s the one-system engine): states are
@@ -532,8 +558,11 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     sorted order and lists. The sort keys are unique, so each replica's
     order is the one-system engine's; the flags, gathers and the travel
     check act on each replica alone; so replica q's rows are bit for bit
-    what a one-system engine gives it. The observables' sums reduce an (R,
-    n_pad) row at once, so they may round otherwise."""
+    what a one-system engine gives it. Under a cond'd trigger each replica
+    decides for itself (JAX's vmap of lax.cond): where any replica fires,
+    the stack is resorted and each replica keeps its resorted or its old
+    carry by its own flag. The observables' sums reduce an (R, n_pad) row
+    at once, so they may round otherwise."""
     device = resolve_device(device)
     if replicas is not None and replicas < 1:
         raise ValueError("the replica zsort engine takes replicas >= 1")
@@ -624,7 +653,8 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         carry = ZSortCarry(r=r8, ru=ru8, v=v8, a=accel(out), ids=ids, r_ref=r8,
                            tiles=tiles, tcounts=tcounts,
                            invalid=torch.zeros(batch, dtype=torch.bool, device=device),
-                           rlo=rlo, vc=vcc)
+                           rlo=rlo, vc=vcc,
+                           resorts=torch.zeros(batch, dtype=torch.int32, device=device))
         return carry, obs_from(out, 0.5 * total(v8 * v8, 2))
 
     dt = cfg.dt
@@ -655,23 +685,53 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                                     vc=vc_new)
         return carry, obs_from(out, ekin)
 
-    def _resort(c: ZSortCarry) -> ZSortCarry:
+    def _resorted(c: ZSortCarry) -> ZSortCarry:
+        r8, ru8, v8, a8, ids, rlo, vcc = _sort(c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc)
+        tiles, tcounts = _lists(r8)
+        return dataclasses.replace(c, r=r8, ru=ru8, v=v8, a=a8, ids=ids, r_ref=r8,
+                                   tiles=tiles, tcounts=tcounts, rlo=rlo, vc=vcc,
+                                   resorts=c.resorts + 1)
+
+    def rmax(x):
+        return torch.max(x) if replicas is None else torch.amax(x, dim=-1)
+
+    look = 1.3 * inner_chunk * dt
+
+    def _maybe_resort(c: ZSortCarry) -> ZSortCarry:
         # Per-axis staleness: only travel along a sorted axis (z; x too with
         # slabs) can push a pair's gap past the window.
         d = minimum_image(c.r[..., 0:3, :] - c.r_ref[..., 0:3, :], L)
         valid = (c.ids >= 0).to(dtype)
         dz2 = d[..., 2, :] * d[..., 2, :]
-        moved = (torch.maximum(d[..., 0, :] * d[..., 0, :], dz2) if slab_sort else dz2) * valid
-        moved2 = torch.max(moved) if replicas is None else torch.amax(moved, dim=-1)
+        moved2 = rmax((torch.maximum(d[..., 0, :] * d[..., 0, :], dz2) if slab_sort else dz2)
+                      * valid)
         invalid = c.invalid | (moved2 > geo.invalid_thresh)
-        r8, ru8, v8, a8, ids, rlo, vcc = _sort(c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc)
-        tiles, tcounts = _lists(r8)
-        return dataclasses.replace(c, r=r8, ru=ru8, v=v8, a=a8, ids=ids, r_ref=r8,
-                                   tiles=tiles, tcounts=tcounts, rlo=rlo, vc=vcc,
-                                   invalid=invalid)
+        if trigger == "always":
+            return dataclasses.replace(_resorted(c), invalid=invalid)
+        if trigger == "never":  # floor measurements only
+            return dataclasses.replace(c, invalid=invalid)
+        if trigger == "predictive":
+            # Each particle's own look-ahead: its sorted-axis travel plus its
+            # velocity over the chunk (1.3x and 0.02 for the acceleration).
+            vv = c.v + c.vc if extended else c.v
+            pz = torch.abs(d[..., 2, :]) + look * torch.abs(vv[..., 2, :]) + 0.02
+            if slab_sort:
+                px = torch.abs(d[..., 0, :]) + look * torch.abs(vv[..., 0, :]) + 0.02
+                pz = torch.maximum(px, pz)
+            pred = rmax(pz * valid)
+            fire = pred * pred > geo.invalid_thresh
+        else:
+            fire = moved2 > geo.resort_thresh
+        HOST_READS["zsort_fire"] += 1
+        if not bool(fire.any()):
+            return dataclasses.replace(c, invalid=invalid)
+        new = _resorted(c)
+        if replicas is not None:
+            new = _pick_replicas(fire, new, c)
+        return dataclasses.replace(new, invalid=invalid)
 
     def _chunk(c: ZSortCarry, k: int, obs: bool = False):
-        c = _resort(c)
+        c = _maybe_resort(c)
         if extended:
             out = fused_dense_chunk_list(c.r, c.v, c.a, c.tiles, c.tcounts, n, L,
                                          cfg.rc_square, dt, k, tile_i=tile_i, tile_j=tile_j,
@@ -785,7 +845,7 @@ _PREDICT_SAFETY = 1.25
 def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: bool = True,
                      compensated: bool | None = None, rebin_trigger: str | None = None,
                      use_fused: bool | None = None, width_lists: bool | None = None,
-                     inner_chunk: int | None = None) -> Engine:
+                     inner_chunk: int | None = None, replicas: int | None = None) -> Engine:
     """Pencil-sweep engine for large N (JAX ``_cellpair_engine``): pair work
     O(N * 9 * capacity) over the pencil pairs, particles rebinned into
     pencils (a sort and a gather) when they may have left the coverage slack.
@@ -815,8 +875,37 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     half shell; the kernel launches on any card, the twin runs on the CPU)
     runs each chunk in one fused kernel, else as per-step sweeps
     (``run_fast_unfused``). ``width_lists`` (default: the JAX mean-occupancy
-    rule) drives the fused chunk by occupancy-width visit lists."""
+    rule) drives the fused chunk by occupancy-width visit lists.
+
+    ``replicas=R`` makes it the ensemble's engine for R independent
+    replicas (the JAX package ``vmap``s the one-system engine): states are
+    (R, N, 3), observables (R,) tensors and ``pencil_overflow`` (R,), one
+    sticky flag a replica. The carry is one flat stack of R grids, (8, R *
+    n_slots) with replica q in slots [q * n_slots, (q + 1) * n_slots), swept
+    over ``replica_tables``' half-shell tables (replica q's pencils offset
+    by q * n_pencils, no neighbour in another replica), so each sampled
+    sweep (kernel 13) and each fused chunk (kernel 15 or 16) is ONE launch
+    for all R; the rebin keys each slot by its pencil + q * n_pencils. Every
+    decision is each replica's own (JAX's vmap of lax.cond): "always"
+    rebins the whole stack before every chunk; the predictive trigger and
+    the per-step "moved" check read whether any replica's flag is set (one
+    host read a decision) and, where one is, rebin the stack and keep each
+    replica's rebinned or old carry by its own flag. So replica q's rows,
+    counts and flag are bit for bit those of a one-system engine built at
+    the same capacity, and its observables too (each replica's sums are
+    taken over its own slots). The replica engine runs the fused half
+    shell only: the z-band, the full sweep and the unfused chunk raise."""
     device = resolve_device(device)
+    if replicas is not None:
+        if replicas < 1:
+            raise ValueError("the replica cellpair engine takes replicas >= 1")
+        if z_band or not half_shell or use_fused is False:
+            raise ValueError(
+                "the replica cellpair engine runs the fused half shell only; the z-band, the "
+                "full sweep and the unfused chunk over replicas: ROADMAP.md Open items "
+                "(batched cell-pair sweeps without the fused half shell)")
+    reps = 1 if replicas is None else replicas
+    rep_kw = {} if replicas is None else {"replicas": replicas}
     L = cfg.box_length
     if L <= 1.0:
         raise ValueError("cellpair engine requires L > 1 (aux-row wrap invariant)")
@@ -833,6 +922,8 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     tbl_np, shf_np = build_half_shell_tables(grid)
     hs_tbl = torch.as_tensor(tbl_np, device=device)
     hs_shf = torch.as_tensor(shf_np, device=device)
+    if replicas is not None:
+        hs_tbl, hs_shf = replica_tables(hs_tbl, hs_shf, P, replicas)
     if not half_shell:
         # The full sweeps' tables: the 9 xy-neighbours (self at k = 4) and
         # their static image shifts.
@@ -873,7 +964,8 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
                                       want_obs)
         if half_shell:
             # Already multiplied by the validity row (ops/pencil_sweep.py).
-            return pencil_sweep_hs(pos, hs_tbl, counts, hs_shf, grid, cfg.rc_square, want_obs)
+            return pencil_sweep_hs(pos, hs_tbl, counts, hs_shf, grid, cfg.rc_square, want_obs,
+                                   **rep_kw)
         return pencil_sweep(pos, nbr_tbl, counts, nbr_shf, grid, cfg.rc_square, want_obs)
 
     def windows(r8, counts):
@@ -889,23 +981,36 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         a[0:3] = 24.0 * out[0:3]
         return a
 
+    def total(x):
+        """The sum of a row (or rows) of slots: the whole for one system,
+        each replica's own over its slots (contiguous, as a one-system
+        engine sums them) for a stack."""
+        if replicas is None:
+            return torch.sum(x)
+        return torch.stack([torch.sum(x[..., q * ns:(q + 1) * ns].contiguous())
+                            for q in range(replicas)])
+
+    def rmax(x):
+        """The max of a (n_slots,) row: each replica's for a stack."""
+        return torch.max(x) if replicas is None else torch.amax(x.reshape(reps, ns), dim=1)
+
     # The half shell counts each pair once (prefactors 4 / 24), the full
     # sweeps twice (2 / 12).
     e_pref, d_pref = (4.0, 24.0) if half_shell else (2.0, 12.0)
 
     def obs_from(out, ekin):
-        return StepObs(epot=e_pref * torch.sum(out[3]) + e_t, ekin=ekin,
-                       d_epot=d_pref * torch.sum(out[4]) + d_t,
-                       dd_epot=d_pref * torch.sum(out[5]) + dd_t)
+        return StepObs(epot=e_pref * total(out[3]) + e_t, ekin=ekin,
+                       d_epot=d_pref * total(out[4]) + d_t,
+                       dd_epot=d_pref * total(out[5]) + dd_t)
 
     def counts_from_valid(valid):
-        return valid.reshape(P, cap).sum(dim=1).to(torch.int32)
+        return valid.reshape(reps * P, cap).sum(dim=1).to(torch.int32)
 
     def lists_from_counts(counts):
         if not width_lists:
             z = torch.zeros((1,), dtype=torch.int32, device=device)
             return z, z, z, z, z
-        return build_width_lists(counts, hs_tbl, hs_shf, P, cap)
+        return build_width_lists(counts, hs_tbl, hs_shf, reps * P, cap)
 
     def scatter_rows(x, slot):
         out = torch.zeros((8, ns + 1), dtype=dtype, device=device)
@@ -915,12 +1020,13 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     def permute_rebin(r8, others, order, src, valid_new):
         # Two gathers (sorted order, then the structured src) of the rows
         # that carry data: coordinates and ids of r, rows 0..2 of the others;
-        # validity comes from valid_new, rows 5..7 are zero throughout.
+        # validity comes from valid_new, rows 5..7 are zero throughout. An
+        # empty slot's gather may read another replica's particle: zeroed.
         vmask = valid_new.to(dtype)
         parts = [r8[0:3], r8[4:5]] + [o[0:3] for o in others]
-        stacked = torch.cat(parts, dim=0)[:, order][:, src] * vmask[None, :]
-        pad3 = torch.zeros((3, ns), dtype=dtype, device=device)
-        pad5 = torch.zeros((5, ns), dtype=dtype, device=device)
+        stacked = torch.where(valid_new[None, :], torch.cat(parts, dim=0)[:, order][:, src], 0.0)
+        pad3 = torch.zeros((3, reps * ns), dtype=dtype, device=device)
+        pad5 = torch.zeros((5, reps * ns), dtype=dtype, device=device)
         r8p = torch.cat([stacked[0:3], vmask[None, :], stacked[3:4], pad3], dim=0)
         return r8p, [torch.cat([stacked[4 + 3 * i:7 + 3 * i], pad5], dim=0)
                      for i in range(len(others))]
@@ -938,17 +1044,18 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         return r8, rc8
 
     def rebin(r8, others):
-        """(r8p, permuted others, counts, overflow, (lists, windows)) of a
-        rebin; the overflow includes the window tables'."""
-        order, src, valid_new, overflow = rebin_gather_parts(r8, r8[3], grid, z_order=z_band)
+        """(r8p, permuted others, counts, overflow, windows) of a rebin; the
+        overflow includes the window tables'."""
+        order, src, valid_new, overflow = rebin_gather_parts(r8, r8[3], grid, z_order=z_band,
+                                                             replicas=replicas)
         r8p, permuted = permute_rebin(r8, others, order, src, valid_new)
-        r8p = sentinel_fill(r8p, r8p[3], cap)
+        r8p = sentinel_fill(r8p, r8p[3], cap, None if replicas is None else P)
         counts = counts_from_valid(r8p[3])
         wins, w_ovf = windows(r8p, counts)
-        return r8p, permuted, counts, overflow | w_ovf, (lists_from_counts(counts), wins)
+        return r8p, permuted, counts, overflow | w_ovf, wins
 
-    def with_tables(c: PencilCarry, tables) -> PencilCarry:
-        wl, wins = tables
+    def with_tables(c: PencilCarry, wins) -> PencilCarry:
+        wl = lists_from_counts(c.counts)
         return dataclasses.replace(c, wl_self=wl[0], wl_self_cnt=wl[1], wl_nbr_i=wl[2],
                                    wl_nbr_j=wl[3], wl_nbr_off=wl[4], win_a=wins[0],
                                    win_b=wins[1], use_b=wins[2])
@@ -956,8 +1063,38 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     def wins_of(c: PencilCarry):
         return c.win_a, c.win_b, c.use_b
 
-    def init(state: MDState):
-        state = state.to(device=device, dtype=dtype)
+    def pick(fire, new: PencilCarry, old: PencilCarry) -> PencilCarry:
+        """Replica q's fields from ``new`` where ``fire[q]``, else from
+        ``old``: the slot rows, the counts and the flag (the width lists
+        follow from the counts)."""
+        def rows(a, b):
+            return torch.where(fire[None, :, None], a.reshape(8, reps, ns),
+                               b.reshape(8, reps, ns)).reshape(8, reps * ns)
+
+        return dataclasses.replace(
+            new, **{k: rows(getattr(new, k), getattr(old, k))
+                    for k in ("r", "ru", "v", "a", "r_ref", "rc", "vc")},
+            counts=torch.where(fire[:, None], new.counts.reshape(reps, P),
+                               old.counts.reshape(reps, P)).reshape(-1),
+            overflow=torch.where(fire, new.overflow, old.overflow))
+
+    def _rebinned(c: PencilCarry, with_a: bool, fire=None) -> PencilCarry:
+        """The carry rebinned (``with_a``: a rides along, as the next
+        chunk's first half-kick uses it); with ``fire`` (R,), only the
+        replicas it flags."""
+        r8, rc8 = wrap_rows(c.r, c.rc)
+        others = [c.ru, c.v] + ([c.a] if with_a else []) + ([rc8, c.vc] if compensated else [])
+        r8p, perm, counts, ovf, wins = rebin(r8, others)
+        ru, v, *rest = perm
+        a = rest.pop(0) if with_a else c.a
+        rc, vc = rest if compensated else (torch.zeros_like(r8p), c.vc)
+        new = dataclasses.replace(c, r=r8p, ru=ru, v=v, a=a, rc=rc, vc=vc, r_ref=r8p,
+                                  counts=counts, overflow=c.overflow | ovf)
+        return with_tables(new if fire is None else pick(fire, new, c), wins)
+
+    def bin_rows(state: MDState):
+        """One system's slot rows r (ids, validity, no sentinels yet), ru, v
+        and its binning overflow."""
         slot, overflow = bin_to_slots(state.r, grid)
         r8 = scatter_rows(state.r, slot)
         valid = torch.zeros((ns + 1,), dtype=dtype, device=device)
@@ -965,18 +1102,27 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         ids = torch.zeros((ns + 1,), dtype=dtype, device=device)
         ids[slot] = torch.arange(n, dtype=dtype, device=device)
         r8[3], r8[4] = valid[:ns], ids[:ns]
-        r8 = sentinel_fill(r8, r8[3], cap)
-        v8 = scatter_rows(state.v, slot)
+        return r8, scatter_rows(state.ru, slot), scatter_rows(state.v, slot), overflow
+
+    def init(state: MDState):
+        state = state.to(device=device, dtype=dtype)
+        if replicas is None:
+            r8, ru8, v8, overflow = bin_rows(state)
+        else:
+            parts = [bin_rows(replica_state(state, q)) for q in range(replicas)]
+            r8, ru8, v8 = (torch.cat([pt[i] for pt in parts], dim=1) for i in range(3))
+            overflow = torch.stack([pt[3] for pt in parts])
+        r8 = sentinel_fill(r8, r8[3], cap, None if replicas is None else P)
         counts = counts_from_valid(r8[3])
         wins, w_ovf = windows(r8, counts)
         out = sweep(r8, counts, wins)
         zero = torch.zeros_like(r8)
         carry = with_tables(PencilCarry(
-            r=r8, ru=scatter_rows(state.ru, slot), v=v8, a=accel(out), r_ref=r8,
+            r=r8, ru=ru8, v=v8, a=accel(out), r_ref=r8,
             counts=counts, win_a=None, win_b=None, use_b=None, rc=zero, vc=zero,
             overflow=overflow | w_ovf, wl_self=None, wl_self_cnt=None, wl_nbr_i=None,
-            wl_nbr_j=None, wl_nbr_off=None), (lists_from_counts(counts), wins))
-        return carry, obs_from(out, 0.5 * torch.sum(v8 * v8))
+            wl_nbr_j=None, wl_nbr_off=None), wins)
+        return carry, obs_from(out, 0.5 * total(v8 * v8))
 
     dt = cfg.dt
     half_dt = 0.5 * cfg.dt
@@ -1004,18 +1150,12 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         c = dataclasses.replace(c, r=r_new, ru=c.ru + delta, v=v_half, rc=rc_new, vc=vc_half)
         if rebin_mode is True:
             d = minimum_image(r_new[drift_rows] - c.r_ref[drift_rows], L)
-            moved = torch.max(torch.sum(d * d, dim=0) * r_new[3]) > rebuild_thresh
+            moved = rmax(torch.sum(d * d, dim=0) * r_new[3]) > rebuild_thresh
             HOST_READS["cellpair_moved"] += 1
-            rebin_mode = "force" if bool(moved) else False
-        if rebin_mode == "force":
-            r8, rc8 = wrap_rows(c.r, c.rc)
-            r8p, perm, counts, ovf, tables = rebin(
-                r8, [c.ru, c.v] + ([rc8, c.vc] if compensated else []))
-            c = with_tables(dataclasses.replace(
-                c, r=r8p, ru=perm[0], v=perm[1],
-                rc=perm[2] if compensated else torch.zeros_like(r8p),
-                vc=perm[3] if compensated else c.vc, r_ref=r8p, counts=counts,
-                overflow=c.overflow | ovf), tables)
+            if bool(moved.any()):
+                c = _rebinned(c, False, None if replicas is None else moved)
+        elif rebin_mode == "force":
+            c = _rebinned(c, False)
         out = sweep(c.r, c.counts, wins_of(c), want_obs)
         a_new = accel(out)
         if compensated:
@@ -1025,18 +1165,7 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             v_new, vc_new = c.v + a_new * half_dt, c.vc
             v_eff = v_new
         c = dataclasses.replace(c, v=v_new, vc=vc_new, a=a_new)
-        return c, obs_from(out, 0.5 * torch.sum(v_eff * v_eff))
-
-    def _rebin_carry(c: PencilCarry) -> PencilCarry:
-        # a rides along: the next chunk's first half-kick uses it.
-        r8, rc8 = wrap_rows(c.r, c.rc)
-        r8p, perm, counts, ovf, tables = rebin(
-            r8, [c.ru, c.v, c.a] + ([rc8, c.vc] if compensated else []))
-        return with_tables(dataclasses.replace(
-            c, r=r8p, ru=perm[0], v=perm[1], a=perm[2],
-            rc=perm[3] if compensated else torch.zeros_like(r8p),
-            vc=perm[4] if compensated else c.vc, r_ref=r8p, counts=counts,
-            overflow=c.overflow | ovf), tables)
+        return c, obs_from(out, 0.5 * total(v_eff * v_eff))
 
     def _invalid_check(c: PencilCarry):
         """Sticky flag for drift past the coverage slack since the last
@@ -1045,7 +1174,7 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         d = minimum_image(c.r[drift_rows] - c.r_ref[drift_rows], L)
         moved2 = torch.sum(d * d, dim=0) * c.r[3]
         return dataclasses.replace(
-            c, overflow=c.overflow | (torch.max(moved2) > rebuild_thresh)), moved2
+            c, overflow=c.overflow | (rmax(moved2) > rebuild_thresh)), moved2
 
     def _maybe_rebin(c: PencilCarry, k: int) -> PencilCarry:
         valid = c.r[3]
@@ -1053,12 +1182,14 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         if rebin_trigger == "never":
             return c
         if rebin_trigger == "always":
-            return _rebin_carry(c)
+            return _rebinned(c, True)
         speed = torch.sqrt(torch.sum(c.v[drift_rows] * c.v[drift_rows], dim=0))
         predicted = torch.sqrt(moved2) + speed * (k * dt * _PREDICT_SAFETY)
-        will_exceed = torch.max(predicted * valid) > 0.5 * slack
+        will_exceed = rmax(predicted * valid) > 0.5 * slack
         HOST_READS["cellpair_will_exceed"] += 1
-        return _rebin_carry(c) if bool(will_exceed) else c
+        if not bool(will_exceed.any()):
+            return c
+        return _rebinned(c, True, None if replicas is None else will_exceed)
 
     def _chunk(c: PencilCarry, k: int) -> PencilCarry:
         c = _maybe_rebin(c, k)
@@ -1066,10 +1197,10 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         if width_lists:
             out = fused_pencil_width_chunk(c.r, c.v, c.a, c.wl_self, c.wl_self_cnt,
                                            c.wl_nbr_i, c.wl_nbr_j, c.wl_nbr_off, P, cap, L,
-                                           cfg.rc_square, dt, k, **ext)
+                                           cfg.rc_square, dt, k, **ext, **rep_kw)
         else:
             out = fused_pencil_chunk(c.r, c.v, c.a, hs_tbl, hs_shf, P, cap, L,
-                                     cfg.rc_square, dt, k, **ext)
+                                     cfg.rc_square, dt, k, **ext, **rep_kw)
         if compensated:
             r_end, rc_end, v_new, vc_new, a_new = out
             ru = c.ru + ((r_end - c.r) + (rc_end - c.rc)) * xyz_mask
@@ -1113,13 +1244,16 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
 
     def get_state(c: PencilCarry) -> MDState:
         """Slot layout -> particle order through the id row; positions
-        wrapped back into [0, L)."""
+        wrapped back into [0, L). A stack's replica q fills rows [q (n + 1),
+        (q + 1) (n + 1)) of one buffer, its empty slots row q (n + 1) + n."""
         ids = torch.where(c.r[3] > 0.5, c.r[4].to(torch.int64), n)
+        if replicas is not None:
+            ids = ids + torch.arange(reps * ns, device=device) // ns * (n + 1)
 
         def gather(arr):
-            out = torch.zeros((n + 1, 3), dtype=dtype, device=device)
+            out = torch.zeros((reps * (n + 1), 3), dtype=dtype, device=device)
             out[ids] = arr[0:3].T
-            return out[:n]
+            return out[:n] if replicas is None else out.view(reps, n + 1, 3)[:, :n]
 
         v8 = c.v + c.vc if compensated else c.v
         return MDState(r=wrap_positions(gather(c.r), L), ru=gather(c.ru), v=gather(v8),
@@ -1254,32 +1388,51 @@ def replica_backend(cfg: SimConfig, backend: str = "auto", device="cuda",
                     sample_interval: int | None = None) -> tuple[str, bool]:
     """(the backend ``backend`` resolves to, whether the replica engine of
     ``make_replica_engine`` is batched): the rows engine (``rows`` /
-    ``pallas``) and the zsort engine batch their replicas, every other
-    backend loops over them."""
+    ``pallas``), the zsort engine and the cell-pair engine batch their
+    replicas; neighbor and dense loop over them."""
     device = resolve_device(device)
     if backend == "auto":
         backend = auto_backend(cfg, device.type == "cuda", sample_interval)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    return backend, backend in ("rows", "pallas", "zsort")
+    return backend, backend in ("rows", "pallas", "zsort", "cellpair")
+
+
+def replica_capacity(cfg: SimConfig, states: MDState | None) -> int:
+    """The one pencil capacity of a batched cell-pair ensemble:
+    ``cfg.neighbor_capacity`` where set, else the largest occupancy census
+    (``capacity_from_state``) over the replicas of ``states``, else 0 (the
+    lattice bound, as ``make_engine`` without a state). JAX under vmap
+    cannot take a census of a traced state and takes the config's or the
+    lattice's."""
+    if cfg.neighbor_capacity or states is None:
+        return cfg.neighbor_capacity
+    r_list = cfg.rc + cfg.neighbor_skin
+    return max(capacity_from_state(cfg.box_length, r_list, states.r[q])
+               for q in range(states.r.shape[0]))
 
 
 def make_replica_engine(cfg: SimConfig, replicas: int, backend: str = "auto", device="cuda",
                         states: MDState | None = None,
                         sample_interval: int | None = None) -> Engine:
     """The engine of an R-replica ensemble on ``device``: (R, N, 3) states,
-    (R,) observables. Where ``backend`` resolves to the rows or zsort engine
-    it is that engine with ``replicas=R`` (one launch of kernels 2, 3 or 4
-    a sweep or chunk for all R; zsort: of kernels 2, 9 and 10); every other
-    backend (cellpair, neighbor, dense) is a loop over R engines of its own
+    (R,) observables. Where ``backend`` resolves to the rows, zsort or
+    cell-pair engine it is that engine with ``replicas=R`` (one launch of
+    kernels 2, 3 or 4 a sweep or chunk for all R; zsort: of kernels 2, 9
+    and 10; cellpair: of kernel 13 a sampled sweep and of kernel 15 or 16 a
+    chunk, at one capacity for all replicas, ``replica_capacity``, so
+    replica q is what a one-system engine built at that capacity gives it);
+    neighbor and dense are a loop over R engines of their own
     (``_replica_loop_engine``: R launches a step), each built as
-    ``make_engine`` builds it, from its replica of ``states`` where that
-    sizes the engine (cellpair's capacity). ``_replica_loop_engine`` of R
-    one-system engines stays the yardstick of the batched ones."""
+    ``make_engine`` builds it. ``_replica_loop_engine`` of R one-system
+    engines stays the yardstick of the batched ones."""
     device = resolve_device(device)
     backend, batched = replica_backend(cfg, backend, device, sample_interval)
     if batched and backend == "zsort":
         return _zsort_engine(cfg, device, replicas=replicas, **_zsort_kwargs(sample_interval))
+    if batched and backend == "cellpair":
+        cfg = cfg.replace(neighbor_capacity=replica_capacity(cfg, states))
+        return _cellpair_engine(cfg, device, replicas=replicas)
     if batched:
         return _rows_engine(cfg, device, replicas=replicas)
     return _replica_loop_engine([

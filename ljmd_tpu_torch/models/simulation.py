@@ -20,8 +20,9 @@ interval) through a prologue / epilogue split, including
 
 Replica ensembles: ``initialize_replicas`` builds R initial states, one per
 CPU generator (``replica_generators``), and ``run_production`` given (R, N,
-3) states runs them on ``make_replica_engine``'s engine (the rows or zsort
-engine batched over the replicas, else a loop over per-replica engines): series
+3) states runs them on ``make_replica_engine``'s engine (the rows, zsort or
+cell-pair engine batched over the replicas, else a loop over per-replica
+engines): series
 (R, 5, n_samples), means (R, 11), correlations (R, 5, max_lag+1). The
 drivers and the statistics take the leading replica axis as it is; on one
 system they compute what they did before, op for op.
@@ -340,11 +341,12 @@ def initialize_replicas(cfg: SimConfig, generators, backend: str = "auto",
                         device="cuda") -> MDState:
     """``initialize`` for R replicas, one generator each: the (R, N, 3)
     post-warmup states. Where ``backend`` resolves to a batched engine
-    (``replica_backend``: rows, zsort) the replicas run together: the
+    (``replica_backend``: rows, zsort, cellpair) the replicas run together: the
     lattice, each replica's velocities from its own generator, per-replica
     COM removal, per-replica rescale to E_target, then the warmup on that
-    engine with ``replicas=R`` (one launch a chunk for all R). Any other
-    backend initializes each replica in turn with ``initialize``."""
+    engine with ``replicas=R`` (one launch a chunk for all R; cellpair at
+    the lattice bound, as ``initialize``). Neighbor and dense initialize
+    each replica in turn with ``initialize``."""
     device = resolve_device(device)
     replicas = len(generators)
     backend, batched = replica_backend(cfg, backend, device)

@@ -64,7 +64,8 @@ class LaunchCounts:
              "pair_sweep_tri_replicas", "fused_dense_chunk_replicas",
              "fused_dense_chunk_ext_replicas", "pair_sweep_rect_replicas",
              "pair_sweep_rect_newton_replicas", "build_window_lists_replicas",
-             "fused_dense_chunk_list_replicas")
+             "fused_dense_chunk_list_replicas", "pencil_sweep_hs_replicas",
+             "fused_pencil_chunk_replicas", "fused_pencil_width_chunk_replicas")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)

@@ -175,7 +175,7 @@ def bin_to_slots(r: torch.Tensor, grid: PencilGrid):
 
 
 def rebin_gather_parts(rows_r: torch.Tensor, valid: torch.Tensor, grid: PencilGrid,
-                       z_order: bool = False):
+                       z_order: bool = False, replicas: int | None = None):
     """Recompute the slot assignment from slot-layout data, in gather form:
     returns ``(order, src, valid_new, overflow)`` with the new layout
     ``new[:, t] = old[:, order[src[t]]] where valid_new[t]``. ``rows_r`` is
@@ -184,21 +184,33 @@ def rebin_gather_parts(rows_r: torch.Tensor, valid: torch.Tensor, grid: PencilGr
     dropped, with ``overflow`` set. Ranks within a pencil follow the old
     slot order, or ascend in z with ``z_order`` (JAX's
     ``lexsort((z where valid else 0, pencil))``, which the z-banded sweep's
-    windows need)."""
-    ns = grid.n_slots
+    windows need).
+
+    ``replicas=R``: the rows are R grids side by side ((8, R * n_slots),
+    replica q in slots [q * n_slots, (q + 1) * n_slots)), each slot keyed
+    by its pencil + q * n_pencils, so that the one stable sort orders each
+    replica as its own rebin would and no particle leaves its replica;
+    ``overflow`` is then (R,), one flag a replica."""
+    reps = 1 if replicas is None else replicas
+    ns = grid.n_slots * reps
+    n_keys = grid.n_pencils * reps
     cap = grid.capacity
     dev = rows_r.device
     pid = _pencil_ids(rows_r[0], rows_r[1], grid)
+    if replicas is not None:
+        pid = pid + (torch.arange(ns, device=dev, dtype=torch.int32) // grid.n_slots
+                     ) * grid.n_pencils
     is_valid = valid > 0.5
-    pid_key = torch.where(is_valid, pid, grid.n_pencils)
+    pid_key = torch.where(is_valid, pid, n_keys)
     if z_order:
         zkey = torch.where(is_valid, rows_r[2], torch.zeros((), dtype=rows_r.dtype, device=dev))
         by_z = torch.sort(zkey, stable=True).indices
         order = by_z[torch.sort(pid_key[by_z], stable=True).indices]
     else:
         order = torch.sort(pid_key, stable=True).indices
-    counts, starts = _counts_starts(pid_key, grid.n_pencils)
-    overflow = torch.any(counts > cap)
+    counts, starts = _counts_starts(pid_key, n_keys)
+    over = counts > cap
+    overflow = torch.any(over) if replicas is None else over.reshape(reps, -1).any(dim=1)
     j = torch.arange(cap, device=dev)
     src = torch.clamp((starts[:, None] + j[None, :]).reshape(ns), 0, ns - 1)
     valid_new = (j[None, :] < torch.clamp(counts, max=cap)[:, None]).reshape(ns)

@@ -31,7 +31,7 @@ The width chunk reads the lists through a per-block visit index,
 their role (``ROLES``), partner blocks and image shift, as CSR offsets and
 packed entries, and the blocks ordered by their partner count. The wrapper
 derives it on the device from the lists, once per list build (it keeps the
-last lists it indexed), with torch ops and no host read.
+last few lists it indexed), with torch ops and no host read.
 
 On CUDA tensors each chunk is ONE cooperative launch (the static chunk:
 ``csrc/fused_pencil_chunk.cu``, tables, the inverse table and the validity
@@ -442,18 +442,21 @@ def width_grid(r, extended=False) -> dict:
             "items": items, "resident_blocks": resident, "blocks": min(items, resident)}
 
 
-# The last lists the width chunk indexed and their index: a rebin builds new
-# lists, so the index is derived once per list build.
-_LAST_INDEX: list = []
+# The last lists the width chunk indexed and their indexes: a rebin builds
+# new lists, so each index is derived once per list build; a few are kept, so
+# that R one-system engines taking turns (a replica loop) do not rebuild them.
+_INDEX_CACHE: list = []
+_INDEX_CACHE_SIZE = 16
 
 
 def _index_of(lists, n_pencils, capacity):
     key = (n_pencils, capacity, tuple(t._version for t in lists))
-    if _LAST_INDEX and _LAST_INDEX[1] == key and all(
-            a is b for a, b in zip(_LAST_INDEX[0], lists)):
-        return _LAST_INDEX[2]
+    for hit in _INDEX_CACHE:
+        if hit[1] == key and all(a is b for a, b in zip(hit[0], lists)):
+            return hit[2]
     index = width_index(*lists, n_pencils, capacity)
-    _LAST_INDEX[:] = [lists, key, index]
+    _INDEX_CACHE.insert(0, (lists, key, index))
+    del _INDEX_CACHE[_INDEX_CACHE_SIZE:]
     return index
 
 
@@ -484,11 +487,10 @@ def _outputs(rbuf, lobuf, v_out, vc_out, a_out, n_steps):
 
 
 def _launch_static(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square, dt, n_steps,
-                   r_lo, vc, grid_cap=None):
-    """One launch of the static chunk kernel. ``grid_cap`` caps the
-    persistent grid (each block then takes more work items): tests and the
-    smoke script only."""
-    name = "fused_pencil_chunk"
+                   r_lo, vc, grid_cap=None, name="fused_pencil_chunk"):
+    """One launch of the static chunk kernel, counted as ``name``.
+    ``grid_cap`` caps the persistent grid (each block then takes more work
+    items): tests and the smoke script only."""
     rbuf, lobuf, v_out, vc_out, a_out = _prepare(name, r, v, a, (tbl, shf), n_pencils,
                                                  capacity, n_steps, r_lo, vc)
     extended = lobuf is not None
@@ -517,11 +519,10 @@ def _launch_static(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square
 
 
 def _launch_width(r, v, a, lists, n_pencils, capacity, box_length, rc_square, dt, n_steps,
-                  r_lo, vc, grid_cap=None):
-    """One launch of the width chunk kernel. ``grid_cap`` (tests and the
-    smoke script only) caps the persistent grid, so that each block takes
-    several work items."""
-    name = "fused_pencil_width_chunk"
+                  r_lo, vc, grid_cap=None, name="fused_pencil_width_chunk"):
+    """One launch of the width chunk kernel, counted as ``name``.
+    ``grid_cap`` (tests and the smoke script only) caps the persistent
+    grid, so that each block takes several work items."""
     rbuf, lobuf, v_out, vc_out, a_out = _prepare(name, r, v, a, lists, n_pencils, capacity,
                                                  n_steps, r_lo, vc)
     extended = lobuf is not None
@@ -544,27 +545,45 @@ def _launch_width(r, v, a, lists, n_pencils, capacity, box_length, rc_square, dt
     return _outputs(rbuf, lobuf, v_out, vc_out, a_out, n_steps)
 
 
+def _stacked(name, n_pencils, replicas):
+    """(pencils of the slot matrix, the launch's counter name) for one grid
+    or, ``replicas=R``, a stack of R grids side by side."""
+    if replicas is None:
+        return n_pencils, name
+    if replicas < 1:
+        raise ValueError(f"{name}: replicas must be >= 1")
+    return n_pencils * replicas, name + "_replicas"
+
+
 def fused_pencil_chunk(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square, dt,
-                       n_steps, r_lo=None, vc=None):
+                       n_steps, r_lo=None, vc=None, replicas=None):
     """Advance ``n_steps`` Verlet steps of the slot layout over the
     half-shell tables, every pencil at full capacity (module docstring).
-    One launch on CUDA tensors; the plain twin on CPU tensors."""
+    One launch on CUDA tensors; the plain twin on CPU tensors.
+    ``replicas=R``: the rows are R grids of ``n_pencils`` pencils side by
+    side, with ``replica_tables``' tables (``ops/pencil_sweep.py``): one
+    launch for all R (counted as ``fused_pencil_chunk_replicas``)."""
+    n_pencils, name = _stacked("fused_pencil_chunk", n_pencils, replicas)
     if r.device.type == "cpu":
         return fused_pencil_chunk_plain(r, v, a, tbl, shf, n_pencils, capacity, box_length,
                                         rc_square, dt, n_steps, r_lo, vc)
     if r.device.type != "cuda":
         raise ValueError(f"fused_pencil_chunk: unsupported device {r.device}")
     return _launch_static(r, v, a, tbl, shf, n_pencils, capacity, box_length, rc_square, dt,
-                          n_steps, r_lo, vc)
+                          n_steps, r_lo, vc, name=name)
 
 
 def fused_pencil_width_chunk(r, v, a, wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off,
                              n_pencils, capacity, box_length, rc_square, dt, n_steps,
-                             r_lo=None, vc=None):
+                             r_lo=None, vc=None, replicas=None):
     """``fused_pencil_chunk`` with every visit at its pencils' active width,
     driven by the ``build_width_lists`` lists through their ``width_index``
     (derived on the device once per list build: no host read). One launch
-    on CUDA tensors; the plain twin on CPU tensors."""
+    on CUDA tensors; the plain twin on CPU tensors. ``replicas=R``: R grids
+    of ``n_pencils`` pencils side by side, the lists built over all R *
+    n_pencils pencils (``replica_tables``' tables, the stack's counts): one
+    launch for all R (counted as ``fused_pencil_width_chunk_replicas``)."""
+    n_pencils, name = _stacked("fused_pencil_width_chunk", n_pencils, replicas)
     lists = (wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, wl_nbr_off)
     if r.device.type == "cpu":
         return fused_pencil_width_chunk_plain(r, v, a, *lists, n_pencils, capacity, box_length,
@@ -572,4 +591,4 @@ def fused_pencil_width_chunk(r, v, a, wl_self, wl_self_cnt, wl_nbr_i, wl_nbr_j, 
     if r.device.type != "cuda":
         raise ValueError(f"fused_pencil_width_chunk: unsupported device {r.device}")
     return _launch_width(r, v, a, lists, n_pencils, capacity, box_length, rc_square, dt,
-                         n_steps, r_lo, vc)
+                         n_steps, r_lo, vc, name=name)

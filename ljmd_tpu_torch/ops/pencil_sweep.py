@@ -92,6 +92,7 @@ __all__ = [
     "pencil_sweep_plain",
     "pencil_sweep_zband",
     "pencil_sweep_zband_plain",
+    "replica_tables",
     "sentinel_fill",
     "sweep_hs_grid",
     "zband_grid",
@@ -157,13 +158,19 @@ def build_shift_table(grid: PencilGrid) -> np.ndarray:
     return tbl.reshape(-1)
 
 
-def sentinel_fill(rows_r: torch.Tensor, valid: torch.Tensor, capacity: int) -> torch.Tensor:
+def sentinel_fill(rows_r: torch.Tensor, valid: torch.Tensor, capacity: int,
+                  n_pencils: int | None = None) -> torch.Tensor:
     """Sentinel coordinates in the xyz rows of invalid slots
-    (x = SENT_BASE * (1 + pencil) + rank, y = z = 0); other rows untouched."""
+    (x = SENT_BASE * (1 + pencil) + rank, y = z = 0); other rows untouched.
+    ``n_pencils`` (a replica stack of grids of that many pencils) numbers
+    the pencils within each grid, so that every replica's sentinels are
+    those of its grid alone."""
     ns = rows_r.shape[1]
     slot = torch.arange(ns, device=rows_r.device)
     pencil = slot // capacity
     rank = slot - pencil * capacity
+    if n_pencils is not None:
+        pencil = pencil % n_pencils
     slot_x = (SENT_BASE * (1.0 + pencil.double()) + rank.double()).to(rows_r.dtype)
     ok = valid > 0.5
     out = rows_r.clone()
@@ -171,6 +178,17 @@ def sentinel_fill(rows_r: torch.Tensor, valid: torch.Tensor, capacity: int) -> t
     out[1] = torch.where(ok, rows_r[1], 0.0)
     out[2] = torch.where(ok, rows_r[2], 0.0)
     return out
+
+
+def replica_tables(tbl, shf, n_pencils: int, replicas: int):
+    """The half-shell tables of a stack of ``replicas`` grids side by side
+    (slots of replica q at [q * n_slots, (q + 1) * n_slots)): the pencil ids
+    of replica q offset by q * n_pencils, the image shifts repeated. No
+    pencil of the stack has a neighbour in another replica, so a sweep or
+    chunk over the stack computes each replica as over its own grid."""
+    off = torch.arange(replicas, dtype=tbl.dtype, device=tbl.device) * n_pencils
+    return ((tbl.reshape(1, -1) + off[:, None]).reshape(-1).contiguous(),
+            shf.repeat(replicas).contiguous())
 
 
 def accumulate_visits(out, pos, lo, ista, jsta, shx, shy, width, tri, box_length,
@@ -559,13 +577,22 @@ def _lower_of(tbl, n_pencils: int):
 
 
 def pencil_sweep_hs(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
-                    want_observables: bool = True, n_pencils_i: int | None = None):
+                    want_observables: bool = True, n_pencils_i: int | None = None,
+                    replicas: int | None = None):
     """Half-shell sweep of an (8, n_slots) slot matrix (module docstring):
     ONE launch of ``csrc/pencil_sweep_hs.cu`` on CUDA tensors (the counts
     read on the device), the plain twin on CPU tensors. With ``n_pencils_i``
     the matrix is a strip plus its halo: (8, n_pencils * capacity) for any
     n_pencils >= n_pencils_i, tables of n_pencils_i rows, counts of all
-    n_pencils."""
+    n_pencils. With ``replicas=R`` it is R grids side by side, (8, R *
+    n_slots), with ``replica_tables``' tables and the R grids' counts: one
+    launch for all R (counted as ``pencil_sweep_hs_replicas``), replica q's
+    slots what a launch on its grid alone gives them."""
+    name = "pencil_sweep_hs"
+    if replicas is not None:
+        if n_pencils_i is not None or replicas < 1:
+            raise ValueError("pencil_sweep_hs: replicas >= 1, and not with n_pencils_i")
+        n_pencils_i, name = replicas * grid.n_pencils, "pencil_sweep_hs_replicas"
     if pos.device.type == "cpu":
         return pencil_sweep_hs_plain(pos, tbl, counts, shf, grid, rc_square, want_observables,
                                      n_pencils_i)
@@ -595,8 +622,8 @@ def pencil_sweep_hs(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
             shf.data_ptr(), lower.data_ptr(), p_i, p_all, cap, float(grid.box_length),
             1.0 / float(grid.box_length), float(rc_square), int(want_observables),
             _cuda.stream_handle(pos))
-    _cuda.LAUNCHES.bump("pencil_sweep_hs")
-    _cuda.check(code, "pencil_sweep_hs")
+    _cuda.LAUNCHES.bump(name)
+    _cuda.check(code, name)
     return out
 
 

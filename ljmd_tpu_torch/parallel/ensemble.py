@@ -21,8 +21,11 @@ a replica grid axis. Here:
   on the card) with ``replicas=R``: its visit-list packs (kernel 9) and
   list chunks (kernel 10) are one launch for all R, each replica over its own
   sorted order and lists;
-- every other backend (cellpair, neighbor, dense) runs a loop over
-  replicas: each replica has its own engine, initialized by ``initialize``,
+- and on the cell-pair engine (config 5's fluid: ``auto`` picks cellpair on
+  the card at N >= 8192), one flat stack of R pencil grids at one capacity:
+  its sampled sweeps (kernel 13) and fused chunks (kernels 15 and 16) are
+  one launch for all R;
+- neighbor and dense run a loop over replicas: each replica has its own engine, initialized by ``initialize``,
   and each step of the ensemble steps every replica's engine in turn
   (``make_replica_engine``), exactly the calls of a one-system
   ``run_production``: the same result as per-replica runs stacked, at R
@@ -171,8 +174,8 @@ def ensemble_simulate(cfg: SimConfig, n_replicas: Optional[int] = None,
     ``device`` and aggregate them: ``initialize_replicas`` from
     ``replica_generators(seed or cfg.seed, R)``, then ``run_production`` of
     the (R, N, 3) states, which takes given initial states as well (module
-    docstring: batched on the rows and zsort engines, a loop over replicas on
-    any other). With ``mesh`` (``parallel/mesh.py``) the replicas split over
+    docstring: batched on the rows, zsort and cell-pair engines, a loop over
+    replicas on neighbor and dense). With ``mesh`` (``parallel/mesh.py``) the replicas split over
     its replica axis, each rank's on the mesh's device (module docstring).
     With ``keep_per_replica=True`` returns (EnsembleResult, batched
     SimResult), for per-run artifacts (``replica_result``)."""

@@ -9,12 +9,16 @@ parity checks start both packages from one numpy state:
   engine's padding and this port's (``row_carry_from_numpy`` /
   ``row_carry_to_numpy``);
 - ``ZSortCarry`` fields as they are (both packages pad the zsort engine to
-  the same n_pad): the sorted column order, the ids, the visit lists and
-  the sticky flag (``zsort_carry_from_numpy`` / ``zsort_carry_to_numpy``);
+  the same n_pad): the sorted column order, the ids, the visit lists, the
+  sticky flag and the port's resort count (0 from a JAX carry)
+  (``zsort_carry_from_numpy`` / ``zsort_carry_to_numpy``);
 - ``PencilCarry`` fields as they are (both packages lay the slots out
   alike): the slot rows, the counts, the z-band's window tables and the
   width lists, and the sticky overflow flag (``pencil_carry_from_numpy`` /
-  ``pencil_carry_to_numpy``);
+  ``pencil_carry_to_numpy``); a batched carry's per-replica fields in the
+  JAX package's vmapped layout, (R, 8, n_slots) rows, (R, n_pencils) counts
+  and (R,) flags, each replica's slice its one-system field
+  (``pencil_replicas_to_numpy`` / ``pencil_replicas_from_numpy``);
 - the neighbor engine's carry, (MDState, NeighborList): the list's indices,
   reference positions and sticky overflow flag (``neighbor_list_from_numpy``,
   ``neighbor_carry_from_numpy``);
@@ -37,12 +41,15 @@ import numpy as np
 import torch
 
 from ljmd_tpu_torch.models.engine import ROW_PAD, PencilCarry, RowCarry, ZSortCarry
+from ljmd_tpu_torch.ops.fused_pencil import build_width_lists
 from ljmd_tpu_torch.ops.neighbor import NeighborList
+from ljmd_tpu_torch.ops.pencil_sweep import TILE_I
 from ljmd_tpu_torch.parallel.spatial_pencil import ShardedPencilCarry, augmented_counts
 from ljmd_tpu_torch.state import MDState
 
 __all__ = [
     "PENCIL_FIELDS",
+    "PENCIL_REPLICA_FIELDS",
     "ROW_FIELDS",
     "STATE_FIELDS",
     "ZSORT_FIELDS",
@@ -57,6 +64,8 @@ __all__ = [
     "state_from_numpy",
     "pencil_carry_from_numpy",
     "pencil_carry_to_numpy",
+    "pencil_replicas_from_numpy",
+    "pencil_replicas_to_numpy",
     "state_to_numpy",
     "zsort_carry_from_numpy",
     "zsort_carry_to_numpy",
@@ -65,8 +74,8 @@ __all__ = [
 STATE_FIELDS = ("r", "ru", "v", "a")
 ROW_FIELDS = ("r", "ru", "v", "a", "rc", "vc")
 ZSORT_FIELDS = ("r", "ru", "v", "a", "ids", "r_ref", "tiles", "tcounts", "invalid",
-                "rlo", "vc")
-_ZSORT_INT = ("ids", "tiles", "tcounts")
+                "rlo", "vc", "resorts")
+_ZSORT_INT = ("ids", "tiles", "tcounts", "resorts")
 PENCIL_FIELDS = tuple(f.name for f in dataclasses.fields(PencilCarry))
 _PENCIL_INT = ("counts", "win_a", "win_b", "use_b", "wl_self", "wl_self_cnt", "wl_nbr_i",
                "wl_nbr_j", "wl_nbr_off")
@@ -137,8 +146,15 @@ def _carry_from_numpy(cls, fields, int_fields, flag, arrays, dtype, device):
 def zsort_carry_from_numpy(arrays, dtype=torch.float64, device="cpu") -> ZSortCarry:
     """ZSortCarry from arrays (a mapping, or an object with attributes, e.g.
     the JAX package's ZSortCarry): float rows in ``dtype``, ids / tiles /
-    tcounts int32, ``invalid`` bool; nothing is re-ordered or re-padded."""
-    return _carry_from_numpy(ZSortCarry, ZSORT_FIELDS, _ZSORT_INT, "invalid", arrays, dtype,
+    tcounts / resorts int32, ``invalid`` bool; nothing is re-ordered or
+    re-padded. A source without ``resorts`` (the JAX carry has none) starts
+    the count at 0."""
+    get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
+    fields = {k: get(k) for k in ZSORT_FIELDS if k != "resorts"}
+    has = "resorts" in arrays if isinstance(arrays, dict) else hasattr(arrays, "resorts")
+    fields["resorts"] = get("resorts") if has else np.zeros(np.shape(fields["invalid"]),
+                                                             dtype=np.int32)
+    return _carry_from_numpy(ZSortCarry, ZSORT_FIELDS, _ZSORT_INT, "invalid", fields, dtype,
                              device)
 
 
@@ -158,6 +174,53 @@ def pencil_carry_from_numpy(arrays, dtype=torch.float64, device="cpu") -> Pencil
 def pencil_carry_to_numpy(carry: PencilCarry) -> dict:
     """{field: array} of a PencilCarry, on the host."""
     return {k: getattr(carry, k).detach().cpu().numpy() for k in PENCIL_FIELDS}
+
+
+_PENCIL_ROWS = ("r", "ru", "v", "a", "r_ref", "rc", "vc")
+# The fields a batched cell-pair carry holds per replica (the width lists
+# and window tables are the stack's own).
+PENCIL_REPLICA_FIELDS = _PENCIL_ROWS + ("counts", "overflow")
+
+
+def pencil_replicas_to_numpy(carry: PencilCarry, replicas: int) -> dict:
+    """{field: array} of a batched ``PencilCarry`` (the flat stack of
+    ``_cellpair_engine(..., replicas=R)``) in the JAX package's vmapped
+    layout: slot rows (R, 8, n_slots), counts (R, n_pencils), the flag
+    (R,); ``[q]`` of each is replica q's one-system field. The width lists
+    and window tables are the stack's and are left out."""
+    out = {k: getattr(carry, k).detach().reshape(8, replicas, -1).transpose(0, 1).cpu().numpy()
+           for k in _PENCIL_ROWS}
+    out["counts"] = carry.counts.detach().reshape(replicas, -1).cpu().numpy()
+    out["overflow"] = carry.overflow.detach().reshape(replicas).cpu().numpy()
+    return out
+
+
+def pencil_replicas_from_numpy(arrays, tables=None, dtype=torch.float64,
+                               device="cpu") -> PencilCarry:
+    """A batched ``PencilCarry`` from per-replica arrays (a mapping or an
+    object with attributes, e.g. the JAX package's vmapped carry): slot rows
+    (R, 8, n_slots) side by side as (8, R * n_slots), counts (R, n_pencils)
+    one after another, the flags (R,); the width lists built from the
+    stack's counts over ``tables`` (the engine's ``replica_tables``, as
+    (tbl, shf)), or left empty without; the z-band tables empty."""
+    get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
+    rows = {k: np.array(get(k)) for k in _PENCIL_ROWS}
+    reps, _, ns = rows["r"].shape
+    fields = {k: torch.as_tensor(x.transpose(1, 0, 2).reshape(8, reps * ns), dtype=dtype,
+                                 device=device).contiguous() for k, x in rows.items()}
+    counts = np.array(get("counts"))
+    n_pencils = counts.shape[1]
+    fields["counts"] = torch.as_tensor(counts.reshape(-1), dtype=torch.int32, device=device)
+    fields["overflow"] = torch.as_tensor(np.array(get("overflow")).reshape(reps),
+                                         dtype=torch.bool, device=device)
+    zero = torch.zeros((1,), dtype=torch.int32, device=device)
+    lists = (zero,) * 5
+    if tables is not None:
+        lists = build_width_lists(fields["counts"], *tables, reps * n_pencils, ns // n_pencils)
+    win = torch.zeros(((ns // TILE_I) * 9,), dtype=torch.int32, device=device)
+    return PencilCarry(**fields, win_a=win, win_b=win, use_b=win,
+                       **dict(zip(("wl_self", "wl_self_cnt", "wl_nbr_i", "wl_nbr_j",
+                                   "wl_nbr_off"), lists)))
 
 
 def neighbor_list_from_numpy(arrays, dtype=torch.float64, device="cpu") -> NeighborList:

@@ -1700,3 +1700,142 @@ def test_replica_x_particle_step_on_card_equals_single_runs(cuda, comm, dtype):
     finally:
         mesh.close()
         one_mesh.close()
+
+
+def _pencil_stack(reps, dtype, extended=False):
+    """R cell-pair carries at _pencil_carry's geometry (N=2048, 4x4 pencils
+    of capacity 256), each from its own seed, as the batched engine's flat
+    stack built on the CPU, with the one-grid tables and the stack's."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.ops import cell_list, pencil_sweep
+    from ljmd_tpu_torch.state import MDState
+
+    cfg = SimConfig(num_cells=8, box_length=13.4, rc_over_box=2.5 / 13.4, dt=0.004,
+                    dtype=dtype, target_total_energy=-9000.0, neighbor_capacity=256)
+    tdt = torch.float64 if dtype == "float64" else torch.float32
+    lat = fcc_lattice(8, 13.4, dtype=torch.float64)
+    rs, vs = [], []
+    for q in range(reps):
+        rng = np.random.default_rng(30 + q)
+        rs.append(torch.remainder(lat + torch.as_tensor(rng.normal(0, 0.05, lat.shape)), 13.4))
+        vs.append(torch.as_tensor(rng.normal(0, 1.0, lat.shape)))
+    r, v = torch.stack(rs).to(tdt), torch.stack(vs).to(tdt)
+    eng = pe._cellpair_engine(cfg, "cpu", compensated=extended, width_lists=True, replicas=reps)
+    carry, _ = eng.init(MDState(r=r, ru=r, v=v, a=torch.zeros_like(r)))
+    grid = cell_list.make_pencil_grid(cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin,
+                                      cfg.density, 256)
+    tbl, shf = (torch.as_tensor(t) for t in pencil_sweep.build_half_shell_tables(grid))
+    return cfg, grid, carry, (tbl, shf), pencil_sweep.replica_tables(tbl, shf,
+                                                                     grid.n_pencils, reps)
+
+
+@pytest.mark.parametrize("mode,tol", [("float64", 1e-10), ("float32", 1e-4), ("extended", 1e-4)])
+@pytest.mark.parametrize("kernel", ["sweep", "static", "width"])
+def test_pencil_replica_launches_equal_single_launches(cuda, kernel, mode, tol):
+    """Kernels 13, 15 and 16 over a flat stack of 3 grids: ONE launch
+    (counted under the ``_replicas`` name), each replica's slots equal to a
+    launch on its grid alone bit for bit, the chunks also under a grid
+    capped to 2 blocks, and the whole stack within ``tol`` of the twin."""
+    from ljmd_tpu_torch.ops import fused_pencil, pencil_sweep
+
+    reps = 3
+    extended = mode == "extended"
+    cfg, grid, c, one_tbl, rep_tbl = _pencil_stack(reps, "float64" if mode == "float64"
+                                                   else "float32", extended)
+    P, cap, ns = grid.n_pencils, grid.capacity, grid.n_slots
+    args = (P, cap, cfg.box_length, cfg.rc_square, cfg.dt, 6)
+    ext = dict(r_lo=c.rc, vc=c.vc) if extended else {}
+
+    def launch(r, v, a, counts, tables, replicas, **kw):
+        tbl, shf = tables
+        if kernel == "sweep":
+            return (pencil_sweep.pencil_sweep_hs(r, tbl, counts, shf, grid, cfg.rc_square, True,
+                                                 replicas=replicas),)
+        if kernel == "static":
+            if "grid_cap" in kw:
+                return fused_pencil._launch_static(
+                    r, v, a, tbl, shf, P * (replicas or 1), *args[1:], kw.get("r_lo"),
+                    kw.get("vc"), grid_cap=kw["grid_cap"])
+            return fused_pencil.fused_pencil_chunk(r, v, a, tbl, shf, *args, replicas=replicas,
+                                                   **kw)
+        lists = fused_pencil.build_width_lists(counts, tbl, shf, P * (replicas or 1), cap)
+        if "grid_cap" in kw:
+            return fused_pencil._launch_width(r, v, a, lists, P * (replicas or 1), *args[1:],
+                                              kw.get("r_lo"), kw.get("vc"),
+                                              grid_cap=kw["grid_cap"])
+        return fused_pencil.fused_pencil_width_chunk(r, v, a, *lists, *args, replicas=replicas,
+                                                     **kw)
+
+    dev = {k: getattr(c, k).to(cuda) for k in ("r", "v", "a", "counts")}
+    dext = {k: t.to(cuda) for k, t in ext.items()}
+    tables = tuple(t.to(cuda) for t in rep_tbl)
+    name = {"sweep": "pencil_sweep_hs", "static": "fused_pencil_chunk",
+            "width": "fused_pencil_width_chunk"}[kernel]
+    LAUNCHES.reset()
+    got = launch(dev["r"], dev["v"], dev["a"], dev["counts"], tables, reps, **dext)
+    counts = LAUNCHES.snapshot()
+    assert counts[name + "_replicas"] == 1 and counts[name] == 0
+    want = launch(c.r, c.v, c.a, c.counts, rep_tbl, reps, **ext)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+    one_tables = tuple(t.to(cuda) for t in one_tbl)
+    for q in range(reps):
+        sl = slice(q * ns, (q + 1) * ns)
+        one = launch(*(dev[k][:, sl].contiguous() for k in ("r", "v", "a")),
+                     dev["counts"][q * P:(q + 1) * P].contiguous(), one_tables, None,
+                     **{k: t[:, sl].contiguous() for k, t in dext.items()})
+        for g, w in zip(got, one):
+            assert torch.equal(g[:, sl], w), q
+    if kernel != "sweep":
+        capped = launch(dev["r"], dev["v"], dev["a"], dev["counts"], tables, reps, grid_cap=2,
+                        **dext)
+        for g, w in zip(got, capped):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,compensated", [("float64", False), ("float32", False),
+                                               ("float32", True)])
+def test_cellpair_ensemble_on_card_equals_single_runs(cuda, dtype, compensated):
+    """The batched cell-pair engine on the card: only the replica launches
+    of kernels 13 and 15 (or 16), each replica's final state and series
+    equal to a one-system run at the same capacity bit for bit."""
+    from ljmd_tpu_torch.models.engine import replica_state
+    from ljmd_tpu_torch.models.simulation import initialize_replicas, replica_generators
+
+    cfg = SimConfig(num_cells=5, box_length=9.1, rc_over_box=2.5 / 9.1, dt=0.002,
+                    total_steps=60, output_interval=10, warmup_steps=10, neighbor_skin=0.3,
+                    target_total_energy=-2000.0, dtype=dtype, compensated_sum=compensated)
+    states = initialize_replicas(cfg, replica_generators(3, 3), backend="rows", device=cuda)
+    cfg = cfg.replace(neighbor_capacity=pe.replica_capacity(cfg, states))
+    LAUNCHES.reset()
+    res = run_production(cfg, states, backend="cellpair", device=cuda)
+    counts = LAUNCHES.snapshot()
+    assert counts["pencil_sweep_hs_replicas"] > 0 and counts["fused_pencil_chunk_replicas"] > 0
+    assert counts["pencil_sweep_hs"] == 0 and counts["fused_pencil_chunk"] == 0
+    assert not bool(res.diagnostics["pencil_overflow"].any())
+    for q in range(3):
+        one = run_production(cfg, replica_state(states, q), backend="cellpair", device=cuda)
+        assert torch.equal(res.series[q], one.series)
+        for k in ("r", "ru", "v", "a"):
+            assert torch.equal(getattr(res.final_state, k)[q], getattr(one.final_state, k))
+
+
+@pytest.mark.parametrize("trigger", ["static", "predictive"])
+def test_zsort_trigger_decisions_on_card_match_cpu(cuda, trigger):
+    """The cond'd zsort triggers on the card take the CPU's decisions: the
+    same resort count and host reads over 10 chunks of 8, states within
+    1e-9 (float64)."""
+    cfg = SimConfig(num_cells=5, box_length=8.55, rc_over_box=2.5 / 8.55, dt=0.004,
+                    total_steps=10, warmup_steps=20, target_total_energy=-2300.0,
+                    dtype="float64")
+    state = initialize(cfg, backend="rows", device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = pe._zsort_engine(cfg, dev, inner_chunk=8, trigger=trigger)
+        before = pe.HOST_READS["zsort_fire"]
+        c = eng.run_fast(eng.init(state.to(device=dev))[0], 80)
+        out[str(dev)] = (int(c.resorts), pe.HOST_READS["zsort_fire"] - before, eng.get_state(c))
+    (n_cpu, reads_cpu, s_cpu), (n_gpu, reads_gpu, s_gpu) = out.values()
+    assert n_cpu == n_gpu and 0 < n_cpu < 10 and reads_cpu == reads_gpu == 10
+    for k in ("r", "v"):
+        _close(getattr(s_gpu, k), getattr(s_cpu, k), 1e-9)

@@ -14,7 +14,12 @@ import torch
 from ljmd_tpu.config import config_from_density
 from ljmd_tpu_torch.config import SimConfig
 from ljmd_tpu_torch.models import simulation as psim
-from ljmd_tpu_torch.models.engine import make_replica_engine, replica_state
+from ljmd_tpu_torch.models.engine import (
+    _replica_loop_engine,
+    make_engine,
+    make_replica_engine,
+    replica_state,
+)
 from ljmd_tpu_torch.parallel import ensemble as pens
 from ljmd_tpu_torch.stats import correlations as pcorr
 from ljmd_tpu_torch.utils import convert
@@ -75,8 +80,15 @@ def test_replica_loop_equals_one_replica_runs(backend):
     cfg = _port_cfg(jcfg)
     states = psim.initialize_replicas(cfg, psim.replica_generators(3, 2), backend="dense",
                                       device="cpu")
-    eng = make_replica_engine(cfg, 2, backend, "cpu", states=states,
-                              sample_interval=cfg.output_interval)
+    if backend == "cellpair":
+        # make_replica_engine batches cellpair: the loop, each replica's
+        # engine sized from its own state as make_engine sizes it
+        eng = _replica_loop_engine([make_engine(cfg, backend, "cpu", state=replica_state(states, i),
+                                                sample_interval=cfg.output_interval)
+                                    for i in range(2)])
+    else:
+        eng = make_replica_engine(cfg, 2, backend, "cpu", states=states,
+                                  sample_interval=cfg.output_interval)
     res = psim.run_production(cfg, states, engine=eng)
     assert res.series.shape == (2, 5, cfg.n_samples)
     for i in range(2):

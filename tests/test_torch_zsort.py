@@ -146,12 +146,10 @@ def port_small():
 
 @pytest.mark.parametrize("trigger", ["static", "predictive", "never"])
 def test_zsort_unported_triggers_raise(port_small, trigger):
-    """Only the "always" trigger (what make_engine uses) is ported; the
-    others name their ROADMAP item, and an unknown one is a ValueError as
-    in the JAX engine."""
+    """Every trigger of the JAX engine builds (tests/test_torch_zsort_triggers.py
+    runs them); a name that is none of them is a ValueError, as in the JAX
+    engine."""
     cfg, _ = port_small
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pe._zsort_engine(cfg, "cpu", trigger=trigger)
     with pytest.raises(ValueError, match="trigger"):
         pe._zsort_engine(cfg, "cpu", trigger=trigger + "x")
 
