@@ -240,7 +240,22 @@ checkout. Phases, each fatal on failure:
        drift under 1e-3), ``never`` over 500 steps (its flag reported, not
        gated); then an R=8 ``predictive`` ensemble at N=864 (2,000 steps)
        against one-system engines: states bit-equal, series within 1e-6, each
-       replica's resort count its own.
+       replica's resort count its own;
+    j. the batched neighbor and dense engines: config 4 cut to 2,000 steps
+       (warmup 500) through ``ensemble --backend dense`` and ``--backend
+       neighbor`` (``--per-run-dirs``): batched, 64/64 ok, no flag, no kernel,
+       the replicas' median |dE/E| under 1e-3, the aggregate rate; from the
+       batched warmup's states 500 steps of the batched engine against the
+       replica loop of 8 one-system engines (states bit for bit, observables
+       bit for bit or within 1e-6 of their scale; both rates); config 5's R=8 fluid (h's
+       post-warmup states) at capacity 512 with chunks of 8 through the
+       batched engine's full sweep (kernel 11's replica launch), z-band
+       (kernel 12's) and unfused half shell (kernel 13's, a step), 200 steps
+       each against the loop of 8 one-system engines, bit for bit, no flag,
+       both rates; kernels 11 and 12's replica launches on that stack,
+       float32 and float64, against their twins, every replica bit for bit
+       against its one-replica launch, timed back to back, on the card alone
+       and against the 8 one-replica launches (``loop_ms``).
 
 The build (phase 2) also builds the native trajectory library
 (``utils/native.py``) with the host's C++ compiler.
@@ -293,6 +308,8 @@ DRIFT_BOUND = {
     "n4000_f32_zsort_always": 1e-3,
     "n4000_f32_zsort_static": 1e-3,
     "n4000_f32_zsort_predictive": 1e-3,
+    "ensemble64_f32_dense_batched": 1e-3,  # the replicas' median
+    "ensemble64_f32_neighbor_batched": 1e-3,  # the replicas' median
 }
 
 # Kernel vs plain twin, max |kernel - twin| / max(1, max |twin|) per output
@@ -448,6 +465,29 @@ CELLPAIR_ENSEMBLE_R = 8
 CELLPAIR_ENSEMBLE_CUT = {"total_steps": 2_000, "warmup_steps": 500}
 REPLICA_PENCIL_KERNELS = ("pencil_sweep_hs_replicas", "fused_pencil_chunk_replicas",
                           "fused_pencil_width_chunk_replicas")
+# Phase 12j: the batched neighbor and dense engines on config 4
+# (examples/ensemble64.json cut to DENSE_ENSEMBLE_CUT) through the CLI
+# (--per-run-dirs: each replica's energy series), then in process from the
+# batched warmup's states DENSE_LOOP_STEPS steps of the batched engine
+# against the replica loop of DENSE_LOOP_R one-system engines (its first
+# DENSE_LOOP_R replicas); then config 5's fluid (phase 12h's R=8 post-warmup
+# states) at FULL_SWEEP_CAP with inner_chunk FULL_SWEEP_CHUNK through the
+# batched cell-pair engine's full sweep (kernel 11), z-band (kernel 12) and
+# unfused half shell (kernel 13 a step), SWEEP_VARIANT_STEPS steps each
+# against the loop of R one-system engines, bit for bit; and the replica
+# launches of kernels 11 and 12 on that stack against their twins and
+# against one-replica launches.
+DENSE_ENSEMBLE_CUT = {"total_steps": 2_000, "warmup_steps": 500}
+DENSE_LOOP_R = 8
+DENSE_LOOP_STEPS = 500
+SWEEP_VARIANT_STEPS = 200
+REPLICA_FULL_KERNELS = ("pencil_sweep_full_replicas", "pencil_sweep_zband_replicas")
+# Observables of a batched engine against the loop where their (R,) sums
+# round otherwise (the states are held bit for bit): epot, ekin and dd_epot
+# relative to themselves, d_epot (a sum that cancels) relative to the scale
+# of the step's observables (_obs_match; tests/test_torch_cuda.py holds the
+# pressure made from d_epot so).
+REPLICA_OBS_RTOL = {"float64": 1e-13, "float32": 1e-6}
 # Phase 12i: the zsort resort triggers on examples/n4000_production.json cut
 # as n4000_f32_zsort (5,000 steps) from one post-warmup state; "never" (a
 # floor, its invalid flag reported, not gated) over TRIGGER_NEVER_STEPS; then
@@ -2308,7 +2348,7 @@ FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
                 + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
                 + EXPERIMENT_KERNELS + REPLICA_KERNELS + REPLICA_HOP_KERNELS
-                + REPLICA_ZSORT_KERNELS + REPLICA_PENCIL_KERNELS)
+                + REPLICA_ZSORT_KERNELS + REPLICA_PENCIL_KERNELS + REPLICA_FULL_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -4459,6 +4499,301 @@ def phase_cellpair_ensemble(torch, tmp: str) -> dict:
                 f"{'call' if t_steps == 1 else f'{t_steps}-step chunk'}; bound "
                 f"{case['bound_ms']:.4f} ms ({case['bound_by']}); launch {json.dumps(launch)}")
     LAUNCHES.reset()  # comparison launches do not count for the main path
+    return {"runs": runs, "cases": cases, "report": report, "states": states, "cuts": cuts}
+
+
+def _obs_match(torch, got, want, dname: str) -> dict:
+    """Each observable of ``got`` against ``want`` ((R,) tensors): bit for
+    bit, or its largest difference held to REPLICA_OBS_RTOL: epot, ekin and
+    dd_epot relative to themselves, element by element; d_epot, the virial,
+    a sum that cancels and so has no scale of its own, relative to the
+    scale of the step's observables (each replica's largest |epot|, |ekin|,
+    |d_epot|, |dd_epot|)."""
+    names = ("epot", "ekin", "d_epot", "dd_epot")
+    scale = torch.stack([getattr(want, k).double().abs() for k in names]).amax(dim=0)
+    out = {}
+    for k in names:
+        g, w = getattr(got, k), getattr(want, k)
+        if bool(torch.equal(g, w)):
+            out[k] = "bit-identical"
+            continue
+        of = scale if k == "d_epot" else w.double().abs()
+        rel = float(((g.double() - w.double()).abs() / of).max())
+        require(rel <= REPLICA_OBS_RTOL[dname],
+                f"observable {k}: diff {rel:.3e} of "
+                f"{'the scale' if k == 'd_epot' else 'itself'} > {REPLICA_OBS_RTOL[dname]:.0e}")
+        out[k] = rel
+    return out
+
+
+def _engine_run(torch, engine, states, n_steps: int):
+    """init, run_fast(n_steps - 1), step: (final state, last observables,
+    diagnostics, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    c, _ = engine.init(states)
+    if engine.run_fast is not None:
+        c = engine.run_fast(c, n_steps - 1)
+    else:
+        for _ in range(n_steps - 1):
+            c, _ = engine.step_fast(c)
+    c, obs = engine.step(c)
+    torch.cuda.synchronize()
+    return engine.get_state(c), obs, engine.diagnostics(c), time.time() - t0
+
+
+def phase_replica_sweeps(torch, tmp: str, states5, cuts5) -> dict:
+    """Phase 12j: the batched neighbor and dense engines on config 4, the
+    batched cell-pair engine's full, z-band and unfused sweeps on config 5's
+    R=8 fluid, and kernels 11 and 12's replica launches (DENSE_ENSEMBLE_CUT's
+    comment)."""
+    import numpy as np
+
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.simulation import (
+        initialize_replicas,
+        replica_generators,
+        run_production,
+    )
+    from ljmd_tpu_torch.ops import cell_list, pencil_sweep
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    runs, report, cases = {}, {}, {k: [] for k in REPLICA_FULL_KERNELS}
+    path = str(REPO / "examples" / "ensemble64.json")
+    cut = load_config(path).replace(**DENSE_ENSEMBLE_CUT)
+    reps, n = cut.n_runs, cut.n
+
+    # (i) config 4 through the CLI on the batched neighbor and dense engines.
+    for backend in ("dense", "neighbor"):
+        name = f"ensemble64_f32_{backend}_batched"
+        require(pe.replica_backend(cut, backend, DEVICE) == (backend, True),
+                f"{name}: {backend} does not batch")
+        out_dir = os.path.join(tmp, name)
+        summary, counts, wall = _ensemble_cli(
+            name, ["--config", _write_cfg(tmp, name, cut), "--out-dir", out_dir, "--n-runs",
+                   str(reps), "--backend", backend, "--per-run-dirs"])
+        require(not any(counts.values()), f"{name}: a kernel launched on a plain torch engine")
+        require(summary["batched"] and summary["n_ok"] == reps and summary["engine"] == backend,
+                f"{name}: {summary}")
+        require(not any(summary["flags"].values()), f"{name}: flags {summary['flags']}")
+        drifts = [_drift(np.loadtxt(os.path.join(out_dir, f"run_{q:04d}",
+                                                 "instantaneous_energies.dat"))[:, 3])
+                  for q in range(reps)]
+        med = float(np.median(drifts))
+        runs[name] = {"engine": f"{backend} (batched)", "n": n, "replicas": reps,
+                      "launches": counts, "cli": summary, "cli_wall_s": wall,
+                      "particle_steps_per_s": summary["particle_steps_per_s"],
+                      "median_drift": med, "max_drift": max(drifts)}
+        log(f"{name}: R={reps} N={n} x {cut.total_steps} steps (warmup {cut.warmup_steps}) "
+            f"through the CLI: {summary['n_ok']}/{reps} ok, batched {summary['batched']}, "
+            f"flags {summary['flags']}, production {summary['production_s']:.3f}s = "
+            f"{summary['particle_steps_per_s']:.4e} aggregate particle-steps/s, init "
+            f"{summary['init_s']:.3f}s, CLI wall {wall:.1f}s; |dE/E| median {med:.3e} (bound "
+            f"{DRIFT_BOUND[name]:.0e}), max {max(drifts):.3e}")
+        require(med <= DRIFT_BOUND[name], f"{name}: median drift over bound")
+
+    # (ii) the loop as yardstick, from the batched warmup's states.
+    short = cut.replace(total_steps=DENSE_LOOP_STEPS, warmup_steps=0)
+    for backend in ("dense", "neighbor"):
+        name = f"ensemble64_f32_{backend}_loop_vs_batched"
+        states = initialize_replicas(cut, replica_generators(cut.seed, reps), backend=backend,
+                                     device=DEVICE)
+        sub = pe.MDState(*(getattr(states, f)[:DENSE_LOOP_R] for f in ("r", "ru", "v", "a")))
+        batched = pe.make_replica_engine(short, reps, backend, DEVICE)
+        loop = pe._replica_loop_engine([pe.make_engine(short, backend, DEVICE)
+                                        for _ in range(DENSE_LOOP_R)])
+        out = {}
+        for kind, eng, st in (("batched", batched, states), ("loop", loop, sub)):
+            LAUNCHES.reset()
+            pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+            out[kind] = _engine_run(torch, eng, st, DENSE_LOOP_STEPS)
+            require(not any(LAUNCHES.snapshot().values()), f"{name} {kind}: a kernel launched")
+            out[kind] += (dict(pe.HOST_READS),)
+        (s_b, o_b, d_b, t_b, hr_b), (s_l, o_l, d_l, t_l, hr_l) = out["batched"], out["loop"]
+        for d in (d_b, d_l):
+            require(not any(bool(torch.as_tensor(v).any()) for v in d.values()),
+                    f"{name}: diagnostic flag set {d}")
+        bits = {f: bool(torch.equal(getattr(s_b, f)[:DENSE_LOOP_R], getattr(s_l, f)))
+                for f in ("r", "ru", "v", "a")}
+        first = pe.StepObs(*(getattr(o_b, k)[:DENSE_LOOP_R]
+                             for k in ("epot", "ekin", "d_epot", "dd_epot")))
+        entry = {"replicas": reps, "loop_replicas": DENSE_LOOP_R, "steps": DENSE_LOOP_STEPS,
+                 "states_bit_identical": bits, "host_reads_batched": hr_b,
+                 "host_reads_loop": hr_l,
+                 "batched_rate": reps * n * DENSE_LOOP_STEPS / t_b,
+                 "loop_rate": DENSE_LOOP_R * n * DENSE_LOOP_STEPS / t_l}
+        # A replica-step's cost, loop over batched: the aggregate rates'
+        # ratio (the loop's aggregate rate does not depend on its R).
+        entry["batched_over_loop"] = entry["batched_rate"] / entry["loop_rate"]
+        if all(bits.values()):
+            entry["observables"] = _obs_match(torch, first, o_l, cut.dtype)
+        else:
+            # A per-row reduction of the stack rounds otherwise on the card:
+            # named, its largest state difference, and the drift held to 3x.
+            entry["state_max_abs_diff"] = {f: float((getattr(s_b, f)[:DENSE_LOOP_R].double()
+                                                     - getattr(s_l, f).double()).abs().max())
+                                           for f in ("r", "ru", "v", "a")}
+            res = {k: run_production(short, st, engine=e, device=DEVICE)
+                   for k, e, st in (("batched", batched, states), ("loop", loop, sub))}
+            db = max(_drift(res["batched"].series[q, 2].cpu()) for q in range(DENSE_LOOP_R))
+            dl = max(_drift(res["loop"].series[q, 2].cpu()) for q in range(DENSE_LOOP_R))
+            entry.update(batched_max_drift=db, loop_max_drift=dl)
+            require(db <= DRIFT_VS_SINGLE["float32"] * dl,
+                    f"{name}: batched drift {db:.3e} over 3x the loop's {dl:.3e}")
+        report[name] = entry
+        log(f"{name}: {DENSE_LOOP_STEPS} steps from the batched warmup's states, R={reps} "
+            f"batched {entry['batched_rate']:.4e} against the loop of {DENSE_LOOP_R} one-system "
+            f"engines {entry['loop_rate']:.4e} aggregate particle-steps/s (batched / loop "
+            f"{entry['batched_over_loop']:.2f}x); replicas 0..{DENSE_LOOP_R - 1}"
+            f" states bit-identical {json.dumps(bits)}, "
+            + (f"observables {json.dumps(entry['observables'])}" if "observables" in entry else
+               f"largest state difference {json.dumps(entry['state_max_abs_diff'])}, max |dE/E| "
+               f"batched {entry['batched_max_drift']:.3e} vs loop {entry['loop_max_drift']:.3e}")
+            + f"; host reads batched {json.dumps({k: v for k, v in hr_b.items() if v})}, loop "
+            f"{json.dumps({k: v for k, v in hr_l.items() if v})}")
+
+    # (iii) config 5's fluid at R=8: the three sweeps against their loops.
+    cfg5 = load_config(str(REPO / "examples" / "n62500_large.json")).replace(
+        **CELLPAIR_ENSEMBLE_CUT, neighbor_capacity=FULL_SWEEP_CAP)
+    r5 = states5.r.shape[0]
+    variants = {"full9": ({"half_shell": False}, "pencil_sweep_full"),
+                "zband": ({"z_band": True}, "pencil_sweep_zband"),
+                "unfused": ({"use_fused": False}, "pencil_sweep_hs")}
+    carries = {}
+    for mode, (kw, kernel) in variants.items():
+        name = f"n62500_f32_ensemble_cellpair_{mode}"
+        batched = pe._cellpair_engine(cfg5, dev, replicas=r5, inner_chunk=FULL_SWEEP_CHUNK, **kw)
+        loop = pe._replica_loop_engine([pe._cellpair_engine(cfg5, dev,
+                                                            inner_chunk=FULL_SWEEP_CHUNK, **kw)
+                                        for _ in range(r5)])
+        require(batched.run_fast.__name__ == "run_fast_unfused", f"{name}: not unfused")
+        out = {}
+        for kind, eng in (("batched", batched), ("loop", loop)):
+            LAUNCHES.reset()
+            pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+            out[kind] = _engine_run(torch, eng, states5, SWEEP_VARIANT_STEPS)
+            out[kind] += (LAUNCHES.snapshot(), dict(pe.HOST_READS))
+        (s_b, o_b, d_b, t_b, c_b, hr_b), (s_l, o_l, d_l, t_l, c_l, hr_l) = (out["batched"],
+                                                                            out["loop"])
+        _check_launches(name, c_b, (kernel + "_replicas",),
+                        tuple(k for k in MAIN_KERNELS if k != kernel + "_replicas"))
+        _check_launches(name + "_loop", c_l, (kernel,),
+                        tuple(k for k in MAIN_KERNELS if k != kernel))
+        flags = {"batched": bool(d_b["pencil_overflow"].any()),
+                 "loop": bool(d_l["pencil_overflow"].any())}
+        require(not any(flags.values()), f"{name}: pencil_overflow {flags}")
+        bits = {f: bool(torch.equal(getattr(s_b, f), getattr(s_l, f)))
+                for f in ("r", "ru", "v", "a")}
+        obs_bits = {k: bool(torch.equal(getattr(o_b, k), getattr(o_l, k)))
+                    for k in ("epot", "ekin", "d_epot", "dd_epot")}
+        require(all(bits.values()) and all(obs_bits.values()),
+                f"{name}: batched differs from the loop: states {bits}, observables {obs_bits}")
+        b_rate = r5 * cfg5.n * SWEEP_VARIANT_STEPS / t_b
+        l_rate = r5 * cfg5.n * SWEEP_VARIANT_STEPS / t_l
+        runs[name] = {"engine": f"cellpair {mode} (batched)", "n": cfg5.n, "replicas": r5,
+                      "capacity": FULL_SWEEP_CAP, "launches": c_b, "host_reads": hr_b,
+                      "particle_steps_per_s": b_rate, "loop_particle_steps_per_s": l_rate,
+                      "loop_launches": c_l, "loop_host_reads": hr_l, "diagnostics": flags,
+                      "bit_identical_to_loop": True}
+        log(f"{name}: R={r5} N={cfg5.n} x {SWEEP_VARIANT_STEPS} steps at capacity "
+            f"{FULL_SWEEP_CAP}, chunks of {FULL_SWEEP_CHUNK}: batched {b_rate:.4e} against the "
+            f"loop {l_rate:.4e} aggregate particle-steps/s ({b_rate / l_rate:.3f}x), states and "
+            f"observables bit-identical, pencil_overflow {flags}; host reads batched "
+            f"{json.dumps({k: v for k, v in hr_b.items() if v})}, loop "
+            f"{json.dumps({k: v for k, v in hr_l.items() if v})}; launches batched "
+            f"{json.dumps({k: v for k, v in c_b.items() if v})}, loop "
+            f"{json.dumps({k: v for k, v in c_l.items() if v})}")
+
+    # (iv) kernels 11 and 12's replica launches on the stack's slots.
+    L, rc2 = cfg5.box_length, cfg5.rc_square
+    r_list = cfg5.rc + cfg5.neighbor_skin
+    grid = cell_list.make_pencil_grid(cfg5.n, L, r_list, cfg5.density, FULL_SWEEP_CAP)
+    P, ns, cap = grid.n_pencils, grid.n_slots, grid.capacity
+    window = cell_list.default_z_window(grid, cfg5.n, r_list)
+    ftbl = torch.as_tensor(pencil_sweep.build_tile_table(grid), device=dev)
+    fshf = torch.as_tensor(pencil_sweep.build_shift_table(grid), device=dev)
+    rtbl, rshf = pencil_sweep.replica_tables(ftbl, fshf, P, r5)
+    htbl = torch.as_tensor(pencil_sweep.build_half_shell_tables(grid)[0], device=dev)
+    for dname in ("float32", "float64"):
+        dtype = torch.float32 if dname == "float32" else torch.float64
+        tol = KERNEL_TOL[dname]
+        eng = pe._cellpair_engine(cfg5.replace(dtype=dname), dev, z_band=True, replicas=r5)
+        c, _ = eng.init(states5.to(dtype=dtype))
+        require(not bool(c.overflow.any()), f"kernels 11 / 12 stack {dname}: overflow")
+        valid = c.r[3] > 0.5
+        wins = (c.win_a, c.win_b, c.use_b)
+        size = c.r.element_size()
+        for kernel in ("pencil_sweep_full", "pencil_sweep_zband"):
+            tag = f"{kernel}_replicas R={r5} N={cfg5.n} cap={cap} {dname}"
+            T = ns // 128
+
+            def stack_call(plain=False):
+                if kernel == "pencil_sweep_full":
+                    fn = pencil_sweep.pencil_sweep_plain if plain else pencil_sweep.pencil_sweep
+                    return lambda: fn(c.r, rtbl, c.counts, rshf, grid, rc2, True, replicas=r5)
+                fn = (pencil_sweep.pencil_sweep_zband_plain if plain
+                      else pencil_sweep.pencil_sweep_zband)
+                return lambda: fn(c.r, rtbl, c.counts, *wins, grid, rc2, window, True,
+                                  replicas=r5)
+
+            def one_call(q):
+                sl = slice(q * ns, (q + 1) * ns)
+                r_q, n_q = c.r[:, sl].contiguous(), c.counts[q * P:(q + 1) * P].contiguous()
+                if kernel == "pencil_sweep_full":
+                    return lambda: pencil_sweep.pencil_sweep(r_q, ftbl, n_q, fshf, grid, rc2, True)
+                w_q = [w[q * T * 9:(q + 1) * T * 9].contiguous() for w in wins]
+                return lambda: pencil_sweep.pencil_sweep_zband(r_q, ftbl, n_q, *w_q, grid, rc2,
+                                                               window, True)
+
+            LAUNCHES.reset()
+            got = stack_call()()
+            require(LAUNCHES.snapshot()[kernel + "_replicas"] == 1,
+                    f"{tag}: not one launch for all replicas")
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = stack_call(plain=True)()
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            require(bool((got[6:] == 0).all()) and bool((got[:, ~valid] == 0).all()),
+                    f"{tag}: rows 6-7 or empty slots not zero")
+            errs = [rel_err(got[row, valid], want[row, valid]) for row in range(6)]
+            worst = max(e[1] for e in errs)
+            require(worst <= tol, f"{tag}: rel err {worst:.3e} > {tol}")
+            ones = [one_call(q) for q in range(r5)]
+            alone = {q: bool(torch.equal(got[:, q * ns:(q + 1) * ns], f()))
+                     for q, f in enumerate(ones)}
+            require(all(alone.values()), f"{tag}: replicas differ from one-replica launches: "
+                                         f"{alone}")
+            if kernel == "pencil_sweep_full":
+                cands = [pencil_candidates(c.counts[q * P:(q + 1) * P], htbl) for q in range(r5)]
+                tables = 4 * (ftbl.numel() + fshf.numel() + P)
+            else:
+                cands = [zband_candidates(torch, valid[q * ns:(q + 1) * ns], ftbl,
+                                          [w[q * T * 9:(q + 1) * T * 9] for w in wins], cap,
+                                          window) for q in range(r5)]
+                tables = 4 * (ftbl.numel() + P + 3 * T * 9)
+            flops = sum(sweep_flops(cd, ct, True) for cd, ct in zip(cands, cuts5))
+            nbytes = r5 * (2 * 8 * ns * size + tables)
+            case = {**bound(dname, flops, nbytes), "shape": f"R={r5} N={cfg5.n} cap={cap}",
+                    "dtype": dname, "observables": True, "replicas": r5, "capacity": cap,
+                    "candidates": sum(cands), "cut_pairs": sum(cuts5),
+                    "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+                    "bit_identical_to_alone": True, "plain_ms": plain_ms,
+                    "ms": cuda_time_ms(torch, stack_call(), 10),
+                    "card_ms": graph_ms(torch, stack_call(), 5),
+                    "loop_ms": cuda_time_ms(torch, lambda: [f() for f in ones], 3)}
+            if kernel == "pencil_sweep_zband":
+                case["window"] = window
+            cases[kernel + "_replicas"].append(case)
+            log(f"kernel {tag}: rel err {worst:.3e} (tol {tol:.0e}), every replica bit-identical "
+                f"to its one-replica launch, {case['ms']:.4f} ms back to back, card alone "
+                f"{case['card_ms']:.4f}, the {r5} one-replica launches {case['loop_ms']:.4f} "
+                f"(loop / replica launch {case['loop_ms'] / case['ms']:.3f}x), plain "
+                f"{plain_ms:.2f} ms; bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+    LAUNCHES.reset()  # comparison launches do not count for the main path
     return {"runs": runs, "cases": cases, "report": report}
 
 
@@ -4763,6 +5098,10 @@ def main() -> int:
         runs.update(cp_ensemble["runs"])
         cases.update(cp_ensemble["cases"])
         mark("phase 12h")
+        sweeps = phase_replica_sweeps(torch, tmp, cp_ensemble["states"], cp_ensemble["cuts"])
+        runs.update(sweeps["runs"])
+        cases.update(sweeps["cases"])
+        mark("phase 12j")
         triggers = phase_zsort_triggers(torch, tmp)
         runs.update(triggers["runs"])
         mark("phase 12i")
@@ -4828,7 +5167,13 @@ def main() -> int:
                 "fused_pencil_chunk_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 census",
                                                 "float32"),
                 "fused_pencil_width_chunk_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 cap=512",
-                                                      "float32")}
+                                                      "float32"),
+                # Kernels 11 and 12's replica launches at phase 12j's: config
+                # 5's R=8 fluid at capacity 512, observables on.
+                "pencil_sweep_full_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 cap=512",
+                                               "float32", True),
+                "pencil_sweep_zband_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 cap=512",
+                                                "float32", True)}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
@@ -4864,6 +5209,10 @@ def main() -> int:
         "pencil_sweep_hs_replicas": ("ljmd_tpu_torch/csrc/pencil_sweep_hs.cu", "ljmd_tpu/ops/pallas_pencil2.py:187"),
         "fused_pencil_chunk_replicas": ("ljmd_tpu_torch/csrc/fused_pencil_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:277"),
         "fused_pencil_width_chunk_replicas": ("ljmd_tpu_torch/csrc/fused_pencil_width_chunk.cu", "ljmd_tpu/ops/pallas_pencil_fused.py:609"),
+        # Kernels 11 and 12 over the same flat stack (the batched cell-pair
+        # engine's full and z-banded sweeps): one launch for all R.
+        "pencil_sweep_full_replicas": ("ljmd_tpu_torch/csrc/pencil_sweep_full.cu", "ljmd_tpu/ops/pallas_pencil.py:309"),
+        "pencil_sweep_zband_replicas": ("ljmd_tpu_torch/csrc/pencil_sweep_zband.cu", "ljmd_tpu/ops/pallas_pencil.py:256"),
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
@@ -5014,6 +5363,16 @@ def main() -> int:
         f"({cpl['batched_rate'] / cpl['loop_rate']:.3f}x), series and final states "
         f"bit-identical {cpl['series_bit_identical'] and cpl['final_states_bit_identical']}, "
         f"max |dE/E| {max(cpb['drifts']):.3e}, flags {cpb['diagnostics']}")
+    cli4 = {b: runs[f"ensemble64_f32_{b}_batched"] for b in ("dense", "neighbor")}
+    dlv = {b: sweeps["report"][f"ensemble64_f32_{b}_loop_vs_batched"] for b in cli4}
+    cp5 = {m: runs[f"n62500_f32_ensemble_cellpair_{m}"] for m in ("full9", "zband", "unfused")}
+    log(f"batched neighbor / dense / cell-pair sweeps on {env['nvidia_smi']}: config 4 CLI "
+        + ", ".join(f"{b} {r['particle_steps_per_s']:.4e}" for b, r in cli4.items())
+        + " aggregate particle-steps/s; batched / loop "
+        + ", ".join(f"{b} {r['batched_over_loop']:.2f}x" for b, r in dlv.items())
+        + "; config 5 R=8 " + ", ".join(f"{m} batched {r['particle_steps_per_s']:.4e} loop "
+                                        f"{r['loop_particle_steps_per_s']:.4e}"
+                                        for m, r in cp5.items()))
     zpred = runs[f"n864_f32_ensemble_zsort_predictive_r{TRIGGER_BATCH_R}"]
     rounds = triggers["report"]["rounds"]
     log(f"zsort triggers on {env['nvidia_smi']}: N=4000 (5,000 steps), medians of "

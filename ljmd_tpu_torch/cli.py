@@ -32,8 +32,7 @@ a rerun in the same ``--out-dir`` resumes bit for bit) also a
 bytes written and the seconds spent on them, the writer, the resume point).
 ``analyze`` plots with matplotlib; where it is not installed, pass
 ``--no-plots``. ``ensemble`` runs R replicas (``parallel/ensemble.py``:
-batched on the rows, zsort and cell-pair engines, a loop over replicas on
-neighbor and dense)
+batched on every backend's engine)
 and writes means.txt, simulation_results.{txt,json} and corrmean_runs_*.dat,
 with ``--per-run-dirs`` also run_XXXX/ per replica that is ok and
 several_runs.txt; it ends with an ``{"ensemble": ...}`` line (replicas, N,
@@ -278,7 +277,7 @@ def cmd_ensemble(args) -> int:
     print(json.dumps({"ensemble": summary}))
     print(_launch_report())
     print(f"{n_runs} replicas of N={cfg.n} x {cfg.total_steps} steps on {device} "
-          f"({engine}, {'batched' if batched else 'a loop over replicas'}): "
+          f"({engine}, batched): "
           f"{int(ok.sum())} ok, {time.time() - t0:.1f}s; results in {out_dir}")
     return 0
 

@@ -31,9 +31,10 @@ Backends:
   accelerator routing (``zsort`` where it fits, ``cellpair`` at n >= 8192
   where the pencil grid fits, else ``rows``); on the CPU ``rows``.
 
-``make_replica_engine`` builds an ensemble's engine for R replicas: the rows,
-zsort or cell-pair engine batched over the replicas (one launch of each
-kernel for all R), or a loop over R engines of neighbor or dense.
+``make_replica_engine`` builds an ensemble's engine for R replicas: every
+backend's engine batched over the replicas (one launch of each kernel for
+all R; neighbor and dense: plain torch over the (R, N, 3) stack).
+``_replica_loop_engine`` of R one-system engines is the yardstick.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ from ljmd_tpu_torch.ops.pencil_sweep import (
     sentinel_fill,
 )
 from ljmd_tpu_torch.ops.window_lists import build_window_lists, compute_tile_flags
-from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy
+from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy, replica_sum
 
 __all__ = ["BACKENDS", "Engine", "HOST_READS", "PencilCarry", "RowCarry", "ROW_PAD",
            "ZSortCarry", "auto_backend", "make_engine", "make_replica_engine", "replica_backend",
@@ -157,12 +158,6 @@ def _effective_dtype(cfg: SimConfig) -> torch.dtype:
     return torch.float64 if cfg.dtype == "float64" else torch.float32
 
 
-def _replica_total(x: torch.Tensor, dims: int, replicas: int | None) -> torch.Tensor:
-    """The sum over the trailing ``dims`` dimensions, a replica's own (the
-    whole sum for one system, ``replicas`` None)."""
-    return torch.sum(x) if replicas is None else torch.sum(x, dim=tuple(range(-dims, 0)))
-
-
 def _pick_replicas(fire: torch.Tensor, new, old):
     """The carry whose replica q is ``new``'s where ``fire[q]``, else
     ``old``'s: every tensor field with the replica axis first."""
@@ -175,7 +170,16 @@ def _pick_replicas(fire: torch.Tensor, new, old):
 
 def _force_engine(cfg: SimConfig, device, backend: str = "dense") -> Engine:
     """The plain Verlet step over a force function of ``models/forces.py``
-    (JAX ``_force_engine``); its carry is the MDState."""
+    (JAX ``_force_engine``); its carry is the MDState.
+
+    The dense engine is also the ensemble's engine for R independent
+    replicas (the JAX package ``vmap``s the one-system engine): given an
+    (R, N, 3) MDState, each step is one dense force call on the stack,
+    (R, N, N) pair matrices, with (R,) observables (each replica's own
+    sums). The step is elementwise and each force row reduces on its own,
+    so replica q's state is what a one-system engine gives it; the
+    observables' sums reduce an (R, N, N) stack at once and may round
+    otherwise."""
     device = resolve_device(device)
     force_fn = make_force_fn(cfg, backend, device)
     dtype = _effective_dtype(cfg)
@@ -193,14 +197,27 @@ def _force_engine(cfg: SimConfig, device, backend: str = "dense") -> Engine:
                   diagnostics=lambda c: {}, step_fast=step)
 
 
-def _neighbor_engine(cfg: SimConfig, device) -> Engine:
+def _neighbor_engine(cfg: SimConfig, device, replicas: int | None = None) -> Engine:
     """Verlet-list engine (JAX ``_neighbor_engine``): the carry is
     (MDState, NeighborList); each step rebuilds the list (the dense O(N^2)
     build) when a particle has moved more than skin/2 since the last build.
     JAX takes that decision inside ``lax.cond``; here it is one host read of
     the device flag per step (``HOST_READS["neighbor_rebuild"]``). The
-    ``neighbor_overflow`` diagnostic is sticky."""
+    ``neighbor_overflow`` diagnostic is sticky.
+
+    ``replicas=R`` makes it the ensemble's engine for R independent
+    replicas (JAX's vmap of the one-system engine): (R, N, 3) states, a
+    NeighborList with a leading replica axis, (R,) observables and
+    ``neighbor_overflow`` (R,), one sticky flag a replica. Each replica
+    decides its rebuild for itself (JAX's vmap of lax.cond): the host reads
+    whether any replica's flag is set (one read a step for the stack); where
+    one is, the stack is rebuilt and each replica keeps its rebuilt or its
+    old list by its own flag. So replica q's list and state are what a
+    one-system engine gives it; the observables' sums reduce an (R, N, K)
+    stack at once and may round otherwise."""
     device = resolve_device(device)
+    if replicas is not None and replicas < 1:
+        raise ValueError("the replica neighbor engine takes replicas >= 1")
     dtype = _effective_dtype(cfg)
     L = cfg.box_length
     skin = cfg.neighbor_skin
@@ -235,10 +252,12 @@ def _neighbor_engine(cfg: SimConfig, device) -> Engine:
         state, nbrs = carry
         r_new = wrap_positions(state.r + state.v * dt + state.a * half_dt_sq, L)
         v_half = state.v + state.a * half_dt
+        fire = needs_rebuild(nbrs, r_new, L, skin)
         HOST_READS["neighbor_rebuild"] += 1
-        if bool(needs_rebuild(nbrs, r_new, L, skin)):
+        if bool(fire.any()):
             rebuilt = build(r_new)
-            nbrs = dataclasses.replace(rebuilt, overflow=rebuilt.overflow | nbrs.overflow)
+            rebuilt = dataclasses.replace(rebuilt, overflow=rebuilt.overflow | nbrs.overflow)
+            nbrs = rebuilt if replicas is None else _pick_replicas(fire, rebuilt, nbrs)
         res = force(r_new, nbrs)
         v_new = v_half + res.a * half_dt
         ru_new = state.ru + minimum_image(r_new - state.r, L)
@@ -304,9 +323,6 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
     def from_rows(x: torch.Tensor) -> torch.Tensor:  # (..., 8, n_pad) -> (..., N, 3)
         return x[..., 0:3, :n].transpose(-1, -2)
 
-    def total(x: torch.Tensor, dims: int) -> torch.Tensor:
-        return _replica_total(x, dims, replicas)
-
     def accel(out: torch.Tensor) -> torch.Tensor:
         # a = 24 * raw sweep rows 0..2; rows 3..7 (the e/du/ddu partials)
         # zeroed.
@@ -324,10 +340,10 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
 
     def obs_from(out: torch.Tensor, ekin: torch.Tensor) -> StepObs:
         return StepObs(
-            epot=e_pref * total(out[..., 3, :], 1) + e_t,
+            epot=e_pref * replica_sum(out[..., 3, :], 1) + e_t,
             ekin=ekin,
-            d_epot=d_pref * total(out[..., 4, :], 1) + d_t,
-            dd_epot=d_pref * total(out[..., 5, :], 1) + dd_t,
+            d_epot=d_pref * replica_sum(out[..., 4, :], 1) + d_t,
+            dd_epot=d_pref * replica_sum(out[..., 5, :], 1) + dd_t,
         )
 
     # Compensation in the increment-underflow regime (f32 at dt <= 1e-3, or
@@ -342,7 +358,7 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
         zero = torch.zeros_like(r8)
         carry = RowCarry(r=r8, ru=to_rows(state.ru), v=v8, a=accel(out),
                          rc=zero, vc=zero)
-        return carry, obs_from(out, 0.5 * total(v8 * v8, 2))
+        return carry, obs_from(out, 0.5 * replica_sum(v8 * v8, 2))
 
     dt = cfg.dt
     half_dt = 0.5 * cfg.dt
@@ -365,7 +381,7 @@ def _rows_engine(cfg: SimConfig, device, compensated: bool | None = None,
         else:
             v_new, vc_new = v_half + a_new * half_dt, vc_half
             v_eff = v_new
-        ekin = 0.5 * total(v_eff * v_eff, 2)
+        ekin = 0.5 * replica_sum(v_eff * v_eff, 2)
         ru_new = c.ru + minimum_image(r_new - c.r, L)
         return (
             RowCarry(r=r_new, ru=ru_new, v=v_new, a=a_new, rc=rc_new, vc=vc_new),
@@ -579,9 +595,6 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         tail_corrections(n, cfg.volume, cfg.rc) if cfg.use_tail_corrections else (0.0, 0.0, 0.0)
     )
 
-    def total(x: torch.Tensor, dims: int) -> torch.Tensor:
-        return _replica_total(x, dims, replicas)
-
     def sweep(pos, want_obs=True):
         return pair_sweep_tri(pos, n, L, cfg.rc_square, want_observables=want_obs)
 
@@ -591,9 +604,9 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         return a
 
     def obs_from(out, ekin):
-        return StepObs(epot=4.0 * total(out[..., 3, :], 1) + e_t, ekin=ekin,
-                       d_epot=24.0 * total(out[..., 4, :], 1) + d_t,
-                       dd_epot=24.0 * total(out[..., 5, :], 1) + dd_t)
+        return StepObs(epot=4.0 * replica_sum(out[..., 3, :], 1) + e_t, ekin=ekin,
+                       d_epot=24.0 * replica_sum(out[..., 4, :], 1) + d_t,
+                       dd_epot=24.0 * replica_sum(out[..., 5, :], 1) + dd_t)
 
     def _lists(r8):
         flags = compute_tile_flags(r8, n, tile_i, tile_i, L, geo.window,
@@ -655,7 +668,7 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                            invalid=torch.zeros(batch, dtype=torch.bool, device=device),
                            rlo=rlo, vc=vcc,
                            resorts=torch.zeros(batch, dtype=torch.int32, device=device))
-        return carry, obs_from(out, 0.5 * total(v8 * v8, 2))
+        return carry, obs_from(out, 0.5 * replica_sum(v8 * v8, 2))
 
     dt = cfg.dt
     half_dt = 0.5 * cfg.dt
@@ -679,7 +692,7 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         else:
             v_new, vc_new = v_half + a_new * half_dt, vc_half
             v_eff = v_new
-        ekin = 0.5 * total(v_eff * v_eff, 2)
+        ekin = 0.5 * replica_sum(v_eff * v_eff, 2)
         ru_new = c.ru + minimum_image(r_new - c.r, L)
         carry = dataclasses.replace(c, r=r_new, ru=ru_new, v=v_new, a=a_new, rlo=rlo,
                                     vc=vc_new)
@@ -767,7 +780,7 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
             c = _chunk(c, inner_chunk)
         c, obs8 = _chunk(c, rem, obs=True)
         v_eff = c.v + c.vc if extended else c.v
-        return c, obs_from(obs8, 0.5 * total(v_eff * v_eff, 2))
+        return c, obs_from(obs8, 0.5 * replica_sum(v_eff * v_eff, 2))
 
     def get_state(c: ZSortCarry) -> MDState:
         idx = torch.where(c.ids >= 0, c.ids, n).long()
@@ -882,28 +895,25 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     (R, N, 3), observables (R,) tensors and ``pencil_overflow`` (R,), one
     sticky flag a replica. The carry is one flat stack of R grids, (8, R *
     n_slots) with replica q in slots [q * n_slots, (q + 1) * n_slots), swept
-    over ``replica_tables``' half-shell tables (replica q's pencils offset
-    by q * n_pencils, no neighbour in another replica), so each sampled
-    sweep (kernel 13) and each fused chunk (kernel 15 or 16) is ONE launch
-    for all R; the rebin keys each slot by its pencil + q * n_pencils. Every
-    decision is each replica's own (JAX's vmap of lax.cond): "always"
-    rebins the whole stack before every chunk; the predictive trigger and
-    the per-step "moved" check read whether any replica's flag is set (one
-    host read a decision) and, where one is, rebin the stack and keep each
-    replica's rebinned or old carry by its own flag. So replica q's rows,
-    counts and flag are bit for bit those of a one-system engine built at
-    the same capacity, and its observables too (each replica's sums are
-    taken over its own slots). The replica engine runs the fused half
-    shell only: the z-band, the full sweep and the unfused chunk raise."""
+    over ``replica_tables``' tables (replica q's pencils offset by q *
+    n_pencils, no neighbour in another replica), so each sweep (kernel 13,
+    or 11 / 12 for the full sweeps) and each fused chunk (kernel 15 or 16)
+    is ONE launch for all R; the rebin keys each slot by its pencil + q *
+    n_pencils, and the z-band's window tables are the stack's
+    (``compute_z_windows(..., replicas=R)``, their overflow each replica's
+    own). Every decision is each replica's own (JAX's vmap of lax.cond):
+    "always" rebins the whole stack before every chunk; the predictive
+    trigger and the per-step "moved" check read whether any replica's flag
+    is set (one host read a decision) and, where one is, rebin the stack and
+    keep each replica's rebinned or old carry (and window tables) by its own
+    flag. The unfused chunk's default length comes from the stack's fastest
+    replica, so replica q is a one-system engine with ``inner_chunk`` pinned
+    to that length. So replica q's rows, counts and flag are bit for bit
+    those of a one-system engine built at the same capacity, and its
+    observables too (each replica's sums are taken over its own slots)."""
     device = resolve_device(device)
-    if replicas is not None:
-        if replicas < 1:
-            raise ValueError("the replica cellpair engine takes replicas >= 1")
-        if z_band or not half_shell or use_fused is False:
-            raise ValueError(
-                "the replica cellpair engine runs the fused half shell only; the z-band, the "
-                "full sweep and the unfused chunk over replicas: ROADMAP.md Open items "
-                "(batched cell-pair sweeps without the fused half shell)")
+    if replicas is not None and replicas < 1:
+        raise ValueError("the replica cellpair engine takes replicas >= 1")
     reps = 1 if replicas is None else replicas
     rep_kw = {} if replicas is None else {"replicas": replicas}
     L = cfg.box_length
@@ -929,6 +939,8 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         # their static image shifts.
         nbr_tbl = torch.as_tensor(build_tile_table(grid), device=device)
         nbr_shf = torch.as_tensor(build_shift_table(grid), device=device)
+        if replicas is not None:
+            nbr_tbl, nbr_shf = replica_tables(nbr_tbl, nbr_shf, P, replicas)
     e_t, d_t, dd_t = (
         tail_corrections(n, cfg.volume, cfg.rc) if cfg.use_tail_corrections else (0.0, 0.0, 0.0)
     )
@@ -956,24 +968,27 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     fluid_chunk = inner_chunk is None and not use_fused
     if inner_chunk is None:
         inner_chunk = 8 if use_fused else UNFUSED_MAX_CHUNK
-    zero_win = torch.zeros(((ns // TILE_I) * 9,), dtype=torch.int32, device=device)
+    zero_win = torch.zeros(((reps * ns // TILE_I) * 9,), dtype=torch.int32, device=device)
 
     def sweep(pos, counts, wins, want_obs=True):
         if z_band:
             return pencil_sweep_zband(pos, nbr_tbl, counts, *wins, grid, cfg.rc_square, window,
-                                      want_obs)
+                                      want_obs, **rep_kw)
         if half_shell:
             # Already multiplied by the validity row (ops/pencil_sweep.py).
             return pencil_sweep_hs(pos, hs_tbl, counts, hs_shf, grid, cfg.rc_square, want_obs,
                                    **rep_kw)
-        return pencil_sweep(pos, nbr_tbl, counts, nbr_shf, grid, cfg.rc_square, want_obs)
+        return pencil_sweep(pos, nbr_tbl, counts, nbr_shf, grid, cfg.rc_square, want_obs,
+                            **rep_kw)
 
     def windows(r8, counts):
-        """The z-band's window tables and their overflow flag."""
+        """The z-band's window tables and their overflow flag (a stack's:
+        each replica's, (R,))."""
         if not z_band:
             return (zero_win, zero_win, zero_win), torch.zeros((), dtype=torch.bool,
                                                                  device=device)
-        wa, wb, ub, ovf = compute_z_windows(r8, r8[3], counts, grid, window, r_list, TILE_I)
+        wa, wb, ub, ovf = compute_z_windows(r8, r8[3], counts, grid, window, r_list, TILE_I,
+                                            **rep_kw)
         return (wa, wb, ub), ovf
 
     def accel(out):
@@ -1090,7 +1105,12 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         rc, vc = rest if compensated else (torch.zeros_like(r8p), c.vc)
         new = dataclasses.replace(c, r=r8p, ru=ru, v=v, a=a, rc=rc, vc=vc, r_ref=r8p,
                                   counts=counts, overflow=c.overflow | ovf)
-        return with_tables(new if fire is None else pick(fire, new, c), wins)
+        if fire is None:
+            return with_tables(new, wins)
+        if z_band:
+            wins = tuple(torch.where(fire[:, None], w.reshape(reps, -1), o.reshape(reps, -1))
+                         .reshape(-1) for w, o in zip(wins, wins_of(c)))
+        return with_tables(pick(fire, new, c), wins)
 
     def bin_rows(state: MDState):
         """One system's slot rows r (ids, validity, no sentinels yet), ru, v
@@ -1165,7 +1185,9 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             v_new, vc_new = c.v + a_new * half_dt, c.vc
             v_eff = v_new
         c = dataclasses.replace(c, v=v_new, vc=vc_new, a=a_new)
-        return c, obs_from(out, 0.5 * total(v_eff * v_eff))
+        # step_fast's observables are not meaningful: none are summed (a
+        # stack's sums are R reductions each).
+        return c, obs_from(out, 0.5 * total(v_eff * v_eff)) if want_obs else None
 
     def _invalid_check(c: PencilCarry):
         """Sticky flag for drift past the coverage slack since the last
@@ -1225,9 +1247,13 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         return c
 
     def _top_speed(c: PencilCarry) -> float:
+        """The top speed (drift rows) of the carry; a stack's fastest
+        replica's among those whose speeds are finite (a replica gone NaN
+        does not stop the others; none finite: NaN, which raises)."""
         v = (c.v + c.vc if compensated else c.v)[drift_rows]
         HOST_READS["cellpair_chunk"] += 1
-        return float(torch.sqrt(torch.max(torch.sum(v * v, dim=0))))
+        top = torch.amax(torch.sum(v * v, dim=0).reshape(reps, ns), dim=1)
+        return float(torch.sqrt(torch.where(torch.isfinite(top), top, -1.0).max()))
 
     def _chunked(chunk):
         def run(c: PencilCarry, n_steps: int) -> PencilCarry:
@@ -1387,15 +1413,15 @@ def _replica_loop_engine(engines: list) -> Engine:
 def replica_backend(cfg: SimConfig, backend: str = "auto", device="cuda",
                     sample_interval: int | None = None) -> tuple[str, bool]:
     """(the backend ``backend`` resolves to, whether the replica engine of
-    ``make_replica_engine`` is batched): the rows engine (``rows`` /
-    ``pallas``), the zsort engine and the cell-pair engine batch their
-    replicas; neighbor and dense loop over them."""
+    ``make_replica_engine`` is batched): every backend batches its replicas
+    (rows / ``pallas``, zsort, cellpair, neighbor and dense), so the flag is
+    always True; it stays in the ensemble's summary line."""
     device = resolve_device(device)
     if backend == "auto":
         backend = auto_backend(cfg, device.type == "cuda", sample_interval)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    return backend, backend in ("rows", "pallas", "zsort", "cellpair")
+    return backend, True
 
 
 def replica_capacity(cfg: SimConfig, states: MDState | None) -> int:
@@ -1416,27 +1442,23 @@ def make_replica_engine(cfg: SimConfig, replicas: int, backend: str = "auto", de
                         states: MDState | None = None,
                         sample_interval: int | None = None) -> Engine:
     """The engine of an R-replica ensemble on ``device``: (R, N, 3) states,
-    (R,) observables. Where ``backend`` resolves to the rows, zsort or
-    cell-pair engine it is that engine with ``replicas=R`` (one launch of
-    kernels 2, 3 or 4 a sweep or chunk for all R; zsort: of kernels 2, 9
-    and 10; cellpair: of kernel 13 a sampled sweep and of kernel 15 or 16 a
-    chunk, at one capacity for all replicas, ``replica_capacity``, so
-    replica q is what a one-system engine built at that capacity gives it);
-    neighbor and dense are a loop over R engines of their own
-    (``_replica_loop_engine``: R launches a step), each built as
-    ``make_engine`` builds it. ``_replica_loop_engine`` of R one-system
-    engines stays the yardstick of the batched ones."""
+    (R,) observables: the engine ``backend`` resolves to, with
+    ``replicas=R``. Rows: one launch of kernels 2, 3 or 4 a sweep or chunk
+    for all R; zsort: of kernels 2, 9 and 10; cellpair: of kernel 13 a
+    sampled sweep and of kernel 15 or 16 a chunk, at one capacity for all
+    replicas (``replica_capacity``, so replica q is what a one-system engine
+    built at that capacity gives it); neighbor and dense: plain torch over
+    the stack, one rebuild check a step for all R. ``_replica_loop_engine``
+    of R one-system engines stays the yardstick of the batched ones."""
     device = resolve_device(device)
-    backend, batched = replica_backend(cfg, backend, device, sample_interval)
-    if batched and backend == "zsort":
+    backend, _ = replica_backend(cfg, backend, device, sample_interval)
+    if backend == "zsort":
         return _zsort_engine(cfg, device, replicas=replicas, **_zsort_kwargs(sample_interval))
-    if batched and backend == "cellpair":
+    if backend == "cellpair":
         cfg = cfg.replace(neighbor_capacity=replica_capacity(cfg, states))
         return _cellpair_engine(cfg, device, replicas=replicas)
-    if batched:
-        return _rows_engine(cfg, device, replicas=replicas)
-    return _replica_loop_engine([
-        make_engine(cfg, backend, device,
-                    state=None if states is None else replica_state(states, i),
-                    sample_interval=sample_interval)
-        for i in range(replicas)])
+    if backend == "neighbor":
+        return _neighbor_engine(cfg, device, replicas=replicas)
+    if backend == "dense":
+        return _force_engine(cfg, device)
+    return _rows_engine(cfg, device, replicas=replicas)

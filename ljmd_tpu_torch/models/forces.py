@@ -3,7 +3,8 @@
 Every backend is a function of (N, 3) positions returning an ``LJResult``
 with the dense oracle's semantics, tail corrections included:
 
-- ``dense``: the all-pairs ``ops/lj.py`` oracle;
+- ``dense``: the all-pairs ``ops/lj.py`` oracle; it also takes an (R, N, 3)
+  stack of R replicas (the batched dense engine's), with (R,) sums;
 - ``pallas``: the ordered N x N sweep (``ops/pair_sweep.py``,
   ``lj_force_energy_pallas``): in this package the name means the
   hand-written CUDA kernel ``csrc/pair_sweep.cu`` on the card (its plain twin

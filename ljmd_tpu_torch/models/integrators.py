@@ -28,6 +28,9 @@ def velocity_verlet_step(state: MDState, force_fn: ForceFn, dt: float,
       v'  = v_h + a' dt/2
       ru' = ru + MIC(r' - r)
       K   = 1/2 sum |v'|^2
+
+    Elementwise but for K, so an (R, N, 3) state with a force function of
+    stacks steps R replicas, K each replica's own (``kinetic_energy``).
     """
     half_dt = 0.5 * dt
     half_dt_sq = 0.5 * dt * dt

@@ -20,9 +20,8 @@ interval) through a prologue / epilogue split, including
 
 Replica ensembles: ``initialize_replicas`` builds R initial states, one per
 CPU generator (``replica_generators``), and ``run_production`` given (R, N,
-3) states runs them on ``make_replica_engine``'s engine (the rows, zsort or
-cell-pair engine batched over the replicas, else a loop over per-replica
-engines): series
+3) states runs them on ``make_replica_engine``'s engine (every backend's
+engine batched over the replicas): series
 (R, 5, n_samples), means (R, 11), correlations (R, 5, max_lag+1). The
 drivers and the statistics take the leading replica axis as it is; on one
 system they compute what they did before, op for op.
@@ -44,7 +43,6 @@ from ljmd_tpu_torch.models.engine import (
     make_replica_engine,
     replica_backend,
     resolve_device,
-    stack_states,
 )
 from ljmd_tpu_torch.models.lattice import (
     fcc_lattice,
@@ -340,19 +338,18 @@ def replica_generators(seed: int, replicas: int) -> list:
 def initialize_replicas(cfg: SimConfig, generators, backend: str = "auto",
                         device="cuda") -> MDState:
     """``initialize`` for R replicas, one generator each: the (R, N, 3)
-    post-warmup states. Where ``backend`` resolves to a batched engine
-    (``replica_backend``: rows, zsort, cellpair) the replicas run together: the
-    lattice, each replica's velocities from its own generator, per-replica
-    COM removal, per-replica rescale to E_target, then the warmup on that
-    engine with ``replicas=R`` (one launch a chunk for all R; cellpair at
-    the lattice bound, as ``initialize``). Neighbor and dense initialize
-    each replica in turn with ``initialize``."""
+    post-warmup states. The replicas run together on the engine ``backend``
+    resolves to (``replica_backend``; every backend batches): the lattice,
+    each replica's velocities from its own generator, per-replica COM
+    removal, per-replica rescale to E_target, then the warmup on that engine
+    with ``replicas=R`` (one launch a chunk for all R; cellpair at the
+    lattice bound, as ``initialize``; neighbor and dense plain torch over
+    the stack). Replica q is ``initialize(cfg, generators[q])`` up to the
+    rounding of the (R,) sums the rescale reads (on the CPU with one thread
+    bit for bit on the neighbor, dense and cell-pair engines)."""
     device = resolve_device(device)
     replicas = len(generators)
-    backend, batched = replica_backend(cfg, backend, device)
-    if not batched:
-        return stack_states([initialize(cfg, g, backend=backend, device=device)
-                             for g in generators])
+    backend, _ = replica_backend(cfg, backend, device)
     dtype = _effective_dtype(cfg)
     r = fcc_lattice(cfg.num_cells, cfg.box_length, dtype=dtype, device=device)
     r = r.expand(replicas, -1, -1).contiguous()

@@ -16,7 +16,7 @@ of the pair terms).
 
 Every wrapper counts its launches in ``LAUNCHES`` so that a run can show that
 the main path went through the kernels; the replica launches of kernels 2,
-3, 4, 6, 7, 9 and 10 (one launch for the R replicas of an ensemble, or a
+3, 4, 6, 7, 9, 10 and 11-16 (one launch for the R replicas of an ensemble, or a
 rank's replicas in the replica x particle step) count under their own names
 (``*_replicas``).
 """
@@ -65,7 +65,8 @@ class LaunchCounts:
              "fused_dense_chunk_ext_replicas", "pair_sweep_rect_replicas",
              "pair_sweep_rect_newton_replicas", "build_window_lists_replicas",
              "fused_dense_chunk_list_replicas", "pencil_sweep_hs_replicas",
-             "fused_pencil_chunk_replicas", "fused_pencil_width_chunk_replicas")
+             "fused_pencil_chunk_replicas", "fused_pencil_width_chunk_replicas",
+             "pencil_sweep_full_replicas", "pencil_sweep_zband_replicas")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)

@@ -237,7 +237,8 @@ def default_z_window(grid: PencilGrid, n: int, r_extend: float, tile_i: int = 12
 
 
 def compute_z_windows(rows_r: torch.Tensor, valid: torch.Tensor, counts: torch.Tensor,
-                      grid: PencilGrid, window: int, r_extend: float, tile_i: int = 128):
+                      grid: PencilGrid, window: int, r_extend: float, tile_i: int = 128,
+                      replicas: int | None = None):
     """Per-(i-slice, neighbour) z-window start tables of the z-banded sweep.
 
     For each tile_i-slot i-slice and each of its 9 xy-neighbour pencils, up
@@ -249,15 +250,22 @@ def compute_z_windows(rows_r: torch.Tensor, valid: torch.Tensor, counts: torch.T
 
     Returns ``(start_a, start_b, use_b, overflow)``: three (T * 9,) int32
     tables, T = n_slots / tile_i, and a 0-d bool set where a window cannot
-    cover its interval (pairs would be missed)."""
+    cover its interval (pairs would be missed).
+
+    ``replicas=R``: the rows are R grids side by side (``rebin_gather_parts``
+    with ``replicas``), each i-slice's neighbours those of its own grid
+    (replica q's pencils offset by q * n_pencils): tables of R * T * 9
+    entries, replica q's at [q * T * 9, (q + 1) * T * 9) and equal to its
+    grid's alone (the ranks are each pencil's own), and ``overflow`` (R,)."""
+    reps = 1 if replicas is None else replicas
     cap = grid.capacity
     L = grid.box_length
     dev = rows_r.device
-    T = grid.n_slots // tile_i
+    T = grid.n_slots // tile_i * reps
     big = 2.0 * L  # z of empty slots: sorts after every real z
     z = rows_r[2]
     ok = valid > 0.5
-    zcol = torch.where(ok, z, big).reshape(grid.n_pencils, cap)
+    zcol = torch.where(ok, z, big).reshape(grid.n_pencils * reps, cap)
     zsl = z.reshape(T, tile_i)
     vsl = ok.reshape(T, tile_i)
     zmin = torch.where(vsl, zsl, big).min(dim=1).values
@@ -267,6 +275,9 @@ def compute_z_windows(rows_r: torch.Tensor, valid: torch.Tensor, counts: torch.T
     hi = zmax + r_extend
 
     nbr = torch.as_tensor(grid.neighbor_table(), dtype=torch.long, device=dev)
+    if replicas is not None:
+        off = torch.arange(reps, device=dev) * grid.n_pencils
+        nbr = (nbr[None] + off[:, None, None]).reshape(-1, 9)
     nbrs = nbr[torch.arange(T, device=dev) // (cap // tile_i)]  # (T, 9)
     zk = zcol[nbrs]                                              # (T, 9, cap)
 
@@ -292,6 +303,7 @@ def compute_z_windows(rows_r: torch.Tensor, valid: torch.Tensor, counts: torch.T
     over_b = use_b & (b_end > start_b + window)
 
     bad = nonempty[:, None] & (over_a | over_b | (wrap_lo & wrap_hi))
+    overflow = torch.any(bad) if replicas is None else bad.reshape(reps, -1).any(dim=1)
     i32 = torch.int32
     return (start_a.to(i32).reshape(-1), start_b.to(i32).reshape(-1),
-            use_b.to(i32).reshape(-1), torch.any(bad))
+            use_b.to(i32).reshape(-1), overflow)

@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 
 from ljmd_tpu_torch.ops.geometry import minimum_image
+from ljmd_tpu_torch.state import replica_sum
 
 __all__ = [
     "LJResult",
@@ -29,10 +30,10 @@ PI = 3.14159265358979323846
 
 @dataclasses.dataclass(frozen=True)
 class LJResult:
-    a: torch.Tensor        # (N, 3) accelerations
-    epot: torch.Tensor     # scalar
-    d_epot: torch.Tensor   # scalar
-    dd_epot: torch.Tensor  # scalar
+    a: torch.Tensor        # (N, 3) accelerations (a stack's (R, N, 3))
+    epot: torch.Tensor     # scalar (a stack's (R,): each replica's own)
+    d_epot: torch.Tensor   # scalar (R,)
+    dd_epot: torch.Tensor  # scalar (R,)
 
 
 def tail_corrections(n: int, volume: float, rc: float) -> Tuple[float, float, float]:
@@ -88,15 +89,17 @@ def lj_force_energy_dense(
     rc: float | None = None,
 ) -> LJResult:
     """Dense all-pairs LJ forces + energy + virial sums of (N, 3) wrapped
-    positions."""
+    positions, or of an (R, N, 3) stack of R replicas: then (R,) sums, each
+    replica's own, and each replica's forces those of its (N, 3) call (the
+    rows reduce one by one either way)."""
     n = r.shape[-2]
     dx, dy, dz, r2, mask = _pair_geometry(r, box_length, rc_square)
     pair_epot, dU_r, pair_ddU, inv_r2 = _pair_terms(r2, mask)
 
     # Full-matrix sums double count i<j -> halve, then restore prefactors.
-    epot = 2.0 * torch.sum(pair_epot)
-    d_epot = 12.0 * torch.sum(dU_r)
-    dd_epot = 12.0 * torch.sum(pair_ddU)
+    epot = 2.0 * replica_sum(pair_epot)
+    d_epot = 12.0 * replica_sum(dU_r)
+    dd_epot = 12.0 * replica_sum(pair_ddU)
 
     coef = -dU_r * inv_r2
     ax = torch.sum(coef * dx, dim=-1)

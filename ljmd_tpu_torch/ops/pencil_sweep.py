@@ -181,7 +181,7 @@ def sentinel_fill(rows_r: torch.Tensor, valid: torch.Tensor, capacity: int,
 
 
 def replica_tables(tbl, shf, n_pencils: int, replicas: int):
-    """The half-shell tables of a stack of ``replicas`` grids side by side
+    """The half-shell (or 9-neighbour) tables of a stack of ``replicas`` grids side by side
     (slots of replica q at [q * n_slots, (q + 1) * n_slots)): the pencil ids
     of replica q offset by q * n_pencils, the image shifts repeated. No
     pencil of the stack has a neighbour in another replica, so a sweep or
@@ -468,14 +468,16 @@ def full_stage_plan(counts, tbl, n_pencils: int, capacity: int) -> dict:
 
 
 def pencil_sweep_plain(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
-                       want_observables: bool = True):
+                       want_observables: bool = True, replicas: int | None = None):
     """Plain twin of ``pencil_sweep``: each live 128-slot i-slice against
     each stage that ``full_stage_plan`` keeps (the counts read on the host),
-    evaluated in batches of dense tiles."""
+    evaluated in batches of dense tiles; ``replicas=R``: over a stack of R
+    grids (``pencil_sweep``)."""
+    n_pencils = grid.n_pencils * (replicas or 1)
     out = torch.zeros_like(pos)
-    plan = full_stage_plan(counts.cpu(), tbl.cpu(), grid.n_pencils, grid.capacity)
+    plan = full_stage_plan(counts.cpu(), tbl.cpu(), n_pencils, grid.capacity)
     t, k, _ = (x.numpy() for x in torch.nonzero(plan["keep"], as_tuple=True))
-    shf = np.asarray(shf.cpu()).reshape(grid.n_pencils, 9, 2)
+    shf = np.asarray(shf.cpu()).reshape(n_pencils, 9, 2)
     p = t // (grid.capacity // TILE_I)
     _i_side_visits(out, pos, t * TILE_I, plan["start"][plan["keep"]].numpy(), TILE_I,
                    shf[p, k, 0], shf[p, k, 1], None, grid.box_length, rc_square,
@@ -526,14 +528,15 @@ def zband_stage_plan(counts, tbl, start_a, start_b, use_b, n_pencils: int, capac
 
 
 def pencil_sweep_zband_plain(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGrid,
-                             rc_square, window: int, want_observables: bool = True):
+                             rc_square, window: int, want_observables: bool = True,
+                             replicas: int | None = None):
     """Plain twin of ``pencil_sweep_zband``: the stages of
     ``zband_stage_plan`` that the sweep keeps, each 128-slot i-slice against
     each kept 128-rank stage (no dedupe test: the skipped stages are the
-    ones it would mask)."""
+    ones it would mask); ``replicas=R``: over a stack of R grids."""
     out = torch.zeros_like(pos)
     plan = zband_stage_plan(counts.cpu(), tbl.cpu(), start_a.cpu(), start_b.cpu(), use_b.cpu(),
-                            grid.n_pencils, grid.capacity, window)
+                            grid.n_pencils * (replicas or 1), grid.capacity, window)
     t, _, _, _ = (x.numpy() for x in torch.nonzero(plan["keep"], as_tuple=True))
     jsta = plan["start"][plan["keep"]].numpy()
     _i_side_visits(out, pos, t * TILE_I, jsta, TILE_I, None, None, None, grid.box_length,
@@ -644,18 +647,36 @@ def sweep_hs_grid(pos, want_observables: bool = True) -> dict:
             "warps_per_sm": out[0] * TILE_I * s // 32}
 
 
+def _stack_pencils(name: str, grid: PencilGrid, replicas: int | None):
+    """(pencils of the slot matrix, launch count name) of a sweep over one
+    grid or over a stack of ``replicas`` grids."""
+    if replicas is None:
+        return grid.n_pencils, name
+    if replicas < 1:
+        raise ValueError(f"{name}: replicas >= 1")
+    return replicas * grid.n_pencils, f"{name}_replicas"
+
+
 def pencil_sweep(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
-                 want_observables: bool = True):
+                 want_observables: bool = True, replicas: int | None = None):
     """Full 9-neighbour sweep of an (8, n_slots) slot matrix (module
     docstring): ONE launch of ``csrc/pencil_sweep_full.cu`` on CUDA tensors
     (the counts read on the device), the plain twin on CPU tensors. ``tbl``
-    and ``shf`` are ``build_tile_table`` and ``build_shift_table``."""
+    and ``shf`` are ``build_tile_table`` and ``build_shift_table``. With
+    ``replicas=R`` the matrix is R grids side by side, (8, R * n_slots), with
+    ``replica_tables``' 9-entry tables and the R grids' counts: one launch
+    for all R (counted as ``pencil_sweep_full_replicas``), replica q's slots
+    what a launch on its grid alone gives them (each i-slice meets its 9
+    partners in their one-grid order)."""
+    P, name = _stack_pencils("pencil_sweep_full", grid, replicas)
     if pos.device.type == "cpu":
-        return pencil_sweep_plain(pos, tbl, counts, shf, grid, rc_square, want_observables)
+        return pencil_sweep_plain(pos, tbl, counts, shf, grid, rc_square, want_observables,
+                                  replicas)
     if pos.device.type != "cuda":
         raise ValueError(f"pencil_sweep: unsupported device {pos.device}")
-    P, cap = grid.n_pencils, grid.capacity
-    _check_tables("pencil_sweep", pos, grid, (tbl, 9 * P), (counts, P), (shf, 18 * P))
+    cap = grid.capacity
+    _check_tables("pencil_sweep", pos, grid, (tbl, 9 * P), (counts, P), (shf, 18 * P),
+                  n_slots=P * cap)
     lib = _cuda.library()
     if cap // TILE_I > lib.ljmd_full_max_sub():
         raise ValueError(f"pencil_sweep: capacity {cap} above {TILE_I * lib.ljmd_full_max_sub()}")
@@ -668,8 +689,8 @@ def pencil_sweep(pos, tbl, counts, shf, grid: PencilGrid, rc_square,
             pos.data_ptr(), out.data_ptr(), tbl.data_ptr(), counts.data_ptr(),
             shf.data_ptr(), P, cap, float(grid.box_length), 1.0 / float(grid.box_length),
             float(rc_square), int(want_observables), _cuda.stream_handle(pos))
-    _cuda.LAUNCHES.bump("pencil_sweep_full")
-    _cuda.check(code, "pencil_sweep_full")
+    _cuda.LAUNCHES.bump(name)
+    _cuda.check(code, name)
     return out
 
 
@@ -690,28 +711,35 @@ def full_grid(pos, want_observables: bool = True) -> dict:
 
 
 def pencil_sweep_zband(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGrid, rc_square,
-                       window: int, want_observables: bool = True):
+                       window: int, want_observables: bool = True,
+                       replicas: int | None = None):
     """z-banded sweep of an (8, n_slots) slot matrix with z-sorted ranks
     (module docstring): ONE launch of ``csrc/pencil_sweep_zband.cu`` on CUDA
     tensors, the plain twin on CPU tensors. The window tables are
     ``compute_z_windows``'s: their starts are multiples of 128 and at most
     capacity - window, which the kernel (and its stage skips,
-    ``zband_stage_plan``) relies on."""
+    ``zband_stage_plan``) relies on. With ``replicas=R`` the matrix is R
+    grids side by side with ``replica_tables``' neighbour table and the
+    stack's window tables (``compute_z_windows(..., replicas=R)``, R *
+    n_slots / 128 * 9 entries): one launch for all R (counted as
+    ``pencil_sweep_zband_replicas``), replica q's slots what a launch on its
+    grid alone gives them."""
+    P, name = _stack_pencils("pencil_sweep_zband", grid, replicas)
     if pos.device.type == "cpu":
         return pencil_sweep_zband_plain(pos, tbl, counts, start_a, start_b, use_b, grid,
-                                        rc_square, window, want_observables)
+                                        rc_square, window, want_observables, replicas)
     if pos.device.type != "cuda":
         raise ValueError(f"pencil_sweep_zband: unsupported device {pos.device}")
-    P, cap = grid.n_pencils, grid.capacity
+    cap = grid.capacity
     lib = _cuda.library()
     if (window % TILE_I or not TILE_I <= window <= cap
             or window // TILE_I > lib.ljmd_zband_max_window_stages()):
         raise ValueError(f"pencil_sweep_zband: window {window} must be a multiple of 128 "
                          f"in [128, capacity={cap}], at most "
                          f"{TILE_I * lib.ljmd_zband_max_window_stages()}")
-    n_tab = grid.n_slots // TILE_I * 9
+    n_tab = P * cap // TILE_I * 9
     _check_tables("pencil_sweep_zband", pos, grid, (tbl, 9 * P), (counts, P),
-                  (start_a, n_tab), (start_b, n_tab), (use_b, n_tab))
+                  (start_a, n_tab), (start_b, n_tab), (use_b, n_tab), n_slots=P * cap)
     if pos.data_ptr() % 16:
         raise ValueError("pencil_sweep_zband: pos must start on a 16-byte boundary (cp.async)")
     suffix = _cuda.dtype_suffix(pos.dtype)
@@ -722,8 +750,8 @@ def pencil_sweep_zband(pos, tbl, counts, start_a, start_b, use_b, grid: PencilGr
             start_a.data_ptr(), start_b.data_ptr(), use_b.data_ptr(), P, cap, int(window),
             float(grid.box_length), 1.0 / float(grid.box_length), float(rc_square),
             int(want_observables), _cuda.stream_handle(pos))
-    _cuda.LAUNCHES.bump("pencil_sweep_zband")
-    _cuda.check(code, "pencil_sweep_zband")
+    _cuda.LAUNCHES.bump(name)
+    _cuda.check(code, name)
     return out
 
 

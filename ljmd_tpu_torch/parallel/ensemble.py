@@ -25,11 +25,15 @@ a replica grid axis. Here:
   the card at N >= 8192), one flat stack of R pencil grids at one capacity:
   its sampled sweeps (kernel 13) and fused chunks (kernels 15 and 16) are
   one launch for all R;
-- neighbor and dense run a loop over replicas: each replica has its own engine, initialized by ``initialize``,
-  and each step of the ensemble steps every replica's engine in turn
-  (``make_replica_engine``), exactly the calls of a one-system
-  ``run_production``: the same result as per-replica runs stacked, at R
-  launches a step.
+- and on the neighbor and dense engines, plain torch over the (R, N, 3)
+  stack: (R, N, N) pair matrices (dense) or (R, N, K) lists (neighbor), one
+  host read a step of whether any replica's list needs a rebuild, each
+  replica keeping its rebuilt or old list by its own flag (JAX's vmap of
+  ``lax.cond``).
+
+Replica q's trajectory is what a one-system run gives it (the (R,) sums of
+the observables may round otherwise); ``_replica_loop_engine`` of R
+one-system engines stays the yardstick.
 
 ``ensemble_simulate(..., mesh=)`` splits the replicas over a mesh's replica
 axis (``parallel/mesh.py``, the JAX package's ``P(REPLICA_AXIS)`` sharding):
@@ -174,9 +178,9 @@ def ensemble_simulate(cfg: SimConfig, n_replicas: Optional[int] = None,
     ``device`` and aggregate them: ``initialize_replicas`` from
     ``replica_generators(seed or cfg.seed, R)``, then ``run_production`` of
     the (R, N, 3) states, which takes given initial states as well (module
-    docstring: batched on the rows, zsort and cell-pair engines, a loop over
-    replicas on neighbor and dense). With ``mesh`` (``parallel/mesh.py``) the replicas split over
-    its replica axis, each rank's on the mesh's device (module docstring).
+    docstring: batched on every backend's engine). With ``mesh``
+    (``parallel/mesh.py``) the replicas split over its replica axis, each
+    rank's on the mesh's device (module docstring).
     With ``keep_per_replica=True`` returns (EnsembleResult, batched
     SimResult), for per-run artifacts (``replica_result``)."""
     r = cfg.n_runs if n_replicas is None else int(n_replicas)

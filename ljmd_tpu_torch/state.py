@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["MDState", "StepObs", "kinetic_energy"]
+__all__ = ["MDState", "StepObs", "kinetic_energy", "replica_sum"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,5 +62,14 @@ class StepObs:
 
 
 def kinetic_energy(v: torch.Tensor) -> torch.Tensor:
-    """K = 1/2 sum_i |v_i|^2 (reference verlet.f90:93-95), in v's dtype."""
-    return 0.5 * torch.sum(v * v)
+    """K = 1/2 sum_i |v_i|^2 (reference verlet.f90:93-95), in v's dtype.
+    (R, N, 3) velocities give (R,) energies, each replica's own sum."""
+    return 0.5 * replica_sum(v * v)
+
+
+def replica_sum(x: torch.Tensor, dims: int = 2) -> torch.Tensor:
+    """The sum over x's trailing ``dims`` dimensions: the whole sum where x
+    has no more (one system), else one sum a replica of the leading axis.
+    (The one-system call stays ``torch.sum(x)``: a reduction over fewer
+    dimensions may split otherwise and round otherwise.)"""
+    return torch.sum(x) if x.dim() == dims else torch.sum(x, dim=tuple(range(-dims, 0)))

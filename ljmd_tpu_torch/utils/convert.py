@@ -43,7 +43,6 @@ import torch
 from ljmd_tpu_torch.models.engine import ROW_PAD, PencilCarry, RowCarry, ZSortCarry
 from ljmd_tpu_torch.ops.fused_pencil import build_width_lists
 from ljmd_tpu_torch.ops.neighbor import NeighborList
-from ljmd_tpu_torch.ops.pencil_sweep import TILE_I
 from ljmd_tpu_torch.parallel.spatial_pencil import ShardedPencilCarry, augmented_counts
 from ljmd_tpu_torch.state import MDState
 
@@ -177,20 +176,23 @@ def pencil_carry_to_numpy(carry: PencilCarry) -> dict:
 
 
 _PENCIL_ROWS = ("r", "ru", "v", "a", "r_ref", "rc", "vc")
+_PENCIL_WINS = ("win_a", "win_b", "use_b")
 # The fields a batched cell-pair carry holds per replica (the width lists
-# and window tables are the stack's own).
-PENCIL_REPLICA_FIELDS = _PENCIL_ROWS + ("counts", "overflow")
+# are the stack's own).
+PENCIL_REPLICA_FIELDS = _PENCIL_ROWS + ("counts", "overflow") + _PENCIL_WINS
 
 
 def pencil_replicas_to_numpy(carry: PencilCarry, replicas: int) -> dict:
     """{field: array} of a batched ``PencilCarry`` (the flat stack of
     ``_cellpair_engine(..., replicas=R)``) in the JAX package's vmapped
     layout: slot rows (R, 8, n_slots), counts (R, n_pencils), the flag
-    (R,); ``[q]`` of each is replica q's one-system field. The width lists
-    and window tables are the stack's and are left out."""
+    (R,), the z-band's window tables (R, n_slots / 128 * 9); ``[q]`` of each
+    is replica q's one-system field. The width lists are the stack's and
+    are left out."""
     out = {k: getattr(carry, k).detach().reshape(8, replicas, -1).transpose(0, 1).cpu().numpy()
            for k in _PENCIL_ROWS}
-    out["counts"] = carry.counts.detach().reshape(replicas, -1).cpu().numpy()
+    for k in ("counts",) + _PENCIL_WINS:
+        out[k] = getattr(carry, k).detach().reshape(replicas, -1).cpu().numpy()
     out["overflow"] = carry.overflow.detach().reshape(replicas).cpu().numpy()
     return out
 
@@ -202,7 +204,8 @@ def pencil_replicas_from_numpy(arrays, tables=None, dtype=torch.float64,
     (R, 8, n_slots) side by side as (8, R * n_slots), counts (R, n_pencils)
     one after another, the flags (R,); the width lists built from the
     stack's counts over ``tables`` (the engine's ``replica_tables``, as
-    (tbl, shf)), or left empty without; the z-band tables empty."""
+    (tbl, shf)), or left empty without; the z-band's window tables (R,
+    n_slots / 128 * 9) one after another."""
     get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
     rows = {k: np.array(get(k)) for k in _PENCIL_ROWS}
     reps, _, ns = rows["r"].shape
@@ -217,8 +220,10 @@ def pencil_replicas_from_numpy(arrays, tables=None, dtype=torch.float64,
     lists = (zero,) * 5
     if tables is not None:
         lists = build_width_lists(fields["counts"], *tables, reps * n_pencils, ns // n_pencils)
-    win = torch.zeros(((ns // TILE_I) * 9,), dtype=torch.int32, device=device)
-    return PencilCarry(**fields, win_a=win, win_b=win, use_b=win,
+    for k in _PENCIL_WINS:
+        fields[k] = torch.as_tensor(np.array(get(k)).reshape(-1), dtype=torch.int32,
+                                    device=device)
+    return PencilCarry(**fields,
                        **dict(zip(("wl_self", "wl_self_cnt", "wl_nbr_i", "wl_nbr_j",
                                    "wl_nbr_off"), lists)))
 

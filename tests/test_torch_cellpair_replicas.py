@@ -12,7 +12,9 @@
 - ``run_production`` of the batched engine from JAX's initial states
   against JAX's vmapped ``ensemble_simulate(backend="cellpair")`` with
   ``neighbor_capacity`` pinned (JAX takes no census under vmap);
-- the routing, the one capacity, the refusals and the conversions.
+- the routing, the one capacity, the other sweeps built over the stack
+  (tests/test_torch_cellpair_sweeps_replicas.py runs them), ``replicas=0``
+  refused, and the conversions.
 
 The geometry is tests/test_torch_cellpair.py's (N=500, rho 0.66, 3x3
 pencils, skin 0.3) and so are the tolerances: trajectories rtol 1e-9 / atol
@@ -289,8 +291,9 @@ def test_replica_routing_capacity_and_refusals(small):
     """replica_backend batches cellpair; make_replica_engine takes one
     capacity for all replicas (the config's, else the largest census, else
     the lattice bound); initialize_replicas warms up batched at the lattice
-    bound, replica q equal to initialize alone; the z-band, the full sweep,
-    the unfused chunk and replicas=0 raise."""
+    bound, replica q equal to initialize alone; the z-band, the full sweep
+    and the unfused chunk build over the stack (tests/
+    test_torch_cellpair_sweeps_replicas.py runs them); replicas=0 raises."""
     cfg, states = small
     base = cfg.replace(neighbor_capacity=0)
     assert pe.replica_backend(base, "cellpair", "cpu") == ("cellpair", True)
@@ -302,8 +305,8 @@ def test_replica_routing_capacity_and_refusals(small):
     eng = pe.make_replica_engine(base, R, "cellpair", "cpu", states=states)
     assert eng.init(states)[0].r.shape == (8, R * 9 * max(census))
     for kw in (dict(z_band=True), dict(half_shell=False), dict(use_fused=False)):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            pe._cellpair_engine(cfg, "cpu", replicas=R, **kw)
+        c, obs = pe._cellpair_engine(cfg, "cpu", replicas=R, **kw).init(states)
+        assert c.r.shape == (8, R * 9 * cfg.neighbor_capacity) and obs.epot.shape == (R,)
     with pytest.raises(ValueError, match="replicas >= 1"):
         pe._cellpair_engine(cfg, "cpu", replicas=0)
     short = base.replace(warmup_steps=12)

@@ -1839,3 +1839,159 @@ def test_zsort_trigger_decisions_on_card_match_cpu(cuda, trigger):
     assert n_cpu == n_gpu and 0 < n_cpu < 10 and reads_cpu == reads_gpu == 10
     for k in ("r", "v"):
         _close(getattr(s_gpu, k), getattr(s_cpu, k), 1e-9)
+
+
+def _sweep_stack(kind, cap, dtype, reps=3):
+    """R grids side by side for kernels 11 and 12's replica launches, on the
+    CPU: ``full``: _full_slots' jittered lattice (4x4 pencils) from R seeds
+    at capacity ``cap`` with sentinels; ``zband``: _tall_slots' tall box from
+    R seeds (3x3 pencils of capacity 512, window 384) with the stack's z
+    windows. Returns (grid, window, stack rows, counts, the one-grid tables,
+    the stack's tables, the stack's windows)."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.ops import cell_list, pencil_sweep
+
+    rows, window = [], None
+    for q in range(reps):
+        rng = np.random.default_rng(50 + q)
+        if kind == "full":
+            n, box, r_list = 2048, 13.4, 2.9
+            r = torch.remainder(fcc_lattice(8, box, dtype=torch.float64)
+                                + torch.as_tensor(rng.normal(0, 0.05, (n, 3))), box)
+        else:
+            n, box, r_list = 1600, 60.0, 20.0
+            r = torch.as_tensor(rng.uniform(0, box, size=(n, 3)))
+        grid = cell_list.make_pencil_grid(n, box, r_list, n / box**3, cap)
+        slot, ovf = cell_list.bin_to_slots(r, grid)
+        assert not bool(ovf)
+        pos = torch.zeros((8, grid.n_slots + 1), dtype=torch.float64)
+        pos[0:3, slot] = r.T
+        pos[3, slot] = 1.0
+        rows.append(pos[:, :grid.n_slots])
+    P = grid.n_pencils
+    pos = pencil_sweep.sentinel_fill(torch.cat(rows, dim=1), torch.cat(rows, dim=1)[3], cap, P)
+    pos = pos.to(dtype).contiguous()
+    counts = pos[3].reshape(reps * P, cap).sum(1).to(torch.int32)
+    tbl = torch.as_tensor(pencil_sweep.build_tile_table(grid))
+    shf = torch.as_tensor(pencil_sweep.build_shift_table(grid))
+    wins = None
+    if kind == "zband":
+        window = cell_list.default_z_window(grid, n, 2.9)
+        *wins, w_ovf = cell_list.compute_z_windows(pos, pos[3], counts, grid, window, 2.9,
+                                                   replicas=reps)
+        assert window < cap and not bool(w_ovf.any())
+    return grid, window, pos, counts, (tbl, shf), pencil_sweep.replica_tables(tbl, shf, P, reps), \
+        wins
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("want_obs", [True, False])
+@pytest.mark.parametrize("kind,cap", [("full", 384), ("full", 512), ("zband", 512)])
+def test_full_sweep_replica_launches_equal_single_launches(cuda, kind, cap, want_obs, dtype,
+                                                           tol):
+    """Kernels 11 and 12 over a flat stack of 3 grids: ONE launch (counted
+    under the ``_replicas`` name), within ``tol`` of the twin over the
+    stack, and each replica's slots bit for bit a launch on its grid alone
+    (its tables, counts and z windows)."""
+    from ljmd_tpu_torch.ops import pencil_sweep
+
+    reps = 3
+    grid, window, pos, counts, (tbl, shf), (rtbl, rshf), wins = _sweep_stack(kind, cap, dtype,
+                                                                              reps)
+    P, ns = grid.n_pencils, grid.n_slots
+    name = "pencil_sweep_full" if kind == "full" else "pencil_sweep_zband"
+
+    def launch(p, n, t, s, w, replicas):
+        if kind == "full":
+            return pencil_sweep.pencil_sweep(p, t, n, s, grid, 6.25, want_obs, replicas=replicas)
+        return pencil_sweep.pencil_sweep_zband(p, t, n, *w, grid, 6.25, window, want_obs,
+                                               replicas=replicas)
+
+    dwins = None if wins is None else [w.to(cuda) for w in wins]
+    LAUNCHES.reset()
+    got = launch(pos.to(cuda), counts.to(cuda), rtbl.to(cuda), rshf.to(cuda), dwins, reps)
+    launched = LAUNCHES.snapshot()
+    assert launched[name + "_replicas"] == 1 and launched[name] == 0
+    want = launch(pos, counts, rtbl, rshf, wins, reps)
+    for row in range(8):
+        _close(got[row], want[row], tol)
+    T = ns // 128
+    for q in range(reps):
+        sl = slice(q * ns, (q + 1) * ns)
+        w_q = None if wins is None else [w[q * T * 9:(q + 1) * T * 9].contiguous().to(cuda)
+                                         for w in wins]
+        one = launch(pos[:, sl].contiguous().to(cuda), counts[q * P:(q + 1) * P].to(cuda),
+                     tbl.to(cuda), shf.to(cuda), w_q, None)
+        assert torch.equal(got[:, sl], one), q
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("backend", ["neighbor", "dense"])
+def test_neighbor_dense_ensembles_on_card_equal_loop(cuda, backend, dtype):
+    """The batched neighbor and dense engines on the card against the loop
+    of one-system engines from the same (batched warmup's) states: no kernel
+    launched, the final states bit for bit, the series bit for bit or
+    within rtol 1e-13 (float64) / 1e-6 (float32) where the (R,) sums round
+    otherwise, one rebuild read a step for the stack. The rule is
+    chip_smoke.py's (_obs_match): each row relative to itself, element by
+    element, but the pressure, made from the virial d_epot (a sum that
+    cancels), relative to the sample's scale (the replica's largest |row|
+    at that sample)."""
+    cfg = SimConfig(num_cells=5, box_length=9.1, rc_over_box=2.5 / 9.1, dt=0.002,
+                    total_steps=60, output_interval=10, warmup_steps=10, neighbor_skin=0.3,
+                    target_total_energy=-2000.0, dtype=dtype)
+    from ljmd_tpu_torch.models.simulation import initialize_replicas, replica_generators
+
+    reps = 3
+    states = initialize_replicas(cfg, replica_generators(3, reps), backend=backend, device=cuda)
+    loop = pe._replica_loop_engine([pe.make_engine(cfg, backend, cuda) for _ in range(reps)])
+    LAUNCHES.reset()
+    reads = pe.HOST_READS["neighbor_rebuild"]
+    res = run_production(cfg, states, backend=backend, device=cuda)
+    assert not any(LAUNCHES.snapshot().values())
+    if backend == "neighbor":
+        assert pe.HOST_READS["neighbor_rebuild"] - reads == cfg.total_steps
+        assert not bool(res.diagnostics["neighbor_overflow"].any())
+    want = run_production(cfg, states, engine=loop)
+    for k in ("r", "ru", "v", "a"):
+        assert torch.equal(getattr(res.final_state, k), getattr(want.final_state, k)), k
+    rtol = 1e-13 if dtype == "float64" else 1e-6
+    got, ref = res.series, want.series  # (R, 5, samples), rows SERIES_OBSERVABLES
+    torch.testing.assert_close(got[:, :4], ref[:, :4], rtol=rtol, atol=0.0)
+    scale = ref.abs().amax(dim=1)
+    assert float(((got[:, 4] - ref[:, 4]).abs() / scale).max()) <= rtol
+
+
+@pytest.mark.parametrize("mode", ["full9", "zband", "unfused"])
+def test_cellpair_sweep_variants_on_card_equal_loop(cuda, mode):
+    """The batched cell-pair engine's full sweep, z-band and unfused chunk
+    on the card: only the replica launches of kernel 11, 12 or 13, each
+    replica's final state and series equal to the loop of one-system
+    engines at the same capacity and chunk, bit for bit (float64)."""
+    cfg = SimConfig(num_cells=5, box_length=9.1, rc_over_box=2.5 / 9.1, dt=0.002,
+                    total_steps=40, output_interval=10, warmup_steps=10, neighbor_skin=0.3,
+                    target_total_energy=-2000.0, dtype="float64",
+                    neighbor_capacity=512 if mode == "zband" else 128)
+    from ljmd_tpu_torch.models.simulation import initialize_replicas, replica_generators
+
+    kw = {"full9": {"half_shell": False}, "zband": {"z_band": True},
+          "unfused": {"use_fused": False}}[mode]
+    kernel = {"full9": "pencil_sweep_full", "zband": "pencil_sweep_zband",
+              "unfused": "pencil_sweep_hs"}[mode]
+    reps = 3
+    states = initialize_replicas(cfg, replica_generators(3, reps), backend="rows", device=cuda)
+    batched = pe._cellpair_engine(cfg, cuda, replicas=reps, inner_chunk=4, **kw)
+    loop = pe._replica_loop_engine([pe._cellpair_engine(cfg, cuda, inner_chunk=4, **kw)
+                                    for _ in range(reps)])
+    LAUNCHES.reset()
+    res = run_production(cfg, states, engine=batched)
+    launched = LAUNCHES.snapshot()
+    assert launched[kernel + "_replicas"] > 0 and launched[kernel] == 0
+    want = run_production(cfg, states, engine=loop)
+    assert torch.equal(res.series, want.series)
+    for k in ("r", "ru", "v", "a"):
+        assert torch.equal(getattr(res.final_state, k), getattr(want.final_state, k)), k
+    # This short box wraps a slice's z margin at both faces (the z-band's
+    # window flag, as on the CPU); the other sweeps keep the flag clear.
+    assert torch.equal(res.diagnostics["pencil_overflow"], want.diagnostics["pencil_overflow"])
+    assert bool(res.diagnostics["pencil_overflow"].any()) == (mode == "zband")

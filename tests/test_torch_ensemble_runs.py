@@ -1,8 +1,9 @@
 """The port's replica ensemble runs (``ljmd_tpu_torch/parallel/ensemble.py``)
 on the CPU, float64 unless named, at small sizes: the batched rows engine
-against one-replica runs, the replica loop of the other engines (zsort,
-cellpair) against one-replica runs, the streaming ensemble against the
-in-memory one, and the grouped correlation stage against the ungrouped one.
+against one-replica runs, the batched zsort engine and the replica loop of
+the other engines (cellpair, neighbor, dense) against one-replica runs, the
+streaming ensemble against the in-memory one, and the grouped correlation
+stage against the ungrouped one.
 """
 
 import dataclasses
@@ -65,10 +66,12 @@ def test_batched_engine_equals_one_replica_runs(compensated):
         torch.testing.assert_close(res.corr_mean[i], one.corr_mean, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("backend", ["zsort", "cellpair"])
+@pytest.mark.parametrize("backend", ["zsort", "cellpair", "neighbor", "dense"])
 def test_replica_loop_equals_one_replica_runs(backend):
-    """Other backends run a loop over per-replica engines: each replica's
-    result is run_production of that replica alone, bit for bit."""
+    """The replica engine of zsort and the loop over per-replica engines of
+    cellpair, neighbor and dense (make_replica_engine batches them: the loop
+    is their yardstick): each replica's result is run_production of that
+    replica alone, bit for bit."""
     if backend == "zsort":
         jcfg = config_from_density(num_cells=5, density=0.8, dt=0.003, dtype="float64",
                                    total_steps=20, output_interval=5, warmup_steps=10,
@@ -80,9 +83,10 @@ def test_replica_loop_equals_one_replica_runs(backend):
     cfg = _port_cfg(jcfg)
     states = psim.initialize_replicas(cfg, psim.replica_generators(3, 2), backend="dense",
                                       device="cpu")
-    if backend == "cellpair":
-        # make_replica_engine batches cellpair: the loop, each replica's
-        # engine sized from its own state as make_engine sizes it
+    if backend != "zsort":
+        # make_replica_engine batches these: the loop, each replica's
+        # engine built (cellpair: sized from its own state) as make_engine
+        # builds it
         eng = _replica_loop_engine([make_engine(cfg, backend, "cpu", state=replica_state(states, i),
                                                 sample_interval=cfg.output_interval)
                                     for i in range(2)])

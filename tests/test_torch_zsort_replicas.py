@@ -15,8 +15,8 @@ float64 unless named, at small sizes:
   package's ``ensemble_simulate(backend="zsort")`` from its own initial
   states, at tests/test_torch_zsort.py's tolerance (series and states rtol
   1e-8), and against one-replica runs bit for bit;
-- the routing: ``replica_backend`` batches zsort (and cellpair), and the
-  replica loop stays reachable (``_replica_loop_engine``) and equal to the
+- the routing: ``replica_backend`` batches zsort (and every other
+  backend), and the replica loop stays reachable (``_replica_loop_engine``) and equal to the
   batched engine.
 """
 
@@ -249,8 +249,8 @@ def test_batched_ensemble_matches_jax_zsort_ensemble():
 
 def test_replica_loop_stays_and_equals_the_batched_engine():
     """The loop over one-system engines (the yardstick) and the batched
-    engine give one production bit for bit; cellpair is batched too,
-    neighbor and dense still loop."""
+    engine give one production bit for bit; cellpair, neighbor and dense
+    are batched too."""
     cfg = _port_cfg(config_from_density(num_cells=5, density=0.8, dt=0.003, dtype="float64",
                                         total_steps=15, output_interval=5, warmup_steps=5,
                                         target_total_energy=-2300.0))
@@ -265,7 +265,7 @@ def test_replica_loop_stays_and_equals_the_batched_engine():
         assert torch.equal(getattr(a.final_state, k), getattr(b.final_state, k)), k
     assert pe.replica_backend(cfg, "cellpair", "cpu") == ("cellpair", True)
     for backend in ("neighbor", "dense"):
-        assert pe.replica_backend(cfg, backend, "cpu")[1] is False
+        assert pe.replica_backend(cfg, backend, "cpu") == (backend, True)
     assert pe.replica_backend(cfg, "rows", "cpu") == ("rows", True)
     with pytest.raises(ValueError, match="replicas >= 1"):
         pe._zsort_engine(cfg, "cpu", replicas=0)
