@@ -2391,7 +2391,7 @@ def _production_run(torch, name: str, cfg, state, tmp: str, needed: tuple, forbi
 
     torch.cuda.synchronize()
     LAUNCHES.reset()
-    HOST_READS.update(dict.fromkeys(HOST_READS, 0))
+    HOST_READS.reset()
     t0 = time.time()
     res = run_production(cfg, state, backend=backend, engine=engine, record_frames=True,
                          device=DEVICE)
@@ -2923,7 +2923,7 @@ def phase_chunk_paths(torch, cfg, states: dict) -> dict:
                         c0, _ = eng.init(start)
                         torch.cuda.synchronize()
                         LAUNCHES.reset()
-                        pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+                        pe.HOST_READS.reset()
                         t0 = time.time()
                         c = eng.run_fast(c0, PATHS_STEPS)
                         torch.cuda.synchronize()
@@ -4297,7 +4297,7 @@ def phase_cellpair_ensemble(torch, tmp: str) -> dict:
             [pe.make_engine(pcfg, "cellpair", DEVICE) for _ in range(reps)])
         torch.cuda.synchronize()
         LAUNCHES.reset()
-        pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+        pe.HOST_READS.reset()
         t0 = time.time()
         res = run_production(pcfg, states, engine=engine, device=DEVICE)
         torch.cuda.synchronize()
@@ -4607,7 +4607,7 @@ def phase_replica_sweeps(torch, tmp: str, states5, cuts5) -> dict:
         out = {}
         for kind, eng, st in (("batched", batched, states), ("loop", loop, sub)):
             LAUNCHES.reset()
-            pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+            pe.HOST_READS.reset()
             out[kind] = _engine_run(torch, eng, st, DENSE_LOOP_STEPS)
             require(not any(LAUNCHES.snapshot().values()), f"{name} {kind}: a kernel launched")
             out[kind] += (dict(pe.HOST_READS),)
@@ -4672,7 +4672,7 @@ def phase_replica_sweeps(torch, tmp: str, states5, cuts5) -> dict:
         out = {}
         for kind, eng in (("batched", batched), ("loop", loop)):
             LAUNCHES.reset()
-            pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+            pe.HOST_READS.reset()
             out[kind] = _engine_run(torch, eng, states5, SWEEP_VARIANT_STEPS)
             out[kind] += (LAUNCHES.snapshot(), dict(pe.HOST_READS))
         (s_b, o_b, d_b, t_b, c_b, hr_b), (s_l, o_l, d_l, t_l, c_l, hr_l) = (out["batched"],
@@ -4859,7 +4859,7 @@ def phase_zsort_triggers(torch, tmp: str) -> dict:
     engine, held = _final_carry(pe._zsort_engine(ncfg, DEVICE, trigger="never", **kw))
     torch.cuda.synchronize()
     LAUNCHES.reset()
-    pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+    pe.HOST_READS.reset()
     t0 = time.time()
     res = run_production(ncfg, state, engine=engine)
     torch.cuda.synchronize()
@@ -4890,7 +4890,7 @@ def phase_zsort_triggers(torch, tmp: str) -> dict:
                                                  replicas=reps, **zkw))
     torch.cuda.synchronize()
     LAUNCHES.reset()
-    pe.HOST_READS.update(dict.fromkeys(pe.HOST_READS, 0))
+    pe.HOST_READS.reset()
     t0 = time.time()
     res = run_production(zcfg, zstates, engine=engine)
     torch.cuda.synchronize()

@@ -1,0 +1,17 @@
+"""Host milliseconds to issue one cell-pair rebin over the profiled stretch:
+the program's span tally of ``ljmd.cellpair.rebin`` (``span_totals``, kept
+while the profiler records), total over count. An upper bound: the profiler
+slows the host. Nothing where the program has no such span."""
+
+
+def read(ctx):
+    if ctx["traced"] is None:
+        return None
+    try:
+        from ljmd_tpu_torch.utils.profiling import span_totals
+    except ImportError:
+        return None
+    tally = span_totals().get("ljmd.cellpair.rebin")
+    if not tally or not tally["count"]:
+        return None
+    return 1e-6 * tally["total_ns"] / tally["count"]

@@ -91,14 +91,23 @@ from ljmd_tpu_torch.ops.pencil_sweep import (
 )
 from ljmd_tpu_torch.ops.window_lists import build_window_lists, compute_tile_flags
 from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy, replica_sum
+from ljmd_tpu_torch.utils.profiling import span
 
-__all__ = ["BACKENDS", "Engine", "HOST_READS", "PencilCarry", "RowCarry", "ROW_PAD",
-           "ZSortCarry", "auto_backend", "make_engine", "make_replica_engine", "replica_backend",
-           "replica_capacity", "replica_state", "resolve_device", "stack_states",
-           "zsort_geometry"]
+__all__ = ["BACKENDS", "Engine", "HOST_READS", "HostReads", "PencilCarry", "RowCarry", "ROW_PAD",
+           "ZSortCarry", "auto_backend", "host_read", "make_engine", "make_replica_engine",
+           "replica_backend", "replica_capacity", "replica_state", "resolve_device",
+           "stack_states", "zsort_geometry"]
 
 # make_engine's backends ("pallas" is the JAX package's name for "rows").
 BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
+
+
+class HostReads(dict):
+    """Host reads by decision (a dict of counts), with a per-run reset."""
+
+    def reset(self) -> None:
+        self.update(dict.fromkeys(self, 0))
+
 
 # Host reads of a device flag, per decision that depends on data (the JAX
 # engine takes them inside lax.cond): the cell-pair engine's per-step
@@ -108,9 +117,21 @@ BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
 # per-step rebuild check, and the sharded pencil engine's two and its default
 # chunk (``parallel/spatial_pencil.py``: one read per decision, after a pmax).
 # A replica engine reads whether any replica's flag is set, once per decision.
-HOST_READS = {"cellpair_moved": 0, "cellpair_will_exceed": 0, "cellpair_chunk": 0,
-              "zsort_fire": 0, "neighbor_rebuild": 0, "sharded_pencil_moved": 0,
-              "sharded_pencil_will_exceed": 0, "sharded_pencil_chunk": 0}
+# Every read goes through ``host_read``.
+HOST_READS = HostReads(cellpair_moved=0, cellpair_will_exceed=0, cellpair_chunk=0,
+                       zsort_fire=0, neighbor_rebuild=0, sharded_pencil_moved=0,
+                       sharded_pencil_will_exceed=0, sharded_pencil_chunk=0)
+_READ_SPANS = {k: f"ljmd.read.{k}" for k in HOST_READS}
+
+
+def host_read(key: str, value: torch.Tensor, cast=bool):
+    """``cast(value)`` on the host (it waits for the device's queue to
+    drain), counted in ``HOST_READS[key]``; the wait is the span
+    ``ljmd.read.<key>``."""
+    HOST_READS[key] += 1
+    with span(_READ_SPANS[key]):
+        return cast(value)
+
 
 # Chunks sized from the fluid (the unfused cell-pair path's default here, the
 # sharded pencil engine's in parallel/spatial_pencil.py): the margin on the
@@ -253,8 +274,7 @@ def _neighbor_engine(cfg: SimConfig, device, replicas: int | None = None) -> Eng
         r_new = wrap_positions(state.r + state.v * dt + state.a * half_dt_sq, L)
         v_half = state.v + state.a * half_dt
         fire = needs_rebuild(nbrs, r_new, L, skin)
-        HOST_READS["neighbor_rebuild"] += 1
-        if bool(fire.any()):
+        if host_read("neighbor_rebuild", fire.any()):
             rebuilt = build(r_new)
             rebuilt = dataclasses.replace(rebuilt, overflow=rebuilt.overflow | nbrs.overflow)
             nbrs = rebuilt if replicas is None else _pick_replicas(fire, rebuilt, nbrs)
@@ -699,11 +719,12 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         return carry, obs_from(out, ekin)
 
     def _resorted(c: ZSortCarry) -> ZSortCarry:
-        r8, ru8, v8, a8, ids, rlo, vcc = _sort(c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc)
-        tiles, tcounts = _lists(r8)
-        return dataclasses.replace(c, r=r8, ru=ru8, v=v8, a=a8, ids=ids, r_ref=r8,
-                                   tiles=tiles, tcounts=tcounts, rlo=rlo, vc=vcc,
-                                   resorts=c.resorts + 1)
+        with span("ljmd.zsort.resort"):
+            r8, ru8, v8, a8, ids, rlo, vcc = _sort(c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc)
+            tiles, tcounts = _lists(r8)
+            return dataclasses.replace(c, r=r8, ru=ru8, v=v8, a=a8, ids=ids, r_ref=r8,
+                                       tiles=tiles, tcounts=tcounts, rlo=rlo, vc=vcc,
+                                       resorts=c.resorts + 1)
 
     def rmax(x):
         return torch.max(x) if replicas is None else torch.amax(x, dim=-1)
@@ -735,8 +756,7 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
             fire = pred * pred > geo.invalid_thresh
         else:
             fire = moved2 > geo.resort_thresh
-        HOST_READS["zsort_fire"] += 1
-        if not bool(fire.any()):
+        if not host_read("zsort_fire", fire.any()):
             return dataclasses.replace(c, invalid=invalid)
         new = _resorted(c)
         if replicas is not None:
@@ -1097,20 +1117,22 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         """The carry rebinned (``with_a``: a rides along, as the next
         chunk's first half-kick uses it); with ``fire`` (R,), only the
         replicas it flags."""
-        r8, rc8 = wrap_rows(c.r, c.rc)
-        others = [c.ru, c.v] + ([c.a] if with_a else []) + ([rc8, c.vc] if compensated else [])
-        r8p, perm, counts, ovf, wins = rebin(r8, others)
-        ru, v, *rest = perm
-        a = rest.pop(0) if with_a else c.a
-        rc, vc = rest if compensated else (torch.zeros_like(r8p), c.vc)
-        new = dataclasses.replace(c, r=r8p, ru=ru, v=v, a=a, rc=rc, vc=vc, r_ref=r8p,
-                                  counts=counts, overflow=c.overflow | ovf)
-        if fire is None:
-            return with_tables(new, wins)
-        if z_band:
-            wins = tuple(torch.where(fire[:, None], w.reshape(reps, -1), o.reshape(reps, -1))
-                         .reshape(-1) for w, o in zip(wins, wins_of(c)))
-        return with_tables(pick(fire, new, c), wins)
+        with span("ljmd.cellpair.rebin"):
+            r8, rc8 = wrap_rows(c.r, c.rc)
+            others = ([c.ru, c.v] + ([c.a] if with_a else [])
+                      + ([rc8, c.vc] if compensated else []))
+            r8p, perm, counts, ovf, wins = rebin(r8, others)
+            ru, v, *rest = perm
+            a = rest.pop(0) if with_a else c.a
+            rc, vc = rest if compensated else (torch.zeros_like(r8p), c.vc)
+            new = dataclasses.replace(c, r=r8p, ru=ru, v=v, a=a, rc=rc, vc=vc, r_ref=r8p,
+                                      counts=counts, overflow=c.overflow | ovf)
+            if fire is None:
+                return with_tables(new, wins)
+            if z_band:
+                wins = tuple(torch.where(fire[:, None], w.reshape(reps, -1), o.reshape(reps, -1))
+                             .reshape(-1) for w, o in zip(wins, wins_of(c)))
+            return with_tables(pick(fire, new, c), wins)
 
     def bin_rows(state: MDState):
         """One system's slot rows r (ids, validity, no sentinels yet), ru, v
@@ -1171,23 +1193,23 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         if rebin_mode is True:
             d = minimum_image(r_new[drift_rows] - c.r_ref[drift_rows], L)
             moved = rmax(torch.sum(d * d, dim=0) * r_new[3]) > rebuild_thresh
-            HOST_READS["cellpair_moved"] += 1
-            if bool(moved.any()):
+            if host_read("cellpair_moved", moved.any()):
                 c = _rebinned(c, False, None if replicas is None else moved)
         elif rebin_mode == "force":
             c = _rebinned(c, False)
-        out = sweep(c.r, c.counts, wins_of(c), want_obs)
-        a_new = accel(out)
-        if compensated:
-            v_new, vc_new = comp_add(c.v, c.vc, a_new * half_dt)
-            v_eff = v_new + vc_new
-        else:
-            v_new, vc_new = c.v + a_new * half_dt, c.vc
-            v_eff = v_new
-        c = dataclasses.replace(c, v=v_new, vc=vc_new, a=a_new)
-        # step_fast's observables are not meaningful: none are summed (a
-        # stack's sums are R reductions each).
-        return c, obs_from(out, 0.5 * total(v_eff * v_eff)) if want_obs else None
+        with span("ljmd.cellpair.sweep"):
+            out = sweep(c.r, c.counts, wins_of(c), want_obs)
+            a_new = accel(out)
+            if compensated:
+                v_new, vc_new = comp_add(c.v, c.vc, a_new * half_dt)
+                v_eff = v_new + vc_new
+            else:
+                v_new, vc_new = c.v + a_new * half_dt, c.vc
+                v_eff = v_new
+            c = dataclasses.replace(c, v=v_new, vc=vc_new, a=a_new)
+            # step_fast's observables are not meaningful: none are summed (a
+            # stack's sums are R reductions each).
+            return c, obs_from(out, 0.5 * total(v_eff * v_eff)) if want_obs else None
 
     def _invalid_check(c: PencilCarry):
         """Sticky flag for drift past the coverage slack since the last
@@ -1199,45 +1221,48 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             c, overflow=c.overflow | (rmax(moved2) > rebuild_thresh)), moved2
 
     def _maybe_rebin(c: PencilCarry, k: int) -> PencilCarry:
-        valid = c.r[3]
-        c, moved2 = _invalid_check(c)
+        with span("ljmd.cellpair.check"):
+            valid = c.r[3]
+            c, moved2 = _invalid_check(c)
+            if rebin_trigger == "predictive":
+                speed = torch.sqrt(torch.sum(c.v[drift_rows] * c.v[drift_rows], dim=0))
+                predicted = torch.sqrt(moved2) + speed * (k * dt * _PREDICT_SAFETY)
+                will_exceed = rmax(predicted * valid) > 0.5 * slack
         if rebin_trigger == "never":
             return c
         if rebin_trigger == "always":
             return _rebinned(c, True)
-        speed = torch.sqrt(torch.sum(c.v[drift_rows] * c.v[drift_rows], dim=0))
-        predicted = torch.sqrt(moved2) + speed * (k * dt * _PREDICT_SAFETY)
-        will_exceed = rmax(predicted * valid) > 0.5 * slack
-        HOST_READS["cellpair_will_exceed"] += 1
-        if not bool(will_exceed.any()):
+        if not host_read("cellpair_will_exceed", will_exceed.any()):
             return c
         return _rebinned(c, True, None if replicas is None else will_exceed)
 
     def _chunk(c: PencilCarry, k: int) -> PencilCarry:
         c = _maybe_rebin(c, k)
-        ext = {"r_lo": c.rc, "vc": c.vc} if compensated else {}
-        if width_lists:
-            out = fused_pencil_width_chunk(c.r, c.v, c.a, c.wl_self, c.wl_self_cnt,
-                                           c.wl_nbr_i, c.wl_nbr_j, c.wl_nbr_off, P, cap, L,
-                                           cfg.rc_square, dt, k, **ext, **rep_kw)
-        else:
-            out = fused_pencil_chunk(c.r, c.v, c.a, hs_tbl, hs_shf, P, cap, L,
-                                     cfg.rc_square, dt, k, **ext, **rep_kw)
-        if compensated:
-            r_end, rc_end, v_new, vc_new, a_new = out
-            ru = c.ru + ((r_end - c.r) + (rc_end - c.rc)) * xyz_mask
-            return dataclasses.replace(c, r=r_end, ru=ru, v=v_new, a=a_new, rc=rc_end,
-                                       vc=vc_new)
-        r_end, v_new, a_new = out
-        # No wrap inside the chunk: the unwrap update is the slot-space drift.
-        return dataclasses.replace(c, r=r_end, ru=c.ru + (r_end - c.r) * xyz_mask, v=v_new,
-                                   a=a_new)
+        with span("ljmd.cellpair.chunk"):
+            ext = {"r_lo": c.rc, "vc": c.vc} if compensated else {}
+            if width_lists:
+                out = fused_pencil_width_chunk(c.r, c.v, c.a, c.wl_self, c.wl_self_cnt,
+                                               c.wl_nbr_i, c.wl_nbr_j, c.wl_nbr_off, P, cap, L,
+                                               cfg.rc_square, dt, k, **ext, **rep_kw)
+            else:
+                out = fused_pencil_chunk(c.r, c.v, c.a, hs_tbl, hs_shf, P, cap, L,
+                                         cfg.rc_square, dt, k, **ext, **rep_kw)
+            if compensated:
+                r_end, rc_end, v_new, vc_new, a_new = out
+                ru = c.ru + ((r_end - c.r) + (rc_end - c.rc)) * xyz_mask
+                return dataclasses.replace(c, r=r_end, ru=ru, v=v_new, a=a_new, rc=rc_end,
+                                           vc=vc_new)
+            r_end, v_new, a_new = out
+            # No wrap inside the chunk: the unwrap update is the slot-space drift.
+            return dataclasses.replace(c, r=r_end, ru=c.ru + (r_end - c.r) * xyz_mask,
+                                       v=v_new, a=a_new)
 
     def _unfused_chunk(c: PencilCarry, k: int) -> PencilCarry:
         start = 0
         if rebin_trigger == "always":
             # The rebin folds into step 1, after its drift and half-kick.
-            c, _ = _invalid_check(c)
+            with span("ljmd.cellpair.check"):
+                c, _ = _invalid_check(c)
             c, _ = _step(c, False, "force")
             start = 1
         else:
@@ -1251,9 +1276,9 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         replica's among those whose speeds are finite (a replica gone NaN
         does not stop the others; none finite: NaN, which raises)."""
         v = (c.v + c.vc if compensated else c.v)[drift_rows]
-        HOST_READS["cellpair_chunk"] += 1
         top = torch.amax(torch.sum(v * v, dim=0).reshape(reps, ns), dim=1)
-        return float(torch.sqrt(torch.where(torch.isfinite(top), top, -1.0).max()))
+        return host_read("cellpair_chunk",
+                         torch.sqrt(torch.where(torch.isfinite(top), top, -1.0).max()), float)
 
     def _chunked(chunk):
         def run(c: PencilCarry, n_steps: int) -> PencilCarry:

@@ -66,6 +66,7 @@ from ljmd_tpu_torch.stats.moments import (
     means_update,
 )
 from ljmd_tpu_torch.stats.thermo import ThermoCoefs, thermo_coefs_from_report
+from ljmd_tpu_torch.utils.profiling import span
 
 __all__ = [
     "SERIES_OBSERVABLES",
@@ -273,9 +274,11 @@ def sample_cycle(engine: Engine, cfg: SimConfig, ecarry, acc: MeansAccum):
     (md_simulation_program.f90:300-391). Returns (carry, means, (5,) column
     ordered as SERIES_OBSERVABLES; an ensemble's (R, 5))."""
     ecarry, ob = _advance(engine, ecarry, cfg.output_interval)
-    acc = means_update(acc, ob, cfg.n, cfg.volume)
-    temp, press = instantaneous_temp_press(ob, cfg.n, cfg.volume)
-    return ecarry, acc, torch.stack([ob.epot, ob.ekin, ob.epot + ob.ekin, temp, press], dim=-1)
+    with span("ljmd.driver.stats"):
+        acc = means_update(acc, ob, cfg.n, cfg.volume)
+        temp, press = instantaneous_temp_press(ob, cfg.n, cfg.volume)
+        col = torch.stack([ob.epot, ob.ekin, ob.epot + ob.ekin, temp, press], dim=-1)
+    return ecarry, acc, col
 
 
 def finalize(cfg: SimConfig, engine: Engine, ecarry, series: torch.Tensor, acc: MeansAccum,

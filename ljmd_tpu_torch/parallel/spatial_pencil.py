@@ -58,10 +58,10 @@ from ljmd_tpu_torch.config import SimConfig
 from ljmd_tpu_torch.models.engine import (
     _PREDICT_SAFETY,
     CELLPAIR_TRIGGERS,
-    HOST_READS,
     Engine,
     _effective_dtype,
     chunk_from_speed,
+    host_read,
 )
 from ljmd_tpu_torch.ops.cell_list import bin_to_slots, make_pencil_grid, rebin_gather_parts
 from ljmd_tpu_torch.ops.fused import comp_add, wrap_positions_ext
@@ -277,10 +277,6 @@ def make_sharded_pencil_engine(cfg: SimConfig, mesh, compensated: bool | None = 
                                         **s)
                      for c, s, cnt in zip(carries, strips, counts))
 
-    def _read_flag(outs, key: str) -> bool:
-        HOST_READS[key] += 1
-        return bool(outs[0])
-
     # ------------------------------------------------------------------
     # Engine entry points.
     # ------------------------------------------------------------------
@@ -337,7 +333,7 @@ def make_sharded_pencil_engine(cfg: SimConfig, mesh, compensated: bool | None = 
     def _step(carries, want_obs: bool):
         outs = mesh.run(_drift_local, carries)
         carries = tuple(c for c, _ in outs)
-        if _read_flag([f for _, f in outs], "sharded_pencil_moved"):
+        if host_read("sharded_pencil_moved", outs[0][1]):
             carries = _rebin(carries)
         outs = mesh.run(_kick_local, carries, shf_loc, [want_obs] * len(carries))
         return tuple(c for c, _ in outs), outs[0][1]
@@ -379,7 +375,7 @@ def make_sharded_pencil_engine(cfg: SimConfig, mesh, compensated: bool | None = 
         carries = tuple(c for c, _ in outs)
         if rebin_trigger == "always" or (
                 rebin_trigger == "predictive"
-                and _read_flag([f for _, f in outs], "sharded_pencil_will_exceed")):
+                and host_read("sharded_pencil_will_exceed", outs[0][1])):
             carries = _rebin(carries)
         return tuple(mesh.run(_chunk_local, carries, shf_loc, [k] * len(carries)))
 
@@ -390,8 +386,8 @@ def make_sharded_pencil_engine(cfg: SimConfig, mesh, compensated: bool | None = 
     def run_fast(carries, n_steps: int):
         k = inner_chunk
         if k is None and n_steps > 0:
-            HOST_READS["sharded_pencil_chunk"] += 1
-            k = default_inner_chunk(cfg, float(mesh.run(_top_speed_local, carries)[0]))
+            top = mesh.run(_top_speed_local, carries)[0]
+            k = default_inner_chunk(cfg, host_read("sharded_pencil_chunk", top, float))
         full, rem = divmod(n_steps, k)
         for _ in range(full):
             carries = _chunk(carries, k)

@@ -1,6 +1,12 @@
 """Tracing and timing (counterpart of ``ljmd_tpu/utils/profiling.py``), and
 where a production run's time goes on the card.
 
+- ``span(name)``: the program's spans, ``ljmd.<layer>.<what>``, on while a
+  torch profiler records and off otherwise (the cost of one check of the
+  profiler's state). On, a span is a function-scope record on the
+  profiler's timeline, nested under the caller's spans and never mirrored
+  on the device's, and its host time (``time.perf_counter_ns``) adds to an
+  in-memory tally by name: ``span_totals()``, cleared by ``reset_spans()``.
 - ``trace(log_dir)``: context manager running the enclosed region under
   ``torch.profiler`` (CPU and, where there is one, CUDA activity) and
   writing a Chrome trace, ``log_dir/trace.json`` (Perfetto,
@@ -9,9 +15,9 @@ where a production run's time goes on the card.
   (the BASELINE metric), with the JAX package's report keys.
 - ``time_fn``: best-of-``iters`` wall time of a call, synchronizing the
   device its tensors live on.
-- ``device_breakdown`` / ``graph_ops``: the card's busy time per kernel
-  under the profiler, and the device operations of one call counted from a
-  CUDA graph.
+- ``device_breakdown`` / ``span_table`` / ``graph_ops``: the card's busy
+  time per kernel under the profiler and the program's spans in the same
+  profile, and the device operations of one call counted from a CUDA graph.
 
 Run as a script,
 
@@ -23,34 +29,110 @@ initializes the config on the card and prints one JSON object:
 - ``production``: wall seconds and particle-steps/s of ``run_production``
   without the profiler (after one untimed run);
 - ``profile``: the same production under ``torch.profiler`` (CPU and CUDA
-  activities): its wall, the device busy time (the union of every kernel,
-  memcpy and memset interval), the idle share ``1 - busy / wall`` (an upper
-  bound: the profiler slows the host), device ms and count per kernel name
-  (the top 15), and the host's CUDA API calls (launches, synchronizations);
-- ``cellpair`` (cell-pair engine only): from one carry, ``run_fast(8)``
-  with the ``always`` trigger (rebin + chunk) and with ``never`` (drift
-  check + chunk), each as CUDA-event ms and as host ms to submit it; the
-  difference of the two is what a rebin costs.
+  activities), with the kernel-launch and host-read counters and the span
+  tally reset before it: its wall, the device busy time (the union of every
+  kernel, memcpy and memset interval), the idle share ``1 - busy / wall``
+  (an upper bound: the profiler slows the host), device ms and count per
+  kernel name (the top 15), the host's CUDA API calls (launches,
+  synchronizations) and the ``spans`` table (``span_table``: a rebin's and
+  a resort's device operations among them);
+- ``counters``: the launches and host reads of the profiled production.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import json
 import os
+import threading
 import time
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "Throughput", "time_fn", "device_breakdown", "graph_ops", "main"]
+__all__ = ["span", "span_totals", "reset_spans", "trace", "Throughput", "time_fn",
+           "device_breakdown", "span_table", "graph_ops", "main"]
+
+# The program's span names start so; nothing else in a profile does.
+SPAN_PREFIX = "ljmd."
 
 # CUgraphNodeType (cuda.h), for graph_ops.
 _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
                6: "wait_event", 7: "event_record", 8: "semaphore_signal", 9: "semaphore_wait",
                10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+# name -> [count, total host ns] of the spans closed while a profiler recorded.
+_SPAN_TALLY: dict[str, list[int]] = {}
+_SPAN_LOCK = threading.Lock()
+
+
+class _SpanOff:
+    """A span while no profiler records: entering and leaving do nothing
+    (about half the cost of ``contextlib.nullcontext``, whose exit takes
+    ``*args``)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_SPAN_OFF = _SpanOff()
+
+
+class _Span:
+    """A span while a profiler records: a function-scope record (an ordinary
+    host operation to the profiler: no user-scope range, so nothing is
+    mirrored on the device's timeline) and its host time in the tally."""
+
+    __slots__ = ("name", "_record", "_t0")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self):
+        self._record = torch._C._profiler._RecordFunctionFast(self.name)
+        self._record.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        elapsed = time.perf_counter_ns() - self._t0
+        self._record.__exit__(exc_type, exc, tb)
+        with _SPAN_LOCK:
+            tally = _SPAN_TALLY.setdefault(self.name, [0, 0])
+            tally[0] += 1
+            tally[1] += elapsed
+        return None
+
+
+def span(name: str):
+    """The span ``name`` (``ljmd.<layer>.<what>``) around a ``with`` block:
+    recorded while a torch profiler records (``profile.start()`` to
+    ``stop()``), else a shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _SPAN_OFF
+    return _Span(name)
+
+
+def span_totals() -> dict:
+    """The tally of the spans closed while a profiler recorded, since the
+    last ``reset_spans()``: name -> {"count", "total_ns"} (host time)."""
+    with _SPAN_LOCK:
+        return {k: {"count": c, "total_ns": t} for k, (c, t) in _SPAN_TALLY.items()}
+
+
+def reset_spans() -> None:
+    with _SPAN_LOCK:
+        _SPAN_TALLY.clear()
 
 
 @contextlib.contextmanager
@@ -143,22 +225,67 @@ def time_fn(fn: Callable, *args, iters: int = 3, sync: Optional[Callable] = None
     return best
 
 
+def _merged(intervals) -> list:
+    """The union of (start, end) intervals as disjoint, sorted intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def _merged_length(intervals) -> float:
     """Total length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
+    return sum(b - a for a, b in _merged(intervals))
+
+
+def span_table(events) -> dict:
+    """The program's spans (``ljmd.*``) in a profile's events, by name:
+    ``count``; ``host_ms`` and ``host_ms_mean``, their host intervals;
+    ``idle_ms``, the device's idle time under them (each gap between the
+    union's device intervals goes to the span whose host interval holds the
+    gap's midpoint); ``device_ops`` and ``device_ops_mean``, the device
+    operations launched inside them (the profiler's launch correlation: the
+    ``kernels`` of the span and of every operation under it). The device's
+    mirrors of user-scope ranges (``record_function``) are no device work."""
+    from torch.autograd import DeviceType
+
+    user = int(torch._C._profiler.RecordScope.USER_SCOPE)
+    ranges = {e.name for e in events if e.device_type != DeviceType.CUDA and e.scope == user}
+    device = [(e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == DeviceType.CUDA and e.name not in ranges]
+    spans = sorted((e for e in events
+                    if e.device_type != DeviceType.CUDA and e.name.startswith(SPAN_PREFIX)),
+                   key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in spans]
+    rows = {}
+    for e in spans:
+        row = rows.setdefault(e.name, {"count": 0, "host_ms": 0.0, "idle_ms": 0.0,
+                                       "device_ops": 0})
+        row["count"] += 1
+        row["host_ms"] += 1e-3 * (e.time_range.end - e.time_range.start)
+        todo = [e]
+        while todo:
+            op = todo.pop()
+            row["device_ops"] += len(op.kernels)
+            todo.extend(op.cpu_children)
+    busy = _merged(device)
+    for (_, a), (b, _) in zip(busy, busy[1:]):
+        mid = 0.5 * (a + b)
+        k = bisect.bisect_right(starts, mid) - 1
+        if k >= 0 and spans[k].time_range.end >= mid:
+            rows[spans[k].name]["idle_ms"] += 1e-3 * (b - a)
+    for row in rows.values():
+        row["host_ms_mean"] = row["host_ms"] / row["count"]
+        row["device_ops_mean"] = row["device_ops"] / row["count"]
+    return rows
 
 
 def device_breakdown(fn, top: int = 15) -> dict:
     """Run ``fn()`` once under ``torch.profiler`` and summarize the device
-    activity (module docstring, ``profile``)."""
+    activity and the program's spans (module docstring, ``profile``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -170,7 +297,8 @@ def device_breakdown(fn, top: int = 15) -> dict:
         wall = time.perf_counter() - t0
     device, host = {}, {}
     intervals = []
-    for e in prof.events():
+    events = prof.events()
+    for e in events:
         if e.device_type == DeviceType.CUDA:
             start, end = e.time_range.start, e.time_range.end
             intervals.append((start, end))
@@ -179,12 +307,13 @@ def device_breakdown(fn, top: int = 15) -> dict:
         elif e.name.startswith("cuda"):
             host[e.name] = host.get(e.name, 0) + 1
     busy = 1e-6 * _merged_length(intervals)
-    span = 1e-6 * (max(b for _, b in intervals) - min(a for a, _ in intervals)) if intervals else 0.0
+    extent = (1e-6 * (max(b for _, b in intervals) - min(a for a, _ in intervals))
+              if intervals else 0.0)
     kernels = sorted(device.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"wall_s": wall, "device_busy_s": busy, "device_span_s": span,
+    return {"wall_s": wall, "device_busy_s": busy, "device_span_s": extent,
             "idle_share": 1.0 - busy / wall if wall else None,
             "device_ms_by_name": {k: {"ms": ms, "count": n} for k, (ms, n) in kernels},
-            "host_cuda_calls": host}
+            "host_cuda_calls": host, "spans": span_table(events)}
 
 
 def graph_ops(fn) -> dict:
@@ -229,37 +358,11 @@ def graph_ops(fn) -> dict:
     return {"ops": sum(v for k, v in by_type.items() if k != "empty"), "nodes": by_type}
 
 
-def _event_ms(fn, reps: int) -> tuple[float, float]:
-    """(device ms by CUDA events, host ms to submit) per call of ``fn``."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, 1e3 * host / reps
-
-
-def _cellpair_rebin_cost(cfg, state, device, reps: int = 20) -> dict:
-    from ljmd_tpu_torch.models.engine import _cellpair_engine
-
-    out = {"capacity": cfg.neighbor_capacity}
-    for trigger in ("always", "never"):
-        eng = _cellpair_engine(cfg, device, rebin_trigger=trigger)
-        carry, _ = eng.init(state)
-        ms, host_ms = _event_ms(lambda: eng.run_fast(carry, 8), reps)
-        out[trigger] = {"ms_per_run_fast_8": ms, "host_ms_per_run_fast_8": host_ms}
-    return out
-
-
 def main(argv=None) -> int:
     from ljmd_tpu_torch.config import load_config
-    from ljmd_tpu_torch.models.engine import auto_backend
+    from ljmd_tpu_torch.models.engine import HOST_READS, auto_backend
     from ljmd_tpu_torch.models.simulation import initialize, run_production
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
     from ljmd_tpu_torch.ops.cell_list import capacity_from_state
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -290,12 +393,15 @@ def main(argv=None) -> int:
     production()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    LAUNCHES.reset()
+    HOST_READS.reset()
+    reset_spans()
     report = {"config": args.config, "n": cfg.n, "total_steps": cfg.total_steps,
               "dtype": cfg.dtype, "backend": backend,
               "production": {"wall_s": wall, "particle_steps_per_s": cfg.n * cfg.total_steps / wall},
-              "profile": device_breakdown(production)}
-    if backend == "cellpair":
-        report["cellpair"] = _cellpair_rebin_cost(cfg, state, device)
+              "profile": device_breakdown(production),
+              "counters": {"launches": {k: v for k, v in LAUNCHES.snapshot().items() if v},
+                           "host_reads": dict(HOST_READS)}}
     print(json.dumps(report))
     return 0
 

@@ -1,0 +1,315 @@
+"""The program's spans (``ljmd_tpu_torch/utils/profiling.py`` ``span``) in
+the sample cycle, the host-read counter behind them, the operator's span
+table, and the benchmark's readers of the span tally, on the CPU.
+
+A span records only while a torch profiler records: then it is a
+function-scope record, nested under the caller's ``record_function`` spans,
+and its host time adds to the tally. The engines are the port's cell-pair
+engine on tests/test_cellpair.py's N=500 geometry (3 x 3 pencils, skin 0.3)
+and its zsort engine on N=500 at rho* 0.8, both initialized by the port.
+"""
+
+import math
+import sys
+import threading
+import time
+from types import SimpleNamespace
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from ljbench.spec import reader
+from ljmd_tpu_torch.config import config_from_density
+from ljmd_tpu_torch.models import engine as pe
+from ljmd_tpu_torch.models.simulation import initialize, sample_cycle
+from ljmd_tpu_torch.stats.moments import means_init
+from ljmd_tpu_torch.utils import profiling
+from ljmd_tpu_torch.utils.profiling import reset_spans, span, span_table, span_totals
+
+torch.set_num_threads(1)
+
+FUSED_CHUNK = 8
+REBIN = "ljmd.cellpair.rebin"
+
+
+def _cpu_profile():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _counts():
+    return {k: v["count"] for k, v in span_totals().items()}
+
+
+@pytest.fixture(scope="module")
+def pencil_fluid():
+    cfg = config_from_density(num_cells=5, density=0.66, dt=0.002, dtype="float64",
+                              neighbor_skin=0.3, total_steps=60, output_interval=10,
+                              warmup_steps=10, target_total_energy=-2000.0)
+    return cfg, initialize(cfg, backend="dense", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def zsort_fluid():
+    cfg = config_from_density(num_cells=5, density=0.8, dt=0.004, dtype="float64",
+                              total_steps=10, warmup_steps=30, target_total_energy=-2300.0)
+    return cfg, initialize(cfg, backend="dense", device="cpu")
+
+
+def _pencil_engine(pencil_fluid, interval=10):
+    cfg, state = pencil_fluid
+    cfg = cfg.replace(output_interval=interval)
+    eng = pe._cellpair_engine(cfg, "cpu", rebin_trigger="always")
+    carry, _ = eng.init(state)
+    return cfg, eng, carry
+
+
+def test_spans_without_a_profiler_leave_the_tally_empty(pencil_fluid, monkeypatch):
+    """No profiler: every span is the one shared no-op, and a cell-pair
+    ``run_fast`` and ``step`` record nothing. With one or without, no span
+    enters a ``record_function`` (a user-scope range, which the profiler
+    mirrors on the device's timeline)."""
+    entered = []
+    real_enter = torch.autograd.profiler.record_function.__enter__
+
+    def counted(self):
+        entered.append(self.name)
+        return real_enter(self)
+
+    monkeypatch.setattr(torch.autograd.profiler.record_function, "__enter__", counted)
+    reset_spans()
+    assert span("ljmd.a") is span("ljmd.b")
+    cfg, eng, carry = _pencil_engine(pencil_fluid)
+    carry = eng.run_fast(carry, 3)
+    eng.step(carry)
+    assert span_totals() == {}
+    with _cpu_profile():
+        sample_cycle(eng, cfg, carry, means_init(dtype=torch.float64))
+    assert span_totals() and entered == []
+    reset_spans()
+
+
+@pytest.mark.parametrize("interval", [2, 10])
+def test_cycle_span_counts_follow_the_chunks(pencil_fluid, interval):
+    """One sample cycle under a CPU profile: a check, a rebin ("always") and
+    a chunk per fused chunk of the cycle's ``interval - 1`` steps, one read
+    of the moved flag (the counter's own delta), one sampled sweep and one
+    statistics span. The drift of <= 9 steps stays far inside the slack, so
+    the moved check adds no rebin. The profile holds the same spans."""
+    cfg, eng, carry = _pencil_engine(pencil_fluid, interval)
+    acc = means_init(dtype=torch.float64)
+    chunks = math.ceil((interval - 1) / FUSED_CHUNK)
+    reset_spans()
+    reads = dict(pe.HOST_READS)
+    with _cpu_profile() as prof:
+        sample_cycle(eng, cfg, carry, acc)
+    moved = pe.HOST_READS["cellpair_moved"] - reads["cellpair_moved"]
+    assert moved == 1
+    assert _counts() == {"ljmd.cellpair.check": chunks, REBIN: chunks,
+                         "ljmd.cellpair.chunk": chunks, "ljmd.read.cellpair_moved": moved,
+                         "ljmd.cellpair.sweep": 1, "ljmd.driver.stats": 1}
+    assert all(v["total_ns"] > 0 for v in span_totals().values())
+    seen = {}
+    for e in prof.events():
+        if e.name.startswith("ljmd."):
+            seen[e.name] = seen.get(e.name, 0) + 1
+    assert seen == _counts()
+
+
+def test_program_spans_are_direct_children_of_the_engine_spans(pencil_fluid):
+    """Wrapped as the harness wraps each engine call, the rebin, check and
+    chunk spans are direct ``cpu_children`` of ``ljbench.engine.run_fast``,
+    the read and the sweep of ``ljbench.engine.step``; no program span has
+    a program span above it."""
+    cfg, eng, carry = _pencil_engine(pencil_fluid)
+
+    def spanned(name, fn):
+        def call(*args):
+            with record_function(f"ljbench.engine.{name}"):
+                return fn(*args)
+        return call
+
+    eng = eng._replace(run_fast=spanned("run_fast", eng.run_fast),
+                       step=spanned("step", eng.step))
+    with _cpu_profile() as prof:
+        with record_function("ljbench.sample_cycle"):
+            sample_cycle(eng, cfg, carry, means_init(dtype=torch.float64))
+    events = prof.events()
+    children = {e.name: {c.name for c in e.cpu_children} for e in events
+                if e.name.startswith("ljbench.")}
+    assert {"ljmd.cellpair.check", REBIN, "ljmd.cellpair.chunk"} <= children[
+        "ljbench.engine.run_fast"]
+    assert {"ljmd.read.cellpair_moved", "ljmd.cellpair.sweep"} <= children["ljbench.engine.step"]
+    assert "ljmd.driver.stats" in children["ljbench.sample_cycle"]
+    program = [e for e in events if e.name.startswith("ljmd.")]
+    assert program
+    for e in program:
+        parent = e.cpu_parent
+        while parent is not None:
+            assert not parent.name.startswith("ljmd."), (e.name, parent.name)
+            parent = parent.cpu_parent
+
+
+@pytest.mark.parametrize("trigger,resorts", [("always", 1), ("static", 0)])
+def test_zsort_resort_span(zsort_fluid, trigger, resorts):
+    """A zsort chunk whose trigger fires ("always") records one
+    ``ljmd.zsort.resort``; the static trigger's first check, with nothing
+    moved, records its read and no resort."""
+    cfg, state = zsort_fluid
+    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=FUSED_CHUNK, trigger=trigger)
+    carry, _ = eng.init(state)
+    reset_spans()
+    with _cpu_profile():
+        out = eng.run_fast(carry, FUSED_CHUNK)
+    counts = _counts()
+    assert int(out.resorts) - int(carry.resorts) == resorts
+    assert counts.get("ljmd.zsort.resort", 0) == resorts
+    assert counts.get("ljmd.read.zsort_fire", 0) == (trigger != "always")
+
+
+def test_host_reads_reset_and_read_helper():
+    """``HOST_READS`` stays a dict of counts (``dict()``, ``items()``,
+    item access and assignment) and gains ``reset``; ``host_read`` bumps
+    its key once a read and returns the value cast."""
+    reads = pe.HOST_READS
+    keys = list(reads)
+    assert pe.host_read("cellpair_moved", torch.tensor(True)) is True
+    assert pe.host_read("cellpair_chunk", torch.tensor(2.5), float) == 2.5
+    assert reads["cellpair_moved"] >= 1 and reads["cellpair_chunk"] >= 1
+    reads["zsort_fire"] = 7
+    reads.reset()
+    assert isinstance(reads, dict) and list(reads) == keys
+    assert dict(reads) == dict.fromkeys(keys, 0)
+    assert all(v == 0 for _, v in reads.items())
+    pe.host_read("zsort_fire", torch.tensor(False))
+    assert reads["zsort_fire"] == 1
+    reads.reset()
+
+
+def _record(name, times, seconds=0.0):
+    with _cpu_profile():
+        for _ in range(times):
+            with span(name):
+                time.sleep(seconds)
+
+
+GAPS = [["ljbench.engine.run_fast / ljmd.cellpair.rebin (3 gaps)", 0.5],
+        ["ljbench.engine.run_fast (4 gaps)", 2.0],
+        ["ljbench.engine.run_fast / aten::where (9 gaps)", 1.0],
+        ["ljbench.engine.step / ljmd.cellpair.rebin (2 gaps)", 0.25],
+        ["ljbench.engine.step / ljmd.cellpair.rebinned (1 gaps)", 4.0],
+        ["host loop between cycles (1 gaps)", 0.1]]
+
+
+@pytest.mark.parametrize("metric,name", [("rebin_host_ms", REBIN),
+                                         ("stats_host_ms", "ljmd.driver.stats")])
+def test_host_ms_readers(metric, name):
+    """The mean host ms of the span's tally; nothing without a traced
+    stretch or without the span."""
+    read = reader(metric)
+    ctx = {"traced": {"idle_gaps": [], "wall_s": 1.0}}
+    reset_spans()
+    assert read(ctx) is None
+    _record(name, 3, 0.002)
+    tally = span_totals()[name]
+    assert read(ctx) == pytest.approx(1e-6 * tally["total_ns"] / 3)
+    assert read(ctx) >= 2.0
+    assert read({"traced": None}) is None
+    reset_spans()
+
+
+def test_rebin_idle_reader():
+    """The idle seconds of every gap whose child is the rebin span (not a
+    name that merely starts with it, nor another child or the bare engine
+    span) over the stretch's wall; nothing without a traced stretch or
+    without rebin spans."""
+    read = reader("rebin_idle_pct")
+    ctx = {"traced": {"idle_gaps": GAPS, "wall_s": 2.0}}
+    reset_spans()
+    assert read(ctx) is None
+    _record(REBIN, 1)
+    assert read(ctx) == pytest.approx(100.0 * 0.75 / 2.0)
+    assert read({"traced": {"idle_gaps": GAPS[1:3], "wall_s": 2.0}}) == 0.0
+    assert read({"traced": None}) is None
+    reset_spans()
+
+
+def test_span_table_from_a_cpu_profile(pencil_fluid):
+    """The operator's table from a CPU profile of a sample cycle: a row per
+    span with the tally's counts, host time inside the profile's intervals,
+    and no device time or operations (no device)."""
+    cfg, eng, carry = _pencil_engine(pencil_fluid, 2)
+    reset_spans()
+    with _cpu_profile() as prof:
+        sample_cycle(eng, cfg, carry, means_init(dtype=torch.float64))
+    table = span_table(prof.events())
+    assert {k: v["count"] for k, v in table.items()} == _counts()
+    for row in table.values():
+        assert row["host_ms"] > 0 and row["host_ms_mean"] == pytest.approx(
+            row["host_ms"] / row["count"])
+        assert row["idle_ms"] == 0.0 and row["device_ops"] == 0 == row["device_ops_mean"]
+
+
+def _event(name, start, end, device="cpu", kernels=0, children=(), scope=0):
+    from torch.autograd import DeviceType
+
+    return SimpleNamespace(
+        name=name, time_range=SimpleNamespace(start=start, end=end),
+        device_type=DeviceType.CUDA if device == "cuda" else DeviceType.CPU,
+        kernels=[None] * kernels, cpu_children=list(children), scope=scope)
+
+
+def test_span_table_gap_midpoints_and_launches():
+    """Each idle gap between the device's merged intervals goes to the span
+    holding its midpoint; a span's device operations are its own launches
+    and its descendants'. The device's mirror of a ``record_function``
+    range (user scope) is not device work."""
+    op = _event("aten::sort", 11, 12, kernels=2, children=[_event("aten::copy_", 11, 12,
+                                                                  kernels=1)])
+    events = [
+        _event("ljmd.cellpair.rebin", 10, 30, kernels=1, children=[op]), op, *op.cpu_children,
+        _event("ljmd.cellpair.rebin", 40, 60),
+        _event("ljmd.cellpair.chunk", 70, 80, kernels=1),
+        _event("ljbench.engine.run_fast", 0, 100,
+               scope=int(torch._C._profiler.RecordScope.USER_SCOPE)),
+        _event("ljbench.engine.run_fast", 0, 100, "cuda"),
+        # device: busy [0, 12] and [11, 14] merge; gaps (14, 24) mid 19 in
+        # rebin 1, (26, 50) mid 38 in none, (52, 58) mid 55 in rebin 2,
+        # (60, 90) mid 75 in the chunk
+        _event("k", 0, 12, "cuda"), _event("k", 11, 14, "cuda"), _event("k", 24, 26, "cuda"),
+        _event("k", 50, 52, "cuda"), _event("k", 58, 60, "cuda"), _event("k", 90, 95, "cuda"),
+    ]
+    table = span_table(events)
+    assert set(table) == {"ljmd.cellpair.rebin", "ljmd.cellpair.chunk"}
+    rebin, chunk = table["ljmd.cellpair.rebin"], table["ljmd.cellpair.chunk"]
+    assert rebin["count"] == 2 and rebin["host_ms"] == pytest.approx(0.040)
+    assert rebin["idle_ms"] == pytest.approx(0.016) and chunk["idle_ms"] == pytest.approx(0.030)
+    assert rebin["device_ops"] == 4 and rebin["device_ops_mean"] == 2.0
+    assert chunk["device_ops"] == 1 and chunk["host_ms_mean"] == pytest.approx(0.010)
+
+
+def test_span_tally_from_threads():
+    """Spans closed from several threads at once under one profile lose no
+    count (the tally's update is locked)."""
+    threads, each = 12, 200
+    reset_spans()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(each):
+                with span("ljmd.test.thread"):
+                    pass
+
+        with _cpu_profile():
+            pool = [threading.Thread(target=work) for _ in range(threads)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(switch)
+    assert span_totals()["ljmd.test.thread"]["count"] == threads * each
+    reset_spans()
+    assert profiling.span_totals() == {}
