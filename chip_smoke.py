@@ -66,6 +66,15 @@ checkout. Phases, each fatal on failure:
       loop, each body back to back and on the card alone (also at 32
       visits: the slope per visit-step) with its launch plan, and the
       transpose glue;
+   h. the cell-pair rebin (``ops/pencil_rebin.py``: csrc/pencil_rebin.cu's
+      key pass and gather) at config 5's shape on the fluid of phase 4c
+      after a 16-step stretch, float32, the drift check folded in, for the
+      one system and a stack of CELLPAIR_ENSEMBLE_R copies: bit for bit
+      against the torch chain on the same tensors; both timed back to back
+      and on the card alone (CUDA-graph replay), with their device
+      operations (the nodes of one captured call); the kernel table's rows
+      of rebin_keys and rebin_gather (``*_replicas``: the stack) are this
+      call of both launches;
 4. the main path, each production with the launch counts set to 0 just
    before and read just after (a CLI run counts its whole process):
    a. rows (``--backend rows``): the CLI on the reference default cut to
@@ -1627,6 +1636,76 @@ def full_report(torch, pos, tbl, counts, shf, n_pencils: int, capacity: int,
                                                         rc_square)}}
 
 
+def phase_rebin(torch, cfg, state) -> tuple[dict, dict]:
+    """Phase 3h: the rebin's two launches against the torch chain they
+    replace (``rebin_slots_plain`` on the same CUDA tensors), at config 5's
+    census capacity, before the engine's next chunk: the one system and a
+    stack of CELLPAIR_ENSEMBLE_R copies of it. Returns (the one system's
+    report, the kernel table's cases of the four rebin rows)."""
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.ops import cell_list, pencil_rebin
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    eng = pe.make_engine(cfg, "cellpair", state=state, device=dev)
+    c, _ = eng.init(state)
+    c = eng.run_fast(c, 16)
+    args = (cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin, cfg.density)
+    n_pencils = cell_list.make_pencil_grid(*args).n_pencils
+    grid = cell_list.make_pencil_grid(*args, c.r.shape[1] // n_pencils)
+    thresh = (0.5 * (grid.pencil_width - cfg.rc)) ** 2
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    reports, cases = {}, {k: [] for k in REBIN_KERNELS + REPLICA_REBIN_KERNELS}
+    for reps in (None, CELLPAIR_ENSEMBLE_R):
+        rows = [c.r, c.ru, c.v, c.a, c.r_ref]
+        if reps is not None:
+            rows = [t.repeat(1, reps).contiguous() for t in rows]
+        overflow = c.overflow if reps is None else c.overflow.repeat(reps)
+        inputs = (rows[0], rows[1:4], grid, overflow)
+        check = {"replicas": reps, "drift_ref": rows[4], "drift_thresh": thresh}
+        kernels = lambda: pencil_rebin.rebin_slots(*inputs, **check)  # noqa: E731
+        chain = lambda: pencil_rebin.rebin_slots_plain(*inputs, **check)  # noqa: E731
+        names = REBIN_KERNELS if reps is None else REPLICA_REBIN_KERNELS
+        LAUNCHES.reset()
+        got, want = kernels(), chain()
+        require(all(LAUNCHES.snapshot()[k] == 1 for k in names),
+                f"rebin (R={reps}): the kernels did not run")
+        got, want = [got[0], *got[1], got[2], got[3]], [want[0], *want[1], want[2], want[3]]
+        same = all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
+        require(same, f"rebin (R={reps}): the kernels' outputs differ from the torch chain's")
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want)
+                  if g.is_floating_point())
+        shape = ("" if reps is None else f"R={reps} ") + f"N={cfg.n} census"
+        out = {"shape": shape, "capacity": grid.capacity, "slots": (reps or 1) * grid.n_slots,
+               "dtype": "float32", "bit_identical": same, "max_abs_err": err}
+        for name, fn in (("kernels", kernels), ("torch_chain", chain)):
+            out[name] = {"ms": cuda_time_ms(torch, fn, 50), "card_ms": graph_ms(torch, fn, 20),
+                         "device_ops": graph_ops(fn)["ops"]}
+        require(out["kernels"]["device_ops"] == 2,
+                f"rebin (R={reps}): {out['kernels']} is not two launches")
+        # Bytes: the key pass reads r's rows 0, 1, 3 and r_ref's 0, 1 of
+        # every slot and writes a key a slot; the gather reads the keys and
+        # each particle's rows (r: 0..2 and the id; three of each other) and
+        # writes every row of the four outputs.
+        n_bytes = 4 * (reps or 1) * (grid.n_slots * (5 + 2 + 8 * 4) + cfg.n * (4 + 9))
+        out.update(bound(out["dtype"], 0.0, n_bytes))
+        log(f"rebin: {json.dumps(out)}")
+        reports[reps] = out
+        case = {"shape": shape, "dtype": "float32", "max_abs_err": err,
+                "ms": out["kernels"]["ms"], "card_ms": out["kernels"]["card_ms"],
+                "plain_ms": out["torch_chain"]["ms"],
+                "plain_card_ms": out["torch_chain"]["card_ms"],
+                "device_ops": out["kernels"]["device_ops"],
+                "plain_device_ops": out["torch_chain"]["device_ops"],
+                "timed": "both launches of one call", **bound(out["dtype"], 0.0, n_bytes)}
+        for k in names:
+            cases[k].append(dict(case))
+    return reports[None], cases
+
+
 def phase_pencil_kernels(torch, cfg, state) -> dict:
     """Kernels 13+14, 15, 16 and 11 (the cell-pair path) against their twins
     at config 5's geometry, from ``state`` (an N=62500 fluid), at each of
@@ -2299,11 +2378,22 @@ def _check_artifacts(out_dir: str, with_frames: bool) -> None:
 
 
 def _check_launches(run: str, counts: dict, needed: tuple, forbidden: tuple = ()) -> None:
+    """Each of ``needed`` launched, none of ``forbidden``; the rebin's
+    launches (REBIN_KERNELS' comment) only beside a cell-pair sweep or chunk
+    of the same kind (one system or the replica stack), one key pass to
+    each gather."""
     log(f"{run}: kernel launches {json.dumps(counts)}")
     for k in needed:
         require(counts.get(k, 0) > 0, f"{run}: kernel {k} was not launched on the main path")
     for k in forbidden:
-        require(counts.get(k, 0) == 0, f"{run}: kernel {k} launched on another engine's path")
+        if k not in REBIN_KERNELS + REPLICA_REBIN_KERNELS:
+            require(counts.get(k, 0) == 0, f"{run}: kernel {k} launched on another engine's path")
+    for rebin, served in ((REBIN_KERNELS, PENCIL_KERNELS + FULL_KERNELS),
+                          (REPLICA_REBIN_KERNELS, REPLICA_PENCIL_KERNELS + REPLICA_FULL_KERNELS)):
+        keys, gathers = (counts.get(k, 0) for k in rebin)
+        require(keys == gathers, f"{run}: {keys} rebin key passes against {gathers} gathers")
+        require(keys == 0 or any(counts.get(k, 0) for k in served),
+                f"{run}: {rebin[0]} launched with no cell-pair kernel of its kind")
 
 
 def _cli(name: str, args: list, timeout: int = 600) -> tuple[object, float]:
@@ -2345,10 +2435,16 @@ def _write_cfg(tmp: str, name: str, cfg) -> str:
 
 
 FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
+# The cell-pair rebin's two launches (one C call) run on every cell-pair
+# path that rebins on the card, so _check_launches holds them to the
+# cell-pair kernels they serve instead of to a run's forbidden list.
+REBIN_KERNELS = ("rebin_keys", "rebin_gather")
+REPLICA_REBIN_KERNELS = ("rebin_keys_replicas", "rebin_gather_replicas")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
                 + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
                 + EXPERIMENT_KERNELS + REPLICA_KERNELS + REPLICA_HOP_KERNELS
-                + REPLICA_ZSORT_KERNELS + REPLICA_PENCIL_KERNELS + REPLICA_FULL_KERNELS)
+                + REPLICA_ZSORT_KERNELS + REPLICA_PENCIL_KERNELS + REPLICA_FULL_KERNELS
+                + REBIN_KERNELS + REPLICA_REBIN_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -5119,6 +5215,9 @@ def main() -> int:
     states5["cap512_end_reversed"] = dataclasses.replace(state5, v=-state5.v)
     cases.update(phase_pencil_kernels(torch, cfg5, state5))
     mark("phase 3c")
+    rebin, rebin_cases = phase_rebin(torch, cfg5, state5)
+    cases.update(rebin_cases)
+    mark("phase 3h")
     paths = phase_chunk_paths(torch, cfg5, states5)
     mark("phase 5")
     rows62500 = phase_rows_at_62500(torch, cfg5, state5)
@@ -5173,7 +5272,13 @@ def main() -> int:
                 "pencil_sweep_full_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 cap=512",
                                                "float32", True),
                 "pencil_sweep_zband_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 cap=512",
-                                                "float32", True)}
+                                                "float32", True),
+                # The rebin's two launches (one call, timed together) at
+                # phase 3h's: config 5 at the census capacity, the one
+                # system and a stack of R copies.
+                **dict.fromkeys(REBIN_KERNELS, ("N=62500 census", "float32")),
+                **dict.fromkeys(REPLICA_REBIN_KERNELS,
+                                (f"R={CELLPAIR_ENSEMBLE_R} N=62500 census", "float32"))}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
@@ -5213,6 +5318,10 @@ def main() -> int:
         # engine's full and z-banded sweeps): one launch for all R.
         "pencil_sweep_full_replicas": ("ljmd_tpu_torch/csrc/pencil_sweep_full.cu", "ljmd_tpu/ops/pallas_pencil.py:309"),
         "pencil_sweep_zband_replicas": ("ljmd_tpu_torch/csrc/pencil_sweep_zband.cu", "ljmd_tpu/ops/pallas_pencil.py:256"),
+        # The cell-pair rebin (no Pallas kernel: jnp that XLA fuses): a key
+        # pass and a gather, one system or the replica stack.
+        **{k: ("ljmd_tpu_torch/csrc/pencil_rebin.cu", "ljmd_tpu/ops/cell_list.py:356")
+           for k in REBIN_KERNELS + REPLICA_REBIN_KERNELS},
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
@@ -5223,7 +5332,8 @@ def main() -> int:
     # theirs (its own element-wise kernel runs only in the comparison).
     launches["lj_pair_terms"] = sum(launches[k] for k in MAIN_KERNELS
                                     if k not in ("build_window_lists", "mosaic_probes",
-                                                 "build_window_lists_replicas"))
+                                                 "build_window_lists_replicas")
+                                    + REBIN_KERNELS + REPLICA_REBIN_KERNELS)
     # Kernel 14 (the mono kernel: a strip and its halo, n_pencils_i) is kernel
     # 13's CUDA kernel; its row counts the sharded pencil engine's launches
     # and is timed at the strip (no observables, as that engine's chunks), and
@@ -5397,6 +5507,8 @@ def main() -> int:
         f"{kill['runs']['B']['particle_steps_per_s']:.4e} particle-steps/s, checkpoint "
         f"{kill['per_chunk']['checkpoint_mb']:.2f} MB / {kill['per_chunk']['checkpoint_ms']:.1f} "
         f"ms a chunk, killed at sample {kill['killed_at']} and resumed bit for bit")
+    log(f"rebin on {env['nvidia_smi']}: kernels {rebin['kernels']}, torch chain "
+        f"{rebin['torch_chain']}, bound {rebin['bound_ms']:.4f} ms")
     log(f"phase times (s since start, on {env['nvidia_smi']}): {json.dumps(marks)}")
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])

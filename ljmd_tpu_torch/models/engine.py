@@ -61,7 +61,6 @@ from ljmd_tpu_torch.ops.cell_list import (
     compute_z_windows,
     default_z_window,
     make_pencil_grid,
-    rebin_gather_parts,
 )
 from ljmd_tpu_torch.ops.fused_list import fused_dense_chunk_list
 from ljmd_tpu_torch.ops.fused_pencil import (
@@ -78,6 +77,7 @@ from ljmd_tpu_torch.ops.neighbor import (
     needs_rebuild,
 )
 from ljmd_tpu_torch.ops.pair_sweep import ROW_PAD, pair_sweep, pair_sweep_tri
+from ljmd_tpu_torch.ops.pencil_rebin import drift_moved2, rebin_slots
 from ljmd_tpu_torch.ops.pencil_sweep import (
     TILE_I,
     build_half_shell_tables,
@@ -881,7 +881,9 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
                      inner_chunk: int | None = None, replicas: int | None = None) -> Engine:
     """Pencil-sweep engine for large N (JAX ``_cellpair_engine``): pair work
     O(N * 9 * capacity) over the pencil pairs, particles rebinned into
-    pencils (a sort and a gather) when they may have left the coverage slack.
+    pencils (a stable sort and a gather, ``ops/pencil_rebin.py``: two kernel
+    launches on the card; the ``always`` trigger's drift check rides in it)
+    when they may have left the coverage slack.
 
     The sweep: the half shell (default; each pair once, prefactors 4 / 24),
     the full 9-neighbour sweep (``half_shell=False``) or the z-banded one
@@ -989,6 +991,12 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
     if inner_chunk is None:
         inner_chunk = 8 if use_fused else UNFUSED_MAX_CHUNK
     zero_win = torch.zeros(((reps * ns // TILE_I) * 9,), dtype=torch.int32, device=device)
+    no_flag = torch.zeros((), dtype=torch.bool, device=device)
+    no_list = torch.zeros((1,), dtype=torch.int32, device=device)
+    # The "always" trigger's drift check rides in the rebin (on the card in
+    # its key pass); the z-band's 3-D check and the compensated engine's
+    # two-float wrap keep it separate.
+    fold_check = not z_band and not compensated
 
     def sweep(pos, counts, wins, want_obs=True):
         if z_band:
@@ -1005,8 +1013,7 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         """The z-band's window tables and their overflow flag (a stack's:
         each replica's, (R,))."""
         if not z_band:
-            return (zero_win, zero_win, zero_win), torch.zeros((), dtype=torch.bool,
-                                                                 device=device)
+            return (zero_win, zero_win, zero_win), no_flag
         wa, wb, ub, ovf = compute_z_windows(r8, r8[3], counts, grid, window, r_list, TILE_I,
                                             **rep_kw)
         return (wa, wb, ub), ovf
@@ -1043,51 +1050,13 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
 
     def lists_from_counts(counts):
         if not width_lists:
-            z = torch.zeros((1,), dtype=torch.int32, device=device)
-            return z, z, z, z, z
+            return no_list, no_list, no_list, no_list, no_list
         return build_width_lists(counts, hs_tbl, hs_shf, reps * P, cap)
 
     def scatter_rows(x, slot):
         out = torch.zeros((8, ns + 1), dtype=dtype, device=device)
         out[0:3, slot] = x.T.to(device=device, dtype=dtype)
         return out[:, :ns].contiguous()  # the kernels take contiguous rows
-
-    def permute_rebin(r8, others, order, src, valid_new):
-        # Two gathers (sorted order, then the structured src) of the rows
-        # that carry data: coordinates and ids of r, rows 0..2 of the others;
-        # validity comes from valid_new, rows 5..7 are zero throughout. An
-        # empty slot's gather may read another replica's particle: zeroed.
-        vmask = valid_new.to(dtype)
-        parts = [r8[0:3], r8[4:5]] + [o[0:3] for o in others]
-        stacked = torch.where(valid_new[None, :], torch.cat(parts, dim=0)[:, order][:, src], 0.0)
-        pad3 = torch.zeros((3, reps * ns), dtype=dtype, device=device)
-        pad5 = torch.zeros((5, reps * ns), dtype=dtype, device=device)
-        r8p = torch.cat([stacked[0:3], vmask[None, :], stacked[3:4], pad3], dim=0)
-        return r8p, [torch.cat([stacked[4 + 3 * i:7 + 3 * i], pad5], dim=0)
-                     for i in range(len(others))]
-
-    def wrap_rows(r8, rc8):
-        # Wrap back into [0, L) before binning; compensated: the two-float
-        # wrap, whose rounding error folds into the remainder rows.
-        r8 = r8.clone()
-        if compensated:
-            rhi, rlo = wrap_positions_ext(r8[0:3], rc8[0:3], L)
-            rc8 = rc8.clone()
-            r8[0:3], rc8[0:3] = rhi, rlo
-        else:
-            r8[0:3] = wrap_positions(r8[0:3], L)
-        return r8, rc8
-
-    def rebin(r8, others):
-        """(r8p, permuted others, counts, overflow, windows) of a rebin; the
-        overflow includes the window tables'."""
-        order, src, valid_new, overflow = rebin_gather_parts(r8, r8[3], grid, z_order=z_band,
-                                                             replicas=replicas)
-        r8p, permuted = permute_rebin(r8, others, order, src, valid_new)
-        r8p = sentinel_fill(r8p, r8p[3], cap, None if replicas is None else P)
-        counts = counts_from_valid(r8p[3])
-        wins, w_ovf = windows(r8p, counts)
-        return r8p, permuted, counts, overflow | w_ovf, wins
 
     def with_tables(c: PencilCarry, wins) -> PencilCarry:
         wl = lists_from_counts(c.counts)
@@ -1113,20 +1082,33 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
                                old.counts.reshape(reps, P)).reshape(-1),
             overflow=torch.where(fire, new.overflow, old.overflow))
 
-    def _rebinned(c: PencilCarry, with_a: bool, fire=None) -> PencilCarry:
+    def _rebinned(c: PencilCarry, with_a: bool, fire=None, check=False) -> PencilCarry:
         """The carry rebinned (``with_a``: a rides along, as the next
         chunk's first half-kick uses it); with ``fire`` (R,), only the
-        replicas it flags."""
+        replicas it flags; ``check``: the drift check folded in (its flag
+        joins the sticky one)."""
         with span("ljmd.cellpair.rebin"):
-            r8, rc8 = wrap_rows(c.r, c.rc)
+            r8, rc8 = c.r, c.rc
+            if compensated:
+                # The two-float wrap into [0, L), its rounding error folded
+                # into the remainder rows (rebin_slots wraps plain rows).
+                r8, rc8 = r8.clone(), rc8.clone()
+                r8[0:3], rc8[0:3] = wrap_positions_ext(r8[0:3], rc8[0:3], L)
             others = ([c.ru, c.v] + ([c.a] if with_a else [])
                       + ([rc8, c.vc] if compensated else []))
-            r8p, perm, counts, ovf, wins = rebin(r8, others)
+            r8p, perm, counts, ovf = rebin_slots(
+                r8, others, grid, c.overflow, replicas=replicas, wrap=not compensated,
+                z_order=z_band, drift_ref=c.r_ref if check else None,
+                drift_thresh=rebuild_thresh)
+            wins, w_ovf = windows(r8p, counts)
+            if z_band:
+                ovf = ovf | w_ovf
             ru, v, *rest = perm
             a = rest.pop(0) if with_a else c.a
-            rc, vc = rest if compensated else (torch.zeros_like(r8p), c.vc)
+            # Without compensation rc is zeros throughout.
+            rc, vc = rest if compensated else (c.rc, c.vc)
             new = dataclasses.replace(c, r=r8p, ru=ru, v=v, a=a, rc=rc, vc=vc, r_ref=r8p,
-                                      counts=counts, overflow=c.overflow | ovf)
+                                      counts=counts, overflow=ovf)
             if fire is None:
                 return with_tables(new, wins)
             if z_band:
@@ -1191,8 +1173,7 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             v_half, vc_half = c.v + c.a * half_dt, c.vc
         c = dataclasses.replace(c, r=r_new, ru=c.ru + delta, v=v_half, rc=rc_new, vc=vc_half)
         if rebin_mode is True:
-            d = minimum_image(r_new[drift_rows] - c.r_ref[drift_rows], L)
-            moved = rmax(torch.sum(d * d, dim=0) * r_new[3]) > rebuild_thresh
+            moved = rmax(drift_moved2(r_new, c.r_ref, L, drift_rows)) > rebuild_thresh
             if host_read("cellpair_moved", moved.any()):
                 c = _rebinned(c, False, None if replicas is None else moved)
         elif rebin_mode == "force":
@@ -1215,12 +1196,13 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         """Sticky flag for drift past the coverage slack since the last
         rebin (pairs may have been missed in the last chunk); no host read.
         Returns (carry, per-slot squared xy drift)."""
-        d = minimum_image(c.r[drift_rows] - c.r_ref[drift_rows], L)
-        moved2 = torch.sum(d * d, dim=0) * c.r[3]
+        moved2 = drift_moved2(c.r, c.r_ref, L, drift_rows)
         return dataclasses.replace(
             c, overflow=c.overflow | (rmax(moved2) > rebuild_thresh)), moved2
 
     def _maybe_rebin(c: PencilCarry, k: int) -> PencilCarry:
+        if rebin_trigger == "always" and fold_check:
+            return _rebinned(c, True, check=True)
         with span("ljmd.cellpair.check"):
             valid = c.r[3]
             c, moved2 = _invalid_check(c)

@@ -18,7 +18,8 @@ Every wrapper counts its launches in ``LAUNCHES`` so that a run can show that
 the main path went through the kernels; the replica launches of kernels 2,
 3, 4, 6, 7, 9, 10 and 11-16 (one launch for the R replicas of an ensemble, or a
 rank's replicas in the replica x particle step) count under their own names
-(``*_replicas``).
+(``*_replicas``). The cell-pair rebin's two launches count as ``rebin_keys``
+and ``rebin_gather`` (``*_replicas`` for a replica stack).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ljmd_tpu_torch"
 SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
            "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
            "fused_pencil_width_chunk.cu", "pencil_sweep_full.cu", "pencil_sweep_zband.cu",
-           "pair_sweep_rect.cu", "mosaic_probes.cu", "layout_bodies.cu")
+           "pair_sweep_rect.cu", "mosaic_probes.cu", "layout_bodies.cu", "pencil_rebin.cu")
 HEADERS = ("lj_pair_terms.cuh", "rows_sweep.cuh", "pencil_pairs.cuh",
            "async_copy.cuh", "pencil_cull.cuh")
 NVCC_FLAGS = (
@@ -66,7 +67,8 @@ class LaunchCounts:
              "pair_sweep_rect_newton_replicas", "build_window_lists_replicas",
              "fused_dense_chunk_list_replicas", "pencil_sweep_hs_replicas",
              "fused_pencil_chunk_replicas", "fused_pencil_width_chunk_replicas",
-             "pencil_sweep_full_replicas", "pencil_sweep_zband_replicas")
+             "pencil_sweep_full_replicas", "pencil_sweep_zband_replicas",
+             "rebin_keys", "rebin_gather", "rebin_keys_replicas", "rebin_gather_replicas")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -223,6 +225,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"ljmd_fused_pencil_width_chunk_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, real, real, real, real, real,
                        real, _I, _I, _I, _P]
+        fn.restype = _I
+        fn = getattr(lib, f"ljmd_pencil_rebin_{suffix}")
+        fn.argtypes = [_P, _P, *[_P] * 5, _I, _P, *[_P] * 5, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, real, real, real, real, _D, _P]
         fn.restype = _I
     lib.ljmd_fused_plan.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.ljmd_fused_plan.restype = _I

@@ -279,8 +279,202 @@ def test_cellpair_production_on_card_matches_cpu(cuda):
     counts = LAUNCHES.snapshot()
     assert counts["pencil_sweep_hs"] > 0 and counts["fused_pencil_chunk"] > 0
     assert counts["fused_dense_chunk"] == 0
+    # The "always" trigger: one rebin (two launches) before every chunk.
+    assert counts["rebin_keys"] == counts["rebin_gather"] == counts["fused_pencil_chunk"]
     np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
     assert not bool(gpu.diagnostics["pencil_overflow"])
+
+
+def _bits(t):
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _rebin_on_card(grid, r, others, overflow, replicas=None, wrap=True, ref=None, thresh=0.0):
+    """The rebin's kernels (two launches) against the torch chain on the
+    same CUDA tensors, bit for bit: rows, carried fields, counts, flag."""
+    from ljmd_tpu_torch.ops import pencil_rebin
+
+    want = pencil_rebin.rebin_slots_plain(r, others, grid, overflow, replicas, wrap, False, ref,
+                                          thresh)
+    LAUNCHES.reset()
+    got = pencil_rebin.rebin_slots(r, others, grid, overflow, replicas=replicas, wrap=wrap,
+                                   drift_ref=ref, drift_thresh=thresh)
+    suffix = "" if replicas is None else "_replicas"
+    launches = LAUNCHES.snapshot()
+    assert launches["rebin_keys" + suffix] == launches["rebin_gather" + suffix] == 1
+    assert sum(launches.values()) == 2
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert len(got[1]) == len(want[1]) == len(others)
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(_bits(g), _bits(w))
+    assert got[2].dtype == torch.int32 and torch.equal(got[2].cpu(), want[2].cpu())
+    assert got[3].shape == overflow.shape and torch.equal(got[3].cpu(), want[3].cpu())
+    return got
+
+
+def _small_rebin_input(cuda, dtype, seed, crowd=False, faces=False):
+    """(grid, r, [ru, v, a], r_ref, rc, vc) on the card: ``_pencil_carry``'s
+    slots drifted, with ``faces`` some across the periodic faces and outside
+    [0, L) (by up to 2 L, -1e-7, exactly L, -0.0), with ``crowd`` a third of
+    the particles in pencil 0 (past its capacity)."""
+    from ljmd_tpu_torch.ops import cell_list
+
+    cfg, c = _pencil_carry()
+    L = cfg.box_length
+    grid = cell_list.make_pencil_grid(cfg.n, L, cfg.rc + cfg.neighbor_skin, cfg.density)
+    gen = torch.Generator().manual_seed(seed)
+    valid = c.r[3] > 0.5
+    r = c.r.clone()
+    r[0:3] = torch.where(valid[None, :], r[0:3] + 0.2 * torch.randn(
+        (3, r.shape[1]), generator=gen, dtype=r.dtype), r[0:3])
+    idx = torch.nonzero(valid).flatten()
+    pick = idx[torch.randperm(idx.numel(), generator=gen)]
+    if faces:
+        r[0, pick[:16]] += L
+        r[1, pick[16:32]] -= 2.0 * L
+        r[2, pick[32:48]] += 2.0 * L - 1e-3
+        r[0, pick[48:56]] = -1e-7
+        r[1, pick[56:64]] = L
+        r[2, pick[64:72]] = -0.0
+    if crowd:
+        many = pick[-(idx.numel() // 3):]
+        r[0:2, many] = torch.rand((2, many.numel()), generator=gen, dtype=r.dtype) * (L / 4)
+    noise = lambda: 1e-9 * torch.randn(r.shape, generator=gen, dtype=r.dtype)  # noqa: E731
+    rows = (r, c.ru, c.v, c.a + 0.25, c.r, noise(), noise())
+    r, ru, v, a, ref, rc, vc = (t.to(device=cuda, dtype=dtype).contiguous() for t in rows)
+    return grid, r, [ru, v, a], ref, rc, vc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["drifted", "crowded", "faces", "drift_flag", "compensated"])
+def test_rebin_kernels_match_the_torch_chain(cuda, case, dtype):
+    """``rebin_slots``' kernels against the torch chain on one grid: drifted
+    slots; a pencil past capacity (the flag raised); particles across the
+    faces and outside [0, L); one slot drifted past the threshold with the
+    folded check (the flag raised, the one under it not); the compensated
+    form (rows wrapped beforehand, the remainders carried); with and without
+    the accelerations."""
+    from ljmd_tpu_torch.ops.fused import wrap_positions_ext
+
+    grid, r, others, ref, rc, vc = _small_rebin_input(
+        cuda, dtype, 7, crowd=case == "crowded", faces=case in ("faces", "compensated"))
+    L = grid.box_length
+    none = torch.zeros((), dtype=torch.bool, device=cuda)
+    thresh = (0.5 * (grid.pencil_width - 2.5)) ** 2
+    if case == "drift_flag":
+        ref = r.clone()
+        slot = int(torch.nonzero(r[3] > 0.5)[7])
+        ref[0, slot] = r[0, slot] - (thresh ** 0.5 + 1e-3) + L
+        ref[1, slot + 1] = r[1, slot + 1] + 0.9 * thresh ** 0.5
+        got = _rebin_on_card(grid, r, others, none, ref=ref, thresh=thresh)
+        assert bool(got[3])
+        ref[0, slot] = r[0, slot] - 0.9 * thresh ** 0.5
+        assert not bool(_rebin_on_card(grid, r, others, none, ref=ref, thresh=thresh)[3])
+        return
+    if case == "compensated":
+        r8, rc8 = r.clone(), rc.clone()
+        r8[0:3], rc8[0:3] = wrap_positions_ext(r8[0:3], rc8[0:3], L)
+        for carried in (others + [rc8, vc], others[:2] + [rc8, vc]):
+            _rebin_on_card(grid, r8, carried, none, wrap=False)
+        return
+    got = _rebin_on_card(grid, r, others, none, ref=ref, thresh=thresh)
+    assert bool(_rebin_on_card(grid, r, others[:2], none)[3]) == (case == "crowded")
+    _rebin_on_card(grid, r, others[:2], torch.ones((), dtype=torch.bool, device=cuda))
+    if case == "crowded":
+        assert int(got[2].max()) == grid.capacity
+
+
+def test_rebin_kernels_over_a_replica_stack(cuda):
+    """R=3 grids side by side (replica 1 crowded, replica 2 with one slot
+    drifted past the threshold, replica 0 neither): each replica's rows,
+    counts and flag those of its own grid, the torch chain's bits."""
+    grids, rows = [], []
+    for q, kw in enumerate(({}, {"crowd": True}, {})):
+        grid, r, others, _, _, _ = _small_rebin_input(cuda, torch.float32, 11 + q, **kw)
+        grids.append(grid)
+        rows.append([r] + others)
+    grid = grids[0]
+    r, ru, v, a = (torch.cat(ts, dim=1).contiguous() for ts in zip(*rows))
+    thresh = (0.5 * (grid.pencil_width - 2.5)) ** 2
+    ref = r.clone()
+    slot = 2 * grid.n_slots + int(torch.nonzero(r[3, 2 * grid.n_slots:] > 0.5)[3])
+    ref[0, slot] = r[0, slot] + thresh ** 0.5 + 1e-3
+    overflow = torch.zeros((3,), dtype=torch.bool, device=cuda)
+    got = _rebin_on_card(grid, r, [ru, v, a], overflow, replicas=3, ref=ref, thresh=thresh)
+    assert got[3].tolist() == [False, True, True]
+    got1 = _rebin_on_card(grid, rows[0][0], rows[0][1:], overflow[0])
+    assert torch.equal(_bits(got[0][:, :grid.n_slots]), _bits(got1[0]))
+    assert torch.equal(got[2][:grid.n_pencils].cpu(), got1[2].cpu())
+
+
+def test_rebin_kernels_on_a_melted_config5_state(cuda):
+    """Config 5 (N=62500, float32) after the benchmark's 500-step warmup and
+    a 16-step stretch of the engine: the rebin the engine runs before its
+    next chunk (the folded check included), and one in float64."""
+    import os
+
+    from ljmd_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(os.path.dirname(__file__), "..", "examples",
+                                   "n62500_large.json")).replace(warmup_steps=500)
+    state = initialize(cfg, device=cuda)
+    eng = pe.make_engine(cfg, "cellpair", state=state, device=cuda)
+    carry, _ = eng.init(state)
+    carry = eng.run_fast(carry, 16)
+    from ljmd_tpu_torch.ops import cell_list
+
+    args = (cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin, cfg.density)
+    n_pencils = cell_list.make_pencil_grid(*args).n_pencils
+    grid = cell_list.make_pencil_grid(*args, carry.r.shape[1] // n_pencils)
+    assert grid.n_slots == carry.r.shape[1]
+    thresh = (0.5 * (grid.pencil_width - cfg.rc)) ** 2
+    got = _rebin_on_card(grid, carry.r, [carry.ru, carry.v, carry.a], carry.overflow,
+                         ref=carry.r_ref, thresh=thresh)
+    assert not bool(got[3]) and int(got[2].sum()) == cfg.n
+    f64 = [t.double() for t in (carry.r, carry.ru, carry.v, carry.a, carry.r_ref)]
+    _rebin_on_card(grid, f64[0], f64[1:4], carry.overflow, ref=f64[4], thresh=thresh)
+
+
+@pytest.mark.parametrize("replicas", [None, 2])
+def test_rebin_kernels_past_the_shared_histogram(cuda, replicas):
+    """A grid of 112 x 112 pencils (12,544: past the 12,288 whose key
+    histogram the key pass keeps in shared memory, so it counts in its
+    global row), capacity 128, half full: particles placed at random in
+    [0, L) shifted by -L, 0 or L, in the first half of each replica's slots,
+    the last replica with 200 more in pencil 0 (past capacity) and the first
+    with one slot drifted past the threshold. The kernels give the torch
+    chain's bits at any grid size."""
+    from ljmd_tpu_torch.ops.cell_list import PencilGrid
+
+    grid = PencilGrid(m_xy=112, capacity=128, box_length=112 * 2.8)
+    L, ns, reps = grid.box_length, grid.n_slots, replicas or 1
+    n = ns // 2
+    gen = torch.Generator().manual_seed(17)
+    r = torch.zeros((8, reps * ns), dtype=torch.float32)
+    for q in range(reps):
+        lo = q * ns
+        r[0:3, lo:lo + n] = L * (torch.rand((3, n), generator=gen)
+                                  + torch.randint(-1, 2, (3, n), generator=gen))
+        r[3, lo:lo + n] = 1.0
+        r[4, lo:lo + n] = torch.arange(n, dtype=torch.float32)
+    crowd = (reps - 1) * ns + n
+    r[0:2, crowd:crowd + 200] = torch.rand((2, 200), generator=gen) * grid.pencil_width
+    r[3, crowd:crowd + 200] = 1.0
+    r[4, crowd:crowd + 200] = n + torch.arange(200, dtype=torch.float32)
+    others = [torch.randn((8, reps * ns), generator=gen) for _ in range(3)]
+    thresh = 0.25
+    ref = r.clone()
+    ref[1, 5] = r[1, 5] - 0.6
+    r, ref, *others = (t.to(cuda) for t in [r, ref, *others])
+    overflow = torch.zeros(() if replicas is None else (reps,), dtype=torch.bool, device=cuda)
+    got = _rebin_on_card(grid, r, others, overflow, replicas=replicas, ref=ref, thresh=thresh)
+    assert got[3].flatten().tolist() == [True] * reps
+    assert int(got[2].reshape(reps, -1)[-1, 0]) == grid.capacity
+    none = _rebin_on_card(grid, r, others[:2], overflow, replicas=replicas)[3]
+    assert none.flatten().tolist() == [False] * (reps - 1) + [True]
 
 
 @pytest.mark.parametrize("want_obs", [True, False])

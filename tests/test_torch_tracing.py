@@ -91,8 +91,9 @@ def test_spans_without_a_profiler_leave_the_tally_empty(pencil_fluid, monkeypatc
 
 @pytest.mark.parametrize("interval", [2, 10])
 def test_cycle_span_counts_follow_the_chunks(pencil_fluid, interval):
-    """One sample cycle under a CPU profile: a check, a rebin ("always") and
-    a chunk per fused chunk of the cycle's ``interval - 1`` steps, one read
+    """One sample cycle under a CPU profile: a rebin ("always", the drift
+    check folded into it: no check span) and a chunk per fused chunk of the
+    cycle's ``interval - 1`` steps, one read
     of the moved flag (the counter's own delta), one sampled sweep and one
     statistics span. The drift of <= 9 steps stays far inside the slack, so
     the moved check adds no rebin. The profile holds the same spans."""
@@ -105,8 +106,7 @@ def test_cycle_span_counts_follow_the_chunks(pencil_fluid, interval):
         sample_cycle(eng, cfg, carry, acc)
     moved = pe.HOST_READS["cellpair_moved"] - reads["cellpair_moved"]
     assert moved == 1
-    assert _counts() == {"ljmd.cellpair.check": chunks, REBIN: chunks,
-                         "ljmd.cellpair.chunk": chunks, "ljmd.read.cellpair_moved": moved,
+    assert _counts() == {REBIN: chunks, "ljmd.cellpair.chunk": chunks, "ljmd.read.cellpair_moved": moved,
                          "ljmd.cellpair.sweep": 1, "ljmd.driver.stats": 1}
     assert all(v["total_ns"] > 0 for v in span_totals().values())
     seen = {}
@@ -117,8 +117,8 @@ def test_cycle_span_counts_follow_the_chunks(pencil_fluid, interval):
 
 
 def test_program_spans_are_direct_children_of_the_engine_spans(pencil_fluid):
-    """Wrapped as the harness wraps each engine call, the rebin, check and
-    chunk spans are direct ``cpu_children`` of ``ljbench.engine.run_fast``,
+    """Wrapped as the harness wraps each engine call, the rebin and chunk
+    spans are direct ``cpu_children`` of ``ljbench.engine.run_fast``,
     the read and the sweep of ``ljbench.engine.step``; no program span has
     a program span above it."""
     cfg, eng, carry = _pencil_engine(pencil_fluid)
@@ -137,8 +137,7 @@ def test_program_spans_are_direct_children_of_the_engine_spans(pencil_fluid):
     events = prof.events()
     children = {e.name: {c.name for c in e.cpu_children} for e in events
                 if e.name.startswith("ljbench.")}
-    assert {"ljmd.cellpair.check", REBIN, "ljmd.cellpair.chunk"} <= children[
-        "ljbench.engine.run_fast"]
+    assert {REBIN, "ljmd.cellpair.chunk"} <= children["ljbench.engine.run_fast"]
     assert {"ljmd.read.cellpair_moved", "ljmd.cellpair.sweep"} <= children["ljbench.engine.step"]
     assert "ljmd.driver.stats" in children["ljbench.sample_cycle"]
     program = [e for e in events if e.name.startswith("ljmd.")]
