@@ -4191,7 +4191,9 @@ def phase_ensemble(torch, tmp: str) -> dict:
     zstates = initialize_replicas(zcfg, replica_generators(zcfg.seed, zreps), device=DEVICE)
     torch.cuda.synchronize()
     z_init = time.time() - t0
-    loop = _replica_loop_engine([make_engine(zcfg, "zsort", DEVICE,
+    # Every one-system engine is built for the stack's temperature, as the
+    # batched engine is (its zsort skin is the hottest replica's).
+    loop = _replica_loop_engine([make_engine(zcfg, "zsort", DEVICE, state=zstates,
                                              sample_interval=zcfg.output_interval)
                                  for _ in range(zreps)])
     LAUNCHES.reset()
@@ -4203,7 +4205,9 @@ def phase_ensemble(torch, tmp: str) -> dict:
     zout = ensemble_aggregate(zcfg, zres)
     flags = {k: bool(v.any()) for k, v in zres.diagnostics.items()}
     LAUNCHES.reset()
-    one = run_production(zcfg, replica_state(zstates, 0), device=DEVICE)
+    one = run_production(zcfg, replica_state(zstates, 0), device=DEVICE,
+                         engine=make_engine(zcfg, "zsort", DEVICE, state=zstates,
+                                            sample_interval=zcfg.output_interval))
     one_counts = LAUNCHES.snapshot()
     per_replica = all(z_counts[k] == zreps * one_counts[k] and one_counts[k] > 0
                       for k in ZSORT_KERNELS)
@@ -4257,7 +4261,9 @@ def phase_ensemble(torch, tmp: str) -> dict:
     _ensemble_files(out_z, zr)
     states64 = initialize_replicas(zcfg, replica_generators(zcfg.seed, zr), device=DEVICE)
     res64 = run_production(zcfg, states64, device=DEVICE)
-    one = run_production(zcfg, replica_state(states64, 0), device=DEVICE)
+    one = run_production(zcfg, replica_state(states64, 0), device=DEVICE,
+                         engine=make_engine(zcfg, "zsort", DEVICE, state=states64,
+                                            sample_interval=zcfg.output_interval))
     same0 = all(bool(torch.equal(getattr(res64.final_state, f)[0], getattr(one.final_state, f)))
                 for f in ("r", "ru", "v", "a"))
     ok64 = int(ensemble_aggregate(zcfg, res64).n_ok)

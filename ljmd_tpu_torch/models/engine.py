@@ -94,9 +94,9 @@ from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy, replica_sum
 from ljmd_tpu_torch.utils.profiling import span
 
 __all__ = ["BACKENDS", "Engine", "HOST_READS", "HostReads", "PencilCarry", "RowCarry", "ROW_PAD",
-           "ZSortCarry", "auto_backend", "host_read", "make_engine", "make_replica_engine",
-           "replica_backend", "replica_capacity", "replica_state", "resolve_device",
-           "stack_states", "zsort_geometry"]
+           "ZSortCarry", "auto_backend", "host_read", "kinetic_temperature", "make_engine",
+           "make_replica_engine", "replica_backend", "replica_capacity", "replica_state",
+           "resolve_device", "stack_states", "zsort_geometry"]
 
 # make_engine's backends ("pallas" is the JAX package's name for "rows").
 BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
@@ -160,7 +160,10 @@ class Engine(NamedTuple):
     ``run_sample(carry, n_steps)``, when not None, advances n_steps and
     returns (carry, StepObs of the final step): run_fast(n_steps - 1) + step
     with the final step's observables summed by the last fused chunk
-    itself (obs equal ``step``'s up to summation order)."""
+    itself (obs equal ``step``'s up to summation order).
+    ``counters(carry)``, when not None, returns the engine's measurements
+    kept on the device (a dict of tensors; not flags: ``diagnostics`` holds
+    those)."""
 
     init: Callable[[MDState], tuple[Any, StepObs]]
     step: Callable[[Any], tuple[Any, StepObs]]
@@ -169,6 +172,7 @@ class Engine(NamedTuple):
     step_fast: Optional[Callable[[Any], tuple[Any, StepObs]]] = None
     run_fast: Optional[Callable[[Any, int], Any]] = None
     run_sample: Optional[Callable[[Any, int], tuple[Any, StepObs]]] = None
+    counters: Optional[Callable[[Any], dict]] = None
 
 
 def _effective_dtype(cfg: SimConfig) -> torch.dtype:
@@ -461,8 +465,11 @@ class ZSortCarry:
     a sticky ``invalid`` flag (a particle outran the sort skin between two
     sorts: results suspect). ``rlo``/``vc`` are the two-float position
     remainders and velocity compensation of the extended mode (zeros
-    otherwise). ``resorts`` (int32) counts the resorts since ``init`` (not
-    in the JAX carry: the resort triggers' measurements read it)."""
+    otherwise). ``resorts`` (int32) counts the resorts since ``init`` and
+    ``travel2`` holds the largest squared sorted-axis travel a check has
+    seen since ``init`` (neither is in the JAX carry: the resort triggers'
+    measurements read them; ``counters`` gives ``travel2`` as a share of
+    the invalid bound)."""
 
     r: torch.Tensor
     ru: torch.Tensor
@@ -476,6 +483,7 @@ class ZSortCarry:
     rlo: torch.Tensor
     vc: torch.Tensor
     resorts: torch.Tensor
+    travel2: torch.Tensor
 
 
 # The JAX engine's resort triggers. "always" (what make_engine uses) resorts
@@ -486,6 +494,30 @@ class ZSortCarry:
 ZSORT_TRIGGERS = ("always", "predictive", "static", "never")
 # The window lists' block granule (the JAX engine's tile_i).
 ZSORT_TILE_I = 128
+# The port's "always" skin for an engine built for a state (make_engine /
+# make_replica_engine pass the state's kinetic temperature T, the largest
+# over replicas): the invalid bound, 0.6 x skin, is this many
+# u = sqrt(T) x inner_chunk x dt of sorted-axis travel in a chunk. The JAX
+# rule (8.5 x inner_chunk x dt, v_max ~4.4) is 5.6 u at T 0.84, which an
+# N=4000 fluid's 16-step z travel passes ~1e-9 of the time: R=64 ensembles
+# set the flag within a minute. That travel, measured on an H100 over
+# 1.2e9 particle-chunks at T 0.84 and 2.1, falls off as ln P ~ -0.58 u^2
+# (a Gaussian's -0.5 where collisions do not cut it); at 7.4 u a chunk
+# passes the bound ~4e-15 of the time, or under 4e-14 on the Gaussian slope.
+ZSORT_TRAVEL_SIGMAS = 7.4
+
+
+def kinetic_temperature(state: MDState) -> float:
+    """The largest kinetic temperature 2K / 3N over the replicas of an
+    (N, 3) or (R, N, 3) state (one host read)."""
+    v = state.v
+    return float(torch.max(torch.sum(v * v, dim=(-2, -1)))) / (3.0 * v.shape[-2])
+
+
+def zsort_travel_skin(temperature: float, inner_chunk: int, dt: float) -> float:
+    """The sort skin whose invalid bound (0.6 x skin) is ``ZSORT_TRAVEL_SIGMAS``
+    x sqrt(T) x inner_chunk x dt of travel in a chunk."""
+    return ZSORT_TRAVEL_SIGMAS * math.sqrt(max(temperature, 0.0)) * inner_chunk * dt / 0.6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -507,20 +539,25 @@ class ZSortGeometry:
 
 def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | None = None,
                    tile_j: int | None = None, slab_sort: bool | None = None,
-                   trigger: str = "always") -> ZSortGeometry:
+                   trigger: str = "always", temperature: float | None = None) -> ZSortGeometry:
     """Skin, window, slab mode, tile width, padding and sort-key bits of the
     zsort engine (JAX ``engine.py:488-684``, same constants; tail lists on).
     The default skin is the one-chunk travel bound under "always" and the
-    travel-bound auto skin under the cond'd triggers. Raises ValueError
-    where the JAX engine does: an unknown trigger, a box too small for the
-    window or (under "always") for the one-chunk travel skin, too few
-    x-slabs, too few sort-key bits."""
+    travel-bound auto skin under the cond'd triggers. Given the
+    ``temperature`` of the state the engine is built for, "always" takes the
+    larger of that bound and ``zsort_travel_skin`` (port only; without it,
+    or with an explicit ``sort_skin``, the JAX package's geometry), clamped
+    to what the box holds. Raises ValueError where the JAX engine does: an
+    unknown trigger, a box too small for the window or (under "always") for
+    the one-chunk travel skin, too few x-slabs, too few sort-key bits."""
     if trigger not in ZSORT_TRIGGERS:
         raise ValueError(f"unknown resort trigger {trigger!r}")
     if sort_skin is None and trigger == "always":
         # The flags only have to stay valid across ONE chunk:
         # 0.6 * skin >= 1.15 * v_max * inner_chunk * dt with v_max ~ 4.4.
         sort_skin = max(0.3, 8.5 * inner_chunk * cfg.dt)
+        if temperature is not None:
+            sort_skin = max(sort_skin, zsort_travel_skin(temperature, inner_chunk, cfg.dt))
     if sort_skin is None:
         # Resorts fire at 0.25 * skin and the flags hold to 0.6 * skin: the
         # gap covers a chunk's worst travel with ~15% margin.
@@ -568,7 +605,8 @@ def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | Non
 def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                   sort_skin: float | None = None, tile_j: int | None = None,
                   extended: bool | None = None, slab_sort: bool | None = None,
-                  trigger: str = "always", replicas: int | None = None) -> Engine:
+                  trigger: str = "always", replicas: int | None = None,
+                  temperature: float | None = None) -> Engine:
     """Dense fused engine with sorted tile skipping (JAX ``_zsort_engine``).
 
     Particles are kept in ascending-z column order (or (x-slab, z) with
@@ -598,7 +636,13 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     decides for itself (JAX's vmap of lax.cond): where any replica fires,
     the stack is resorted and each replica keeps its resorted or its old
     carry by its own flag. The observables' sums reduce an (R, n_pad) row
-    at once, so they may round otherwise."""
+    at once, so they may round otherwise.
+
+    ``temperature`` (``zsort_geometry``) sizes the "always" skin from the
+    state's speeds: a one-system engine is replica q's twin only when it is
+    built with the stack's temperature. ``counters`` gives each replica's
+    largest sorted-axis travel of a check as a share of the invalid bound
+    (``zsort_travel_share``; 1.0 is the flag's edge), kept on the device."""
     device = resolve_device(device)
     if replicas is not None and replicas < 1:
         raise ValueError("the replica zsort engine takes replicas >= 1")
@@ -606,7 +650,7 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     dtype = _effective_dtype(cfg)
     if extended is None:
         extended = (cfg.compensated_sum or cfg.dt <= 1.0e-3) and dtype == torch.float32
-    geo = zsort_geometry(cfg, inner_chunk, sort_skin, tile_j, slab_sort, trigger)
+    geo = zsort_geometry(cfg, inner_chunk, sort_skin, tile_j, slab_sort, trigger, temperature)
     n = cfg.n
     L = cfg.box_length
     tile_i = ZSORT_TILE_I
@@ -687,7 +731,8 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                            tiles=tiles, tcounts=tcounts,
                            invalid=torch.zeros(batch, dtype=torch.bool, device=device),
                            rlo=rlo, vc=vcc,
-                           resorts=torch.zeros(batch, dtype=torch.int32, device=device))
+                           resorts=torch.zeros(batch, dtype=torch.int32, device=device),
+                           travel2=torch.zeros(batch, dtype=dtype, device=device))
         return carry, obs_from(out, 0.5 * replica_sum(v8 * v8, 2))
 
     dt = cfg.dt
@@ -732,55 +777,57 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     look = 1.3 * inner_chunk * dt
 
     def _maybe_resort(c: ZSortCarry) -> ZSortCarry:
-        # Per-axis staleness: only travel along a sorted axis (z; x too with
-        # slabs) can push a pair's gap past the window.
-        d = minimum_image(c.r[..., 0:3, :] - c.r_ref[..., 0:3, :], L)
-        valid = (c.ids >= 0).to(dtype)
-        dz2 = d[..., 2, :] * d[..., 2, :]
-        moved2 = rmax((torch.maximum(d[..., 0, :] * d[..., 0, :], dz2) if slab_sort else dz2)
-                      * valid)
-        invalid = c.invalid | (moved2 > geo.invalid_thresh)
+        with span("ljmd.zsort.check"):
+            # Per-axis staleness: only travel along a sorted axis (z; x too
+            # with slabs) can push a pair's gap past the window.
+            d = minimum_image(c.r[..., 0:3, :] - c.r_ref[..., 0:3, :], L)
+            valid = (c.ids >= 0).to(dtype)
+            dz2 = d[..., 2, :] * d[..., 2, :]
+            moved2 = rmax((torch.maximum(d[..., 0, :] * d[..., 0, :], dz2) if slab_sort
+                           else dz2) * valid)
+            checked = {"invalid": c.invalid | (moved2 > geo.invalid_thresh),
+                       "travel2": torch.maximum(c.travel2, moved2)}
+            if trigger == "predictive":
+                # Each particle's own look-ahead: its sorted-axis travel plus
+                # its velocity over the chunk (1.3x and 0.02 for the
+                # acceleration).
+                vv = c.v + c.vc if extended else c.v
+                pz = torch.abs(d[..., 2, :]) + look * torch.abs(vv[..., 2, :]) + 0.02
+                if slab_sort:
+                    px = torch.abs(d[..., 0, :]) + look * torch.abs(vv[..., 0, :]) + 0.02
+                    pz = torch.maximum(px, pz)
+                pred = rmax(pz * valid)
+                fire = pred * pred > geo.invalid_thresh
+            elif trigger == "static":
+                fire = moved2 > geo.resort_thresh
         if trigger == "always":
-            return dataclasses.replace(_resorted(c), invalid=invalid)
-        if trigger == "never":  # floor measurements only
-            return dataclasses.replace(c, invalid=invalid)
-        if trigger == "predictive":
-            # Each particle's own look-ahead: its sorted-axis travel plus its
-            # velocity over the chunk (1.3x and 0.02 for the acceleration).
-            vv = c.v + c.vc if extended else c.v
-            pz = torch.abs(d[..., 2, :]) + look * torch.abs(vv[..., 2, :]) + 0.02
-            if slab_sort:
-                px = torch.abs(d[..., 0, :]) + look * torch.abs(vv[..., 0, :]) + 0.02
-                pz = torch.maximum(px, pz)
-            pred = rmax(pz * valid)
-            fire = pred * pred > geo.invalid_thresh
-        else:
-            fire = moved2 > geo.resort_thresh
-        if not host_read("zsort_fire", fire.any()):
-            return dataclasses.replace(c, invalid=invalid)
+            return dataclasses.replace(_resorted(c), **checked)
+        if trigger == "never" or not host_read("zsort_fire", fire.any()):
+            return dataclasses.replace(c, **checked)
         new = _resorted(c)
         if replicas is not None:
             new = _pick_replicas(fire, new, c)
-        return dataclasses.replace(new, invalid=invalid)
+        return dataclasses.replace(new, **checked)
 
     def _chunk(c: ZSortCarry, k: int, obs: bool = False):
         c = _maybe_resort(c)
-        if extended:
+        with span("ljmd.zsort.chunk"):
+            if extended:
+                out = fused_dense_chunk_list(c.r, c.v, c.a, c.tiles, c.tcounts, n, L,
+                                             cfg.rc_square, dt, k, tile_i=tile_i, tile_j=tile_j,
+                                             r_lo=c.rlo, vc=c.vc, obs_last=obs)
+                r_end, rlo_end, v, vcc, a = out[:5]
+                ru = c.ru + ((r_end - c.r) + (rlo_end - c.rlo))
+                r_w, rlo_w = wrap_positions_ext(r_end, rlo_end, L)
+                c2 = dataclasses.replace(c, r=r_w, ru=ru, v=v, a=a, rlo=rlo_w, vc=vcc)
+                return (c2, out[5]) if obs else c2
             out = fused_dense_chunk_list(c.r, c.v, c.a, c.tiles, c.tcounts, n, L,
                                          cfg.rc_square, dt, k, tile_i=tile_i, tile_j=tile_j,
-                                         r_lo=c.rlo, vc=c.vc, obs_last=obs)
-            r_end, rlo_end, v, vcc, a = out[:5]
-            ru = c.ru + ((r_end - c.r) + (rlo_end - c.rlo))
-            r_w, rlo_w = wrap_positions_ext(r_end, rlo_end, L)
-            c2 = dataclasses.replace(c, r=r_w, ru=ru, v=v, a=a, rlo=rlo_w, vc=vcc)
-            return (c2, out[5]) if obs else c2
-        out = fused_dense_chunk_list(c.r, c.v, c.a, c.tiles, c.tcounts, n, L,
-                                     cfg.rc_square, dt, k, tile_i=tile_i, tile_j=tile_j,
-                                     obs_last=obs)
-        r_end, v, a = out[:3]
-        c2 = dataclasses.replace(c, r=wrap_positions(r_end, L), ru=c.ru + (r_end - c.r),
-                                 v=v, a=a)
-        return (c2, out[3]) if obs else c2
+                                         obs_last=obs)
+            r_end, v, a = out[:3]
+            c2 = dataclasses.replace(c, r=wrap_positions(r_end, L), ru=c.ru + (r_end - c.r),
+                                     v=v, a=a)
+            return (c2, out[3]) if obs else c2
 
     def run_fast(c: ZSortCarry, n_steps: int) -> ZSortCarry:
         full, rem = divmod(n_steps, inner_chunk)
@@ -822,6 +869,7 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         step_fast=lambda c: _step(c, False),
         run_fast=run_fast if geo.fused_viable else None,
         run_sample=run_sample if geo.fused_viable else None,
+        counters=lambda c: {"zsort_travel_share": torch.sqrt(c.travel2 / geo.invalid_thresh)},
     )
 
 
@@ -1342,14 +1390,18 @@ def make_engine(cfg: SimConfig, backend: str = "auto", device="cuda", state=None
     the zsort inner chunk to it. ``state`` (a representative MDState, e.g.
     the post-warmup one) sizes the cell-pair engine's pencil capacity from
     its occupancy census when ``cfg.neighbor_capacity`` is unset (JAX
-    ``_cellpair_tuned``)."""
+    ``_cellpair_tuned``) and the zsort engine's skin from its kinetic
+    temperature (``zsort_geometry``; an (R, N, 3) state: its hottest
+    replica's)."""
     device = resolve_device(device)
     if backend == "auto":
         backend = auto_backend(cfg, device.type == "cuda", sample_interval)
     if backend in ("rows", "pallas"):
         return _rows_engine(cfg, device)
     if backend == "zsort":
-        return _zsort_engine(cfg, device, **_zsort_kwargs(sample_interval))
+        temperature = None if state is None else kinetic_temperature(state)
+        return _zsort_engine(cfg, device, temperature=temperature,
+                             **_zsort_kwargs(sample_interval))
     if backend == "cellpair":
         if state is not None and not cfg.neighbor_capacity:
             cfg = cfg.replace(neighbor_capacity=capacity_from_state(
@@ -1375,8 +1427,8 @@ def stack_states(states) -> MDState:
 
 def _replica_loop_engine(engines: list) -> Engine:
     """R one-system engines behind one Engine: states are (R, N, 3), the
-    carry is the tuple of the R carries, observables and diagnostics are
-    stacked over the replicas. Every call runs each replica's own engine in
+    carry is the tuple of the R carries, observables, diagnostics and
+    counters are stacked over the replicas. Every call runs each replica's own engine in
     turn, so replica i goes through exactly the calls, in the same order,
     that a one-system run gives it: its rows and its observables bit for
     bit, at R times the launches of one run."""
@@ -1404,16 +1456,19 @@ def _replica_loop_engine(engines: list) -> Engine:
         carries, obs = zip(*(e.run_sample(c, n_steps) for e, c in zip(engines, carries)))
         return tuple(carries), obs_stack(obs)
 
-    def diagnostics(carries) -> dict:
-        per = [e.diagnostics(c) for e, c in zip(engines, carries)]
-        return {k: torch.stack([torch.as_tensor(d[k]) for d in per]) for k in per[0]}
+    def stacked(read):
+        def per_replica(carries) -> dict:
+            per = [read(e)(c) for e, c in zip(engines, carries)]
+            return {k: torch.stack([torch.as_tensor(d[k]) for d in per]) for k in per[0]}
+        return per_replica
 
     return Engine(
         init=init, step=step,
         get_state=lambda carries: stack_states([e.get_state(c) for e, c in zip(engines, carries)]),
-        diagnostics=diagnostics, step_fast=step_fast,
+        diagnostics=stacked(lambda e: e.diagnostics), step_fast=step_fast,
         run_fast=run_fast if first.run_fast is not None else None,
         run_sample=run_sample if first.run_sample is not None else None,
+        counters=stacked(lambda e: e.counters) if first.counters is not None else None,
     )
 
 
@@ -1455,12 +1510,16 @@ def make_replica_engine(cfg: SimConfig, replicas: int, backend: str = "auto", de
     sampled sweep and of kernel 15 or 16 a chunk, at one capacity for all
     replicas (``replica_capacity``, so replica q is what a one-system engine
     built at that capacity gives it); neighbor and dense: plain torch over
-    the stack, one rebuild check a step for all R. ``_replica_loop_engine``
-    of R one-system engines stays the yardstick of the batched ones."""
+    the stack, one rebuild check a step for all R. ``states`` sizes the
+    zsort skin from the hottest replica (``kinetic_temperature``).
+    ``_replica_loop_engine`` of R one-system engines stays the yardstick of
+    the batched ones."""
     device = resolve_device(device)
     backend, _ = replica_backend(cfg, backend, device, sample_interval)
     if backend == "zsort":
-        return _zsort_engine(cfg, device, replicas=replicas, **_zsort_kwargs(sample_interval))
+        temperature = None if states is None else kinetic_temperature(states)
+        return _zsort_engine(cfg, device, replicas=replicas, temperature=temperature,
+                             **_zsort_kwargs(sample_interval))
     if backend == "cellpair":
         cfg = cfg.replace(neighbor_capacity=replica_capacity(cfg, states))
         return _cellpair_engine(cfg, device, replicas=replicas)

@@ -114,6 +114,7 @@ class SimResult:
     corr_mean_norm: torch.Tensor
     frames: Optional[Frames]
     diagnostics: dict
+    counters: dict = dataclasses.field(default_factory=dict)  # the engine's ``counters``
 
     def thermo(self, cfg: SimConfig) -> ThermoCoefs:
         return thermo_coefs_from_report(cfg.n, cfg.volume, self.means)
@@ -285,9 +286,9 @@ def finalize(cfg: SimConfig, engine: Engine, ecarry, series: torch.Tensor, acc: 
              frames: Optional[Frames]) -> SimResult:
     """The statistics of a finished production (both drivers): means and
     stds, the centered ACF and its block average, the sample times, the
-    final state and the engine's diagnostics. ``series`` is (5, n_samples)
-    on the run's device (an ensemble's (R, 5, n_samples), whose correlations
-    run over groups of ``corr_group_size`` replicas)."""
+    final state and the engine's diagnostics and counters. ``series`` is (5,
+    n_samples) on the run's device (an ensemble's (R, 5, n_samples), whose
+    correlations run over groups of ``corr_group_size`` replicas)."""
     device, dtype = series.device, series.dtype
     n_samples = series.shape[-1]
     report = means_finalize(acc)
@@ -324,6 +325,7 @@ def finalize(cfg: SimConfig, engine: Engine, ecarry, series: torch.Tensor, acc: 
         corr_mean_norm=corr_mean_norm,
         frames=frames,
         diagnostics=engine.diagnostics(ecarry),
+        counters=engine.counters(ecarry) if engine.counters is not None else {},
     )
 
 

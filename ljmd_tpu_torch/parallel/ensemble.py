@@ -223,7 +223,8 @@ def _on_mesh(cfg: SimConfig, gens: list, backend: str, mesh) -> SimResult:
         corr_mean=join(lambda p: p.corr_mean), corr_mean_norm=join(lambda p: p.corr_mean_norm),
         frames=None,
         diagnostics={k: join(lambda p, k=k: torch.as_tensor(p.diagnostics[k]))
-                     for k in first.diagnostics})
+                     for k in first.diagnostics},
+        counters={k: join(lambda p, k=k: p.counters[k]) for k in first.counters})
 
 
 def replica_result(results: SimResult, i: int) -> SimResult:
@@ -238,6 +239,7 @@ def replica_result(results: SimResult, i: int) -> SimResult:
         corr_mean=results.corr_mean[i], corr_mean_norm=results.corr_mean_norm[i],
         frames=None,
         diagnostics={k: v[i] for k, v in results.diagnostics.items()},
+        counters={k: v[i] for k, v in results.counters.items()},
     )
 
 

@@ -10,7 +10,8 @@ parity checks start both packages from one numpy state:
   ``row_carry_to_numpy``);
 - ``ZSortCarry`` fields as they are (both packages pad the zsort engine to
   the same n_pad): the sorted column order, the ids, the visit lists, the
-  sticky flag and the port's resort count (0 from a JAX carry)
+  sticky flag and the port's resort count and largest travel (0 from a JAX
+  carry)
   (``zsort_carry_from_numpy`` / ``zsort_carry_to_numpy``);
 - ``PencilCarry`` fields as they are (both packages lay the slots out
   alike): the slot rows, the counts, the z-band's window tables and the
@@ -73,8 +74,10 @@ __all__ = [
 STATE_FIELDS = ("r", "ru", "v", "a")
 ROW_FIELDS = ("r", "ru", "v", "a", "rc", "vc")
 ZSORT_FIELDS = ("r", "ru", "v", "a", "ids", "r_ref", "tiles", "tcounts", "invalid",
-                "rlo", "vc", "resorts")
+                "rlo", "vc", "resorts", "travel2")
 _ZSORT_INT = ("ids", "tiles", "tcounts", "resorts")
+# Fields of the port's carry that the JAX carry lacks, with their dtypes.
+_ZSORT_PORT_ONLY = {"resorts": np.int32, "travel2": np.float64}
 PENCIL_FIELDS = tuple(f.name for f in dataclasses.fields(PencilCarry))
 _PENCIL_INT = ("counts", "win_a", "win_b", "use_b", "wl_self", "wl_self_cnt", "wl_nbr_i",
                "wl_nbr_j", "wl_nbr_off")
@@ -126,7 +129,7 @@ def row_carry_to_numpy(carry: RowCarry, n: int, n_pad: int) -> dict:
             for k in ROW_FIELDS}
 
 
-def _carry_from_numpy(cls, fields, int_fields, flag, arrays, dtype, device):
+def _carry_from_numpy(cls, fields, int_fields, flag, arrays, dtype, device, scalars=()):
     get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
 
     def conv(k):
@@ -135,6 +138,8 @@ def _carry_from_numpy(cls, fields, int_fields, flag, arrays, dtype, device):
             return torch.as_tensor(x, dtype=torch.int32, device=device)
         if k == flag:
             return torch.as_tensor(x, dtype=torch.bool, device=device)
+        if k in scalars:
+            return torch.as_tensor(x, dtype=dtype, device=device)
         if x.ndim != 2 or x.shape[0] != 8:
             raise ValueError(f"{k}: expected (8, n) rows, got {x.shape}")
         return torch.as_tensor(x, dtype=dtype, device=device)
@@ -145,16 +150,17 @@ def _carry_from_numpy(cls, fields, int_fields, flag, arrays, dtype, device):
 def zsort_carry_from_numpy(arrays, dtype=torch.float64, device="cpu") -> ZSortCarry:
     """ZSortCarry from arrays (a mapping, or an object with attributes, e.g.
     the JAX package's ZSortCarry): float rows in ``dtype``, ids / tiles /
-    tcounts / resorts int32, ``invalid`` bool; nothing is re-ordered or
-    re-padded. A source without ``resorts`` (the JAX carry has none) starts
-    the count at 0."""
+    tcounts / resorts int32, ``invalid`` bool, ``travel2`` in ``dtype``;
+    nothing is re-ordered or re-padded. A source without ``resorts`` and
+    ``travel2`` (the JAX carry has neither) starts both at 0."""
     get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
-    fields = {k: get(k) for k in ZSORT_FIELDS if k != "resorts"}
-    has = "resorts" in arrays if isinstance(arrays, dict) else hasattr(arrays, "resorts")
-    fields["resorts"] = get("resorts") if has else np.zeros(np.shape(fields["invalid"]),
-                                                             dtype=np.int32)
+    fields = {k: get(k) for k in ZSORT_FIELDS if k not in _ZSORT_PORT_ONLY}
+    shape = np.shape(fields["invalid"])
+    for k, kind in _ZSORT_PORT_ONLY.items():
+        has = k in arrays if isinstance(arrays, dict) else hasattr(arrays, k)
+        fields[k] = get(k) if has else np.zeros(shape, dtype=kind)
     return _carry_from_numpy(ZSortCarry, ZSORT_FIELDS, _ZSORT_INT, "invalid", fields, dtype,
-                             device)
+                             device, scalars=("travel2",))
 
 
 def zsort_carry_to_numpy(carry: ZSortCarry) -> dict:

@@ -36,7 +36,10 @@ initializes the config on the card and prints one JSON object:
   kernel name (the top 15), the host's CUDA API calls (launches,
   synchronizations) and the ``spans`` table (``span_table``: a rebin's and
   a resort's device operations among them);
-- ``counters``: the launches and host reads of the profiled production.
+- ``counters``: the launches and host reads of the profiled production,
+  and the engine's own counters at its end (``Engine.counters``; the zsort
+  engine's ``zsort_travel_share``: the largest sorted-axis travel of a
+  chunk as a share of the invalid bound, a replica's each).
 """
 
 from __future__ import annotations
@@ -384,8 +387,10 @@ def main(argv=None) -> int:
                                                    state.r)
         cfg = cfg.replace(neighbor_capacity=cap)
 
+    ends = []
+
     def production():
-        run_production(cfg, state, backend=backend, device=device)
+        ends.append(run_production(cfg, state, backend=backend, device=device).counters)
 
     production()
     torch.cuda.synchronize()
@@ -401,7 +406,8 @@ def main(argv=None) -> int:
               "production": {"wall_s": wall, "particle_steps_per_s": cfg.n * cfg.total_steps / wall},
               "profile": device_breakdown(production),
               "counters": {"launches": {k: v for k, v in LAUNCHES.snapshot().items() if v},
-                           "host_reads": dict(HOST_READS)}}
+                           "host_reads": dict(HOST_READS),
+                           "engine": {k: v.tolist() for k, v in ends[-1].items()}}}
     print(json.dumps(report))
     return 0
 

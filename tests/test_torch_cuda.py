@@ -1837,8 +1837,12 @@ def test_zsort_ensemble_on_card_equals_single_runs(cuda):
     assert counts["fused_dense_chunk_list_replicas"] > 0
     assert counts["build_window_lists"] == 0 and counts["fused_dense_chunk_list"] == 0
     assert not bool(res.diagnostics["zsort_invalid"].any())
+    # one-system runs on an engine built for the stack's temperature (the
+    # batched engine's skin is the hottest replica's)
+    one_engine = pe.make_engine(cfg, "zsort", cuda, state=states,
+                                sample_interval=cfg.output_interval)
     for q in (0, 3):
-        one = run_production(cfg, replica_state(states, q), backend="zsort", device=cuda)
+        one = run_production(cfg, replica_state(states, q), engine=one_engine, device=cuda)
         for k in ("r", "ru", "v", "a"):
             assert torch.equal(getattr(res.final_state, k)[q], getattr(one.final_state, k))
         _close(res.series[q], one.series, 1e-5)

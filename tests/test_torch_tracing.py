@@ -9,6 +9,7 @@ engine on tests/test_cellpair.py's N=500 geometry (3 x 3 pencils, skin 0.3)
 and its zsort engine on N=500 at rho* 0.8, both initialized by the port.
 """
 
+import dataclasses
 import math
 import sys
 import threading
@@ -22,7 +23,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from ljbench.spec import reader
 from ljmd_tpu_torch.config import config_from_density
 from ljmd_tpu_torch.models import engine as pe
-from ljmd_tpu_torch.models.simulation import initialize, sample_cycle
+from ljmd_tpu_torch.models.simulation import initialize, run_production, sample_cycle
+from ljmd_tpu_torch.ops.geometry import minimum_image
 from ljmd_tpu_torch.stats.moments import means_init
 from ljmd_tpu_torch.utils import profiling
 from ljmd_tpu_torch.utils.profiling import reset_spans, span, span_table, span_totals
@@ -166,6 +168,91 @@ def test_zsort_resort_span(zsort_fluid, trigger, resorts):
     assert counts.get("ljmd.read.zsort_fire", 0) == (trigger != "always")
 
 
+ZSORT_SPANS = ("ljmd.zsort.check", "ljmd.zsort.resort", "ljmd.zsort.chunk")
+
+
+def _zsort_engine_and_carry(zsort_fluid, replicas, trigger="always"):
+    cfg, state = zsort_fluid
+    if replicas is not None:
+        state = pe.stack_states([state] * replicas)
+    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=FUSED_CHUNK, trigger=trigger,
+                           replicas=replicas)
+    return cfg, eng, eng.init(state)[0]
+
+
+@pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
+def test_zsort_spans_are_direct_children_only_under_a_profiler(zsort_fluid, replicas):
+    """Without a profiler a zsort ``run_fast`` records nothing. Under one,
+    wrapped as the harness wraps ``run_fast``, each chunk records one
+    ``ljmd.zsort.check``, one ``ljmd.zsort.resort`` ("always") and one
+    ``ljmd.zsort.chunk``, each a direct child of the engine span (the check
+    closes before the resort starts), none under another program span."""
+    cfg, eng, carry = _zsort_engine_and_carry(zsort_fluid, replicas)
+    reset_spans()
+    eng.run_fast(carry, FUSED_CHUNK)
+    assert span_totals() == {}
+
+    def run_fast(*args):
+        with record_function("ljbench.engine.run_fast"):
+            return eng.run_fast(*args)
+
+    chunks = 2
+    with _cpu_profile() as prof:
+        run_fast(carry, chunks * FUSED_CHUNK)
+    assert _counts() == dict.fromkeys(ZSORT_SPANS, chunks)
+    events = prof.events()
+    outer = [e for e in events if e.name == "ljbench.engine.run_fast"]
+    assert len(outer) == 1
+    children = [c.name for c in outer[0].cpu_children if c.name.startswith("ljmd.")]
+    assert children == list(ZSORT_SPANS) * chunks
+    for e in events:
+        if e.name.startswith("ljmd."):
+            parent = e.cpu_parent
+            while parent is not None:
+                assert not parent.name.startswith("ljmd."), (e.name, parent.name)
+                parent = parent.cpu_parent
+    reset_spans()
+
+
+@pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
+def test_zsort_travel_counter_is_the_largest_chunk_travel(zsort_fluid, replicas):
+    """``counters``' ``zsort_travel_share`` after each chunk is the largest
+    sorted-axis travel of the chunks checked so far (each chunk's z travel
+    from its resort, read from the carry), as a share of the invalid bound,
+    a replica's each; under "always" it adds no host read."""
+    cfg, eng, carry = _zsort_engine_and_carry(zsort_fluid, replicas)
+    if replicas is not None:  # replicas apart: a different state each
+        carry = dataclasses.replace(carry, v=carry.v * torch.tensor([1.0, 1.3])[:, None, None])
+    bound2 = pe.zsort_geometry(cfg, FUSED_CHUNK).invalid_thresh
+    reads = dict(pe.HOST_READS)
+    seen = torch.zeros(() if replicas is None else (replicas,), dtype=torch.float64)
+    for _ in range(4):
+        before = seen.clone()
+        carry = eng.run_fast(carry, FUSED_CHUNK)
+        got = eng.counters(carry)["zsort_travel_share"]
+        assert got.shape == seen.shape
+        torch.testing.assert_close(got, torch.sqrt(before / bound2), rtol=1e-12, atol=0.0)
+        d = minimum_image(carry.r[..., 2, :] - carry.r_ref[..., 2, :], cfg.box_length)
+        travel2 = torch.where(carry.ids >= 0, d * d, 0.0).amax(dim=-1)
+        seen = torch.maximum(seen, travel2)
+    assert bool((seen > 0).all())
+    if replicas is not None:
+        assert float(seen[1]) > float(seen[0])
+    assert dict(pe.HOST_READS) == reads
+
+
+def test_production_result_carries_the_engine_counters(zsort_fluid):
+    """``run_production``'s result holds the engine's counters at its end
+    (what the operator's report prints): the zsort travel share of a short
+    production, inside (0, 1); none from an engine without counters."""
+    cfg, state = zsort_fluid
+    cfg = cfg.replace(total_steps=2 * FUSED_CHUNK + 10, output_interval=10, warmup_steps=10)
+    res = run_production(cfg, state, backend="zsort", device="cpu")
+    share = res.counters["zsort_travel_share"]
+    assert share.shape == () and 0.0 < float(share) < 1.0
+    assert run_production(cfg, state, backend="rows", device="cpu").counters == {}
+
+
 def test_host_reads_reset_and_read_helper():
     """``HOST_READS`` stays a dict of counts (``dict()``, ``items()``,
     item access and assignment) and gains ``reset``; ``host_read`` bumps
@@ -201,7 +288,8 @@ GAPS = [["ljbench.engine.run_fast / ljmd.cellpair.rebin (3 gaps)", 0.5],
 
 
 @pytest.mark.parametrize("metric,name", [("rebin_host_ms", REBIN),
-                                         ("stats_host_ms", "ljmd.driver.stats")])
+                                         ("stats_host_ms", "ljmd.driver.stats"),
+                                         ("resort_host_ms", "ljmd.zsort.resort")])
 def test_host_ms_readers(metric, name):
     """The mean host ms of the span's tally; nothing without a traced
     stretch or without the span."""
@@ -231,6 +319,49 @@ def test_rebin_idle_reader():
     assert read({"traced": {"idle_gaps": GAPS[1:3], "wall_s": 2.0}}) == 0.0
     assert read({"traced": None}) is None
     reset_spans()
+
+
+def test_resort_idle_reader():
+    """The rebin reader's rule for the zsort resort span: the idle seconds
+    of gaps whose child is ``ljmd.zsort.resort`` over the stretch's wall;
+    nothing without resort spans in the tally."""
+    read = reader("resort_idle_pct")
+    gaps = [["ljbench.engine.run_sample / ljmd.zsort.resort (40 gaps)", 0.3],
+            ["ljbench.engine.run_fast / ljmd.zsort.resort (10 gaps)", 0.1],
+            ["ljbench.engine.run_fast / ljmd.zsort.resorted (1 gaps)", 1.0],
+            ["ljbench.engine.run_fast / ljmd.zsort.check (5 gaps)", 0.2],
+            ["ljbench.engine.run_fast (4 gaps)", 2.0]]
+    ctx = {"traced": {"idle_gaps": gaps, "wall_s": 4.0}}
+    reset_spans()
+    assert read(ctx) is None
+    _record("ljmd.zsort.resort", 1)
+    assert read(ctx) == pytest.approx(100.0 * 0.4 / 4.0)
+    assert read({"traced": None}) is None
+    reset_spans()
+
+
+def test_list_roofline_reader():
+    """Kernel 10's share of its roofline: ``pair_roofline_pct``'s least time
+    of the stretch's work over the device time of the operations named
+    ``fused_list_kernel`` (one-system and replica instantiations summed);
+    nothing without such an operation or without the pair count."""
+    read = reader("list_roofline_pct")
+    cfg = config_from_density(num_cells=10, density=0.8442, dt=0.005, dtype="float32",
+                              output_interval=50)
+    cell = SimpleNamespace(cfg=cfg, replicas=2)
+    ops = [["void fused_list_kernel<float, false, true>(ListArgs<float>, int, int)", 0.6],
+           ["void pack_window_lists_kernel<true>(...)", 0.05],
+           ["void fused_list_kernel<float, false, false>(ListArgs<float>, int, int)", 0.2]]
+    traced = {"busy_s": 1.0, "wall_s": 1.2, "steps": 1000, "cycles": 20, "pairs": 2.2e5,
+              "top_ops": ops, "idle_gaps": []}
+    ctx = {"traced": traced, "cell": cell}
+    work = 1000 * (2.2e5 * 30 + 2 * 4000 * 24) + 20 * 2.2e5 * 10
+    assert read(ctx) == pytest.approx(100.0 * work / 67e12 / 0.8)
+    assert read(ctx) == pytest.approx(reader("pair_roofline_pct")(ctx) / 0.8)
+    assert read({"traced": dict(traced, top_ops=ops[1:2]), "cell": cell}) is None
+    assert read({"traced": {k: v for k, v in traced.items() if k != "pairs"},
+                 "cell": cell}) is None
+    assert read({"traced": None, "cell": cell}) is None
 
 
 def test_span_table_from_a_cpu_profile(pencil_fluid):

@@ -240,8 +240,12 @@ def test_batched_ensemble_matches_jax_zsort_ensemble():
                                    np.asarray(getattr(wres.final_state, k)), rtol=1e-8,
                                    atol=1e-9, err_msg=k)
     assert int(got.n_ok) == reps and not bool(res.diagnostics["zsort_invalid"].any())
+    # one-replica runs on an engine built for the stack's temperature (the
+    # batched engine's skin is the hottest replica's)
+    one_engine = pe.make_engine(pcfg, "zsort", "cpu", state=states,
+                                sample_interval=pcfg.output_interval)
     for q in range(reps):
-        one = psim.run_production(pcfg, pe.replica_state(states, q), backend="zsort")
+        one = psim.run_production(pcfg, pe.replica_state(states, q), engine=one_engine)
         assert torch.equal(res.series[q], one.series)
         for k in FIELDS:
             assert torch.equal(getattr(res.final_state, k)[q], getattr(one.final_state, k)), k
