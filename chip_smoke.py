@@ -75,6 +75,17 @@ checkout. Phases, each fatal on failure:
       operations (the nodes of one captured call); the kernel table's rows
       of rebin_keys and rebin_gather (``*_replicas``: the stack) are this
       call of both launches;
+   i. the zsort resort (``ops/zsort_resort.py``: csrc/zsort_resort.cu's
+      sort-and-gather kernel and kernel 9 with its flags worked out from the
+      tile intervals) at config 3's shape (N=4000, n_pad 4096) on the
+      engine's carry after a 1,000-step warmup and one chunk, float32, the
+      ``always`` travel check folded in, for the one system and a stack of
+      RESORT_R copies: bit for bit against the torch chain on the same
+      tensors; both timed back to back and on the card alone, with their
+      device operations; the kernel table's rows of zsort_sort and
+      zsort_pack (``*_replicas``: the stack) are this call of both launches
+      (the rows of kernel 9's flags entry, build_window_lists, count the
+      main path's zsort_pack launches);
 4. the main path, each production with the launch counts set to 0 just
    before and read just after (a CLI run counts its whole process):
    a. rows (``--backend rows``): the CLI on the reference default cut to
@@ -372,7 +383,16 @@ ROWS62500_STEPS = 8
 # each block takes this many work items (dense: 256 / S particles; list: 32
 # particles; width: 128 slots).
 TILES_PER_BLOCK = 4
-ZSORT_KERNELS = ("build_window_lists", "fused_dense_chunk_list")
+# The zsort path: the resort's two launches (its sort-and-gather kernel and
+# kernel 9 with its flags worked out from the tile intervals) and kernel 10.
+ZSORT_KERNELS = ("zsort_sort", "zsort_pack", "fused_dense_chunk_list")
+# Kernel 9's own entry (build_window_lists: the flags array, the counterpart
+# of build_window_lists_pallas) runs in the kernel checks (phases 3b, 12a');
+# the engine's resort runs the same kernel as zsort_pack, whose launches its
+# rows count (PACK_COUNTED_AS).
+PACK_KERNELS = ("build_window_lists", "build_window_lists_replicas")
+PACK_COUNTED_AS = {"build_window_lists": "zsort_pack",
+                   "build_window_lists_replicas": "zsort_pack_replicas"}
 # The pack's calls under the profiler, for its reading of device operations.
 PROFILED_CALLS = 20
 # The flagship step's run (entry()'s own total_steps) and the float64 checks
@@ -453,7 +473,11 @@ REPLICA_KERNELS = ("pair_sweep_tri_replicas", "fused_dense_chunk_replicas",
 # float64 against that engine over CROSS_STEPS. (c) the N=864 ensemble at
 # R=64 through the CLI (auto -> zsort, batched) on ENSEMBLE_ZSORT_CUT.
 REPLICA_HOP_KERNELS = ("pair_sweep_rect_replicas", "pair_sweep_rect_newton_replicas")
-REPLICA_ZSORT_KERNELS = ("build_window_lists_replicas", "fused_dense_chunk_list_replicas")
+REPLICA_ZSORT_KERNELS = ("zsort_sort_replicas", "zsort_pack_replicas",
+                         "fused_dense_chunk_list_replicas")
+# Phase 3i: the resort at config 3's shape, one system and a stack of this
+# many copies (the n4000.r64.i50 cell's R).
+RESORT_R = 64
 REPLICA_HOP_R, REPLICA_HALF_R, REPLICA_LIST_R = 8, 32, 64
 REPLICA_PARTICLE_MESH = (2, 2)  # (replica, particle)
 REPLICA_PARTICLE_CUT = {"total_steps": 2_000}
@@ -1706,6 +1730,99 @@ def phase_rebin(torch, cfg, state) -> tuple[dict, dict]:
     return reports[None], cases
 
 
+def phase_resort(torch) -> tuple[dict, dict]:
+    """Phase 3i: the zsort resort's two launches (``ops/zsort_resort.py``:
+    csrc/zsort_resort.cu's sort-and-gather kernel, kernel 9's
+    flags-from-intervals pack) against the torch chain they replace
+    (``zsort_resort_plain`` on the same CUDA tensors), at config 3's shape
+    (N=4000, n_pad 4096) on the carry of the engine's first chunk after a
+    1,000-step warmup, with the ``always`` check folded in: the one system
+    and a stack of RESORT_R copies of it. Returns (the one system's report,
+    the kernel table's cases of the four resort rows)."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.simulation import initialize
+    from ljmd_tpu_torch.ops import zsort_resort
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    cfg = load_config(str(REPO / "examples" / "n4000_production.json")).replace(**N4000_CUT)
+    state = initialize(cfg, device=dev)
+    eng = pe.make_engine(cfg, "zsort", dev, state=state, sample_interval=cfg.output_interval)
+    c, _ = eng.init(state)
+    c = eng.run_fast(c, 16)
+    geo = pe.zsort_geometry(cfg, temperature=pe.kinetic_temperature(state))
+    require(geo.n_pad == c.r.shape[-1], "resort: the geometry is not the engine's")
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same_lists(got, want, reps):
+        for q in range(reps or 1):
+            gt, wt, gc, wc = (x if reps is None else x[q]
+                              for x in (got.tiles, want.tiles, got.tcounts, want.tcounts))
+            if not torch.equal(gc, wc):
+                return False
+            for cat, k in enumerate(wc.tolist()):
+                lrows = ([2 * cat, 2 * cat + 1] + ([8] if cat == 3 else [])) if cat < 4 else \
+                    [9 + 2 * (cat - 4), 10 + 2 * (cat - 4)]
+                if not torch.equal(gt[lrows, :k], wt[lrows, :k]):
+                    return False
+        return True
+
+    names = {None: ("zsort_sort", "zsort_pack"),
+             RESORT_R: ("zsort_sort_replicas", "zsort_pack_replicas")}
+    reports, cases = {}, {k: [] for v in names.values() for k in v}
+    for reps in (None, RESORT_R):
+        fields = [c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc, c.r_ref, c.invalid, c.travel2,
+                  c.resorts]
+        if reps is not None:
+            fields = [torch.stack([t] * reps).contiguous() for t in fields]
+        r, ru, v, a, ids, rlo, vc, ref, invalid, travel2, resorts = fields
+        inputs = (r, ru, v, a, ids, rlo, vc, geo, cfg.n, cfg.box_length, False)
+        kw = {"resorts": resorts, "check": (ref, invalid, travel2)}
+        kernels = lambda: zsort_resort.zsort_resort(*inputs, **kw)  # noqa: E731
+        chain = lambda: zsort_resort.zsort_resort_plain(*inputs, **kw)  # noqa: E731
+        LAUNCHES.reset()
+        got = kernels()
+        require(all(LAUNCHES.snapshot()[k] == 1 for k in names[reps]),
+                f"resort (R={reps}): the kernels did not run")
+        want = chain()
+        outs = ("r", "ru", "v", "a", "ids", "resorts", "invalid", "travel2")
+        same = all(torch.equal(bits(getattr(got, k)), bits(getattr(want, k))) for k in outs)
+        same = same and same_lists(got, want, reps)
+        require(same, f"resort (R={reps}): the kernels' outputs differ from the torch chain's")
+        err = max(float((getattr(got, k).double() - getattr(want, k).double()).abs().max())
+                  for k in ("r", "ru", "v", "a", "travel2"))
+        shape = ("" if reps is None else f"R={reps} ") + f"N={cfg.n}"
+        out = {"shape": shape, "n_pad": geo.n_pad, "dtype": "float32", "bit_identical": same,
+               "max_abs_err": err, "invalid": bool(got.invalid.any()),
+               "visits": int(got.tcounts.sum())}
+        for name, fn in (("kernels", kernels), ("torch_chain", chain)):
+            out[name] = {"ms": cuda_time_ms(torch, fn, 50), "card_ms": graph_ms(torch, fn, 20),
+                         "device_ops": graph_ops(fn)["ops"]}
+        require(out["kernels"]["device_ops"] == 2,
+                f"resort (R={reps}): {out['kernels']} is not two launches")
+        # Bytes a column: the key pass reads r's z, r_ref's z and the id (3
+        # words); the gather reads rows 0..2 of the four fields and the id
+        # (13) and writes every row of the four outputs and the id (33). The
+        # intervals and the lists are a few KB.
+        n_bytes = (reps or 1) * geo.n_pad * 4 * (3 + 13 + 33)
+        out.update(bound("float32", 0.0, n_bytes))
+        log(f"resort: {json.dumps(out)}")
+        reports[reps] = out
+        case = {"shape": shape, "dtype": "float32", "max_abs_err": err,
+                "ms": out["kernels"]["ms"], "card_ms": out["kernels"]["card_ms"],
+                "plain_ms": out["torch_chain"]["ms"],
+                "plain_card_ms": out["torch_chain"]["card_ms"],
+                "device_ops": out["kernels"]["device_ops"],
+                "plain_device_ops": out["torch_chain"]["device_ops"],
+                "timed": "both launches of one call", **bound("float32", 0.0, n_bytes)}
+        for k in names[reps]:
+            cases[k].append(dict(case))
+    return reports[None], cases
+
+
 def phase_pencil_kernels(torch, cfg, state) -> dict:
     """Kernels 13+14, 15, 16 and 11 (the cell-pair path) against their twins
     at config 5's geometry, from ``state`` (an N=62500 fluid), at each of
@@ -2444,7 +2561,7 @@ MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_den
                 + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
                 + EXPERIMENT_KERNELS + REPLICA_KERNELS + REPLICA_HOP_KERNELS
                 + REPLICA_ZSORT_KERNELS + REPLICA_PENCIL_KERNELS + REPLICA_FULL_KERNELS
-                + REBIN_KERNELS + REPLICA_REBIN_KERNELS)
+                + REBIN_KERNELS + REPLICA_REBIN_KERNELS + PACK_KERNELS)
 
 
 def _cli_run(name: str, cfg, backend: str, tmp: str, needed: tuple, forbidden: tuple) -> dict:
@@ -3542,7 +3659,7 @@ def phase_replica_kernels(torch) -> dict:
 
     dev = torch.device(DEVICE)
     cases = {name: [] for name in ("pair_sweep_tri_replicas",) + REPLICA_HOP_KERNELS
-             + REPLICA_ZSORT_KERNELS}
+             + ("build_window_lists_replicas", "fused_dense_chunk_list_replicas")}
     ens = load_config(str(REPO / "examples" / "ensemble64.json"))
     for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         # Kernel 7: the half ring's full hop at N=4000 d=4 (block 1 visiting
@@ -4223,8 +4340,8 @@ def phase_ensemble(torch, tmp: str) -> dict:
     log(f"{name}: R={zreps} N={zcfg.n} x {zcfg.total_steps} steps through the replica loop: "
         f"init {z_init:.3f}s (batched), production {z_prod:.3f}s = {z_rate:.4e} aggregate "
         f"particle-steps/s, {int(zout.n_ok)}/{zreps} ok, flags {flags}; kernels 9 / 10 "
-        f"{z_counts['build_window_lists']} / {z_counts['fused_dense_chunk_list']} launches = "
-        f"{zreps} x one replica's ({one_counts['build_window_lists']} / "
+        f"{z_counts['zsort_pack']} / {z_counts['fused_dense_chunk_list']} launches = "
+        f"{zreps} x one replica's ({one_counts['zsort_pack']} / "
         f"{one_counts['fused_dense_chunk_list']}); replica 0 bit-identical to its one-replica "
         f"run {z_same}")
     name = f"n864_f32_ensemble_zsort_batched_r{zreps}"
@@ -5224,6 +5341,9 @@ def main() -> int:
     rebin, rebin_cases = phase_rebin(torch, cfg5, state5)
     cases.update(rebin_cases)
     mark("phase 3h")
+    resort, resort_cases = phase_resort(torch)
+    cases.update(resort_cases)
+    mark("phase 3i")
     paths = phase_chunk_paths(torch, cfg5, states5)
     mark("phase 5")
     rows62500 = phase_rows_at_62500(torch, cfg5, state5)
@@ -5284,7 +5404,12 @@ def main() -> int:
                 # system and a stack of R copies.
                 **dict.fromkeys(REBIN_KERNELS, ("N=62500 census", "float32")),
                 **dict.fromkeys(REPLICA_REBIN_KERNELS,
-                                (f"R={CELLPAIR_ENSEMBLE_R} N=62500 census", "float32"))}
+                                (f"R={CELLPAIR_ENSEMBLE_R} N=62500 census", "float32")),
+                # The resort's two launches (one call, timed together) at
+                # phase 3i's: config 3, the one system and a stack of R copies.
+                "zsort_sort": ("N=4000", "float32"), "zsort_pack": ("N=4000", "float32"),
+                "zsort_sort_replicas": (f"R={RESORT_R} N=4000", "float32"),
+                "zsort_pack_replicas": (f"R={RESORT_R} N=4000", "float32")}
     meta = {
         "lj_pair_terms": ("ljmd_tpu_torch/csrc/lj_pair_terms.cuh", "ljmd_tpu/ops/pallas_common.py:17"),
         "pair_sweep_tri": ("ljmd_tpu_torch/csrc/pair_sweep_tri.cu", "ljmd_tpu/ops/pallas_lj.py:240"),
@@ -5328,18 +5453,28 @@ def main() -> int:
         # pass and a gather, one system or the replica stack.
         **{k: ("ljmd_tpu_torch/csrc/pencil_rebin.cu", "ljmd_tpu/ops/cell_list.py:356")
            for k in REBIN_KERNELS + REPLICA_REBIN_KERNELS},
+        # The zsort resort (no Pallas kernel: jnp that XLA fuses): the sort
+        # and gather (with the "always" travel check), and kernel 9 with its
+        # flags worked out from the tile intervals (compute_tile_flags).
+        **{k: ("ljmd_tpu_torch/csrc/zsort_resort.cu", "ljmd_tpu/models/engine.py:686")
+           for k in ("zsort_sort", "zsort_sort_replicas")},
+        **{k: ("ljmd_tpu_torch/csrc/pack_window_lists.cu", "ljmd_tpu/ops/pallas_fused.py:269")
+           for k in ("zsort_pack", "zsort_pack_replicas")},
     }
     launches = dict.fromkeys(MAIN_KERNELS, 0)
     for run in runs.values():
         for k in launches:
             launches[k] += run["launches"].get(k, 0)
+    for k, counted in PACK_COUNTED_AS.items():
+        require(launches[k] == 0, f"kernel 9's flags entry {k} launched on the main path")
+        launches[k] = launches[counted]
     # lj_pair_terms is a __device__ function with no launch of its own on the
     # main path: it runs inside every sweep and chunk launch, so its count is
     # theirs (its own element-wise kernel runs only in the comparison).
     launches["lj_pair_terms"] = sum(launches[k] for k in MAIN_KERNELS
-                                    if k not in ("build_window_lists", "mosaic_probes",
-                                                 "build_window_lists_replicas")
-                                    + REBIN_KERNELS + REPLICA_REBIN_KERNELS)
+                                    if k not in ("mosaic_probes",) + PACK_KERNELS
+                                    + REBIN_KERNELS + REPLICA_REBIN_KERNELS
+                                    + ZSORT_KERNELS[:2] + REPLICA_ZSORT_KERNELS[:2])
     # Kernel 14 (the mono kernel: a strip and its halo, n_pencils_i) is kernel
     # 13's CUDA kernel; its row counts the sharded pencil engine's launches
     # and is timed at the strip (no observables, as that engine's chunks), and
@@ -5391,6 +5526,9 @@ def main() -> int:
         }
         if name == "lj_pair_terms":
             entry["launches_counted_as"] = "launches of the kernels that inline it"
+        if name in PACK_COUNTED_AS:
+            entry["launches_counted_as"] = (f"launches of {PACK_COUNTED_AS[name]}, the same "
+                                            "kernel with its flags from the tile intervals")
         if name == "layout_bodies":
             entry["also_replaces"] = "scripts/exp_layout.py:308 and :324 (transposes)"
             entry["slopes_ns_per_visit"] = {k: 1e9 * v for k, v in
@@ -5515,6 +5653,8 @@ def main() -> int:
         f"ms a chunk, killed at sample {kill['killed_at']} and resumed bit for bit")
     log(f"rebin on {env['nvidia_smi']}: kernels {rebin['kernels']}, torch chain "
         f"{rebin['torch_chain']}, bound {rebin['bound_ms']:.4f} ms")
+    log(f"resort on {env['nvidia_smi']}: kernels {resort['kernels']}, torch chain "
+        f"{resort['torch_chain']}, bound {resort['bound_ms']:.4f} ms")
     log(f"phase times (s since start, on {env['nvidia_smi']}): {json.dumps(marks)}")
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])

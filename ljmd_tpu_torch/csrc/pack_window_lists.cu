@@ -28,6 +28,15 @@
 // flags, lists and counts (the REPLICAS instantiation; its offsets fold away
 // in the one-system one, whose code and registers stay as they were).
 //
+// Flags from intervals (the zsort engine's resort, csrc/zsort_resort.cu):
+// the same kernel with its flag source swapped. Instead of reading the n_b x
+// n_b flags of ops/window_lists.py compute_tile_flags, each lane works out
+// its flag from the two tiles' [lo, hi] intervals of sorted z (and x with
+// slabs) that the resort's sort kernel wrote: compute_tile_flags' direct and
+// wrapped gaps, face hazards and bits, operation for operation in the
+// tensor's precision (the _rn intrinsics, NaN-propagating max / min as
+// torch.maximum / minimum / clamp), so the lists are the torch chain's.
+//
 // Contract: flags (n_b * n_b,) int32 of compute_tile_flags (bit 0 active,
 // bit 1 z round, bit 2 x round, > 0 visited) at tile_i x tile_i. Out: tiles
 // (9 + 2 * n_tails, max_t) and tcounts (4 + n_tails,), element for element
@@ -35,6 +44,8 @@
 // row-major order within each category, the same jmin row 8, the same tail
 // rows). Entries past the counts are not written.
 #include <cuda_runtime.h>
+
+#include "lj_pair_terms.cuh"
 
 namespace ljmd {
 
@@ -46,7 +57,6 @@ constexpr int kPackMaxWarps = 32;
 constexpr int kPackSmemBytes = 48 * 1024;
 
 struct PackArgs {
-  const int* flags;
   int* tiles;
   int* tcounts;
   int n, n_b, g, tile_j, span, n_tails, n_cats, max_t, words, staged;
@@ -78,10 +88,77 @@ __device__ __forceinline__ int next_active(unsigned act, int pos, int words) {
   return 32 * w + __ffs(__shfl_sync(0xffffffffu, mine, w)) - 1;
 }
 
-// Row `row`'s three masks, word `lane` in each lane: from the flags, 32 a
-// load (and into the stage), or from the stage.
-__device__ __forceinline__ void row_masks(const PackArgs& a, unsigned* stage, int row,
-                                          bool from_stage, unsigned* act, unsigned* zr,
+// The flag source of kernel 9's own entry: the flags array.
+struct FlagArray {
+  const int* flags;
+  int n_b;
+  __device__ __forceinline__ void replica(size_t q) { flags += q * n_b * n_b; }
+  __device__ __forceinline__ int operator()(int row, int col) const {
+    return flags[static_cast<size_t>(row) * n_b + col];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return a != a ? a : (b != b ? b : (b < a ? b : a));
+}
+
+// compute_tile_flags' gap: clamp(maximum(b_lo - a_hi, a_lo - b_hi), min=0).
+template <typename T>
+__device__ __forceinline__ T tile_gap(T a_lo, T a_hi, T b_lo, T b_hi) {
+  return nan_max(nan_max(sub_rn(b_lo, a_hi), sub_rn(a_lo, b_hi)), T(0));
+}
+
+// The flag source of the resort: compute_tile_flags at tile_i = tile_j from
+// the tiles' intervals. ivl holds (4, n_b): z lo, z hi, x lo, x hi over each
+// tile's columns < n (lo +inf / hi -inf where it has none; hi over finite
+// values only). The scalars are the Python ones rounded to T as torch rounds
+// a scalar against a T tensor: box - cross and box - face are worked out in
+// double first, as the Python expressions are.
+template <typename T, bool SLAB>
+struct FlagIntervals {
+  const T* ivl;
+  int n_b;
+  T win_z, win_x, box, cross, box_cross, face, box_face;
+  __device__ __forceinline__ void replica(size_t q) { ivl += q * 4 * n_b; }
+  // One axis: (active, round needed) of tiles i and j.
+  __device__ __forceinline__ void axis(const T* lo, const T* hi, int i, int j, T win, bool* act,
+                                       bool* rnd) const {
+    const T a_lo = lo[i], a_hi = hi[i], b_lo = lo[j], b_hi = hi[j];
+    const bool finite = isfinite(a_hi) && isfinite(b_hi);
+    const bool direct = tile_gap(a_lo, a_hi, b_lo, b_hi) < win && finite;
+    const bool wrapped = nan_min(tile_gap(a_lo, a_hi, sub_rn(b_lo, box), sub_rn(b_hi, box)),
+                                 tile_gap(a_lo, a_hi, add_rn(b_lo, box), add_rn(b_hi, box))) <
+                             win && finite;
+    const bool hazard = ((a_lo < cross) && (b_lo < face)) || ((a_lo < face) && (b_lo < cross)) ||
+                        ((a_hi > box_cross) && (b_hi > box_face)) ||
+                        ((a_hi > box_face) && (b_hi > box_cross));
+    *act = direct || wrapped;
+    *rnd = wrapped || (direct && hazard);
+  }
+  __device__ __forceinline__ int operator()(int row, int col) const {
+    bool act, rz, rx;
+    axis(ivl, ivl + n_b, row, col, win_z, &act, &rz);
+    if (SLAB) {
+      bool act_x;
+      axis(ivl + 2 * n_b, ivl + 3 * n_b, row, col, win_x, &act_x, &rx);
+      act = act && act_x;
+    } else {
+      rx = act;
+    }
+    return act ? 1 + 2 * rz + 4 * rx : 0;
+  }
+};
+
+// Row `row`'s three masks, word `lane` in each lane: from the flag source,
+// 32 a step (and into the stage), or from the stage.
+template <typename Src>
+__device__ __forceinline__ void row_masks(const PackArgs& a, const Src& src, unsigned* stage,
+                                          int row, bool from_stage, unsigned* act, unsigned* zr,
                                           unsigned* xr) {
   const int lane = threadIdx.x & 31;
   unsigned* s = stage + static_cast<size_t>(row) * a.words;
@@ -92,11 +169,10 @@ __device__ __forceinline__ void row_masks(const PackArgs& a, unsigned* stage, in
     *xr = lane < a.words ? s[2 * plane + lane] : 0u;
     return;
   }
-  const int* f = a.flags + static_cast<size_t>(row) * a.n_b;
   *act = *zr = *xr = 0u;
   for (int w = 0; w < a.words; ++w) {
     const int col = 32 * w + lane;
-    const int fl = col < a.n_b ? f[col] : 0;
+    const int fl = col < a.n_b ? src(row, col) : 0;
     const unsigned m0 = __ballot_sync(0xffffffffu, fl > 0);
     const unsigned m1 = __ballot_sync(0xffffffffu, (fl & 2) != 0);
     const unsigned m2 = __ballot_sync(0xffffffffu, (fl & 4) != 0);
@@ -142,11 +218,11 @@ __device__ __forceinline__ void cover_row(const PackArgs& a, int row, unsigned a
 // lie at q times their sizes): minBlocks = 1 lets ptxas use up to 64
 // registers a thread (aiming at two 1024-thread blocks an SM, it spilled the
 // scan's state at 32).
-template <bool REPLICAS>
-__global__ void __launch_bounds__(kPackMaxWarps * 32, 1) pack_window_kernel(PackArgs a) {
+template <bool REPLICAS, typename Src>
+__global__ void __launch_bounds__(kPackMaxWarps * 32, 1) pack_window_kernel(PackArgs a, Src src) {
   if (REPLICAS) {
     const size_t q = blockIdx.x;
-    a.flags += q * a.n_b * a.n_b;
+    src.replica(q);
     a.tiles += q * (9 + 2 * a.n_tails) * static_cast<size_t>(a.max_t);
     a.tcounts += q * a.n_cats;
   }
@@ -162,7 +238,7 @@ __global__ void __launch_bounds__(kPackMaxWarps * 32, 1) pack_window_kernel(Pack
   // holds category c's count).
   for (int row = warp; row < a.n_b; row += n_warps) {
     unsigned act, zr, xr;
-    row_masks(a, stage, row, false, &act, &zr, &xr);
+    row_masks(a, src, stage, row, false, &act, &zr, &xr);
     int cnt = 0;
     cover_row(a, row, act, zr, xr, [&](int cat, int, int, int) { cnt += lane == cat; });
     if (lane < a.n_cats) offs[lane * a.n_b + row] = cnt;
@@ -200,7 +276,7 @@ __global__ void __launch_bounds__(kPackMaxWarps * 32, 1) pack_window_kernel(Pack
   // category c's next slot; lane 0 writes).
   for (int row = warp; row < a.n_b; row += n_warps) {
     unsigned act, zr, xr;
-    row_masks(a, stage, row, a.staged != 0, &act, &zr, &xr);
+    row_masks(a, src, stage, row, a.staged != 0, &act, &zr, &xr);
     int pos = lane < a.n_cats ? offs[lane * a.n_b + row] : 0;
     cover_row(a, row, act, zr, xr, [&](int cat, int list_row, int j_blk, int jmin) {
       const int k = __shfl_sync(0xffffffffu, pos, cat);
@@ -212,6 +288,46 @@ __global__ void __launch_bounds__(kPackMaxWarps * 32, 1) pack_window_kernel(Pack
       pos += lane == cat;
     });
   }
+}
+
+// Checks the geometry, fills the arguments and launches one block a replica
+// (replicas 0: the one-system kernel).
+template <typename Src>
+int launch_pack(Src src, int* tiles, int* tcounts, int n, int n_b, int tile_i, int tile_j,
+                int n_tails, int max_t, int replicas, cudaStream_t s) {
+  const int span = tile_i > 0 ? tile_j / tile_i : 0;
+  if (n_b < 1 || n_b > kPackMaxRows || span < 1 || span > kPackMaxSpan || span > n_b ||
+      (n_tails != 0 && n_tails != span - 1) || replicas < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PackArgs a{tiles, tcounts, n, n_b, tile_i, tile_j, span, n_tails, 4 + n_tails, max_t,
+             (n_b + 31) / 32, 0};
+  const size_t counts = sizeof(int) * a.n_cats * n_b;
+  const size_t masks = sizeof(unsigned) * 3 * static_cast<size_t>(n_b) * a.words;
+  a.staged = counts + masks <= kPackSmemBytes;
+  const int threads = 32 * (n_b < kPackMaxWarps ? n_b : kPackMaxWarps);
+  const size_t smem = counts + (a.staged ? masks : 0);
+  if (replicas > 0) {
+    pack_window_kernel<true><<<replicas, threads, smem, s>>>(a, src);
+  } else {
+    pack_window_kernel<false><<<1, threads, smem, s>>>(a, src);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int pack_intervals_entry(const T* ivl, int* tiles, int* tcounts, int n, int n_b, int tile_i,
+                         int tile_j, int n_tails, int max_t, int replicas, int slab, T win_z,
+                         T win_x, T box, T cross, T box_cross, T face, T box_face, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (slab) {
+    const FlagIntervals<T, true> src{ivl, n_b, win_z, win_x, box, cross, box_cross, face,
+                                     box_face};
+    return launch_pack(src, tiles, tcounts, n, n_b, tile_i, tile_j, n_tails, max_t, replicas, s);
+  }
+  const FlagIntervals<T, false> src{ivl, n_b, win_z, win_x, box, cross, box_cross, face,
+                                    box_face};
+  return launch_pack(src, tiles, tcounts, n, n_b, tile_i, tile_j, n_tails, max_t, replicas, s);
 }
 
 }  // namespace ljmd
@@ -226,25 +342,31 @@ int ljmd_pack_max_rows() { return ljmd::kPackMaxRows; }
 int ljmd_pack_window_lists(const int* flags, int* tiles, int* tcounts, int n, int n_b,
                            int tile_i, int tile_j, int n_tails, int max_t, int replicas,
                            void* stream) {
-  const int span = tile_i > 0 ? tile_j / tile_i : 0;
-  if (n_b < 1 || n_b > ljmd::kPackMaxRows || span < 1 || span > ljmd::kPackMaxSpan ||
-      span > n_b || (n_tails != 0 && n_tails != span - 1) || replicas < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  ljmd::PackArgs a{flags, tiles, tcounts, n, n_b, tile_i, tile_j, span, n_tails,
-                   4 + n_tails, max_t, (n_b + 31) / 32, 0};
-  const size_t counts = sizeof(int) * a.n_cats * n_b;
-  const size_t masks = sizeof(unsigned) * 3 * static_cast<size_t>(n_b) * a.words;
-  a.staged = counts + masks <= ljmd::kPackSmemBytes;
-  const int threads = 32 * (n_b < ljmd::kPackMaxWarps ? n_b : ljmd::kPackMaxWarps);
-  const size_t smem = counts + (a.staged ? masks : 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (replicas > 0) {
-    ljmd::pack_window_kernel<true><<<replicas, threads, smem, s>>>(a);
-  } else {
-    ljmd::pack_window_kernel<false><<<1, threads, smem, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return ljmd::launch_pack(ljmd::FlagArray{flags, n_b}, tiles, tcounts, n, n_b, tile_i, tile_j,
+                           n_tails, max_t, replicas, static_cast<cudaStream_t>(stream));
+}
+
+// The resort's pack (csrc/zsort_resort.cu calls it): the flags worked out
+// from ivl, (R, 4, n_b) tile intervals ((4, n_b) with replicas 0), at tile_i
+// x tile_i; `slab` adds the x axis (window win_x).
+int ljmd_pack_window_lists_intervals_f32(const float* ivl, int* tiles, int* tcounts, int n,
+                                         int n_b, int tile_i, int tile_j, int n_tails, int max_t,
+                                         int replicas, int slab, float win_z, float win_x,
+                                         float box, float cross, float box_cross, float face,
+                                         float box_face, void* stream) {
+  return ljmd::pack_intervals_entry<float>(ivl, tiles, tcounts, n, n_b, tile_i, tile_j, n_tails,
+                                           max_t, replicas, slab, win_z, win_x, box, cross,
+                                           box_cross, face, box_face, stream);
+}
+
+int ljmd_pack_window_lists_intervals_f64(const double* ivl, int* tiles, int* tcounts, int n,
+                                         int n_b, int tile_i, int tile_j, int n_tails, int max_t,
+                                         int replicas, int slab, double win_z, double win_x,
+                                         double box, double cross, double box_cross, double face,
+                                         double box_face, void* stream) {
+  return ljmd::pack_intervals_entry<double>(ivl, tiles, tcounts, n, n_b, tile_i, tile_j, n_tails,
+                                            max_t, replicas, slab, win_z, win_x, box, cross,
+                                            box_cross, face, box_face, stream);
 }
 
 }  // extern "C"

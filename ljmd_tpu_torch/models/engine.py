@@ -89,7 +89,8 @@ from ljmd_tpu_torch.ops.pencil_sweep import (
     replica_tables,
     sentinel_fill,
 )
-from ljmd_tpu_torch.ops.window_lists import build_window_lists, compute_tile_flags
+from ljmd_tpu_torch.ops.zsort_resort import (ZSORT_TILE_I, ZSortGeometry, travel_moved2,
+                                             zsort_resort)
 from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy, replica_sum
 from ljmd_tpu_torch.utils.profiling import span
 
@@ -492,8 +493,6 @@ class ZSortCarry:
 # host read of the firing flag a chunk (HOST_READS["zsort_fire"]), so that a
 # skipped resort launches nothing; "never" never resorts.
 ZSORT_TRIGGERS = ("always", "predictive", "static", "never")
-# The window lists' block granule (the JAX engine's tile_i).
-ZSORT_TILE_I = 128
 # The port's "always" skin for an engine built for a state (make_engine /
 # make_replica_engine pass the state's kinetic temperature T, the largest
 # over replicas): the invalid bound, 0.6 x skin, is this many
@@ -518,23 +517,6 @@ def zsort_travel_skin(temperature: float, inner_chunk: int, dt: float) -> float:
     """The sort skin whose invalid bound (0.6 x skin) is ``ZSORT_TRAVEL_SIGMAS``
     x sqrt(T) x inner_chunk x dt of travel in a chunk."""
     return ZSORT_TRAVEL_SIGMAS * math.sqrt(max(temperature, 0.0)) * inner_chunk * dt / 0.6
-
-
-@dataclasses.dataclass(frozen=True)
-class ZSortGeometry:
-    """The zsort engine's static choices for one config (``zsort_geometry``)."""
-
-    sort_skin: float
-    window: float
-    invalid_thresh: float
-    resort_thresh: float
-    n_slabs: int
-    slab_sort: bool
-    tile_j: int
-    n_pad: int
-    bits_pad: int
-    zq_bits: int
-    fused_viable: bool
 
 
 def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | None = None,
@@ -615,8 +597,10 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     sort (sticky ``invalid`` past 0.6 * skin) and, under ``trigger``,
     re-sorts, recomputes the block flags and rebuilds the visit lists:
     "always" (the default) before every chunk, all on the device with no
-    host read; "predictive" when a particle's sorted-axis travel plus its
-    own velocity's look-ahead over the chunk could pass 0.6 * skin;
+    host read (the check folded into the resort, ``ops/zsort_resort.py``:
+    two launches on the card); "predictive" when a particle's sorted-axis
+    travel plus its own velocity's look-ahead over the chunk could pass
+    0.6 * skin;
     "static" at a travel of skin / 4; "never" not at all (floor
     measurements only). Under "predictive" and "static" the engine reads
     the firing flag on the host once a chunk (``HOST_READS["zsort_fire"]``)
@@ -627,8 +611,8 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     replicas (the JAX package ``vmap``s the one-system engine): states are
     (R, N, 3), every carry field has a leading replica axis (``invalid``
     (R,), one flag a replica), observables are (R,) tensors, and each tri
-    sweep, visit-list pack and fused list chunk is ONE launch for all R
-    (kernels 2, 9 and 10's replica launches), each replica over its own
+    sweep, resort (its sort kernel and kernel 9) and fused list chunk is ONE
+    launch for all R (the replica launches), each replica over its own
     sorted order and lists. The sort keys are unique, so each replica's
     order is the one-system engine's; the flags, gathers and the travel
     check act on each replica alone; so replica q's rows are bit for bit
@@ -672,48 +656,11 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                        d_epot=24.0 * replica_sum(out[..., 4, :], 1) + d_t,
                        dd_epot=24.0 * replica_sum(out[..., 5, :], 1) + dd_t)
 
-    def _lists(r8):
-        flags = compute_tile_flags(r8, n, tile_i, tile_i, L, geo.window,
-                                   x_window=geo.window if slab_sort else None,
-                                   cross_margin=0.6 * geo.sort_skin)
-        return build_window_lists(flags, n, n_pad, tile_i, tile_j, zero_fill=False)
+    def _resort(r8, ru8, v8, a8, ids, rlo, vcc, resorts=None, check=None):
+        return zsort_resort(r8, ru8, v8, a8, ids, rlo, vcc, geo, n, L, extended, resorts=resorts,
+                            check=check)
 
-    zq_bits, bits_pad = geo.zq_bits, geo.bits_pad
     col = torch.arange(n_pad, dtype=torch.int32, device=device)
-
-    def _sort(r8, ru8, v8, a8, ids, rlo, vcc):
-        # Packed unique int32 keys (index in the low bits): torch.sort is
-        # then deterministic, and a replica's order is its own alone.
-        # Quantization only orders z within a bucket.
-        zq = torch.clamp((r8[..., 2, :] * ((1 << zq_bits) / L)).to(torch.int32), 0,
-                         (1 << zq_bits) - 1)
-        if slab_sort:
-            xb = torch.clamp((r8[..., 0, :] * (geo.n_slabs / L)).to(torch.int32), 0,
-                             geo.n_slabs - 1)
-            kq = (xb << zq_bits) | zq
-        else:
-            kq = zq
-        kq = torch.where(ids >= 0, kq, (1 << (30 - bits_pad)) - 1)  # padding last
-        packed = torch.sort((kq << bits_pad) | col, dim=-1).values
-        order = (packed & ((1 << bits_pad) - 1)).long()
-        # Permute only the data-carrying rows 0..2 (rows 3..7 are zero, and
-        # rlo / vc are zero outside the extended mode).
-        parts = [r8[..., 0:3, :], ru8[..., 0:3, :], v8[..., 0:3, :], a8[..., 0:3, :]]
-        if extended:
-            parts += [rlo[..., 0:3, :], vcc[..., 0:3, :]]
-        stacked = torch.cat(parts, dim=-2)
-        if replicas is None:
-            stacked, ids = stacked[:, order], ids[order]
-        else:
-            stacked = torch.take_along_dim(stacked, order[:, None, :], dim=-1)
-            ids = torch.take_along_dim(ids, order, dim=-1)
-        pad5 = torch.zeros(batch + (5, n_pad), dtype=dtype, device=device)
-
-        def emb(k):
-            return torch.cat([stacked[..., 3 * k:3 * k + 3, :], pad5], dim=-2)
-
-        rlo2, vcc2 = (emb(4), emb(5)) if extended else (rlo, vcc)
-        return emb(0), emb(1), emb(2), emb(3), ids, rlo2, vcc2
 
     def to_rows(x):
         out = torch.zeros(batch + (8, n_pad), dtype=dtype, device=device)
@@ -723,17 +670,15 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     def init(state: MDState):
         ids = torch.where(col < n, col, -1).expand(batch + (n_pad,))
         zero = torch.zeros(batch + (8, n_pad), dtype=dtype, device=device)
-        r8, ru8, v8, a8, ids, rlo, vcc = _sort(to_rows(state.r), to_rows(state.ru),
-                                               to_rows(state.v), zero, ids, zero, zero)
-        out = sweep(r8)
-        tiles, tcounts = _lists(r8)
-        carry = ZSortCarry(r=r8, ru=ru8, v=v8, a=accel(out), ids=ids, r_ref=r8,
-                           tiles=tiles, tcounts=tcounts,
+        s = _resort(to_rows(state.r), to_rows(state.ru), to_rows(state.v), zero, ids, zero, zero)
+        out = sweep(s.r)
+        carry = ZSortCarry(r=s.r, ru=s.ru, v=s.v, a=accel(out), ids=s.ids, r_ref=s.r,
+                           tiles=s.tiles, tcounts=s.tcounts,
                            invalid=torch.zeros(batch, dtype=torch.bool, device=device),
-                           rlo=rlo, vc=vcc,
+                           rlo=s.rlo, vc=s.vc,
                            resorts=torch.zeros(batch, dtype=torch.int32, device=device),
                            travel2=torch.zeros(batch, dtype=dtype, device=device))
-        return carry, obs_from(out, 0.5 * replica_sum(v8 * v8, 2))
+        return carry, obs_from(out, 0.5 * replica_sum(s.v * s.v, 2))
 
     dt = cfg.dt
     half_dt = 0.5 * cfg.dt
@@ -763,13 +708,16 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                                     vc=vc_new)
         return carry, obs_from(out, ekin)
 
-    def _resorted(c: ZSortCarry) -> ZSortCarry:
+    def _resorted(c: ZSortCarry, check: bool = False) -> ZSortCarry:
+        """The resort (``ops/zsort_resort.py``: two launches on the card);
+        with ``check`` the "always" trigger's travel check folded in."""
         with span("ljmd.zsort.resort"):
-            r8, ru8, v8, a8, ids, rlo, vcc = _sort(c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc)
-            tiles, tcounts = _lists(r8)
-            return dataclasses.replace(c, r=r8, ru=ru8, v=v8, a=a8, ids=ids, r_ref=r8,
-                                       tiles=tiles, tcounts=tcounts, rlo=rlo, vc=vcc,
-                                       resorts=c.resorts + 1)
+            s = _resort(c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc, resorts=c.resorts,
+                        check=(c.r_ref, c.invalid, c.travel2) if check else None)
+            checked = {"invalid": s.invalid, "travel2": s.travel2} if check else {}
+            return dataclasses.replace(c, r=s.r, ru=s.ru, v=s.v, a=s.a, ids=s.ids, r_ref=s.r,
+                                       tiles=s.tiles, tcounts=s.tcounts, rlo=s.rlo, vc=s.vc,
+                                       resorts=s.resorts, **checked)
 
     def rmax(x):
         return torch.max(x) if replicas is None else torch.amax(x, dim=-1)
@@ -777,14 +725,12 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     look = 1.3 * inner_chunk * dt
 
     def _maybe_resort(c: ZSortCarry) -> ZSortCarry:
+        if trigger == "always":
+            return _resorted(c, check=True)
         with span("ljmd.zsort.check"):
             # Per-axis staleness: only travel along a sorted axis (z; x too
             # with slabs) can push a pair's gap past the window.
-            d = minimum_image(c.r[..., 0:3, :] - c.r_ref[..., 0:3, :], L)
-            valid = (c.ids >= 0).to(dtype)
-            dz2 = d[..., 2, :] * d[..., 2, :]
-            moved2 = rmax((torch.maximum(d[..., 0, :] * d[..., 0, :], dz2) if slab_sort
-                           else dz2) * valid)
+            moved2, d, valid = travel_moved2(c.r, c.r_ref, c.ids, L, slab_sort)
             checked = {"invalid": c.invalid | (moved2 > geo.invalid_thresh),
                        "travel2": torch.maximum(c.travel2, moved2)}
             if trigger == "predictive":
@@ -800,8 +746,6 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                 fire = pred * pred > geo.invalid_thresh
             elif trigger == "static":
                 fire = moved2 > geo.resort_thresh
-        if trigger == "always":
-            return dataclasses.replace(_resorted(c), **checked)
         if trigger == "never" or not host_read("zsort_fire", fire.any()):
             return dataclasses.replace(c, **checked)
         new = _resorted(c)

@@ -19,7 +19,9 @@ the main path went through the kernels; the replica launches of kernels 2,
 3, 4, 6, 7, 9, 10 and 11-16 (one launch for the R replicas of an ensemble, or a
 rank's replicas in the replica x particle step) count under their own names
 (``*_replicas``). The cell-pair rebin's two launches count as ``rebin_keys``
-and ``rebin_gather`` (``*_replicas`` for a replica stack).
+and ``rebin_gather`` (``*_replicas`` for a replica stack), the zsort resort's
+as ``zsort_sort`` and ``zsort_pack`` (``*_replicas`` for a stack; the sort's
+global-memory path also as ``zsort_sort_global``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ljmd_tpu_torch"
 SOURCES = ("pair_sweep_tri.cu", "pair_sweep.cu", "fused_dense_chunk.cu", "pack_window_lists.cu",
            "fused_dense_chunk_list.cu", "pencil_sweep_hs.cu", "fused_pencil_chunk.cu",
            "fused_pencil_width_chunk.cu", "pencil_sweep_full.cu", "pencil_sweep_zband.cu",
-           "pair_sweep_rect.cu", "mosaic_probes.cu", "layout_bodies.cu", "pencil_rebin.cu")
+           "pair_sweep_rect.cu", "mosaic_probes.cu", "layout_bodies.cu", "pencil_rebin.cu",
+           "zsort_resort.cu")
 HEADERS = ("lj_pair_terms.cuh", "rows_sweep.cuh", "pencil_pairs.cuh",
            "async_copy.cuh", "pencil_cull.cuh")
 NVCC_FLAGS = (
@@ -68,7 +71,9 @@ class LaunchCounts:
              "fused_dense_chunk_list_replicas", "pencil_sweep_hs_replicas",
              "fused_pencil_chunk_replicas", "fused_pencil_width_chunk_replicas",
              "pencil_sweep_full_replicas", "pencil_sweep_zband_replicas",
-             "rebin_keys", "rebin_gather", "rebin_keys_replicas", "rebin_gather_replicas")
+             "rebin_keys", "rebin_gather", "rebin_keys_replicas", "rebin_gather_replicas",
+             "zsort_sort", "zsort_sort_replicas", "zsort_sort_global", "zsort_pack",
+             "zsort_pack_replicas")
 
     def __init__(self) -> None:
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -230,6 +235,9 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, *[_P] * 5, _I, _P, *[_P] * 5, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, real, real, real, real, _D, _P]
         fn.restype = _I
+        fn = getattr(lib, f"ljmd_zsort_resort_{suffix}")
+        fn.argtypes = [_P, _P, _I, *[_P] * 13, *[_I] * 12, *[real] * 9, _P]
+        fn.restype = _I
     lib.ljmd_fused_plan.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.ljmd_fused_plan.restype = _I
     lib.ljmd_fused_block_threads.restype = _I
@@ -243,6 +251,7 @@ def library() -> ctypes.CDLL:
     lib.ljmd_sweep_hs_slices.restype = _I
     lib.ljmd_sweep_hs_max_sub.restype = _I
     lib.ljmd_pack_max_rows.restype = _I
+    lib.ljmd_zsort_sort_shared_keys.restype = _I
     lib.ljmd_pencil_chunk_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ljmd_pencil_chunk_occupancy.restype = _I
     lib.ljmd_pencil_chunk_slices.restype = _I
@@ -284,6 +293,11 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().ljmd_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device pointer for a C entry, or None (null) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_handle(t: torch.Tensor) -> int:

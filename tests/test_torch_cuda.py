@@ -192,11 +192,206 @@ def test_zsort_production_on_card_matches_cpu(cuda):
     LAUNCHES.reset()
     gpu = run_production(cfg, state.to(device=cuda), backend="zsort", device=cuda)
     counts = LAUNCHES.snapshot()
-    assert counts["build_window_lists"] > 0 and counts["fused_dense_chunk_list"] > 0
-    assert counts["fused_dense_chunk"] == 0
+    assert counts["zsort_sort"] == counts["zsort_pack"] > 0
+    assert counts["fused_dense_chunk_list"] > 0
+    assert counts["fused_dense_chunk"] == 0 and counts["build_window_lists"] == 0
     np.testing.assert_allclose(gpu.series.cpu().numpy(), cpu.series.numpy(), rtol=1e-9)
     assert not bool(gpu.diagnostics["zsort_invalid"])
     assert pe.auto_backend(cfg, True) == "rows"  # L < 4 rc: JAX's accelerator branch
+
+
+def _zsort_rows(cfg, geo, seed, dtype, cuda, extended=False, plant=False):
+    """(rows, r_ref) of one zsort system on the card: a perturbed lattice in
+    a shuffled column order with the padding columns among the particles,
+    particles within 1e-6 of both z faces (and at 0, -0.0 and the last
+    float below L) and of both x faces; rows = (r, ru, v, a, ids, rlo, vc)
+    (rlo, vc small with ``extended``, else zero); r_ref a small drift away,
+    with ``plant`` one particle's 0.7 x skin away along z (past the invalid
+    bound)."""
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+
+    n, L, n_pad = cfg.n, cfg.box_length, geo.n_pad
+    gen = torch.Generator().manual_seed(seed)
+    lattice = fcc_lattice(cfg.num_cells, L, dtype=torch.float64)
+    pos = torch.remainder(lattice + 0.05 * torch.randn(lattice.shape, generator=gen,
+                                                      dtype=torch.float64), L)
+    top = float(np.nextafter(np.float32(L), np.float32(0)))
+    pos[0:6, 2] = torch.tensor([1e-7, L - 1e-7, 0.0, -0.0, top, 2e-6])
+    pos[6:9, 0] = torch.tensor([5e-7, L - 5e-7, 0.0])
+    perm = torch.randperm(n_pad, generator=gen)
+    ids = torch.where(perm < n, perm, -1).to(torch.int32)
+    rows = []
+    for k in range(6):
+        x = torch.zeros((8, n_pad), dtype=torch.float64)
+        src = pos if k == 0 else torch.randn((n, 3), generator=gen, dtype=torch.float64)
+        if k >= 4:
+            src = 1e-9 * src if extended else 0.0 * src
+        x[0:3, ids >= 0] = src.T[:, ids[ids >= 0].long()]
+        rows.append(x)
+    ref = rows[0].clone()
+    ref[0:3] = torch.remainder(ref[0:3] + 0.01 * torch.randn(
+        (3, n_pad), generator=gen, dtype=torch.float64), L) * (ids >= 0)
+    if plant:
+        col = int(torch.nonzero(ids >= 0)[3])
+        ref[2, col] = torch.remainder(rows[0][2, col] - 0.7 * geo.sort_skin + L, L)
+    r, ru, v, a, rlo, vc = (t.to(device=cuda, dtype=dtype) for t in rows)
+    return (r, ru, v, a, ids.to(cuda), rlo, vc), ref.to(device=cuda, dtype=dtype)
+
+
+def _stack_zsort_rows(parts):
+    rows = tuple(torch.stack(ts).contiguous() for ts in zip(*(p[0] for p in parts)))
+    return rows, torch.stack([p[1] for p in parts]).contiguous()
+
+
+def _resort_on_card(geo, n, L, extended, rows, resorts=None, check=None, glob=False):
+    """The resort's kernels (two launches) against the torch chain on the
+    same CUDA tensors, bit for bit: rows, ids, lists on their counts, the
+    counter, the flag and the travel maximum."""
+    from ljmd_tpu_torch.ops import zsort_resort
+
+    want = zsort_resort.zsort_resort_plain(*rows, geo, n, L, extended, resorts=resorts,
+                                           check=check)
+    LAUNCHES.reset()
+    got = zsort_resort.zsort_resort(*rows, geo, n, L, extended, resorts=resorts, check=check)
+    stacked = rows[0].dim() == 3
+    suffix = "_replicas" if stacked else ""
+    launches = LAUNCHES.snapshot()
+    assert launches["zsort_sort" + suffix] == launches["zsort_pack" + suffix] == 1
+    assert launches["zsort_sort_global"] == int(glob)
+    assert sum(launches.values()) == 2 + int(glob)
+    for name in ("r", "ru", "v", "a", "ids", "rlo", "vc", "resorts", "invalid", "travel2"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            assert torch.equal(_bits(g), _bits(w)), name
+    tiles, counts = got.tiles.cpu(), got.tcounts.cpu()
+    want_tiles, want_counts = want.tiles.cpu(), want.tcounts.cpu()
+    assert torch.equal(counts, want_counts)
+    for q in range(rows[0].shape[0] if stacked else 1):
+        t, c, wt = (x[q] if stacked else x for x in (tiles, counts, want_tiles))
+        for cat, k in enumerate(c.tolist()):
+            lrows = ([2 * cat, 2 * cat + 1] + ([8] if cat == 3 else [])) if cat < 4 else \
+                [9 + 2 * (cat - 4), 10 + 2 * (cat - 4)]
+            assert torch.equal(t[lrows, :k], wt[lrows, :k])
+    return got
+
+
+def _n4000():
+    import os
+
+    from ljmd_tpu_torch.config import load_config
+
+    return load_config(os.path.join(os.path.dirname(__file__), "..", "examples",
+                                    "n4000_production.json"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["z", "slab", "extended", "invalid"])
+def test_zsort_resort_kernels_match_the_torch_chain(cuda, case, dtype):
+    """``zsort_resort``'s kernels against the torch chain at config 3's
+    geometry (N=4000 in n_pad 4096): z order, (x-slab, z) order (5 slabs,
+    tile_j 768), the extended mode, and a particle past the invalid bound
+    with the folded check (the flag raised); with and without the check and
+    the counter."""
+    cfg = _n4000()
+    geo = pe.zsort_geometry(cfg, slab_sort=case == "slab")
+    assert geo.n_pad == 4096 and geo.slab_sort == (case == "slab")
+    rows, ref = _zsort_rows(cfg, geo, 3, dtype, cuda, extended=case == "extended",
+                            plant=case == "invalid")
+    args = (geo, cfg.n, cfg.box_length, case == "extended", rows)
+    invalid = torch.zeros((), dtype=torch.bool, device=cuda)
+    travel2 = torch.full((), 1e-4, dtype=dtype, device=cuda)
+    resorts = torch.full((), 5, dtype=torch.int32, device=cuda)
+    got = _resort_on_card(*args, resorts=resorts, check=(ref, invalid, travel2))
+    assert bool(got.invalid) == (case == "invalid") and int(got.resorts) == 6
+    _resort_on_card(*args)
+    _resort_on_card(*args, check=(ref, torch.ones_like(invalid), travel2))
+
+
+def test_zsort_resort_kernels_over_a_replica_stack(cuda):
+    """R=3 systems (the last with a particle past the invalid bound): each
+    replica's rows, lists, flag and travel those of the torch chain, and the
+    stack's replica q those of a one-system resort of replica q."""
+    cfg = _n4000()
+    geo = pe.zsort_geometry(cfg)
+    parts = [_zsort_rows(cfg, geo, 7 + q, torch.float32, cuda, plant=q == 2) for q in range(3)]
+    rows, ref = _stack_zsort_rows(parts)
+    invalid = torch.zeros((3,), dtype=torch.bool, device=cuda)
+    travel2 = torch.zeros((3,), dtype=torch.float32, device=cuda)
+    resorts = torch.arange(3, dtype=torch.int32, device=cuda)
+    got = _resort_on_card(geo, cfg.n, cfg.box_length, False, rows, resorts=resorts,
+                          check=(ref, invalid, travel2))
+    assert got.invalid.tolist() == [False, False, True]
+    assert got.resorts.tolist() == [1, 2, 3]
+    one = _resort_on_card(geo, cfg.n, cfg.box_length, False, parts[1][0],
+                          check=(parts[1][1], invalid[1], travel2[1]))
+    for name in ("r", "ru", "v", "a", "ids", "tcounts", "travel2"):
+        assert torch.equal(_bits(getattr(got, name)[1]), _bits(getattr(one, name))), name
+
+
+@pytest.mark.parametrize("replicas", [None, 2])
+def test_zsort_resort_kernels_past_the_shared_keys(cuda, replicas):
+    """N=37,044 (21^3 FCC cells at rho* 0.8442) in n_pad 37,120: its 65,536
+    padded keys pass the sort kernel's shared memory, so it sorts in a global
+    scratch row (``zsort_sort_global``); (x-slab, z) order, as the geometry
+    picks at this size; the kernels give the torch chain's bits."""
+    cfg = SimConfig(num_cells=21, box_length=(37044 / 0.8442) ** (1.0 / 3.0),
+                    rc_over_box=2.5 / (37044 / 0.8442) ** (1.0 / 3.0))
+    geo = pe.zsort_geometry(cfg)
+    assert geo.n_pad == 37120 and geo.slab_sort and not geo.fused_viable
+    reps = replicas or 1
+    parts = [_zsort_rows(cfg, geo, 13 + q, torch.float32, cuda, plant=q == reps - 1)
+             for q in range(reps)]
+    rows, ref = parts[0] if replicas is None else _stack_zsort_rows(parts)
+    batch = () if replicas is None else (replicas,)
+    check = (ref, torch.zeros(batch, dtype=torch.bool, device=cuda),
+             torch.zeros(batch, dtype=torch.float32, device=cuda))
+    got = _resort_on_card(geo, cfg.n, cfg.box_length, False, rows, check=check, glob=True)
+    assert got.invalid.flatten().tolist() == [False] * (reps - 1) + [True]
+
+
+def test_zsort_run_sample_on_card_equals_the_twin_engine(cuda, monkeypatch):
+    """Config 3's engine on the card for a 50-step ``run_sample`` (chunks 16,
+    16, 16, 2: four resorts after init's), once through the resort's kernels
+    and once through its torch chain (``zsort_resort_plain``): the final
+    carries bit for bit, the observables too; the kernel run launches no
+    ``torch.sort`` chain (no standalone pack)."""
+    import dataclasses
+
+    from ljmd_tpu_torch.models.lattice import fcc_lattice
+    from ljmd_tpu_torch.ops import zsort_resort
+    from ljmd_tpu_torch.state import MDState
+
+    cfg = _n4000()
+    gen = torch.Generator().manual_seed(9)
+    r = fcc_lattice(cfg.num_cells, cfg.box_length, dtype=torch.float64)
+    v = 0.9 * torch.randn(r.shape, generator=gen, dtype=torch.float64)
+    state = MDState(r=r, ru=r, v=v, a=torch.zeros_like(r)).to(device=cuda)
+    out = {}
+    for name in ("kernels", "twin"):
+        if name == "twin":
+            monkeypatch.setattr(pe, "zsort_resort", zsort_resort.zsort_resort_plain)
+        eng = pe.make_engine(cfg, "zsort", cuda, state=state, sample_interval=50)
+        LAUNCHES.reset()
+        c, _ = eng.init(state)
+        c, obs = eng.run_sample(c, 50)
+        out[name] = (c, obs, LAUNCHES.snapshot())
+    (ck, ok, lk), (ct, ot, lt) = out["kernels"], out["twin"]
+    assert lk["zsort_sort"] == lk["zsort_pack"] == 5 and lk["build_window_lists"] == 0
+    assert lt["zsort_sort"] == 0 and lt["build_window_lists"] == 5
+    for f in dataclasses.fields(ck):
+        g, w = getattr(ck, f.name), getattr(ct, f.name)
+        if f.name == "tiles":  # entries past the counts are not written
+            for cat, k in enumerate(ck.tcounts.tolist()):
+                lrows = ([2 * cat, 2 * cat + 1] + ([8] if cat == 3 else [])) if cat < 4 else \
+                    [9 + 2 * (cat - 4), 10 + 2 * (cat - 4)]
+                assert torch.equal(g[lrows, :k], w[lrows, :k])
+            continue
+        assert torch.equal(_bits(g), _bits(w)), f.name
+    for k in ("epot", "ekin", "d_epot", "dd_epot"):
+        assert torch.equal(_bits(getattr(ok, k)), _bits(getattr(ot, k))), k
+    assert not bool(ck.invalid) and int(ck.resorts) == 4
 
 
 def _pencil_carry(extended=False):
@@ -1821,8 +2016,9 @@ def test_list_chunk_replica_launch_equals_single_launches(cuda, mode, dtype, tol
 
 def test_zsort_ensemble_on_card_equals_single_runs(cuda):
     """The batched zsort engine on the card: through the replica launches
-    of kernels 9 and 10 only, each replica's final state equal to a
-    one-system zsort run from its initial state bit for bit."""
+    of the resort (its sort kernel and kernel 9) and kernel 10 only, each
+    replica's final state equal to a one-system zsort run from its initial
+    state bit for bit."""
     from ljmd_tpu_torch.models.engine import replica_state
     from ljmd_tpu_torch.models.simulation import initialize_replicas, replica_generators
 
@@ -1833,9 +2029,10 @@ def test_zsort_ensemble_on_card_equals_single_runs(cuda):
     LAUNCHES.reset()
     res = run_production(cfg, states, backend="zsort", device=cuda)
     counts = LAUNCHES.snapshot()
-    assert counts["build_window_lists_replicas"] > 0
+    assert counts["zsort_sort_replicas"] == counts["zsort_pack_replicas"] > 0
     assert counts["fused_dense_chunk_list_replicas"] > 0
-    assert counts["build_window_lists"] == 0 and counts["fused_dense_chunk_list"] == 0
+    assert counts["zsort_sort"] == counts["zsort_pack"] == counts["fused_dense_chunk_list"] == 0
+    assert counts["build_window_lists"] == counts["build_window_lists_replicas"] == 0
     assert not bool(res.diagnostics["zsort_invalid"].any())
     # one-system runs on an engine built for the stack's temperature (the
     # batched engine's skin is the hottest replica's)

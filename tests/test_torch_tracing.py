@@ -168,7 +168,10 @@ def test_zsort_resort_span(zsort_fluid, trigger, resorts):
     assert counts.get("ljmd.read.zsort_fire", 0) == (trigger != "always")
 
 
-ZSORT_SPANS = ("ljmd.zsort.check", "ljmd.zsort.resort", "ljmd.zsort.chunk")
+# A chunk's spans: under "always" the travel check runs inside the resort (no
+# ljmd.zsort.check span); a cond'd trigger that fires checks, then resorts.
+ZSORT_SPANS = ("ljmd.zsort.resort", "ljmd.zsort.chunk")
+ZSORT_COND_SPANS = ("ljmd.zsort.check",) + ZSORT_SPANS
 
 
 def _zsort_engine_and_carry(zsort_fluid, replicas, trigger="always"):
@@ -180,14 +183,11 @@ def _zsort_engine_and_carry(zsort_fluid, replicas, trigger="always"):
     return cfg, eng, eng.init(state)[0]
 
 
-@pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
-def test_zsort_spans_are_direct_children_only_under_a_profiler(zsort_fluid, replicas):
+def _chunk_spans(eng, carry, chunks):
     """Without a profiler a zsort ``run_fast`` records nothing. Under one,
-    wrapped as the harness wraps ``run_fast``, each chunk records one
-    ``ljmd.zsort.check``, one ``ljmd.zsort.resort`` ("always") and one
-    ``ljmd.zsort.chunk``, each a direct child of the engine span (the check
-    closes before the resort starts), none under another program span."""
-    cfg, eng, carry = _zsort_engine_and_carry(zsort_fluid, replicas)
+    wrapped as the harness wraps ``run_fast``: the span tally and the program
+    spans directly under the engine span, in order, none of them under
+    another program span."""
     reset_spans()
     eng.run_fast(carry, FUSED_CHUNK)
     assert span_totals() == {}
@@ -196,15 +196,13 @@ def test_zsort_spans_are_direct_children_only_under_a_profiler(zsort_fluid, repl
         with record_function("ljbench.engine.run_fast"):
             return eng.run_fast(*args)
 
-    chunks = 2
     with _cpu_profile() as prof:
         run_fast(carry, chunks * FUSED_CHUNK)
-    assert _counts() == dict.fromkeys(ZSORT_SPANS, chunks)
+    counts = _counts()
     events = prof.events()
     outer = [e for e in events if e.name == "ljbench.engine.run_fast"]
     assert len(outer) == 1
     children = [c.name for c in outer[0].cpu_children if c.name.startswith("ljmd.")]
-    assert children == list(ZSORT_SPANS) * chunks
     for e in events:
         if e.name.startswith("ljmd."):
             parent = e.cpu_parent
@@ -212,6 +210,39 @@ def test_zsort_spans_are_direct_children_only_under_a_profiler(zsort_fluid, repl
                 assert not parent.name.startswith("ljmd."), (e.name, parent.name)
                 parent = parent.cpu_parent
     reset_spans()
+    return counts, children
+
+
+@pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
+def test_zsort_spans_are_direct_children_only_under_a_profiler(zsort_fluid, replicas):
+    """Under "always" each chunk records one ``ljmd.zsort.resort`` (the
+    travel check folded into it: no ``ljmd.zsort.check``) and one
+    ``ljmd.zsort.chunk``, each a direct child of the engine span, none under
+    another program span; nothing without a profiler."""
+    cfg, eng, carry = _zsort_engine_and_carry(zsort_fluid, replicas)
+    chunks = 2
+    counts, children = _chunk_spans(eng, carry, chunks)
+    assert counts == dict.fromkeys(ZSORT_SPANS, chunks)
+    assert children == list(ZSORT_SPANS) * chunks
+
+
+@pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
+def test_zsort_cond_trigger_check_span_closes_before_the_resort(zsort_fluid, replicas):
+    """A cond'd trigger keeps its check apart: with the reference rows moved
+    so that the static trigger fires, each chunk records one
+    ``ljmd.zsort.check`` (closed before the resort starts, its host read
+    after it), one ``ljmd.zsort.resort`` and one ``ljmd.zsort.chunk``."""
+    cfg, eng, carry = _zsort_engine_and_carry(zsort_fluid, replicas, trigger="static")
+    geo = pe.zsort_geometry(cfg, FUSED_CHUNK, trigger="static")
+    # Every particle 0.3 x skin along z from its reference: past skin / 4.
+    shift = torch.remainder(carry.r_ref[..., 2, :] + 0.3 * geo.sort_skin, cfg.box_length)
+    ref = carry.r_ref.clone()
+    ref[..., 2, :] = shift
+    carry = dataclasses.replace(carry, r_ref=ref)
+    counts, children = _chunk_spans(eng, carry, 1)
+    assert counts == {**dict.fromkeys(ZSORT_COND_SPANS, 1), "ljmd.read.zsort_fire": 1}
+    assert children == ["ljmd.zsort.check", "ljmd.read.zsort_fire", "ljmd.zsort.resort",
+                        "ljmd.zsort.chunk"]
 
 
 @pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
