@@ -254,13 +254,6 @@ checkout. Phases, each fatal on failure:
        and the chunks extended), the chunks under a capped grid, one launch
        for all R, each timed back to back, on the card alone (graph replay)
        and against the R one-replica launches (``loop_ms``);
-    i. the zsort resort triggers on N=4000 cut to 5,000 steps from one state:
-       ``always``, ``static`` and ``predictive`` through ``run_production``
-       (rate, resorts against checks, host reads, ``zsort_invalid`` False,
-       drift under 1e-3), ``never`` over 500 steps (its flag reported, not
-       gated); then an R=8 ``predictive`` ensemble at N=864 (2,000 steps)
-       against one-system engines: states bit-equal, series within 1e-6, each
-       replica's resort count its own;
     j. the batched neighbor and dense engines: config 4 cut to 2,000 steps
        (warmup 500) through ``ensemble --backend dense`` and ``--backend
        neighbor`` (``--per-run-dirs``): batched, 64/64 ok, no flag, no kernel,
@@ -521,19 +514,6 @@ REPLICA_FULL_KERNELS = ("pencil_sweep_full_replicas", "pencil_sweep_zband_replic
 # of the step's observables (_obs_match; tests/test_torch_cuda.py holds the
 # pressure made from d_epot so).
 REPLICA_OBS_RTOL = {"float64": 1e-13, "float32": 1e-6}
-# Phase 12i: the zsort resort triggers on examples/n4000_production.json cut
-# as n4000_f32_zsort (5,000 steps) from one post-warmup state; "never" (a
-# floor, its invalid flag reported, not gated) over TRIGGER_NEVER_STEPS; then
-# an R=8 "predictive" ensemble on examples/n864_liquid.json cut as the N=864
-# ensemble (ENSEMBLE_ZSORT_CUT) against one-system engines, bit for bit.
-ZSORT_TRIGGER_RUNS = ("always", "static", "predictive")
-# Host-clock rates of one engine spread between runs more than a trigger
-# moves them: each trigger's production runs TRIGGER_ROUNDS times, the order
-# reversed every other round, and its median and its wins over "always" in
-# the same round are reported.
-TRIGGER_ROUNDS = 5
-TRIGGER_NEVER_STEPS = 500
-TRIGGER_BATCH_R = 8
 PENCIL_CAPS = (512, 384)
 PENCIL_CHECK_STEPS = 4
 PENCIL_CHUNK_STEPS = 8
@@ -4152,8 +4132,8 @@ def phase_ensemble(torch, tmp: str) -> dict:
     from ljmd_tpu_torch.models.engine import (
         _replica_loop_engine,
         make_engine,
-        replica_backend,
         replica_state,
+        resolve_backend,
     )
     from ljmd_tpu_torch.models.simulation import (
         initialize_replicas,
@@ -4166,7 +4146,7 @@ def phase_ensemble(torch, tmp: str) -> dict:
     path = str(REPO / "examples" / "ensemble64.json")
     cfg = load_config(path)
     reps = cfg.n_runs
-    require(replica_backend(cfg, "auto", DEVICE, cfg.output_interval) == ("rows", True),
+    require(resolve_backend(cfg, "auto", DEVICE, cfg.output_interval) == "rows",
             "auto does not route config 4 to the batched rows engine")
     singles_k = ("pair_sweep_tri", "fused_dense_chunk", "fused_dense_chunk_ext")
     no_rows = ZSORT_KERNELS + PENCIL_KERNELS + ("pair_sweep",)
@@ -4301,7 +4281,7 @@ def phase_ensemble(torch, tmp: str) -> dict:
     name = "n864_f32_ensemble_zsort_loop"
     zcfg = load_config(str(REPO / "examples" / "n864_liquid.json")).replace(**ENSEMBLE_ZSORT_CUT)
     zreps = ENSEMBLE_ZSORT_R
-    require(replica_backend(zcfg, "auto", DEVICE, zcfg.output_interval) == ("zsort", True),
+    require(resolve_backend(zcfg, "auto", DEVICE, zcfg.output_interval) == "zsort",
             "auto does not route the N=864 ensemble to the batched zsort engine")
     torch.cuda.synchronize()
     t0 = time.time()
@@ -4451,18 +4431,6 @@ def phase_ensemble(torch, tmp: str) -> dict:
     return {"runs": runs, **report}
 
 
-def _final_carry(engine):
-    """``engine`` with its ``get_state`` keeping the carry it was last given
-    (``run_production`` ends with the final carry's), and that holder."""
-    held = {}
-
-    def get_state(c):
-        held["carry"] = c
-        return engine.get_state(c)
-
-    return engine._replace(get_state=get_state), held
-
-
 def phase_cellpair_ensemble(torch, tmp: str) -> dict:
     """Phase 12h: config 5's fluid as an R=8 ensemble through the batched
     cell-pair engine against the replica loop, then the replica launches of
@@ -4482,7 +4450,7 @@ def phase_cellpair_ensemble(torch, tmp: str) -> dict:
     cfg = load_config(str(REPO / "examples" / "n62500_large.json")).replace(
         **CELLPAIR_ENSEMBLE_CUT)
     reps, n = CELLPAIR_ENSEMBLE_R, cfg.n
-    require(pe.replica_backend(cfg, "auto", DEVICE, cfg.output_interval) == ("cellpair", True),
+    require(pe.resolve_backend(cfg, "auto", DEVICE, cfg.output_interval) == "cellpair",
             "auto does not route config 5's ensemble to the batched cell-pair engine")
     runs, report = {}, {}
 
@@ -4787,7 +4755,7 @@ def phase_replica_sweeps(torch, tmp: str, states5, cuts5) -> dict:
     # (i) config 4 through the CLI on the batched neighbor and dense engines.
     for backend in ("dense", "neighbor"):
         name = f"ensemble64_f32_{backend}_batched"
-        require(pe.replica_backend(cut, backend, DEVICE) == (backend, True),
+        require(pe.resolve_backend(cut, backend, DEVICE) == backend,
                 f"{name}: {backend} does not batch")
         out_dir = os.path.join(tmp, name)
         summary, counts, wall = _ensemble_cli(
@@ -5016,134 +4984,6 @@ def phase_replica_sweeps(torch, tmp: str, states5, cuts5) -> dict:
     return {"runs": runs, "cases": cases, "report": report}
 
 
-def phase_zsort_triggers(torch, tmp: str) -> dict:
-    """Phase 12i: the zsort resort triggers (ZSORT_TRIGGER_RUNS' comment):
-    each trigger's rate, resorts fired against checks, host reads,
-    ``zsort_invalid`` and drift; then the batched R=8 predictive ensemble at
-    N=864 against one-system engines bit for bit, each replica's resort
-    count its own."""
-    import numpy as np
-
-    from ljmd_tpu_torch.config import load_config
-    from ljmd_tpu_torch.models import engine as pe
-    from ljmd_tpu_torch.models.simulation import (
-        initialize,
-        initialize_replicas,
-        replica_generators,
-        run_production,
-    )
-    from ljmd_tpu_torch.ops._cuda import LAUNCHES
-
-    cfg = load_config(str(REPO / "examples" / "n4000_production.json")).replace(**N4000_CUT)
-    kw = pe._zsort_kwargs(cfg.output_interval)
-    state = initialize(cfg, device=DEVICE)
-    runs, report = {}, {}
-    for trigger in ZSORT_TRIGGER_RUNS:
-        name = f"n4000_f32_zsort_{trigger}"
-        engine, held = _final_carry(pe._zsort_engine(cfg, DEVICE, trigger=trigger, **kw))
-        run, _ = _production_run(torch, name, cfg, state, tmp, ZSORT_KERNELS,
-                                 ("fused_dense_chunk",) + REPLICA_ZSORT_KERNELS, engine=engine)
-        resorts = int(held["carry"].resorts)
-        checks = resorts if trigger == "always" else run["host_reads"]["zsort_fire"]
-        geo = pe.zsort_geometry(cfg, trigger=trigger, **kw)
-        runs[name] = {**run, "engine": f"zsort ({trigger})", "resorts": resorts,
-                      "checks": checks, "sort_skin": geo.sort_skin}
-        log(f"{name}: trigger {trigger}, skin {geo.sort_skin:.4f}: {resorts} resorts of "
-            f"{checks} checks, host reads {run['host_reads']['zsort_fire']}, zsort_invalid "
-            f"{run['diagnostics']['zsort_invalid']}, {run['particle_steps_per_s']:.4e} "
-            f"particle-steps/s, |dE/E| {run['drift']:.3e}")
-    rates = {t: [runs[f"n4000_f32_zsort_{t}"]["particle_steps_per_s"]]
-             for t in ZSORT_TRIGGER_RUNS}
-    for rnd in range(1, TRIGGER_ROUNDS):
-        for trigger in ZSORT_TRIGGER_RUNS[::-1] if rnd % 2 else ZSORT_TRIGGER_RUNS:
-            engine = pe._zsort_engine(cfg, DEVICE, trigger=trigger, **kw)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            run_production(cfg, state, engine=engine, record_frames=True)
-            torch.cuda.synchronize()
-            rates[trigger].append(cfg.n * cfg.total_steps / (time.time() - t0))
-    median = {t: float(np.median(v)) for t, v in rates.items()}
-    wins = {t: sum(r > a for r, a in zip(rates[t], rates["always"]))
-            for t in ZSORT_TRIGGER_RUNS if t != "always"}
-    report["rounds"] = {"rates": rates, "median": median, "wins_over_always": wins}
-    log(f"zsort triggers at N=4000, {TRIGGER_ROUNDS} rounds (order reversed every other "
-        f"round): median particle-steps/s "
-        + ", ".join(f"{t} {v:.4e}" for t, v in median.items())
-        + "; rounds beating always in the same round "
-        + ", ".join(f"{t} {w}/{TRIGGER_ROUNDS}" for t, w in wins.items())
-        + "; rates " + json.dumps({t: [float(f"{x:.4e}") for x in v] for t, v in rates.items()}))
-    # "never": a floor, over a short stretch; its flag reported.
-    name = "n4000_f32_zsort_never"
-    ncfg = cfg.replace(total_steps=TRIGGER_NEVER_STEPS, warmup_steps=0)
-    engine, held = _final_carry(pe._zsort_engine(ncfg, DEVICE, trigger="never", **kw))
-    torch.cuda.synchronize()
-    LAUNCHES.reset()
-    pe.HOST_READS.reset()
-    t0 = time.time()
-    res = run_production(ncfg, state, engine=engine)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    runs[name] = {"engine": "zsort (never)", "n": ncfg.n, "launches": LAUNCHES.snapshot(),
-                  "production_s": wall, "particle_steps_per_s": ncfg.n * ncfg.total_steps / wall,
-                  "resorts": int(held["carry"].resorts),
-                  "host_reads": pe.HOST_READS["zsort_fire"],
-                  "zsort_invalid": bool(res.diagnostics["zsort_invalid"]),
-                  "drift": _drift(res.series[2].cpu())}
-    require(runs[name]["resorts"] == 0 and runs[name]["host_reads"] == 0,
-            f"{name}: resorted or read the host")
-    log(f"{name}: {ncfg.total_steps} steps with no resort: "
-        f"{runs[name]['particle_steps_per_s']:.4e} particle-steps/s, zsort_invalid "
-        f"{runs[name]['zsort_invalid']} (a floor: not gated), |dE/E| {runs[name]['drift']:.3e}")
-    report["vs_always"] = {t: v / median["always"] for t, v in median.items()}
-    report["vs_always"]["never"] = runs[name]["particle_steps_per_s"] / median["always"]
-    log(f"zsort triggers at N=4000: median rate over always's "
-        + ", ".join(f"{t} {v:.3f}x" for t, v in report["vs_always"].items()))
-
-    # the batched predictive ensemble at N=864
-    zcfg = load_config(str(REPO / "examples" / "n864_liquid.json")).replace(**ENSEMBLE_ZSORT_CUT)
-    zkw = pe._zsort_kwargs(zcfg.output_interval)
-    reps = TRIGGER_BATCH_R
-    zstates = initialize_replicas(zcfg, replica_generators(zcfg.seed, reps), device=DEVICE)
-    name = f"n864_f32_ensemble_zsort_predictive_r{reps}"
-    engine, held = _final_carry(pe._zsort_engine(zcfg, DEVICE, trigger="predictive",
-                                                 replicas=reps, **zkw))
-    torch.cuda.synchronize()
-    LAUNCHES.reset()
-    pe.HOST_READS.reset()
-    t0 = time.time()
-    res = run_production(zcfg, zstates, engine=engine)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = LAUNCHES.snapshot()
-    _check_launches(name, counts, REPLICA_ZSORT_KERNELS, ZSORT_KERNELS)
-    reads = pe.HOST_READS["zsort_fire"]
-    resorts = held["carry"].resorts.tolist()
-    flags = bool(res.diagnostics["zsort_invalid"].any())
-    same, own = {}, {}
-    for q in range(reps):
-        e1, h1 = _final_carry(pe._zsort_engine(zcfg, DEVICE, trigger="predictive", **zkw))
-        one = run_production(zcfg, pe.replica_state(zstates, q), engine=e1)
-        same[q] = all(bool(torch.equal(getattr(res.final_state, f)[q],
-                                       getattr(one.final_state, f)))
-                      for f in ("r", "ru", "v", "a"))
-        same[q] &= bool(torch.allclose(res.series[q], one.series, rtol=ENSEMBLE_SERIES_RTOL,
-                                       atol=0.0))
-        own[q] = int(h1["carry"].resorts) == resorts[q]
-    rate = reps * zcfg.n * zcfg.total_steps / wall
-    runs[name] = {"engine": "zsort (predictive, batched)", "n": zcfg.n, "replicas": reps,
-                  "launches": counts, "production_s": wall, "particle_steps_per_s": rate,
-                  "resorts": resorts, "host_reads": reads, "zsort_invalid": flags}
-    report["batched_predictive"] = {"replicas_equal_one_system": same, "resorts_own": own}
-    log(f"{name}: R={reps} N={zcfg.n} x {zcfg.total_steps} steps, predictive: {wall:.3f}s = "
-        f"{rate:.4e} aggregate particle-steps/s, {reads} host reads, resorts per replica "
-        f"{resorts}, zsort_invalid {flags}; replicas bit-equal to one-system engines (states; "
-        f"series within {ENSEMBLE_SERIES_RTOL}) {same}, each replica's resort count its "
-        f"one-system engine's {own}")
-    require(all(same.values()) and all(own.values()) and not flags,
-            f"{name}: the batched predictive engine differs from its one-system engines")
-    return {"runs": runs, "report": report}
-
-
 def phase_kill_resume(torch, tmp: str) -> dict:
     """BASELINE config 5 (N=62500, ``auto`` -> cellpair) cut as N62500_CUT:
     ``init-config`` once, then from its rv_init.dat B (in-memory
@@ -5321,9 +5161,6 @@ def main() -> int:
         runs.update(sweeps["runs"])
         cases.update(sweeps["cases"])
         mark("phase 12j")
-        triggers = phase_zsort_triggers(torch, tmp)
-        runs.update(triggers["runs"])
-        mark("phase 12i")
     multi_rates = phase_multidevice_rates(torch, multi_states)
     mark("phase 9c")
     exp_runs = phase_experiments(torch)
@@ -5627,21 +5464,6 @@ def main() -> int:
         + "; config 5 R=8 " + ", ".join(f"{m} batched {r['particle_steps_per_s']:.4e} loop "
                                         f"{r['loop_particle_steps_per_s']:.4e}"
                                         for m, r in cp5.items()))
-    zpred = runs[f"n864_f32_ensemble_zsort_predictive_r{TRIGGER_BATCH_R}"]
-    rounds = triggers["report"]["rounds"]
-    log(f"zsort triggers on {env['nvidia_smi']}: N=4000 (5,000 steps), medians of "
-        f"{TRIGGER_ROUNDS} alternated rounds "
-        + ", ".join(f"{t} {v:.4e}" for t, v in rounds["median"].items())
-        + ", rounds beating always " + json.dumps(rounds["wins_over_always"]) + "; first round "
-        + ", ".join(f"{t} {runs[f'n4000_f32_zsort_{t}']['particle_steps_per_s']:.4e} "
-                    f"({runs[f'n4000_f32_zsort_{t}']['resorts']} resorts of "
-                    f"{runs[f'n4000_f32_zsort_{t}']['checks']} checks)"
-                    for t in ZSORT_TRIGGER_RUNS)
-        + f", never ({TRIGGER_NEVER_STEPS} steps) "
-        f"{runs['n4000_f32_zsort_never']['particle_steps_per_s']:.4e} (zsort_invalid "
-        f"{runs['n4000_f32_zsort_never']['zsort_invalid']}); N=864 R={TRIGGER_BATCH_R} "
-        f"predictive batched {zpred['particle_steps_per_s']:.4e}, resorts per replica "
-        f"{zpred['resorts']}")
     log(f"analysis and streaming on {env['nvidia_smi']}: config 3 "
         + ", ".join(f"{k} {v['card_ms']:.3f} ms" for k, v in analysis["functions"].items())
         + f" (card vs CPU within {max(v['rel_err'] for v in analysis['functions'].values()):.3e}, "

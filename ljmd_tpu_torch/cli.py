@@ -207,7 +207,7 @@ def cmd_analyze(args) -> int:
 
 
 def cmd_ensemble(args) -> int:
-    from ljmd_tpu_torch.models.engine import replica_backend
+    from ljmd_tpu_torch.models.engine import resolve_backend
     from ljmd_tpu_torch.models.simulation import (
         initialize_replicas,
         replica_generators,
@@ -226,7 +226,7 @@ def cmd_ensemble(args) -> int:
     n_runs = args.n_runs or cfg.n_runs
     out_dir = args.out_dir or "outputs"
     os.makedirs(out_dir, exist_ok=True)
-    engine, batched = replica_backend(cfg, args.backend, device, cfg.output_interval)
+    engine = resolve_backend(cfg, args.backend, device, cfg.output_interval)
     t0 = time.time()
     stream_stats = None
     if args.stream:
@@ -264,7 +264,7 @@ def cmd_ensemble(args) -> int:
     write_ensemble_artifacts(out_dir, cfg, out, n_runs)
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
 
-    summary = {"replicas": n_runs, "n": cfg.n, "engine": engine, "batched": batched,
+    summary = {"replicas": n_runs, "n": cfg.n, "engine": engine, "batched": True,
                "device": str(device), "init_s": t1 - t0, "production_s": t2 - t1,
                "particle_steps_per_s": n_runs * cfg.n * cfg.total_steps / (t2 - t1),
                "n_ok": int(ok.sum()),

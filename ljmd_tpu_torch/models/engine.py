@@ -89,14 +89,13 @@ from ljmd_tpu_torch.ops.pencil_sweep import (
     replica_tables,
     sentinel_fill,
 )
-from ljmd_tpu_torch.ops.zsort_resort import (ZSORT_TILE_I, ZSortGeometry, travel_moved2,
-                                             zsort_resort)
+from ljmd_tpu_torch.ops.zsort_resort import ZSORT_TILE_I, ZSortGeometry, zsort_resort
 from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy, replica_sum
 from ljmd_tpu_torch.utils.profiling import span
 
 __all__ = ["BACKENDS", "Engine", "HOST_READS", "HostReads", "PencilCarry", "RowCarry", "ROW_PAD",
            "ZSortCarry", "auto_backend", "host_read", "kinetic_temperature", "make_engine",
-           "make_replica_engine", "replica_backend", "replica_capacity", "replica_state",
+           "make_replica_engine", "replica_capacity", "replica_state", "resolve_backend",
            "resolve_device", "stack_states", "zsort_geometry"]
 
 # make_engine's backends ("pallas" is the JAX package's name for "rows").
@@ -113,14 +112,13 @@ class HostReads(dict):
 # Host reads of a device flag, per decision that depends on data (the JAX
 # engine takes them inside lax.cond): the cell-pair engine's per-step
 # displacement check, its predictive rebin trigger and its unfused default
-# chunk (one read per ``run_fast``), the zsort engine's cond'd resort
-# triggers (one read per chunk), the neighbor engine's
-# per-step rebuild check, and the sharded pencil engine's two and its default
+# chunk (one read per ``run_fast``), the neighbor engine's per-step rebuild
+# check, and the sharded pencil engine's two and its default
 # chunk (``parallel/spatial_pencil.py``: one read per decision, after a pmax).
 # A replica engine reads whether any replica's flag is set, once per decision.
 # Every read goes through ``host_read``.
 HOST_READS = HostReads(cellpair_moved=0, cellpair_will_exceed=0, cellpair_chunk=0,
-                       zsort_fire=0, neighbor_rebuild=0, sharded_pencil_moved=0,
+                       neighbor_rebuild=0, sharded_pencil_moved=0,
                        sharded_pencil_will_exceed=0, sharded_pencil_chunk=0)
 _READ_SPANS = {k: f"ljmd.read.{k}" for k in HOST_READS}
 
@@ -468,9 +466,8 @@ class ZSortCarry:
     remainders and velocity compensation of the extended mode (zeros
     otherwise). ``resorts`` (int32) counts the resorts since ``init`` and
     ``travel2`` holds the largest squared sorted-axis travel a check has
-    seen since ``init`` (neither is in the JAX carry: the resort triggers'
-    measurements read them; ``counters`` gives ``travel2`` as a share of
-    the invalid bound)."""
+    seen since ``init`` (neither is in the JAX carry; ``counters`` gives
+    ``travel2`` as a share of the invalid bound)."""
 
     r: torch.Tensor
     ru: torch.Tensor
@@ -487,13 +484,7 @@ class ZSortCarry:
     travel2: torch.Tensor
 
 
-# The JAX engine's resort triggers. "always" (what make_engine uses) resorts
-# before every chunk with no decision; "predictive" and "static" decide on
-# the device and skip the resort behind a lax.cond in JAX, here behind one
-# host read of the firing flag a chunk (HOST_READS["zsort_fire"]), so that a
-# skipped resort launches nothing; "never" never resorts.
-ZSORT_TRIGGERS = ("always", "predictive", "static", "never")
-# The port's "always" skin for an engine built for a state (make_engine /
+# The port's skin for an engine built for a state (make_engine /
 # make_replica_engine pass the state's kinetic temperature T, the largest
 # over replicas): the invalid bound, 0.6 x skin, is this many
 # u = sqrt(T) x inner_chunk x dt of sorted-axis travel in a chunk. The JAX
@@ -521,29 +512,22 @@ def zsort_travel_skin(temperature: float, inner_chunk: int, dt: float) -> float:
 
 def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | None = None,
                    tile_j: int | None = None, slab_sort: bool | None = None,
-                   trigger: str = "always", temperature: float | None = None) -> ZSortGeometry:
+                   temperature: float | None = None) -> ZSortGeometry:
     """Skin, window, slab mode, tile width, padding and sort-key bits of the
-    zsort engine (JAX ``engine.py:488-684``, same constants; tail lists on).
-    The default skin is the one-chunk travel bound under "always" and the
-    travel-bound auto skin under the cond'd triggers. Given the
-    ``temperature`` of the state the engine is built for, "always" takes the
-    larger of that bound and ``zsort_travel_skin`` (port only; without it,
-    or with an explicit ``sort_skin``, the JAX package's geometry), clamped
-    to what the box holds. Raises ValueError where the JAX engine does: an
-    unknown trigger, a box too small for the window or (under "always") for
-    the one-chunk travel skin, too few x-slabs, too few sort-key bits."""
-    if trigger not in ZSORT_TRIGGERS:
-        raise ValueError(f"unknown resort trigger {trigger!r}")
-    if sort_skin is None and trigger == "always":
+    zsort engine (JAX ``engine.py:488-684`` under its default resort before
+    every chunk, same constants; tail lists on). The default skin is the
+    one-chunk travel bound; given the ``temperature`` of the state the
+    engine is built for, the larger of that bound and ``zsort_travel_skin``
+    (port only; without it, or with an explicit ``sort_skin``, the JAX
+    package's geometry), clamped to what the box holds. Raises ValueError
+    where the JAX engine does: a box too small for the window or for the
+    one-chunk travel skin, too few x-slabs, too few sort-key bits."""
+    if sort_skin is None:
         # The flags only have to stay valid across ONE chunk:
         # 0.6 * skin >= 1.15 * v_max * inner_chunk * dt with v_max ~ 4.4.
         sort_skin = max(0.3, 8.5 * inner_chunk * cfg.dt)
         if temperature is not None:
             sort_skin = max(sort_skin, zsort_travel_skin(temperature, inner_chunk, cfg.dt))
-    if sort_skin is None:
-        # Resorts fire at 0.25 * skin and the flags hold to 0.6 * skin: the
-        # gap covers a chunk's worst travel with ~15% margin.
-        sort_skin = min(0.7, max(0.3, 14.5 * inner_chunk * cfg.dt))
     L = cfg.box_length
     n = cfg.n
     # The flag window must respect the minimum image (window < L/2).
@@ -551,10 +535,10 @@ def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | Non
     if clamped_skin < 0.15:
         raise ValueError("box too small for z-sorted tile skipping (rc ~ L/2); "
                          "use the rows engine")
-    if trigger == "always" and clamped_skin < 0.999 * min(sort_skin, 8.5 * inner_chunk * cfg.dt):
+    if clamped_skin < 0.999 * min(sort_skin, 8.5 * inner_chunk * cfg.dt):
         raise ValueError(
-            "box too small for the unconditional-resort skin at this "
-            f"inner_chunk={inner_chunk}; reduce inner_chunk or use a cond'd trigger")
+            "box too small for the one-chunk travel skin at this "
+            f"inner_chunk={inner_chunk}; reduce inner_chunk or dt")
     sort_skin = clamped_skin
     # The flags stay valid up to 0.6 * skin per-axis travel (the invalid
     # bound), hence the 1.2 x skin margin of the window.
@@ -577,7 +561,7 @@ def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | Non
                          f"n_pad={n_pad}, slabs={slab_bits} bits); use the pencil engine")
     return ZSortGeometry(
         sort_skin=sort_skin, window=window, invalid_thresh=(0.6 * sort_skin) ** 2,
-        resort_thresh=(0.25 * sort_skin) ** 2, n_slabs=n_slabs, slab_sort=slab_sort,
+        n_slabs=n_slabs, slab_sort=slab_sort,
         tile_j=tile_j, n_pad=n_pad, bits_pad=bits_pad, zq_bits=zq_bits,
         # The JAX list kernel's SMEM cliff; kept so both packages route alike.
         fused_viable=(n_pad // ZSORT_TILE_I) ** 2 <= 32768,
@@ -587,25 +571,17 @@ def zsort_geometry(cfg: SimConfig, inner_chunk: int = 16, sort_skin: float | Non
 def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                   sort_skin: float | None = None, tile_j: int | None = None,
                   extended: bool | None = None, slab_sort: bool | None = None,
-                  trigger: str = "always", replicas: int | None = None,
-                  temperature: float | None = None) -> Engine:
+                  replicas: int | None = None, temperature: float | None = None) -> Engine:
     """Dense fused engine with sorted tile skipping (JAX ``_zsort_engine``).
 
     Particles are kept in ascending-z column order (or (x-slab, z) with
     ``slab_sort``); before every fused chunk of at most ``inner_chunk``
     steps the engine checks the travel along the sorted axes since the last
-    sort (sticky ``invalid`` past 0.6 * skin) and, under ``trigger``,
-    re-sorts, recomputes the block flags and rebuilds the visit lists:
-    "always" (the default) before every chunk, all on the device with no
+    sort (sticky ``invalid`` past 0.6 * skin), re-sorts, recomputes the
+    block flags and rebuilds the visit lists, all on the device with no
     host read (the check folded into the resort, ``ops/zsort_resort.py``:
-    two launches on the card); "predictive" when a particle's sorted-axis
-    travel plus its own velocity's look-ahead over the chunk could pass
-    0.6 * skin;
-    "static" at a travel of skin / 4; "never" not at all (floor
-    measurements only). Under "predictive" and "static" the engine reads
-    the firing flag on the host once a chunk (``HOST_READS["zsort_fire"]``)
-    and a check that does not fire launches nothing. Per-step
-    ``step``/``step_fast`` use the order-agnostic tri sweep.
+    two launches on the card; the JAX engine's ``trigger="always"``).
+    Per-step ``step``/``step_fast`` use the order-agnostic tri sweep.
 
     ``replicas=R`` makes it the ensemble's engine for R independent
     replicas (the JAX package ``vmap``s the one-system engine): states are
@@ -616,13 +592,10 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     sorted order and lists. The sort keys are unique, so each replica's
     order is the one-system engine's; the flags, gathers and the travel
     check act on each replica alone; so replica q's rows are bit for bit
-    what a one-system engine gives it. Under a cond'd trigger each replica
-    decides for itself (JAX's vmap of lax.cond): where any replica fires,
-    the stack is resorted and each replica keeps its resorted or its old
-    carry by its own flag. The observables' sums reduce an (R, n_pad) row
-    at once, so they may round otherwise.
+    what a one-system engine gives it. The observables' sums reduce an
+    (R, n_pad) row at once, so they may round otherwise.
 
-    ``temperature`` (``zsort_geometry``) sizes the "always" skin from the
+    ``temperature`` (``zsort_geometry``) sizes the skin from the
     state's speeds: a one-system engine is replica q's twin only when it is
     built with the stack's temperature. ``counters`` gives each replica's
     largest sorted-axis travel of a check as a share of the invalid bound
@@ -634,11 +607,11 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     dtype = _effective_dtype(cfg)
     if extended is None:
         extended = (cfg.compensated_sum or cfg.dt <= 1.0e-3) and dtype == torch.float32
-    geo = zsort_geometry(cfg, inner_chunk, sort_skin, tile_j, slab_sort, trigger, temperature)
+    geo = zsort_geometry(cfg, inner_chunk, sort_skin, tile_j, slab_sort, temperature)
     n = cfg.n
     L = cfg.box_length
     tile_i = ZSORT_TILE_I
-    n_pad, tile_j, slab_sort = geo.n_pad, geo.tile_j, geo.slab_sort
+    n_pad, tile_j = geo.n_pad, geo.tile_j
     e_t, d_t, dd_t = (
         tail_corrections(n, cfg.volume, cfg.rc) if cfg.use_tail_corrections else (0.0, 0.0, 0.0)
     )
@@ -708,53 +681,18 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                                     vc=vc_new)
         return carry, obs_from(out, ekin)
 
-    def _resorted(c: ZSortCarry, check: bool = False) -> ZSortCarry:
-        """The resort (``ops/zsort_resort.py``: two launches on the card);
-        with ``check`` the "always" trigger's travel check folded in."""
+    def _resorted(c: ZSortCarry) -> ZSortCarry:
+        """The resort with the travel check folded in
+        (``ops/zsort_resort.py``: two launches on the card)."""
         with span("ljmd.zsort.resort"):
             s = _resort(c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc, resorts=c.resorts,
-                        check=(c.r_ref, c.invalid, c.travel2) if check else None)
-            checked = {"invalid": s.invalid, "travel2": s.travel2} if check else {}
+                        check=(c.r_ref, c.invalid, c.travel2))
             return dataclasses.replace(c, r=s.r, ru=s.ru, v=s.v, a=s.a, ids=s.ids, r_ref=s.r,
                                        tiles=s.tiles, tcounts=s.tcounts, rlo=s.rlo, vc=s.vc,
-                                       resorts=s.resorts, **checked)
-
-    def rmax(x):
-        return torch.max(x) if replicas is None else torch.amax(x, dim=-1)
-
-    look = 1.3 * inner_chunk * dt
-
-    def _maybe_resort(c: ZSortCarry) -> ZSortCarry:
-        if trigger == "always":
-            return _resorted(c, check=True)
-        with span("ljmd.zsort.check"):
-            # Per-axis staleness: only travel along a sorted axis (z; x too
-            # with slabs) can push a pair's gap past the window.
-            moved2, d, valid = travel_moved2(c.r, c.r_ref, c.ids, L, slab_sort)
-            checked = {"invalid": c.invalid | (moved2 > geo.invalid_thresh),
-                       "travel2": torch.maximum(c.travel2, moved2)}
-            if trigger == "predictive":
-                # Each particle's own look-ahead: its sorted-axis travel plus
-                # its velocity over the chunk (1.3x and 0.02 for the
-                # acceleration).
-                vv = c.v + c.vc if extended else c.v
-                pz = torch.abs(d[..., 2, :]) + look * torch.abs(vv[..., 2, :]) + 0.02
-                if slab_sort:
-                    px = torch.abs(d[..., 0, :]) + look * torch.abs(vv[..., 0, :]) + 0.02
-                    pz = torch.maximum(px, pz)
-                pred = rmax(pz * valid)
-                fire = pred * pred > geo.invalid_thresh
-            elif trigger == "static":
-                fire = moved2 > geo.resort_thresh
-        if trigger == "never" or not host_read("zsort_fire", fire.any()):
-            return dataclasses.replace(c, **checked)
-        new = _resorted(c)
-        if replicas is not None:
-            new = _pick_replicas(fire, new, c)
-        return dataclasses.replace(new, **checked)
+                                       resorts=s.resorts, invalid=s.invalid, travel2=s.travel2)
 
     def _chunk(c: ZSortCarry, k: int, obs: bool = False):
-        c = _maybe_resort(c)
+        c = _resorted(c)
         with span("ljmd.zsort.chunk"):
             if extended:
                 out = fused_dense_chunk_list(c.r, c.v, c.a, c.tiles, c.tcounts, n, L,
@@ -1325,6 +1263,54 @@ def auto_backend(cfg: SimConfig, on_accelerator: bool,
     return "zsort" if zsort_ok else "rows"
 
 
+def resolve_backend(cfg: SimConfig, backend: str = "auto", device="cuda",
+                    sample_interval: int | None = None) -> str:
+    """The backend ``backend`` names: ``auto_backend``'s pick for
+    ``"auto"``, else ``backend`` itself; a name not in ``BACKENDS`` raises
+    ValueError."""
+    device = resolve_device(device)
+    if backend == "auto":
+        backend = auto_backend(cfg, device.type == "cuda", sample_interval)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    return backend
+
+
+def replica_capacity(cfg: SimConfig, states: MDState | None) -> int:
+    """The cell-pair engine's one pencil capacity: ``cfg.neighbor_capacity``
+    where set, else the largest occupancy census (``capacity_from_state``,
+    JAX ``_cellpair_tuned``) over the replicas of ``states`` (an (N, 3)
+    state is one replica), else 0 (the lattice bound). JAX under vmap
+    cannot take a census of a traced state and takes the config's or the
+    lattice's."""
+    if cfg.neighbor_capacity or states is None:
+        return cfg.neighbor_capacity
+    r = states.r if states.r.dim() == 3 else states.r[None]
+    return max(capacity_from_state(cfg.box_length, cfg.rc + cfg.neighbor_skin, rq) for rq in r)
+
+
+def _build_engine(cfg: SimConfig, backend: str, device, state: MDState | None,
+                  sample_interval: int | None, replicas: int | None) -> Engine:
+    """The engine ``backend`` resolves to (``resolve_backend``), for one
+    system or, with ``replicas=R``, for an (R, N, 3) stack. ``state`` sizes
+    the zsort skin from its kinetic temperature (the hottest replica's) and
+    the cell-pair capacity (``replica_capacity``)."""
+    device = resolve_device(device)
+    backend = resolve_backend(cfg, backend, device, sample_interval)
+    if backend == "zsort":
+        temperature = None if state is None else kinetic_temperature(state)
+        return _zsort_engine(cfg, device, replicas=replicas, temperature=temperature,
+                             **_zsort_kwargs(sample_interval))
+    if backend == "cellpair":
+        cfg = cfg.replace(neighbor_capacity=replica_capacity(cfg, state))
+        return _cellpair_engine(cfg, device, replicas=replicas)
+    if backend == "neighbor":
+        return _neighbor_engine(cfg, device, replicas=replicas)
+    if backend == "dense":
+        return _force_engine(cfg, device)
+    return _rows_engine(cfg, device, replicas=replicas)
+
+
 def make_engine(cfg: SimConfig, backend: str = "auto", device="cuda", state=None,
                 sample_interval: int | None = None) -> Engine:
     """Build the engine for ``cfg`` on ``device`` (default the card; raises
@@ -1333,29 +1319,10 @@ def make_engine(cfg: SimConfig, backend: str = "auto", device="cuda", state=None
     ``sample_interval`` (the production loop's ``output_interval``) aligns
     the zsort inner chunk to it. ``state`` (a representative MDState, e.g.
     the post-warmup one) sizes the cell-pair engine's pencil capacity from
-    its occupancy census when ``cfg.neighbor_capacity`` is unset (JAX
-    ``_cellpair_tuned``) and the zsort engine's skin from its kinetic
-    temperature (``zsort_geometry``; an (R, N, 3) state: its hottest
-    replica's)."""
-    device = resolve_device(device)
-    if backend == "auto":
-        backend = auto_backend(cfg, device.type == "cuda", sample_interval)
-    if backend in ("rows", "pallas"):
-        return _rows_engine(cfg, device)
-    if backend == "zsort":
-        temperature = None if state is None else kinetic_temperature(state)
-        return _zsort_engine(cfg, device, temperature=temperature,
-                             **_zsort_kwargs(sample_interval))
-    if backend == "cellpair":
-        if state is not None and not cfg.neighbor_capacity:
-            cfg = cfg.replace(neighbor_capacity=capacity_from_state(
-                cfg.box_length, cfg.rc + cfg.neighbor_skin, state.r))
-        return _cellpair_engine(cfg, device)
-    if backend == "neighbor":
-        return _neighbor_engine(cfg, device)
-    if backend == "dense":
-        return _force_engine(cfg, device)
-    raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    its occupancy census when ``cfg.neighbor_capacity`` is unset and the
+    zsort engine's skin from its kinetic temperature (``zsort_geometry``;
+    an (R, N, 3) state: its hottest replica's)."""
+    return _build_engine(cfg, backend, device, state, sample_interval, None)
 
 
 def replica_state(states: MDState, i: int) -> MDState:
@@ -1416,34 +1383,6 @@ def _replica_loop_engine(engines: list) -> Engine:
     )
 
 
-def replica_backend(cfg: SimConfig, backend: str = "auto", device="cuda",
-                    sample_interval: int | None = None) -> tuple[str, bool]:
-    """(the backend ``backend`` resolves to, whether the replica engine of
-    ``make_replica_engine`` is batched): every backend batches its replicas
-    (rows / ``pallas``, zsort, cellpair, neighbor and dense), so the flag is
-    always True; it stays in the ensemble's summary line."""
-    device = resolve_device(device)
-    if backend == "auto":
-        backend = auto_backend(cfg, device.type == "cuda", sample_interval)
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    return backend, True
-
-
-def replica_capacity(cfg: SimConfig, states: MDState | None) -> int:
-    """The one pencil capacity of a batched cell-pair ensemble:
-    ``cfg.neighbor_capacity`` where set, else the largest occupancy census
-    (``capacity_from_state``) over the replicas of ``states``, else 0 (the
-    lattice bound, as ``make_engine`` without a state). JAX under vmap
-    cannot take a census of a traced state and takes the config's or the
-    lattice's."""
-    if cfg.neighbor_capacity or states is None:
-        return cfg.neighbor_capacity
-    r_list = cfg.rc + cfg.neighbor_skin
-    return max(capacity_from_state(cfg.box_length, r_list, states.r[q])
-               for q in range(states.r.shape[0]))
-
-
 def make_replica_engine(cfg: SimConfig, replicas: int, backend: str = "auto", device="cuda",
                         states: MDState | None = None,
                         sample_interval: int | None = None) -> Engine:
@@ -1458,17 +1397,4 @@ def make_replica_engine(cfg: SimConfig, replicas: int, backend: str = "auto", de
     zsort skin from the hottest replica (``kinetic_temperature``).
     ``_replica_loop_engine`` of R one-system engines stays the yardstick of
     the batched ones."""
-    device = resolve_device(device)
-    backend, _ = replica_backend(cfg, backend, device, sample_interval)
-    if backend == "zsort":
-        temperature = None if states is None else kinetic_temperature(states)
-        return _zsort_engine(cfg, device, replicas=replicas, temperature=temperature,
-                             **_zsort_kwargs(sample_interval))
-    if backend == "cellpair":
-        cfg = cfg.replace(neighbor_capacity=replica_capacity(cfg, states))
-        return _cellpair_engine(cfg, device, replicas=replicas)
-    if backend == "neighbor":
-        return _neighbor_engine(cfg, device, replicas=replicas)
-    if backend == "dense":
-        return _force_engine(cfg, device)
-    return _rows_engine(cfg, device, replicas=replicas)
+    return _build_engine(cfg, backend, device, states, sample_interval, replicas)

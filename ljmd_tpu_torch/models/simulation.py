@@ -41,7 +41,7 @@ from ljmd_tpu_torch.models.engine import (
     _effective_dtype,
     make_engine,
     make_replica_engine,
-    replica_backend,
+    resolve_backend,
     resolve_device,
 )
 from ljmd_tpu_torch.models.lattice import (
@@ -344,7 +344,7 @@ def initialize_replicas(cfg: SimConfig, generators, backend: str = "auto",
                         device="cuda") -> MDState:
     """``initialize`` for R replicas, one generator each: the (R, N, 3)
     post-warmup states. The replicas run together on the engine ``backend``
-    resolves to (``replica_backend``; every backend batches): the lattice,
+    resolves to (``resolve_backend``; every backend batches): the lattice,
     each replica's velocities from its own generator, per-replica COM
     removal, per-replica rescale to E_target, then the warmup on that engine
     with ``replicas=R`` (one launch a chunk for all R; cellpair at the
@@ -354,7 +354,7 @@ def initialize_replicas(cfg: SimConfig, generators, backend: str = "auto",
     bit for bit on the neighbor, dense and cell-pair engines)."""
     device = resolve_device(device)
     replicas = len(generators)
-    backend, _ = replica_backend(cfg, backend, device)
+    backend = resolve_backend(cfg, backend, device)
     dtype = _effective_dtype(cfg)
     r = fcc_lattice(cfg.num_cells, cfg.box_length, dtype=dtype, device=device)
     r = r.expand(replicas, -1, -1).contiguous()

@@ -15,8 +15,8 @@ n_pad) rows of a stack of R replicas, each its own:
   at 128 x 128 (window ``geo.window``, x tested with slabs, the crossing
   margin 0.6 x skin);
 - ``resorts`` + 1, where given;
-- with ``check`` = (r_ref, invalid, travel2), the ``always`` trigger's
-  travel check from the rows before the sort: the largest minimum-image
+- with ``check`` = (r_ref, invalid, travel2), the engine's travel check
+  from the rows before the sort: the largest minimum-image
   squared travel along the sorted axes (z; max of x and z with slabs) over
   valid columns, into the sticky ``invalid`` (past ``geo.invalid_thresh``)
   and the running maximum ``travel2``, one of each a replica.
@@ -61,7 +61,6 @@ class ZSortGeometry:
     sort_skin: float
     window: float
     invalid_thresh: float
-    resort_thresh: float
     n_slabs: int
     slab_sort: bool
     tile_j: int
@@ -91,14 +90,14 @@ class ZSortResorted(NamedTuple):
 
 def travel_moved2(r: torch.Tensor, r_ref: torch.Tensor, ids: torch.Tensor, box_length: float,
                   slab_sort: bool):
-    """The travel check's measure: ``(moved2, d, valid)``, each replica's
-    largest squared minimum-image travel from ``r_ref`` along the sorted
-    axes over valid columns, the displacement rows 0..2 and the validity."""
+    """The travel check's measure: each replica's largest squared
+    minimum-image travel from ``r_ref`` along the sorted axes over valid
+    columns."""
     d = minimum_image(r[..., 0:3, :] - r_ref[..., 0:3, :], box_length)
     valid = (ids >= 0).to(r.dtype)
     dz2 = d[..., 2, :] * d[..., 2, :]
     moved = torch.maximum(d[..., 0, :] * d[..., 0, :], dz2) if slab_sort else dz2
-    return torch.amax(moved * valid, dim=-1), d, valid
+    return torch.amax(moved * valid, dim=-1)
 
 
 def zsort_resort_plain(r, ru, v, a, ids, rlo, vc, geo: ZSortGeometry, n: int, box_length: float,
@@ -109,7 +108,7 @@ def zsort_resort_plain(r, ru, v, a, ids, rlo, vc, geo: ZSortGeometry, n: int, bo
     invalid = travel2 = None
     if check is not None:
         r_ref, invalid, travel2 = check
-        moved2, _, _ = travel_moved2(r, r_ref, ids, L, geo.slab_sort)
+        moved2 = travel_moved2(r, r_ref, ids, L, geo.slab_sort)
         invalid, travel2 = invalid | (moved2 > geo.invalid_thresh), torch.maximum(travel2, moved2)
     n_pad, zq_bits, bits_pad = geo.n_pad, geo.zq_bits, geo.bits_pad
     col = torch.arange(n_pad, dtype=torch.int32, device=r.device)
@@ -234,8 +233,8 @@ def zsort_resort(r, ru, v, a, ids, rlo, vc, geo: ZSortGeometry, n: int, box_leng
                  extended: bool, resorts=None, check=None) -> ZSortResorted:
     """Resort the zsort carry's rows and rebuild its visit lists (module
     docstring). Two kernel launches on CUDA tensors; the plain twin
-    otherwise. ``check`` = (r_ref, invalid, travel2) folds the ``always``
-    trigger's travel check in."""
+    otherwise. ``check`` = (r_ref, invalid, travel2) folds the engine's
+    travel check in."""
     if r.device.type == "cuda":
         return _launch(r, ru, v, a, ids, rlo, vc, geo, n, box_length, extended, resorts, check)
     return zsort_resort_plain(r, ru, v, a, ids, rlo, vc, geo, n, box_length, extended, resorts,

@@ -288,7 +288,7 @@ def test_batched_ensemble_matches_jax_cellpair_ensemble():
 
 
 def test_replica_routing_capacity_and_refusals(small):
-    """replica_backend batches cellpair; make_replica_engine takes one
+    """resolve_backend names cellpair; make_replica_engine takes one
     capacity for all replicas (the config's, else the largest census, else
     the lattice bound); initialize_replicas warms up batched at the lattice
     bound, replica q equal to initialize alone; the z-band, the full sweep
@@ -296,7 +296,7 @@ def test_replica_routing_capacity_and_refusals(small):
     test_torch_cellpair_sweeps_replicas.py runs them); replicas=0 raises."""
     cfg, states = small
     base = cfg.replace(neighbor_capacity=0)
-    assert pe.replica_backend(base, "cellpair", "cpu") == ("cellpair", True)
+    assert pe.resolve_backend(base, "cellpair", "cpu") == "cellpair"
     r_list = base.rc + base.neighbor_skin
     census = [pe.capacity_from_state(base.box_length, r_list, states.r[q]) for q in range(R)]
     assert pe.replica_capacity(base, states) == max(census)
@@ -316,6 +316,28 @@ def test_replica_routing_capacity_and_refusals(small):
         want = psim.initialize(short, g, backend="cellpair", device="cpu")
         for k in FIELDS:
             assert torch.equal(getattr(got, k)[q], getattr(want, k)), (q, k)
+
+
+def test_capacity_rule_counts_one_state_as_one_replica(small):
+    """One capacity rule for both factories: an (N, 3) state is one
+    replica, so ``replica_capacity`` of replica q alone is its census, and
+    ``make_engine`` from that state and ``make_replica_engine`` of the
+    one-replica stack build the grid at it; the config's capacity wins over
+    either."""
+    cfg, states = small
+    base = cfg.replace(neighbor_capacity=0)
+    r_list = base.rc + base.neighbor_skin
+    for q in range(R):
+        one = pe.replica_state(states, q)
+        census = pe.capacity_from_state(base.box_length, r_list, one.r)
+        assert pe.replica_capacity(base, one) == census
+        c, _ = pe.make_engine(base, "cellpair", "cpu", state=one).init(one)
+        assert c.r.shape == (8, 9 * census)
+        stack = pe.stack_states([one])
+        c, _ = pe.make_replica_engine(base, 1, "cellpair", "cpu", states=stack).init(stack)
+        assert c.r.shape == (8, 9 * census)
+    assert pe.replica_capacity(base.replace(neighbor_capacity=256),
+                               pe.replica_state(states, 0)) == 256
 
 
 def test_pencil_replica_conversion_round_trip(stack):

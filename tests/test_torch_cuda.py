@@ -2215,27 +2215,6 @@ def test_cellpair_ensemble_on_card_equals_single_runs(cuda, dtype, compensated):
             assert torch.equal(getattr(res.final_state, k)[q], getattr(one.final_state, k))
 
 
-@pytest.mark.parametrize("trigger", ["static", "predictive"])
-def test_zsort_trigger_decisions_on_card_match_cpu(cuda, trigger):
-    """The cond'd zsort triggers on the card take the CPU's decisions: the
-    same resort count and host reads over 10 chunks of 8, states within
-    1e-9 (float64)."""
-    cfg = SimConfig(num_cells=5, box_length=8.55, rc_over_box=2.5 / 8.55, dt=0.004,
-                    total_steps=10, warmup_steps=20, target_total_energy=-2300.0,
-                    dtype="float64")
-    state = initialize(cfg, backend="rows", device="cpu")
-    out = {}
-    for dev in ("cpu", cuda):
-        eng = pe._zsort_engine(cfg, dev, inner_chunk=8, trigger=trigger)
-        before = pe.HOST_READS["zsort_fire"]
-        c = eng.run_fast(eng.init(state.to(device=dev))[0], 80)
-        out[str(dev)] = (int(c.resorts), pe.HOST_READS["zsort_fire"] - before, eng.get_state(c))
-    (n_cpu, reads_cpu, s_cpu), (n_gpu, reads_gpu, s_gpu) = out.values()
-    assert n_cpu == n_gpu and 0 < n_cpu < 10 and reads_cpu == reads_gpu == 10
-    for k in ("r", "v"):
-        _close(getattr(s_gpu, k), getattr(s_cpu, k), 1e-9)
-
-
 def _sweep_stack(kind, cap, dtype, reps=3):
     """R grids side by side for kernels 11 and 12's replica launches, on the
     CPU: ``full``: _full_slots' jittered lattice (4x4 pencils) from R seeds

@@ -193,6 +193,26 @@ def test_make_engine_backends():
         pe.make_engine(cfg, "tiles", device="cpu")
 
 
+@pytest.mark.parametrize("backend,match", [("neighbor", "below L/2"), ("cellpair", "pencils"),
+                                           ("zsort", "box too small"),
+                                           ("tiles", "unknown backend")])
+def test_replica_factory_refuses_what_make_engine_refuses(backend, match):
+    """Both factories resolve and route through one builder: on a box that
+    holds none of these engines (or a name that is no backend) the ensemble
+    factory raises the ValueError ``make_engine`` raises, and
+    ``resolve_backend`` refuses only the unknown name."""
+    cfg = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45, target_total_energy=-60.0)
+    for build in (lambda: pe.make_engine(cfg, backend, device="cpu"),
+                  lambda: pe.make_replica_engine(cfg, 2, backend, device="cpu")):
+        with pytest.raises(ValueError, match=match):
+            build()
+    if backend == "tiles":
+        with pytest.raises(ValueError, match="unknown backend"):
+            pe.resolve_backend(cfg, backend, "cpu")
+    else:
+        assert pe.resolve_backend(cfg, backend, "cpu") == backend
+
+
 def test_make_engine_refuses_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

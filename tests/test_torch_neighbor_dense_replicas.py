@@ -261,15 +261,15 @@ def test_initialize_replicas_batched(backend):
 
 
 def test_routing_every_backend_batched(small):
-    """replica_backend returns (b, True) for every backend;
+    """resolve_backend names every backend (auto: rows on the CPU);
     make_replica_engine builds the batched neighbor and dense engines (one
     carry for the stack), the loop engine stays; replicas=0 raises."""
     cfg, states = small
     for b in pe.BACKENDS:
         if b == "auto":
-            assert pe.replica_backend(cfg, b, "cpu") == ("rows", True)
+            assert pe.resolve_backend(cfg, b, "cpu") == "rows"
         else:
-            assert pe.replica_backend(cfg, b, "cpu") == (b, True)
+            assert pe.resolve_backend(cfg, b, "cpu") == b
     nb = pe.make_replica_engine(cfg, R, "neighbor", "cpu")
     (state, lists), _ = nb.init(states)
     assert state.r.shape == (R, cfg.n, 3) and lists.idx.dim() == 3

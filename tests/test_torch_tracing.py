@@ -151,35 +151,37 @@ def test_program_spans_are_direct_children_of_the_engine_spans(pencil_fluid):
             parent = parent.cpu_parent
 
 
-@pytest.mark.parametrize("trigger,resorts", [("always", 1), ("static", 0)])
-def test_zsort_resort_span(zsort_fluid, trigger, resorts):
-    """A zsort chunk whose trigger fires ("always") records one
-    ``ljmd.zsort.resort``; the static trigger's first check, with nothing
-    moved, records its read and no resort."""
+# A chunk's spans: the resort (the travel check runs inside it), then the
+# fused chunk.
+ZSORT_SPANS = ("ljmd.zsort.resort", "ljmd.zsort.chunk")
+
+
+@pytest.mark.parametrize("call", ["run_fast", "run_sample"])
+def test_zsort_resort_span(zsort_fluid, call):
+    """One zsort chunk, plain (``run_fast``) or in obs_last mode
+    (``run_sample``), resorts once and records one ``ljmd.zsort.resort`` and
+    one ``ljmd.zsort.chunk``, and no host read."""
     cfg, state = zsort_fluid
-    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=FUSED_CHUNK, trigger=trigger)
+    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=FUSED_CHUNK)
     carry, _ = eng.init(state)
+    reads = dict(pe.HOST_READS)
     reset_spans()
     with _cpu_profile():
-        out = eng.run_fast(carry, FUSED_CHUNK)
+        out = getattr(eng, call)(carry, FUSED_CHUNK)
     counts = _counts()
-    assert int(out.resorts) - int(carry.resorts) == resorts
-    assert counts.get("ljmd.zsort.resort", 0) == resorts
-    assert counts.get("ljmd.read.zsort_fire", 0) == (trigger != "always")
+    if call == "run_sample":
+        out, obs = out
+        assert math.isfinite(float(obs.epot))
+    assert int(out.resorts) - int(carry.resorts) == 1
+    assert counts == dict.fromkeys(ZSORT_SPANS, 1)
+    assert dict(pe.HOST_READS) == reads
 
 
-# A chunk's spans: under "always" the travel check runs inside the resort (no
-# ljmd.zsort.check span); a cond'd trigger that fires checks, then resorts.
-ZSORT_SPANS = ("ljmd.zsort.resort", "ljmd.zsort.chunk")
-ZSORT_COND_SPANS = ("ljmd.zsort.check",) + ZSORT_SPANS
-
-
-def _zsort_engine_and_carry(zsort_fluid, replicas, trigger="always"):
+def _zsort_engine_and_carry(zsort_fluid, replicas):
     cfg, state = zsort_fluid
     if replicas is not None:
         state = pe.stack_states([state] * replicas)
-    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=FUSED_CHUNK, trigger=trigger,
-                           replicas=replicas)
+    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=FUSED_CHUNK, replicas=replicas)
     return cfg, eng, eng.init(state)[0]
 
 
@@ -215,8 +217,8 @@ def _chunk_spans(eng, carry, chunks):
 
 @pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
 def test_zsort_spans_are_direct_children_only_under_a_profiler(zsort_fluid, replicas):
-    """Under "always" each chunk records one ``ljmd.zsort.resort`` (the
-    travel check folded into it: no ``ljmd.zsort.check``) and one
+    """Each chunk records one ``ljmd.zsort.resort`` (the travel check
+    folded into it) and one
     ``ljmd.zsort.chunk``, each a direct child of the engine span, none under
     another program span; nothing without a profiler."""
     cfg, eng, carry = _zsort_engine_and_carry(zsort_fluid, replicas)
@@ -227,30 +229,11 @@ def test_zsort_spans_are_direct_children_only_under_a_profiler(zsort_fluid, repl
 
 
 @pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
-def test_zsort_cond_trigger_check_span_closes_before_the_resort(zsort_fluid, replicas):
-    """A cond'd trigger keeps its check apart: with the reference rows moved
-    so that the static trigger fires, each chunk records one
-    ``ljmd.zsort.check`` (closed before the resort starts, its host read
-    after it), one ``ljmd.zsort.resort`` and one ``ljmd.zsort.chunk``."""
-    cfg, eng, carry = _zsort_engine_and_carry(zsort_fluid, replicas, trigger="static")
-    geo = pe.zsort_geometry(cfg, FUSED_CHUNK, trigger="static")
-    # Every particle 0.3 x skin along z from its reference: past skin / 4.
-    shift = torch.remainder(carry.r_ref[..., 2, :] + 0.3 * geo.sort_skin, cfg.box_length)
-    ref = carry.r_ref.clone()
-    ref[..., 2, :] = shift
-    carry = dataclasses.replace(carry, r_ref=ref)
-    counts, children = _chunk_spans(eng, carry, 1)
-    assert counts == {**dict.fromkeys(ZSORT_COND_SPANS, 1), "ljmd.read.zsort_fire": 1}
-    assert children == ["ljmd.zsort.check", "ljmd.read.zsort_fire", "ljmd.zsort.resort",
-                        "ljmd.zsort.chunk"]
-
-
-@pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
 def test_zsort_travel_counter_is_the_largest_chunk_travel(zsort_fluid, replicas):
     """``counters``' ``zsort_travel_share`` after each chunk is the largest
     sorted-axis travel of the chunks checked so far (each chunk's z travel
     from its resort, read from the carry), as a share of the invalid bound,
-    a replica's each; under "always" it adds no host read."""
+    a replica's each; it adds no host read."""
     cfg, eng, carry = _zsort_engine_and_carry(zsort_fluid, replicas)
     if replicas is not None:  # replicas apart: a different state each
         carry = dataclasses.replace(carry, v=carry.v * torch.tensor([1.0, 1.3])[:, None, None])
@@ -293,13 +276,13 @@ def test_host_reads_reset_and_read_helper():
     assert pe.host_read("cellpair_moved", torch.tensor(True)) is True
     assert pe.host_read("cellpair_chunk", torch.tensor(2.5), float) == 2.5
     assert reads["cellpair_moved"] >= 1 and reads["cellpair_chunk"] >= 1
-    reads["zsort_fire"] = 7
+    reads["neighbor_rebuild"] = 7
     reads.reset()
     assert isinstance(reads, dict) and list(reads) == keys
     assert dict(reads) == dict.fromkeys(keys, 0)
     assert all(v == 0 for _, v in reads.items())
-    pe.host_read("zsort_fire", torch.tensor(False))
-    assert reads["zsort_fire"] == 1
+    pe.host_read("neighbor_rebuild", torch.tensor(False))
+    assert reads["neighbor_rebuild"] == 1
     reads.reset()
 
 

@@ -11,6 +11,7 @@ production series rtol 1e-8.
 """
 
 import dataclasses
+import math
 import os
 
 import jax
@@ -24,7 +25,9 @@ from ljmd_tpu.models.simulation import initialize as j_initialize
 from ljmd_tpu.models.simulation import run_production as j_run_production
 from ljmd_tpu_torch.config import SimConfig, load_config
 from ljmd_tpu_torch.models import engine as pe
+from ljmd_tpu_torch.models.lattice import fcc_lattice
 from ljmd_tpu_torch.models.simulation import run_production
+from ljmd_tpu_torch.state import MDState
 from ljmd_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -144,14 +147,78 @@ def port_small():
     return _port_cfg(jcfg), state
 
 
-@pytest.mark.parametrize("trigger", ["static", "predictive", "never"])
-def test_zsort_unported_triggers_raise(port_small, trigger):
-    """Every trigger of the JAX engine builds (tests/test_torch_zsort_triggers.py
-    runs them); a name that is none of them is a ValueError, as in the JAX
-    engine."""
-    cfg, _ = port_small
-    with pytest.raises(ValueError, match="trigger"):
-        pe._zsort_engine(cfg, "cpu", trigger=trigger + "x")
+def _closure_value(fn, name):
+    """The value a JAX engine function closes over under ``name``, searched
+    through the closures of the functions it closes over."""
+    seen, todo = set(), [fn]
+    while todo:
+        f = todo.pop()
+        if id(f) in seen or not hasattr(f, "__code__"):
+            continue
+        seen.add(id(f))
+        for var, cell in zip(f.__code__.co_freevars, f.__closure__ or ()):
+            value = cell.cell_contents
+            if var == name:
+                return value
+            if callable(value):
+                todo.append(value)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 17, 24])
+def test_zsort_geometry_matches_jax_closure(chunk):
+    """At inner chunk 8 and at the chunks a sample interval sets
+    (``_zsort_kwargs``: 17..24; 16 the default) the skin (the one-chunk
+    travel bound, max(0.3, 8.5 x chunk x dt)), the flag window and the
+    invalid bound equal the values the JAX engine closes over (N=500 at
+    rho* 0.8, dt 0.004); at dt 0.02 and chunk 64 the box cannot hold the
+    one-chunk travel skin, and both packages refuse it."""
+    jcfg = config_from_density(num_cells=5, density=0.8, dt=0.004, dtype="float64",
+                               total_steps=10, warmup_steps=30, target_total_energy=-2300.0)
+    je = j_zsort_engine(jcfg, interpret=True, inner_chunk=chunk)
+    geo = pe.zsort_geometry(_port_cfg(jcfg), chunk)
+    for name in ("sort_skin", "window", "invalid_thresh"):
+        assert getattr(geo, name) == _closure_value(je.run_fast, name), name
+    assert geo.sort_skin == max(0.3, 8.5 * chunk * 0.004)
+    hot = jcfg.replace(dt=0.02)
+    with pytest.raises(ValueError, match="box too small"):
+        j_zsort_engine(hot, interpret=True, inner_chunk=64)
+    with pytest.raises(ValueError, match="box too small for the one-chunk travel skin"):
+        pe.zsort_geometry(_port_cfg(hot), 64)
+
+
+@pytest.mark.parametrize("chunk", [16, 24])
+def test_zsort_travel_skin_clamped_by_the_box(chunk):
+    """At T = 3.0 (the LAMMPS hot start's temperature; N=500 at rho* 0.8442,
+    rc 2.5, dt 0.005) the travel skin ``zsort_travel_skin`` passes what the
+    box holds: the skin is the box clamp, (0.49 L - rc) / 1.2, the window
+    0.49 L, and an engine ``make_engine`` builds from a state at that
+    temperature runs with that invalid bound (its travel counter is the
+    carry's travel over 0.6 x the clamp) and its flag clear."""
+    cfg = SimConfig(num_cells=5, box_length=(500 / 0.8442) ** (1 / 3),
+                    rc_over_box=2.5 / (500 / 0.8442) ** (1 / 3), dt=0.005, dtype="float64",
+                    total_steps=10, warmup_steps=0)
+    L, temp = cfg.box_length, 3.0
+    clamp = (0.49 * L - cfg.rc) / 1.2
+    assert pe.zsort_travel_skin(temp, chunk, cfg.dt) > clamp > 8.5 * chunk * cfg.dt
+    geo = pe.zsort_geometry(cfg, chunk, temperature=temp)
+    assert geo.sort_skin == clamp and geo.window == pytest.approx(0.49 * L, rel=1e-14)
+    assert geo.invalid_thresh == (0.6 * clamp) ** 2
+    lattice = fcc_lattice(cfg.num_cells, L, dtype=torch.float64)
+    v = torch.randn(lattice.shape, generator=torch.Generator().manual_seed(7),
+                    dtype=torch.float64)
+    v = v - v.mean(dim=0)
+    v = v * math.sqrt(3.0 * cfg.n * temp / float(torch.sum(v * v)))
+    state = MDState(r=lattice, ru=lattice, v=v, a=torch.zeros_like(lattice))
+    assert pe.kinetic_temperature(state) == pytest.approx(temp, rel=1e-12)
+    eng = pe.make_engine(cfg, "zsort", "cpu", state=state,
+                         sample_interval=chunk if chunk > 16 else None)
+    c = eng.run_fast(eng.init(state)[0], 2 * chunk)
+    c = eng.run_fast(c, chunk)
+    share = eng.counters(c)["zsort_travel_share"]
+    assert 0.0 < float(share) < 1.0
+    assert float(share) * 0.6 * clamp == pytest.approx(math.sqrt(float(c.travel2)), rel=1e-12)
+    assert not bool(eng.diagnostics(c)["zsort_invalid"])
 
 
 def test_zsort_extended_engine_tracks_compensated_rows(port_small):
@@ -182,8 +249,6 @@ def test_zsort_geometry_matches_jax_constants():
     big = SimConfig(num_cells=20, box_length=34.2, rc_over_box=2.5 / 34.2)
     g = pe.zsort_geometry(big)
     assert g.slab_sort and g.tile_j == 768 and g.n_pad == 32000
-    with pytest.raises(ValueError, match="trigger"):
-        pe.zsort_geometry(n864, trigger="sometimes")
     tiny = SimConfig(num_cells=2, box_length=4.0, rc_over_box=0.45)
     with pytest.raises(ValueError, match="box too small"):
         pe.make_engine(tiny, "zsort", device="cpu")

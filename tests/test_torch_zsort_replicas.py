@@ -9,15 +9,16 @@ float64 unless named, at small sizes:
   1e-10), and replica q of each against the one-replica call bit for bit;
 - replica q of the batched engine against the one-system zsort engine from
   replica q's state, bit for bit: init, run_fast, step, run_sample, the
-  sorted ids and the lists, plain and extended;
+  sorted ids and the lists, plain and extended; and chunk by chunk for
+  replicas at two temperatures;
 - the batched ensemble (``run_production`` of (R, N, 3) states, ``auto`` on
   the CPU does not pick zsort, so ``backend="zsort"``) against the JAX
   package's ``ensemble_simulate(backend="zsort")`` from its own initial
   states, at tests/test_torch_zsort.py's tolerance (series and states rtol
   1e-8), and against one-replica runs bit for bit;
-- the routing: ``replica_backend`` batches zsort (and every other
-  backend), and the replica loop stays reachable (``_replica_loop_engine``) and equal to the
-  batched engine.
+- the routing: ``resolve_backend`` names zsort (and every other backend)
+  for ``make_replica_engine``, which batches it, and the replica loop stays
+  reachable (``_replica_loop_engine``) and equal to the batched engine.
 """
 
 import dataclasses
@@ -210,6 +211,39 @@ def test_batched_engine_replicas_equal_one_system_engine(extended):
     assert not bool(eng.diagnostics(carries[-1])["zsort_invalid"].any())
 
 
+def test_batched_replicas_apart_equal_one_system_chunk_by_chunk():
+    """R=2 replicas, the second 1.6x hotter (N=500 at rho* 0.8, dt 0.004):
+    after every one of 6 chunks of 8 (and a run_sample) replica q's carry,
+    its resort count included, is the one-system engine's bit for bit, and
+    neither flag is set."""
+    reps, chunk = 2, 8
+    cfg = _port_cfg(config_from_density(num_cells=5, density=0.8, dt=0.004, dtype="float64",
+                                        total_steps=10, warmup_steps=30,
+                                        target_total_energy=-2300.0))
+    states = _states(cfg, 11, replicas=reps)
+    hotter = torch.tensor([1.0, 1.6], dtype=states.v.dtype)[:, None, None]
+    states = dataclasses.replace(states, v=states.v * hotter)
+    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=chunk, extended=False, replicas=reps)
+    one = pe._zsort_engine(cfg, "cpu", inner_chunk=chunk, extended=False)
+    c, _ = eng.init(states)
+    ones = [one.init(pe.replica_state(states, q))[0] for q in range(reps)]
+    for k in range(6):
+        c = eng.run_fast(c, chunk)
+        ones = [one.run_fast(cq, chunk) for cq in ones]
+        for q in range(reps):
+            _same_carry(c, q, ones[q])
+        assert c.resorts.tolist() == [k + 1] * reps
+    c, obs = eng.run_sample(c, chunk)
+    for q in range(reps):
+        cq, oq = one.run_sample(ones[q], chunk)
+        _same_carry(c, q, cq)
+        assert torch.equal(obs.epot[q], oq.epot) and torch.equal(obs.ekin[q], oq.ekin)
+        got, want = eng.get_state(c), one.get_state(cq)
+        for k in FIELDS:
+            assert torch.equal(getattr(got, k)[q], getattr(want, k)), k
+    assert not bool(eng.diagnostics(c)["zsort_invalid"].any())
+
+
 def test_batched_ensemble_matches_jax_zsort_ensemble():
     """``run_production`` of the batched engine from JAX's initial states
     against JAX's ``ensemble_simulate(backend="zsort")``: series, means and
@@ -226,7 +260,7 @@ def test_batched_ensemble_matches_jax_zsort_ensemble():
     jstates = jax.jit(jax.vmap(lambda k: j_initialize(jcfg, k, backend="zsort")))(keys)
     pcfg = _port_cfg(jcfg)
     states = convert.state_from_numpy({k: np.asarray(getattr(jstates, k)) for k in FIELDS})
-    assert pe.replica_backend(pcfg, "zsort", "cpu") == ("zsort", True)
+    assert pe.resolve_backend(pcfg, "zsort", "cpu") == "zsort"
     res = psim.run_production(pcfg, states, backend="zsort", device="cpu")
     got = pens.ensemble_aggregate(pcfg, res)
     np.testing.assert_allclose(res.series.numpy(), np.asarray(wres.series), rtol=1e-8,
@@ -267,9 +301,9 @@ def test_replica_loop_stays_and_equals_the_batched_engine():
     assert torch.equal(a.series, b.series)
     for k in FIELDS:
         assert torch.equal(getattr(a.final_state, k), getattr(b.final_state, k)), k
-    assert pe.replica_backend(cfg, "cellpair", "cpu") == ("cellpair", True)
+    assert pe.resolve_backend(cfg, "cellpair", "cpu") == "cellpair"
     for backend in ("neighbor", "dense"):
-        assert pe.replica_backend(cfg, backend, "cpu") == (backend, True)
-    assert pe.replica_backend(cfg, "rows", "cpu") == ("rows", True)
+        assert pe.resolve_backend(cfg, backend, "cpu") == backend
+    assert pe.resolve_backend(cfg, "rows", "cpu") == "rows"
     with pytest.raises(ValueError, match="replicas >= 1"):
         pe._zsort_engine(cfg, "cpu", replicas=0)

@@ -3,7 +3,7 @@
 ``zsort_resort_plain``:
 
 - bit for bit the composition the engine ran before it (its closures
-  ``_sort`` and ``_lists`` and the travel check of ``_maybe_resort``), for
+  ``_sort`` and ``_lists`` and its separate travel check), for
   one system and an R=3 stack, z order and (x-slab, z) order, plain and
   extended, float64 and float32, on shuffled rows with padding columns
   scattered among them, particles on both z faces and one particle of the
@@ -11,10 +11,11 @@
 - against the JAX package: its zsort engine's sort (``init`` from one state:
   the rows, ids and lists) and its ``compute_tile_flags``
   (``ljmd_tpu/ops/pallas_fused.py``) on the resorted rows, packed;
-- the ``always`` trigger's check folded into the resort against the
-  separate check the cond'd triggers keep, under "always", "predictive" and
-  "static": the sticky flag and the travel maximum after a chunk whose
-  reference rows put one particle past the invalid bound.
+- the engine's travel check, folded into the resort, against the separate
+  check it replaced, in both sort orders (with slabs, travel along x
+  counts), plain and extended, for one system and an R=3 stack: the sticky
+  flag and the travel maximum after a chunk whose reference rows put one
+  particle of the first and of the last replica past the invalid bound.
 
 The card's kernels are held to this twin in tests/test_torch_cuda.py.
 """
@@ -256,15 +257,18 @@ def test_resort_matches_the_jax_sort_and_flags(case):
         _same_lists(got.tiles[q], got.tcounts[q], tiles, tcounts)
 
 
-@pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
-@pytest.mark.parametrize("trigger", ["always", "predictive", "static"])
-def test_folded_check_matches_the_separate_check(trigger, replicas):
-    """A chunk after one whose reference rows put a particle of the last
-    replica 0.9 x skin from its z: under "always" the check runs
-    inside the resort, under the cond'd triggers apart from it; either way
-    the carry's flag and travel maximum are the check's formula on the carry
-    before the chunk, and the other replica keeps its flag clear."""
-    cfg = _port_cfg(_jcfg("pure_z"))
+@pytest.mark.parametrize("replicas", [None, 3], ids=["one", "stacked"])
+@pytest.mark.parametrize("extended", [False, True], ids=["plain", "extended"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_folded_check_matches_the_separate_check(case, extended, replicas):
+    """A chunk (of two steps) after one whose reference rows put a particle
+    of the first and of the last replica 0.9 x skin from it along a sorted
+    axis (z; x in
+    the slab order, where x travel counts): the check runs inside the
+    resort, and the carry's flag and travel maximum are the separate
+    check's formula on the carry before the chunk; a replica between them
+    keeps its flag clear, and every chunk resorts."""
+    cfg = _port_cfg(_jcfg(case))
     lattice = fcc_lattice(cfg.num_cells, cfg.box_length, dtype=torch.float64)
     gen = torch.Generator().manual_seed(3)
     state = MDState(r=lattice, ru=lattice, v=torch.randn(lattice.shape, generator=gen,
@@ -272,20 +276,24 @@ def test_folded_check_matches_the_separate_check(trigger, replicas):
                     a=torch.zeros_like(lattice))
     if replicas is not None:
         state = pe.stack_states([state] * replicas)
-    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=8, trigger=trigger, replicas=replicas)
-    geo = pe.zsort_geometry(cfg, 8, trigger=trigger)
-    c = eng.run_fast(eng.init(state)[0], 8)
-    ref = c.r_ref.clone()
-    last = ref if replicas is None else ref[-1]  # a view: writes go to ref
-    r_last = c.r if replicas is None else c.r[-1]
-    col = int(torch.nonzero(c.ids.reshape(-1, geo.n_pad)[-1] >= 0)[5])
-    last[2, col] = torch.remainder(r_last[2, col] - 0.9 * geo.sort_skin, cfg.box_length)
-    c = dataclasses.replace(c, r_ref=ref)
+    eng = pe._zsort_engine(cfg, "cpu", inner_chunk=8, extended=extended, replicas=replicas,
+                           **CASES[case][1])
+    geo = _geometry(case, cfg)
+    c = eng.run_fast(eng.init(state)[0], 2)
+    reps = replicas or 1
+    planted = sorted({0, reps - 1})
+    axis = 0 if geo.slab_sort else 2
+    ref = c.r_ref.clone().reshape(reps, 8, geo.n_pad)
+    r = c.r.reshape(reps, 8, geo.n_pad)
+    for q in planted:
+        col = int(torch.nonzero(c.ids.reshape(reps, geo.n_pad)[q] >= 0)[5])
+        ref[q, axis, col] = torch.remainder(r[q, axis, col] - 0.9 * geo.sort_skin,
+                                            cfg.box_length)
+    c = dataclasses.replace(c, r_ref=ref.reshape(c.r_ref.shape))
     want_invalid, want_travel2 = _old_check(c.r, c.r_ref, c.ids, c.invalid, c.travel2, geo,
                                             cfg.box_length, replicas)
-    assert want_invalid.flatten().tolist() == [False] * ((replicas or 1) - 1) + [True]
-    out = eng.run_fast(c, 8)
+    assert want_invalid.flatten().tolist() == [q in planted for q in range(reps)]
+    out = eng.run_fast(c, 2)
     _same_bits(out.invalid, want_invalid)
     _same_bits(out.travel2, want_travel2)
-    # Under "always" every chunk resorts; the cond'd triggers fire here.
-    assert bool((out.resorts > c.resorts).any())
+    _same_bits(out.resorts, c.resorts + 1)
