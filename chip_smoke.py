@@ -213,7 +213,11 @@ checkout. Phases, each fatal on failure:
        (final states bit-equal to the loop's); at R=64 through the CLI
        (64/64 ok, no flag set, only the replica launches of kernels 9 and
        10) and in process (replica 0 bit-equal to its one-system zsort run),
-       its rate against the loop's; the reference default in float32
+       its rate against the loop's; config 3 at R=64 cut to 1,000 steps in
+       process (kernel 10's replica launch takes its xy order and box test
+       there and not at N=864; 64/64 ok, no flag set, every replica's
+       ``list_skip_share`` in (0.2, 1), replica 0 bit-equal to its
+       one-system zsort run); the reference default in float32
        (compensated: kernel 4's replica launch) as an R=8 ensemble cut to
        2,000 steps;
     f. ``--per-run-dirs`` at R=4 on the cut: run_XXXX/ and several_runs.txt;
@@ -224,7 +228,10 @@ checkout. Phases, each fatal on failure:
        R=32 on config 4's d=2 ring (the rank's self block, where gi0 = gj0,
        and the visiting block), of kernel 2 at R=32 on config 4's 128-row
        self block, of kernels 9 and 10 at R=64 on config 2's N=864 (kernel
-       10 plain and extended), float32 and float64: against their twins,
+       10 plain and extended: its plain instantiation), of kernel 10 at R=64
+       on config 3's N=4000 (plain, obs_last and extended: its xy order and
+       box test, float64 extended streamed and plain; the kernels row
+       ``fused_dense_chunk_list_replicas_xy``), float32 and float64: against their twins,
        replicas 0, mid
        and last against one-replica launches bit for bit, a planted NaN (the
        pack: planted flags) kept in its replica, kernel 10 under a capped
@@ -422,6 +429,10 @@ ENSEMBLE_CUT = {"total_steps": 2_000}
 ENSEMBLE_SINGLE_REPLICAS = (0, 63)
 ENSEMBLE_ZSORT_R = 8
 ENSEMBLE_ZSORT_CUT = {"total_steps": 2_000, "warmup_steps": 1_000}
+ENSEMBLE_ZSORT_N4000_CUT = {"total_steps": 1_000, "warmup_steps": 200}
+# The run whose kernel 10 replica launches take the xy order and the box
+# test: the kernels row fused_dense_chunk_list_replicas_xy counts them.
+XY_REPLICA_RUN = "n4000_f32_ensemble_zsort_batched"
 ENSEMBLE_PER_RUN_R = 4
 # Kernel 4's replica launch on the main path: the reference default in
 # float32 (N=500, dt=1e-4: compensated) as an R=8 ensemble, cut as phase 9's
@@ -457,14 +468,19 @@ REPLICA_KERNELS = ("pair_sweep_tri_replicas", "fused_dense_chunk_replicas",
 # 128) x [0, 128)); kernel 6 at R=8 on the ring's 2000 x 2000 and at R=32 on
 # config 4's d=2 ring (the high rank's self block and its visiting block);
 # kernel 2 at R=32 on config 4's 128-row self block; kernels 9 and 10 at
-# R=64 on config 2's N=864 (n_pad 896, the 16-step chunk); replicas 0, mid
-# and last against one-replica launches bit for bit. (b) config 4 through
+# R=64 on config 2's N=864 (n_pad 896, the 16-step chunk: S = 64, kernel
+# 10's plain instantiation) and kernel 10 at R=64 on config 3's N=4000
+# (n_pad 4096, S = 16: its xy order and box test, the n4000.r64.i50 cell's
+# launch, a kernels row of its own); replicas 0, mid and last against
+# one-replica launches bit for bit. (b) config 4 through
 # the replica x particle half ring on a (replica=2, particle=2) thread mesh,
 # cut to 2,000 steps (plus REPLICA_RING_STEPS of the ring, for kernel 6's
 # replica launch), its replicas REPLICA_PARTICLE_BITS against one-replica
 # sharded runs, its drift beside the batched rows engine's on the same cut,
 # float64 against that engine over CROSS_STEPS. (c) the N=864 ensemble at
-# R=64 through the CLI (auto -> zsort, batched) on ENSEMBLE_ZSORT_CUT.
+# R=64 through the CLI (auto -> zsort, batched) on ENSEMBLE_ZSORT_CUT, and
+# config 3 at R=64 in process on ENSEMBLE_ZSORT_N4000_CUT (kernel 10's xy
+# order on the main path).
 REPLICA_HOP_KERNELS = ("pair_sweep_rect_replicas", "pair_sweep_rect_newton_replicas")
 REPLICA_ZSORT_KERNELS = ("zsort_sort_replicas", "zsort_pack_replicas",
                          "fused_dense_chunk_list_replicas")
@@ -3628,18 +3644,20 @@ def phase_replica_kernels(torch) -> dict:
     one-replica launches bit for bit (replicas 0, mid, last), with a planted
     NaN (kernel 9: planted flags), each timed against the R one-replica
     launches it replaces (``loop_ms``; kernels 6, 7 and 9 also on the card
-    alone)."""
+    alone); kernel 10 at N=864 (the plain instantiation) and at N=4000 (the
+    xy order and the box test, its own kernels row)."""
     import numpy as np
 
     from ljmd_tpu_torch.config import load_config
     from ljmd_tpu_torch.models.engine import zsort_geometry
     from ljmd_tpu_torch.models.lattice import fcc_lattice
-    from ljmd_tpu_torch.ops import fused_list, pair_sweep, window_lists
+    from ljmd_tpu_torch.ops import pair_sweep, window_lists
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
 
     dev = torch.device(DEVICE)
     cases = {name: [] for name in ("pair_sweep_tri_replicas",) + REPLICA_HOP_KERNELS
-             + ("build_window_lists_replicas", "fused_dense_chunk_list_replicas")}
+             + ("build_window_lists_replicas", "fused_dense_chunk_list_replicas",
+                "fused_dense_chunk_list_replicas_xy")}
     ens = load_config(str(REPO / "examples" / "ensemble64.json"))
     for dname, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         # Kernel 7: the half ring's full hop at N=4000 d=4 (block 1 visiting
@@ -3784,7 +3802,7 @@ def phase_replica_kernels(torch) -> dict:
         # tile_j 512), R=64 sorted fluids, the 16-step chunk.
         zcfg = load_config(str(REPO / "examples" / "n864_liquid.json"))
         geo = zsort_geometry(zcfg, inner_chunk=LIST_CHUNK_STEPS)
-        L, n_pad, tj, k = zcfg.box_length, geo.n_pad, geo.tile_j, LIST_CHUNK_STEPS
+        L, n_pad, tj = zcfg.box_length, geo.n_pad, geo.tile_j
         parts = [sorted_fluid(zcfg, n_pad, 6000 + q, torch, dtype, dev)
                  for q in range(REPLICA_LIST_R)]
         n = parts[0][0]
@@ -3831,60 +3849,30 @@ def phase_replica_kernels(torch) -> dict:
             "loop_card_ms": graph_ms(torch, lambda: [pack(f, False) for f in singles], 5),
             "plain_ms": pack_plain_ms})
 
-        cand = cut = 0
-        for q in range(REPLICA_LIST_R):
-            cover = fused_list.list_coverage(tiles[q], tcounts[q], n, n_pad, 128, tj)[0]
-            cand += int(cover[:n, :n].sum())
-            cut += pairs_within(torch, r[q, 0:3, :n].T, L, zcfg.rc_square)
-        rows_bytes = 8 * n_pad * r.element_size() * REPLICA_LIST_R
-        zero = torch.zeros_like(r)
-        for mode in ("plain", "extended"):
-            ext = mode == "extended"
-            if ext:
-                def chunk(r_, lo_, v_, vc_, a_, t_, c_):
-                    return fused_list.fused_dense_chunk_list(r_, v_, a_, t_, c_, n, L,
-                                                             zcfg.rc_square, zcfg.dt, k,
-                                                             tile_j=tj, r_lo=lo_, vc=vc_)
+        cases["fused_dense_chunk_list_replicas"] += replica_list_chunk_cases(
+            torch, "fused_dense_chunk_list_replicas", zcfg, geo, r, v, a, tiles, tcounts, dname,
+            ("plain", "extended"), slots=())
 
-                def chunk_twin(r_, lo_, v_, vc_, a_, t_, c_):
-                    return fused_list.fused_dense_chunk_list_plain(r_, v_, a_, t_, c_, n, L,
-                                                                   zcfg.rc_square, zcfg.dt, k,
-                                                                   tile_j=tj, r_lo=lo_,
-                                                                   vc=vc_)
-
-                stacks = (r, zero, v, zero, a, tiles, tcounts)
-
-                def compare(out):
-                    return (out[0].double() + out[1].double(),
-                            out[2].double() + out[3].double(), out[4])
-            else:
-                def chunk(r_, v_, a_, t_, c_):
-                    return fused_list.fused_dense_chunk_list(r_, v_, a_, t_, c_, n, L,
-                                                             zcfg.rc_square, zcfg.dt, k,
-                                                             tile_j=tj)
-
-                def chunk_twin(r_, v_, a_, t_, c_):
-                    return fused_list.fused_dense_chunk_list_plain(r_, v_, a_, t_, c_, n, L,
-                                                                   zcfg.rc_square, zcfg.dt, k,
-                                                                   tile_j=tj)
-
-                stacks, compare = (r, v, a, tiles, tcounts), None
-            c = replica_case(torch, "fused_dense_chunk_list_replicas",
-                             label + (" extended" if ext else ""), dname, chunk, chunk_twin,
-                             stacks, chunk_flops(k, cand, cut, REPLICA_LIST_R * n),
-                             (10 if ext else 6) * rows_bytes, card=False, compare=compare,
-                             reps=10, loop_reps=2, plain_reps=0)
-            plan = fused_list.list_replicas_plan(r, ext)
-            largs = (r, v, a, tiles, tcounts, n, L, zcfg.rc_square, zcfg.dt, k, 128, tj,
-                     zero if ext else None, zero if ext else None, False)
-            capped = all(bool(torch.equal(g, w)) for g, w in zip(
-                fused_list._launch(*largs, grid_cap=max(1, plan["blocks"] // TILES_PER_BLOCK)),
-                fused_list._launch(*largs)))
-            require(capped, f"fused_dense_chunk_list_replicas {label} {mode} {dname}: a capped "
-                            "grid differs from the full grid")
-            c.update(steps=k, candidates=cand, cut_pairs=cut, visits=int(tcounts.sum()),
-                     capped_grid_bit_identical=capped, plan=plan)
-            cases["fused_dense_chunk_list_replicas"].append(c)
+        # Kernel 10 at config 3's N=4000 (n_pad 4096, S = 16: the xy order
+        # and the box test, the launch of the n4000.r64.i50 cell), R=64
+        # sorted fluids over their own lists; float64 extended streams its
+        # plane, so it takes the plain instantiation.
+        zcfg4 = load_config(str(REPO / "examples" / "n4000_production.json"))
+        geo4 = zsort_geometry(zcfg4, inner_chunk=LIST_CHUNK_STEPS)
+        parts = [sorted_fluid(zcfg4, geo4.n_pad, 6100 + q, torch, dtype, dev)
+                 for q in range(REPLICA_LIST_R)]
+        n4 = parts[0][0]
+        r4, v4, a4 = (torch.stack([x[i] for x in parts]) for i in (1, 2, 3))
+        del parts
+        flags4 = window_lists.compute_tile_flags(r4, n4, 128, 128, zcfg4.box_length, geo4.window,
+                                                 cross_margin=0.6 * geo4.sort_skin)
+        tiles4, tcounts4 = window_lists.build_window_lists(flags4, n4, geo4.n_pad, 128,
+                                                           geo4.tile_j, zero_fill=False)
+        cases["fused_dense_chunk_list_replicas_xy"] += replica_list_chunk_cases(
+            torch, "fused_dense_chunk_list_replicas_xy", zcfg4, geo4, r4, v4, a4, tiles4,
+            tcounts4, dname, ("plain", "obs_last", "extended"),
+            slots=("plain", "obs_last") + (() if dname == "float64" else ("extended",)))
+        del r4, v4, a4, tiles4, tcounts4
     for name, cs in cases.items():
         for c in cs:
             bits = all(c["bit_identical_to_alone"].values())
@@ -3896,7 +3884,9 @@ def phase_replica_kernels(torch) -> dict:
             elif "plan" in c:
                 lp = c["plan"]
                 shape = (f"S={lp['slices']} (the one-replica plan's), {lp['items']} items, "
-                         f"{'resident' if lp['resident'] else 'streamed'}, grid {lp['blocks']} "
+                         f"{'resident' if lp['resident'] else 'streamed'}, "
+                         f"{'xy order and box test' if lp['slots'] else 'column order'}, "
+                         f"{lp['smem_bytes']} shared bytes, grid {lp['blocks']} "
                          f"({lp['blocks_per_sm']} blocks an SM, {lp['regs']} registers, "
                          f"{lp['spill_bytes']} spill bytes), capped grid bit-identical "
                          f"{c['capped_grid_bit_identical']}, {c['steps']} steps")
@@ -3915,6 +3905,79 @@ def phase_replica_kernels(torch) -> dict:
                 + shape)
     LAUNCHES.reset()  # comparison launches do not count for the main path
     return cases
+
+
+def replica_list_chunk_cases(torch, name: str, zcfg, geo, r, v, a, tiles, tcounts, dname: str,
+                             modes: tuple, slots: tuple) -> list:
+    """Kernel 10's replica launch on the (R, 8, n_pad) sorted fluids over
+    their (R, ...) lists, one case a mode of ``modes`` (plain, obs_last,
+    extended; LIST_CHUNK_STEPS steps): against its twin at KERNEL_TOL,
+    replicas 0, mid and last against one-replica launches bit for bit, a
+    planted NaN (``replica_case``), a grid capped to a TILES_PER_BLOCK-th
+    bit-identical to the full grid, and the instantiation the plan takes:
+    the xy order and the box test in the modes of ``slots``, else the plain
+    one."""
+    from ljmd_tpu_torch.ops import fused_list
+
+    reps, n_pad = r.shape[0], r.shape[-1]
+    n, L, tj, k, rc2 = zcfg.n, zcfg.box_length, geo.tile_j, LIST_CHUNK_STEPS, zcfg.rc_square
+    cand = cut = 0
+    for q in range(reps):
+        cover = fused_list.list_coverage(tiles[q], tcounts[q], n, n_pad, 128, tj)[0]
+        cand += int(cover[:n, :n].sum())
+        cut += pairs_within(torch, r[q, 0:3, :n].T, L, rc2)
+    rows_bytes = 8 * n_pad * r.element_size() * reps
+    zero = torch.zeros_like(r)
+    label = f"R={reps} N={n}"
+    out = []
+    for mode in modes:
+        ext, obs = mode == "extended", mode == "obs_last"
+        if ext:
+            def chunk(r_, lo_, v_, vc_, a_, t_, c_):
+                return fused_list.fused_dense_chunk_list(r_, v_, a_, t_, c_, n, L, rc2, zcfg.dt,
+                                                         k, tile_j=tj, r_lo=lo_, vc=vc_)
+
+            def chunk_twin(r_, lo_, v_, vc_, a_, t_, c_):
+                return fused_list.fused_dense_chunk_list_plain(r_, v_, a_, t_, c_, n, L, rc2,
+                                                               zcfg.dt, k, tile_j=tj, r_lo=lo_,
+                                                               vc=vc_)
+
+            stacks = (r, zero, v, zero, a, tiles, tcounts)
+
+            def compare(o):
+                return (o[0].double() + o[1].double(), o[2].double() + o[3].double(), o[4])
+        else:
+            def chunk(r_, v_, a_, t_, c_):
+                return fused_list.fused_dense_chunk_list(r_, v_, a_, t_, c_, n, L, rc2, zcfg.dt,
+                                                         k, tile_j=tj, obs_last=obs)
+
+            def chunk_twin(r_, v_, a_, t_, c_):
+                return fused_list.fused_dense_chunk_list_plain(r_, v_, a_, t_, c_, n, L, rc2,
+                                                               zcfg.dt, k, tile_j=tj,
+                                                               obs_last=obs)
+
+            stacks, compare = (r, v, a, tiles, tcounts), None
+        tag = f"{name} {label} {mode} {dname}"
+        plan = fused_list.list_replicas_plan(r, ext)
+        want = mode in slots
+        require(plan["slots"] == want, f"{tag}: the launch takes the "
+                                       f"{'xy order' if plan['slots'] else 'plain'} "
+                                       f"instantiation, {'xy order' if want else 'plain'} "
+                                       "expected")
+        flops = chunk_flops(k, cand, cut, reps * n) + (cut * FLOPS_OBS if obs else 0)
+        c = replica_case(torch, name, label + ("" if mode == "plain" else f" {mode}"), dname,
+                         chunk, chunk_twin, stacks, flops, (10 if ext else 6) * rows_bytes,
+                         card=False, compare=compare, reps=10, loop_reps=2, plain_reps=0)
+        largs = (r, v, a, tiles, tcounts, n, L, rc2, zcfg.dt, k, 128, tj,
+                 zero if ext else None, zero if ext else None, obs)
+        capped = all(bool(torch.equal(g, w)) for g, w in zip(
+            fused_list._launch(*largs, grid_cap=max(1, plan["blocks"] // TILES_PER_BLOCK)),
+            fused_list._launch(*largs)))
+        require(capped, f"{tag}: a capped grid differs from the full grid")
+        c.update(steps=k, candidates=cand, cut_pairs=cut, visits=int(tcounts.sum()),
+                 capped_grid_bit_identical=capped, plan=plan, mode=mode)
+        out.append(c)
+    return out
 
 
 def phase_replica_particle(torch) -> dict:
@@ -4119,10 +4182,77 @@ def _same_bytes(a: str, b: str, names) -> bool:
     return True
 
 
+def phase_ensemble_xy(torch, zr: int, zcfg) -> dict:
+    """Phase 12e, config 3 at R=``zr`` in process (auto -> zsort, batched):
+    kernel 10's replica launch takes the xy order and the box test there
+    (the n4000.r64.i50 cell's launch) and not at ``zcfg``'s N=864; no flag,
+    every replica ok, each replica's ``list_skip_share`` in (0.2, 1), and
+    replica 0 against its one-system zsort run bit for bit. The run entry
+    (XY_REPLICA_RUN's)."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models.engine import (
+        make_engine,
+        replica_state,
+        resolve_backend,
+        zsort_geometry,
+    )
+    from ljmd_tpu_torch.models.simulation import (
+        initialize_replicas,
+        replica_generators,
+        run_production,
+    )
+    from ljmd_tpu_torch.ops import fused_list
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+    from ljmd_tpu_torch.parallel.ensemble import ensemble_aggregate
+
+    name = XY_REPLICA_RUN
+    c4 = load_config(str(REPO / "examples" / "n4000_production.json")).replace(
+        **ENSEMBLE_ZSORT_N4000_CUT)
+    require(resolve_backend(c4, "auto", DEVICE, c4.output_interval) == "zsort",
+            "auto does not route the N=4000 ensemble to the batched zsort engine")
+    xy = {cfg_.n: fused_list.list_replicas_plan(torch.zeros(
+        (zr, 8, zsort_geometry(cfg_).n_pad), device=DEVICE))["slots"] for cfg_ in (c4, zcfg)}
+    require(xy[c4.n] and not xy[zcfg.n], f"{name}: kernel 10's replica launch takes the xy "
+                                         f"order at N=4000 {xy[c4.n]} (expected), at N=864 "
+                                         f"{xy[zcfg.n]} (not expected)")
+    states4 = initialize_replicas(c4, replica_generators(c4.seed, zr), device=DEVICE)
+    LAUNCHES.reset()
+    t0 = time.time()
+    res4 = run_production(c4, states4, device=DEVICE)
+    torch.cuda.synchronize()
+    prod4 = time.time() - t0
+    counts4 = LAUNCHES.snapshot()
+    _check_launches(name, counts4, REPLICA_ZSORT_KERNELS, ZSORT_KERNELS + ("pair_sweep_tri",))
+    one4 = run_production(c4, replica_state(states4, 0), device=DEVICE,
+                          engine=make_engine(c4, "zsort", DEVICE, state=states4,
+                                             sample_interval=c4.output_interval))
+    same4 = all(bool(torch.equal(getattr(res4.final_state, f)[0], getattr(one4.final_state, f)))
+                for f in ("r", "ru", "v", "a"))
+    ok4 = int(ensemble_aggregate(c4, res4).n_ok)
+    flags4 = {k: bool(v.any()) for k, v in res4.diagnostics.items()}
+    skip4 = res4.counters["list_skip_share"]
+    require(same4 and ok4 == zr and not any(flags4.values())
+            and bool(((skip4 > 0.2) & (skip4 < 1.0)).all()),
+            f"{name}: {ok4}/{zr} ok, flags {flags4}, list_skip_share {skip4.tolist()}, replica "
+            f"0 bit-identical to its one-system zsort run {same4}")
+    rate4 = zr * c4.n * c4.total_steps / prod4
+    run = {"engine": "zsort (batched)", "n": c4.n, "replicas": zr, "launches": counts4,
+           "production_s": prod4, "particle_steps_per_s": rate4,
+           "list_skip_share": [float(x) for x in skip4.tolist()],
+           "replica0_bit_identical_to_one_system": same4}
+    log(f"{name}: R={zr} N={c4.n} x {c4.total_steps} steps in process (auto -> zsort, batched):"
+        f" production {prod4:.3f}s = {rate4:.4e} aggregate particle-steps/s, {ok4}/{zr} ok, "
+        f"flags {flags4}, list_skip_share {float(skip4.min()):.4f}-{float(skip4.max()):.4f}; "
+        f"replica 0 bit-identical to its one-system zsort run {same4}; launches "
+        f"{json.dumps({k: v for k, v in counts4.items() if v})}")
+    return run
+
+
 def phase_ensemble(torch, tmp: str) -> dict:
     """Phase 12b-f: config 4 through the CLI (in memory and --stream), the
     same run in process against one-replica runs, the replica loop against
-    the batched engine, the N=864 ensemble through the zsort loop, and
+    the batched engine, the N=864 ensemble through the zsort loop, config
+    3's batched zsort ensemble (``phase_ensemble_xy``), and
     --per-run-dirs."""
     import numpy as np
 
@@ -4379,6 +4509,8 @@ def phase_ensemble(torch, tmp: str) -> dict:
         f" ok, flags {zsum['flags']}, CLI wall {zwall:.1f}s; in process replica 0 bit-identical "
         f"to its one-system zsort run {same0}; CLI launches "
         f"{json.dumps({k: v for k, v in zc.items() if v})}")
+
+    runs[XY_REPLICA_RUN] = phase_ensemble_xy(torch, zr, zcfg)
 
     # (e') the compensated replica chunk (kernel 4) on its main path: the
     # reference default in float32 as an R=8 ensemble.
@@ -5221,6 +5353,9 @@ def main() -> int:
                                                     "float32", True),
                 "build_window_lists_replicas": (f"R={REPLICA_LIST_R} N=864", "float32"),
                 "fused_dense_chunk_list_replicas": (f"R={REPLICA_LIST_R} N=864", "float32"),
+                # Kernel 10's replica launch with the xy order and the box
+                # test: config 3 (the n4000.r64.i50 cell's launch).
+                "fused_dense_chunk_list_replicas_xy": (f"R={REPLICA_LIST_R} N=4000", "float32"),
                 # Kernels 13, 15 and 16's replica launches at the batched
                 # cell-pair ensemble's: config 5, R=8, production at the
                 # census capacity (13, 15), warmup at the lattice's 512 (16).
@@ -5277,6 +5412,7 @@ def main() -> int:
         "pair_sweep_rect_newton_replicas": ("ljmd_tpu_torch/csrc/pair_sweep_rect.cu", "ljmd_tpu/ops/pallas_lj.py:533"),
         "build_window_lists_replicas": ("ljmd_tpu_torch/csrc/pack_window_lists.cu", "ljmd_tpu/ops/pallas_fused.py:803"),
         "fused_dense_chunk_list_replicas": ("ljmd_tpu_torch/csrc/fused_dense_chunk_list.cu", "ljmd_tpu/ops/pallas_fused.py:1383"),
+        "fused_dense_chunk_list_replicas_xy": ("ljmd_tpu_torch/csrc/fused_dense_chunk_list.cu", "ljmd_tpu/ops/pallas_fused.py:1383"),
         # Kernels 13, 15 and 16 over a flat stack of R pencil grids (the
         # batched cell-pair engine): one launch for all R.
         "pencil_sweep_hs_replicas": ("ljmd_tpu_torch/csrc/pencil_sweep_hs.cu", "ljmd_tpu/ops/pallas_pencil2.py:187"),
@@ -5320,6 +5456,12 @@ def main() -> int:
     launches["pencil_sweep_mono"] = runs[sharded]["launches"]["pencil_sweep_hs"]
     launches["pencil_sweep_hs"] -= launches["pencil_sweep_mono"]
     cases["pencil_sweep_mono"] = [c for c in cases["pencil_sweep_hs"] if c.get("n_pencils_i")]
+    # Kernel 10's replica launches with the xy order (one CUDA kernel, its
+    # SLOTS instantiation) are XY_REPLICA_RUN's; the other runs' take the
+    # plain instantiation (N=864, S = 64).
+    launches["fused_dense_chunk_list_replicas_xy"] = \
+        runs[XY_REPLICA_RUN]["launches"]["fused_dense_chunk_list_replicas"]
+    launches["fused_dense_chunk_list_replicas"] -= launches["fused_dense_chunk_list_replicas_xy"]
     for k, n in launches.items():
         require(n > 0, f"kernel {k} was launched no time on the main path")
     kernels = []
@@ -5356,7 +5498,9 @@ def main() -> int:
                         + (f" observables {obs[0]}" if obs else ""),
             "launches_by_run": {run: r["launches"][name] for run, r in runs.items()
                                 if r["launches"].get(name, 0)
-                                and not (name == "pencil_sweep_hs" and run == sharded)},
+                                and not (name == "pencil_sweep_hs" and run == sharded)
+                                and not (name == "fused_dense_chunk_list_replicas"
+                                         and run == XY_REPLICA_RUN)},
             # ``model`` holds figures worked out from the run's inputs (the
             # stage plan, the cull's body share), not measured: the log has them.
             "cases": [{k: v for k, v in c.items() if k != "model"} for c in cases[name]],
@@ -5388,6 +5532,15 @@ def main() -> int:
             entry["launches_counted_as"] = "launches of pencil_sweep_hs (one CUDA kernel) " \
                                            "in the sharded pencil engine's run"
             entry["launches_by_run"] = {sharded: launches[name]}
+        if name == "fused_dense_chunk_list_replicas":
+            entry["launches_counted_as"] = (f"launches outside {XY_REPLICA_RUN} (the plain "
+                                            "instantiation; those are "
+                                            "fused_dense_chunk_list_replicas_xy's)")
+        if name == "fused_dense_chunk_list_replicas_xy":
+            entry["launches_counted_as"] = ("launches of fused_dense_chunk_list_replicas (one "
+                                            "CUDA kernel, its xy-order instantiation) in "
+                                            f"{XY_REPLICA_RUN}")
+            entry["launches_by_run"] = {XY_REPLICA_RUN: launches[name]}
         kernels.append(entry)
     log(f"main path runs: {json.dumps(runs)}")
     for n_label, rows_run, zsort_run in (("N=4000", "n4000_f32", "n4000_f32_zsort"),

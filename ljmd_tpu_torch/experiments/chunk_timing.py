@@ -3,7 +3,7 @@ sweeps of one checkout, for comparing two checkouts on one card within one
 machine call:
 
     python ljmd_tpu_torch/experiments/chunk_timing.py [--root DIR] [--label NAME] [--sweep]
-        [--dump FILE [--inputs FILE]] [--experiments]
+        [--dump FILE [--inputs FILE]] [--experiments] [--lists]
     python ljmd_tpu_torch/experiments/chunk_timing.py --compare FILE_A FILE_B
 
 imports ``ljmd_tpu_torch`` from ``--root`` (default: the checkout holding
@@ -71,6 +71,11 @@ and N=4000 as above (99 steps), and the rows engine's carry at config 5 (8
 steps, float32 and float64), each beside its plan (items, blocks, warps an
 SM); where the checkout has ``fused_list.list_plan``, kernel 10 at every S
 it takes (float32 and float64, N=4000 and N=864).
+
+``--lists`` times only kernel 10: the cases above, and its replica launch
+(``replica_list_cases``) on stacks of R=64 such fluids (each its own seed
+and lists, packed by kernel 9's replica launch) at N=4000 and N=864,
+float32, plain and obs_last, 16 steps: the batched zsort engine's chunk.
 
 ``--experiments`` times only kernels 17 and 18 (``experiment_cases``): each
 of the nine probes at ITERS=200 on the card alone (graph replay) and back to
@@ -573,6 +578,34 @@ def list_cases(torch, dev, root: Path, sweep: bool = False) -> dict:
     return out
 
 
+def replica_list_cases(torch, dev, root: Path, replicas: int = 64) -> dict:
+    """Kernel 10's replica launch, 16 steps, on R z-sorted fluids of the
+    N=4000 and N=864 configs (float32; replica q's seed 4321 + k + q), with
+    each replica's lists; ms back to back, plain and obs_last."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models.engine import zsort_geometry
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    out = {}
+    for label, name in (("N=4000", "n4000_production.json"), ("N=864", "n864_liquid.json")):
+        cfg = load_config(str(root / "examples" / name))
+        geo = zsort_geometry(cfg, inner_chunk=16)
+        L, n_pad, tj = cfg.box_length, geo.n_pad, geo.tile_j
+        fluids = [_sorted_fluid(torch, cfg, n_pad, 4321 + cfg.num_cells + q, torch.float32, dev)
+                  for q in range(replicas)]
+        n = fluids[0][0]
+        r, v, a = (torch.stack([f[k] for f in fluids]) for k in (1, 2, 3))
+        flags = window_lists.compute_tile_flags(r, n, 128, 128, L, geo.window,
+                                                cross_margin=0.6 * geo.sort_skin)
+        tiles, tcounts = window_lists.build_window_lists(flags, n, n_pad, 128, tj)
+        for mode, kw in (("plain", {}), ("obs_last", {"obs_last": True})):
+            out[f"fused_dense_chunk_list_replicas R={replicas} {label} float32 {mode}"] = _ms(
+                torch, lambda: fused_list.fused_dense_chunk_list(
+                    r, v, a, tiles, tcounts, n, L, cfg.rc_square, cfg.dt, 16, tile_j=tj, **kw), 5)
+        del fluids, r, v, a
+    return out
+
+
 def strip_args(torch, c, grid, rc_square, d: int = 2, rank: int = 0):
     """The half-shell sweep's arguments for ``rank``'s strip of a d-rank
     split of the cell-pair carry ``c`` plus its halo, and the strip's i
@@ -702,6 +735,8 @@ def main(argv=None) -> int:
                                                  "where the file exists, else written)")
     ap.add_argument("--experiments", action="store_true",
                     help="time only kernels 17 and 18 (experiment_cases)")
+    ap.add_argument("--lists", action="store_true",
+                    help="time only kernel 10 (list_cases, replica_list_cases)")
     ap.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"),
                     help="compare two --dump files and exit")
     args = ap.parse_args(argv)
@@ -730,6 +765,12 @@ def main(argv=None) -> int:
     if args.experiments:
         print(json.dumps({"label": args.label, "root": str(root), "nvidia_smi": smi,
                           "ms": experiment_cases(torch, dev)}))
+        return 0
+    if args.lists:
+        times = list_cases(torch, dev, root)
+        times.update(replica_list_cases(torch, dev, root))
+        print(json.dumps({"label": args.label, "root": str(root), "nvidia_smi": smi,
+                          "ms": times}))
         return 0
     times = dense_cases(torch, dev)
     times.update(list_cases(torch, dev, root, args.sweep))

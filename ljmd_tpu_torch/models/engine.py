@@ -466,8 +466,11 @@ class ZSortCarry:
     remainders and velocity compensation of the extended mode (zeros
     otherwise). ``resorts`` (int32) counts the resorts since ``init`` and
     ``travel2`` holds the largest squared sorted-axis travel a check has
-    seen since ``init`` (neither is in the JAX carry; ``counters`` gives
-    ``travel2`` as a share of the invalid bound)."""
+    seen since ``init``; ``skips`` (int64, (..., 2)) the runs kernel 10's
+    box test tested and skipped since ``init``, which the kernel adds to in
+    place, so the carries that descend from one ``init`` share it (none of
+    the three is in the JAX carry; ``counters`` gives ``travel2`` as a share
+    of the invalid bound and ``skips`` as the share skipped)."""
 
     r: torch.Tensor
     ru: torch.Tensor
@@ -482,6 +485,7 @@ class ZSortCarry:
     vc: torch.Tensor
     resorts: torch.Tensor
     travel2: torch.Tensor
+    skips: torch.Tensor
 
 
 # The port's skin for an engine built for a state (make_engine /
@@ -599,7 +603,11 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
     state's speeds: a one-system engine is replica q's twin only when it is
     built with the stack's temperature. ``counters`` gives each replica's
     largest sorted-axis travel of a check as a share of the invalid bound
-    (``zsort_travel_share``; 1.0 is the flag's edge), kept on the device."""
+    (``zsort_travel_share``; 1.0 is the flag's edge), kept on the device,
+    and the share of the runs kernel 10 tested since ``init`` that its box
+    test skipped (``list_skip_share``; the kernel adds to the carry's
+    device counter, so no operation is added; NaN where nothing was tested:
+    the CPU twin, S = 64 (N=864), a streamed plane)."""
     device = resolve_device(device)
     if replicas is not None and replicas < 1:
         raise ValueError("the replica zsort engine takes replicas >= 1")
@@ -650,7 +658,8 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                            invalid=torch.zeros(batch, dtype=torch.bool, device=device),
                            rlo=s.rlo, vc=s.vc,
                            resorts=torch.zeros(batch, dtype=torch.int32, device=device),
-                           travel2=torch.zeros(batch, dtype=dtype, device=device))
+                           travel2=torch.zeros(batch, dtype=dtype, device=device),
+                           skips=torch.zeros(batch + (2,), dtype=torch.int64, device=device))
         return carry, obs_from(out, 0.5 * replica_sum(s.v * s.v, 2))
 
     dt = cfg.dt
@@ -697,7 +706,8 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
             if extended:
                 out = fused_dense_chunk_list(c.r, c.v, c.a, c.tiles, c.tcounts, n, L,
                                              cfg.rc_square, dt, k, tile_i=tile_i, tile_j=tile_j,
-                                             r_lo=c.rlo, vc=c.vc, obs_last=obs)
+                                             r_lo=c.rlo, vc=c.vc, obs_last=obs,
+                                             skip_counts=c.skips)
                 r_end, rlo_end, v, vcc, a = out[:5]
                 ru = c.ru + ((r_end - c.r) + (rlo_end - c.rlo))
                 r_w, rlo_w = wrap_positions_ext(r_end, rlo_end, L)
@@ -705,7 +715,7 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
                 return (c2, out[5]) if obs else c2
             out = fused_dense_chunk_list(c.r, c.v, c.a, c.tiles, c.tcounts, n, L,
                                          cfg.rc_square, dt, k, tile_i=tile_i, tile_j=tile_j,
-                                         obs_last=obs)
+                                         obs_last=obs, skip_counts=c.skips)
             r_end, v, a = out[:3]
             c2 = dataclasses.replace(c, r=wrap_positions(r_end, L), ru=c.ru + (r_end - c.r),
                                      v=v, a=a)
@@ -751,7 +761,8 @@ def _zsort_engine(cfg: SimConfig, device, inner_chunk: int = 16,
         step_fast=lambda c: _step(c, False),
         run_fast=run_fast if geo.fused_viable else None,
         run_sample=run_sample if geo.fused_viable else None,
-        counters=lambda c: {"zsort_travel_share": torch.sqrt(c.travel2 / geo.invalid_thresh)},
+        counters=lambda c: {"zsort_travel_share": torch.sqrt(c.travel2 / geo.invalid_thresh),
+                            "list_skip_share": c.skips[..., 1].double() / c.skips[..., 0].double()},
     )
 
 

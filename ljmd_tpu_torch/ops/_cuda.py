@@ -193,13 +193,13 @@ def library() -> ctypes.CDLL:
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_list_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       real, real, real, real, real, real, _I, _I, _I, _I, _I, _P, _P, _I, _I,
-                       _P]
+                       real, real, real, real, real, real, _I, _I, _I, _I, _I, _P, _P, _I,
+                       _P, _P, _I, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_fused_dense_chunk_list_replicas_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       real, real, real, real, real, real, _I, _I, _I, _I, _I, _P, _P, _I, _I,
-                       _P]
+                       real, real, real, real, real, real, _I, _I, _I, _I, _I, _P, _P, _I,
+                       _P, _P, _I, real, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pair_sweep_rect_{suffix}")
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, real, real, real, _I, _P]

@@ -74,10 +74,12 @@ __all__ = [
 STATE_FIELDS = ("r", "ru", "v", "a")
 ROW_FIELDS = ("r", "ru", "v", "a", "rc", "vc")
 ZSORT_FIELDS = ("r", "ru", "v", "a", "ids", "r_ref", "tiles", "tcounts", "invalid",
-                "rlo", "vc", "resorts", "travel2")
+                "rlo", "vc", "resorts", "travel2", "skips")
 _ZSORT_INT = ("ids", "tiles", "tcounts", "resorts")
-# Fields of the port's carry that the JAX carry lacks, with their dtypes.
-_ZSORT_PORT_ONLY = {"resorts": np.int32, "travel2": np.float64}
+# Fields of the port's carry that the JAX carry lacks, with their trailing
+# shapes and dtypes.
+_ZSORT_PORT_ONLY = {"resorts": ((), np.int32), "travel2": ((), np.float64),
+                    "skips": ((2,), np.int64)}
 PENCIL_FIELDS = tuple(f.name for f in dataclasses.fields(PencilCarry))
 _PENCIL_INT = ("counts", "win_a", "win_b", "use_b", "wl_self", "wl_self_cnt", "wl_nbr_i",
                "wl_nbr_j", "wl_nbr_off")
@@ -129,13 +131,16 @@ def row_carry_to_numpy(carry: RowCarry, n: int, n_pad: int) -> dict:
             for k in ROW_FIELDS}
 
 
-def _carry_from_numpy(cls, fields, int_fields, flag, arrays, dtype, device, scalars=()):
+def _carry_from_numpy(cls, fields, int_fields, flag, arrays, dtype, device, scalars=(),
+                      counts=()):
     get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
 
     def conv(k):
         x = np.array(get(k))
         if k in int_fields:
             return torch.as_tensor(x, dtype=torch.int32, device=device)
+        if k in counts:
+            return torch.as_tensor(x, dtype=torch.int64, device=device)
         if k == flag:
             return torch.as_tensor(x, dtype=torch.bool, device=device)
         if k in scalars:
@@ -150,17 +155,18 @@ def _carry_from_numpy(cls, fields, int_fields, flag, arrays, dtype, device, scal
 def zsort_carry_from_numpy(arrays, dtype=torch.float64, device="cpu") -> ZSortCarry:
     """ZSortCarry from arrays (a mapping, or an object with attributes, e.g.
     the JAX package's ZSortCarry): float rows in ``dtype``, ids / tiles /
-    tcounts / resorts int32, ``invalid`` bool, ``travel2`` in ``dtype``;
-    nothing is re-ordered or re-padded. A source without ``resorts`` and
-    ``travel2`` (the JAX carry has neither) starts both at 0."""
+    tcounts / resorts int32, ``invalid`` bool, ``travel2`` in ``dtype``,
+    ``skips`` int64; nothing is re-ordered or re-padded. A source without
+    ``resorts``, ``travel2`` and ``skips`` (the JAX carry has none of them)
+    starts them at 0."""
     get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
     fields = {k: get(k) for k in ZSORT_FIELDS if k not in _ZSORT_PORT_ONLY}
     shape = np.shape(fields["invalid"])
-    for k, kind in _ZSORT_PORT_ONLY.items():
+    for k, (tail, kind) in _ZSORT_PORT_ONLY.items():
         has = k in arrays if isinstance(arrays, dict) else hasattr(arrays, k)
-        fields[k] = get(k) if has else np.zeros(shape, dtype=kind)
+        fields[k] = get(k) if has else np.zeros(shape + tail, dtype=kind)
     return _carry_from_numpy(ZSortCarry, ZSORT_FIELDS, _ZSORT_INT, "invalid", fields, dtype,
-                             device, scalars=("travel2",))
+                             device, scalars=("travel2",), counts=("skips",))
 
 
 def zsort_carry_to_numpy(carry: ZSortCarry) -> dict:

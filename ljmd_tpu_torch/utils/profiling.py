@@ -39,7 +39,9 @@ initializes the config on the card and prints one JSON object:
 - ``counters``: the launches and host reads of the profiled production,
   and the engine's own counters at its end (``Engine.counters``; the zsort
   engine's ``zsort_travel_share``: the largest sorted-axis travel of a
-  chunk as a share of the invalid bound, a replica's each).
+  chunk as a share of the invalid bound, a replica's each; its
+  ``list_skip_share``: the share of kernel 10's box tests that skipped
+  their run of partners).
 """
 
 from __future__ import annotations

@@ -939,13 +939,13 @@ def test_sharded_pencil_engine_on_card_matches_cpu(cuda):
     assert not f_gpu and not f_cpu
 
 
-def _n4000_fluid(device, dtype):
+def _n4000_fluid(device, dtype, seed=40):
     """The N=4000 production box's perturbed FCC lattice, z-sorted, with
     velocities and consistent accelerations, as (8, 4096) rows."""
     from ljmd_tpu_torch.models.lattice import fcc_lattice
 
     box, rc2 = 16.795961913825, (0.148845300604 * 16.795961913825) ** 2
-    rng = np.random.default_rng(40)
+    rng = np.random.default_rng(seed)
     r = fcc_lattice(10, box, dtype=torch.float64).numpy()
     r = np.mod(r + rng.normal(scale=0.07, size=r.shape), box)
     r = r[np.argsort(r[:, 2])]
@@ -2012,6 +2012,239 @@ def test_list_chunk_replica_launch_equals_single_launches(cuda, mode, dtype, tol
     bad[1, 2, 5] = float("nan")
     poisoned = tuple(g for g in run(bad, v, a, tiles, counts) if g is not None)
     _nan_confined(got, poisoned, 1)
+
+
+def _edge_fluid(dtype, cuda, seed=11):
+    """N=256 (two granules) at rho ~0.15 in L = 12 (rc = 2.5): points at
+    least 1.1 apart, eight pairs planted across the x = 0 / L and y = 0 / L
+    faces at rc (1 - 1e-7) and rc (1 + 1e-7) (float32 rounds some of them
+    inside rc), z-sorted, with velocities, consistent accelerations and
+    every block pair listed with its rounds."""
+    from ljmd_tpu_torch.ops import window_lists
+
+    box, rc = 12.0, 2.5
+    rng = np.random.default_rng(seed)
+    pts = []
+
+    def clear(c):
+        if not pts:
+            return True
+        dd = np.asarray(pts) - c
+        dd -= box * np.round(dd / box)
+        return bool((np.einsum("ij,ij->i", dd, dd) > 1.1 ** 2).all())
+
+    for k in range(8):
+        rel = 1e-7 if k % 2 else -1e-7
+        a = np.array([0.2 + 0.25 * k, box - 0.3 * k - 0.1, 1.0 + 1.3 * k])
+        while True:
+            d = rng.normal(size=3)
+            b = a + rc * (1 + rel) * d / np.linalg.norm(d)
+            if clear(a) and clear(b):
+                pts += [a, b]
+                break
+    while len(pts) < 256:
+        c = rng.uniform(0, box, 3)
+        if clear(c):
+            pts.append(c)
+    r = np.mod(np.asarray(pts), box)
+    r = r[np.argsort(r[:, 2])]
+    rows = torch.zeros((8, 256), dtype=torch.float64)
+    rows[0:3] = torch.as_tensor(r.T)
+    v = torch.zeros_like(rows)
+    v[0:3] = torch.as_tensor(rng.uniform(-1.0, 1.0, (3, 256)))
+    a = 24.0 * pair_sweep.pair_forces_plain(rows, 256, box, rc * rc)
+    flags = torch.full((4,), 7, dtype=torch.int32)
+    tiles, counts = window_lists.build_window_lists_plain(flags, 256, 256, 128, 256)
+    return (box, rc * rc, *(t.to(device=cuda, dtype=dtype) for t in (rows, v, a)),
+            tiles.to(cuda), counts.to(cuda))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("mode", ["plain", "extended", "obs_last"])
+@pytest.mark.parametrize("state", ["faces", "edge"])
+def test_list_chunk_box_skip_matches_twin(cuda, state, mode, dtype, tol):
+    """Kernel 10 with its xy order and box skip against the twin (which
+    evaluates every listed pair): the N=4000 fluid, whose jittered lattice
+    planes straddle x = 0 / L and y = 0 / L inside runs (a run's box wraps)
+    and cross those faces during the chunk, and the planted cutoff-edge
+    pairs at rc (1 +- 1e-7), whose forces must appear as the twin gives
+    them; the box test skips runs in both, where the plane is resident."""
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    if state == "faces":
+        box, rc2, r, v, a = _n4000_fluid(cuda, dtype)
+        flags = window_lists.compute_tile_flags(r, 4000, 128, 128, box, 2.5 + 0.7)
+        tiles, counts = window_lists.build_window_lists(flags, 4000, 4096, 128, 512)
+        n, tj = 4000, 512
+    else:
+        box, rc2, r, v, a, tiles, counts = _edge_fluid(dtype, cuda)
+        n, tj = 256, 256
+    extended, obs_last = mode == "extended", mode == "obs_last"
+    zero = torch.zeros_like(r)
+    kw = dict(r_lo=zero, vc=zero) if extended else {}
+    skips = torch.zeros(2, dtype=torch.int64, device=cuda)
+    # N=256's plan takes S = 64, which makes no box test: ask for S = 16
+    got = fused_list._launch(r, v, a, tiles, counts, n, box, rc2, 0.005, 6, 128, tj,
+                             kw.get("r_lo"), kw.get("vc"), obs_last, skip_counts=skips,
+                             slices=16 if state == "edge" else None)
+    want = fused_list.fused_dense_chunk_list_plain(
+        r.cpu(), v.cpu(), a.cpu(), tiles.cpu(), counts.cpu(), n, box, rc2, 0.005, 6, tile_j=tj,
+        obs_last=obs_last, **{k: x.cpu() for k, x in kw.items()})
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+    tested, skipped = skips.tolist()
+    if fused_list.list_plan(r, extended, slices=16)["slots"]:
+        assert 0 < skipped < tested
+    else:  # a streamed plane keeps the column order and tests no run
+        assert tested == skipped == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("extended", [False, True], ids=["plain", "extended"])
+def test_list_plan_sizes_the_instantiation_it_launches(cuda, extended, dtype):
+    """Kernel 10's plan takes the xy order and the box test only where the
+    plane is resident, S <= 32 and two blocks an SM hold the plane with its
+    boxes; the shared memory it asks for is that plane's (the boxes only
+    with the xy order); the replica plan takes the one-replica plan's
+    instantiation; N=864 (S = 64) takes the plain one, config 3's float32
+    plane the xy order."""
+    from ljmd_tpu_torch.ops import fused_list
+
+    rows = 6 if extended else 3
+    size = torch.empty((), dtype=dtype).element_size()
+    for n_pad in (896, 4096, 8704, 9216, 12288, 37120):
+        plan = fused_list.list_plan(torch.zeros((8, n_pad), dtype=dtype, device=cuda), extended)
+        boxes = 6 * (n_pad // 16 + 8) if plan["slots"] else 0
+        cols = n_pad if plan["resident"] else 3 * 128
+        assert plan["smem_bytes"] == (8 + rows * cols + boxes) * size, (n_pad, plan)
+        if plan["slots"]:
+            assert plan["resident"] and plan["slices"] <= 32 and plan["blocks_per_sm"] >= 2
+        stack = torch.zeros((3, 8, n_pad), dtype=dtype, device=cuda)
+        rep = fused_list.list_replicas_plan(stack, extended)
+        assert (rep["slots"], rep["slices"]) == (plan["slots"], plan["slices"]), n_pad
+        if n_pad == 896:
+            assert plan["slices"] == 64 and not plan["slots"]
+        if n_pad == 4096 and dtype == torch.float32:
+            assert plan["slices"] == 16 and plan["slots"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["plain", "extended"])
+def test_list_chunk_skip_counts_equal_the_plain_count(cuda, mode, dtype):
+    """A one-step launch with v = a = 0 (the step's positions are the
+    launch's) counts exactly the runs ``list_skip_counts`` tests and skips
+    at those positions and the kernel's S: the N=4000 fluid (S = 16), and an
+    (R, 8, 896) stack of N=864 fluids (S = 64: no test), replica by replica
+    (none where the plane streams: float64 extended at N=4000); a second
+    launch adds as much again."""
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    box, rc2, r, _, _ = _n4000_fluid(cuda, dtype)
+    flags = window_lists.compute_tile_flags(r, 4000, 128, 128, box, 2.5 + 0.7)
+    tiles, counts = window_lists.build_window_lists(flags, 4000, 4096, 128, 512)
+    n, box4, rc24 = 4000, box, rc2
+    reps = 3
+    n864, box8, rc28, rs, _, _, flags8 = _replica_lists(reps, dtype, cuda)
+    tiles8, counts8 = window_lists.build_window_lists(flags8, n864, 896, 128, 256)
+    for rows, t, c, nn, L, rc2_, tj, shape in ((r, tiles, counts, n, box4, rc24, 512, (2,)),
+                                               (rs, tiles8, counts8, n864, box8, rc28, 256,
+                                                (reps, 2))):
+        zero = torch.zeros_like(rows)
+        kw = dict(r_lo=zero, vc=zero) if mode == "extended" else {}
+        skips = torch.zeros(shape, dtype=torch.int64, device=cuda)
+        fused_list.fused_dense_chunk_list(rows, zero, zero, t, c, nn, L, rc2_, 0.005, 1,
+                                          tile_j=tj, skip_counts=skips, **kw)
+        one = rows[0] if rows.dim() == 3 else rows
+        plan = fused_list.list_plan(one, mode == "extended")
+        want = fused_list.list_skip_counts(rows.cpu(), t.cpu(), c.cpu(), nn, L, rc2_, tj,
+                                           plan["slices"])
+        assert bool((want[..., 1] > 0).all()) == (plan["slices"] < 64)  # S = 64: no test
+        if not plan["slots"]:  # the streamed plane tests no run
+            want = torch.zeros_like(want)
+        assert torch.equal(skips.cpu(), want), (skips.tolist(), want.tolist())
+        fused_list.fused_dense_chunk_list(rows, zero, zero, t, c, nn, L, rc2_, 0.005, 1,
+                                          tile_j=tj, skip_counts=skips, **kw)
+        assert torch.equal(skips.cpu(), 2 * want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["plain", "extended", "obs_last"])
+def test_list_chunk_slots_replica_launch_equals_single_launches(cuda, mode, dtype):
+    """Kernel 10's replica launch where the order and the box test are on
+    (N=4000, S = 16; float64 extended streams its plane): replica q of an
+    (R, 8, 4096) stack equals a launch on replica q alone bit for bit, under
+    a capped grid too, and so do its skip counts; the float32 plain launch
+    matches the twin; a NaN planted in one replica stays there."""
+    from ljmd_tpu_torch.ops import fused_list, window_lists
+
+    fluids = [_n4000_fluid(cuda, dtype, seed) for seed in (40, 41)]
+    box, rc2 = fluids[0][:2]
+    r, v, a = (torch.stack([f[k] for f in fluids]) for k in (2, 3, 4))
+    flags = window_lists.compute_tile_flags(r, 4000, 128, 128, box, 2.5 + 0.7)
+    tiles, counts = window_lists.build_window_lists(flags, 4000, 4096, 128, 512)
+    extended, obs_last = mode == "extended", mode == "obs_last"
+    zero = torch.zeros_like(r)
+
+    def run(r_, v_, a_, t_, c_, skips, **more):
+        ext = (zero[:r_.shape[0]] if r_.dim() == 3 else zero[0]) if extended else None
+        out = fused_list._launch(r_, v_, a_, t_, c_, 4000, box, rc2, 0.005, 5, 128, 512, ext,
+                                 ext, obs_last, skip_counts=skips, **more)
+        return tuple(x for x in out if x is not None)
+
+    skips = torch.zeros((2, 2), dtype=torch.int64, device=cuda)
+    got = run(r, v, a, tiles, counts, skips)
+    for q in range(2):
+        one = torch.zeros(2, dtype=torch.int64, device=cuda)
+        alone = run(r[q], v[q], a[q], tiles[q], counts[q], one)
+        for g, w in zip(got, alone):
+            assert torch.equal(g[q], w), q
+        assert torch.equal(skips[q], one), q
+    slots = fused_list.list_plan(r[0], extended)["slots"]
+    assert bool((skips[:, 1] > 0).all()) == slots
+    capped = run(r, v, a, tiles, counts, None, grid_cap=37)
+    for g, w in zip(capped, got):
+        assert torch.equal(g, w)
+    if mode == "plain" and dtype == torch.float32:
+        twin = fused_list.fused_dense_chunk_list_plain(
+            r.cpu(), v.cpu(), a.cpu(), tiles.cpu(), counts.cpu(), 4000, box, rc2, 0.005, 5)
+        for g, w in zip(got, twin):
+            _close(g, w, 1e-4)
+    bad = r.clone()
+    bad[1, 0, 777] = float("nan")
+    _nan_confined(got, run(bad, v, a, tiles, counts, None), 1)
+
+
+def test_zsort_engine_reports_the_skip_share_on_card(cuda):
+    """The zsort engine's ``list_skip_share`` on the card: the share of
+    kernel 10's box tests that skipped since ``init``, a replica's each for
+    a stack, and no host read or launch more than the chunk's; each
+    ``init`` starts a carry's own counts."""
+    from ljmd_tpu_torch.models.simulation import initialize_replicas, replica_generators
+
+    cfg = SimConfig(num_cells=10, box_length=16.795961913825, rc_over_box=0.148845300604,
+                    dt=0.005, total_steps=64, output_interval=32, warmup_steps=20,
+                    target_total_energy=-18800.0, dtype="float32")
+    states = initialize_replicas(cfg, replica_generators(3, 2), backend="rows", device=cuda)
+    for st in (states, pe.replica_state(states, 0)):
+        eng = (pe.make_replica_engine(cfg, 2, "zsort", cuda, states=st) if st.r.dim() == 3
+               else pe.make_engine(cfg, "zsort", cuda, state=st))
+        c = eng.init(st)[0]
+        reads = dict(pe.HOST_READS)
+        LAUNCHES.reset()
+        c = eng.run_fast(c, 32)
+        launched = LAUNCHES.snapshot()
+        share = eng.counters(c)["list_skip_share"]
+        assert dict(pe.HOST_READS) == reads
+        assert sum(launched.values()) == 3 * 2  # two chunks: the resort's two launches, kernel 10
+        assert share.shape == st.r.shape[:-2]
+        assert bool(((share > 0.2) & (share < 1.0)).all()), share
+        # the counts ride in the carry: a second init and its chunk leave
+        # the first carry's as they were
+        before = c.skips.clone()
+        c2 = eng.run_fast(eng.init(st)[0], 16)
+        assert torch.equal(c.skips, before)
+        assert bool((c2.skips[..., 0] < before[..., 0]).all())
 
 
 def test_zsort_ensemble_on_card_equals_single_runs(cuda):

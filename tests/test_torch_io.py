@@ -207,7 +207,7 @@ def test_port_sources_stay_torch_native():
         assert "torch.compile" not in src, path
     for name in ("lj_pair_terms.cuh", "pair_sweep_tri.cu", "fused_dense_chunk.cu",
                  "pair_sweep.cu", "pencil_sweep_full.cu", "pencil_sweep_zband.cu",
-                 "pencil_rebin.cu", "zsort_resort.cu"):
+                 "pencil_rebin.cu", "zsort_resort.cu", "fused_dense_chunk_list.cu"):
         head = open(os.path.join(PKG, "csrc", name)).read()[:1500]
         assert "Replaces: ljmd_tpu/ops/" in head, name
         assert "What bounds it" in head and "What the design does" in head, name
