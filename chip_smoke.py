@@ -68,9 +68,12 @@ checkout. Phases, each fatal on failure:
       transpose glue;
    h. the cell-pair rebin (``ops/pencil_rebin.py``: csrc/pencil_rebin.cu's
       key pass and gather) at config 5's shape on the fluid of phase 4c
-      after a 16-step stretch, float32, the drift check folded in, for the
-      one system and a stack of CELLPAIR_ENSEMBLE_R copies: bit for bit
-      against the torch chain on the same tensors; both timed back to back
+      after a 16-step stretch, float32, the drift check and the running
+      drift max folded in (as the engine's ``always`` rebin runs them; a
+      NaN planted in one replica's running max), for the one system and a
+      stack of CELLPAIR_ENSEMBLE_R copies: bit for bit against the torch
+      chain on the same tensors (a NaN max where the chain's is NaN); both
+      timed back to back
       and on the card alone (CUDA-graph replay), with their device
       operations (the nodes of one captured call); the kernel table's rows
       of rebin_keys and rebin_gather (``*_replicas``: the stack) are this
@@ -86,6 +89,15 @@ checkout. Phases, each fatal on failure:
       zsort_pack (``*_replicas``: the stack) are this call of both launches
       (the rows of kernel 9's flags entry, build_window_lists, count the
       main path's zsort_pack launches);
+   j. LAMMPS's in.lj at 256,000 atoms (examples/lammps_lj_256k.json, the
+      benchmark cell lj256k.single.i50's configuration) from its lattice at
+      T 1.44: the engine built for it takes the lattice census capacity
+      LJ256K_CAP (six 128-slot stages) and LJ256K_CHUNK-step fused chunks,
+      flag-free over LJ256K_STEPS steps; from there kernel 15's chunk of
+      LJ256K_CHUNK steps and kernel 13's sweep (with and without the
+      observables) against their twins at KERNEL_TOL, and the rebin (with
+      the drift max) against the torch chain bit for bit, as 3h; cases of
+      those rows of the kernel table beside their headlines;
 4. the main path, each production with the launch counts set to 0 just
    before and read just after (a CLI run counts its whole process):
    a. rows (``--backend rows``): the CLI on the reference default cut to
@@ -96,11 +108,11 @@ checkout. Phases, each fatal on failure:
       ``compensated_sum`` (the extended list chunk); N=864 also runs on rows
       for the rate comparison;
    c. cellpair (``--backend auto``, which picks it on the card): the CLI on
-      config 5 cut to 2,000 steps (warmup 500: the width-listed chunk at the
-      lattice capacity 512; production: the static chunk at the census
-      capacity 384), the same in process with production at capacity 512
-      (the width-listed chunk) and with ``compensated_sum`` (the extended
-      chunks and the predictive rebin trigger);
+      config 5 cut to 2,000 steps (warmup 500 at the lattice capacity 512,
+      production at the census capacity 384: the static chunk throughout,
+      as the engine takes no width lists unless asked), the same in process
+      with production at capacity 512 and with ``compensated_sum`` (the
+      extended chunks and the predictive rebin trigger);
    d. the flagship step (``ljmd_tpu_torch.entry.entry()``, N=4000 float32,
       the force API through the ordered sweep) for its 2,000 steps; then from
       one float64 state 100 steps against the rows engine, within 1e-9;
@@ -250,8 +262,9 @@ checkout. Phases, each fatal on failure:
        ``dryrun_multichip(4)`` (9b) runs the same step on a (2, 2) mesh.
     h. config 5's fluid as an R=8 ensemble (``auto`` -> the batched cell-pair
        engine): the batched warmup (500 steps at the lattice capacity 512:
-       kernel 16's replica launch), production cut to 2,000 steps at the
-       replicas' largest census capacity (kernels 13 and 15's replica
+       kernel 15's replica launch), 200 steps there through an engine that
+       asks for the width lists (kernel 16's), production cut to 2,000
+       steps at the replicas' largest census capacity (kernels 13 and 15's replica
        launches), then the replica loop of 8 one-system engines at that
        capacity from the same states: both aggregate rates, series and final
        states bit-equal, flags clear, each replica's drift under 1e-3; then
@@ -495,7 +508,8 @@ REPLICA_RING_STEPS = 200
 ENSEMBLE_ZSORT_BATCHED_R = 64
 # Phase 12h: config 5's fluid (examples/n62500_large.json) as an R=8 ensemble
 # (auto -> the batched cell-pair engine): the batched warmup (500 steps at the
-# lattice capacity 512: kernel 16's replica launch), production cut to 2,000
+# lattice capacity 512: kernel 15's replica launch), 200 steps there asking
+# for the width lists (kernel 16's replica launch), production cut to 2,000
 # steps (interval 100) at the replicas' largest census capacity (kernels 13
 # and 15's replica launches), then the replica loop of 8 one-system engines
 # at that capacity from the same states (the yardstick: bit-equal); then the
@@ -513,7 +527,8 @@ REPLICA_PENCIL_KERNELS = ("pencil_sweep_hs_replicas", "fused_pencil_chunk_replic
 # batched warmup's states DENSE_LOOP_STEPS steps of the batched engine
 # against the replica loop of DENSE_LOOP_R one-system engines (its first
 # DENSE_LOOP_R replicas); then config 5's fluid (phase 12h's R=8 post-warmup
-# states) at FULL_SWEEP_CAP with inner_chunk FULL_SWEEP_CHUNK through the
+# states) at FULL_SWEEP_CAP with inner_chunk FULL_SWEEP_CHUNK (the z-band's
+# ZBAND_SWEEP_CHUNK) through the
 # batched cell-pair engine's full sweep (kernel 11), z-band (kernel 12) and
 # unfused half shell (kernel 13 a step), SWEEP_VARIANT_STEPS steps each
 # against the loop of R one-system engines, bit for bit; and the replica
@@ -540,6 +555,15 @@ PENCIL_KERNELS = ("pencil_sweep_hs", "fused_pencil_chunk", "fused_pencil_width_c
 # slack at config 5, ROADMAP §3).
 FULL_SWEEP_CAP = 512
 FULL_SWEEP_CHUNK = 8
+# The z-band checks 3-D drift against half the skin (0.2), tighter than the
+# xy slack (0.2496) of the other paths: at 8 steps config 5's R=8 stack read
+# 0.85-1.02 of it a replica on an H100 (past it on one warmup's states, not
+# on another's), at 6 steps 0.62-0.73.
+ZBAND_SWEEP_CHUNK = 6
+
+
+def _sweep_chunk(kw: dict) -> int:
+    return ZBAND_SWEEP_CHUNK if kw.get("z_band") else FULL_SWEEP_CHUNK
 # The three chunk paths from one state, 100 steps: they round the drift and
 # sum each slot's forces in other orders. float64: that rounding (~1e-16)
 # grown by the fluid's chaos stays far under 1e-9, while one missed pair
@@ -1656,12 +1680,15 @@ def full_report(torch, pos, tbl, counts, shf, n_pencils: int, capacity: int,
                                                         rc_square)}}
 
 
-def phase_rebin(torch, cfg, state) -> tuple[dict, dict]:
+def phase_rebin(torch, cfg, state, stacks=(None, CELLPAIR_ENSEMBLE_R)) -> tuple[dict, dict]:
     """Phase 3h: the rebin's two launches against the torch chain they
-    replace (``rebin_slots_plain`` on the same CUDA tensors), at config 5's
-    census capacity, before the engine's next chunk: the one system and a
-    stack of CELLPAIR_ENSEMBLE_R copies of it. Returns (the one system's
-    report, the kernel table's cases of the four rebin rows)."""
+    replace (``rebin_slots_plain`` on the same CUDA tensors), at the census
+    capacity of ``cfg`` at ``state`` (config 5's), before the engine's next
+    chunk, with the drift check and the running drift max as the engine's
+    ``always`` rebin folds them in: the one system and (``stacks``) a stack
+    of CELLPAIR_ENSEMBLE_R copies of it, whose running max starts at 0, at
+    1e30 (kept) and NaN (kept NaN) in replicas 0, 1 and 2. Returns (the one
+    system's report, the kernel table's cases of the rebin rows)."""
     from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.ops import cell_list, pencil_rebin
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
@@ -1679,13 +1706,18 @@ def phase_rebin(torch, cfg, state) -> tuple[dict, dict]:
         return t.view(torch.int32) if t.dtype == torch.float32 else t
 
     reports, cases = {}, {k: [] for k in REBIN_KERNELS + REPLICA_REBIN_KERNELS}
-    for reps in (None, CELLPAIR_ENSEMBLE_R):
+    for reps in stacks:
         rows = [c.r, c.ru, c.v, c.a, c.r_ref]
+        start = c.drift2.clone()
         if reps is not None:
             rows = [t.repeat(1, reps).contiguous() for t in rows]
+            start = c.drift2.repeat(reps)
+            start[1:3] = torch.tensor([1e30, float("nan")], dtype=start.dtype,
+                                      device=start.device)
         overflow = c.overflow if reps is None else c.overflow.repeat(reps)
         inputs = (rows[0], rows[1:4], grid, overflow)
-        check = {"replicas": reps, "drift_ref": rows[4], "drift_thresh": thresh}
+        check = {"replicas": reps, "drift_ref": rows[4], "drift_thresh": thresh,
+                 "drift_max": start}
         kernels = lambda: pencil_rebin.rebin_slots(*inputs, **check)  # noqa: E731
         chain = lambda: pencil_rebin.rebin_slots_plain(*inputs, **check)  # noqa: E731
         names = REBIN_KERNELS if reps is None else REPLICA_REBIN_KERNELS
@@ -1693,24 +1725,34 @@ def phase_rebin(torch, cfg, state) -> tuple[dict, dict]:
         got, want = kernels(), chain()
         require(all(LAUNCHES.snapshot()[k] == 1 for k in names),
                 f"rebin (R={reps}): the kernels did not run")
+        g_max, w_max = got[4], want[4]
         got, want = [got[0], *got[1], got[2], got[3]], [want[0], *want[1], want[2], want[3]]
         same = all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
         require(same, f"rebin (R={reps}): the kernels' outputs differ from the torch chain's")
+        nan = w_max.isnan()
+        require(g_max.shape == w_max.shape and torch.equal(g_max.isnan(), nan)
+                and torch.equal(bits(torch.nan_to_num(g_max)), bits(torch.nan_to_num(w_max))),
+                f"rebin (R={reps}): the drift max {g_max.tolist()} differs from the torch "
+                f"chain's {w_max.tolist()}")
+        require(bool(nan.any()) == (reps is not None) and bool((w_max[~nan] > 0).all()),
+                f"rebin (R={reps}): the drift max {w_max.tolist()} is not the planted one")
         err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want)
                   if g.is_floating_point())
         shape = ("" if reps is None else f"R={reps} ") + f"N={cfg.n} census"
         out = {"shape": shape, "capacity": grid.capacity, "slots": (reps or 1) * grid.n_slots,
-               "dtype": "float32", "bit_identical": same, "max_abs_err": err}
+               "dtype": "float32", "bit_identical": same, "max_abs_err": err,
+               "drift_max": g_max.tolist()}
         for name, fn in (("kernels", kernels), ("torch_chain", chain)):
             out[name] = {"ms": cuda_time_ms(torch, fn, 50), "card_ms": graph_ms(torch, fn, 20),
                          "device_ops": graph_ops(fn)["ops"]}
         require(out["kernels"]["device_ops"] == 2,
                 f"rebin (R={reps}): {out['kernels']} is not two launches")
         # Bytes: the key pass reads r's rows 0, 1, 3 and r_ref's 0, 1 of
-        # every slot and writes a key a slot; the gather reads the keys and
-        # each particle's rows (r: 0..2 and the id; three of each other) and
-        # writes every row of the four outputs.
-        n_bytes = 4 * (reps or 1) * (grid.n_slots * (5 + 2 + 8 * 4) + cfg.n * (4 + 9))
+        # every slot and writes a key a slot (and a drift max a tile); the
+        # gather reads the keys and each particle's rows (r: 0..2 and the
+        # id; three of each other) and writes every row of the four outputs.
+        n_bytes = 4 * (reps or 1) * (grid.n_slots * (5 + 2 + 8 * 4) + cfg.n * (4 + 9)
+                                     + 2 * grid.n_slots // pencil_rebin.REBIN_TILE)
         out.update(bound(out["dtype"], 0.0, n_bytes))
         log(f"rebin: {json.dumps(out)}")
         reports[reps] = out
@@ -1724,6 +1766,99 @@ def phase_rebin(torch, cfg, state) -> tuple[dict, dict]:
         for k in names:
             cases[k].append(dict(case))
     return reports[None], cases
+
+
+def phase_lammps_lj(torch) -> dict:
+    """Phase 3j: LAMMPS's in.lj at N=256,000 (examples/lammps_lj_256k.json)
+    from its lattice: the engine built for it (capacity LJ256K_CAP,
+    LJ256K_CHUNK-step chunks) for LJ256K_STEPS steps, flag-free; then, on
+    the rebinned carry of where it got to, kernel 15's LJ256K_CHUNK-step
+    chunk and kernel 13's sweep against their twins at KERNEL_TOL, and the
+    rebin as phase 3h (one system). Returns the kernel table's cases."""
+    from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
+    from ljmd_tpu_torch.models.simulation import initialize
+    from ljmd_tpu_torch.ops import cell_list, fused_pencil, pencil_sweep
+
+    dev = torch.device(DEVICE)
+    cfg = load_config(str(REPO / "examples" / "lammps_lj_256k.json"))
+    require(cfg.n == 256_000 and cfg.warmup_steps == 0, f"in.lj: N={cfg.n}, "
+            f"warmup {cfg.warmup_steps}")
+    state = initialize(cfg, device=dev)
+    eng = pe.make_engine(cfg, "cellpair", dev, state=state)
+    pe.PENCIL_CHUNKS.reset()
+    c = eng.run_fast(eng.init(state)[0], LJ256K_STEPS)
+    chunks = dict(pe.PENCIL_CHUNKS)
+    require(chunks == {"chunks": LJ256K_STEPS // LJ256K_CHUNK, "steps": LJ256K_STEPS},
+            f"in.lj: fused chunks {chunks}, not {LJ256K_CHUNK} steps each")
+    require(not bool(c.overflow), "in.lj: pencil_overflow set from the lattice")
+    share = float(eng.counters(c)["pencil_drift_share"])
+    require(0.0 < share < 1.0, f"in.lj: pencil_drift_share {share}")
+    fluid = eng.get_state(c)
+    c, _ = eng.init(fluid)
+    L, rc2, dt, n = cfg.box_length, cfg.rc_square, cfg.dt, cfg.n
+    args = (n, L, cfg.rc + cfg.neighbor_skin, cfg.density)
+    P = cell_list.make_pencil_grid(*args).n_pencils
+    cap = c.r.shape[1] // P
+    require(cap == LJ256K_CAP, f"in.lj: capacity {cap}, not {LJ256K_CAP}")
+    grid = cell_list.make_pencil_grid(*args, cap)
+    tbl, shf = (torch.as_tensor(t, device=dev)
+                for t in pencil_sweep.build_half_shell_tables(grid))
+    valid = c.r[3] > 0.5
+    tol = KERNEL_TOL["float32"]
+    cut = pairs_within(torch, fluid.r, L, rc2)
+    cand = pencil_candidates(c.counts, tbl)
+    slots_bytes = 8 * grid.n_slots * c.r.element_size()
+    table_bytes = 4 * (tbl.numel() + shf.numel() + c.counts.numel())
+    label = f"N={n} cap={cap} in.lj"
+    base = {"shape": label, "dtype": "float32", "candidates": cand, "cut_pairs": cut,
+            "counts_max": int(c.counts.max())}
+    cases = {"pencil_sweep_hs": [], "fused_pencil_chunk": []}
+    for want_obs in (True, False):
+        a = (c.r, tbl, c.counts, shf, grid, rc2, want_obs)
+        got = pencil_sweep.pencil_sweep_hs(*a)
+        want = pencil_sweep.pencil_sweep_hs_plain(*a)
+        require(bool((got[6:] == 0).all()) and bool((got[:, ~valid] == 0).all()),
+                f"pencil_sweep_hs {label}: rows 6-7 or empty slots not zero")
+        errs = [rel_err(got[row, valid], want[row, valid]) for row in range(6)]
+        worst = max(e[1] for e in errs)
+        require(worst <= tol, f"pencil_sweep_hs {label} obs={want_obs}: rel err {worst:.3e} "
+                              f"> {tol}")
+        cases["pencil_sweep_hs"].append({
+            **base, **bound("float32", sweep_flops(cand, cut, want_obs),
+                            2 * slots_bytes + table_bytes),
+            "observables": want_obs, "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+            "ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_hs(*a), 20),
+            "plain_ms": cuda_time_ms(torch, lambda: pencil_sweep.pencil_sweep_hs_plain(*a), 1,
+                                     warmup=0)})
+    a = (c.r, c.v, c.a, tbl, shf, P, cap, L, rc2, dt, LJ256K_CHUNK)
+    got = fused_pencil.fused_pencil_chunk(*a)
+    want = fused_pencil.fused_pencil_chunk_plain(*a)
+    require(bool(torch.equal(got[0][:, ~valid], c.r[:, ~valid])),
+            f"fused_pencil_chunk {label}: a sentinel moved")
+    errs = [rel_err(g[0:3, valid], w[0:3, valid]) for g, w in zip(got, want)]
+    worst = max(e[1] for e in errs)
+    require(worst <= tol, f"fused_pencil_chunk {label}: rel err {worst:.3e} > {tol}")
+    cases["fused_pencil_chunk"].append({
+        **base, **bound("float32", chunk_flops(LJ256K_CHUNK, cand, cut, n),
+                        6 * slots_bytes + table_bytes),
+        "steps": LJ256K_CHUNK, "max_abs_err": max(e[0] for e in errs), "rel_err": worst,
+        "ms": cuda_time_ms(torch, lambda: fused_pencil.fused_pencil_chunk(*a), 10),
+        "plain_ms": cuda_time_ms(torch, lambda: fused_pencil.fused_pencil_chunk_plain(*a), 1,
+                                 warmup=0)})
+    for name, cs in cases.items():
+        for case in cs:
+            log(f"kernel {name} {label} float32 (max count {case['counts_max']}, "
+                f"{case.get('steps', 1)} step(s), observables {case.get('observables', False)}): "
+                f"rel err {case['rel_err']:.3e} (tol {tol:.0e}), {case['ms']:.4f} ms vs plain "
+                f"{case['plain_ms']:.4f} ms; bound {case['bound_ms']:.4f} ms "
+                f"({case['bound_by']}, {cand} candidates)")
+    log(f"in.lj: N={n} L={L:.4f} from the lattice at T 1.44: capacity {cap}, chunks of "
+        f"{LJ256K_CHUNK} over {LJ256K_STEPS} steps, pencil_drift_share {share:.4f}, "
+        f"{cut} pairs inside the cutoff")
+    _, rebin_cases = phase_rebin(torch, cfg, fluid, stacks=(None,))
+    cases.update({k: v for k, v in rebin_cases.items() if v})
+    return cases
 
 
 def phase_resort(torch) -> tuple[dict, dict]:
@@ -2552,6 +2687,12 @@ FULL_KERNELS = ("pencil_sweep_full", "pencil_sweep_zband")
 # path that rebins on the card, so _check_launches holds them to the
 # cell-pair kernels they serve instead of to a run's forbidden list.
 REBIN_KERNELS = ("rebin_keys", "rebin_gather")
+# Phase 3j: in.lj at N=256,000 from its lattice (T 1.44, skin 0.3): the
+# lattice census capacity (six 128-slot stages), the fused chunk the engine
+# sizes from the slack, and the steps run before the kernels are compared.
+LJ256K_CAP = 768
+LJ256K_CHUNK = 5
+LJ256K_STEPS = 20
 REPLICA_REBIN_KERNELS = ("rebin_keys_replicas", "rebin_gather_replicas")
 MAIN_KERNELS = (("pair_sweep_tri", "pair_sweep", "fused_dense_chunk", "fused_dense_chunk_ext")
                 + ZSORT_KERNELS + PENCIL_KERNELS + FULL_KERNELS + RECT_KERNELS
@@ -2627,10 +2768,10 @@ def _production_run(torch, name: str, cfg, state, tmp: str, needed: tuple, forbi
 
 
 def _in_process_run(torch, name: str, cfg, backend: str, tmp: str, needed: tuple,
-                    forbidden: tuple, prod_cfg=None) -> tuple[dict, object]:
+                    forbidden: tuple, prod_cfg=None, engine=None) -> tuple[dict, object]:
     """initialize (timed apart) and ``_production_run`` through ``backend``
-    in this process. ``prod_cfg`` (default ``cfg``) is the production's
-    config, e.g. with another capacity."""
+    (or the production's ``engine``) in this process. ``prod_cfg`` (default
+    ``cfg``) is the production's config, e.g. with another capacity."""
     from ljmd_tpu_torch.models.simulation import initialize
 
     torch.cuda.synchronize()
@@ -2641,7 +2782,7 @@ def _in_process_run(torch, name: str, cfg, backend: str, tmp: str, needed: tuple
     log(f"{name}: initialize (--backend {backend}, warmup {cfg.warmup_steps}) {init_s:.3f}s = "
         f"{cfg.n * cfg.warmup_steps / init_s:.4e} particle-steps/s")
     run, final = _production_run(torch, name, prod_cfg or cfg, state, tmp, needed, forbidden,
-                                 backend=backend)
+                                 engine=engine, backend=backend)
     return {**run, "engine": backend, "init_s": init_s}, final
 
 
@@ -2681,11 +2822,13 @@ def phase_main_path(torch, tmp: str) -> tuple[dict, object, object]:
 
 def phase_cellpair_path(torch, tmp: str) -> tuple[dict, object, object]:
     """The cell-pair slice end to end on config 5 cut (N62500_CUT): the CLI
-    with ``--backend auto`` (production at the census capacity, 384: the
-    static chunk), then in process with production at capacity 512 (the
-    width-listed chunk), and compensated. Returns the runs, the cut config
-    and the final states of the capacity-512 and the compensated runs."""
+    with ``--backend auto`` (the static chunk throughout: the engine takes
+    no width lists unless asked), then in process with production at capacity
+    512 through an engine that asks for them (the width-listed chunk), and
+    compensated. Returns the runs, the cut config and the final states of
+    the capacity-512 and the compensated runs."""
     from ljmd_tpu_torch.config import load_config
+    from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.models.engine import auto_backend
 
     cfg = load_config(str(REPO / "examples" / "n62500_large.json")).replace(**N62500_CUT)
@@ -2696,10 +2839,12 @@ def phase_cellpair_path(torch, tmp: str) -> tuple[dict, object, object]:
     sweep_static = ("pencil_sweep_hs", "fused_pencil_chunk")
     sweep_width = ("pencil_sweep_hs", "fused_pencil_width_chunk")
     runs = {"n62500_f32_cellpair": _cli_run("n62500_f32_cellpair", cfg, "auto", tmp,
-                                            sweep_static, others)}
+                                            sweep_static, others + ("fused_pencil_width_chunk",))}
+    wide = cfg.replace(neighbor_capacity=512)
     runs["n62500_f32_cap512_cellpair"], final = _in_process_run(
-        torch, "n62500_f32_cap512_cellpair", cfg, "auto", tmp, sweep_width, others,
-        prod_cfg=cfg.replace(neighbor_capacity=512))
+        torch, "n62500_f32_cap512_cellpair", cfg, "auto", tmp, sweep_width,
+        others + ("fused_pencil_chunk",), prod_cfg=wide,
+        engine=pe._cellpair_engine(wide, DEVICE, width_lists=True))
     runs["n62500_f32_compensated_cellpair"], final_comp = _in_process_run(
         torch, "n62500_f32_compensated_cellpair", cfg.replace(compensated_sum=True), "auto",
         tmp, sweep_static, others)
@@ -2810,10 +2955,10 @@ def phase_rows_ordered(torch, tmp: str, same_forces: bool) -> tuple[dict, float]
 
 def phase_full_sweeps(torch, cfg5, state, tmp: str) -> tuple[dict, dict]:
     """The cell-pair engine with the full 9-neighbour and the z-banded sweep
-    (unfused, FULL_SWEEP_CHUNK steps between rebins) on the config-5 cut at
-    FULL_SWEEP_CAP from ``state`` (phase 4c's end), then from one float64
-    state CROSS_STEPS steps of each against the half-shell engine (fused
-    static chunks)."""
+    (unfused, FULL_SWEEP_CHUNK / ZBAND_SWEEP_CHUNK steps between rebins) on
+    the config-5 cut at FULL_SWEEP_CAP from ``state`` (phase 4c's end), then
+    from one float64 state CROSS_STEPS steps of each against the half-shell
+    engine (fused static chunks)."""
     from ljmd_tpu_torch.models import engine as pe
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
 
@@ -2822,7 +2967,7 @@ def phase_full_sweeps(torch, cfg5, state, tmp: str) -> tuple[dict, dict]:
              "zband": ({"z_band": True}, "pencil_sweep_zband")}
     runs, ends = {}, {}
     for mode, (kw, kernel) in modes.items():
-        eng = pe._cellpair_engine(cfg, DEVICE, inner_chunk=FULL_SWEEP_CHUNK, **kw)
+        eng = pe._cellpair_engine(cfg, DEVICE, inner_chunk=_sweep_chunk(kw), **kw)
         require(eng.run_fast.__name__ == "run_fast_unfused", f"{mode}: not the unfused path")
         runs[f"n62500_f32_cap512_{mode}"], ends[mode] = _production_run(
             torch, f"n62500_f32_cap512_{mode}", cfg, state, tmp, (kernel,),
@@ -2833,7 +2978,7 @@ def phase_full_sweeps(torch, cfg5, state, tmp: str) -> tuple[dict, dict]:
     ref = ref_eng.get_state(ref_eng.run_fast(ref_eng.init(s64)[0], CROSS_STEPS))
     cross = {}
     for mode, (kw, _) in modes.items():
-        eng = pe._cellpair_engine(cfg64, DEVICE, inner_chunk=FULL_SWEEP_CHUNK, **kw)
+        eng = pe._cellpair_engine(cfg64, DEVICE, inner_chunk=_sweep_chunk(kw), **kw)
         c = eng.run_fast(eng.init(s64)[0], CROSS_STEPS)
         require(not bool(c.overflow), f"{mode} float64: pencil_overflow set")
         cross[mode] = _cross_diff(torch, eng.get_state(c), ref, cfg.box_length)
@@ -4595,9 +4740,8 @@ def phase_cellpair_ensemble(torch, tmp: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.time() - t0
     counts = LAUNCHES.snapshot()
-    _check_launches(name, counts, ("pencil_sweep_hs_replicas",
-                                   "fused_pencil_width_chunk_replicas"),
-                    PENCIL_KERNELS + ("fused_pencil_chunk_replicas",))
+    _check_launches(name, counts, ("pencil_sweep_hs_replicas", "fused_pencil_chunk_replicas"),
+                    PENCIL_KERNELS + ("fused_pencil_width_chunk_replicas",))
     runs[name] = {"engine": "cellpair (batched)", "n": n, "replicas": reps, "launches": counts,
                   "init_s": init_s,
                   "particle_steps_per_s": reps * n * cfg.warmup_steps / init_s}
@@ -4607,6 +4751,25 @@ def phase_cellpair_ensemble(torch, tmp: str) -> dict:
                                          cfg.density).capacity
     log(f"{name}: R={reps} N={n}, warmup {cfg.warmup_steps} steps at the lattice capacity "
         f"{lattice} in {init_s:.3f}s (init included); the replicas' censuses -> capacity {cap}")
+
+    # Kernel 16's replica launch on the main path: the engine takes no width
+    # lists unless asked, so a short batched production at the lattice
+    # capacity asks for them.
+    name = "n62500_f32_ensemble_cellpair_width"
+    wcfg = cfg.replace(neighbor_capacity=lattice, warmup_steps=0,
+                       total_steps=2 * cfg.output_interval)
+    LAUNCHES.reset()
+    t0 = time.time()
+    res = run_production(wcfg, states, device=DEVICE, engine=pe._cellpair_engine(
+        wcfg, dev, replicas=reps, width_lists=True))
+    torch.cuda.synchronize()
+    counts = LAUNCHES.snapshot()
+    _check_launches(name, counts, ("pencil_sweep_hs_replicas", "fused_pencil_width_chunk_replicas"),
+                    PENCIL_KERNELS + ("fused_pencil_chunk_replicas",))
+    require(not bool(res.diagnostics["pencil_overflow"].any()), f"{name}: pencil_overflow set")
+    runs[name] = {"engine": "cellpair (batched, width lists)", "n": n, "replicas": reps,
+                  "launches": counts,
+                  "particle_steps_per_s": reps * n * wcfg.total_steps / (time.time() - t0)}
 
     # (b) production: the batched engine, then the loop from the same states.
     out = {}
@@ -4983,9 +5146,9 @@ def phase_replica_sweeps(torch, tmp: str, states5, cuts5) -> dict:
     carries = {}
     for mode, (kw, kernel) in variants.items():
         name = f"n62500_f32_ensemble_cellpair_{mode}"
-        batched = pe._cellpair_engine(cfg5, dev, replicas=r5, inner_chunk=FULL_SWEEP_CHUNK, **kw)
-        loop = pe._replica_loop_engine([pe._cellpair_engine(cfg5, dev,
-                                                            inner_chunk=FULL_SWEEP_CHUNK, **kw)
+        chunk = _sweep_chunk(kw)
+        batched = pe._cellpair_engine(cfg5, dev, replicas=r5, inner_chunk=chunk, **kw)
+        loop = pe._replica_loop_engine([pe._cellpair_engine(cfg5, dev, inner_chunk=chunk, **kw)
                                         for _ in range(r5)])
         require(batched.run_fast.__name__ == "run_fast_unfused", f"{name}: not unfused")
         out = {}
@@ -5017,7 +5180,7 @@ def phase_replica_sweeps(torch, tmp: str, states5, cuts5) -> dict:
                       "loop_launches": c_l, "loop_host_reads": hr_l, "diagnostics": flags,
                       "bit_identical_to_loop": True}
         log(f"{name}: R={r5} N={cfg5.n} x {SWEEP_VARIANT_STEPS} steps at capacity "
-            f"{FULL_SWEEP_CAP}, chunks of {FULL_SWEEP_CHUNK}: batched {b_rate:.4e} against the "
+            f"{FULL_SWEEP_CAP}, chunks of {chunk}: batched {b_rate:.4e} against the "
             f"loop {l_rate:.4e} aggregate particle-steps/s ({b_rate / l_rate:.3f}x), states and "
             f"observables bit-identical, pencil_overflow {flags}; host reads batched "
             f"{json.dumps({k: v for k, v in hr_b.items() if v})}, loop "
@@ -5313,6 +5476,9 @@ def main() -> int:
     resort, resort_cases = phase_resort(torch)
     cases.update(resort_cases)
     mark("phase 3i")
+    for name, extra in phase_lammps_lj(torch).items():
+        cases[name] += extra
+    mark("phase 3j")
     paths = phase_chunk_paths(torch, cfg5, states5)
     mark("phase 5")
     rows62500 = phase_rows_at_62500(torch, cfg5, state5)
@@ -5358,7 +5524,7 @@ def main() -> int:
                 "fused_dense_chunk_list_replicas_xy": (f"R={REPLICA_LIST_R} N=4000", "float32"),
                 # Kernels 13, 15 and 16's replica launches at the batched
                 # cell-pair ensemble's: config 5, R=8, production at the
-                # census capacity (13, 15), warmup at the lattice's 512 (16).
+                # census capacity (13, 15); 16's at the lattice's 512.
                 "pencil_sweep_hs_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 census",
                                              "float32", True),
                 "fused_pencil_chunk_replicas": (f"R={CELLPAIR_ENSEMBLE_R} N=62500 census",

@@ -22,7 +22,8 @@
 //   which the block zeroes first: any grid size, no limit), and,
 //   with `check`, folds the drift check of the `always` trigger (minimum
 //   image xy drift against r_ref, times validity, against the threshold;
-//   NaN-propagating as torch.max) into a flag a tile.
+//   NaN-propagating as torch.max) into a flag a tile and, with a running
+//   max to update, the tile's largest squared drift.
 // - Gather (a block per (pencil, replica)): an exclusive scan of its pencil's
 //   tile counts gives each tile's first rank; each warp then takes a tile
 //   holding the pencil's particles and scans its keys 128 a step (an int4 a
@@ -33,7 +34,9 @@
 //   the empty slots get the sentinel x = SENT_BASE (1 + pencil) + rank,
 //   rounded once from double, and zeros. It writes the count (capped) and
 //   raises the replica's overflow flag when the count passes capacity, and
-//   block (0, q) raises it for the drift flags.
+//   block (0, q) raises it for the drift flags and writes the replica's
+//   running max of the squared drift (torch.maximum of the old one and
+//   torch.max of the drifts: NaN where either is).
 // Every operation is IEEE-rounded as its torch counterpart (the _rn
 // intrinsics: no contraction, no fast math), so the outputs are the torch
 // chain's bits (tests/test_torch_cuda.py).
@@ -62,6 +65,9 @@ struct RebinArgs {
   int* keys;    // (NS,) pencil of each slot, -1 where invalid
   int* hist;    // (R, n_tiles, n_pencils)
   int* flags;   // (R, n_tiles): bit 0 drift past the threshold, bit 1 NaN drift
+  T* tile_max;  // (R, n_tiles) largest squared drift of a tile (`check` with dmax_in)
+  const T* dmax_in;  // (R,) running max of the squared drift, or null
+  T* dmax_out;
   int* counts;  // (R * n_pencils,)
   long long NS;  // R * ns
   int ns, n_pencils, m_xy, cap, tile, n_tiles, n_others, wrap, check;
@@ -70,6 +76,10 @@ struct RebinArgs {
   double sent_base;
 };
 
+__device__ __forceinline__ float quiet_nan(float) { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ double quiet_nan(double) {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
 __device__ __forceinline__ float floor_(float x) { return floorf(x); }
 __device__ __forceinline__ double floor_(double x) { return floor(x); }
 
@@ -87,9 +97,23 @@ __device__ __forceinline__ T coord(const RebinArgs<T>& a, long long s) {
   return a.wrap ? wrap_coord(a.r[s], a.box, a.inv_box) : a.r[s];
 }
 
+// The block's largest `x` (every thread's, NaN-free), returned to every
+// thread; `s` holds a warp's each.
+template <typename T>
+__device__ __forceinline__ T block_max(T x, T* s) {
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+  if ((threadIdx.x & 31) == 0) s[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = s[0];
+  for (int w = 1; w < kRebinWarps; ++w) x = max(x, s[w]);
+  __syncthreads();
+  return x;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kRebinThreads) rebin_keys_kernel(RebinArgs<T> a) {
   extern __shared__ int s_hist[];
+  __shared__ T s_max[kRebinWarps];
   const int t = blockIdx.x, q = blockIdx.y;
   int* h = a.hist + (static_cast<long long>(q) * a.n_tiles + t) * a.n_pencils;
   // Past the shared size the block counts in its own global row: zeroed
@@ -101,6 +125,7 @@ __global__ void __launch_bounds__(kRebinThreads) rebin_keys_kernel(RebinArgs<T> 
   const int lo = t * a.tile, hi = min(lo + a.tile, a.ns);
   const long long NS = a.NS;
   int gt = 0, nan = 0;
+  T mx = T(0);
   for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
     const long long s = base + i;
     const T valid = a.r[3 * NS + s];
@@ -119,10 +144,15 @@ __global__ void __launch_bounds__(kRebinThreads) rebin_keys_kernel(RebinArgs<T> 
       const T m2 = mul_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), valid);
       gt |= m2 > a.thresh;
       nan |= m2 != m2;
+      if (m2 > mx) mx = m2;
     }
   }
   gt = __syncthreads_or(gt);
   nan = __syncthreads_or(nan);
+  if (a.check && a.dmax_in != nullptr) {
+    mx = block_max(mx, s_max);
+    if (threadIdx.x == 0) a.tile_max[q * a.n_tiles + t] = mx;
+  }
   if (a.hist_shared) {
     for (int i = threadIdx.x; i < a.n_pencils; i += blockDim.x) h[i] = s_hist[i];
   }
@@ -242,14 +272,24 @@ __global__ void __launch_bounds__(kRebinThreads) rebin_gather_kernel(RebinArgs<T
   if (a.check && p == 0) {
     // torch.max(moved2) > thresh: some drift past it and none NaN.
     int gt = 0, nan = 0;
+    T mx = T(0);
     for (int t = threadIdx.x; t < a.n_tiles; t += blockDim.x) {
       const int f = a.flags[q * a.n_tiles + t];
       gt |= f & 1;
       nan |= f & 2;
+      if (a.dmax_in != nullptr) mx = max(mx, a.tile_max[q * a.n_tiles + t]);
     }
     gt = __syncthreads_or(gt);
     nan = __syncthreads_or(nan);
     if (threadIdx.x == 0 && gt && !nan) a.ovf_out[q] = 1;
+    if (a.dmax_in != nullptr) {
+      __shared__ T s_max[kRebinWarps];
+      mx = block_max(mx, s_max);
+      if (threadIdx.x == 0) {
+        const T old = a.dmax_in[q];
+        a.dmax_out[q] = (nan || old != old) ? (nan ? quiet_nan(old) : old) : max(old, mx);
+      }
+    }
   }
 }
 
@@ -258,7 +298,7 @@ int launch_rebin(RebinArgs<T> a, int replicas, void* stream) {
   if (replicas < 1 || replicas > 65535 || a.n_pencils < 1 ||
       a.cap < 128 || a.cap % 128 != 0 || a.tile < 128 || a.tile % 128 != 0 ||
       a.ns != a.n_pencils * a.cap || a.n_others < 0 || a.n_others > kRebinMaxOthers ||
-      (a.check && a.ref == nullptr)) {
+      (a.check && a.ref == nullptr) || (a.dmax_in != nullptr && !a.check)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.NS = static_cast<long long>(replicas) * a.ns;
@@ -277,9 +317,10 @@ template <typename T>
 int rebin_entry(const T* r, const T* ref, const T* in0, const T* in1, const T* in2,
                 const T* in3, const T* in4, int n_others, T* r_out, T* out0, T* out1, T* out2,
                 T* out3, T* out4, const unsigned char* ovf_in, unsigned char* ovf_out,
-                int* keys, int* hist, int* flags, int* counts, int ns, int replicas, int m_xy,
-                int cap, int tile, int wrap, int check, T box, T inv_box, T inv_w, T thresh,
-                double sent_base, void* stream) {
+                int* keys, int* hist, int* flags, int* counts, T* tile_max, const T* dmax_in,
+                T* dmax_out, int ns, int replicas, int m_xy, int cap, int tile, int wrap,
+                int check, T box, T inv_box, T inv_w, T thresh, double sent_base,
+                void* stream) {
   RebinArgs<T> a{};
   a.r = r;
   a.ref = ref;
@@ -296,6 +337,9 @@ int rebin_entry(const T* r, const T* ref, const T* in0, const T* in1, const T* i
   a.hist = hist;
   a.flags = flags;
   a.counts = counts;
+  a.tile_max = tile_max;
+  a.dmax_in = dmax_in;
+  a.dmax_out = dmax_out;
   a.ns = ns;
   a.n_pencils = m_xy * m_xy;
   a.m_xy = m_xy;
@@ -319,19 +363,22 @@ extern "C" {
 // `r` and the `n_others` carried fields in0.. (8, R * ns); their rebinned
 // copies r_out, out0..; ovf_in / ovf_out (R,) bool; scratch keys (R * ns),
 // hist (R * n_tiles * m_xy^2), flags (R * n_tiles) int32, n_tiles = ceil(ns
-// / tile); counts (R * m_xy^2) int32. Two launches on `stream`.
+// / tile); counts (R * m_xy^2) int32; with `check`, dmax_in (R,) the running
+// max of the squared drift (or null: none kept), dmax_out its update and
+// tile_max (R * n_tiles) scratch. Two launches on `stream`.
 int ljmd_pencil_rebin_f32(const float* r, const float* ref, const float* in0, const float* in1,
                           const float* in2, const float* in3, const float* in4, int n_others,
                           float* r_out, float* out0, float* out1, float* out2, float* out3,
                           float* out4, const unsigned char* ovf_in, unsigned char* ovf_out,
-                          int* keys, int* hist, int* flags, int* counts, int ns, int replicas,
+                          int* keys, int* hist, int* flags, int* counts, float* tile_max,
+                          const float* dmax_in, float* dmax_out, int ns, int replicas,
                           int m_xy, int cap, int tile, int wrap, int check, float box,
                           float inv_box, float inv_w, float thresh, double sent_base,
                           void* stream) {
   return ljmd::rebin_entry<float>(r, ref, in0, in1, in2, in3, in4, n_others, r_out, out0, out1,
                                   out2, out3, out4, ovf_in, ovf_out, keys, hist, flags, counts,
-                                  ns, replicas, m_xy, cap, tile, wrap, check, box, inv_box,
-                                  inv_w, thresh, sent_base, stream);
+                                  tile_max, dmax_in, dmax_out, ns, replicas, m_xy, cap, tile,
+                                  wrap, check, box, inv_box, inv_w, thresh, sent_base, stream);
 }
 
 int ljmd_pencil_rebin_f64(const double* r, const double* ref, const double* in0,
@@ -339,13 +386,15 @@ int ljmd_pencil_rebin_f64(const double* r, const double* ref, const double* in0,
                           const double* in4, int n_others, double* r_out, double* out0,
                           double* out1, double* out2, double* out3, double* out4,
                           const unsigned char* ovf_in, unsigned char* ovf_out, int* keys,
-                          int* hist, int* flags, int* counts, int ns, int replicas, int m_xy,
-                          int cap, int tile, int wrap, int check, double box, double inv_box,
-                          double inv_w, double thresh, double sent_base, void* stream) {
+                          int* hist, int* flags, int* counts, double* tile_max,
+                          const double* dmax_in, double* dmax_out, int ns, int replicas,
+                          int m_xy, int cap, int tile, int wrap, int check, double box,
+                          double inv_box, double inv_w, double thresh, double sent_base,
+                          void* stream) {
   return ljmd::rebin_entry<double>(r, ref, in0, in1, in2, in3, in4, n_others, r_out, out0, out1,
                                    out2, out3, out4, ovf_in, ovf_out, keys, hist, flags, counts,
-                                   ns, replicas, m_xy, cap, tile, wrap, check, box, inv_box,
-                                   inv_w, thresh, sent_base, stream);
+                                   tile_max, dmax_in, dmax_out, ns, replicas, m_xy, cap, tile,
+                                   wrap, check, box, inv_box, inv_w, thresh, sent_base, stream);
 }
 
 }  // extern "C"

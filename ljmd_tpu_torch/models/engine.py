@@ -91,19 +91,20 @@ from ljmd_tpu_torch.ops.pencil_sweep import (
 )
 from ljmd_tpu_torch.ops.zsort_resort import ZSORT_TILE_I, ZSortGeometry, zsort_resort
 from ljmd_tpu_torch.state import MDState, StepObs, kinetic_energy, replica_sum
-from ljmd_tpu_torch.utils.profiling import span
+from ljmd_tpu_torch.utils.profiling import counter, span
 
-__all__ = ["BACKENDS", "Engine", "HOST_READS", "HostReads", "PencilCarry", "RowCarry", "ROW_PAD",
-           "ZSortCarry", "auto_backend", "host_read", "kinetic_temperature", "make_engine",
-           "make_replica_engine", "replica_capacity", "replica_state", "resolve_backend",
-           "resolve_device", "stack_states", "zsort_geometry"]
+__all__ = ["BACKENDS", "Engine", "HOST_READS", "PENCIL_CHUNKS", "PencilCarry", "RowCarry",
+           "ROW_PAD", "Tally", "ZSortCarry", "auto_backend", "fused_chunk_steps", "host_read",
+           "kinetic_temperature", "make_engine", "make_replica_engine", "replica_capacity",
+           "replica_state", "resolve_backend", "resolve_device", "stack_states",
+           "zsort_geometry"]
 
 # make_engine's backends ("pallas" is the JAX package's name for "rows").
 BACKENDS = ("auto", "rows", "pallas", "zsort", "cellpair", "neighbor", "dense")
 
 
-class HostReads(dict):
-    """Host reads by decision (a dict of counts), with a per-run reset."""
+class Tally(dict):
+    """Counts by key (a dict of counts), with a per-run reset."""
 
     def reset(self) -> None:
         self.update(dict.fromkeys(self, 0))
@@ -114,13 +115,20 @@ class HostReads(dict):
 # displacement check, its predictive rebin trigger and its unfused default
 # chunk (one read per ``run_fast``), the neighbor engine's per-step rebuild
 # check, and the sharded pencil engine's two and its default
-# chunk (``parallel/spatial_pencil.py``: one read per decision, after a pmax).
+# chunk (``parallel/spatial_pencil.py``: one read per decision, after a pmax);
+# and, once where an engine is built for a state, its kinetic temperature
+# (the zsort skin, the fused cell-pair chunk).
 # A replica engine reads whether any replica's flag is set, once per decision.
 # Every read goes through ``host_read``.
-HOST_READS = HostReads(cellpair_moved=0, cellpair_will_exceed=0, cellpair_chunk=0,
-                       neighbor_rebuild=0, sharded_pencil_moved=0,
-                       sharded_pencil_will_exceed=0, sharded_pencil_chunk=0)
+HOST_READS = counter(Tally(cellpair_moved=0, cellpair_will_exceed=0, cellpair_chunk=0,
+                           neighbor_rebuild=0, sharded_pencil_moved=0,
+                           sharded_pencil_will_exceed=0, sharded_pencil_chunk=0,
+                           engine_temperature=0))
 _READ_SPANS = {k: f"ljmd.read.{k}" for k in HOST_READS}
+
+# The cell-pair engine's fused chunks (kernel 15 or 16) as issued: one
+# ``chunks`` and ``steps`` more a chunk, on the host (no device read).
+PENCIL_CHUNKS = counter(Tally(chunks=0, steps=0))
 
 
 def host_read(key: str, value: torch.Tensor, cast=bool):
@@ -147,6 +155,33 @@ def chunk_from_speed(dt: float, reach: float, top_speed: float, max_chunk: int) 
     if step <= 0.0:
         return max_chunk
     return max(1, min(max_chunk, int(reach / step)))
+
+
+# The fused cell-pair chunk's longest (the JAX engine's fixed chunk).
+FUSED_MAX_CHUNK = 8
+# An engine built for a state sizes its fused chunk so that, in a Maxwell
+# fluid at the state's kinetic temperature, this many particles a replica
+# (on average, at a chunk's start) move fast enough in xy to leave half the
+# coverage slack within the chunk. Config 5 (T 0.836, N=62500, half slack
+# 0.2496) keeps 8 steps up to T 0.89; LAMMPS's in.lj at N=256,000 (half
+# slack 0.2105) takes 5 from its lattice at T 1.44 and 7 in its fluid at
+# T 0.7-0.77, where 8 would let ~1e-3 particles a chunk out.
+PENCIL_DRIFT_RISK = 2e-5
+
+
+def fused_chunk_steps(dt: float, half_slack: float, temperature: float, n: int) -> int:
+    """The fused cell-pair chunk for a state at kinetic temperature T: the
+    most steps, at most ``FUSED_MAX_CHUNK`` and at least 1, in which a
+    particle at xy speed sqrt(2 T ln(n / PENCIL_DRIFT_RISK)) moves less than
+    ``half_slack``. The xy speed of a Maxwell particle passes s with
+    probability exp(-s^2 / 2T), so n particles hold ``PENCIL_DRIFT_RISK``
+    that fast."""
+    if not math.isfinite(temperature) or temperature < 0.0:
+        raise ValueError(f"temperature {temperature}: the state is not finite")
+    speed = math.sqrt(2.0 * temperature * math.log(n / PENCIL_DRIFT_RISK))
+    if speed <= 0.0:
+        return FUSED_MAX_CHUNK
+    return max(1, min(FUSED_MAX_CHUNK, int(half_slack / (dt * speed))))
 
 
 class Engine(NamedTuple):
@@ -503,9 +538,10 @@ ZSORT_TRAVEL_SIGMAS = 7.4
 
 def kinetic_temperature(state: MDState) -> float:
     """The largest kinetic temperature 2K / 3N over the replicas of an
-    (N, 3) or (R, N, 3) state (one host read)."""
+    (N, 3) or (R, N, 3) state (one host read, ``engine_temperature``)."""
     v = state.v
-    return float(torch.max(torch.sum(v * v, dim=(-2, -1)))) / (3.0 * v.shape[-2])
+    top = host_read("engine_temperature", torch.max(torch.sum(v * v, dim=(-2, -1))), float)
+    return top / (3.0 * v.shape[-2])
 
 
 def zsort_travel_skin(temperature: float, inner_chunk: int, dt: float) -> float:
@@ -788,7 +824,8 @@ class PencilCarry:
     coverage slack between two rebins: results suspect). ``win_a``,
     ``win_b``, ``use_b`` are the z-banded sweep's window tables ((T * 9,)
     int32, zeros when z_band is off); ``wl_*`` the width lists ((1,) zeros
-    when off)."""
+    when off). ``drift2`` (a replica's each, not in the JAX carry) holds the
+    largest squared drift a check has seen since ``init``."""
 
     r: torch.Tensor
     ru: torch.Tensor
@@ -807,6 +844,7 @@ class PencilCarry:
     wl_nbr_i: torch.Tensor
     wl_nbr_j: torch.Tensor
     wl_nbr_off: torch.Tensor
+    drift2: torch.Tensor
 
 
 CELLPAIR_TRIGGERS = ("always", "predictive", "never")
@@ -818,8 +856,9 @@ _PREDICT_SAFETY = 1.25
 
 def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: bool = True,
                      compensated: bool | None = None, rebin_trigger: str | None = None,
-                     use_fused: bool | None = None, width_lists: bool | None = None,
-                     inner_chunk: int | None = None, replicas: int | None = None) -> Engine:
+                     use_fused: bool | None = None, width_lists: bool = False,
+                     inner_chunk: int | None = None, replicas: int | None = None,
+                     temperature: float | None = None) -> Engine:
     """Pencil-sweep engine for large N (JAX ``_cellpair_engine``): pair work
     O(N * 9 * capacity) over the pencil pairs, particles rebinned into
     pencils (a stable sort and a gather, ``ops/pencil_rebin.py``: two kernel
@@ -837,21 +876,27 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
 
     ``step``/``step_fast`` run one sweep per step with the JAX per-step
     displacement check (one host read of the "moved" flag per step).
-    ``run_fast`` advances in chunks of ``inner_chunk`` (8 fused; unfused,
-    by default, the most steps up to JAX's 12 in which a particle at 1.5x
-    the top speed of the state the run starts from stays inside half the
-    coverage slack: one host read per ``run_fast``, ``HOST_READS
-    ["cellpair_chunk"]``; JAX's fixed 12 lets config 5's fastest particles
-    outrun its 0.25 and sets ``pencil_overflow``) with the rebin decision
-    once per chunk: ``rebin_trigger``
+    ``run_fast`` advances in chunks of ``inner_chunk`` (fused, by default:
+    JAX's 8, or with ``temperature``, the kinetic temperature of the state
+    the engine is built for, ``fused_chunk_steps``; unfused, by default, the
+    most steps up to JAX's 12 in which a particle at 1.5x the top speed of
+    the state the run starts from stays inside half the coverage slack: one
+    host read per ``run_fast``, ``HOST_READS["cellpair_chunk"]``; JAX's
+    fixed 12 lets config 5's fastest particles outrun its 0.25 and sets
+    ``pencil_overflow``) with the rebin decision once per chunk:
+    ``rebin_trigger``
     "always" (the plain default: rebin before every chunk, no host read),
     "predictive" (the compensated default: rebin when a particle could
     cross half the slack during the chunk; one host read per chunk) or
     "never" (floor measurements only). ``use_fused`` (default: on with the
     half shell; the kernel launches on any card, the twin runs on the CPU)
     runs each chunk in one fused kernel, else as per-step sweeps
-    (``run_fast_unfused``). ``width_lists`` (default: the JAX mean-occupancy
-    rule) drives the fused chunk by occupancy-width visit lists.
+    (``run_fast_unfused``). ``width_lists`` drives the fused chunk by
+    occupancy-width visit lists (kernel 16). It is off unless asked for:
+    JAX takes them where the 128-quantized mean occupancy leaves a whole
+    block free (engine.py:1153-1158, measured on the TPU), but kernel 15
+    skips a pencil's empty 128-slot stages itself, and on the H100 kernel
+    16 ran 1.5x slower at config 5's capacity 512 and 1.46x at in.lj's 768.
 
     ``replicas=R`` makes it the ensemble's engine for R independent
     replicas (the JAX package ``vmap``s the one-system engine): states are
@@ -922,15 +967,9 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         use_fused = half_shell
     elif use_fused and not half_shell:
         raise ValueError("fused pencil path not viable for this config (it needs the half shell)")
-    if width_lists is None:
-        # JAX's rule (engine.py:1153-1158, measured on the TPU): width lists
-        # where the 128-quantized mean occupancy leaves a whole block free.
-        width_lists = bool(use_fused and (int(n / P + 8.0) + 127) // 128 < cap // 128)
     if width_lists and not use_fused:
         raise ValueError("width_lists requires the fused pencil path")
     fluid_chunk = inner_chunk is None and not use_fused
-    if inner_chunk is None:
-        inner_chunk = 8 if use_fused else UNFUSED_MAX_CHUNK
     zero_win = torch.zeros(((reps * ns // TILE_I) * 9,), dtype=torch.int32, device=device)
     no_flag = torch.zeros((), dtype=torch.bool, device=device)
     no_list = torch.zeros((1,), dtype=torch.int32, device=device)
@@ -1037,10 +1076,10 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
                 r8[0:3], rc8[0:3] = wrap_positions_ext(r8[0:3], rc8[0:3], L)
             others = ([c.ru, c.v] + ([c.a] if with_a else [])
                       + ([rc8, c.vc] if compensated else []))
-            r8p, perm, counts, ovf = rebin_slots(
+            r8p, perm, counts, ovf, drift2 = rebin_slots(
                 r8, others, grid, c.overflow, replicas=replicas, wrap=not compensated,
                 z_order=z_band, drift_ref=c.r_ref if check else None,
-                drift_thresh=rebuild_thresh)
+                drift_thresh=rebuild_thresh, drift_max=c.drift2 if check else None)
             wins, w_ovf = windows(r8p, counts)
             if z_band:
                 ovf = ovf | w_ovf
@@ -1049,7 +1088,8 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             # Without compensation rc is zeros throughout.
             rc, vc = rest if compensated else (c.rc, c.vc)
             new = dataclasses.replace(c, r=r8p, ru=ru, v=v, a=a, rc=rc, vc=vc, r_ref=r8p,
-                                      counts=counts, overflow=ovf)
+                                      counts=counts, overflow=ovf,
+                                      drift2=c.drift2 if drift2 is None else drift2)
             if fire is None:
                 return with_tables(new, wins)
             if z_band:
@@ -1086,7 +1126,9 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
             r=r8, ru=ru8, v=v8, a=accel(out), r_ref=r8,
             counts=counts, win_a=None, win_b=None, use_b=None, rc=zero, vc=zero,
             overflow=overflow | w_ovf, wl_self=None, wl_self_cnt=None, wl_nbr_i=None,
-            wl_nbr_j=None, wl_nbr_off=None), wins)
+            wl_nbr_j=None, wl_nbr_off=None,
+            drift2=torch.zeros(() if replicas is None else (reps,), dtype=dtype,
+                               device=device)), wins)
         return carry, obs_from(out, 0.5 * total(v8 * v8))
 
     dt = cfg.dt
@@ -1101,6 +1143,13 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         rebuild_thresh, drift_rows, slack = (0.5 * skin) ** 2, slice(0, 3), skin
     else:
         rebuild_thresh, drift_rows, slack = (0.5 * skin_xy) ** 2, slice(0, 2), skin_xy
+    if inner_chunk is None:
+        if not use_fused:
+            inner_chunk = UNFUSED_MAX_CHUNK
+        elif temperature is None:
+            inner_chunk = FUSED_MAX_CHUNK
+        else:
+            inner_chunk = fused_chunk_steps(dt, 0.5 * slack, temperature, n)
 
     def _step(c: PencilCarry, want_obs: bool, rebin_mode=True):
         # No per-step wrap: slot coordinates may drift outside [0, L)
@@ -1135,11 +1184,13 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
 
     def _invalid_check(c: PencilCarry):
         """Sticky flag for drift past the coverage slack since the last
-        rebin (pairs may have been missed in the last chunk); no host read.
-        Returns (carry, per-slot squared xy drift)."""
+        rebin (pairs may have been missed in the last chunk) and the running
+        max of the drift; no host read. Returns (carry, per-slot squared xy
+        drift)."""
         moved2 = drift_moved2(c.r, c.r_ref, L, drift_rows)
-        return dataclasses.replace(
-            c, overflow=c.overflow | (rmax(moved2) > rebuild_thresh)), moved2
+        top = rmax(moved2)
+        return dataclasses.replace(c, overflow=c.overflow | (top > rebuild_thresh),
+                                   drift2=torch.maximum(c.drift2, top)), moved2
 
     def _maybe_rebin(c: PencilCarry, k: int) -> PencilCarry:
         if rebin_trigger == "always" and fold_check:
@@ -1161,6 +1212,8 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
 
     def _chunk(c: PencilCarry, k: int) -> PencilCarry:
         c = _maybe_rebin(c, k)
+        PENCIL_CHUNKS["chunks"] += 1
+        PENCIL_CHUNKS["steps"] += k
         with span("ljmd.cellpair.chunk"):
             ext = {"r_lo": c.rc, "vc": c.vc} if compensated else {}
             if width_lists:
@@ -1242,6 +1295,7 @@ def _cellpair_engine(cfg: SimConfig, device, z_band: bool = False, half_shell: b
         diagnostics=lambda c: {"pencil_overflow": c.overflow},
         step_fast=lambda c: _step(c, False),
         run_fast=run_fast,
+        counters=lambda c: {"pencil_drift_share": torch.sqrt(c.drift2 / rebuild_thresh)},
     )
 
 
@@ -1305,16 +1359,18 @@ def _build_engine(cfg: SimConfig, backend: str, device, state: MDState | None,
     """The engine ``backend`` resolves to (``resolve_backend``), for one
     system or, with ``replicas=R``, for an (R, N, 3) stack. ``state`` sizes
     the zsort skin from its kinetic temperature (the hottest replica's) and
-    the cell-pair capacity (``replica_capacity``)."""
+    the cell-pair capacity (``replica_capacity``) and fused chunk
+    (``fused_chunk_steps``)."""
     device = resolve_device(device)
     backend = resolve_backend(cfg, backend, device, sample_interval)
+    sized = state is not None and backend in ("zsort", "cellpair")
+    temperature = kinetic_temperature(state) if sized else None
     if backend == "zsort":
-        temperature = None if state is None else kinetic_temperature(state)
         return _zsort_engine(cfg, device, replicas=replicas, temperature=temperature,
                              **_zsort_kwargs(sample_interval))
     if backend == "cellpair":
         cfg = cfg.replace(neighbor_capacity=replica_capacity(cfg, state))
-        return _cellpair_engine(cfg, device, replicas=replicas)
+        return _cellpair_engine(cfg, device, replicas=replicas, temperature=temperature)
     if backend == "neighbor":
         return _neighbor_engine(cfg, device, replicas=replicas)
     if backend == "dense":

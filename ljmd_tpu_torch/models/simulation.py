@@ -211,6 +211,10 @@ def initialize(
     state = MDState(r=state.r, ru=state.ru, v=v, a=state.a)
 
     if cfg.warmup_steps > 0:
+        # The warmup's engine is built for the rescaled state, as
+        # production's is for its start (the cell-pair capacity and fused
+        # chunk, the zsort skin: a hot lattice needs shorter chunks).
+        engine = make_engine(cfg, backend, device, state=state)
         carry, _ = engine.init(state)
         carry, _ = _advance(engine, carry, cfg.warmup_steps, want_obs=False)
         state = engine.get_state(carry)
@@ -347,9 +351,9 @@ def initialize_replicas(cfg: SimConfig, generators, backend: str = "auto",
     resolves to (``resolve_backend``; every backend batches): the lattice,
     each replica's velocities from its own generator, per-replica COM
     removal, per-replica rescale to E_target, then the warmup on that engine
-    with ``replicas=R`` (one launch a chunk for all R; cellpair at the
-    lattice bound, as ``initialize``; neighbor and dense plain torch over
-    the stack). Replica q is ``initialize(cfg, generators[q])`` up to the
+    with ``replicas=R``, built for the rescaled stack as ``initialize``'s
+    for its state (one launch a chunk for all R; neighbor and dense plain
+    torch over the stack). Replica q is ``initialize(cfg, generators[q])`` up to the
     rounding of the (R,) sums the rescale reads (on the CPU with one thread
     bit for bit on the neighbor, dense and cell-pair engines)."""
     device = resolve_device(device)
@@ -371,6 +375,7 @@ def initialize_replicas(cfg: SimConfig, generators, backend: str = "auto",
     state = MDState(r=state.r, ru=state.ru, v=v, a=state.a)
 
     if cfg.warmup_steps > 0:
+        engine = make_replica_engine(cfg, replicas, backend, device, states=state)
         carry, _ = engine.init(state)
         carry, _ = _advance(engine, carry, cfg.warmup_steps, want_obs=False)
         state = engine.get_state(carry)

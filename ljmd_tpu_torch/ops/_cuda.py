@@ -39,6 +39,8 @@ from pathlib import Path
 
 import torch
 
+from ljmd_tpu_torch.utils.profiling import counter
+
 __all__ = ["LAUNCHES", "build", "library", "check", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -90,7 +92,7 @@ class LaunchCounts:
         return dict(self.counts)
 
 
-LAUNCHES = LaunchCounts()
+LAUNCHES = counter(LaunchCounts())
 
 
 def _nvcc() -> str:
@@ -232,7 +234,7 @@ def library() -> ctypes.CDLL:
                        real, _I, _I, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_pencil_rebin_{suffix}")
-        fn.argtypes = [_P, _P, *[_P] * 5, _I, _P, *[_P] * 5, _P, _P, _P, _P, _P, _P,
+        fn.argtypes = [_P, _P, *[_P] * 5, _I, _P, *[_P] * 5, *[_P] * 9,
                        _I, _I, _I, _I, _I, _I, _I, real, real, real, real, _D, _P]
         fn.restype = _I
         fn = getattr(lib, f"ljmd_zsort_resort_{suffix}")

@@ -17,7 +17,10 @@ with the engine's wrap, gathers and sentinels around them,
 - ``counts`` (int32, a pencil) and the new sticky flag: ``overflow`` or a
   pencil past capacity or, with ``drift_ref``, a particle whose xy drift
   since ``drift_ref`` passed ``drift_thresh`` (the engine's drift check of the
-  ``always`` trigger, folded in).
+  ``always`` trigger, folded in);
+- the running drift max: with ``drift_ref`` and ``drift_max`` (a replica's
+  each), ``torch.maximum(drift_max, the largest squared xy drift)``, the
+  engine's running max of a chunk's drift; else None.
 
 On CUDA tensors it is two launches (``csrc/pencil_rebin.cu``: a key pass and
 a gather that is a stable counting sort, counted as ``rebin_keys`` and
@@ -40,7 +43,8 @@ from ljmd_tpu_torch.ops.cell_list import PencilGrid, rebin_gather_parts
 from ljmd_tpu_torch.ops.geometry import minimum_image, wrap_positions
 from ljmd_tpu_torch.ops.pencil_sweep import SENT_BASE, sentinel_fill
 
-__all__ = ["REBIN_TILE", "drift_flag", "drift_moved2", "rebin_slots", "rebin_slots_plain"]
+__all__ = ["REBIN_TILE", "drift_flag", "drift_max2", "drift_moved2", "rebin_slots",
+           "rebin_slots_plain"]
 
 # Slots a block of the key pass keys (a multiple of 128): the gather's unit
 # of skipping, one histogram row a tile.
@@ -57,14 +61,21 @@ def drift_moved2(r: torch.Tensor, ref: torch.Tensor, box_length: float,
     return torch.sum(d * d, dim=0) * r[3]
 
 
+def drift_max2(r: torch.Tensor, ref: torch.Tensor, box_length: float,
+               replicas: int | None = None) -> torch.Tensor:
+    """The largest squared minimum-image xy drift of a valid slot from
+    ``ref``, one a replica (NaN where a drift is)."""
+    moved2 = drift_moved2(r, ref, box_length)
+    if replicas is None:
+        return torch.max(moved2)
+    return torch.amax(moved2.reshape(replicas, -1), dim=1)
+
+
 def drift_flag(r: torch.Tensor, ref: torch.Tensor, box_length: float, thresh: float,
                replicas: int | None = None) -> torch.Tensor:
     """Whether a valid slot's minimum-image xy drift from ``ref`` passes
     ``thresh`` (squared): the cell-pair engine's check, one flag a replica."""
-    moved2 = drift_moved2(r, ref, box_length)
-    if replicas is None:
-        return torch.max(moved2) > thresh
-    return torch.amax(moved2.reshape(replicas, -1), dim=1) > thresh
+    return drift_max2(r, ref, box_length, replicas) > thresh
 
 
 def _permute(r8, others, order, src, valid_new):
@@ -84,11 +95,16 @@ def _permute(r8, others, order, src, valid_new):
 
 
 def rebin_slots_plain(r, others, grid: PencilGrid, overflow, replicas=None, wrap=True,
-                      z_order=False, drift_ref=None, drift_thresh=0.0):
+                      z_order=False, drift_ref=None, drift_thresh=0.0, drift_max=None):
     """The plain twin of ``rebin_slots`` (module docstring): ``(r_new,
-    others_new, counts, overflow_new)``."""
+    others_new, counts, overflow_new, drift_max_new)``."""
+    if drift_max is not None and drift_ref is None:
+        raise ValueError("rebin_slots: drift_max needs drift_ref")
     if drift_ref is not None:
-        overflow = overflow | drift_flag(r, drift_ref, grid.box_length, drift_thresh, replicas)
+        moved = drift_max2(r, drift_ref, grid.box_length, replicas)
+        overflow = overflow | (moved > drift_thresh)
+        if drift_max is not None:
+            drift_max = torch.maximum(drift_max, moved)
     if wrap:
         r = r.clone()
         r[0:3] = wrap_positions(r[0:3], grid.box_length)
@@ -97,13 +113,18 @@ def rebin_slots_plain(r, others, grid: PencilGrid, overflow, replicas=None, wrap
     r8p, permuted = _permute(r, others, order, src, valid_new)
     r8p = sentinel_fill(r8p, r8p[3], grid.capacity, None if replicas is None else grid.n_pencils)
     counts = r8p[3].reshape(-1, grid.capacity).sum(dim=1).to(torch.int32)
-    return r8p, permuted, counts, overflow | ovf
+    return r8p, permuted, counts, overflow | ovf, drift_max
 
 
-def _launch(r, others, grid: PencilGrid, overflow, replicas, wrap, drift_ref, drift_thresh):
+def _launch(r, others, grid: PencilGrid, overflow, replicas, wrap, drift_ref, drift_thresh,
+            drift_max):
     reps = 1 if replicas is None else replicas
     ns, n_pencils = grid.n_slots, grid.n_pencils
     check = drift_ref is not None
+    if drift_max is not None and (not check or drift_max.numel() != reps
+                                  or drift_max.dtype != r.dtype or drift_max.device != r.device):
+        raise ValueError(f"rebin_slots: drift_max must be {reps} {r.dtype} on {r.device}, "
+                         "with drift_ref")
     _cuda.require_cuda_rows("rebin_slots", r, *others, *([drift_ref] if check else []))
     if r.shape[1] != reps * ns:
         raise ValueError(f"rebin_slots: {r.shape[1]} slots != {reps} x {ns}")
@@ -120,6 +141,11 @@ def _launch(r, others, grid: PencilGrid, overflow, replicas, wrap, drift_ref, dr
     counts = torch.empty((reps * n_pencils,), dtype=torch.int32, device=dev)
     ovf_in = overflow.contiguous()
     ovf_out = torch.empty_like(ovf_in)
+    keep = drift_max is not None
+    if keep:
+        dmax_in = drift_max.contiguous()
+        dmax_out = torch.empty_like(dmax_in)
+        tile_max = torch.empty((reps * n_tiles,), dtype=r.dtype, device=dev)
     pad = [None] * (_MAX_OTHERS - len(others))
     keys = scratch.data_ptr()
     box = float(grid.box_length)
@@ -129,23 +155,26 @@ def _launch(r, others, grid: PencilGrid, overflow, replicas, wrap, drift_ref, dr
             *[o.data_ptr() for o in others], *pad, len(others),
             r_out.data_ptr(), *[o.data_ptr() for o in outs], *pad,
             ovf_in.data_ptr(), ovf_out.data_ptr(), keys, keys + 4 * reps * ns,
-            keys + 4 * (reps * ns + n_hist), counts.data_ptr(), ns, reps, grid.m_xy,
+            keys + 4 * (reps * ns + n_hist), counts.data_ptr(),
+            tile_max.data_ptr() if keep else None, dmax_in.data_ptr() if keep else None,
+            dmax_out.data_ptr() if keep else None, ns, reps, grid.m_xy,
             grid.capacity, REBIN_TILE, int(wrap), int(check), box, 1.0 / box,
             grid.m_xy / box, float(drift_thresh), SENT_BASE, _cuda.stream_handle(r))
     suffix = "" if replicas is None else "_replicas"
     _cuda.LAUNCHES.bump("rebin_keys" + suffix)
     _cuda.LAUNCHES.bump("rebin_gather" + suffix)
     _cuda.check(code, "rebin_slots")
-    return r_out, outs, counts, ovf_out
+    return r_out, outs, counts, ovf_out, dmax_out if keep else None
 
 
 def rebin_slots(r, others, grid: PencilGrid, overflow, replicas=None, wrap=True,
-                z_order=False, drift_ref=None, drift_thresh=0.0):
+                z_order=False, drift_ref=None, drift_thresh=0.0, drift_max=None):
     """Rebin the slot rows ``r`` and the carried fields ``others`` (module
-    docstring): ``(r_new, others_new, counts, overflow_new)``. Two kernel
-    launches on CUDA tensors (without ``z_order``); the plain twin
-    otherwise."""
+    docstring): ``(r_new, others_new, counts, overflow_new,
+    drift_max_new)``. Two kernel launches on CUDA tensors (without
+    ``z_order``); the plain twin otherwise."""
     if r.device.type == "cuda" and not z_order:
-        return _launch(r, list(others), grid, overflow, replicas, wrap, drift_ref, drift_thresh)
+        return _launch(r, list(others), grid, overflow, replicas, wrap, drift_ref, drift_thresh,
+                       drift_max)
     return rebin_slots_plain(r, others, grid, overflow, replicas, wrap, z_order, drift_ref,
-                             drift_thresh)
+                             drift_thresh, drift_max)

@@ -163,8 +163,7 @@ def zsort_carry_from_numpy(arrays, dtype=torch.float64, device="cpu") -> ZSortCa
     fields = {k: get(k) for k in ZSORT_FIELDS if k not in _ZSORT_PORT_ONLY}
     shape = np.shape(fields["invalid"])
     for k, (tail, kind) in _ZSORT_PORT_ONLY.items():
-        has = k in arrays if isinstance(arrays, dict) else hasattr(arrays, k)
-        fields[k] = get(k) if has else np.zeros(shape + tail, dtype=kind)
+        fields[k] = get(k) if _has(arrays, k) else np.zeros(shape + tail, dtype=kind)
     return _carry_from_numpy(ZSortCarry, ZSORT_FIELDS, _ZSORT_INT, "invalid", fields, dtype,
                              device, scalars=("travel2",), counts=("skips",))
 
@@ -174,12 +173,21 @@ def zsort_carry_to_numpy(carry: ZSortCarry) -> dict:
     return {k: getattr(carry, k).detach().cpu().numpy() for k in ZSORT_FIELDS}
 
 
+def _has(arrays, k) -> bool:
+    return k in arrays if isinstance(arrays, dict) else hasattr(arrays, k)
+
+
 def pencil_carry_from_numpy(arrays, dtype=torch.float64, device="cpu") -> PencilCarry:
     """PencilCarry from arrays (a mapping, or an object with attributes, e.g.
     the JAX package's PencilCarry): float rows in ``dtype``, counts, window
-    tables and width lists int32, ``overflow`` bool; slots as they are."""
-    return _carry_from_numpy(PencilCarry, PENCIL_FIELDS, _PENCIL_INT, "overflow", arrays,
-                             dtype, device)
+    tables and width lists int32, ``overflow`` bool; slots as they are. A
+    source without ``drift2`` (the JAX carry has none) starts it at 0."""
+    get = arrays.__getitem__ if isinstance(arrays, dict) else (lambda k: getattr(arrays, k))
+    fields = {k: get(k) for k in PENCIL_FIELDS if k != "drift2"}
+    fields["drift2"] = (get("drift2") if _has(arrays, "drift2")
+                        else np.zeros(np.shape(fields["overflow"])))
+    return _carry_from_numpy(PencilCarry, PENCIL_FIELDS, _PENCIL_INT, "overflow", fields,
+                             dtype, device, scalars=("drift2",))
 
 
 def pencil_carry_to_numpy(carry: PencilCarry) -> dict:
@@ -191,14 +199,14 @@ _PENCIL_ROWS = ("r", "ru", "v", "a", "r_ref", "rc", "vc")
 _PENCIL_WINS = ("win_a", "win_b", "use_b")
 # The fields a batched cell-pair carry holds per replica (the width lists
 # are the stack's own).
-PENCIL_REPLICA_FIELDS = _PENCIL_ROWS + ("counts", "overflow") + _PENCIL_WINS
+PENCIL_REPLICA_FIELDS = _PENCIL_ROWS + ("counts", "overflow", "drift2") + _PENCIL_WINS
 
 
 def pencil_replicas_to_numpy(carry: PencilCarry, replicas: int) -> dict:
     """{field: array} of a batched ``PencilCarry`` (the flat stack of
     ``_cellpair_engine(..., replicas=R)``) in the JAX package's vmapped
     layout: slot rows (R, 8, n_slots), counts (R, n_pencils), the flag
-    (R,), the z-band's window tables (R, n_slots / 128 * 9); ``[q]`` of each
+    and the running drift max (R,), the z-band's window tables (R, n_slots / 128 * 9); ``[q]`` of each
     is replica q's one-system field. The width lists are the stack's and
     are left out."""
     out = {k: getattr(carry, k).detach().reshape(8, replicas, -1).transpose(0, 1).cpu().numpy()
@@ -206,6 +214,7 @@ def pencil_replicas_to_numpy(carry: PencilCarry, replicas: int) -> dict:
     for k in ("counts",) + _PENCIL_WINS:
         out[k] = getattr(carry, k).detach().reshape(replicas, -1).cpu().numpy()
     out["overflow"] = carry.overflow.detach().reshape(replicas).cpu().numpy()
+    out["drift2"] = carry.drift2.detach().reshape(replicas).cpu().numpy()
     return out
 
 
@@ -214,7 +223,8 @@ def pencil_replicas_from_numpy(arrays, tables=None, dtype=torch.float64,
     """A batched ``PencilCarry`` from per-replica arrays (a mapping or an
     object with attributes, e.g. the JAX package's vmapped carry): slot rows
     (R, 8, n_slots) side by side as (8, R * n_slots), counts (R, n_pencils)
-    one after another, the flags (R,); the width lists built from the
+    one after another, the flags (R,) and the running drift max (R,; 0
+    where the source has none, as the JAX carry); the width lists built from the
     stack's counts over ``tables`` (the engine's ``replica_tables``, as
     (tbl, shf)), or left empty without; the z-band's window tables (R,
     n_slots / 128 * 9) one after another."""
@@ -228,6 +238,8 @@ def pencil_replicas_from_numpy(arrays, tables=None, dtype=torch.float64,
     fields["counts"] = torch.as_tensor(counts.reshape(-1), dtype=torch.int32, device=device)
     fields["overflow"] = torch.as_tensor(np.array(get("overflow")).reshape(reps),
                                          dtype=torch.bool, device=device)
+    drift2 = np.array(get("drift2")) if _has(arrays, "drift2") else np.zeros(reps)
+    fields["drift2"] = torch.as_tensor(drift2.reshape(reps), dtype=dtype, device=device)
     zero = torch.zeros((1,), dtype=torch.int32, device=device)
     lists = (zero,) * 5
     if tables is not None:

@@ -7,6 +7,9 @@ where a production run's time goes on the card.
   profiler's timeline, nested under the caller's spans and never mirrored
   on the device's, and its host time (``time.perf_counter_ns``) adds to an
   in-memory tally by name: ``span_totals()``, cleared by ``reset_spans()``.
+- ``reset()``: zero the program's counters (kernel launches, host reads,
+  the cell-pair engine's fused chunks: each registered by its module with
+  ``counter``) and clear the span tally.
 - ``trace(log_dir)``: context manager running the enclosed region under
   ``torch.profiler`` (CPU and, where there is one, CUDA activity) and
   writing a Chrome trace, ``log_dir/trace.json`` (Perfetto,
@@ -36,12 +39,15 @@ initializes the config on the card and prints one JSON object:
   kernel name (the top 15), the host's CUDA API calls (launches,
   synchronizations) and the ``spans`` table (``span_table``: a rebin's and
   a resort's device operations among them);
-- ``counters``: the launches and host reads of the profiled production,
+- ``counters``: the launches, host reads and fused cell-pair chunks
+  (``pencil_chunks``: chunks and their steps) of the profiled production,
   and the engine's own counters at its end (``Engine.counters``; the zsort
   engine's ``zsort_travel_share``: the largest sorted-axis travel of a
   chunk as a share of the invalid bound, a replica's each; its
   ``list_skip_share``: the share of kernel 10's box tests that skipped
-  their run of partners).
+  their run of partners; the cell-pair engine's ``pencil_drift_share``: the
+  largest xy drift between two rebins as a share of half the coverage
+  slack).
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from typing import Callable, Optional
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["span", "span_totals", "reset_spans", "trace", "Throughput", "time_fn",
+__all__ = ["span", "span_totals", "reset_spans", "counter", "reset", "trace", "Throughput", "time_fn",
            "device_breakdown", "span_table", "graph_ops", "main"]
 
 # The program's span names start so; nothing else in a profile does.
@@ -138,6 +144,27 @@ def span_totals() -> dict:
 def reset_spans() -> None:
     with _SPAN_LOCK:
         _SPAN_TALLY.clear()
+
+
+# The program's counters (kernel launches, host reads, the cell-pair
+# engine's fused chunks), each registered by the module that keeps it
+# (``counter``), so that ``reset`` knows none of those modules.
+_COUNTERS: list = []
+
+
+def counter(tally):
+    """Register ``tally`` (anything with a ``reset()``) for ``reset``;
+    returns it."""
+    _COUNTERS.append(tally)
+    return tally
+
+
+def reset() -> None:
+    """Zero every registered counter (``counter``) and clear the span
+    tally."""
+    for tally in _COUNTERS:
+        tally.reset()
+    reset_spans()
 
 
 @contextlib.contextmanager
@@ -365,7 +392,7 @@ def graph_ops(fn) -> dict:
 
 def main(argv=None) -> int:
     from ljmd_tpu_torch.config import load_config
-    from ljmd_tpu_torch.models.engine import HOST_READS, auto_backend
+    from ljmd_tpu_torch.models.engine import HOST_READS, PENCIL_CHUNKS, auto_backend
     from ljmd_tpu_torch.models.simulation import initialize, run_production
     from ljmd_tpu_torch.ops._cuda import LAUNCHES
     from ljmd_tpu_torch.ops.cell_list import capacity_from_state
@@ -400,15 +427,14 @@ def main(argv=None) -> int:
     production()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    LAUNCHES.reset()
-    HOST_READS.reset()
-    reset_spans()
+    reset()
     report = {"config": args.config, "n": cfg.n, "total_steps": cfg.total_steps,
               "dtype": cfg.dtype, "backend": backend,
               "production": {"wall_s": wall, "particle_steps_per_s": cfg.n * cfg.total_steps / wall},
               "profile": device_breakdown(production),
               "counters": {"launches": {k: v for k, v in LAUNCHES.snapshot().items() if v},
                            "host_reads": dict(HOST_READS),
+                           "pencil_chunks": dict(PENCIL_CHUNKS),
                            "engine": {k: v.tolist() for k, v in ends[-1].items()}}}
     print(json.dumps(report))
     return 0

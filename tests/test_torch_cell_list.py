@@ -187,7 +187,7 @@ def test_pencil_carry_conversion_round_trip():
     r = torch.as_tensor(_positions(500, 9.1, "uniform", 6))
     c, _ = eng.init(MDState(r=r, ru=r, v=torch.zeros_like(r), a=torch.zeros_like(r)))
     arrays = convert.pencil_carry_to_numpy(c)
-    assert set(arrays) == set(convert.PENCIL_FIELDS) and len(convert.PENCIL_FIELDS) == 17
+    assert set(arrays) == set(convert.PENCIL_FIELDS) and len(convert.PENCIL_FIELDS) == 18
     back = convert.pencil_carry_from_numpy(arrays)
     for k in convert.PENCIL_FIELDS:
         assert torch.equal(getattr(back, k), getattr(c, k)), k

@@ -487,9 +487,12 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def _rebin_on_card(grid, r, others, overflow, replicas=None, wrap=True, ref=None, thresh=0.0):
+def _rebin_on_card(grid, r, others, overflow, replicas=None, wrap=True, ref=None, thresh=0.0,
+                   drift_max=None):
     """The rebin's kernels (two launches) against the torch chain on the
-    same CUDA tensors, bit for bit: rows, carried fields, counts, flag."""
+    same CUDA tensors, bit for bit: rows, carried fields, counts, flag; with
+    the folded check, also the running drift max (from ``drift_max``, else
+    from zeros and from a larger one, which it keeps)."""
     from ljmd_tpu_torch.ops import pencil_rebin
 
     want = pencil_rebin.rebin_slots_plain(r, others, grid, overflow, replicas, wrap, False, ref,
@@ -501,12 +504,28 @@ def _rebin_on_card(grid, r, others, overflow, replicas=None, wrap=True, ref=None
     launches = LAUNCHES.snapshot()
     assert launches["rebin_keys" + suffix] == launches["rebin_gather" + suffix] == 1
     assert sum(launches.values()) == 2
+    assert len(got) == 5 and got[4] is None and want[4] is None
     assert torch.equal(_bits(got[0]), _bits(want[0]))
     assert len(got[1]) == len(want[1]) == len(others)
     for g, w in zip(got[1], want[1]):
         assert torch.equal(_bits(g), _bits(w))
     assert got[2].dtype == torch.int32 and torch.equal(got[2].cpu(), want[2].cpu())
     assert got[3].shape == overflow.shape and torch.equal(got[3].cpu(), want[3].cpu())
+    if ref is not None:
+        shape = () if replicas is None else (replicas,)
+        starts = [drift_max] if drift_max is not None else [
+            torch.zeros(shape, dtype=r.dtype, device=r.device),
+            torch.full(shape, 1e30, dtype=r.dtype, device=r.device)]
+        for start in starts:
+            w = pencil_rebin.rebin_slots_plain(r, others, grid, overflow, replicas, wrap, False,
+                                               ref, thresh, start)
+            g = pencil_rebin.rebin_slots(r, others, grid, overflow, replicas=replicas, wrap=wrap,
+                                         drift_ref=ref, drift_thresh=thresh, drift_max=start)
+            assert len(g) == 5 and g[4].shape == start.shape and g[4].dtype == r.dtype
+            assert torch.equal(g[3].cpu(), got[3].cpu())
+            assert torch.equal(g[4].isnan().cpu(), w[4].isnan().cpu())
+            assert torch.equal(_bits(torch.nan_to_num(g[4])), _bits(torch.nan_to_num(w[4])))
+            assert bool(((g[4] >= start) | g[4].isnan()).all())
     return got
 
 
@@ -566,6 +585,15 @@ def test_rebin_kernels_match_the_torch_chain(cuda, case, dtype):
         ref[1, slot + 1] = r[1, slot + 1] + 0.9 * thresh ** 0.5
         got = _rebin_on_card(grid, r, others, none, ref=ref, thresh=thresh)
         assert bool(got[3])
+        from ljmd_tpu_torch.ops import pencil_rebin
+
+        zero = torch.zeros((), dtype=dtype, device=cuda)
+        top = pencil_rebin.rebin_slots(r, others, grid, none, drift_ref=ref, drift_thresh=thresh,
+                                       drift_max=zero)[4]
+        assert float(top) == pytest.approx((thresh ** 0.5 + 1e-3) ** 2, rel=1e-4)
+        nan_ref = ref.clone()
+        nan_ref[1, slot] = float("nan")
+        _rebin_on_card(grid, r, others, none, ref=nan_ref, thresh=thresh)
         ref[0, slot] = r[0, slot] - 0.9 * thresh ** 0.5
         assert not bool(_rebin_on_card(grid, r, others, none, ref=ref, thresh=thresh)[3])
         return

@@ -138,9 +138,10 @@ def test_plain_rebin_equals_the_old_composition(dtype, compensated, with_a, repl
         others = [ru, v] + ([a] if with_a else [])
     want_r, want_o, want_counts, want_ovf = _old_rebin(r8, others, grid, replicas)
     LAUNCHES.reset()
-    got_r, got_o, got_counts, got_ovf = pencil_rebin.rebin_slots(
+    got_r, got_o, got_counts, got_ovf, got_max = pencil_rebin.rebin_slots(
         r8 if compensated else r, others, grid, overflow, replicas=replicas,
         wrap=not compensated)
+    assert got_max is None
     assert sum(LAUNCHES.snapshot().values()) == 0
     _same_bits(got_r, want_r)
     assert len(got_o) == len(want_o) == len(others)
@@ -184,10 +185,48 @@ def test_folded_drift_check_sets_the_invalid_check_flag(dtype, replicas):
     want = invalid_check(r, r_ref)
     assert want.flatten().tolist() == [False] * (reps - 1) + [True]
     overflow = torch.zeros(() if replicas is None else (reps,), dtype=torch.bool)
-    _, _, _, got = pencil_rebin.rebin_slots(r, [r_ref], grid, overflow, replicas=replicas,
-                                            drift_ref=r_ref, drift_thresh=thresh)
+    _, _, _, got, _ = pencil_rebin.rebin_slots(r, [r_ref], grid, overflow, replicas=replicas,
+                                               drift_ref=r_ref, drift_thresh=thresh)
     _same_bits(got, want)
     _same_bits(pencil_rebin.drift_flag(r, r_ref, L, thresh, replicas), want)
     # Without the reference the rebin leaves the flag alone.
-    _, _, _, none = pencil_rebin.rebin_slots(r, [r_ref], grid, overflow, replicas=replicas)
+    _, _, _, none, _ = pencil_rebin.rebin_slots(r, [r_ref], grid, overflow, replicas=replicas)
     assert not bool(none.any())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("replicas", [None, 3])
+def test_folded_drift_check_keeps_the_running_max(dtype, replicas):
+    """With ``drift_max`` the rebin also returns ``torch.maximum(drift_max,
+    the largest squared xy drift)``, a replica's each: the engine's
+    ``pencil_drift_share`` counter, with no operation of its own. A larger
+    running max stays; a NaN drift makes it NaN; it needs the reference."""
+    cfg = _cfg(dtype)
+    grid = _grid(cfg)
+    reps = 1 if replicas is None else replicas
+    shape = () if replicas is None else (reps,)
+    r_ref = torch.cat([_carry(cfg, 9 + q).r for q in range(reps)], dim=1)
+    r = r_ref.clone()
+    valid = r[3] > 0.5
+    gen = torch.Generator().manual_seed(4)
+    r[0:3] += 0.05 * torch.where(valid, torch.randn(r[0:3].shape, generator=gen,
+                                                     dtype=r.dtype), 0.0)
+    d = minimum_image(r[0:2] - r_ref[0:2], L)
+    moved2 = (torch.sum(d * d, dim=0) * r[3]).reshape(reps, -1).amax(dim=1).reshape(shape)
+    overflow = torch.zeros(shape, dtype=torch.bool)
+    zero = torch.zeros(shape, dtype=r.dtype)
+    thresh = (0.5 * (grid.pencil_width - cfg.rc)) ** 2
+    out = pencil_rebin.rebin_slots(r, [r_ref], grid, overflow, replicas=replicas,
+                                   drift_ref=r_ref, drift_thresh=thresh, drift_max=zero)
+    assert len(out) == 5
+    _same_bits(out[4], moved2)
+    big = torch.full(shape, 10.0, dtype=r.dtype)
+    _same_bits(pencil_rebin.rebin_slots(r, [r_ref], grid, overflow, replicas=replicas,
+                                        drift_ref=r_ref, drift_thresh=thresh,
+                                        drift_max=big)[4], big)
+    r[1, reps * grid.n_slots - grid.capacity] = float("nan")
+    last = pencil_rebin.rebin_slots(r, [r_ref], grid, overflow, replicas=replicas,
+                                    drift_ref=r_ref, drift_thresh=thresh, drift_max=zero)[4]
+    assert last.reshape(-1).isnan().tolist() == [False] * (reps - 1) + [True]
+    with pytest.raises(ValueError, match="drift_max"):
+        pencil_rebin.rebin_slots(r, [r_ref], grid, overflow, replicas=replicas, drift_max=zero)

@@ -267,6 +267,141 @@ def test_production_result_carries_the_engine_counters(zsort_fluid):
     assert run_production(cfg, state, backend="rows", device="cpu").counters == {}
 
 
+@pytest.mark.parametrize("replicas", [None, 2], ids=["one", "stacked"])
+def test_pencil_drift_counter_is_the_largest_chunk_drift(pencil_fluid, replicas):
+    """``counters``' ``pencil_drift_share`` after each fused chunk is the
+    largest xy drift of the chunks checked so far (each chunk's drift from
+    its rebin, read from the carry; the check rides in the next chunk's
+    rebin), as a share of half the coverage slack, a replica's each; it adds
+    no host read."""
+    from ljmd_tpu_torch.ops.cell_list import make_pencil_grid
+
+    cfg, state = pencil_fluid
+    eng = pe._cellpair_engine(cfg, "cpu", rebin_trigger="always", replicas=replicas)
+    if replicas is not None:
+        state = pe.stack_states([state, state])
+    carry, _ = eng.init(state)
+    if replicas is not None:  # replicas apart: a different state each
+        ns = carry.v.shape[1] // replicas
+        carry = dataclasses.replace(carry, v=torch.cat([carry.v[:, :ns], 1.3 * carry.v[:, ns:]],
+                                                       dim=1))
+    grid = make_pencil_grid(cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin, cfg.density)
+    bound2 = (0.5 * (grid.pencil_width - cfg.rc)) ** 2
+    reads = dict(pe.HOST_READS)
+    seen = torch.zeros(() if replicas is None else (replicas,), dtype=torch.float64)
+    for _ in range(4):
+        before = seen.clone()
+        carry = eng.run_fast(carry, FUSED_CHUNK)
+        got = eng.counters(carry)["pencil_drift_share"]
+        assert got.shape == seen.shape
+        torch.testing.assert_close(got, torch.sqrt(before / bound2), rtol=1e-12, atol=0.0)
+        d = minimum_image(carry.r[0:2] - carry.r_ref[0:2], cfg.box_length)
+        moved2 = torch.sum(d * d, dim=0) * carry.r[3]
+        seen = torch.maximum(seen, moved2.reshape(-1 if replicas is None else replicas,
+                                                  moved2.shape[0] // (replicas or 1)).amax(dim=1)
+                             .reshape(seen.shape))
+    assert bool((seen > 0).all())
+    if replicas is not None:
+        assert float(seen[1]) > float(seen[0])
+    assert dict(pe.HOST_READS) == reads
+
+
+def test_pencil_chunk_tally_and_the_counters_reset(pencil_fluid):
+    """``PENCIL_CHUNKS`` counts the fused chunks ``run_fast`` issues and
+    their steps on the host (the fixed 8 without a state: 20 steps are 8, 8
+    and 4); ``profiling.reset()`` zeroes it with the launch and host-read
+    counters and clears the span tally."""
+    cfg, eng, carry = _pencil_engine(pencil_fluid)
+    pe.PENCIL_CHUNKS.reset()
+    reads = dict(pe.HOST_READS)
+    eng.run_fast(carry, 20)
+    assert dict(pe.PENCIL_CHUNKS) == {"chunks": 3, "steps": 20}
+    assert dict(pe.HOST_READS) == reads
+    eng.step(carry)  # the sampled step is no fused chunk
+    assert dict(pe.PENCIL_CHUNKS) == {"chunks": 3, "steps": 20}
+    _record("ljmd.a", 1)
+    pe.HOST_READS["cellpair_moved"] += 1
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    LAUNCHES.bump("rebin_keys")
+    profiling.reset()
+    assert dict(pe.PENCIL_CHUNKS) == {"chunks": 0, "steps": 0}
+    assert not any(pe.HOST_READS.values()) and not any(LAUNCHES.snapshot().values())
+    assert span_totals() == {}
+
+
+def test_reset_zeroes_every_registered_counter():
+    """``profiling.counter`` registers a tally for ``profiling.reset``: the
+    launch, host-read and fused-chunk counters are registered by the
+    modules that keep them (the profiling module imports none of them), and
+    a tally registered later is zeroed with them."""
+    from ljmd_tpu_torch.ops._cuda import LAUNCHES
+
+    registered = profiling._COUNTERS
+    assert all(any(t is c for t in registered)
+               for c in (LAUNCHES, pe.HOST_READS, pe.PENCIL_CHUNKS))
+    extra = profiling.counter(pe.Tally(x=0))
+    try:
+        extra["x"] = 3
+        pe.PENCIL_CHUNKS["steps"] += 5
+        profiling.reset()
+        assert extra == {"x": 0} and pe.PENCIL_CHUNKS["steps"] == 0
+    finally:
+        registered.remove(extra)
+
+
+def test_engine_temperature_read_is_a_host_read_with_its_span(pencil_fluid):
+    """Building an engine for a state reads its kinetic temperature once
+    (the fused chunk's rule, the zsort skin): ``host_read`` key
+    ``engine_temperature``, its wait the span ``ljmd.read.engine_temperature``;
+    a cell-pair engine built without a state reads nothing."""
+    cfg, state = pencil_fluid
+    reads = pe.HOST_READS["engine_temperature"]
+    reset_spans()
+    with _cpu_profile():
+        pe.make_engine(cfg, "cellpair", "cpu", state=state)
+    assert pe.HOST_READS["engine_temperature"] == reads + 1
+    assert _counts() == {"ljmd.read.engine_temperature": 1}
+    pe.make_engine(cfg, "cellpair", "cpu")
+    pe.make_engine(cfg, "rows", "cpu", state=state)
+    assert pe.HOST_READS["engine_temperature"] == reads + 1
+    reset_spans()
+
+
+def test_pencil_chunk_steps_reader():
+    """Steps over chunks of the program's tally, on a traced run; nothing
+    untraced or where no fused chunk was issued."""
+    read = reader("pencil_chunk_steps")
+    ctx = {"traced": {"idle_gaps": [], "wall_s": 1.0}}
+    pe.PENCIL_CHUNKS.reset()
+    assert read(ctx) is None
+    pe.PENCIL_CHUNKS.update(chunks=10, steps=49)
+    assert read(ctx) == pytest.approx(4.9)
+    assert read({"traced": None}) is None
+    pe.PENCIL_CHUNKS.reset()
+
+
+def test_pencil_chunk_roofline_reader():
+    """Kernel 15's share of its roofline: ``pair_roofline_pct``'s least time
+    of the stretch's work over the device time of ``fused_pencil_kernel``
+    (not kernel 16's ``fused_pencil_width_kernel``); nothing without it."""
+    read = reader("pencil_chunk_roofline_pct")
+    cfg = config_from_density(num_cells=40, density=0.8442, dt=0.005, dtype="float32",
+                              output_interval=50)
+    cell = SimpleNamespace(cfg=cfg, replicas=1)
+    ops = [["void ljmd::fused_pencil_kernel<float, false>(ljmd::HsChunkArgs<float>)", 1.5],
+           ["void ljmd::pencil_sweep_hs_kernel<float, 4>(...)", 0.05],
+           ["void ljmd::fused_pencil_width_kernel<float, false>(ljmd::WidthArgs<float>)", 0.3]]
+    traced = {"busy_s": 2.0, "wall_s": 2.1, "steps": 800, "cycles": 16, "pairs": 7.0e6,
+              "top_ops": ops, "idle_gaps": []}
+    ctx = {"traced": traced, "cell": cell}
+    work = 800 * (7.0e6 * 30 + 256_000 * 24) + 16 * 7.0e6 * 10
+    assert read(ctx) == pytest.approx(100.0 * work / 67e12 / 1.5)
+    assert read(ctx) == pytest.approx(reader("pair_roofline_pct")(ctx) * 2.0 / 1.5)
+    assert read({"traced": dict(traced, top_ops=ops[1:]), "cell": cell}) is None
+    assert read({"traced": None, "cell": cell}) is None
+
+
 def test_host_reads_reset_and_read_helper():
     """``HOST_READS`` stays a dict of counts (``dict()``, ``items()``,
     item access and assignment) and gains ``reset``; ``host_read`` bumps
